@@ -1,0 +1,887 @@
+// Hand-written Hopper kernels for the ViT serving path (sm_90a).
+//
+// Two C entry points, each launching a short fixed sequence of kernels on
+// the caller's stream (the caller allocates every buffer):
+//
+//   vpt_vit_layer_forward       replaces vit_pruning_tpu/ops/pallas/layer.py
+//                               ::fused_vit_layer (B1, staged2 numerics)
+//   vpt_vit_cls_logits_forward  replaces ::fused_vit_layer_cls_logits (B2)
+//
+// What bounds them on an H100: at DeiT-S width the four layer products
+// (QKV, O, fc1, fc2) are ~90% of a layer's operations and, at batch 512,
+// well above the bf16 ridge (~295 FLOP/byte), so they are bound by tensor-core
+// throughput; attention (S <= 197, hd 64) is a few percent of the FLOPs, and
+// its softmax runs on the CUDA cores. The TPU kernel kept the whole layer in 100 MB
+// of VMEM; an SM has 227 KB, so the layer is split into LN -> GEMM ->
+// attention -> GEMM -> LN -> GEMM -> GEMM, each GEMM with its epilogue (bias,
+// GELU, residual, cast) fused so that no elementwise pass touches memory on
+// its own. The residual stream after attention (x1) is kept in f32 between
+// kernels, as the TPU kernel kept it in f32 in VMEM.
+//
+// Numerics kept from the TPU kernels: LN in f32 with var = mean((x-mean)^2)
+// and eps from the caller; products accumulate in f32 and add the bias before
+// the cast; masked keys get -1e30 (not -inf); B1 keeps the softmax numerators
+// unnormalised in the input dtype and scales the PV sum by 1/rowsum; B2
+// normalises before PV; GELU is the tanh form for bf16 and erf for f32.
+//
+// This is the simple first version: in bf16, WMMA (mma.sync) tiles for the
+// GEMMs (3-stage cp.async ring) and for both attention products; in f32,
+// FMA tiles throughout (no TF32, so f32 matches a f32 reference closely).
+// wgmma, TMA and tuning are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kNegInf = -1e30f;  // masked-key logit, as the TPU kernel
+
+enum Act { ACT_NONE = 0, ACT_GELU_ERF = 1, ACT_GELU_TANH = 2 };
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+// value after a round trip through T (the TPU kernel's .astype(x.dtype))
+template <typename T> __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float gelu(float v, int act) {
+  if (act == ACT_GELU_ERF) return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
+  if (act == ACT_GELU_TANH) {
+    const float c = 0.7978845608028654f;  // sqrt(2/pi)
+    return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
+  }
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// LayerNorm: one warp per row, f32 statistics, output in T.
+
+template <typename Tin, typename T>
+__global__ void layer_norm_kernel(const Tin* __restrict__ x, long ldx, const T* __restrict__ g,
+                                  const T* __restrict__ b, T* __restrict__ y, long ldy, int rows,
+                                  int d, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const Tin* xr = x + row * ldx;
+  float s = 0.f;
+  for (int i = lane; i < d; i += 32) s += to_f(xr[i]);
+  const float mean = warp_sum(s) / d;
+  float v = 0.f;
+  for (int i = lane; i < d; i += 32) {
+    const float t = to_f(xr[i]) - mean;
+    v += t * t;
+  }
+  const float rs = rsqrtf(warp_sum(v) / d + eps);
+  T* yr = y + row * ldy;
+  for (int i = lane; i < d; i += 32)
+    yr[i] = from_f<T>((to_f(xr[i]) - mean) * rs * to_f(g[i]) + to_f(b[i]));
+}
+
+// ---------------------------------------------------------------------------
+// GEMM  out[M, N] = epilogue(A[M, K] @ W[K, N])  (A row stride lda, W dense
+// [K, N] row-major as the param tree stores it). Epilogue, in the TPU
+// kernel's order: + bias[n] (T), activation, + residual (T or f32), cast.
+
+struct Epilogue {
+  const void* bias;  // [N] in T, or null
+  int act;
+  const void* res;   // residual, or null
+  long ldr;
+  int res_f32;
+  void* out;
+  long ldc;
+  int out_f32;
+  int vec;  // 8-wide 16-byte accesses are aligned (set by the host launcher)
+};
+
+template <typename T>
+__device__ __forceinline__ void epilogue_store(const Epilogue& e, int m, int n, float v) {
+  if (e.bias) v += to_f(static_cast<const T*>(e.bias)[n]);
+  v = gelu(v, e.act);
+  if (e.res) {
+    const long r = m * e.ldr + n;
+    v += e.res_f32 ? static_cast<const float*>(e.res)[r] : to_f(static_cast<const T*>(e.res)[r]);
+  }
+  const long o = m * e.ldc + n;
+  if (e.out_f32)
+    static_cast<float*>(e.out)[o] = v;
+  else
+    static_cast<T*>(e.out)[o] = from_f<T>(v);
+}
+
+// bf16: 128x128 block tile, 8 warps (2 x 4), 64x32 per warp as 4x2 WMMA
+// 16x16x16 fragments (mma.sync) with f32 accumulators; K in steps of 32
+// through a 3-stage cp.async ring in dynamic smem. Needs K % 8 == 0,
+// lda % 8 == 0 and 16-byte aligned A (checked by the caller); W rows take a
+// scalar path when N % 8. The epilogue writes 8 outputs per lane with
+// 16-byte accesses where the strides allow (Epilogue::vec).
+namespace wg {
+constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
+constexpr int WM = 64, WN = 32, FM = WM / 16, FN = WN / 16;  // warp tile, fragments
+constexpr int LDA = BK + 8, LDB = BN + 8;  // +8 bf16 staggers the banks
+constexpr int A_STAGE = BM * LDA, B_STAGE = BK * LDB;        // elements
+constexpr size_t SMEM = sizeof(bf16) * STAGES * (A_STAGE + B_STAGE);
+static_assert(SMEM >= sizeof(float) * (THREADS / 32) * 256, "epilogue tiles reuse the ring");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? 16 : 0;  // 0 = zero-fill, nothing read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// 8 consecutive values <-> 16 bytes (bf16) or 32 bytes (f32)
+__device__ __forceinline__ void load8(const bf16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const float2 f = __bfloat1622float2(h[t]);
+    v[2 * t] = f.x;
+    v[2 * t + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void store8(bf16* p, const float* v) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) h[t] = __floats2bfloat162_rn(v[2 * t], v[2 * t + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// the epilogue of 8 consecutive outputs (m, n..n+7), all in range
+__device__ __forceinline__ void epilogue_store8(const Epilogue& e, int m, int n, float* v) {
+  float t[8];
+  if (e.bias) {
+    load8(static_cast<const bf16*>(e.bias) + n, t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] += t[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = gelu(v[i], e.act);
+  if (e.res) {
+    const long r = m * e.ldr + n;
+    if (e.res_f32)
+      load8(static_cast<const float*>(e.res) + r, t);
+    else
+      load8(static_cast<const bf16*>(e.res) + r, t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] += t[i];
+  }
+  const long o = m * e.ldc + n;
+  if (e.out_f32)
+    store8(static_cast<float*>(e.out) + o, v);
+  else
+    store8(static_cast<bf16*>(e.out) + o, v);
+}
+
+__global__ void __launch_bounds__(wg::THREADS)
+gemm_bf16_kernel(const bf16* __restrict__ A, long lda, const bf16* __restrict__ W, int M, int N,
+                 int K, Epilogue e) {
+  using namespace nvcuda;
+  using namespace wg;
+  extern __shared__ __align__(128) unsigned char gsmem[];
+  bf16* As = reinterpret_cast<bf16*>(gsmem);  // [STAGES][BM][LDA]
+  bf16* Bs = As + STAGES * A_STAGE;           // [STAGES][BK][LDB]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const bool vec_w = (N % 8) == 0;
+
+  auto load_tile = [&](int kt, int stage) {
+    const int k0 = kt * BK;
+    bf16* as = As + stage * A_STAGE;
+    bf16* bs = Bs + stage * B_STAGE;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {  // A: 128 rows x 4 chunks of 8
+      const int c = tid + q * THREADS;
+      const int r = c >> 2, kc = (c & 3) * 8;
+      const int m = m0 + r, k = k0 + kc;
+      const bool ok = m < M && k < K;
+      cp_async16(as + r * LDA + kc, ok ? A + m * lda + k : A, ok);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {  // W: 32 rows x 16 chunks of 8
+      const int c = tid + q * THREADS;
+      const int r = c >> 4, nc = (c & 15) * 8;
+      const int k = k0 + r, n = n0 + nc;
+      if (vec_w) {
+        const bool ok = k < K && n < N;
+        cp_async16(bs + r * LDB + nc, ok ? W + (long)k * N + n : W, ok);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          bs[r * LDB + nc + j] = (k < K && n + j < N) ? W[(long)k * N + n + j] : __float2bfloat16(0.f);
+      }
+    }
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  const int nk = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_tile(s, s);
+    cp_async_commit();  // empty groups keep the count uniform
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // tile kt has landed (this thread's copies)
+    __syncthreads();              // ... everyone's, and stage kt-1 is free
+    if (kt + STAGES - 1 < nk) load_tile(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const bf16* as = As + (kt % STAGES) * A_STAGE;
+    const bf16* bs = Bs + (kt % STAGES) * B_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[FN];
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+        wmma::load_matrix_sync(a[i], as + (wm * WM + i * 16) * LDA + kk, LDA);
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+        wmma::load_matrix_sync(b[j], bs + kk * LDB + wn * WN + j * 16, LDB);
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: reuse it for the epilogue tiles
+
+  // epilogue: each fragment through a per-warp 16x16 f32 tile; lane owns
+  // half a row (8 values)
+  float* cs = reinterpret_cast<float*>(gsmem) + warp * 256;
+  const int r = lane >> 1, c0 = (lane & 1) * 8;
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j) {
+      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int m = m0 + wm * WM + i * 16 + r;
+      const int nb = n0 + wn * WN + j * 16 + c0;
+      if (m < M) {
+        float v[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) v[t] = cs[r * 16 + c0 + t];
+        if (e.vec && nb + 8 <= N) {
+          epilogue_store8(e, m, nb, v);
+        } else {
+#pragma unroll
+          for (int t = 0; t < 8; ++t)
+            if (nb + t < N) epilogue_store<bf16>(e, m, nb + t, v[t]);
+        }
+      }
+      __syncwarp();
+    }
+}
+
+// f32: 64x64 block tile, 256 threads, 4x4 outputs per thread, K in steps of
+// 16, plain FMA (full f32, no TF32, so it matches a f32 reference closely).
+namespace fg {
+constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
+}
+
+__global__ void __launch_bounds__(fg::THREADS)
+gemm_f32_kernel(const float* __restrict__ A, long lda, const float* __restrict__ W, int M, int N,
+                int K, Epilogue e) {
+  using namespace fg;
+  __shared__ float As[BK][BM + 4];  // transposed: As[k][m]
+  __shared__ float Bs[BK][BN + 4];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += BK) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = tid + q * THREADS;
+      const int ar = c >> 4, ak = c & 15;  // A: 64 rows x 16
+      const int m = m0 + ar, k = k0 + ak;
+      As[ak][ar] = (m < M && k < K) ? A[m * lda + k] : 0.f;
+      const int bk = c >> 6, bn = c & 63;  // W: 16 rows x 64
+      const int kb = k0 + bk, n = n0 + bn;
+      Bs[bk][bn] = (kb < K && n < N) ? W[(long)kb * N + n] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
+      if (m < M && n < N) epilogue_store<float>(e, m, n, acc[i][j]);
+    }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+cudaError_t gemm(const bf16* A, long lda, const bf16* W, int M, int N, int K, Epilogue e,
+                 cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wg::SMEM);
+  if (attr != cudaSuccess) return attr;
+  // 16-byte epilogue accesses: every row start of out/res and the bias 16-byte aligned
+  const long out_el = e.out_f32 ? 4 : 2, res_el = e.res_f32 ? 4 : 2;
+  e.vec = aligned16(e.out) && (e.ldc * out_el) % 16 == 0 && (!e.bias || aligned16(e.bias)) &&
+          (!e.res || (aligned16(e.res) && (e.ldr * res_el) % 16 == 0));
+  dim3 grid((N + wg::BN - 1) / wg::BN, (M + wg::BM - 1) / wg::BM);
+  gemm_bf16_kernel<<<grid, wg::THREADS, wg::SMEM, st>>>(A, lda, W, M, N, K, e);
+  return cudaGetLastError();
+}
+cudaError_t gemm(const float* A, long lda, const float* W, int M, int N, int K,
+                 const Epilogue& e, cudaStream_t st) {
+  dim3 grid((N + fg::BN - 1) / fg::BN, (M + fg::BM - 1) / fg::BM);
+  gemm_f32_kernel<<<grid, fg::THREADS, 0, st>>>(A, lda, W, M, N, K, e);
+  return cudaGetLastError();
+}
+
+template <typename Tin, typename T>
+cudaError_t layer_norm(const Tin* x, long ldx, const T* g, const T* b, T* y, long ldy, int rows,
+                       int d, float eps, cudaStream_t st) {
+  const int warps = 8;
+  layer_norm_kernel<Tin, T><<<(rows + warps - 1) / warps, warps * 32, 0, st>>>(x, ldx, g, b, y, ldy,
+                                                                              rows, d, eps);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// B1 attention, one block per (head, image), two implementations with the
+// staged2 numerics: float32 on the CUDA cores (FMA, below) and bfloat16 on
+// the tensor cores (further down).
+//
+// f32: K (transposed) and V of the image's head sit in smem; each warp takes
+// NQ query rows at a time, one key per lane and chunk of 32 keys for QK^T,
+// one output column per lane for PV. NC = ceil(S / 32) is a template
+// argument so that short sequences (17, 33) do no work for absent chunks.
+
+constexpr int kHD = 64;           // head dim the kernels take (DeiT-S; ViT-H's 80 is ROADMAP)
+constexpr int kAttnWarps = 8;
+constexpr int kNQ = 4;            // query rows per warp pass
+constexpr int kMaxChunks = 8;     // keys per lane: S <= 256
+constexpr int kMaxSeq = kMaxChunks * 32;
+
+__host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
+
+// smem layout; K^T rows padded by one word so the transposing store is
+// free of bank conflicts
+template <typename T, int NC>
+struct AttnSmem {
+  static constexpr int ldp = NC * 32;
+  static constexpr int ldk = ldp + 4 / sizeof(T);
+  int s;
+  __host__ __device__ explicit AttnSmem(int s_) : s(s_) {}
+  __host__ __device__ size_t v() const { return align16(sizeof(T) * kHD * ldk); }
+  __host__ __device__ size_t qs() const { return align16(v() + sizeof(T) * kHD * s); }
+  __host__ __device__ size_t ps() const { return align16(qs() + sizeof(float) * kAttnWarps * kNQ * kHD); }
+  __host__ __device__ size_t flag() const { return align16(ps() + sizeof(float) * kAttnWarps * kNQ * ldp); }
+  __host__ __device__ size_t bytes() const { return align16(flag() + ldp); }
+};
+
+template <typename T, int NC>
+__global__ void __launch_bounds__(kAttnWarps * 32)
+attention_kernel(const T* __restrict__ qkv, const unsigned char* __restrict__ mask,
+                 T* __restrict__ ctx, int S, int KW, float scale) {
+  constexpr int HD = kHD;
+  using L = AttnSmem<T, NC>;
+  constexpr int ldk = L::ldk, ldp = L::ldp;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const L lay(S);
+  T* Kt = reinterpret_cast<T*>(smem);                    // [HD][ldk]
+  T* Vs = reinterpret_cast<T*>(smem + lay.v());          // [S][HD]
+  float* Qs = reinterpret_cast<float*>(smem + lay.qs()); // [warps][NQ][HD]
+  float* Ps = reinterpret_cast<float*>(smem + lay.ps()); // [warps][NQ][ldp]
+  unsigned char* flag = smem + lay.flag();               // 0 absent, 1 valid, 2 masked
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long row_stride = 3L * KW;
+  const T* base = qkv + (long)b * S * row_stride;
+
+  for (int i = tid; i < S * HD; i += blockDim.x) {
+    const int j = i / HD, d = i % HD;
+    const T* r = base + j * row_stride + h * HD + d;
+    Kt[d * ldk + j] = r[KW];
+    Vs[j * HD + d] = r[2 * KW];
+  }
+  for (int i = tid; i < (ldp - S) * HD; i += blockDim.x) {
+    const int j = S + i / HD, d = i % HD;
+    Kt[d * ldk + j] = from_f<T>(0.f);
+  }
+  for (int j = tid; j < ldp; j += blockDim.x)
+    flag[j] = j >= S ? 0 : ((mask == nullptr || mask[(long)b * S + j]) ? 1 : 2);
+  __syncthreads();
+
+  float* q_w = Qs + warp * kNQ * HD;
+  float* p_w = Ps + warp * kNQ * ldp;
+  for (int q0 = warp * kNQ; q0 < S; q0 += kAttnWarps * kNQ) {
+    for (int i = lane; i < kNQ * HD; i += 32) {
+      const int qi = i / HD, d = i % HD;
+      q_w[i] = (q0 + qi < S) ? to_f(base[(q0 + qi) * row_stride + h * HD + d]) : 0.f;
+    }
+    __syncwarp();
+
+    float acc[kNQ][NC];
+#pragma unroll
+    for (int qi = 0; qi < kNQ; ++qi)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[qi][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      float kv[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) kv[c] = to_f(Kt[d * ldk + c * 32 + lane]);
+#pragma unroll
+      for (int qi = 0; qi < kNQ; ++qi) {
+        const float qd = q_w[qi * HD + d];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[qi][c] = fmaf(qd, kv[c], acc[qi][c]);
+      }
+    }
+
+    float rinv[kNQ];
+#pragma unroll
+    for (int qi = 0; qi < kNQ; ++qi) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int f = flag[c * 32 + lane];
+        const float l = f == 2 ? kNegInf : acc[qi][c] * scale;
+        acc[qi][c] = l;
+        if (f) mx = fmaxf(mx, l);
+      }
+      mx = warp_max(mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int j = c * 32 + lane;
+        // numerator rounded to T, as the TPU kernel stores it; the row sum
+        // adds the rounded values (its ones-column trick in the PV product)
+        const float p = flag[j] ? round_to<T>(expf(acc[qi][c] - mx)) : 0.f;
+        p_w[qi * ldp + j] = p;
+        sum += p;
+      }
+      rinv[qi] = 1.0f / warp_sum(sum);
+    }
+    __syncwarp();
+
+#pragma unroll
+    for (int dd = 0; dd < HD / 32; ++dd) {
+      const int d = dd * 32 + lane;
+      float o[kNQ] = {};
+      for (int j = 0; j < S; ++j) {
+        const float vj = to_f(Vs[j * HD + d]);
+#pragma unroll
+        for (int qi = 0; qi < kNQ; ++qi) o[qi] = fmaf(p_w[qi * ldp + j], vj, o[qi]);
+      }
+#pragma unroll
+      for (int qi = 0; qi < kNQ; ++qi)
+        if (q0 + qi < S) ctx[((long)b * S + q0 + qi) * KW + h * HD + d] = from_f<T>(o[qi] * rinv[qi]);
+    }
+    __syncwarp();
+  }
+}
+
+// 1/sqrt(hd) as the TPU wrapper computes it (in double, then f32)
+inline float attn_scale() { return static_cast<float>(1.0 / sqrt(static_cast<double>(kHD))); }
+
+template <typename T, int NC>
+cudaError_t attention_nc(const T* qkv, const unsigned char* mask, T* ctx, int B, int S, int H,
+                         int KW, cudaStream_t st) {
+  const size_t smem = AttnSmem<T, NC>(S).bytes();
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, NC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  attention_kernel<T, NC><<<dim3(H, B), kAttnWarps * 32, smem, st>>>(qkv, mask, ctx, S, KW,
+                                                                      attn_scale());
+  return cudaGetLastError();
+}
+
+cudaError_t attention(const float* qkv, const unsigned char* mask, float* ctx, int B, int S, int H,
+                      int KW, cudaStream_t st) {
+  switch ((S + 31) / 32) {
+    case 1: return attention_nc<float, 1>(qkv, mask, ctx, B, S, H, KW, st);
+    case 2: return attention_nc<float, 2>(qkv, mask, ctx, B, S, H, KW, st);
+    case 3: return attention_nc<float, 3>(qkv, mask, ctx, B, S, H, KW, st);
+    case 4: return attention_nc<float, 4>(qkv, mask, ctx, B, S, H, KW, st);
+    case 5: return attention_nc<float, 5>(qkv, mask, ctx, B, S, H, KW, st);
+    case 6: return attention_nc<float, 6>(qkv, mask, ctx, B, S, H, KW, st);
+    case 7: return attention_nc<float, 7>(qkv, mask, ctx, B, S, H, KW, st);
+    case 8: return attention_nc<float, 8>(qkv, mask, ctx, B, S, H, KW, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// bf16: WMMA 16x16x16 tiles. K, V of the image's head sit in smem as
+// [S16][hd] (S16 = S rounded up to 16, zero rows beyond S); each warp takes
+// 16 query rows at a time. Pass 1 runs QK^T over all key tiles for the row
+// maxima; pass 2 runs it again, forms the numerators exp(l - max) rounded
+// to bf16 (as the TPU kernel stores them), sums the rounded values and
+// feeds them to the PV product; the context is scaled by 1/sum at the end.
+// Recomputing QK^T (cheap on the tensor cores) keeps only a 16x16 logits
+// tile per warp instead of the [16, S] rows, so two blocks fit on an SM.
+namespace ta {
+constexpr int WARPS = 4, THREADS = WARPS * 32;
+constexpr int LDKV = kHD + 8;  // bf16; +8 staggers the banks
+constexpr int LDP = 16 + 8;    // bf16 numerator tile
+constexpr int LDO = kHD + 4;   // f32 output tile
+// per-warp region: logits tile [16][16] f32 at 0, numerator tile [16][LDP]
+// bf16 at 1024, both reused for the output tile [16][LDO] f32 at the end;
+// the query tile [16][LDKV] bf16 after that
+constexpr size_t P_OFF = 16 * 16 * sizeof(float);
+constexpr size_t Q_OFF = 16 * LDO * sizeof(float);
+constexpr size_t WARP_BYTES = Q_OFF + 16 * LDKV * sizeof(bf16);
+static_assert(P_OFF + 16 * LDP * sizeof(bf16) <= Q_OFF, "tiles overlap");
+static_assert(Q_OFF % 32 == 0 && WARP_BYTES % 32 == 0, "WMMA needs 256-bit aligned tiles");
+
+__host__ __device__ inline int s16(int s) { return (s + 15) / 16 * 16; }
+__host__ __device__ inline size_t kv_bytes(int s) { return size_t(2) * s16(s) * LDKV * sizeof(bf16); }
+__host__ __device__ inline size_t warp_base(int s) { return (kv_bytes(s) + s16(s) + 127) / 128 * 128; }
+__host__ __device__ inline size_t smem_bytes(int s) { return warp_base(s) + WARPS * WARP_BYTES; }
+}  // namespace ta
+
+__global__ void __launch_bounds__(ta::THREADS)
+attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restrict__ mask,
+                    bf16* __restrict__ ctx, int S, int KW, float scale) {
+  using namespace nvcuda;
+  using namespace ta;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int sp = s16(S), ntiles = sp / 16;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [sp][LDKV]
+  bf16* Vs = Ks + sp * LDKV;                 // [sp][LDKV]
+  unsigned char* flag = smem + kv_bytes(S);  // [sp]: 0 absent, 1 valid, 2 masked
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  unsigned char* wbase = smem + warp_base(S) + warp * WARP_BYTES;
+  float* Lt = reinterpret_cast<float*>(wbase);
+  bf16* Pt = reinterpret_cast<bf16*>(wbase + P_OFF);
+  float* Ot = reinterpret_cast<float*>(wbase);
+  bf16* Qt = reinterpret_cast<bf16*>(wbase + Q_OFF);
+
+  const long row_stride = 3L * KW;
+  const bf16* base = qkv + (long)b * S * row_stride + h * kHD;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int c = tid; c < sp * (kHD / 8); c += THREADS) {  // 16-byte chunks
+    const int j = c / (kHD / 8), d = (c % (kHD / 8)) * 8;
+    const bf16* r = base + j * row_stride + d;
+    *reinterpret_cast<uint4*>(Ks + j * LDKV + d) = j < S ? *reinterpret_cast<const uint4*>(r + KW) : zero;
+    *reinterpret_cast<uint4*>(Vs + j * LDKV + d) = j < S ? *reinterpret_cast<const uint4*>(r + 2 * KW) : zero;
+  }
+  for (int j = tid; j < sp; j += THREADS)
+    flag[j] = j >= S ? 0 : ((mask == nullptr || mask[(long)b * S + j]) ? 1 : 2);
+  __syncthreads();
+
+  const int r = lane >> 1, c0 = (lane & 1) * 8;  // softmax: two lanes per row
+  for (int qt = warp; qt < ntiles; qt += WARPS) {
+    const int q0 = qt * 16;
+    for (int c = lane; c < 16 * (kHD / 8); c += 32) {
+      const int i = c / (kHD / 8), d = (c % (kHD / 8)) * 8;
+      *reinterpret_cast<uint4*>(Qt + i * LDKV + d) =
+          q0 + i < S ? *reinterpret_cast<const uint4*>(base + (q0 + i) * row_stride + d) : zero;
+    }
+    __syncwarp();
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[kHD / 16];
+#pragma unroll
+    for (int kk = 0; kk < kHD / 16; ++kk) wmma::load_matrix_sync(qa[kk], Qt + kk * 16, LDKV);
+
+    // logits tile jt -> Lt (f32, unscaled)
+    auto logits_tile = [&](int jt) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> l;
+      wmma::fill_fragment(l, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < kHD / 16; ++kk) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;  // K^T
+        wmma::load_matrix_sync(kb, Ks + jt * 16 * LDKV + kk * 16, LDKV);
+        wmma::mma_sync(l, qa[kk], kb, l);
+      }
+      wmma::store_matrix_sync(Lt, l, 16, wmma::mem_row_major);
+      __syncwarp();
+    };
+
+    float mx = -INFINITY;
+    for (int jt = 0; jt < ntiles; ++jt) {
+      logits_tile(jt);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int f = flag[jt * 16 + c0 + t];
+        if (f) mx = fmaxf(mx, f == 2 ? kNegInf : Lt[r * 16 + c0 + t] * scale);
+      }
+      __syncwarp();
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kHD / 16];
+#pragma unroll
+    for (int dt = 0; dt < kHD / 16; ++dt) wmma::fill_fragment(o[dt], 0.f);
+    float sum = 0.f;
+    for (int jt = 0; jt < ntiles; ++jt) {
+      logits_tile(jt);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int f = flag[jt * 16 + c0 + t];
+        const float l = f == 2 ? kNegInf : Lt[r * 16 + c0 + t] * scale;
+        const bf16 p = __float2bfloat16(f ? expf(l - mx) : 0.f);
+        sum += __bfloat162float(p);
+        Pt[r * LDP + c0 + t] = p;
+      }
+      __syncwarp();
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
+      wmma::load_matrix_sync(pa, Pt, LDP);
+#pragma unroll
+      for (int dt = 0; dt < kHD / 16; ++dt) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
+        wmma::load_matrix_sync(vb, Vs + jt * 16 * LDKV + dt * 16, LDKV);
+        wmma::mma_sync(o[dt], pa, vb, o[dt]);
+      }
+      __syncwarp();
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    const float rinv = 1.0f / sum;
+
+#pragma unroll
+    for (int dt = 0; dt < kHD / 16; ++dt)
+      wmma::store_matrix_sync(Ot + dt * 16, o[dt], LDO, wmma::mem_row_major);
+    __syncwarp();
+    if (q0 + r < S) {
+      bf16* out = ctx + ((long)b * S + q0 + r) * KW + h * kHD + (lane & 1) * (kHD / 2);
+      const float* src = Ot + r * LDO + (lane & 1) * (kHD / 2);
+#pragma unroll
+      for (int c = 0; c < kHD / 2; c += 8) {
+        float v[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) v[t] = src[c + t] * rinv;
+        store8(out + c, v);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+cudaError_t attention(const bf16* qkv, const unsigned char* mask, bf16* ctx, int B, int S, int H,
+                      int KW, cudaStream_t st) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(attention_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)ta::smem_bytes(kMaxSeq));
+  if (attr != cudaSuccess) return attr;
+  attention_tc_kernel<<<dim3(H, B), ta::THREADS, ta::smem_bytes(S), st>>>(qkv, mask, ctx, S, KW,
+                                                                         attn_scale());
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// B2 attention: the CLS query only, one warp per (head, image); each lane
+// reads its keys straight from the K/V buffer (S*hd values per block).
+
+template <typename T>
+__global__ void cls_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                                     T* __restrict__ ctx, int S, int KW, float scale) {
+  constexpr int HD = kHD;
+  __shared__ float qs[HD];
+  __shared__ float ps[kMaxSeq];
+  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
+  for (int d = lane; d < HD; d += 32) qs[d] = to_f(q[(long)b * KW + h * HD + d]);
+  __syncwarp();
+  const T* kb = kv + (long)b * S * 2 * KW + h * HD;
+  float l[kMaxChunks];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c) {
+    const int j = c * 32 + lane;
+    l[c] = 0.f;
+    if (j < S) {
+      const T* kr = kb + (long)j * 2 * KW;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < HD; ++d) acc = fmaf(qs[d], to_f(kr[d]), acc);
+      l[c] = acc * scale;
+      mx = fmaxf(mx, l[c]);
+    }
+  }
+  mx = warp_max(mx);
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c) {
+    l[c] = c * 32 + lane < S ? expf(l[c] - mx) : 0.f;
+    sum += l[c];
+  }
+  sum = warp_sum(sum);
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c) {
+    const int j = c * 32 + lane;
+    if (j < S) ps[j] = round_to<T>(l[c] / sum);  // normalised, then cast (TPU B2)
+  }
+  __syncwarp();
+  for (int d = lane; d < HD; d += 32) {
+    float o = 0.f;
+    for (int j = 0; j < S; ++j) o = fmaf(ps[j], to_f(kb[(long)j * 2 * KW + KW + d]), o);
+    ctx[(long)b * KW + h * HD + d] = from_f<T>(o);  // f32 ctx, cast for the O product
+  }
+}
+
+template <typename T>
+cudaError_t cls_attention(const T* q, const T* kv, T* ctx, int B, int S, int H, int KW,
+                          cudaStream_t st) {
+  cls_attention_kernel<T><<<dim3(H, B), 32, 0, st>>>(q, kv, ctx, S, KW, attn_scale());
+  return cudaGetLastError();
+}
+
+#define VPT_TRY(...)                          \
+  do {                                        \
+    cudaError_t err_ = (__VA_ARGS__);         \
+    if (err_ != cudaSuccess) return err_;     \
+  } while (0)
+
+Epilogue epi(const void* bias, int act, const void* res, long ldr, bool res_f32, void* out,
+             long ldc, bool out_f32) {
+  return Epilogue{bias, act, res, ldr, res_f32 ? 1 : 0, out, ldc, out_f32 ? 1 : 0, 0};
+}
+
+template <typename T>
+cudaError_t layer_forward(const T* x, const unsigned char* mask, const T* ln1g, const T* ln1b,
+                          const T* wqkv, const T* bqkv, const T* wo, const T* bo, const T* ln2g,
+                          const T* ln2b, const T* w1, const T* b1, const T* w2, const T* b2, T* out,
+                          T* h, T* qkv, T* ctx, float* x1, T* m1, int B, int S, int D, int H, int M,
+                          float eps, cudaStream_t st) {
+  const int rows = B * S, KW = H * kHD;
+  const int act = sizeof(T) == 2 ? ACT_GELU_TANH : ACT_GELU_ERF;
+  VPT_TRY(layer_norm<T, T>(x, D, ln1g, ln1b, h, D, rows, D, eps, st));
+  VPT_TRY(gemm(h, D, wqkv, rows, 3 * KW, D, epi(bqkv, ACT_NONE, nullptr, 0, false, qkv, 3 * KW, false), st));
+  VPT_TRY(attention(qkv, mask, ctx, B, S, H, KW, st));
+  VPT_TRY(gemm(ctx, KW, wo, rows, D, KW, epi(bo, ACT_NONE, x, D, false, x1, D, true), st));
+  VPT_TRY(layer_norm<float, T>(x1, D, ln2g, ln2b, h, D, rows, D, eps, st));
+  VPT_TRY(gemm(h, D, w1, rows, M, D, epi(b1, act, nullptr, 0, false, m1, M, false), st));
+  VPT_TRY(gemm(m1, M, w2, rows, D, M, epi(b2, ACT_NONE, x1, D, true, out, D, false), st));
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t cls_logits_forward(const T* x, const T* ln1g, const T* ln1b, const T* wq, const T* bq,
+                               const T* wkv, const T* bkv, const T* wo, const T* bo, const T* ln2g,
+                               const T* ln2b, const T* w1, const T* b1, const T* w2, const T* b2,
+                               const T* lnfg, const T* lnfb, const T* wh, const T* bh, T* logits,
+                               T* h, T* kv, T* q, T* ctx, float* x1, T* m1, float* x2, int B, int S,
+                               int D, int H, int M, int labels, float eps, cudaStream_t st) {
+  const int rows = B * S, KW = H * kHD;
+  const long cls_stride = (long)S * D;  // CLS rows of x and h
+  const int act = sizeof(T) == 2 ? ACT_GELU_TANH : ACT_GELU_ERF;
+  VPT_TRY(layer_norm<T, T>(x, D, ln1g, ln1b, h, D, rows, D, eps, st));
+  VPT_TRY(gemm(h, D, wkv, rows, 2 * KW, D, epi(bkv, ACT_NONE, nullptr, 0, false, kv, 2 * KW, false), st));
+  VPT_TRY(gemm(h, cls_stride, wq, B, KW, D, epi(bq, ACT_NONE, nullptr, 0, false, q, KW, false), st));
+  VPT_TRY(cls_attention<T>(q, kv, ctx, B, S, H, KW, st));
+  VPT_TRY(gemm(ctx, KW, wo, B, D, KW, epi(bo, ACT_NONE, x, cls_stride, false, x1, D, true), st));
+  VPT_TRY(layer_norm<float, T>(x1, D, ln2g, ln2b, h, D, B, D, eps, st));
+  VPT_TRY(gemm(h, D, w1, B, M, D, epi(b1, act, nullptr, 0, false, m1, M, false), st));
+  VPT_TRY(gemm(m1, M, w2, B, D, M, epi(b2, ACT_NONE, x1, D, true, x2, D, true), st));
+  VPT_TRY(layer_norm<float, T>(x2, D, lnfg, lnfb, h, D, B, D, eps, st));
+  VPT_TRY(gemm(h, D, wh, B, labels, D, epi(bh, ACT_NONE, nullptr, 0, false, logits, labels, false), st));
+  return cudaSuccess;
+}
+
+bool shapes_ok(int dtype, int B, int S, int D, int H, int HD, int M) {
+  return (dtype == 0 || dtype == 1) && HD == kHD && B > 0 && S > 0 && S <= kMaxSeq && H > 0 &&
+         D % 8 == 0 && M % 8 == 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* vpt_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
+
+int vpt_max_seq_len() { return kMaxSeq; }
+
+int vpt_head_dim() { return kHD; }
+
+// dtype: 0 = float32, 1 = bfloat16. mask: [B, S] bytes (torch.bool) or null.
+// Workspaces: h [B*S, D], qkv [B*S, 3KW], ctx [B*S, KW], m1 [B*S, M] in the
+// dtype; x1 [B*S, D] float32.
+int vpt_vit_layer_forward(int dtype, const void* x, const void* mask, const void* ln1g,
+                          const void* ln1b, const void* wqkv, const void* bqkv, const void* wo,
+                          const void* bo, const void* ln2g, const void* ln2b, const void* w1,
+                          const void* b1, const void* w2, const void* b2, void* out, void* h,
+                          void* qkv, void* ctx, void* x1, void* m1, int B, int S, int D, int H,
+                          int HD, int M, float eps, void* stream) {
+  if (!shapes_ok(dtype, B, S, D, H, HD, M)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned char* mk = static_cast<const unsigned char*>(mask);
+#define VPT_LAYER(T)                                                                              \
+  layer_forward<T>((const T*)x, mk, (const T*)ln1g, (const T*)ln1b, (const T*)wqkv,               \
+                   (const T*)bqkv, (const T*)wo, (const T*)bo, (const T*)ln2g, (const T*)ln2b,    \
+                   (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (T*)out, (T*)h,        \
+                   (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, B, S, D, H, M, eps, st)
+  return dtype == 0 ? VPT_LAYER(float) : VPT_LAYER(bf16);
+#undef VPT_LAYER
+}
+
+// Workspaces: h [B*S, D], kv [B*S, 2KW], q [B, KW], ctx [B, KW], m1 [B, M]
+// in the dtype; x1, x2 [B, D] float32. logits [B, labels] in the dtype.
+int vpt_vit_cls_logits_forward(int dtype, const void* x, const void* ln1g, const void* ln1b,
+                               const void* wq, const void* bq, const void* wkv, const void* bkv,
+                               const void* wo, const void* bo, const void* ln2g, const void* ln2b,
+                               const void* w1, const void* b1, const void* w2, const void* b2,
+                               const void* lnfg, const void* lnfb, const void* wh, const void* bh,
+                               void* logits, void* h, void* kv, void* q, void* ctx, void* x1,
+                               void* m1, void* x2, int B, int S, int D, int H, int HD, int M,
+                               int labels, float eps, void* stream) {
+  if (!shapes_ok(dtype, B, S, D, H, HD, M) || labels <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define VPT_CLS(T)                                                                                \
+  cls_logits_forward<T>((const T*)x, (const T*)ln1g, (const T*)ln1b, (const T*)wq, (const T*)bq,  \
+                        (const T*)wkv, (const T*)bkv, (const T*)wo, (const T*)bo, (const T*)ln2g, \
+                        (const T*)ln2b, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,   \
+                        (const T*)lnfg, (const T*)lnfb, (const T*)wh, (const T*)bh, (T*)logits,   \
+                        (T*)h, (T*)kv, (T*)q, (T*)ctx, (float*)x1, (T*)m1, (float*)x2, B, S, D,   \
+                        H, M, labels, eps, st)
+  return dtype == 0 ? VPT_CLS(float) : VPT_CLS(bf16);
+#undef VPT_CLS
+}
+
+}  // extern "C"

@@ -1,0 +1,53 @@
+"""Weight bridge between the JAX param tree and the port's tensor tree.
+
+Both packages use the same layout (models/vit.py docstring of the JAX
+package): nested dicts, per-layer leaves stacked on a leading [L] axis,
+linear weights stored [in, out]. The bridge only changes the leaf type, so
+the tests can feed one set of weights to both packages.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def _map(tree: Any, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if tree is None:
+        return None
+    return fn(tree)
+
+
+def params_from_jax(tree: Any, device="cpu", dtype: torch.dtype = torch.float32) -> Any:
+    """JAX param tree with numpy (or numpy-convertible) leaves -> tensor tree
+    on `device` in `dtype`. None leaves (e.g. no predictor) stay None."""
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch twin in numpy
+            a = a.astype(np.float32)
+        return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)  # copy: writable
+
+    return _map(tree, leaf)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Tensor tree -> numpy tree (bf16 leaves come back as float32, which
+    holds every bf16 value exactly)."""
+
+    def leaf(t: torch.Tensor):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    return _map(tree, leaf)
+
+
+def tree_to(tree: Any, device=None, dtype: torch.dtype = None) -> Any:
+    """Move and/or cast every leaf of a tensor tree."""
+    return _map(tree, lambda t: t.to(device=device, dtype=dtype))

@@ -1,0 +1,170 @@
+"""ViT/DeiT forward in PyTorch, plain functions over a nested-dict param tree.
+
+Mirrors vit_pruning_tpu/models/vit.py, in the same param layout:
+
+  {'embed': {'patch': {'w' [C*P*P, D], 'b' [D]}, 'cls' [1, 1, D], 'pos' [1, S, D]},
+   'layers': {'ln1': {'g','b'}, 'attn': {'q','k','v','o': {'w','b'}},
+              'ln2': {'g','b'}, 'mlp': {'fc1': {'w','b'}, 'fc2': {'w','b'}}},
+             # every layer leaf stacked on a leading [L] axis
+   'ln_f': {'g','b'}, 'head': {'w' [D, labels], 'b'}}
+
+`vit_layer` routes through kernel B1 (ops/cuda/layer.py::fused_vit_layer)
+unless the dispatch mode is 'eager', in which case it runs the plain layer
+below (layer_norm -> mha -> mlp_block with erf GELU), the counterpart of the
+JAX package's use_pallas=False path.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from vit_pruning_tpu_torch.configs import ViTConfig
+from vit_pruning_tpu_torch.models.convert import tree_to
+from vit_pruning_tpu_torch.ops.attention import mha
+from vit_pruning_tpu_torch.ops.dispatch import kernels_enabled
+from vit_pruning_tpu_torch.ops.patch_embed import patch_embed
+
+
+def layer_norm(x: torch.Tensor, params: dict, eps: float) -> torch.Tensor:
+    """LayerNorm in x's dtype with the biased variance, as the JAX package."""
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * params["g"] + params["b"]
+
+
+def mlp_block(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """Linear -> GELU (erf) -> Linear."""
+    h = F.gelu(x @ params["fc1"]["w"] + params["fc1"]["b"])
+    return h @ params["fc2"]["w"] + params["fc2"]["b"]
+
+
+def check_attn_geometry(q_width: int, config: ViTConfig):
+    """Head-pruned params under the unpruned config (or the reverse) would
+    split heads at the wrong width and run with wrong numerics."""
+    if q_width != config.attn_width:
+        raise ValueError(
+            f"attention projection width {q_width} != config.num_heads "
+            f"({config.num_heads}) x config.head_dim ({config.head_dim}); "
+            f"use the ViTConfig returned by prune_heads for pruned params"
+        )
+
+
+def vit_layer(
+    x: torch.Tensor,
+    params: dict,
+    config: ViTConfig,
+    token_mask: Optional[torch.Tensor] = None,
+    head_mask: Optional[torch.Tensor] = None,
+    return_probs: bool = False,
+    quant: Optional[str] = None,
+) -> torch.Tensor:
+    """One pre-LN block. token_mask [B, S] bool restricts attention keys to
+    kept tokens; outputs at masked rows are computed but meaningless."""
+    check_attn_geometry(params["attn"]["q"]["w"].shape[-1], config)
+    if head_mask is not None or return_probs:
+        raise NotImplementedError("head_mask / return_probs: ROADMAP A.2 (later slice)")
+    if quant not in (None, "none"):
+        raise NotImplementedError("int8 serving: ROADMAP A.8 (kernel B4)")
+    if kernels_enabled():
+        from vit_pruning_tpu_torch.ops.cuda.layer import fused_vit_layer
+
+        return fused_vit_layer(x, params, config.num_heads, config.layernorm_eps, token_mask)
+    h = layer_norm(x, params["ln1"], config.layernorm_eps)
+    x = x + mha(h, params["attn"], config.num_heads, token_mask=token_mask)
+    h = layer_norm(x, params["ln2"], config.layernorm_eps)
+    return x + mlp_block(h, params["mlp"])
+
+
+def embed(pixel_values: torch.Tensor, params: dict, config: ViTConfig) -> torch.Tensor:
+    """Patch projection + CLS token + position embeddings -> [B, S, D]."""
+    b, c, h, w = pixel_values.shape
+    if (c, h, w) != (config.num_channels, config.image_size, config.image_size):
+        raise ValueError(
+            f"pixel_values {tuple(pixel_values.shape)} does not match config (expected "
+            f"[B, {config.num_channels}, {config.image_size}, {config.image_size}])"
+        )
+    x = patch_embed(pixel_values, params["patch"], config.patch_size)
+    cls = params["cls"].expand(b, 1, config.hidden_size).to(x.dtype)
+    return torch.cat([cls, x], dim=1) + params["pos"].to(x.dtype)
+
+
+def layer_slice(layers: dict, i: int) -> dict:
+    """Layer i of a stacked [L, ...] tree (views, no copy)."""
+    if isinstance(layers, dict):
+        return {k: layer_slice(v, i) for k, v in layers.items()}
+    return layers[i]
+
+
+def vit_forward(
+    params: dict,
+    pixel_values: torch.Tensor,
+    config: ViTConfig,
+    head_mask: Optional[torch.Tensor] = None,
+) -> dict:
+    """Dense forward. Returns dict(logits, cls, last_hidden)."""
+    if head_mask is not None:
+        raise NotImplementedError("head_mask: ROADMAP A.2 (later slice)")
+    x = embed(pixel_values, params["embed"], config)
+    for i in range(config.num_layers):
+        x = vit_layer(x, layer_slice(params["layers"], i), config)
+    x = layer_norm(x, params["ln_f"], config.layernorm_eps)
+    cls = x[:, 0]
+    logits = cls @ params["head"]["w"] + params["head"]["b"]
+    return {"logits": logits, "cls": cls, "last_hidden": x}
+
+
+# --- Initialization -------------------------------------------------------------
+
+def trunc_normal(shape, generator: torch.Generator, std: float = 0.02) -> torch.Tensor:
+    """Truncated normal on [-2, 2] scaled by std (the JAX package's init), drawn
+    on the CPU so that a seed gives the same weights on every device."""
+    t = torch.empty(shape)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t * std
+
+
+def linear_init(generator: torch.Generator, fan_in: int, fan_out: int) -> dict:
+    return {"w": trunc_normal((fan_in, fan_out), generator), "b": torch.zeros(fan_out)}
+
+
+def stack_trees(trees: list) -> dict:
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_vit_params(
+    config: ViTConfig,
+    generator: torch.Generator,
+    device="cpu",
+    dtype: torch.dtype = torch.float32,
+) -> dict:
+    """Random init as the JAX package's: trunc-normal(0.02) weights, zero
+    biases, unit LN gains. Same distribution, not the same numbers."""
+    d = config.hidden_size
+
+    def layer_init():
+        return {
+            "ln1": {"g": torch.ones(d), "b": torch.zeros(d)},
+            "attn": {n: linear_init(generator, d, d) for n in ("q", "k", "v", "o")},
+            "ln2": {"g": torch.ones(d), "b": torch.zeros(d)},
+            "mlp": {
+                "fc1": linear_init(generator, d, config.mlp_dim),
+                "fc2": linear_init(generator, config.mlp_dim, d),
+            },
+        }
+
+    params = {
+        "layers": stack_trees([layer_init() for _ in range(config.num_layers)]),
+        "embed": {
+            "patch": linear_init(generator, config.patch_dim, d),
+            "cls": trunc_normal((1, 1, d), generator),
+            "pos": trunc_normal((1, config.seq_len, d), generator),
+        },
+        "ln_f": {"g": torch.ones(d), "b": torch.zeros(d)},
+        "head": linear_init(generator, d, config.num_labels),
+    }
+    return tree_to(params, device, dtype)

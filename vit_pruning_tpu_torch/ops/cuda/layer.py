@@ -1,0 +1,299 @@
+"""Kernels B1 and B2: a whole ViT layer, and the last layer's CLS row through
+the classifier. Wrappers around csrc/layer.cu, each beside its plain PyTorch
+version.
+
+B1 `fused_vit_layer` replaces vit_pruning_tpu/ops/pallas/layer.py::
+fused_vit_layer (the staged2 whole-layer kernel). B2
+`fused_vit_layer_cls_logits` replaces ::fused_vit_layer_cls_logits. What
+bounds them on an H100 and what the CUDA design does about it is in the
+head of csrc/layer.cu: the layer products dominate and are tensor-core
+bound at batch 512, so each runs as one tiled GEMM with its bias / GELU /
+residual / cast fused into the epilogue, and the residual stream stays f32
+between the attention and MLP halves as it stayed in VMEM on the TPU.
+
+A wrapper launches its kernel for CUDA tensors and counts the launch in its
+`launches` attribute; for CPU tensors it runs the plain version (mode
+'auto') or raises (mode 'kernel'). It never falls back from a CUDA tensor.
+
+The plain versions keep the TPU kernels' numerics, which differ from the
+jnp reference layer (models/vit.py) in three places: products take operands
+in the weight dtype and accumulate in f32 before the bias and the cast; the
+GELU is the tanh form when x is bf16; B1 rounds the softmax numerators to
+x's dtype, sums the rounded values and divides after the PV product, B2
+normalises first and keeps the context in f32 until the O product.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from vit_pruning_tpu_torch.models.vit import layer_norm
+from vit_pruning_tpu_torch.ops.attention import NEG_INF
+from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# --- plain versions ---------------------------------------------------------------
+
+def _ln_f32(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
+    return layer_norm(x.float(), {"g": p["g"].float(), "b": p["b"].float()}, eps)
+
+
+def _linear_f32(a: torch.Tensor, p_w: torch.Tensor, p_b: torch.Tensor) -> torch.Tensor:
+    """a cast to the weight dtype, product accumulated in f32, + bias (f32)."""
+    return a.to(p_w.dtype).float() @ p_w.float() + p_b.float()
+
+
+def _gelu_for(dtype: torch.dtype):
+    approximate = "tanh" if dtype == torch.bfloat16 else "none"
+    return lambda t: F.gelu(t, approximate=approximate)
+
+
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    b, s, w = t.shape
+    return t.reshape(b, s, num_heads, w // num_heads).transpose(1, 2)
+
+
+def fused_vit_layer_ref(
+    x: torch.Tensor,
+    params: dict,
+    num_heads: int,
+    eps: float = 1e-12,
+    token_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel B1 (staged2 numerics)."""
+    dt = x.dtype
+    b, s, d = x.shape
+    a = params["attn"]
+    kw = a["q"]["w"].shape[1]
+    hd = kw // num_heads
+    xf = x.float()
+    h1 = _ln_f32(xf, params["ln1"], eps)
+    q, k, v = (_heads(_linear_f32(h1, a[n]["w"], a[n]["b"]).to(dt), num_heads) for n in "qkv")
+    logits = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+    if token_mask is not None:
+        logits = torch.where(token_mask[:, None, None, :], logits, NEG_INF)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True)).to(dt).float()
+    ctx = (p @ v.float()) * (1.0 / p.sum(-1, keepdim=True))
+    ctx = ctx.to(dt).transpose(1, 2).reshape(b, s, kw)
+    x1 = xf + _linear_f32(ctx, a["o"]["w"], a["o"]["b"])
+    h2 = _ln_f32(x1, params["ln2"], eps)
+    mlp = params["mlp"]
+    m1 = _gelu_for(dt)(_linear_f32(h2, mlp["fc1"]["w"], mlp["fc1"]["b"]))
+    return (x1 + _linear_f32(m1, mlp["fc2"]["w"], mlp["fc2"]["b"])).to(dt)
+
+
+def fused_vit_layer_cls_logits_ref(
+    x: torch.Tensor,
+    params: dict,
+    lnf: dict,
+    head: dict,
+    num_heads: int,
+    eps: float = 1e-12,
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel B2: logits [B, labels] in x's dtype."""
+    dt = x.dtype
+    b, s, d = x.shape
+    a = params["attn"]
+    kw = a["q"]["w"].shape[1]
+    hd = kw // num_heads
+    xf = x.float()
+    h1 = _ln_f32(xf, params["ln1"], eps)
+    k, v = (_heads(_linear_f32(h1, a[n]["w"], a[n]["b"]).to(dt), num_heads) for n in "kv")
+    q = _heads(_linear_f32(h1[:, :1], a["q"]["w"], a["q"]["b"]).to(dt), num_heads)  # [B,H,1,hd]
+    logits = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = (p / p.sum(-1, keepdim=True)).to(dt).float()
+    ctx = (p @ v.float()).transpose(1, 2).reshape(b, kw)  # f32
+    x1 = xf[:, 0] + _linear_f32(ctx, a["o"]["w"], a["o"]["b"])
+    h2 = _ln_f32(x1, params["ln2"], eps)
+    mlp = params["mlp"]
+    m1 = _gelu_for(dt)(_linear_f32(h2, mlp["fc1"]["w"], mlp["fc1"]["b"]))
+    x2 = x1 + _linear_f32(m1, mlp["fc2"]["w"], mlp["fc2"]["b"])
+    yn = _ln_f32(x2, lnf, eps)
+    return _linear_f32(yn, head["w"], head["b"]).to(dt)
+
+
+# --- wrappers -----------------------------------------------------------------------
+
+def _check(x: torch.Tensor, tensors: dict, shapes: dict, who: str) -> int:
+    """Device, dtype, shape, contiguity and alignment checks shared by both
+    wrappers; returns the kernel's dtype code."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{who}: dtype {x.dtype} not supported (float32, bfloat16)")
+    for name, t in {"x": x, **tensors}.items():
+        if name in shapes and tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, want {shapes[name]}")
+        if t.device != x.device or t.dtype != x.dtype:
+            raise ValueError(
+                f"{who}: {name} is {t.dtype} on {t.device}; every tensor must be "
+                f"{x.dtype} on {x.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} must be 16-byte aligned")
+    return _DTYPES[x.dtype]
+
+
+def _geometry(lib, x: torch.Tensor, params: dict, num_heads: int, who: str):
+    if x.dim() != 3:
+        raise ValueError(f"{who}: x must be [B, S, D], got {tuple(x.shape)}")
+    b, s, d = x.shape
+    kw = params["attn"]["q"]["w"].shape[1]
+    m = params["mlp"]["fc1"]["w"].shape[1]
+    hd = kw // num_heads
+    if kw % num_heads or hd != lib.vpt_head_dim():
+        raise ValueError(f"{who}: head dim {kw}/{num_heads} not supported (the kernel takes "
+                         f"{lib.vpt_head_dim()})")
+    if not 1 <= s <= lib.vpt_max_seq_len():
+        raise ValueError(f"{who}: sequence length {s} not in [1, {lib.vpt_max_seq_len()}]")
+    if d % 8 or m % 8:
+        raise ValueError(f"{who}: hidden {d} and MLP width {m} must be multiples of 8")
+    return b, s, d, hd, kw, m
+
+
+def _layer_shapes(d: int, kw: int, m: int) -> dict:
+    return {"ln1.g": (d,), "ln1.b": (d,), "o.w": (kw, d), "o.b": (d,), "ln2.g": (d,),
+            "ln2.b": (d,), "fc1.w": (d, m), "fc1.b": (m,), "fc2.w": (m, d), "fc2.b": (d,)}
+
+
+def _layer_weights(params: dict) -> dict:
+    a, mlp = params["attn"], params["mlp"]
+    return {
+        "ln1.g": params["ln1"]["g"], "ln1.b": params["ln1"]["b"],
+        "o.w": a["o"]["w"], "o.b": a["o"]["b"],
+        "ln2.g": params["ln2"]["g"], "ln2.b": params["ln2"]["b"],
+        "fc1.w": mlp["fc1"]["w"], "fc1.b": mlp["fc1"]["b"],
+        "fc2.w": mlp["fc2"]["w"], "fc2.b": mlp["fc2"]["b"],
+    }
+
+
+def _raise_on(lib, rc: int, who: str):
+    if rc != 0:
+        raise RuntimeError(f"{who}: CUDA error {rc}: {lib.vpt_error_string(rc).decode()}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fused_vit_layer(
+    x: torch.Tensor,
+    params: dict,
+    num_heads: int,
+    eps: float = 1e-12,
+    token_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel B1: one pre-LN ViT block, x [B, S, D] -> [B, S, D].
+
+    params: one layer's dict {'ln1','attn','ln2','mlp'}; token_mask [B, S]
+    bool or None (False = key masked with -1e30). hd = q width / num_heads.
+    """
+    if not launch_kernel_for(x):
+        return fused_vit_layer_ref(x, params, num_heads, eps, token_mask)
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    who = "fused_vit_layer"
+    lib = load_library()
+    a = params["attn"]
+    wqkv = torch.cat([a["q"]["w"], a["k"]["w"], a["v"]["w"]], dim=1)
+    bqkv = torch.cat([a["q"]["b"], a["k"]["b"], a["v"]["b"]])
+    b, s, d, hd, kw, m = _geometry(lib, x, params, num_heads, who)
+    shapes = {"qkv.w": (d, 3 * kw), "qkv.b": (3 * kw,), **_layer_shapes(d, kw, m)}
+    w = _layer_weights(params)
+    dtype = _check(x, {"qkv.w": wqkv, "qkv.b": bqkv, **w}, shapes, who)
+    if token_mask is not None:
+        if token_mask.shape != (b, s) or token_mask.dtype != torch.bool:
+            raise ValueError(f"{who}: token_mask must be bool [{b}, {s}]")
+        if token_mask.device != x.device or not token_mask.is_contiguous():
+            raise ValueError(f"{who}: token_mask must be contiguous on {x.device}")
+
+    out = torch.empty_like(x)
+    rows = b * s
+    h = x.new_empty((rows, d))
+    qkv = x.new_empty((rows, 3 * kw))
+    ctx = x.new_empty((rows, kw))
+    x1 = torch.empty((rows, d), dtype=torch.float32, device=x.device)
+    m1 = x.new_empty((rows, m))
+    with torch.cuda.device(x.device):
+        rc = lib.vpt_vit_layer_forward(
+            dtype, x.data_ptr(), None if token_mask is None else token_mask.data_ptr(),
+            w["ln1.g"].data_ptr(), w["ln1.b"].data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+            w["o.w"].data_ptr(), w["o.b"].data_ptr(), w["ln2.g"].data_ptr(), w["ln2.b"].data_ptr(),
+            w["fc1.w"].data_ptr(), w["fc1.b"].data_ptr(), w["fc2.w"].data_ptr(), w["fc2.b"].data_ptr(),
+            out.data_ptr(), h.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), x1.data_ptr(), m1.data_ptr(),
+            b, s, d, num_heads, hd, m, eps, _stream(x),
+        )
+    _raise_on(lib, rc, who)
+    fused_vit_layer.launches += 1
+    return out
+
+
+fused_vit_layer.launches = 0
+
+
+def fused_vit_layer_cls_logits(
+    x: torch.Tensor,
+    params: dict,
+    lnf: dict,
+    head: dict,
+    num_heads: int,
+    eps: float = 1e-12,
+) -> torch.Tensor:
+    """Kernel B2: the last layer on the CLS row + final LN + classifier.
+
+    x [B, S, D] is the last layer's input; K/V come from every token, Q,
+    attention, MLP, LN and head from CLS alone. Returns [B, labels] in x's
+    dtype, equal to vit_layer -> layer_norm -> head on CLS.
+    """
+    if not launch_kernel_for(x):
+        return fused_vit_layer_cls_logits_ref(x, params, lnf, head, num_heads, eps)
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    who = "fused_vit_layer_cls_logits"
+    lib = load_library()
+    a = params["attn"]
+    wkv = torch.cat([a["k"]["w"], a["v"]["w"]], dim=1)
+    bkv = torch.cat([a["k"]["b"], a["v"]["b"]])
+    w = _layer_weights(params)
+    tensors = {"q.w": a["q"]["w"], "q.b": a["q"]["b"], "kv.w": wkv, "kv.b": bkv, **w,
+               "ln_f.g": lnf["g"], "ln_f.b": lnf["b"], "head.w": head["w"], "head.b": head["b"]}
+    b, s, d, hd, kw, m = _geometry(lib, x, params, num_heads, who)
+    labels = head["w"].shape[1]
+    shapes = {"q.w": (d, kw), "q.b": (kw,), "kv.w": (d, 2 * kw), "kv.b": (2 * kw,),
+              **_layer_shapes(d, kw, m), "ln_f.g": (d,), "ln_f.b": (d,),
+              "head.w": (d, labels), "head.b": (labels,)}
+    dtype = _check(x, tensors, shapes, who)
+
+    logits = x.new_empty((b, labels))
+    h = x.new_empty((b * s, d))
+    kv = x.new_empty((b * s, 2 * kw))
+    q = x.new_empty((b, kw))
+    ctx = x.new_empty((b, kw))
+    x1 = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    m1 = x.new_empty((b, m))
+    x2 = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.vpt_vit_cls_logits_forward(
+            dtype, x.data_ptr(),
+            w["ln1.g"].data_ptr(), w["ln1.b"].data_ptr(), a["q"]["w"].data_ptr(),
+            a["q"]["b"].data_ptr(), wkv.data_ptr(), bkv.data_ptr(),
+            w["o.w"].data_ptr(), w["o.b"].data_ptr(), w["ln2.g"].data_ptr(), w["ln2.b"].data_ptr(),
+            w["fc1.w"].data_ptr(), w["fc1.b"].data_ptr(), w["fc2.w"].data_ptr(), w["fc2.b"].data_ptr(),
+            lnf["g"].data_ptr(), lnf["b"].data_ptr(), head["w"].data_ptr(), head["b"].data_ptr(),
+            logits.data_ptr(), h.data_ptr(), kv.data_ptr(), q.data_ptr(), ctx.data_ptr(),
+            x1.data_ptr(), m1.data_ptr(), x2.data_ptr(),
+            b, s, d, num_heads, hd, m, labels, eps, _stream(x),
+        )
+    _raise_on(lib, rc, who)
+    fused_vit_layer_cls_logits.launches += 1
+    return logits
+
+
+fused_vit_layer_cls_logits.launches = 0
