@@ -26,7 +26,7 @@ def _params():
 def test_params_round_trip_exact():
     _, params = _params()
     tree = to_numpy(params)
-    back = params_to_numpy(params_from_jax(tree))
+    back = params_to_numpy(params_from_jax(tree, "cpu"))
     flat, _ = jax.tree_util.tree_flatten_with_path(tree)
     for path, a in flat:
         b = back

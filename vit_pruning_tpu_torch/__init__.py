@@ -2,17 +2,22 @@
 
 The JAX package stays the reference; this package mirrors its module names
 so that each function has an obvious counterpart. It imports torch and never
-jax. The serving path (patch embed -> progressive top-k compaction with the
-cls_mlp predictor -> encoder -> CLS logits) runs through two CUDA C++ kernels
-written for Hopper (ops/cuda/layer.py, csrc/layer.cu); everything else is
-plain PyTorch.
+jax, and nothing of the JAX package. Two serving paths are ported: the
+progressive top-k compaction (serving.serving_forward ->
+models/pruned_vit.py::progressive_topk_forward) and the re-decide modes
+(models/pruned_vit.py::pruned_vit_forward: mask, topk, oracle, random, with
+every predictor kind). They run through three CUDA C++ kernels written for
+Hopper (ops/cuda/layer.py, csrc/layer.cu); everything else is plain
+PyTorch. Params are built on the card unless the caller asks for 'cpu'.
 
 Layout:
-    configs    — re-exports the JAX package's pure-Python configs
-    models     — ViT forward, cls_mlp predictor, progressive top-k forward,
-                 weight bridge to and from the JAX param tree
-    ops        — patch embed, attention, masking, structured pruning,
-                 kernel dispatch, and the CUDA kernels' wrappers (ops/cuda)
+    configs    — the port's own copy of the model and pruning configs
+    models     — ViT forward, every skip predictor, the re-decide and
+                 progressive forwards, weight bridge to and from the JAX
+                 param tree
+    ops        — patch embed, attention, masking and compaction, structured
+                 pruning, kernel dispatch, and the CUDA kernels' wrappers
+                 (ops/cuda)
     serving    — uint8 pixels -> logits
 """
 

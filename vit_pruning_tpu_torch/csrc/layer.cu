@@ -1,11 +1,13 @@
 // Hand-written Hopper kernels for the ViT serving path (sm_90a).
 //
-// Two C entry points, each launching a short fixed sequence of kernels on
+// Three C entry points, each launching a short fixed sequence of kernels on
 // the caller's stream (the caller allocates every buffer):
 //
-//   vpt_vit_layer_forward       replaces vit_pruning_tpu/ops/pallas/layer.py
-//                               ::fused_vit_layer (B1, staged2 numerics)
-//   vpt_vit_cls_logits_forward  replaces ::fused_vit_layer_cls_logits (B2)
+//   vpt_vit_layer_forward           replaces vit_pruning_tpu/ops/pallas/layer.py
+//                                   ::fused_vit_layer (B1, staged2 numerics)
+//   vpt_vit_cls_logits_forward      replaces ::fused_vit_layer_cls_logits (B2)
+//   vpt_vit_layer_bucketed_forward  replaces ::fused_vit_layer_bucketed (B3):
+//                                   gather -> B1 at the capacity -> scatter
 //
 // What bounds them on an H100: at DeiT-S width the four layer products
 // (QKV, O, fc1, fc2) are ~90% of a layer's operations and, at batch 512,
@@ -411,6 +413,16 @@ constexpr int kMaxSeq = kMaxChunks * 32;
 
 __host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
 
+// Key j of image b: 0 absent (j >= S), 1 valid, 2 masked (-1e30). The mask
+// is a [B, S] byte mask (B1), or the image's kept count, keys j < counts[b]
+// valid (B3's compacted rows), or neither (every key valid).
+__device__ __forceinline__ unsigned char key_flag(const unsigned char* mask, const int* counts,
+                                                  int b, int S, int j) {
+  if (j >= S) return 0;
+  if (counts) return j < counts[b] ? 1 : 2;
+  return (mask == nullptr || mask[(long)b * S + j]) ? 1 : 2;
+}
+
 // smem layout; K^T rows padded by one word so the transposing store is
 // free of bank conflicts
 template <typename T, int NC>
@@ -429,7 +441,7 @@ struct AttnSmem {
 template <typename T, int NC>
 __global__ void __launch_bounds__(kAttnWarps * 32)
 attention_kernel(const T* __restrict__ qkv, const unsigned char* __restrict__ mask,
-                 T* __restrict__ ctx, int S, int KW, float scale) {
+                 const int* __restrict__ counts, T* __restrict__ ctx, int S, int KW, float scale) {
   constexpr int HD = kHD;
   using L = AttnSmem<T, NC>;
   constexpr int ldk = L::ldk, ldp = L::ldp;
@@ -456,8 +468,7 @@ attention_kernel(const T* __restrict__ qkv, const unsigned char* __restrict__ ma
     const int j = S + i / HD, d = i % HD;
     Kt[d * ldk + j] = from_f<T>(0.f);
   }
-  for (int j = tid; j < ldp; j += blockDim.x)
-    flag[j] = j >= S ? 0 : ((mask == nullptr || mask[(long)b * S + j]) ? 1 : 2);
+  for (int j = tid; j < ldp; j += blockDim.x) flag[j] = key_flag(mask, counts, b, S, j);
   __syncthreads();
 
   float* q_w = Qs + warp * kNQ * HD;
@@ -534,28 +545,28 @@ attention_kernel(const T* __restrict__ qkv, const unsigned char* __restrict__ ma
 inline float attn_scale() { return static_cast<float>(1.0 / sqrt(static_cast<double>(kHD))); }
 
 template <typename T, int NC>
-cudaError_t attention_nc(const T* qkv, const unsigned char* mask, T* ctx, int B, int S, int H,
-                         int KW, cudaStream_t st) {
+cudaError_t attention_nc(const T* qkv, const unsigned char* mask, const int* counts, T* ctx, int B,
+                         int S, int H, int KW, cudaStream_t st) {
   const size_t smem = AttnSmem<T, NC>(S).bytes();
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, NC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  attention_kernel<T, NC><<<dim3(H, B), kAttnWarps * 32, smem, st>>>(qkv, mask, ctx, S, KW,
-                                                                      attn_scale());
+  attention_kernel<T, NC><<<dim3(H, B), kAttnWarps * 32, smem, st>>>(qkv, mask, counts, ctx, S,
+                                                                      KW, attn_scale());
   return cudaGetLastError();
 }
 
-cudaError_t attention(const float* qkv, const unsigned char* mask, float* ctx, int B, int S, int H,
-                      int KW, cudaStream_t st) {
+cudaError_t attention(const float* qkv, const unsigned char* mask, const int* counts, float* ctx,
+                      int B, int S, int H, int KW, cudaStream_t st) {
   switch ((S + 31) / 32) {
-    case 1: return attention_nc<float, 1>(qkv, mask, ctx, B, S, H, KW, st);
-    case 2: return attention_nc<float, 2>(qkv, mask, ctx, B, S, H, KW, st);
-    case 3: return attention_nc<float, 3>(qkv, mask, ctx, B, S, H, KW, st);
-    case 4: return attention_nc<float, 4>(qkv, mask, ctx, B, S, H, KW, st);
-    case 5: return attention_nc<float, 5>(qkv, mask, ctx, B, S, H, KW, st);
-    case 6: return attention_nc<float, 6>(qkv, mask, ctx, B, S, H, KW, st);
-    case 7: return attention_nc<float, 7>(qkv, mask, ctx, B, S, H, KW, st);
-    case 8: return attention_nc<float, 8>(qkv, mask, ctx, B, S, H, KW, st);
+    case 1: return attention_nc<float, 1>(qkv, mask, counts, ctx, B, S, H, KW, st);
+    case 2: return attention_nc<float, 2>(qkv, mask, counts, ctx, B, S, H, KW, st);
+    case 3: return attention_nc<float, 3>(qkv, mask, counts, ctx, B, S, H, KW, st);
+    case 4: return attention_nc<float, 4>(qkv, mask, counts, ctx, B, S, H, KW, st);
+    case 5: return attention_nc<float, 5>(qkv, mask, counts, ctx, B, S, H, KW, st);
+    case 6: return attention_nc<float, 6>(qkv, mask, counts, ctx, B, S, H, KW, st);
+    case 7: return attention_nc<float, 7>(qkv, mask, counts, ctx, B, S, H, KW, st);
+    case 8: return attention_nc<float, 8>(qkv, mask, counts, ctx, B, S, H, KW, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -590,7 +601,8 @@ __host__ __device__ inline size_t smem_bytes(int s) { return warp_base(s) + WARP
 
 __global__ void __launch_bounds__(ta::THREADS)
 attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restrict__ mask,
-                    bf16* __restrict__ ctx, int S, int KW, float scale) {
+                    const int* __restrict__ counts, bf16* __restrict__ ctx, int S, int KW,
+                    float scale) {
   using namespace nvcuda;
   using namespace ta;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -615,8 +627,7 @@ attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restric
     *reinterpret_cast<uint4*>(Ks + j * LDKV + d) = j < S ? *reinterpret_cast<const uint4*>(r + KW) : zero;
     *reinterpret_cast<uint4*>(Vs + j * LDKV + d) = j < S ? *reinterpret_cast<const uint4*>(r + 2 * KW) : zero;
   }
-  for (int j = tid; j < sp; j += THREADS)
-    flag[j] = j >= S ? 0 : ((mask == nullptr || mask[(long)b * S + j]) ? 1 : 2);
+  for (int j = tid; j < sp; j += THREADS) flag[j] = key_flag(mask, counts, b, S, j);
   __syncthreads();
 
   const int r = lane >> 1, c0 = (lane & 1) * 8;  // softmax: two lanes per row
@@ -705,14 +716,14 @@ attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restric
   }
 }
 
-cudaError_t attention(const bf16* qkv, const unsigned char* mask, bf16* ctx, int B, int S, int H,
-                      int KW, cudaStream_t st) {
+cudaError_t attention(const bf16* qkv, const unsigned char* mask, const int* counts, bf16* ctx,
+                      int B, int S, int H, int KW, cudaStream_t st) {
   static const cudaError_t attr =
       cudaFuncSetAttribute(attention_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)ta::smem_bytes(kMaxSeq));
   if (attr != cudaSuccess) return attr;
-  attention_tc_kernel<<<dim3(H, B), ta::THREADS, ta::smem_bytes(S), st>>>(qkv, mask, ctx, S, KW,
-                                                                         attn_scale());
+  attention_tc_kernel<<<dim3(H, B), ta::THREADS, ta::smem_bytes(S), st>>>(qkv, mask, counts, ctx,
+                                                                         S, KW, attn_scale());
   return cudaGetLastError();
 }
 
@@ -784,17 +795,19 @@ Epilogue epi(const void* bias, int act, const void* res, long ldr, bool res_f32,
   return Epilogue{bias, act, res, ldr, res_f32 ? 1 : 0, out, ldc, out_f32 ? 1 : 0, 0};
 }
 
+// The B1 layer on x [B, S, D]; keys masked by `mask` [B, S] bytes or, for
+// B3's compacted rows, by the kept counts [B] (either may be null).
 template <typename T>
-cudaError_t layer_forward(const T* x, const unsigned char* mask, const T* ln1g, const T* ln1b,
-                          const T* wqkv, const T* bqkv, const T* wo, const T* bo, const T* ln2g,
-                          const T* ln2b, const T* w1, const T* b1, const T* w2, const T* b2, T* out,
-                          T* h, T* qkv, T* ctx, float* x1, T* m1, int B, int S, int D, int H, int M,
-                          float eps, cudaStream_t st) {
+cudaError_t layer_forward(const T* x, const unsigned char* mask, const int* counts, const T* ln1g,
+                          const T* ln1b, const T* wqkv, const T* bqkv, const T* wo, const T* bo,
+                          const T* ln2g, const T* ln2b, const T* w1, const T* b1, const T* w2,
+                          const T* b2, T* out, T* h, T* qkv, T* ctx, float* x1, T* m1, int B, int S,
+                          int D, int H, int M, float eps, cudaStream_t st) {
   const int rows = B * S, KW = H * kHD;
   const int act = sizeof(T) == 2 ? ACT_GELU_TANH : ACT_GELU_ERF;
   VPT_TRY(layer_norm<T, T>(x, D, ln1g, ln1b, h, D, rows, D, eps, st));
   VPT_TRY(gemm(h, D, wqkv, rows, 3 * KW, D, epi(bqkv, ACT_NONE, nullptr, 0, false, qkv, 3 * KW, false), st));
-  VPT_TRY(attention(qkv, mask, ctx, B, S, H, KW, st));
+  VPT_TRY(attention(qkv, mask, counts, ctx, B, S, H, KW, st));
   VPT_TRY(gemm(ctx, KW, wo, rows, D, KW, epi(bo, ACT_NONE, x, D, false, x1, D, true), st));
   VPT_TRY(layer_norm<float, T>(x1, D, ln2g, ln2b, h, D, rows, D, eps, st));
   VPT_TRY(gemm(h, D, w1, rows, M, D, epi(b1, act, nullptr, 0, false, m1, M, false), st));
@@ -825,6 +838,87 @@ cudaError_t cls_logits_forward(const T* x, const T* ln1g, const T* ln1b, const T
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// B3, the bucketed layer of the re-decide modes. The TPU kernel gathered and
+// scattered with one-hot matmuls inside VMEM; here three small kernels move
+// rows by index around the B1 layer run at the capacity `cap`:
+//   bucket_invert  dest [B, S] -> src [B, cap] (source token of each
+//                  compacted row) and the kept counts [B], one block an image;
+//   gather_rows    xc[b, r] = x[b, src[b, r]];
+//   layer_forward  on xc, keys r >= counts[b] masked (no [B, cap] mask built);
+//   expand_rows    out[b, t] = yc[b, dest[b, t]] if t is kept, else x[b, t].
+// dest puts kept tokens first and skipped ones after them, so the rows past
+// an image's count hold skipped tokens: masked as keys, dropped on the way
+// back, but real values, never uninitialised memory (src starts at 0 in case
+// a caller's dest is not a permutation). The extra traffic over B1 at `cap`
+// is one read of x and one write of out, [B, S, D] each; nothing syncs with
+// the host.
+
+constexpr int kInvertThreads = kMaxSeq;  // one thread a token: S <= 256
+
+__global__ void __launch_bounds__(kInvertThreads)
+bucket_invert_kernel(const int* __restrict__ dest, const unsigned char* __restrict__ kept,
+                     int* __restrict__ src, int* __restrict__ counts, int S, int cap) {
+  const int b = blockIdx.x, t = threadIdx.x;
+  for (int r = t; r < cap; r += blockDim.x) src[(long)b * cap + r] = 0;
+  // a barrier as well: the zero fill is done before any row is written below
+  const int count = __syncthreads_count(t < S && kept[(long)b * S + t]);
+  if (t < S) {
+    const int r = dest[(long)b * S + t];
+    if (r >= 0 && r < cap) src[(long)b * cap + r] = t;
+  }
+  if (t == 0) counts[b] = count;
+}
+
+// Rows move as 16-byte chunks: D % 8 == 0 makes a row a whole number of
+// chunks in both dtypes, and the wrapper checks that x is 16-byte aligned.
+template <typename T>
+__global__ void gather_rows_kernel(const T* __restrict__ x, const int* __restrict__ src,
+                                   T* __restrict__ xc, int S, int cap, int chunks, long total) {
+  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long row = i / chunks;  // b * cap + r
+  const int c = static_cast<int>(i % chunks);
+  const long from = (row / cap) * S + src[row];
+  reinterpret_cast<uint4*>(xc)[row * chunks + c] = reinterpret_cast<const uint4*>(x)[from * chunks + c];
+}
+
+template <typename T>
+__global__ void expand_rows_kernel(const T* __restrict__ x, const T* __restrict__ yc,
+                                   const int* __restrict__ dest,
+                                   const unsigned char* __restrict__ kept, T* __restrict__ out,
+                                   int S, int cap, int chunks, long total) {
+  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long row = i / chunks;  // b * S + t
+  const int c = static_cast<int>(i % chunks);
+  const int r = dest[row];
+  const bool take = kept[row] && r >= 0 && r < cap;
+  const long from = take ? (row / S) * cap + r : row;
+  const uint4* src = reinterpret_cast<const uint4*>(take ? yc : x);
+  reinterpret_cast<uint4*>(out)[row * chunks + c] = src[from * chunks + c];
+}
+
+template <typename T>
+cudaError_t bucketed_forward(const T* x, const int* dest, const unsigned char* kept, const T* ln1g,
+                             const T* ln1b, const T* wqkv, const T* bqkv, const T* wo, const T* bo,
+                             const T* ln2g, const T* ln2b, const T* w1, const T* b1, const T* w2,
+                             const T* b2, T* out, int* src, int* counts, T* xc, T* yc, T* h, T* qkv,
+                             T* ctx, float* x1, T* m1, int B, int S, int cap, int D, int H, int M,
+                             float eps, cudaStream_t st) {
+  const int chunks = D * static_cast<int>(sizeof(T)) / 16;
+  bucket_invert_kernel<<<B, kInvertThreads, 0, st>>>(dest, kept, src, counts, S, cap);
+  VPT_TRY(cudaGetLastError());
+  const long g = (long)B * cap * chunks;
+  gather_rows_kernel<T><<<(g + 255) / 256, 256, 0, st>>>(x, src, xc, S, cap, chunks, g);
+  VPT_TRY(cudaGetLastError());
+  VPT_TRY(layer_forward<T>(xc, nullptr, counts, ln1g, ln1b, wqkv, bqkv, wo, bo, ln2g, ln2b, w1, b1,
+                           w2, b2, yc, h, qkv, ctx, x1, m1, B, cap, D, H, M, eps, st));
+  const long e = (long)B * S * chunks;
+  expand_rows_kernel<T><<<(e + 255) / 256, 256, 0, st>>>(x, yc, dest, kept, out, S, cap, chunks, e);
+  return cudaGetLastError();
+}
+
 bool shapes_ok(int dtype, int B, int S, int D, int H, int HD, int M) {
   return (dtype == 0 || dtype == 1) && HD == kHD && B > 0 && S > 0 && S <= kMaxSeq && H > 0 &&
          D % 8 == 0 && M % 8 == 0;
@@ -853,7 +947,7 @@ int vpt_vit_layer_forward(int dtype, const void* x, const void* mask, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned char* mk = static_cast<const unsigned char*>(mask);
 #define VPT_LAYER(T)                                                                              \
-  layer_forward<T>((const T*)x, mk, (const T*)ln1g, (const T*)ln1b, (const T*)wqkv,               \
+  layer_forward<T>((const T*)x, mk, nullptr, (const T*)ln1g, (const T*)ln1b, (const T*)wqkv,      \
                    (const T*)bqkv, (const T*)wo, (const T*)bo, (const T*)ln2g, (const T*)ln2b,    \
                    (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (T*)out, (T*)h,        \
                    (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, B, S, D, H, M, eps, st)
@@ -882,6 +976,30 @@ int vpt_vit_cls_logits_forward(int dtype, const void* x, const void* ln1g, const
                         H, M, labels, eps, st)
   return dtype == 0 ? VPT_CLS(float) : VPT_CLS(bf16);
 #undef VPT_CLS
+}
+
+// dest [B, S] int32 compacted row ids (kept first, stable), kept [B, S]
+// bytes, 1 <= cap <= S. Workspaces: src [B, cap] and counts [B] int32; xc,
+// yc, h [B*cap, D], qkv [B*cap, 3KW], ctx [B*cap, KW], m1 [B*cap, M] in the
+// dtype; x1 [B*cap, D] float32. out [B, S, D] in the dtype.
+int vpt_vit_layer_bucketed_forward(int dtype, const void* x, const void* dest, const void* kept,
+                                   const void* ln1g, const void* ln1b, const void* wqkv,
+                                   const void* bqkv, const void* wo, const void* bo,
+                                   const void* ln2g, const void* ln2b, const void* w1,
+                                   const void* b1, const void* w2, const void* b2, void* out,
+                                   void* src, void* counts, void* xc, void* yc, void* h, void* qkv,
+                                   void* ctx, void* x1, void* m1, int B, int S, int cap, int D,
+                                   int H, int HD, int M, float eps, void* stream) {
+  if (!shapes_ok(dtype, B, S, D, H, HD, M) || cap < 1 || cap > S) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define VPT_BUCKETED(T)                                                                            \
+  bucketed_forward<T>((const T*)x, (const int*)dest, (const unsigned char*)kept, (const T*)ln1g,   \
+                      (const T*)ln1b, (const T*)wqkv, (const T*)bqkv, (const T*)wo, (const T*)bo,  \
+                      (const T*)ln2g, (const T*)ln2b, (const T*)w1, (const T*)b1, (const T*)w2,    \
+                      (const T*)b2, (T*)out, (int*)src, (int*)counts, (T*)xc, (T*)yc, (T*)h,       \
+                      (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, B, S, cap, D, H, M, eps, st)
+  return dtype == 0 ? VPT_BUCKETED(float) : VPT_BUCKETED(bf16);
+#undef VPT_BUCKETED
 }
 
 }  // extern "C"

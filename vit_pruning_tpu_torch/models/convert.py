@@ -22,9 +22,23 @@ def _map(tree: Any, fn):
     return fn(tree)
 
 
-def params_from_jax(tree: Any, device="cpu", dtype: torch.dtype = torch.float32) -> Any:
+def check_device(device) -> torch.device:
+    """The device an init function or the bridge puts params on. The card
+    is the default everywhere; without one, asking for it raises here
+    instead of quietly using the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r}: no CUDA device is available; pass device='cpu' "
+            f"to build the params on the CPU"
+        )
+    return dev
+
+
+def params_from_jax(tree: Any, device="cuda", dtype: torch.dtype = torch.float32) -> Any:
     """JAX param tree with numpy (or numpy-convertible) leaves -> tensor tree
     on `device` in `dtype`. None leaves (e.g. no predictor) stay None."""
+    device = check_device(device)
 
     def leaf(a):
         a = np.asarray(a)

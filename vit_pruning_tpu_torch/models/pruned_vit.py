@@ -1,17 +1,28 @@
-"""Progressive top-k compaction (mode='topk_prog'), the serving forward.
+"""Pruned ViT: the re-decide modes and progressive top-k compaction.
 
-Mirrors init_pruned_vit_params, _keep_projection, progressive_drop and
-progressive_topk_forward of vit_pruning_tpu/models/pruned_vit.py. At each
-drop layer the cls_mlp predictor scores the live patches, CLS and the top-k
-patches are kept in token order, and the sequence physically shrinks;
-dropped tokens never rejoin. The JAX package gathers the kept rows with a
-one-hot matmul (a TPU workaround for slow dynamic gathers); here they are
-gathered by index, with the same kept set and row order.
+Mirrors vit_pruning_tpu/models/pruned_vit.py for serving (no oracle
+instrumentation, no training):
 
-With logits_only=True and kernels enabled, the last layer, the final LN and
-the classifier run as kernel B2 on the CLS row
-(ops/cuda/layer.py::fused_vit_layer_cls_logits); every other layer goes
-through vit_layer (kernel B1).
+  pruned_vit_forward  every layer scores all positions again, keeps some and
+                      carries the skipped ones through (modes mask, topk,
+                      oracle, random; none routes through vit_forward,
+                      topk_prog through progressive_topk_forward)
+  progressive_topk_forward
+                      dropped tokens never rejoin; the sequence shrinks per
+                      keep_schedule (optionally merging the dropped tokens)
+
+The JAX package compacts tokens with one-hot matmuls (a TPU workaround for
+slow dynamic gathers); here rows are gathered and scattered by index, with
+the same kept set and the same kept-first stable row order.
+
+Kernels: a budget-bounded layer (topk, mask with mask_budget, random) runs
+as kernel B3 (ops/cuda/layer.py::fused_vit_layer_bucketed); every other
+layer goes through vit_layer (kernel B1); with logits_only=True the
+progressive path's last layer, final LN and classifier run as kernel B2.
+
+The training side (train=True, the oracle instrumentation and its dense
+teacher pass, oracle_stream='parallel', the predictor losses) is ROADMAP A.9
+and raises NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -22,33 +33,55 @@ from typing import Optional
 import torch
 
 from vit_pruning_tpu_torch.configs import PruneConfig, ViTConfig
-from vit_pruning_tpu_torch.models.predictors import apply_predictor, init_predictor_params
+from vit_pruning_tpu_torch.models.predictors import (
+    apply_predictor,
+    apply_updatenet,
+    init_predictor_params,
+    init_updatenet_params,
+)
 from vit_pruning_tpu_torch.models.vit import (
     check_attn_geometry,
     embed,
     init_vit_params,
     layer_norm,
     layer_slice,
+    vit_forward,
     vit_layer,
 )
+from vit_pruning_tpu_torch.ops.cuda.layer import (
+    bucket_compact,
+    bucket_expand,
+    fused_vit_layer_bucketed,
+)
 from vit_pruning_tpu_torch.ops.dispatch import kernels_enabled
-from vit_pruning_tpu_torch.ops.masking import add_cls_keep, rank_keep_mask
+from vit_pruning_tpu_torch.ops.masking import (
+    add_cls_keep,
+    compact_dest,
+    neighbor_average,
+    neighbor_index_table,
+    random_keep_mask,
+    rank_keep_mask,
+    similarity_oracle,
+    threshold_keep_mask,
+)
 
 
 def init_pruned_vit_params(
     config: ViTConfig,
     pcfg: PruneConfig,
     generator: torch.Generator,
-    device="cpu",
+    device="cuda",
     dtype: torch.dtype = torch.float32,
 ) -> dict:
-    """{'backbone': ViT params, 'predictor': predictor params or None}."""
-    if pcfg.skip_correction == "updatenet":
-        raise NotImplementedError("skip_correction='updatenet': ROADMAP A.7")
-    return {
+    """{'backbone', 'predictor' (None for predictor='none')} and, with
+    skip_correction='updatenet', 'updatenet'."""
+    params = {
         "backbone": init_vit_params(config, generator, device, dtype),
         "predictor": init_predictor_params(config, pcfg, generator, device, dtype),
     }
+    if pcfg.skip_correction == "updatenet":
+        params["updatenet"] = init_updatenet_params(config, generator, device, dtype)
+    return params
 
 
 def _is_active(pcfg: PruneConfig, i: int) -> bool:
@@ -57,12 +90,291 @@ def _is_active(pcfg: PruneConfig, i: int) -> bool:
     return pcfg.active_layers is None or i in pcfg.active_layers
 
 
+# --- re-decide modes -----------------------------------------------------------------
+
+def _bucket_caps(s: int) -> tuple:
+    """Capacity ladder of the uncapped mask mode: 24-step rungs from ~3/8 of
+    the sequence up to its full length (S 197: 80, 104, 128, 152, 176, 197)."""
+    lo = max(16, ((int(s * 0.375) + 15) // 16) * 16)
+    return tuple(sorted(set(range(lo, s, 24)) | {s}))
+
+
+def bucketed_masked_layer(
+    x: torch.Tensor,
+    layer_params: dict,
+    mask: torch.Tensor,
+    config: ViTConfig,
+    cap_hint: Optional[int] = None,
+    passthrough: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mask-mode layer that computes only at a capacity holding the kept
+    tokens: each kept token attends over exactly the kept keys, skipped
+    tokens carry `passthrough` (None = x itself). The result is finished.
+
+    cap_hint: a static bound on every image's kept count (mask_budget + 1,
+    top_k + 1, the random budget + 1). With it, the layer runs at exactly
+    that capacity, as kernel B3 when kernels are on, else as the plain
+    gather -> vit_layer -> scatter; neither route reads the device from the
+    host.
+
+    Without it, the rung is the smallest of _bucket_caps holding the batch's
+    largest kept count. JAX picks it with lax.switch on the device; the port
+    reads that count on the host, ONE sync per layer (`int(counts.max())`),
+    and only on this uncapped route. The full-length rung runs the masked
+    layer in place (B1 with the token mask); a shorter rung gathers the
+    kept-first rows, runs vit_layer with keys `row < count` (B1 at the
+    rung's length) and scatters them back.
+    """
+    b, s, _ = x.shape
+    dest = compact_dest(mask)
+    if cap_hint is not None and cap_hint < s:
+        if kernels_enabled():
+            y = fused_vit_layer_bucketed(x, layer_params, dest, mask, cap_hint,
+                                         config.num_heads, config.layernorm_eps)
+            return y if passthrough is None else torch.where(mask[..., None], y, passthrough)
+        cap = cap_hint
+    else:
+        maxc = int(mask.sum(-1).max())  # the host read of the uncapped ladder
+        cap = next(c for c in _bucket_caps(s) if c >= maxc)
+        if cap == s:
+            y = vit_layer(x, layer_params, config, token_mask=mask)
+            return torch.where(mask[..., None], y, x if passthrough is None else passthrough)
+    xc, key_ok = bucket_compact(x, dest, mask, cap)
+    yc = vit_layer(xc, layer_params, config, token_mask=key_ok)
+    return bucket_expand(x if passthrough is None else passthrough, yc, dest, mask, cap)
+
+
+def _sim_threshold(pcfg: PruneConfig, layer_idx: int) -> float:
+    """Per-layer oracle threshold (one float or a per-layer tuple)."""
+    st = pcfg.sim_threshold
+    return st[layer_idx] if isinstance(st, tuple) else st
+
+
+def _mlp_threshold(pcfg: PruneConfig, layer_idx: int) -> float:
+    """Per-layer predictor threshold (one float or a per-layer tuple)."""
+    mt = pcfg.mlp_threshold
+    return mt[layer_idx] if isinstance(mt, tuple) else mt
+
+
+def _passthrough(x: torch.Tensor, extras: dict, mask: torch.Tensor) -> torch.Tensor:
+    """Value carried by skipped tokens: x itself, or x + the learned /
+    CLS-direction approximation of the layer's residual."""
+    if "approx_residual" in extras:
+        return torch.cat([x[:, 0:1], x[:, 1:] + extras["approx_residual"]], dim=1)
+    return x
+
+
+def pruned_layer_forward(
+    layer_params: dict,
+    pred_params: Optional[dict],
+    layer_idx: int,
+    x: torch.Tensor,
+    config: ViTConfig,
+    pcfg: PruneConfig,
+    *,
+    prev_keep: Optional[torch.Tensor],
+    nbr_idx: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    updatenet_params: Optional[dict] = None,
+):
+    """One pruned encoder layer (serving). Returns (x_out, {'keep_mask'
+    [B, S] bool, 'scores' [B, N]})."""
+    b, s, _ = x.shape
+    n = s - 1
+
+    # neighbour refresh of previously skipped tokens
+    if pcfg.avg_threshold > 0.0 and prev_keep is not None:
+        patches = neighbor_average(x[:, 1:], nbr_idx, pcfg.avg_threshold,
+                                   source_mask=~prev_keep[:, 1:])
+        x = torch.cat([x[:, 0:1], patches], dim=1)
+
+    # score and select
+    extras: dict = {}
+    if pcfg.predictor != "none" and pred_params is not None:
+        scores, extras = apply_predictor(pred_params, layer_idx, x, config, pcfg,
+                                         layer_params=layer_params)
+    else:
+        scores = torch.ones((b, n), dtype=x.dtype, device=x.device)
+    if pcfg.skip_correction == "updatenet" and updatenet_params is not None:
+        extras["approx_residual"] = apply_updatenet(updatenet_params, layer_idx, x)
+    elif pcfg.skip_correction == "cls_direction":
+        cls = x[:, 0:1]
+        norm = torch.linalg.vector_norm(cls, dim=-1, keepdim=True).clamp_min(1e-12)
+        extras["approx_residual"] = (cls / norm).expand_as(x[:, 1:])
+
+    # key_cosine computed the dense pass already: reuse it
+    dense_out = extras.get("dense_out")
+    if (pcfg.mode == "oracle" or pcfg.measure_only) and dense_out is None:
+        dense_out = vit_layer(x, layer_params, config)
+
+    def passthrough_arg(mask):
+        return _passthrough(x, extras, mask) if "approx_residual" in extras else None
+
+    if pcfg.mode == "mask":
+        keep = threshold_keep_mask(scores, _mlp_threshold(pcfg, layer_idx))
+        if pcfg.mask_budget is not None and pcfg.mask_budget < n:
+            # at most mask_budget of the above-threshold tokens, by score rank
+            capped = rank_keep_mask(torch.where(keep, scores, float("-inf")), pcfg.mask_budget)
+            keep = keep & capped
+        mask = add_cls_keep(keep)
+        if pcfg.measure_only:
+            out = dense_out  # masks and stats only, dense execution
+        elif pcfg.query_only:
+            # skipped tokens stay in K/V; only their own outputs are discarded
+            y = vit_layer(x, layer_params, config)
+            out = torch.where(mask[..., None], y, _passthrough(x, extras, mask))
+        else:
+            hint = pcfg.mask_budget + 1 if pcfg.mask_budget is not None else None
+            out = bucketed_masked_layer(x, layer_params, mask, config, cap_hint=hint,
+                                        passthrough=passthrough_arg(mask))
+    elif pcfg.mode == "topk":
+        # the same set as topk_keep_mask (ties to the lower index), mask only
+        mask = add_cls_keep(rank_keep_mask(scores, pcfg.top_k))
+        out = bucketed_masked_layer(x, layer_params, mask, config, cap_hint=pcfg.top_k + 1,
+                                    passthrough=passthrough_arg(mask))
+    elif pcfg.mode == "oracle":
+        sim_o = similarity_oracle(x[:, 1:], dense_out[:, 1:], pcfg.oracle_alpha)
+        mask = add_cls_keep(sim_o < _sim_threshold(pcfg, layer_idx))  # changes a lot: process
+        out = torch.where(mask[..., None], dense_out, x)
+    elif pcfg.mode == "random":
+        if generator is None:
+            raise ValueError("mode='random' requires a generator")
+        budget = pcfg.random_keep[layer_idx] if pcfg.random_keep is not None else pcfg.top_k
+        mask = add_cls_keep(random_keep_mask(generator, b, n, budget, x.device))
+        out = bucketed_masked_layer(x, layer_params, mask, config, cap_hint=budget + 1)
+    else:
+        raise ValueError(f"unknown prune mode {pcfg.mode!r}")
+
+    if pcfg.layer_skip_threshold > 0.0:
+        # images whose mean keep-score is below the threshold bypass the layer
+        skip_layer = scores.mean(dim=1) < pcfg.layer_skip_threshold
+        out = torch.where(skip_layer[:, None, None], x, out)
+        mask = torch.where(skip_layer[:, None], torch.zeros_like(mask), mask)
+        mask[:, 0] = True  # CLS counted as live for reporting
+
+    return out, {"keep_mask": mask, "scores": scores}
+
+
+def pruned_vit_forward(
+    params: dict,
+    pixel_values: torch.Tensor,
+    config: ViTConfig,
+    pcfg: PruneConfig,
+    *,
+    train: bool = False,
+    compute_oracle: bool = False,
+    oracle: Optional[bool] = None,
+    return_layer_inputs: bool = False,
+    generator: Optional[torch.Generator] = None,
+    quant: Optional[str] = None,
+) -> dict:
+    """Full pruned forward (serving).
+
+    Returns dict(logits [B, labels], cls [B, D], last_hidden [B, S, D],
+    keep_masks [L, B, S] bool, scores [L, B, N]; + layer_inputs [L, B, S, D],
+    each layer's input as its predictor saw it, when return_layer_inputs).
+    `generator` draws mode='random''s noise, layer after layer.
+    """
+    need_oracle = (train or compute_oracle) if oracle is None else oracle
+    if train or need_oracle:
+        raise NotImplementedError(
+            "train / the oracle instrumentation (dense teacher pass, oracle_stream, "
+            "predictor losses): ROADMAP A.9"
+        )
+    if quant not in (None, "none"):
+        raise NotImplementedError("int8 serving: ROADMAP A.8 (kernel B4)")
+    L = config.num_layers
+    if pcfg.mode == "none" and not return_layer_inputs:
+        # dense: vit_forward, with the masks and scores of an all-inactive run
+        dense = vit_forward(params["backbone"], pixel_values, config)
+        x = dense["last_hidden"]
+        b, s = x.shape[:2]
+        return {
+            "logits": dense["logits"],
+            "cls": dense["cls"],
+            "last_hidden": x,
+            "keep_masks": torch.ones((L, b, s), dtype=torch.bool, device=x.device),
+            "scores": torch.ones((L, b, s - 1), dtype=x.dtype, device=x.device),
+        }
+    if pcfg.mode == "topk_prog":
+        return progressive_topk_forward(params, pixel_values, config, pcfg)
+    backbone = params["backbone"]
+    pred = params.get("predictor")
+
+    x = embed(pixel_values, backbone["embed"], config)
+    nbr_idx = torch.from_numpy(neighbor_index_table(config.grid_size)).long().to(x.device)
+    masks, scores_l, layer_inputs = [], [], []
+    prev_keep = None
+    # skip-next flag [B] bool, set by the previous layer's thresholded mask:
+    # flagged images bypass this layer
+    skip_vec = None
+    for i in range(L):
+        if return_layer_inputs:
+            layer_inputs.append(x)
+        lp = layer_slice(backbone["layers"], i)
+        x_in = x
+        if not _is_active(pcfg, i):
+            x = vit_layer(x, lp, config)
+            if skip_vec is not None:
+                # "the next layer" is the physically next one, active or not
+                x = torch.where(skip_vec[:, None, None], x_in, x)
+                skip_vec = None
+            b, s = x.shape[:2]
+            info = {"keep_mask": torch.ones((b, s), dtype=torch.bool, device=x.device),
+                    "scores": torch.ones((b, s - 1), dtype=x.dtype, device=x.device)}
+        else:
+            x, info = pruned_layer_forward(
+                lp, pred, i, x, config, pcfg, prev_keep=prev_keep, nbr_idx=nbr_idx,
+                generator=generator, updatenet_params=params.get("updatenet"),
+            )
+            if pcfg.skip_next_threshold > 0.0:
+                # this layer's thresholded mask decides whether each image
+                # skips the next layer; an image skipped here reports an
+                # all-ones mask and no scores, and never triggers a skip
+                raw_mask = info["keep_mask"]
+                trigger = raw_mask[:, 1:].float().mean(dim=1) > pcfg.skip_next_threshold
+                if skip_vec is not None:
+                    x = torch.where(skip_vec[:, None, None], x_in, x)
+                    info = {
+                        "keep_mask": torch.where(skip_vec[:, None], torch.ones_like(raw_mask),
+                                                 raw_mask),
+                        "scores": torch.where(skip_vec[:, None], torch.ones_like(info["scores"]),
+                                              info["scores"]),
+                    }
+                    trigger = trigger & ~skip_vec
+                skip_vec = trigger
+        prev_keep = info["keep_mask"]
+        masks.append(info["keep_mask"])
+        scores_l.append(info["scores"])
+
+    x = layer_norm(x, backbone["ln_f"], config.layernorm_eps)
+    cls = x[:, 0]
+    out = {
+        "logits": cls @ backbone["head"]["w"] + backbone["head"]["b"],
+        "cls": cls,
+        "last_hidden": x,
+        "keep_masks": torch.stack(masks),
+        "scores": torch.stack(scores_l),
+    }
+    if return_layer_inputs:
+        out["layer_inputs"] = torch.stack(layer_inputs)
+    return out
+
+
+def skip_ratio(keep_masks: torch.Tensor) -> torch.Tensor:
+    """Fraction of tokens skipped per layer: [L, B, S] -> [L]."""
+    return 1.0 - keep_masks.float().mean(dim=(1, 2))
+
+
+# --- progressive compaction ------------------------------------------------------------
+
 def _keep_projection(scores: torch.Tensor, k: int):
     """CLS + the top-k patches by score (rank_keep_mask tie-break).
 
     Returns (mask [B, S] bool, cidx [B, k+1] long): cidx[b, r] is the source
     position of compacted row r, in token order — the rows of the JAX
-    package's one-hot P, as indices.
+    package's one-hot P, as indices. The drop and the merge both take their
+    kept set from here.
     """
     mask = add_cls_keep(rank_keep_mask(scores, k))
     b, s = mask.shape
@@ -94,6 +406,39 @@ def progressive_drop(
     return xc, scores, cidx
 
 
+def merge_dropped_tokens(
+    x_full: torch.Tensor,
+    xc: torch.Tensor,
+    scores: torch.Tensor,
+    k: int,
+    sizes: torch.Tensor,
+):
+    """Each dropped patch token merges into its most cosine-similar kept
+    patch as a size-weighted average; CLS never merges either way.
+
+    x_full [B, S, D] before the drop, xc [B, k+1, D] the compacted sequence
+    (from progressive_drop on the same scores), sizes [B, S] the tokens'
+    accumulated sizes. Returns (xc_merged [B, k+1, D], sizes [B, k+1]). The
+    JAX package scatter-adds with one-hot matmuls; here by index (on the
+    card an atomic scatter-add, so the sum order is not fixed).
+    """
+    mask, cidx = _keep_projection(scores, k)
+    sz_c = torch.gather(sizes, 1, cidx)
+    kept_p = xc[:, 1:]
+    xn = x_full * torch.rsqrt((x_full * x_full).sum(-1, keepdim=True) + 1e-6)
+    kn = kept_p * torch.rsqrt((kept_p * kept_p).sum(-1, keepdim=True) + 1e-6)
+    target = (xn @ kn.transpose(1, 2)).argmax(-1)  # [B, S]: first max, as jnp.argmax
+    w = sizes * (~mask).to(sizes.dtype)  # dropped tokens' sizes; 0 for kept and CLS
+    b, _, d = x_full.shape
+    add_num = torch.zeros((b, k, d), dtype=x_full.dtype, device=x_full.device).scatter_add_(
+        1, target[..., None].expand(-1, -1, d), x_full * w[..., None])
+    add_sz = torch.zeros((b, k), dtype=sizes.dtype, device=sizes.device).scatter_add_(
+        1, target, w)
+    new_sz = sz_c[:, 1:] + add_sz
+    merged = (kept_p * sz_c[:, 1:, None] + add_num) / new_sz[..., None]
+    return torch.cat([xc[:, :1], merged], dim=1), torch.cat([sz_c[:, :1], new_sz], dim=1)
+
+
 def progressive_topk_forward(
     params: dict,
     pixel_values: Optional[torch.Tensor],
@@ -106,8 +451,6 @@ def progressive_topk_forward(
     """Returns dict(logits, keep_masks [L, B, S] bool over original
     positions, scores [L, B, N] over original patch positions with -inf at
     dropped ones; + cls, last_hidden when logits_only=False)."""
-    if pcfg.merge_dropped:
-        raise NotImplementedError("merge_dropped: ROADMAP A.7")
     if os.environ.get("VIT_PRUNING_TPU_ENCODER") == "1":
         raise NotImplementedError("whole-encoder segments: kernel B5, ROADMAP A.12")
     backbone = params["backbone"]
@@ -123,12 +466,16 @@ def progressive_topk_forward(
     orig = torch.arange(s, device=x.device).expand(b, s)  # source position of each live token
     masks, scores_l = [], []
     cur = s
+    sizes = torch.ones((b, s), dtype=x.dtype, device=x.device) if pcfg.merge_dropped else None
     use_cls_kernel = logits_only and kernels_enabled()
     for i in range(L):
         lp = layer_slice(backbone["layers"], i)
         k_i = schedule[i]
         if k_i and k_i < cur - 1 and _is_active(pcfg, i):
+            x_full = x
             x, scores, cidx = progressive_drop(x, pred, i, k_i, config, pcfg, layer_params=lp)
+            if pcfg.merge_dropped:
+                x, sizes = merge_dropped_tokens(x_full, x, scores, k_i, sizes)
             full = torch.full((b, s - 1), float("-inf"), dtype=scores.dtype, device=x.device)
             scores_l.append(full.scatter(1, orig[:, 1:] - 1, scores))
             orig = torch.gather(orig, 1, cidx)

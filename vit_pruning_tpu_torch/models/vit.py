@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from vit_pruning_tpu_torch.configs import ViTConfig
-from vit_pruning_tpu_torch.models.convert import tree_to
+from vit_pruning_tpu_torch.models.convert import check_device, tree_to
 from vit_pruning_tpu_torch.ops.attention import mha
 from vit_pruning_tpu_torch.ops.dispatch import kernels_enabled
 from vit_pruning_tpu_torch.ops.patch_embed import patch_embed
@@ -139,11 +139,14 @@ def stack_trees(trees: list) -> dict:
 def init_vit_params(
     config: ViTConfig,
     generator: torch.Generator,
-    device="cpu",
+    device="cuda",
     dtype: torch.dtype = torch.float32,
 ) -> dict:
     """Random init as the JAX package's: trunc-normal(0.02) weights, zero
-    biases, unit LN gains. Same distribution, not the same numbers."""
+    biases, unit LN gains. Same distribution, not the same numbers. Drawn
+    on the CPU from `generator`, then moved to `device` (the card unless
+    the caller asks for 'cpu')."""
+    device = check_device(device)
     d = config.hidden_size
 
     def layer_init():

@@ -38,6 +38,9 @@ SIGNATURES = {
     "vpt_vit_layer_forward": ([I] + [P] * 20 + [I] * 6 + [F, P], I),
     # dtype, x, 18 weights, logits, 7 workspaces, B S D H HD M labels, eps, stream
     "vpt_vit_cls_logits_forward": ([I] + [P] * 27 + [I] * 7 + [F, P], I),
+    # dtype, x, dest, kept, 12 layer weights, out, src, counts, 7 workspaces,
+    # B S cap D H HD M, eps, stream
+    "vpt_vit_layer_bucketed_forward": ([I] + [P] * 25 + [I] * 7 + [F, P], I),
 }
 
 

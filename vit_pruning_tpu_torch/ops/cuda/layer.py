@@ -1,15 +1,19 @@
-"""Kernels B1 and B2: a whole ViT layer, and the last layer's CLS row through
-the classifier. Wrappers around csrc/layer.cu, each beside its plain PyTorch
-version.
+"""Kernels B1, B2 and B3: a whole ViT layer, the last layer's CLS row through
+the classifier, and the bucketed layer of the re-decide modes. Wrappers
+around csrc/layer.cu, each beside its plain PyTorch version.
 
 B1 `fused_vit_layer` replaces vit_pruning_tpu/ops/pallas/layer.py::
 fused_vit_layer (the staged2 whole-layer kernel). B2
-`fused_vit_layer_cls_logits` replaces ::fused_vit_layer_cls_logits. What
-bounds them on an H100 and what the CUDA design does about it is in the
-head of csrc/layer.cu: the layer products dominate and are tensor-core
-bound at batch 512, so each runs as one tiled GEMM with its bias / GELU /
-residual / cast fused into the epilogue, and the residual stream stays f32
-between the attention and MLP halves as it stayed in VMEM on the TPU.
+`fused_vit_layer_cls_logits` replaces ::fused_vit_layer_cls_logits. B3
+`fused_vit_layer_bucketed` replaces ::fused_vit_layer_bucketed: gather the
+kept-first rows to a static capacity, run the B1 layer there with keys
+masked past each image's kept count, scatter the kept rows back and pass
+the skipped ones through unchanged. What bounds them on an H100 and what
+the CUDA design does about it is in the head of csrc/layer.cu: the layer
+products dominate and are tensor-core bound at batch 512, so each runs as
+one tiled GEMM with its bias / GELU / residual / cast fused into the
+epilogue, and the residual stream stays f32 between the attention and MLP
+halves as it stayed in VMEM on the TPU.
 
 A wrapper launches its kernel for CUDA tensors and counts the launch in its
 `launches` attribute; for CPU tensors it runs the plain version (mode
@@ -117,6 +121,50 @@ def fused_vit_layer_cls_logits_ref(
     x2 = x1 + _linear_f32(m1, mlp["fc2"]["w"], mlp["fc2"]["b"])
     yn = _ln_f32(x2, lnf, eps)
     return _linear_f32(yn, head["w"], head["b"]).to(dt)
+
+
+def bucket_compact(x: torch.Tensor, dest: torch.Tensor, kept: torch.Tensor, cap: int):
+    """The first `cap` rows of the kept-first order, by index.
+
+    dest [B, S]: compacted row of every token (kept first, then skipped,
+    each in token order: a permutation of 0..S-1 per image). Returns
+    (xc [B, cap, D], key_ok [B, cap] bool = row < the image's kept count).
+    Rows at or past the count hold skipped tokens; they are masked as keys
+    and their outputs are dropped by bucket_expand.
+    """
+    b, s, d = x.shape
+    pos = torch.arange(s, device=x.device).expand(b, s)
+    src = torch.zeros((b, s), dtype=torch.int64, device=x.device).scatter_(1, dest.long(), pos)
+    xc = torch.gather(x, 1, src[:, :cap, None].expand(-1, -1, d))
+    key_ok = torch.arange(cap, device=x.device) < kept.sum(-1, keepdim=True)
+    return xc, key_ok
+
+
+def bucket_expand(
+    x: torch.Tensor, yc: torch.Tensor, dest: torch.Tensor, kept: torch.Tensor, cap: int
+) -> torch.Tensor:
+    """out[b, t] = yc[b, dest[b, t]] where token t is kept (and its row is
+    below cap), else x[b, t]: the scatter back with x as the passthrough."""
+    take = kept & (dest < cap)
+    rows = dest.long().clamp(max=cap - 1)
+    back = torch.gather(yc, 1, rows[..., None].expand(-1, -1, x.shape[-1]))
+    return torch.where(take[..., None], back, x)
+
+
+def fused_vit_layer_bucketed_ref(
+    x: torch.Tensor,
+    params: dict,
+    dest: torch.Tensor,
+    kept: torch.Tensor,
+    cap: int,
+    num_heads: int,
+    eps: float = 1e-12,
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel B3: gather, B1's plain layer at `cap`
+    with the count key mask, scatter + identity passthrough."""
+    xc, key_ok = bucket_compact(x, dest, kept, cap)
+    yc = fused_vit_layer_ref(xc, params, num_heads, eps, key_ok)
+    return bucket_expand(x, yc, dest, kept, cap)
 
 
 # --- wrappers -----------------------------------------------------------------------
@@ -297,3 +345,69 @@ def fused_vit_layer_cls_logits(
 
 
 fused_vit_layer_cls_logits.launches = 0
+
+
+def fused_vit_layer_bucketed(
+    x: torch.Tensor,
+    params: dict,
+    dest: torch.Tensor,
+    kept: torch.Tensor,
+    cap: int,
+    num_heads: int,
+    eps: float = 1e-12,
+) -> torch.Tensor:
+    """Kernel B3: the bucketed mask-mode layer, x [B, S, D] -> [B, S, D].
+
+    dest [B, S] integer compacted row ids (kept first, stable; see
+    bucket_compact), kept [B, S] bool, cap a static bound on every image's
+    kept count (1 <= cap <= S). Kept tokens get the layer output computed
+    over the kept keys only, skipped tokens are x unchanged. The counts and
+    the key mask are made on the card: nothing here reads the device.
+    """
+    if not launch_kernel_for(x):
+        return fused_vit_layer_bucketed_ref(x, params, dest, kept, cap, num_heads, eps)
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    who = "fused_vit_layer_bucketed"
+    lib = load_library()
+    a = params["attn"]
+    wqkv = torch.cat([a["q"]["w"], a["k"]["w"], a["v"]["w"]], dim=1)
+    bqkv = torch.cat([a["q"]["b"], a["k"]["b"], a["v"]["b"]])
+    b, s, d, hd, kw, m = _geometry(lib, x, params, num_heads, who)
+    if not 1 <= cap <= s:
+        raise ValueError(f"{who}: cap {cap} not in [1, S={s}]")
+    shapes = {"qkv.w": (d, 3 * kw), "qkv.b": (3 * kw,), **_layer_shapes(d, kw, m)}
+    w = _layer_weights(params)
+    dtype = _check(x, {"qkv.w": wqkv, "qkv.b": bqkv, **w}, shapes, who)
+    dest = dest.to(torch.int32)
+    for name, t, want in (("dest", dest, torch.int32), ("kept", kept, torch.bool)):
+        if t.shape != (b, s) or t.dtype != want:
+            raise ValueError(f"{who}: {name} must be {want} [{b}, {s}]")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be contiguous on {x.device}")
+
+    out = torch.empty_like(x)
+    rows = b * cap
+    src = torch.empty((b, cap), dtype=torch.int32, device=x.device)
+    counts = torch.empty((b,), dtype=torch.int32, device=x.device)
+    xc, yc, h = (x.new_empty((rows, d)) for _ in range(3))
+    qkv = x.new_empty((rows, 3 * kw))
+    ctx = x.new_empty((rows, kw))
+    x1 = torch.empty((rows, d), dtype=torch.float32, device=x.device)
+    m1 = x.new_empty((rows, m))
+    with torch.cuda.device(x.device):
+        rc = lib.vpt_vit_layer_bucketed_forward(
+            dtype, x.data_ptr(), dest.data_ptr(), kept.data_ptr(),
+            w["ln1.g"].data_ptr(), w["ln1.b"].data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+            w["o.w"].data_ptr(), w["o.b"].data_ptr(), w["ln2.g"].data_ptr(), w["ln2.b"].data_ptr(),
+            w["fc1.w"].data_ptr(), w["fc1.b"].data_ptr(), w["fc2.w"].data_ptr(), w["fc2.b"].data_ptr(),
+            out.data_ptr(), src.data_ptr(), counts.data_ptr(), xc.data_ptr(), yc.data_ptr(),
+            h.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), x1.data_ptr(), m1.data_ptr(),
+            b, s, cap, d, num_heads, hd, m, eps, _stream(x),
+        )
+    _raise_on(lib, rc, who)
+    fused_vit_layer_bucketed.launches += 1
+    return out
+
+
+fused_vit_layer_bucketed.launches = 0
