@@ -11,6 +11,10 @@ kernels from csrc/ itself. Phases:
   3. kernel B1 (fused_vit_layer) against its plain version: DeiT-S and
      composed geometry, S in {197, 131, 99, 66, 33, 17}, masked and not,
      float32 and bfloat16, batch 8
+  3c. kernel B4 (fused_vit_layer_int8) against its plain version on the
+     same cases, with the int8 codes of every quantized activation compared
+     (the count that differ is printed), and a row whose scaled values land
+     on k + 0.5 through the row-quantization kernel (half to even)
   4. kernel B2 (fused_vit_layer_cls_logits) against its plain version
   4b. kernel B3 (fused_vit_layer_bucketed) against its plain version: S 197
      with cap 99 / 131 / 197 and S 99 with cap 50, random kept counts up to
@@ -24,11 +28,19 @@ kernels from csrc/ itself. Phases:
      in modes topk (top_k 98), mask with mask_budget 98, mask without a
      budget (per-layer median thresholds from a measure_only probe) and
      random (top_k 98, a seeded generator), kernels against plain PyTorch
-  6. times at batch 512 in bfloat16, kernel path and plain path, and each
-     kernel beside its plain version and its eager PyTorch equivalent
-     (info only); each kernel's bound from its shapes; the device time of the
-     dense, headline, topk50 and mask forwards by kernel family
-     (torch.profiler)
+  5c. int8 serving end to end (quant_mode('int8')), same model and batch:
+     dense vit_forward, headline / composed / ultra through serving_forward
+     (logits_only=False in both modes, then logits_only=True in 'auto', whose
+     last layer is the float B2), topk50 / mask_budget50 / mask / random50
+     through pruned_vit_forward, kernels against plain PyTorch with the
+     launch counts of every forward, and the int8 logits against the float
+     ones
+  6. times at batch 512 in bfloat16, kernel path and plain path (float and
+     int8), and each kernel beside its plain version and its eager PyTorch
+     equivalent (info only); each kernel's bound from its shapes; the device
+     time of the dense, headline, topk50, mask, dense_int8 and topk50_int8
+     forwards by kernel family and of the once-per-forward weight
+     quantization (torch.profiler)
   7. records: nothing of jax or of the JAX package was loaded (by module
      name or by file), the kernels' JSON line, the device line
 
@@ -52,11 +64,17 @@ SEED = 0
 # units at DeiT-S width) so that the f32 top-k cuts are not near ties
 PREDICTOR_GAIN = 10.0
 F32_ATOL = 1e-4  # kernel vs plain, both f32-accumulated; sums in another order
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): bf16 tensor
-# cores and device memory; a kernel's bound is the larger of its operations
-# and its bytes over these
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): bf16 and
+# int8 tensor cores and device memory; a kernel's bound is the larger of its
+# operations and its bytes over these
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
+# the codes of a quantized row that the half-to-even check expects: amax 127
+# makes the row scale exactly 1, so each code is the value rounded half to even
+HALF_EVEN_ROW = [127.0, 0.5, 1.5, 2.5, 3.5, -0.5, -1.5, -2.5, 126.5, -126.5, 0.49, 2.51,
+                 -127.0, 64.5, -64.5, 7.0]
+HALF_EVEN_CODES = [127, 0, 2, 2, 4, 0, -2, -2, 126, -126, 0, 3, -127, 64, -64, 7]
 
 
 def log(msg: str):
@@ -70,6 +88,21 @@ def bf16_tol(ref) -> float:
     an intermediate and once in the output."""
     top = max(float(ref.abs().max()), 1e-30)
     return 2.0 * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def int8_step(ref, x) -> float:
+    """One int8 step of a layer's residual update, max|ref - x| / 127. An
+    activation within float noise of k + 0.5 may be rounded to different
+    codes by the kernel and its plain version (their sums run in another
+    order); one code apart moves that product's output by about one such
+    step, which is the tolerance an int8 comparison adds to the float one."""
+    return float((ref.float() - x.float()).abs().max()) / 127.0
+
+
+def rel_err(a, b) -> float:
+    """||a - b|| / ||b||, over the whole batch."""
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
 class Checks:
@@ -125,8 +158,10 @@ def main():
     from vit_pruning_tpu_torch.models.pruned_vit import init_pruned_vit_params, pruned_vit_forward
     from vit_pruning_tpu_torch.models.vit import layer_norm, layer_slice, vit_forward, vit_layer
     from vit_pruning_tpu_torch.ops.cuda import layer as kl
+    from vit_pruning_tpu_torch.ops.cuda import layer_int8 as k8
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
-    from vit_pruning_tpu_torch.ops.dispatch import kernel_mode
+    from vit_pruning_tpu_torch.ops.dispatch import kernel_mode, quant_mode
+    from vit_pruning_tpu_torch.ops.quant import attach_int8_weights, quantize_layer_params
     from vit_pruning_tpu_torch.ops.masking import compact_dest
     from vit_pruning_tpu_torch.ops.structured import prune_heads, prune_mlp_channels
     from vit_pruning_tpu_torch.serving import serving_forward
@@ -177,7 +212,7 @@ def main():
     lnf = perturbed_layer(base["backbone"]["ln_f"], gen)
     head = {"w": base["backbone"]["head"]["w"],
             "b": base["backbone"]["head"]["b"] + 0.1 * torch.randn(100, generator=gen)}
-    err = {"b1": 0.0, "b2": 0.0, "b3": 0.0}
+    err = {"b1": 0.0, "b2": 0.0, "b3": 0.0, "b4": 0.0}
 
     # --- 3. B1 against its plain version ------------------------------------------------
     check = Checks("phase 3 (B1 vs plain)")
@@ -215,6 +250,56 @@ def main():
             check(False, f"B1 accepted {what}")
         except (TypeError, ValueError) as e:
             log(f"  B1 rejects {what}: {e}")
+    check.done()
+
+    # --- 3c. B4 against its plain version ------------------------------------------------
+    check = Checks("phase 3c (B4 vs plain)")
+    flipped = {k: 0 for k in k8.STAGES}
+    n_codes = {k: 0 for k in k8.STAGES}
+    for gname, (gcfg, lp_cpu) in geometries.items():
+        for dname, dt in dtypes.items():
+            qp = quantize_layer_params(tree_to(lp_cpu, dev, dt))
+            for s in (197, 131, 99, 66, 33, 17):
+                x = torch.randn(8, s, gcfg.hidden_size, generator=gen).to(dev, dt)
+                m = torch.rand(8, s, generator=gen) > 0.3
+                m[:, 0] = True
+                for mask in (None, m.to(dev)):
+                    got, gc = k8.fused_vit_layer_int8(x, qp, gcfg.num_heads, gcfg.layernorm_eps,
+                                                      mask, return_codes=True)
+                    ref, rc = k8.fused_vit_layer_int8_ref(x, qp, gcfg.num_heads,
+                                                          gcfg.layernorm_eps, mask,
+                                                          return_codes=True)
+                    torch.cuda.synchronize()
+                    rows = torch.ones_like(m) if mask is None else m  # masked rows: don't care
+                    d = (got.float() - ref.float()).abs()[rows.to(dev)].max().item()
+                    ftol = F32_ATOL if dt == torch.float32 else bf16_tol(ref.float())
+                    tol = ftol + int8_step(ref, x)
+                    flips = {k: int((gc[k][0] != rc[k][0]).sum()) for k in k8.STAGES}
+                    for k in k8.STAGES:
+                        flipped[k] += flips[k]
+                        n_codes[k] += gc[k][0].numel()
+                    if dt == torch.float32:
+                        err["b4"] = max(err["b4"], d)
+                    tag = f"B4 {gname} {dname} S={s} {'mask' if mask is not None else 'nomask'}"
+                    log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.2e}); codes apart "
+                        + " ".join(f"{k} {v}" for k, v in flips.items()))
+                    check(bool(torch.isfinite(got).all()) and d <= tol, tag)
+    log("  int8 codes the kernel and its plain version round apart, all cases: "
+        + ", ".join(f"{k} {flipped[k]} of {n_codes[k]}" for k in k8.STAGES))
+    for dname, dt in dtypes.items():  # half to even, on the card
+        q, sc = k8.rowquant(torch.tensor([HALF_EVEN_ROW], device=dev, dtype=dt))
+        codes = q.cpu().tolist()[0]
+        log(f"  row quantization {dname} of {HALF_EVEN_ROW}: scale {sc.item()}, codes {codes}")
+        check(codes == HALF_EVEN_CODES and sc.item() == 1.0, f"half to even ({dname})")
+    gcfg, lp_cpu = geometries["deit_s"]
+    qp = quantize_layer_params(tree_to(lp_cpu, dev, torch.bfloat16))
+    bad["head dim 96"] = torch.zeros(2, 17, gcfg.hidden_size, device=dev, dtype=torch.bfloat16)
+    for what, x in bad.items():  # what the kernel does not take must raise, not run
+        try:
+            k8.fused_vit_layer_int8(x, qp, 4 if what == "head dim 96" else gcfg.num_heads)
+            check(False, f"B4 accepted {what}")
+        except (TypeError, ValueError) as e:
+            log(f"  B4 rejects {what}: {e}")
     check.done()
 
     # --- 4. B2 against its plain version ------------------------------------------------
@@ -460,6 +545,131 @@ def main():
     check(launches["b3"] > 0 and launches["b1_redecide"] > 0, "a kernel of the path never launched")
     check.done()
 
+    # --- 5c. int8 serving end to end: kernels vs plain PyTorch, launch counts ------------
+    # The kernel path (B4, the TPU kernel's numerics) and the plain path (ops/quant.py's)
+    # are two roundings of one int8 scheme. Where float noise puts an activation near
+    # k + 0.5 they pick neighbouring codes, a whole quantization step apart (phase 3c
+    # counts such codes), so from the first int8 layer on they drift apart by steps of
+    # int8's own error, and a later keep decision near its cut can go either way. So:
+    # decisions taken before any int8 layer (the headline's drop, the first drop of
+    # every schedule, every re-decide layer 0, random50's noise) must agree exactly;
+    # the kernel path must be as accurate an int8 as the plain path: its logits'
+    # distance from float within 10% of the plain path's (relative, over the batch:
+    # a wrong scale, bias or rounding would add to it, while the codes the routes
+    # round apart only move which samples of the same error they draw); and where
+    # no decision depends on an int8 layer (dense, headline, random50) the int8
+    # logits must be within 5% of float (the JAX package's bound,
+    # tests/test_pallas.py:241).
+    check = Checks("phase 5c (int8 end to end)")
+    wrappers = (*wrappers, k8.fused_vit_layer_int8)
+
+    def counts():
+        return tuple(k.launches for k in wrappers)  # B1, B2, B3, B4
+
+    def compare(tag, got, ref, fl, fixed_layers):
+        """got / ref: the int8 kernel / plain path's outputs, fl the float plain
+        path's logits; keep masks must agree on the first `fixed_layers` layers
+        (all of them: None)."""
+        lg, lr = got["logits"].float(), ref["logits"].float()
+        check(lg.shape == (64, 100) and bool(torch.isfinite(lg).all()),
+              f"{tag}: logits not finite [64, 100]")
+        routes, int8_err, kernel_err = rel_err(lg, lr), rel_err(lr, fl), rel_err(lg, fl)
+        agree = (lg.argmax(-1) == lr.argmax(-1)).float().mean().item()
+        line = (f"logits kernel vs plain {routes:.4f} relative (max_abs {(lg - lr).abs().max():.3e}"
+                f"), int8 vs float {int8_err:.4f} (plain) {kernel_err:.4f} (kernel), argmax "
+                f"agree {agree:.3f}")
+        check(kernel_err > 0.0, f"{tag}: the kernel path's logits equal float's")
+        check(abs(kernel_err - int8_err) <= 0.1 * int8_err,
+              f"{tag}: int8 from float {kernel_err:.4f} on the kernel path, {int8_err:.4f} on "
+              f"the plain path")
+        if fixed_layers is None:
+            check(max(kernel_err, int8_err) < 0.05, f"{tag}: int8 over 5% from float")
+        if "keep_masks" in got:
+            km, em = got["keep_masks"], ref["keep_masks"]
+            line += (f"; keep masks equal {bool(torch.equal(km, em))} (images x layers "
+                     f"agreeing {(km == em).all(-1).float().mean().item():.4f})")
+            n_fixed = len(km) if fixed_layers is None else fixed_layers
+            check(bool(torch.equal(km[:n_fixed], em[:n_fixed])),
+                  f"{tag}: keep masks differ in the first {n_fixed} layers")
+        return line
+
+    for k in wrappers:  # the counts of this path's run only
+        k.launches = 0
+    for dname, dt in dtypes.items():
+        for name, (pc, pcfg, cpu_params) in presets.items():
+            params = tree_to(cpu_params, dev, dt)
+            if pcfg is None:
+                pix = ((u8.float() / 255.0 - 0.5) / 0.5).to(dt)
+
+                def fwd(logits_only=False, params=params, pix=pix, pc=pc):
+                    return {"logits": vit_forward(params["backbone"], pix, pc)["logits"]}
+            else:
+                def fwd(logits_only=False, params=params, pc=pc, pcfg=pcfg):
+                    return serving_forward(params, u8, pc, pcfg, logits_only=logits_only)
+            with kernel_mode("eager"):
+                fl = fwd()["logits"]  # float (quant 'none'), the plain path
+            with quant_mode("int8"):
+                c0 = counts()
+                with kernel_mode("auto"):
+                    got = fwd()
+                torch.cuda.synchronize()
+                c1 = counts()
+                with kernel_mode("eager"):
+                    ref = fwd()
+                if pcfg is not None:
+                    with kernel_mode("auto"):
+                        tail = fwd(logits_only=True)  # the last layer as the float B2
+                torch.cuda.synchronize()
+                c2 = counts()
+            tag = f"{name}_int8 {dname}"
+            n = tuple(b - a for a, b in zip(c0, c1))
+            check(n == (0, 0, 0, L), f"{tag}: launches B1/B2/B3/B4 {n}, want (0, 0, 0, {L})")
+            if pcfg is None or pcfg.keep_schedule is None:
+                fixed = None  # dense, headline: no decision follows an int8 layer
+            else:  # the masks before the second drop are decided before any layer
+                fixed = next(i for i, k in enumerate(pcfg.keep_schedule) if i and k)
+            log(f"  {tag}: launches B4={n[3]}; " + compare(tag, got, ref, fl, fixed))
+            if pcfg is not None:
+                n = tuple(b - a for a, b in zip(c1, c2))
+                rel = rel_err(tail["logits"], got["logits"])
+                same = bool(torch.equal(tail["keep_masks"], got["keep_masks"]))
+                log(f"  {tag} logits_only (float B2 tail): launches B4={n[3]} B2={n[1]}; keep "
+                    f"masks equal {same}; logits {rel:.4f} relative from the int8 last layer's")
+                check(n == (0, 1, 0, L - 1), f"{tag} logits_only: launches B1/B2/B3/B4 {n}, "
+                      f"want (0, 1, 0, {L - 1})")
+                check(same and rel < 0.05, f"{tag} logits_only: masks or logits differ")
+        params = tree_to(base, dev, dt)
+        pix = ((u8.float() / 255.0 - 0.5) / 0.5).to(dt)
+        with quant_mode("int8"):
+            thresholds = calibrated(params, pix)  # int8 medians
+        for name in redecide:
+            fwd, pcfg = redecide_fn(name, params, pix, thresholds)
+            with kernel_mode("eager"):
+                fl = fwd()["logits"]  # float, the plain path
+            with quant_mode("int8"):
+                c0 = counts()
+                with kernel_mode("auto"):
+                    got = fwd()
+                torch.cuda.synchronize()
+                c1 = counts()
+                with kernel_mode("eager"):
+                    ref = fwd()
+                torch.cuda.synchronize()
+            tag = f"{name}_int8 {dname}"
+            n = tuple(b - a for a, b in zip(c0, c1))
+            check(n == (0, 0, 0, L), f"{tag}: launches B1/B2/B3/B4 {n}, want (0, 0, 0, {L})")
+            # layer 0 decides from the embedding; random50's noise never reads a layer
+            line = compare(tag, got, ref, fl, None if name == "random50" else 1)
+            log(f"  {tag}: launches B4={n[3]}; {line}; min threshold/cut gap (plain) "
+                f"{decision_gap(ref, pcfg):.2e}")
+    launches["b4"] = k8.fused_vit_layer_int8.launches
+    launches["b2"] += kl.fused_vit_layer_cls_logits.launches
+    log(f"  int8 path launches: B1 {kl.fused_vit_layer.launches}, B2 "
+        f"{kl.fused_vit_layer_cls_logits.launches} (the float tail), B3 "
+        f"{kl.fused_vit_layer_bucketed.launches}, B4 {launches['b4']}")
+    check(launches["b4"] > 0, "a kernel of the path never launched")
+    check.done()
+
     # --- 6. times at batch 512, bf16 (info) --------------------------------------------
     def time_ms(fn, iters=10, warmup=3) -> float:
         for _ in range(warmup):
@@ -485,8 +695,9 @@ def main():
         activity only), and the idle share against the CUDA-event wall time."""
         from torch.profiler import ProfilerActivity, profile
 
-        families = (("GEMM", ("gemm_bf16", "gemm_f32")), ("attention", ("attention",)),
-                    ("LN", ("layer_norm_kernel",)),
+        families = (("GEMM", ("gemm_bf16", "gemm_f32")), ("int8 GEMM", ("gemm_s8",)),
+                    ("attention", ("attention",)), ("LN", ("layer_norm_kernel",)),
+                    ("row-quant", ("rowquant",)),
                     ("B3 rows", ("bucket_invert", "gather_rows", "expand_rows")))
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -540,6 +751,25 @@ def main():
             f"img/s), plain path {p_ms:.3f} ms/batch ({512 / p_ms * 1e3:.0f} img/s)")
         if name in ("topk50", "mask"):
             device_breakdown(f"re-decide {name}", lambda: run("auto"), k_ms)
+    for name in ("dense", "headline", "ultra", "topk50"):  # int8 serving
+        if name in presets:
+            fwd = forward_fn(name, tree_to(presets[name][2], dev, bf), bf, u8)
+        else:
+            fwd, _ = redecide_fn(name, params, pix, thresholds)
+
+        def run(mode, fwd=fwd):
+            with kernel_mode(mode), quant_mode("int8"):
+                fwd()
+
+        k_ms, p_ms = abba(lambda: run("auto"), lambda: run("eager"))
+        log(f"  {name}_int8: kernel path {k_ms:.3f} ms/batch ({512 / k_ms * 1e3:.0f} img/s), "
+            f"plain path {p_ms:.3f} ms/batch ({512 / p_ms * 1e3:.0f} img/s)")
+        if name in ("dense", "topk50"):
+            device_breakdown(f"{name}_int8", lambda: run("auto"), k_ms)
+    layers = params["backbone"]["layers"]
+    q_ms = time_ms(lambda: attach_int8_weights(layers))
+    log(f"  weight quantization, once per int8 forward (12 layers, bf16 -> int8): {q_ms:.3f} ms")
+    device_breakdown("weight quantization", lambda: attach_int8_weights(layers), q_ms)
 
     def bound(flops: float, nbytes: float):
         """(least ms for the work on this card, what bounds it)."""
@@ -611,6 +841,29 @@ def main():
         f"bucketed layer {e_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
     kernel_ms["b3"], bounds["b3"] = (k_ms, p_ms, e_ms), (b_ms, b_by)
 
+    def bound_int8(gcfg, rows: int, attn_pairs: int, nbytes: float):
+        """int8 products at the int8 peak plus attention at the bf16 peak,
+        against the bytes; (least ms, what bounds it)."""
+        d, kw, m = gcfg.hidden_size, gcfg.attn_width, gcfg.mlp_dim
+        ops = 2.0 * rows * (3 * d * kw + kw * d + 2 * d * m)
+        t_op = (ops / PEAK_INT8_OPS + 4.0 * attn_pairs * gcfg.head_dim / PEAK_BF16_FLOPS) * 1e3
+        t_mem = nbytes / PEAK_HBM_BYTES * 1e3
+        return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
+    qlp = quantize_layer_params(lp)
+    for s in (197, 99):  # the dense length and the capacity of topk50's bucket
+        x = torch.randn(512, s, cfg.hidden_size, generator=gen).to(dev, bf)
+        k_ms, p_ms = abba(lambda: k8.fused_vit_layer_int8(x, qlp, cfg.num_heads),
+                          lambda: k8.fused_vit_layer_int8_ref(x, qlp, cfg.num_heads))
+        with kernel_mode("eager"):  # torch._int_mm for the four products, bf16 attention
+            e_ms = time_ms(lambda: vit_layer(x, qlp, cfg, quant="int8"))
+        b_ms, b_by = bound_int8(cfg, 512 * s, 512 * cfg.num_heads * s * s,
+                                2 * x.numel() * x.element_size() + weight_bytes(qlp))
+        log(f"  B4 deit_s S={s}: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, eager int8 "
+            f"layer (torch._int_mm) {e_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
+        if s == 197:
+            kernel_ms["b4"], bounds["b4"] = (k_ms, p_ms, e_ms), (b_ms, b_by)
+
     # --- 7. records ------------------------------------------------------------------
     import importlib
     import pkgutil
@@ -635,15 +888,16 @@ def main():
             if needle in text:
                 raise AssertionError(f"{src}: builds a path into the JAX package ({needle})")
     pkg = "vit_pruning_tpu_torch"
-    rows = (("b1", "fused_vit_layer", 359, launches["b1"] + launches["b1_redecide"]),
-            ("b2", "fused_vit_layer_cls_logits", 561, launches["b2"]),
-            ("b3", "fused_vit_layer_bucketed", 761, launches["b3"]))
+    rows = (("b1", "fused_vit_layer", "layer", 359, launches["b1"] + launches["b1_redecide"]),
+            ("b2", "fused_vit_layer_cls_logits", "layer", 561, launches["b2"]),
+            ("b3", "fused_vit_layer_bucketed", "layer", 761, launches["b3"]),
+            ("b4", "fused_vit_layer_int8", "layer_int8", 154, launches["b4"]))
     kernels = [
-        {"name": name, "route": "cuda", "source": f"{pkg}/csrc/layer.cu",
-         "replaces": f"vit_pruning_tpu/ops/pallas/layer.py:{line}", "launches": n,
+        {"name": name, "route": "cuda", "source": f"{pkg}/csrc/{src}.cu",
+         "replaces": f"vit_pruning_tpu/ops/pallas/{src}.py:{line}", "launches": n,
          "max_abs_err": err[key], "ms": kernel_ms[key][0], "plain_ms": kernel_ms[key][1],
          "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": kernel_ms[key][2]}
-        for key, name, line, n in rows
+        for key, name, src, line, n in rows
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

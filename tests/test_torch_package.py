@@ -116,20 +116,16 @@ def test_kernel_mode_names_are_checked():
 
 def test_unported_options_raise():
     """What waits for a later slice raises and names the ROADMAP item:
-    head_mask / return_probs, int8, training and the oracle instrumentation."""
+    head_mask / return_probs, training and the oracle instrumentation."""
     from vit_pruning_tpu_torch.models.pruned_vit import init_pruned_vit_params, pruned_vit_forward
     from vit_pruning_tpu_torch.models.vit import vit_layer
 
     cfg, _, lp, x = _layer_and_head()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         vit_layer(x, lp, cfg, return_probs=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vit_layer(x, lp, cfg, quant="int8")
     pcfg = PruneConfig(mode="topk", predictor="token_mlp", top_k=8)
     params = init_pruned_vit_params(cfg, pcfg, torch.Generator().manual_seed(0), "cpu")
     pix = torch.zeros(1, 3, cfg.image_size, cfg.image_size)
     for kw in ({"train": True}, {"compute_oracle": True}, {"oracle": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
             pruned_vit_forward(params, pix, cfg, pcfg, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        pruned_vit_forward(params, pix, cfg, pcfg, quant="int8")

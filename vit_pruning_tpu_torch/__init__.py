@@ -6,9 +6,11 @@ jax, and nothing of the JAX package. Two serving paths are ported: the
 progressive top-k compaction (serving.serving_forward ->
 models/pruned_vit.py::progressive_topk_forward) and the re-decide modes
 (models/pruned_vit.py::pruned_vit_forward: mask, topk, oracle, random, with
-every predictor kind). They run through three CUDA C++ kernels written for
-Hopper (ops/cuda/layer.py, csrc/layer.cu); everything else is plain
-PyTorch. Params are built on the card unless the caller asks for 'cpu'.
+every predictor kind). Both serve in float or int8 (`quant='int8'`, or
+`quant_mode('int8')` around the call). They run through four CUDA C++
+kernels written for Hopper (ops/cuda/layer.py and layer_int8.py, csrc/);
+everything else is plain PyTorch. Params are built on the card unless the
+caller asks for 'cpu'.
 
 Layout:
     configs    — the port's own copy of the model and pruning configs
@@ -16,8 +18,8 @@ Layout:
                  progressive forwards, weight bridge to and from the JAX
                  param tree
     ops        — patch embed, attention, masking and compaction, structured
-                 pruning, kernel dispatch, and the CUDA kernels' wrappers
-                 (ops/cuda)
+                 pruning, int8 quantization, kernel dispatch and the serving
+                 quant switch, and the CUDA kernels' wrappers (ops/cuda)
     serving    — uint8 pixels -> logits
 """
 
@@ -29,3 +31,11 @@ from vit_pruning_tpu_torch.configs import (  # noqa: F401
     deit_small,
     vit_tiny,
 )
+from vit_pruning_tpu_torch.ops.dispatch import (  # noqa: F401
+    kernel_mode,
+    quant_mode,
+    serving_quant,
+    set_kernel_mode,
+    set_serving_quant,
+)
+from vit_pruning_tpu_torch.ops.quant import quantize_layer_params  # noqa: F401

@@ -31,46 +31,13 @@
 // FMA tiles throughout (no TF32, so f32 matches a f32 reference closely).
 // wgmma, TMA and tuning are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
 
-namespace {
+#include "common.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace vpt {
 
 constexpr float kNegInf = -1e30f;  // masked-key logit, as the TPU kernel
-
-enum Act { ACT_NONE = 0, ACT_GELU_ERF = 1, ACT_GELU_TANH = 2 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
-// value after a round trip through T (the TPU kernel's .astype(x.dtype))
-template <typename T> __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float gelu(float v, int act) {
-  if (act == ACT_GELU_ERF) return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
-  if (act == ACT_GELU_TANH) {
-    const float c = 0.7978845608028654f;  // sqrt(2/pi)
-    return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
-  }
-  return v;
-}
 
 // ---------------------------------------------------------------------------
 // LayerNorm: one warp per row, f32 statistics, output in T.
@@ -83,15 +50,8 @@ __global__ void layer_norm_kernel(const Tin* __restrict__ x, long ldx, const T* 
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= rows) return;
   const Tin* xr = x + row * ldx;
-  float s = 0.f;
-  for (int i = lane; i < d; i += 32) s += to_f(xr[i]);
-  const float mean = warp_sum(s) / d;
-  float v = 0.f;
-  for (int i = lane; i < d; i += 32) {
-    const float t = to_f(xr[i]) - mean;
-    v += t * t;
-  }
-  const float rs = rsqrtf(warp_sum(v) / d + eps);
+  float mean, rs;
+  ln_stats(xr, d, eps, mean, rs);
   T* yr = y + row * ldy;
   for (int i = lane; i < d; i += 32)
     yr[i] = from_f<T>((to_f(xr[i]) - mean) * rs * to_f(g[i]) + to_f(b[i]));
@@ -100,34 +60,8 @@ __global__ void layer_norm_kernel(const Tin* __restrict__ x, long ldx, const T* 
 // ---------------------------------------------------------------------------
 // GEMM  out[M, N] = epilogue(A[M, K] @ W[K, N])  (A row stride lda, W dense
 // [K, N] row-major as the param tree stores it). Epilogue, in the TPU
-// kernel's order: + bias[n] (T), activation, + residual (T or f32), cast.
-
-struct Epilogue {
-  const void* bias;  // [N] in T, or null
-  int act;
-  const void* res;   // residual, or null
-  long ldr;
-  int res_f32;
-  void* out;
-  long ldc;
-  int out_f32;
-  int vec;  // 8-wide 16-byte accesses are aligned (set by the host launcher)
-};
-
-template <typename T>
-__device__ __forceinline__ void epilogue_store(const Epilogue& e, int m, int n, float v) {
-  if (e.bias) v += to_f(static_cast<const T*>(e.bias)[n]);
-  v = gelu(v, e.act);
-  if (e.res) {
-    const long r = m * e.ldr + n;
-    v += e.res_f32 ? static_cast<const float*>(e.res)[r] : to_f(static_cast<const T*>(e.res)[r]);
-  }
-  const long o = m * e.ldc + n;
-  if (e.out_f32)
-    static_cast<float*>(e.out)[o] = v;
-  else
-    static_cast<T*>(e.out)[o] = from_f<T>(v);
-}
+// kernel's order: + bias[n] (T), activation, + residual (T or f32), cast
+// (common.cuh).
 
 // bf16: 128x128 block tile, 8 warps (2 x 4), 64x32 per warp as 4x2 WMMA
 // 16x16x16 fragments (mma.sync) with f32 accumulators; K in steps of 32
@@ -142,68 +76,6 @@ constexpr int LDA = BK + 8, LDB = BN + 8;  // +8 bf16 staggers the banks
 constexpr int A_STAGE = BM * LDA, B_STAGE = BK * LDB;        // elements
 constexpr size_t SMEM = sizeof(bf16) * STAGES * (A_STAGE + B_STAGE);
 static_assert(SMEM >= sizeof(float) * (THREADS / 32) * 256, "epilogue tiles reuse the ring");
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? 16 : 0;  // 0 = zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// 8 consecutive values <-> 16 bytes (bf16) or 32 bytes (f32)
-__device__ __forceinline__ void load8(const bf16* p, float* v) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const float2 f = __bfloat1622float2(h[t]);
-    v[2 * t] = f.x;
-    v[2 * t + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void store8(bf16* p, const float* v) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int t = 0; t < 4; ++t) h[t] = __floats2bfloat162_rn(v[2 * t], v[2 * t + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-__device__ __forceinline__ void store8(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-// the epilogue of 8 consecutive outputs (m, n..n+7), all in range
-__device__ __forceinline__ void epilogue_store8(const Epilogue& e, int m, int n, float* v) {
-  float t[8];
-  if (e.bias) {
-    load8(static_cast<const bf16*>(e.bias) + n, t);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] += t[i];
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = gelu(v[i], e.act);
-  if (e.res) {
-    const long r = m * e.ldr + n;
-    if (e.res_f32)
-      load8(static_cast<const float*>(e.res) + r, t);
-    else
-      load8(static_cast<const bf16*>(e.res) + r, t);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] += t[i];
-  }
-  const long o = m * e.ldc + n;
-  if (e.out_f32)
-    store8(static_cast<float*>(e.out) + o, v);
-  else
-    store8(static_cast<bf16*>(e.out) + o, v);
 }
 
 __global__ void __launch_bounds__(wg::THREADS)
@@ -303,7 +175,7 @@ gemm_bf16_kernel(const bf16* __restrict__ A, long lda, const bf16* __restrict__ 
 #pragma unroll
         for (int t = 0; t < 8; ++t) v[t] = cs[r * 16 + c0 + t];
         if (e.vec && nb + 8 <= N) {
-          epilogue_store8(e, m, nb, v);
+          epilogue_store8<bf16>(e, m, nb, v);
         } else {
 #pragma unroll
           for (int t = 0; t < 8; ++t)
@@ -364,17 +236,12 @@ gemm_f32_kernel(const float* __restrict__ A, long lda, const float* __restrict__
     }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 cudaError_t gemm(const bf16* A, long lda, const bf16* W, int M, int N, int K, Epilogue e,
                  cudaStream_t st) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       gemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wg::SMEM);
   if (attr != cudaSuccess) return attr;
-  // 16-byte epilogue accesses: every row start of out/res and the bias 16-byte aligned
-  const long out_el = e.out_f32 ? 4 : 2, res_el = e.res_f32 ? 4 : 2;
-  e.vec = aligned16(e.out) && (e.ldc * out_el) % 16 == 0 && (!e.bias || aligned16(e.bias)) &&
-          (!e.res || (aligned16(e.res) && (e.ldr * res_el) % 16 == 0));
+  set_vec<bf16>(e);
   dim3 grid((N + wg::BN - 1) / wg::BN, (M + wg::BM - 1) / wg::BM);
   gemm_bf16_kernel<<<grid, wg::THREADS, wg::SMEM, st>>>(A, lda, W, M, N, K, e);
   return cudaGetLastError();
@@ -405,11 +272,8 @@ cudaError_t layer_norm(const Tin* x, long ldx, const T* g, const T* b, T* y, lon
 // one output column per lane for PV. NC = ceil(S / 32) is a template
 // argument so that short sequences (17, 33) do no work for absent chunks.
 
-constexpr int kHD = 64;           // head dim the kernels take (DeiT-S; ViT-H's 80 is ROADMAP)
 constexpr int kAttnWarps = 8;
 constexpr int kNQ = 4;            // query rows per warp pass
-constexpr int kMaxChunks = 8;     // keys per lane: S <= 256
-constexpr int kMaxSeq = kMaxChunks * 32;
 
 __host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
 
@@ -784,17 +648,6 @@ cudaError_t cls_attention(const T* q, const T* kv, T* ctx, int B, int S, int H, 
   return cudaGetLastError();
 }
 
-#define VPT_TRY(...)                          \
-  do {                                        \
-    cudaError_t err_ = (__VA_ARGS__);         \
-    if (err_ != cudaSuccess) return err_;     \
-  } while (0)
-
-Epilogue epi(const void* bias, int act, const void* res, long ldr, bool res_f32, void* out,
-             long ldc, bool out_f32) {
-  return Epilogue{bias, act, res, ldr, res_f32 ? 1 : 0, out, ldc, out_f32 ? 1 : 0, 0};
-}
-
 // The B1 layer on x [B, S, D]; keys masked by `mask` [B, S] bytes or, for
 // B3's compacted rows, by the kept counts [B] (either may be null).
 template <typename T>
@@ -924,7 +777,9 @@ bool shapes_ok(int dtype, int B, int S, int D, int H, int HD, int M) {
          D % 8 == 0 && M % 8 == 0;
 }
 
-}  // namespace
+}  // namespace vpt
+
+using namespace vpt;
 
 extern "C" {
 

@@ -216,8 +216,9 @@ def apply_predictor(
             raise ValueError("predictor 'key_cosine' needs layer_params")
         # The JAX package runs this dense pass on its jnp layer; here it goes
         # through vit_layer, so on the card through kernel B1 and its staged2
-        # numerics (equal within the layer tolerance).
-        dense_out = vit_layer(hidden_states, layer_params, config)
+        # numerics (equal within the layer tolerance). It stays float under
+        # int8 serving, as in the JAX package.
+        dense_out = vit_layer(hidden_states, layer_params, config, quant="none")
         k_cur = _head_averaged_keys(hidden_states, layer_params, config)
         k_next = _head_averaged_keys(dense_out, layer_params, config)
         scores = _cos01(k_next, k_cur)[:, 1:]

@@ -19,6 +19,10 @@ Kernels: a budget-bounded layer (topk, mask with mask_budget, random) runs
 as kernel B3 (ops/cuda/layer.py::fused_vit_layer_bucketed); every other
 layer goes through vit_layer (kernel B1); with logits_only=True the
 progressive path's last layer, final LN and classifier run as kernel B2.
+Under int8 serving (`quant`) every layer goes through vit_layer's int8
+route (kernel B4), B3 included: a budget-bounded layer gathers to its cap
+and runs B4 there. The stacked weights are quantized once per forward; the
+float weights stay beside them for the predictors and the float B2 tail.
 
 The training side (train=True, the oracle instrumentation and its dense
 teacher pass, oracle_stream='parallel', the predictor losses) is ROADMAP A.9
@@ -45,6 +49,7 @@ from vit_pruning_tpu_torch.models.vit import (
     init_vit_params,
     layer_norm,
     layer_slice,
+    layers_for,
     vit_forward,
     vit_layer,
 )
@@ -53,7 +58,7 @@ from vit_pruning_tpu_torch.ops.cuda.layer import (
     bucket_expand,
     fused_vit_layer_bucketed,
 )
-from vit_pruning_tpu_torch.ops.dispatch import kernels_enabled
+from vit_pruning_tpu_torch.ops.dispatch import kernels_enabled, resolve_quant
 from vit_pruning_tpu_torch.ops.masking import (
     add_cls_keep,
     compact_dest,
@@ -106,6 +111,7 @@ def bucketed_masked_layer(
     config: ViTConfig,
     cap_hint: Optional[int] = None,
     passthrough: Optional[torch.Tensor] = None,
+    quant: str = "none",
 ) -> torch.Tensor:
     """Mask-mode layer that computes only at a capacity holding the kept
     tokens: each kept token attends over exactly the kept keys, skipped
@@ -113,9 +119,12 @@ def bucketed_masked_layer(
 
     cap_hint: a static bound on every image's kept count (mask_budget + 1,
     top_k + 1, the random budget + 1). With it, the layer runs at exactly
-    that capacity, as kernel B3 when kernels are on, else as the plain
-    gather -> vit_layer -> scatter; neither route reads the device from the
-    host.
+    that capacity, as kernel B3 when kernels are on (float only), else as
+    the plain gather -> vit_layer -> scatter; neither route reads the device
+    from the host. Under quant='int8' the gather route runs vit_layer's int8
+    layer (B4) at the cap: the JAX package adds cap_hint to its ladder
+    instead and may pick a smaller rung, but keys past an image's count
+    weigh exp(-1e30 - max) = 0, so its kept rows are the same.
 
     Without it, the rung is the smallest of _bucket_caps holding the batch's
     largest kept count. JAX picks it with lax.switch on the device; the port
@@ -128,7 +137,7 @@ def bucketed_masked_layer(
     b, s, _ = x.shape
     dest = compact_dest(mask)
     if cap_hint is not None and cap_hint < s:
-        if kernels_enabled():
+        if kernels_enabled() and quant != "int8":
             y = fused_vit_layer_bucketed(x, layer_params, dest, mask, cap_hint,
                                          config.num_heads, config.layernorm_eps)
             return y if passthrough is None else torch.where(mask[..., None], y, passthrough)
@@ -137,10 +146,10 @@ def bucketed_masked_layer(
         maxc = int(mask.sum(-1).max())  # the host read of the uncapped ladder
         cap = next(c for c in _bucket_caps(s) if c >= maxc)
         if cap == s:
-            y = vit_layer(x, layer_params, config, token_mask=mask)
+            y = vit_layer(x, layer_params, config, token_mask=mask, quant=quant)
             return torch.where(mask[..., None], y, x if passthrough is None else passthrough)
     xc, key_ok = bucket_compact(x, dest, mask, cap)
-    yc = vit_layer(xc, layer_params, config, token_mask=key_ok)
+    yc = vit_layer(xc, layer_params, config, token_mask=key_ok, quant=quant)
     return bucket_expand(x if passthrough is None else passthrough, yc, dest, mask, cap)
 
 
@@ -176,9 +185,12 @@ def pruned_layer_forward(
     nbr_idx: torch.Tensor,
     generator: Optional[torch.Generator] = None,
     updatenet_params: Optional[dict] = None,
+    quant: str = "none",
 ):
     """One pruned encoder layer (serving). Returns (x_out, {'keep_mask'
-    [B, S] bool, 'scores' [B, N]})."""
+    [B, S] bool, 'scores' [B, N]}). Under quant='int8' every layer pass
+    runs int8 except key_cosine's own dense pass, which stays float (and is
+    reused as the oracle / measure_only pass, as in the JAX package)."""
     b, s, _ = x.shape
     n = s - 1
 
@@ -205,7 +217,7 @@ def pruned_layer_forward(
     # key_cosine computed the dense pass already: reuse it
     dense_out = extras.get("dense_out")
     if (pcfg.mode == "oracle" or pcfg.measure_only) and dense_out is None:
-        dense_out = vit_layer(x, layer_params, config)
+        dense_out = vit_layer(x, layer_params, config, quant=quant)
 
     def passthrough_arg(mask):
         return _passthrough(x, extras, mask) if "approx_residual" in extras else None
@@ -221,17 +233,17 @@ def pruned_layer_forward(
             out = dense_out  # masks and stats only, dense execution
         elif pcfg.query_only:
             # skipped tokens stay in K/V; only their own outputs are discarded
-            y = vit_layer(x, layer_params, config)
+            y = vit_layer(x, layer_params, config, quant=quant)
             out = torch.where(mask[..., None], y, _passthrough(x, extras, mask))
         else:
             hint = pcfg.mask_budget + 1 if pcfg.mask_budget is not None else None
             out = bucketed_masked_layer(x, layer_params, mask, config, cap_hint=hint,
-                                        passthrough=passthrough_arg(mask))
+                                        passthrough=passthrough_arg(mask), quant=quant)
     elif pcfg.mode == "topk":
         # the same set as topk_keep_mask (ties to the lower index), mask only
         mask = add_cls_keep(rank_keep_mask(scores, pcfg.top_k))
         out = bucketed_masked_layer(x, layer_params, mask, config, cap_hint=pcfg.top_k + 1,
-                                    passthrough=passthrough_arg(mask))
+                                    passthrough=passthrough_arg(mask), quant=quant)
     elif pcfg.mode == "oracle":
         sim_o = similarity_oracle(x[:, 1:], dense_out[:, 1:], pcfg.oracle_alpha)
         mask = add_cls_keep(sim_o < _sim_threshold(pcfg, layer_idx))  # changes a lot: process
@@ -241,7 +253,8 @@ def pruned_layer_forward(
             raise ValueError("mode='random' requires a generator")
         budget = pcfg.random_keep[layer_idx] if pcfg.random_keep is not None else pcfg.top_k
         mask = add_cls_keep(random_keep_mask(generator, b, n, budget, x.device))
-        out = bucketed_masked_layer(x, layer_params, mask, config, cap_hint=budget + 1)
+        out = bucketed_masked_layer(x, layer_params, mask, config, cap_hint=budget + 1,
+                                    quant=quant)
     else:
         raise ValueError(f"unknown prune mode {pcfg.mode!r}")
 
@@ -274,19 +287,21 @@ def pruned_vit_forward(
     keep_masks [L, B, S] bool, scores [L, B, N]; + layer_inputs [L, B, S, D],
     each layer's input as its predictor saw it, when return_layer_inputs).
     `generator` draws mode='random''s noise, layer after layer.
+    quant: 'none', 'int8' or None (read the dispatch switch once, here).
     """
     need_oracle = (train or compute_oracle) if oracle is None else oracle
+    # training and the oracle instrumentation run unquantized, as in the JAX
+    # package (round and clip have no useful gradient)
+    quant = "none" if (train or need_oracle) else resolve_quant(quant)
     if train or need_oracle:
         raise NotImplementedError(
             "train / the oracle instrumentation (dense teacher pass, oracle_stream, "
             "predictor losses): ROADMAP A.9"
         )
-    if quant not in (None, "none"):
-        raise NotImplementedError("int8 serving: ROADMAP A.8 (kernel B4)")
     L = config.num_layers
     if pcfg.mode == "none" and not return_layer_inputs:
         # dense: vit_forward, with the masks and scores of an all-inactive run
-        dense = vit_forward(params["backbone"], pixel_values, config)
+        dense = vit_forward(params["backbone"], pixel_values, config, quant=quant)
         x = dense["last_hidden"]
         b, s = x.shape[:2]
         return {
@@ -297,9 +312,10 @@ def pruned_vit_forward(
             "scores": torch.ones((L, b, s - 1), dtype=x.dtype, device=x.device),
         }
     if pcfg.mode == "topk_prog":
-        return progressive_topk_forward(params, pixel_values, config, pcfg)
+        return progressive_topk_forward(params, pixel_values, config, pcfg, quant=quant)
     backbone = params["backbone"]
     pred = params.get("predictor")
+    layers = layers_for(backbone["layers"], quant)
 
     x = embed(pixel_values, backbone["embed"], config)
     nbr_idx = torch.from_numpy(neighbor_index_table(config.grid_size)).long().to(x.device)
@@ -311,10 +327,10 @@ def pruned_vit_forward(
     for i in range(L):
         if return_layer_inputs:
             layer_inputs.append(x)
-        lp = layer_slice(backbone["layers"], i)
+        lp = layer_slice(layers, i)
         x_in = x
         if not _is_active(pcfg, i):
-            x = vit_layer(x, lp, config)
+            x = vit_layer(x, lp, config, quant=quant)
             if skip_vec is not None:
                 # "the next layer" is the physically next one, active or not
                 x = torch.where(skip_vec[:, None, None], x_in, x)
@@ -325,7 +341,7 @@ def pruned_vit_forward(
         else:
             x, info = pruned_layer_forward(
                 lp, pred, i, x, config, pcfg, prev_keep=prev_keep, nbr_idx=nbr_idx,
-                generator=generator, updatenet_params=params.get("updatenet"),
+                generator=generator, updatenet_params=params.get("updatenet"), quant=quant,
             )
             if pcfg.skip_next_threshold > 0.0:
                 # this layer's thresholded mask decides whether each image
@@ -447,15 +463,25 @@ def progressive_topk_forward(
     *,
     x0: Optional[torch.Tensor] = None,
     logits_only: bool = False,
+    quant: Optional[str] = None,
 ) -> dict:
     """Returns dict(logits, keep_masks [L, B, S] bool over original
     positions, scores [L, B, N] over original patch positions with -inf at
-    dropped ones; + cls, last_hidden when logits_only=False)."""
+    dropped ones; + cls, last_hidden when logits_only=False).
+
+    quant: 'none', 'int8' or None (read the dispatch switch once, here).
+    Under int8 every layer runs int8, except that with logits_only and
+    kernels on the last layer, final LN and classifier run as the float B2
+    kernel, as the JAX package's Pallas route does (a layer whose query,
+    attention and MLP touch one row gains nothing from int8); in 'eager'
+    the last layer runs int8, as its jnp route does."""
     if os.environ.get("VIT_PRUNING_TPU_ENCODER") == "1":
         raise NotImplementedError("whole-encoder segments: kernel B5, ROADMAP A.12")
     backbone = params["backbone"]
     pred = params.get("predictor")
     check_attn_geometry(backbone["layers"]["attn"]["q"]["w"].shape[-1], config)
+    quant = resolve_quant(quant)
+    layers = layers_for(backbone["layers"], quant)
 
     x = x0 if x0 is not None else embed(pixel_values, backbone["embed"], config)
     b, s, _ = x.shape
@@ -469,7 +495,7 @@ def progressive_topk_forward(
     sizes = torch.ones((b, s), dtype=x.dtype, device=x.device) if pcfg.merge_dropped else None
     use_cls_kernel = logits_only and kernels_enabled()
     for i in range(L):
-        lp = layer_slice(backbone["layers"], i)
+        lp = layer_slice(layers, i)
         k_i = schedule[i]
         if k_i and k_i < cur - 1 and _is_active(pcfg, i):
             x_full = x
@@ -485,7 +511,7 @@ def progressive_topk_forward(
         masks.append(torch.zeros((b, s), dtype=torch.bool, device=x.device).scatter(1, orig, True))
         if i == L - 1 and use_cls_kernel:
             break
-        x = vit_layer(x, lp, config)
+        x = vit_layer(x, lp, config, quant=quant)
 
     if use_cls_kernel:
         from vit_pruning_tpu_torch.ops.cuda.layer import fused_vit_layer_cls_logits

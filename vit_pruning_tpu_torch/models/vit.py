@@ -11,7 +11,9 @@ Mirrors vit_pruning_tpu/models/vit.py, in the same param layout:
 `vit_layer` routes through kernel B1 (ops/cuda/layer.py::fused_vit_layer)
 unless the dispatch mode is 'eager', in which case it runs the plain layer
 below (layer_norm -> mha -> mlp_block with erf GELU), the counterpart of the
-JAX package's use_pallas=False path.
+JAX package's use_pallas=False path. Under int8 serving (`quant`, or the
+dispatch switch when it is None) the layer runs kernel B4
+(ops/cuda/layer_int8.py) or, in 'eager', ops/quant.py::int8_vit_layer_ref.
 """
 
 from __future__ import annotations
@@ -24,8 +26,13 @@ import torch.nn.functional as F
 from vit_pruning_tpu_torch.configs import ViTConfig
 from vit_pruning_tpu_torch.models.convert import check_device, tree_to
 from vit_pruning_tpu_torch.ops.attention import mha
-from vit_pruning_tpu_torch.ops.dispatch import kernels_enabled
+from vit_pruning_tpu_torch.ops.dispatch import kernels_enabled, resolve_quant
 from vit_pruning_tpu_torch.ops.patch_embed import patch_embed
+from vit_pruning_tpu_torch.ops.quant import (
+    attach_int8_weights,
+    int8_vit_layer_ref,
+    is_quantized,
+)
 
 
 def layer_norm(x: torch.Tensor, params: dict, eps: float) -> torch.Tensor:
@@ -62,12 +69,26 @@ def vit_layer(
     quant: Optional[str] = None,
 ) -> torch.Tensor:
     """One pre-LN block. token_mask [B, S] bool restricts attention keys to
-    kept tokens; outputs at masked rows are computed but meaningless."""
-    check_attn_geometry(params["attn"]["q"]["w"].shape[-1], config)
+    kept tokens; outputs at masked rows are computed but meaningless.
+
+    quant: 'none', 'int8' or None (read the dispatch switch now). Under
+    int8 the layer's weights are quantized here unless `params` already
+    carries 'wq' / 'wscale' (ops/quant.py::attach_int8_weights), which is
+    how the forwards below quantize once per call."""
+    q = params["attn"]["q"]
+    check_attn_geometry((q["w"] if "w" in q else q["wq"]).shape[-1], config)
     if head_mask is not None or return_probs:
         raise NotImplementedError("head_mask / return_probs: ROADMAP A.2 (later slice)")
-    if quant not in (None, "none"):
-        raise NotImplementedError("int8 serving: ROADMAP A.8 (kernel B4)")
+    if resolve_quant(quant) == "int8":
+        qp = params if is_quantized(params) else attach_int8_weights(params)
+        if kernels_enabled():
+            from vit_pruning_tpu_torch.ops.cuda.layer_int8 import fused_vit_layer_int8
+
+            return fused_vit_layer_int8(x, qp, config.num_heads, config.layernorm_eps,
+                                        token_mask)
+        return int8_vit_layer_ref(x, qp, config, token_mask)
+    if "w" not in q:
+        raise ValueError("params carry int8 weights only: run them with quant='int8'")
     if kernels_enabled():
         from vit_pruning_tpu_torch.ops.cuda.layer import fused_vit_layer
 
@@ -98,18 +119,33 @@ def layer_slice(layers: dict, i: int) -> dict:
     return layers[i]
 
 
+def layers_for(layers: dict, quant: str) -> dict:
+    """The stacked layer tree a forward runs: under int8, the float tree
+    with every layer's int8 weights attached (one quantization per call)
+    unless it carries them already."""
+    if quant == "int8" and not is_quantized(layers):
+        return attach_int8_weights(layers)
+    return layers
+
+
 def vit_forward(
     params: dict,
     pixel_values: torch.Tensor,
     config: ViTConfig,
     head_mask: Optional[torch.Tensor] = None,
+    quant: Optional[str] = None,
 ) -> dict:
-    """Dense forward. Returns dict(logits, cls, last_hidden)."""
+    """Dense forward. Returns dict(logits, cls, last_hidden).
+
+    quant: 'none', 'int8' or None (read the dispatch switch once, here).
+    Under int8 the stacked layer weights are quantized once per call."""
     if head_mask is not None:
         raise NotImplementedError("head_mask: ROADMAP A.2 (later slice)")
+    quant = resolve_quant(quant)
+    layers = layers_for(params["layers"], quant)
     x = embed(pixel_values, params["embed"], config)
     for i in range(config.num_layers):
-        x = vit_layer(x, layer_slice(params["layers"], i), config)
+        x = vit_layer(x, layer_slice(layers, i), config, quant=quant)
     x = layer_norm(x, params["ln_f"], config.layernorm_eps)
     cls = x[:, 0]
     logits = cls @ params["head"]["w"] + params["head"]["b"]

@@ -1,12 +1,13 @@
 """Build and load the package's CUDA kernels (csrc/*.cu) at first use.
 
-nvcc compiles every source into one shared library with a plain C
+nvcc compiles each source into an object, all of them at once in parallel
+processes, and links the objects into one shared library with a plain C
 interface, which is loaded with ctypes: no PyTorch headers are compiled, so
 a build takes seconds rather than the minutes of
 torch.utils.cpp_extension.load. The library lands in the package's _build/
-directory, named by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one is loaded as it is. Nothing here runs at
-import: the CPU-only test host has no nvcc and never builds.
+directory, named by a hash of the sources (headers included) and flags, so
+an edited source rebuilds and an unchanged one is loaded as it is. Nothing
+here runs at import: the CPU-only test host has no nvcc and never builds.
 """
 
 from __future__ import annotations
@@ -25,11 +26,11 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of the entry points in csrc/layer.cu
+# C signatures of the entry points in csrc/layer.cu and csrc/layer_int8.cu
 SIGNATURES = {
     "vpt_error_string": ([I], ctypes.c_char_p),
     "vpt_max_seq_len": ([], I),
@@ -41,6 +42,11 @@ SIGNATURES = {
     # dtype, x, dest, kept, 12 layer weights, out, src, counts, 7 workspaces,
     # B S cap D H HD M, eps, stream
     "vpt_vit_layer_bucketed_forward": ([I] + [P] * 25 + [I] * 7 + [F, P], I),
+    # dtype, x, mask, 16 layer weights (int8 products with f32 scales), out,
+    # 8 code / scale buffers, 4 workspaces, B S D H HD M, eps, stream
+    "vpt_vit_layer_int8_forward": ([I] + [P] * 31 + [I] * 6 + [F, P], I),
+    # dtype, x, codes, scales, rows, k, stream
+    "vpt_rowquant": ([I, P, P, P, I, I, P], I),
 }
 
 
@@ -66,6 +72,20 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list):
+    """Start every command at once, wait for all of them, raise if any
+    failed (after all have ended: no process is left running)."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile csrc/*.cu into _build/ unless a library of the same hash is
     there already. Returns the library's path."""
@@ -73,19 +93,14 @@ def build() -> Path:
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(p) for p in CSRC_DIR.glob("*.cu")]]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sorted(CSRC_DIR.glob("*.cu"))]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / f"{obj.stem}.cu")]
+                  for obj in objs])
+        so = Path(tmp) / "lib.so"
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(so), *map(str, objs)]])
+        os.replace(so, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 
 

@@ -63,6 +63,28 @@ def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     return t.reshape(b, s, num_heads, w // num_heads).transpose(1, 2)
 
 
+def staged2_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    token_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The TPU kernels' staged2 attention core on q, k, v [B, S, KW] in the
+    serving dtype: f32 logits, masked keys -1e30, unnormalised numerators
+    rounded to the dtype, PV in f32 divided by the sum of the rounded
+    numerators. Returns ctx [B, S, KW] in the dtype."""
+    dt = q.dtype
+    b, s, kw = q.shape
+    q, k, v = (_heads(t, num_heads) for t in (q, k, v))
+    logits = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(kw // num_heads))
+    if token_mask is not None:
+        logits = torch.where(token_mask[:, None, None, :], logits, NEG_INF)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True)).to(dt).float()
+    ctx = (p @ v.float()) * (1.0 / p.sum(-1, keepdim=True))
+    return ctx.to(dt).transpose(1, 2).reshape(b, s, kw)
+
+
 def fused_vit_layer_ref(
     x: torch.Tensor,
     params: dict,
@@ -72,19 +94,11 @@ def fused_vit_layer_ref(
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel B1 (staged2 numerics)."""
     dt = x.dtype
-    b, s, d = x.shape
     a = params["attn"]
-    kw = a["q"]["w"].shape[1]
-    hd = kw // num_heads
     xf = x.float()
     h1 = _ln_f32(xf, params["ln1"], eps)
-    q, k, v = (_heads(_linear_f32(h1, a[n]["w"], a[n]["b"]).to(dt), num_heads) for n in "qkv")
-    logits = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))
-    if token_mask is not None:
-        logits = torch.where(token_mask[:, None, None, :], logits, NEG_INF)
-    p = torch.exp(logits - logits.amax(-1, keepdim=True)).to(dt).float()
-    ctx = (p @ v.float()) * (1.0 / p.sum(-1, keepdim=True))
-    ctx = ctx.to(dt).transpose(1, 2).reshape(b, s, kw)
+    q, k, v = (_linear_f32(h1, a[n]["w"], a[n]["b"]).to(dt) for n in "qkv")
+    ctx = staged2_attention(q, k, v, num_heads, token_mask)
     x1 = xf + _linear_f32(ctx, a["o"]["w"], a["o"]["b"])
     h2 = _ln_f32(x1, params["ln2"], eps)
     mlp = params["mlp"]
@@ -169,18 +183,20 @@ def fused_vit_layer_bucketed_ref(
 
 # --- wrappers -----------------------------------------------------------------------
 
-def _check(x: torch.Tensor, tensors: dict, shapes: dict, who: str) -> int:
-    """Device, dtype, shape, contiguity and alignment checks shared by both
-    wrappers; returns the kernel's dtype code."""
+def _check(x: torch.Tensor, tensors: dict, shapes: dict, who: str,
+           dtypes: Optional[dict] = None) -> int:
+    """Device, dtype, shape, contiguity and alignment checks shared by the
+    wrappers; returns the kernel's dtype code. A tensor named in `dtypes`
+    must have that dtype, every other one x's."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"{who}: dtype {x.dtype} not supported (float32, bfloat16)")
     for name, t in {"x": x, **tensors}.items():
         if name in shapes and tuple(t.shape) != shapes[name]:
             raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, want {shapes[name]}")
-        if t.device != x.device or t.dtype != x.dtype:
+        want = (dtypes or {}).get(name, x.dtype)
+        if t.device != x.device or t.dtype != want:
             raise ValueError(
-                f"{who}: {name} is {t.dtype} on {t.device}; every tensor must be "
-                f"{x.dtype} on {x.device}"
+                f"{who}: {name} is {t.dtype} on {t.device}; it must be {want} on {x.device}"
             )
         if not t.is_contiguous():
             raise ValueError(f"{who}: {name} must be contiguous")
@@ -189,12 +205,18 @@ def _check(x: torch.Tensor, tensors: dict, shapes: dict, who: str) -> int:
     return _DTYPES[x.dtype]
 
 
+def _weight(linear: dict) -> torch.Tensor:
+    """A linear's weight matrix: the float 'w', or the int8 'wq' of a
+    quantized tree."""
+    return linear["w"] if "w" in linear else linear["wq"]
+
+
 def _geometry(lib, x: torch.Tensor, params: dict, num_heads: int, who: str):
     if x.dim() != 3:
         raise ValueError(f"{who}: x must be [B, S, D], got {tuple(x.shape)}")
     b, s, d = x.shape
-    kw = params["attn"]["q"]["w"].shape[1]
-    m = params["mlp"]["fc1"]["w"].shape[1]
+    kw = _weight(params["attn"]["q"]).shape[1]
+    m = _weight(params["mlp"]["fc1"]).shape[1]
     hd = kw // num_heads
     if kw % num_heads or hd != lib.vpt_head_dim():
         raise ValueError(f"{who}: head dim {kw}/{num_heads} not supported (the kernel takes "

@@ -12,6 +12,12 @@ caller or scoped with `kernel_mode`:
 
 A wrapper never falls back from a CUDA tensor to its plain version: it
 launches the kernel or raises.
+
+A second process-wide switch, the serving quantization ('none' or 'int8',
+set with `set_serving_quant` or scoped with `quant_mode`), turns every
+inference layer of every entry point into int8 weight products (ops/quant.py
+scheme): kernel B4 in modes 'auto' / 'kernel', the eager int8 layer in
+'eager'. An entry point's `quant=None` reads it at call time.
 """
 
 from __future__ import annotations
@@ -61,3 +67,39 @@ def launch_kernel_for(t: torch.Tensor) -> bool:
             f"kernel mode 'kernel' needs CUDA tensors; got one on {t.device}"
         )
     return False
+
+
+QUANT_MODES = ("none", "int8")
+_QUANT = "none"
+
+
+def set_serving_quant(mode: str):
+    """Serving quantization: 'none' (the params' float dtype) or 'int8'. The
+    training side forces it off, as the JAX package does."""
+    global _QUANT
+    if mode not in QUANT_MODES:
+        raise ValueError(f"serving quant {mode!r} not in {QUANT_MODES}")
+    _QUANT = mode
+
+
+def serving_quant() -> str:
+    return _QUANT
+
+
+@contextlib.contextmanager
+def quant_mode(mode: str):
+    prev = _QUANT
+    set_serving_quant(mode)
+    try:
+        yield
+    finally:
+        set_serving_quant(prev)
+
+
+def resolve_quant(quant) -> str:
+    """An entry point's `quant` argument: None reads the switch now."""
+    if quant is None:
+        return _QUANT
+    if quant not in QUANT_MODES:
+        raise ValueError(f"serving quant {quant!r} not in {QUANT_MODES}")
+    return quant

@@ -3,10 +3,13 @@
 Mirrors embed_from_u8 and serving_forward of vit_pruning_tpu/serving.py:
 uint8 pixels go to the device (4x fewer bytes than float32), are normalised
 there in float32, cast to the weight dtype, patch-projected, and then run
-through the progressive top-k forward.
+through the progressive top-k forward, in float or, with quant='int8',
+through int8 weight products (kernel B4).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -43,9 +46,12 @@ def serving_forward(
     config: ViTConfig,
     pcfg: PruneConfig,
     logits_only: bool = True,
+    quant: Optional[str] = None,
 ) -> dict:
     """pixels_u8 [B, C, H, W] uint8 -> the progressive forward's output dict
-    (logits, keep_masks, scores; + cls/last_hidden when logits_only=False)."""
+    (logits, keep_masks, scores; + cls/last_hidden when logits_only=False).
+    quant: 'none', 'int8' or None (read the dispatch switch)."""
     _require_u8(pixels_u8, "serving_forward")
     x0 = embed_from_u8(pixels_u8, params["backbone"]["embed"], config)
-    return progressive_topk_forward(params, None, config, pcfg, x0=x0, logits_only=logits_only)
+    return progressive_topk_forward(params, None, config, pcfg, x0=x0, logits_only=logits_only,
+                                    quant=quant)
