@@ -15,6 +15,15 @@ kernels from csrc/ itself. Phases:
      same cases, with the int8 codes of every quantized activation compared
      (the count that differ is printed), and a row whose scaled values land
      on k + 0.5 through the row-quantization kernel (half to even)
+  3d. kernel B6 (fused_attention) against its plain version: DeiT-S heads
+     (hd 64), S in {197, 99, 17}, and hd 128 at S 257, masked and not,
+     float32 and bfloat16
+  3e. kernel B7 (fused_mlp) against its plain version: the rows of S in
+     {197, 99, 17} at DeiT-S width (MLP 1536) and composed width (MLP 768),
+     and 136 rows at ViT-L width (D 1024, MLP 4096)
+  3f. kernel B5 (fused_vit_encoder) against its plain version: DeiT-S at 12
+     layers and a 3-layer segment, composed geometry at a 3-layer segment,
+     S in {197, 99, 17}, masked and not, float32 and bfloat16
   4. kernel B2 (fused_vit_layer_cls_logits) against its plain version
   4b. kernel B3 (fused_vit_layer_bucketed) against its plain version: S 197
      with cap 99 / 131 / 197 and S 99 with cap 50, random kept counts up to
@@ -35,12 +44,22 @@ kernels from csrc/ itself. Phases:
      through pruned_vit_forward, kernels against plain PyTorch with the
      launch counts of every forward, and the int8 logits against the float
      ones
+  5d. the dense model's remaining routes end to end, same model and batch,
+     with encoder fusion on: vit_forward with a head_mask (B7 x 12, no B1),
+     with output_hidden_states (B1 x 12, no B5), and plain (B5 x 1);
+     headline / composed / ultra through serving_forward (B5 once per
+     non-empty segment, B2 x 1); pruned_vit_forward mode 'none' (B5 x 1);
+     dense and headline under int8 (the float B5, equal to float); mha with
+     use_kernel in mode 'kernel' (B6 x 1); kernels against plain PyTorch,
+     and in bfloat16 every B5 route also against itself with B5's plain
+     version in the kernel's place
   6. times at batch 512 in bfloat16, kernel path and plain path (float and
      int8), and each kernel beside its plain version and its eager PyTorch
      equivalent (info only); each kernel's bound from its shapes; the device
-     time of the dense, headline, topk50, mask, dense_int8 and topk50_int8
-     forwards by kernel family and of the once-per-forward weight
-     quantization (torch.profiler)
+     time of the dense, headline, topk50, mask, dense_int8, topk50_int8 and
+     dense-with-encoder-fusion forwards by kernel family and of the
+     once-per-forward weight quantization (torch.profiler); dense and ultra
+     with encoder fusion on and off
   7. records: nothing of jax or of the JAX package was loaded (by module
      name or by file), the kernels' JSON line, the device line
 
@@ -49,6 +68,7 @@ last is the kernels' JSON record; the last line is the device record.
 Weights are random, from a torch.Generator seed; images from a numpy seed.
 """
 
+import functools
 import json
 import math
 import subprocess
@@ -70,6 +90,9 @@ F32_ATOL = 1e-4  # kernel vs plain, both f32-accumulated; sums in another order
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
+# and the CUDA cores' float32 rate: B6's PV and B7's second product take
+# unrounded f32 operands by contract
+PEAK_FP32_FLOPS = 67e12
 # the codes of a quantized row that the half-to-even check expects: amax 127
 # makes the row scale exactly 1, so each code is the value rounded half to even
 HALF_EVEN_ROW = [127.0, 0.5, 1.5, 2.5, 3.5, -0.5, -1.5, -2.5, 126.5, -126.5, 0.49, 2.51,
@@ -156,11 +179,16 @@ def main():
     from vit_pruning_tpu_torch.models.convert import tree_to
     from vit_pruning_tpu_torch.models import pruned_vit as tp
     from vit_pruning_tpu_torch.models.pruned_vit import init_pruned_vit_params, pruned_vit_forward
-    from vit_pruning_tpu_torch.models.vit import layer_norm, layer_slice, vit_forward, vit_layer
+    from vit_pruning_tpu_torch.models.vit import (
+        layer_norm, layer_range, layer_slice, mlp_block, vit_forward, vit_layer)
+    from vit_pruning_tpu_torch.ops.attention import mha
+    from vit_pruning_tpu_torch.ops.cuda import attention as ka
     from vit_pruning_tpu_torch.ops.cuda import layer as kl
     from vit_pruning_tpu_torch.ops.cuda import layer_int8 as k8
+    from vit_pruning_tpu_torch.ops.cuda import mlp as kmlp
+    from vit_pruning_tpu_torch.ops.cuda import model as kmod
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
-    from vit_pruning_tpu_torch.ops.dispatch import kernel_mode, quant_mode
+    from vit_pruning_tpu_torch.ops.dispatch import encoder_fusion, kernel_mode, quant_mode
     from vit_pruning_tpu_torch.ops.quant import attach_int8_weights, quantize_layer_params
     from vit_pruning_tpu_torch.ops.masking import compact_dest
     from vit_pruning_tpu_torch.ops.structured import prune_heads, prune_mlp_channels
@@ -300,6 +328,140 @@ def main():
             check(False, f"B4 accepted {what}")
         except (TypeError, ValueError) as e:
             log(f"  B4 rejects {what}: {e}")
+    check.done()
+
+    def valid_rows(got, ref, mask):
+        """max |got - ref| over the rows of valid tokens (masked rows are
+        garbage by contract); got / ref [B, S, ...], mask [B, S] or None."""
+        d = (got.float() - ref.float()).abs()
+        return (d if mask is None else d[mask]).max().item()
+
+    # --- 3d. B6 against its plain version ------------------------------------------------
+    check = Checks("phase 3d (B6 vs plain)")
+    err.update(b5=0.0, b6=0.0, b7=0.0)
+    # DeiT-S's heads, and hd 128 at S 257, where K and V do not both fit in
+    # shared memory and V is read from L2 (the kernel's other path)
+    shapes = [("deit_s", 8, cfg.num_heads, s, cfg.head_dim) for s in (197, 99, 17)]
+    shapes.append(("hd128", 2, 3, 257, 128))
+    for dname, dt in dtypes.items():
+        for gname, b, h, s, hd in shapes:
+            q, k, v = (torch.randn(b, h, s, hd, generator=gen).to(dev, dt) for _ in range(3))
+            m = torch.rand(b, s, generator=gen) > 0.3
+            m[:, 0] = True
+            for mask in (None, m.to(dev)):
+                got = ka.fused_attention(q, k, v, mask)
+                ref = ka.fused_attention_ref(q, k, v, mask)
+                torch.cuda.synchronize()
+                d = valid_rows(got.transpose(1, 2), ref.transpose(1, 2), mask)
+                tol = F32_ATOL if dt == torch.float32 else bf16_tol(ref.float())
+                if dt == torch.float32:
+                    err["b6"] = max(err["b6"], d)
+                tag = f"B6 {gname} {dname} S={s} {'mask' if mask is not None else 'nomask'}"
+                log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.1e})")
+                check(bool(torch.isfinite(got).all()) and d <= tol, tag)
+    bad = {  # what the kernel does not take must raise, not run
+        "S=258": torch.zeros(2, 2, 258, 64, device=dev),
+        "head dim 160": torch.zeros(2, 2, 17, 160, device=dev),
+        "float16": torch.zeros(2, 2, 17, 64, device=dev, dtype=torch.float16),
+        "non-contiguous": torch.zeros(2, 17, 2, 64, device=dev).transpose(1, 2),
+    }
+    for what, q in bad.items():
+        try:
+            ka.fused_attention(q, q, q)
+            check(False, f"B6 accepted {what}")
+        except (TypeError, ValueError) as e:
+            log(f"  B6 rejects {what}: {e}")
+    check.done()
+
+    # --- 3e. B7 against its plain version ------------------------------------------------
+    check = Checks("phase 3e (B7 vs plain)")
+    for gname, (gcfg, lp_cpu) in geometries.items():
+        for dname, dt in dtypes.items():
+            mlp = tree_to(lp_cpu["mlp"], dev, dt)
+            w = (mlp["fc1"]["w"], mlp["fc1"]["b"], mlp["fc2"]["w"], mlp["fc2"]["b"])
+            for s in (197, 99, 17):
+                x = torch.randn(8 * s, gcfg.hidden_size, generator=gen).to(dev, dt)
+                got = kmlp.fused_mlp(x, *w)
+                ref = kmlp.fused_mlp_ref(x, *w)
+                torch.cuda.synchronize()
+                d = valid_rows(got, ref, None)
+                tol = F32_ATOL if dt == torch.float32 else bf16_tol(ref.float())
+                if dt == torch.float32:
+                    err["b7"] = max(err["b7"], d)
+                tag = f"B7 {gname} (MLP {gcfg.mlp_dim}) {dname} rows={8 * s}"
+                log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.1e})")
+                check(bool(torch.isfinite(got).all()) and d <= tol, tag)
+    for dname, dt in dtypes.items():  # ViT-L width: the kernel's 16-row tile
+        x = torch.randn(136, 1024, generator=gen).to(dev, dt)
+        w = [(0.03 * torch.randn(shape, generator=gen)).to(dev, dt)
+             for shape in ((1024, 4096), (4096,), (4096, 1024), (1024,))]
+        got, ref = kmlp.fused_mlp(x, *w), kmlp.fused_mlp_ref(x, *w)
+        torch.cuda.synchronize()
+        d = valid_rows(got, ref, None)
+        tol = F32_ATOL if dt == torch.float32 else bf16_tol(ref.float())
+        if dt == torch.float32:
+            err["b7"] = max(err["b7"], d)
+        log(f"  B7 D=1024 (MLP 4096) {dname} rows=136: max_abs_err {d:.3e} (tol {tol:.1e})")
+        check(bool(torch.isfinite(got).all()) and d <= tol, f"B7 D=1024 {dname}")
+    mlp = tree_to(geometries["deit_s"][1]["mlp"], dev, torch.bfloat16)
+    w = (mlp["fc1"]["w"], mlp["fc1"]["b"], mlp["fc2"]["w"], mlp["fc2"]["b"])
+    wide = torch.zeros(4, 2048, device=dev, dtype=torch.bfloat16)
+    bad = {  # what the kernel does not take must raise, not run
+        "hidden 2048": (wide, (wide.new_zeros(2048, 8), wide.new_zeros(8), wide.new_zeros(8, 2048),
+                               wide.new_zeros(2048))),
+        "float16": (torch.zeros(4, cfg.hidden_size, device=dev, dtype=torch.float16), w),
+        "x [B, S, D]": (torch.zeros(2, 4, cfg.hidden_size, device=dev, dtype=torch.bfloat16), w),
+    }
+    for what, (x, ws) in bad.items():
+        try:
+            kmlp.fused_mlp(x, *ws)
+            check(False, f"B7 accepted {what}")
+        except (TypeError, ValueError) as e:
+            log(f"  B7 rejects {what}: {e}")
+    check.done()
+
+    # --- 3f. B5 against its plain version ------------------------------------------------
+    check = Checks("phase 3f (B5 vs plain)")
+    stack_s = perturbed_layer(base["backbone"]["layers"], gen)  # all 12 layers, on the CPU
+    stacks = {  # name -> (config, stacked layers on the CPU)
+        "deit_s layers 0-12": (cfg, stack_s),
+        "deit_s layers 2-5": (cfg, layer_range(stack_s, 2, 5)),
+        "composed layers 2-5": (c_cfg, layer_range(perturbed_layer(
+            pruned["backbone"]["layers"], gen), 2, 5)),
+    }
+    for sname, (gcfg, st_cpu) in stacks.items():
+        for dname, dt in dtypes.items():
+            st = tree_to(st_cpu, dev, dt)
+            for s in (197, 99, 17):
+                x = torch.randn(8, s, gcfg.hidden_size, generator=gen).to(dev, dt)
+                m = torch.rand(8, s, generator=gen) > 0.3
+                m[:, 0] = True
+                for mask in (None, m.to(dev)):
+                    got = kmod.fused_vit_encoder(x, st, gcfg.num_heads, gcfg.layernorm_eps, mask)
+                    ref = kmod.fused_vit_encoder_ref(x, st, gcfg.num_heads, gcfg.layernorm_eps,
+                                                     mask)
+                    torch.cuda.synchronize()
+                    d = valid_rows(got, ref, mask)
+                    tol = F32_ATOL if dt == torch.float32 else bf16_tol(ref.float())
+                    if dt == torch.float32:
+                        err["b5"] = max(err["b5"], d)
+                    tag = f"B5 {sname} {dname} S={s} {'mask' if mask is not None else 'nomask'}"
+                    log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.1e})")
+                    check(bool(torch.isfinite(got).all()) and d <= tol, tag)
+    st = tree_to(layer_range(stack_s, 0, 2), dev, torch.bfloat16)
+    bad = {  # what the kernel does not take must raise, not run
+        "S=257 (ViT-H)": (torch.zeros(2, 257, cfg.hidden_size, device=dev, dtype=torch.bfloat16),
+                          cfg.num_heads),
+        "head dim 96": (torch.zeros(2, 17, cfg.hidden_size, device=dev, dtype=torch.bfloat16), 4),
+        "float16": (torch.zeros(2, 17, cfg.hidden_size, device=dev, dtype=torch.float16),
+                    cfg.num_heads),
+    }
+    for what, (x, heads) in bad.items():
+        try:
+            kmod.fused_vit_encoder(x, st, heads)
+            check(False, f"B5 accepted {what}")
+        except (TypeError, ValueError) as e:
+            log(f"  B5 rejects {what}: {e}")
     check.done()
 
     # --- 4. B2 against its plain version ------------------------------------------------
@@ -670,6 +832,160 @@ def main():
     check(launches["b4"] > 0, "a kernel of the path never launched")
     check.done()
 
+    # --- 5d. the dense model's remaining routes end to end -----------------------------------
+    # Every forward runs with encoder fusion on, in mode 'auto' (kernels) against 'eager'
+    # (plain PyTorch), and its launches are counted. The head_mask route's MLP is B7 (f32
+    # arithmetic) in 'auto' and a bf16 product in 'eager', and the encoder route's numerics
+    # are B5's (normalised P, erf GELU, f32 residual), so in bf16 the two paths are two
+    # roundings: checked finite, with the masks of decisions taken before any layer equal.
+    check = Checks("phase 5d (head_mask, hidden states, encoder route, mha)")
+    all_wrappers = {"b1": kl.fused_vit_layer, "b2": kl.fused_vit_layer_cls_logits,
+                    "b3": kl.fused_vit_layer_bucketed, "b4": k8.fused_vit_layer_int8,
+                    "b5": kmod.fused_vit_encoder, "b6": ka.fused_attention, "b7": kmlp.fused_mlp}
+
+    def snapshot():
+        return {k: w.launches for k, w in all_wrappers.items()}
+
+    def ran(c0):
+        c1 = snapshot()
+        return {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+
+    def segments(pcfg, s, logits_only):
+        """Non-empty fixed-length stretches of layers between the drops of
+        the schedule (the last layer left to B2 under logits_only)."""
+        sched = pcfg.keep_schedule or (pcfg.top_k,) + (0,) * (L - 1)
+        cur, cuts = s, [0]
+        for i, k in enumerate(sched):
+            k = min(k, s - 1) if k else 0
+            if k and k < cur - 1:
+                cuts.append(i)
+                cur = k + 1
+        cuts.append(L - 1 if logits_only else L)
+        return sum(1 for a, b in zip(cuts, cuts[1:]) if b > a)
+
+    hm = torch.ones(L, cfg.num_heads)
+    hm[:, 1] = 0.0  # head 1 off everywhere
+    hm[3] = 0.0     # layer 3's attention off
+    hm[5, 2] = 0.5
+    for w in all_wrappers.values():  # the counts of this path's run only
+        w.launches = 0
+    for dname, dt in dtypes.items():
+        pix = ((u8.float() / 255.0 - 0.5) / 0.5).to(dt)
+        dense_p = tree_to(base, dev, dt)
+        bb, hmd = dense_p["backbone"], hm.to(dev, dt)
+        routes = {  # name -> (forward, launches wanted in 'auto')
+            "head_mask": (lambda: vit_forward(bb, pix, cfg, head_mask=hmd), {"b7": L}),
+            "hidden_states": (lambda: vit_forward(bb, pix, cfg, output_hidden_states=True),
+                              {"b1": L}),
+            "dense": (lambda: vit_forward(bb, pix, cfg), {"b5": 1}),
+            "none": (lambda: pruned_vit_forward(dense_p, pix, cfg,
+                                                PruneConfig(mode="none", predictor="cls_mlp")),
+                     {"b5": 1}),
+        }
+        for name in ("headline", "composed", "ultra"):
+            pc, pcfg, cpu_params = presets[name]
+            routes[name] = (functools.partial(serving_forward, tree_to(cpu_params, dev, dt), u8,
+                                              pc, pcfg),
+                            {"b5": segments(pcfg, pc.seq_len, True), "b2": 1})
+        outs = {}
+        for name, (fwd, want) in routes.items():
+            with encoder_fusion(True):
+                c0 = snapshot()
+                with kernel_mode("auto"):
+                    got = fwd()
+                torch.cuda.synchronize()
+                n = ran(c0)
+                with kernel_mode("eager"):
+                    ref = fwd()
+                torch.cuda.synchronize()
+            outs[name] = got
+            tag = f"{name} {dname}"
+            check(n == want, f"{tag}: launches {n}, want {want}")
+            lg, lr = got["logits"].float(), ref["logits"].float()
+            check(lg.shape == (64, 100) and bool(torch.isfinite(lg).all()),
+                  f"{tag}: logits not finite [64, 100]")
+            d = (lg - lr).abs().max().item()
+            line = (f"  {tag}: launches {n}; logits max_abs_err {d:.3e} (max|ref| "
+                    f"{lr.abs().max().item():.3f}), relative {rel_err(lg, lr):.4f}")
+            same_masks = True
+            if "keep_masks" in got and name != "none":
+                km_, em = got["keep_masks"], ref["keep_masks"]
+                same_masks = bool(torch.equal(km_, em))
+                line += f"; keep masks equal {same_masks}"
+                # the first drop is decided from the embedding, before any layer
+                check(bool(torch.equal(km_[0], em[0])), f"{tag}: first keep masks differ")
+            if name == "hidden_states":
+                hs = max((g.float() - r.float()).abs().max().item()
+                         for g, r in zip(got["hidden_states"], ref["hidden_states"]))
+                check(len(got["hidden_states"]) == L + 1, f"{tag}: {len(got['hidden_states'])} "
+                      f"hidden states")
+                line += f"; {L + 1} hidden states, max_abs_err {hs:.3e}"
+            log(line)
+            if dt == torch.float32:
+                check(same_masks, f"{tag}: keep masks differ")
+                check(d <= F32_ATOL + 1e-4 * lr.abs().max().item(), f"{tag}: logits differ")
+            elif "b5" in want:
+                # bf16: the same route with B5's plain version in the kernel's place, every
+                # other launch as it was; held on the images whose keep masks agree at every
+                # layer (a score within one rounding of the cut may pick another token)
+                real, c1 = kmod.fused_vit_encoder, snapshot()
+                kmod.fused_vit_encoder = kmod.fused_vit_encoder_ref
+                try:
+                    with encoder_fusion(True), kernel_mode("auto"):
+                        alt = fwd()
+                finally:
+                    kmod.fused_vit_encoder = real
+                    for k, w in all_wrappers.items():  # comparison launches do not count
+                        w.launches = c1[k]
+                la = alt["logits"].float()
+                agree = torch.ones(lg.shape[0], dtype=torch.bool, device=dev)
+                if "keep_masks" in got:
+                    agree = (got["keep_masks"] == alt["keep_masks"]).flatten(2).all(-1).all(0)
+                n_agree = int(agree.sum())
+                d5 = (lg - la)[agree].abs().max().item() if n_agree else float("inf")
+                tol = bf16_tol(la)
+                log(f"    against B5's plain version in the route: keep masks agree on {n_agree}"
+                    f"/{lg.shape[0]} images, logits max_abs_err there {d5:.3e} (tol {tol:.1e})")
+                check(n_agree * 2 >= lg.shape[0] and d5 <= tol,
+                      f"{tag}: B5 route against its plain version: {n_agree} images agree, "
+                      f"err {d5:.3e}")
+        for name in ("dense", "headline"):  # int8 under fusion: the float B5 route
+            fwd = routes[name][0]
+            with encoder_fusion(True), quant_mode("int8"), kernel_mode("auto"):
+                c0 = snapshot()
+                got = fwd()
+                torch.cuda.synchronize()
+                n = ran(c0)
+            want = routes[name][1]
+            same = bool(torch.equal(got["logits"], outs[name]["logits"]))
+            log(f"  {name}_int8 {dname} (fusion): launches {n}; logits equal to float {same}")
+            check(n == want and same, f"{name}_int8 {dname}: launches {n} (want {want}) or "
+                  f"logits not the float route's")
+        # mha with use_kernel in mode 'kernel': the attention core as B6 (f32 arithmetic;
+        # the plain mha's softmax runs in the input dtype, so bf16 is two roundings)
+        attn = tree_to(geometries["deit_s"][1]["attn"], dev, dt)
+        h = torch.randn(64, 197, cfg.hidden_size, generator=gen).to(dev, dt)
+        c0 = snapshot()
+        with kernel_mode("kernel"):
+            got = mha(h, attn, cfg.num_heads, use_kernel=True)
+        torch.cuda.synchronize()
+        n = ran(c0)
+        ref = mha(h, attn, cfg.num_heads)
+        d, rel = (got.float() - ref.float()).abs().max().item(), rel_err(got, ref)
+        log(f"  mha(use_kernel) {dname}: launches {n}; against the plain mha max_abs_err "
+            f"{d:.3e}, relative {rel:.2e}")
+        close = d <= F32_ATOL if dt == torch.float32 else rel < 0.02
+        check(n == {"b6": 1} and bool(torch.isfinite(got).all()) and close,
+              f"mha(use_kernel) {dname}: launches {n} or err {d:.3e} / {rel:.2e}")
+    for k in ("b5", "b6", "b7"):
+        launches[k] = all_wrappers[k].launches
+    launches["b1"] += kl.fused_vit_layer.launches
+    launches["b2"] += kl.fused_vit_layer_cls_logits.launches
+    log("  phase 5d launches: " + ", ".join(f"{k.upper()} {w.launches}"
+                                           for k, w in all_wrappers.items()))
+    check(all(launches[k] > 0 for k in ("b5", "b6", "b7")), "a kernel of the path never launched")
+    check.done()
+
     # --- 6. times at batch 512, bf16 (info) --------------------------------------------
     def time_ms(fn, iters=10, warmup=3) -> float:
         for _ in range(warmup):
@@ -864,6 +1180,75 @@ def main():
         if s == 197:
             kernel_ms["b4"], bounds["b4"] = (k_ms, p_ms, e_ms), (b_ms, b_by)
 
+    # B5 (12 layers), B6 and B7 at the dense forward's shapes
+    st = tree_to(stack_s, dev, bf)
+    x = torch.randn(512, 197, cfg.hidden_size, generator=gen).to(dev, bf)
+    k_ms, p_ms = abba(lambda: kmod.fused_vit_encoder(x, st, cfg.num_heads),
+                      lambda: kmod.fused_vit_encoder_ref(x, st, cfg.num_heads))
+
+    def eager_encoder():  # the plain path's layer loop, bf16 cuBLAS
+        y = x
+        for i in range(L):
+            y = vit_layer(y, layer_slice(st, i), cfg)
+        return y
+
+    with kernel_mode("eager"):
+        e_ms = time_ms(eager_encoder)
+    flops = L * layer_work(cfg, 512 * 197, 512 * cfg.num_heads * 197 * 197)
+    b_ms, b_by = bound(flops, 2 * x.numel() * x.element_size() + weight_bytes(st))
+    log(f"  B5 deit_s 12 layers S=197: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, eager "
+        f"layer loop {e_ms:.3f} ms; {flops:.3e} FLOP, bound {b_ms:.4f} ms ({b_by}, bf16 peak)")
+    kernel_ms["b5"], bounds["b5"] = (k_ms, p_ms, e_ms), (b_ms, b_by)
+
+    def bound_split(flops_bf16: float, flops_fp32: float, nbytes: float):
+        """B6 / B7: the first product multiplies bf16 inputs, exact in f32, so
+        bf16 tensor cores with f32 accumulation compute it; the second takes
+        unrounded f32 operands and is held to the FP32 rate. (least ms, what
+        bounds it)"""
+        t_op = (flops_bf16 / PEAK_BF16_FLOPS + flops_fp32 / PEAK_FP32_FLOPS) * 1e3
+        t_mem = nbytes / PEAK_HBM_BYTES * 1e3
+        return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
+    q, k, v = (torch.randn(512, cfg.num_heads, 197, cfg.head_dim, generator=gen).to(dev, bf)
+               for _ in range(3))
+    k_ms, p_ms = abba(lambda: ka.fused_attention(q, k, v), lambda: ka.fused_attention_ref(q, k, v))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    e_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qf, kf, vf))
+    half = 2.0 * q.numel() * 197  # QK^T on bf16 inputs, then PV on f32 P
+    b_ms, b_by = bound_split(half, half, 4 * q.numel() * q.element_size())
+    log(f"  B6 deit_s S=197 (512 x 6 heads): kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, "
+        f"f32 scaled_dot_product_attention {e_ms:.3f} ms; {2 * half:.3e} FLOP, bound {b_ms:.4f} ms "
+        f"({b_by}, QK^T at the bf16 peak, PV at the FP32 peak)")
+    kernel_ms["b6"], bounds["b6"] = (k_ms, p_ms, e_ms), (b_ms, b_by)
+    del q, k, v, qf, kf, vf
+
+    mlp = layer_slice(st, 0)["mlp"]
+    w = (mlp["fc1"]["w"], mlp["fc1"]["b"], mlp["fc2"]["w"], mlp["fc2"]["b"])
+    xm = torch.randn(512 * 197, cfg.hidden_size, generator=gen).to(dev, bf)
+    k_ms, p_ms = abba(lambda: kmlp.fused_mlp(xm, *w), lambda: kmlp.fused_mlp_ref(xm, *w))
+    with kernel_mode("eager"):
+        e_ms = time_ms(lambda: mlp_block(xm, mlp))
+    half = 2.0 * xm.shape[0] * cfg.hidden_size * cfg.mlp_dim  # x.W1 on bf16, then GELU.W2 on f32
+    b_ms, b_by = bound_split(half, half, 2 * xm.numel() * xm.element_size() + weight_bytes(mlp))
+    log(f"  B7 deit_s rows={xm.shape[0]}: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, eager "
+        f"mlp_block (bf16 cuBLAS + F.gelu) {e_ms:.3f} ms; {2 * half:.3e} FLOP, bound {b_ms:.4f} ms "
+        f"({b_by}, x.W1 at the bf16 peak, GELU.W2 at the FP32 peak)")
+    kernel_ms["b7"], bounds["b7"] = (k_ms, p_ms, e_ms), (b_ms, b_by)
+    del xm
+
+    for name in ("dense", "ultra"):  # the encoder route against the per-layer one (info)
+        fwd = forward_fn(name, tree_to(presets[name][2], dev, bf), bf, u8)
+
+        def run(on, fwd=fwd):
+            with kernel_mode("auto"), encoder_fusion(on):
+                fwd()
+
+        f_ms, u_ms = abba(lambda: run(True), lambda: run(False))
+        log(f"  {name}: encoder fusion on {f_ms:.3f} ms/batch ({512 / f_ms * 1e3:.0f} img/s), "
+            f"off {u_ms:.3f} ms/batch ({512 / u_ms * 1e3:.0f} img/s)")
+        if name == "dense":
+            device_breakdown("dense, encoder fusion on", lambda: run(True), f_ms)
+
     # --- 7. records ------------------------------------------------------------------
     import importlib
     import pkgutil
@@ -888,16 +1273,21 @@ def main():
             if needle in text:
                 raise AssertionError(f"{src}: builds a path into the JAX package ({needle})")
     pkg = "vit_pruning_tpu_torch"
-    rows = (("b1", "fused_vit_layer", "layer", 359, launches["b1"] + launches["b1_redecide"]),
-            ("b2", "fused_vit_layer_cls_logits", "layer", 561, launches["b2"]),
-            ("b3", "fused_vit_layer_bucketed", "layer", 761, launches["b3"]),
-            ("b4", "fused_vit_layer_int8", "layer_int8", 154, launches["b4"]))
+    rows = (  # key, wrapper, csrc file, the TPU kernel's file and line, launches
+        ("b1", "fused_vit_layer", "layer", "layer", 359, launches["b1"] + launches["b1_redecide"]),
+        ("b2", "fused_vit_layer_cls_logits", "layer", "layer", 561, launches["b2"]),
+        ("b3", "fused_vit_layer_bucketed", "layer", "layer", 761, launches["b3"]),
+        ("b4", "fused_vit_layer_int8", "layer_int8", "layer_int8", 154, launches["b4"]),
+        ("b5", "fused_vit_encoder", "encoder", "model", 150, launches["b5"]),
+        ("b6", "fused_attention", "attention", "attention", 58, launches["b6"]),
+        ("b7", "fused_mlp", "mlp", "mlp", 85, launches["b7"]),
+    )
     kernels = [
         {"name": name, "route": "cuda", "source": f"{pkg}/csrc/{src}.cu",
-         "replaces": f"vit_pruning_tpu/ops/pallas/{src}.py:{line}", "launches": n,
+         "replaces": f"vit_pruning_tpu/ops/pallas/{tpu}.py:{line}", "launches": n,
          "max_abs_err": err[key], "ms": kernel_ms[key][0], "plain_ms": kernel_ms[key][1],
          "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": kernel_ms[key][2]}
-        for key, name, src, line, n in rows
+        for key, name, src, tpu, line, n in rows
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

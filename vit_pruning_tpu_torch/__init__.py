@@ -7,10 +7,14 @@ progressive top-k compaction (serving.serving_forward ->
 models/pruned_vit.py::progressive_topk_forward) and the re-decide modes
 (models/pruned_vit.py::pruned_vit_forward: mask, topk, oracle, random, with
 every predictor kind). Both serve in float or int8 (`quant='int8'`, or
-`quant_mode('int8')` around the call). They run through four CUDA C++
-kernels written for Hopper (ops/cuda/layer.py and layer_int8.py, csrc/);
-everything else is plain PyTorch. Params are built on the card unless the
-caller asks for 'cpu'.
+`quant_mode('int8')` around the call). The dense model's whole inference
+surface is ported too: models/vit.py::vit_forward with head_mask and
+output_hidden_states, vit_layer with return_probs, ops/attention.py::mha,
+the soft-mask and importance helpers of ops/structured.py, and the
+whole-encoder route (`encoder_fusion(True)` or VIT_PRUNING_TPU_ENCODER=1).
+They run through seven CUDA C++ kernels written for Hopper (B1-B7 in
+ops/cuda/, sources in csrc/); everything else is plain PyTorch. Params are
+built on the card unless the caller asks for 'cpu'.
 
 Layout:
     configs    — the port's own copy of the model and pruning configs
@@ -32,9 +36,12 @@ from vit_pruning_tpu_torch.configs import (  # noqa: F401
     vit_tiny,
 )
 from vit_pruning_tpu_torch.ops.dispatch import (  # noqa: F401
+    encoder_fusion,
+    encoder_fusion_enabled,
     kernel_mode,
     quant_mode,
     serving_quant,
+    set_encoder_fusion,
     set_kernel_mode,
     set_serving_quant,
 )

@@ -1,8 +1,10 @@
-// Shared by the kernels' translation units (layer.cu, layer_int8.cu): the
-// numerics helpers, the GEMM epilogue (bias, activation, residual, cast)
-// and the declarations of the launchers that layer.cu defines and
-// layer_int8.cu reuses (B1's attention, the shape rules). Everything defined
-// here is inline or a template, so both units may include it.
+// Shared by the kernels' translation units (layer.cu, layer_int8.cu,
+// encoder.cu, attention.cu, mlp.cu): the numerics helpers, the GEMM epilogue
+// (bias, activation, residual, cast), the f32 attention kernel that B1 (in
+// float32) and B6 share, and the declarations of the launchers
+// that layer.cu defines and layer_int8.cu and encoder.cu reuse (B1's
+// attention, GEMMs and LayerNorm, the shape rules). Everything defined here
+// is inline or a template, so every unit may include it.
 
 #pragma once
 
@@ -180,14 +182,251 @@ __device__ __forceinline__ void epilogue_store8(const Epilogue& e, int m, int n,
     if (err_ != cudaSuccess) return err_;     \
   } while (0)
 
+// ---------------------------------------------------------------------------
+// Attention in f32 on the CUDA cores: B1, B3, B4 and B5 in float32 (through
+// layer.cu's attention()) and B6 in every dtype. One block per (head,
+// image): K^T of the head sits in shared memory as f32, rows padded by one
+// word so the transposing store is free of bank conflicts, and V too where
+// both fit in the 227 KB (at hd 64 always; at hd 128 and long sequences V is
+// read from global memory, where L1 and L2 hold it). Each of the 8 warps
+// takes 4 query rows at a time: one key per lane and chunk of 32 keys for
+// QK^T, the row max and sum by warp shuffles, P kept in a per-warp row of
+// shared memory, one output column per lane for PV. q, k and v are read in T
+// and upcast; logits, softmax and PV are f32; the output is cast once to T.
+// NORM false is staged2 (PV on the numerators, scaled by 1/rowsum at the
+// end), true divides P by the row sum before PV.
+
+constexpr float kNegInf = -1e30f;  // masked-key logit, as the TPU kernel
+
+// Key j of image b: 0 absent (j >= S), 1 valid, 2 masked (-1e30). The mask
+// is a [B, S] byte mask (B1, B6), or the image's kept count, keys j <
+// counts[b] valid (B3's compacted rows), or neither (every key valid).
+__device__ __forceinline__ unsigned char key_flag(const unsigned char* mask, const int* counts,
+                                                  int b, int S, int j) {
+  if (j >= S) return 0;
+  if (counts) return j < counts[b] ? 1 : 2;
+  return (mask == nullptr || mask[(long)b * S + j]) ? 1 : 2;
+}
+
+// element (image b, head h, token j, column d) of q, k, v or the output sits
+// at ptr[b * img + h * head + j * row + d]
+struct AttnLayout {
+  long img, head, row;
+};
+
+namespace fa {
+constexpr int WARPS = 8, THREADS = WARPS * 32;
+constexpr int NQ = 4;              // query rows per warp pass
+constexpr size_t kMaxSmem = 232448;  // 227 KB per block
+__host__ __device__ inline int r4(int n) { return (n + 3) & ~3; }
+// offsets in floats, each 16-byte aligned: K^T [hd][ldk], V [S][hd] (vsmem),
+// Q rows [WARPS][NQ][r4(hd)], P rows [WARPS][NQ][ldp]; then the key flags,
+// one byte each
+struct Smem {
+  int v, q, p, flag;
+  __host__ __device__ Smem(int nc, int s, int hd, bool vsmem) {
+    v = r4(hd * (nc * 32 + 1));
+    q = v + (vsmem ? r4(s * hd) : 0);
+    p = q + WARPS * NQ * r4(hd);
+    flag = p + WARPS * NQ * nc * 32;
+  }
+  __host__ __device__ size_t bytes(int nc) const { return sizeof(float) * flag + nc * 32; }
+};
+__device__ __forceinline__ float lane4(const float4& v, int t) {
+  return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
+}
+}  // namespace fa
+
+// HDT: the head dim when fixed at compile time, else 0 and hd_ is read.
+// Both products read their broadcast operand (the Q row, the P row) four
+// values at a time (LDS.128): shared-memory loads, not FMAs, bound the loops.
+// The sums still run over d and j in order.
+template <typename T, int NC, int HDT, bool NORM, bool VSMEM>
+__global__ void __launch_bounds__(fa::THREADS)
+attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     AttnLayout in, const unsigned char* __restrict__ mask,
+                     const int* __restrict__ counts, T* __restrict__ out, AttnLayout ol, int S,
+                     int hd_, float scale) {
+  using namespace fa;
+  constexpr int ldp = NC * 32, ldk = ldp + 1;
+  const int hd = HDT ? HDT : hd_, ldq = r4(hd);
+  extern __shared__ __align__(16) float sm[];
+  const Smem lay(NC, S, hd, VSMEM);
+  float* Kt = sm;                                  // [hd][ldk]
+  float* Vs = sm + lay.v;                          // [S][hd], VSMEM only
+  float* Qs = sm + lay.q;                          // [WARPS][NQ][ldq]
+  float* Ps = sm + lay.p;                          // [WARPS][NQ][ldp]
+  unsigned char* flag = reinterpret_cast<unsigned char*>(sm + lay.flag);  // [ldp]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long at = b * in.img + h * in.head;
+  const T *qb = q + at, *kb = k + at, *vb = v + at;
+  T* ob = out + b * ol.img + h * ol.head;
+
+  for (int i = tid; i < S * hd; i += THREADS) {
+    const int j = i / hd, d = i % hd;
+    Kt[d * ldk + j] = to_f(kb[j * in.row + d]);
+    if (VSMEM) Vs[i] = to_f(vb[j * in.row + d]);
+  }
+  for (int i = tid; i < (ldp - S) * hd; i += THREADS)  // absent keys: finite zeros
+    Kt[(i % hd) * ldk + S + i / hd] = 0.f;
+  for (int j = tid; j < ldp; j += THREADS) flag[j] = key_flag(mask, counts, b, S, j);
+  __syncthreads();
+
+  float* q_w = Qs + warp * NQ * ldq;
+  float* p_w = Ps + warp * NQ * ldp;
+  const int hd4 = hd & ~3, s4 = S & ~3;
+  for (int q0 = warp * NQ; q0 < S; q0 += WARPS * NQ) {
+    for (int i = lane; i < NQ * hd; i += 32) {
+      const int qi = i / hd, d = i % hd;
+      q_w[qi * ldq + d] = q0 + qi < S ? to_f(qb[(q0 + qi) * in.row + d]) : 0.f;
+    }
+    __syncwarp();
+
+    float acc[NQ][NC];
+#pragma unroll
+    for (int qi = 0; qi < NQ; ++qi)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[qi][c] = 0.f;
+    auto qk_step = [&](int d, const float (&qd)[NQ]) {
+      float kv[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) kv[c] = Kt[d * ldk + c * 32 + lane];
+#pragma unroll
+      for (int qi = 0; qi < NQ; ++qi)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[qi][c] = fmaf(qd[qi], kv[c], acc[qi][c]);
+    };
+    for (int d0 = 0; d0 < hd4; d0 += 4) {
+      float4 q4[NQ];
+#pragma unroll
+      for (int qi = 0; qi < NQ; ++qi) q4[qi] = *reinterpret_cast<const float4*>(q_w + qi * ldq + d0);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float qd[NQ];
+#pragma unroll
+        for (int qi = 0; qi < NQ; ++qi) qd[qi] = lane4(q4[qi], t);
+        qk_step(d0 + t, qd);
+      }
+    }
+    for (int d = hd4; d < hd; ++d) {
+      float qd[NQ];
+#pragma unroll
+      for (int qi = 0; qi < NQ; ++qi) qd[qi] = q_w[qi * ldq + d];
+      qk_step(d, qd);
+    }
+
+    float rinv[NQ];
+#pragma unroll
+    for (int qi = 0; qi < NQ; ++qi) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int f = flag[c * 32 + lane];
+        acc[qi][c] = f == 2 ? kNegInf : acc[qi][c] * scale;
+        if (f) mx = fmaxf(mx, acc[qi][c]);
+      }
+      mx = warp_max(mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        acc[qi][c] = flag[c * 32 + lane] ? expf(acc[qi][c] - mx) : 0.f;
+        sum += acc[qi][c];
+      }
+      sum = warp_sum(sum);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) p_w[qi * ldp + c * 32 + lane] = NORM ? acc[qi][c] / sum : acc[qi][c];
+      rinv[qi] = NORM ? 1.0f : 1.0f / sum;
+    }
+    __syncwarp();
+
+    for (int d = lane; d < hd; d += 32) {
+      float o[NQ] = {};
+      auto pv_step = [&](int j, const float (&pj)[NQ]) {
+        const float vj = VSMEM ? Vs[j * hd + d] : to_f(vb[j * in.row + d]);
+#pragma unroll
+        for (int qi = 0; qi < NQ; ++qi) o[qi] = fmaf(pj[qi], vj, o[qi]);
+      };
+      for (int j0 = 0; j0 < s4; j0 += 4) {
+        float4 p4[NQ];
+#pragma unroll
+        for (int qi = 0; qi < NQ; ++qi) p4[qi] = *reinterpret_cast<const float4*>(p_w + qi * ldp + j0);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          float pj[NQ];
+#pragma unroll
+          for (int qi = 0; qi < NQ; ++qi) pj[qi] = lane4(p4[qi], t);
+          pv_step(j0 + t, pj);
+        }
+      }
+      for (int j = s4; j < S; ++j) {
+        float pj[NQ];
+#pragma unroll
+        for (int qi = 0; qi < NQ; ++qi) pj[qi] = p_w[qi * ldp + j];
+        pv_step(j, pj);
+      }
+#pragma unroll
+      for (int qi = 0; qi < NQ; ++qi)
+        if (q0 + qi < S) ob[(q0 + qi) * ol.row + d] = from_f<T>(o[qi] * rinv[qi]);
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T, int NC, int HDT, bool NORM>
+cudaError_t attention_f32_nc(const T* q, const T* k, const T* v, AttnLayout in,
+                             const unsigned char* mask, const int* counts, T* out, AttnLayout ol,
+                             int B, int H, int S, int hd, cudaStream_t st) {
+  const bool vsmem = fa::Smem(NC, S, hd, true).bytes(NC) <= fa::kMaxSmem;
+  const size_t smem = fa::Smem(NC, S, hd, vsmem).bytes(NC);
+  if (smem > fa::kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = vsmem ? attention_f32_kernel<T, NC, HDT, NORM, true>
+                      : attention_f32_kernel<T, NC, HDT, NORM, false>;
+  VPT_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  // 1/sqrt(hd) as the TPU wrappers compute it (in double, then f32)
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
+  kernel<<<dim3(H, B), fa::THREADS, smem, st>>>(q, k, v, in, mask, counts, out, ol, S, hd, scale);
+  return cudaGetLastError();
+}
+
+// the launch for S <= 288 (9 chunks of 32 keys), else cudaErrorInvalidValue
+template <typename T, int HDT, bool NORM>
+cudaError_t attention_f32(const T* q, const T* k, const T* v, AttnLayout in,
+                          const unsigned char* mask, const int* counts, T* out, AttnLayout ol,
+                          int B, int H, int S, int hd, cudaStream_t st) {
+#define VPT_NC(n) \
+  case n: return attention_f32_nc<T, n, HDT, NORM>(q, k, v, in, mask, counts, out, ol, B, H, S, hd, st)
+  switch ((S + 31) / 32) {
+    VPT_NC(1); VPT_NC(2); VPT_NC(3); VPT_NC(4); VPT_NC(5); VPT_NC(6); VPT_NC(7); VPT_NC(8); VPT_NC(9);
+    default: return cudaErrorInvalidValue;
+  }
+#undef VPT_NC
+}
+
 // --- defined in layer.cu ---------------------------------------------------
 
-// B1's attention (staged2 numerics) on qkv [B*S, 3KW] -> ctx [B*S, KW]; keys
-// masked by `mask` [B, S] bytes or by the kept counts [B] (either may be null)
+// B1's attention on qkv [B*S, 3KW] -> ctx [B*S, KW]; keys masked by `mask`
+// [B, S] bytes or by the kept counts [B] (either may be null). normalized
+// false: staged2 numerics (B1, B3, B4: numerators rounded to T, PV scaled by
+// 1/rowsum); true: B5's (P = exp / rowsum, then rounded to T, then PV).
 cudaError_t attention(const float* qkv, const unsigned char* mask, const int* counts, float* ctx,
-                      int B, int S, int H, int KW, cudaStream_t st);
+                      int B, int S, int H, int KW, cudaStream_t st, bool normalized = false);
 cudaError_t attention(const bf16* qkv, const unsigned char* mask, const int* counts, bf16* ctx,
-                      int B, int S, int H, int KW, cudaStream_t st);
+                      int B, int S, int H, int KW, cudaStream_t st, bool normalized = false);
+
+// out[M, N] = epilogue(A[M, K] (row stride lda) @ W[K, N]): WMMA tiles in
+// bf16, FMA tiles (full f32) in float32
+cudaError_t gemm(const bf16* A, long lda, const bf16* W, int M, int N, int K, Epilogue e,
+                 cudaStream_t st);
+cudaError_t gemm(const float* A, long lda, const float* W, int M, int N, int K, const Epilogue& e,
+                 cudaStream_t st);
+
+// LayerNorm of `rows` rows of x (Tin) into y (T), f32 statistics; instances
+// <float, float>, <bf16, bf16> and <float, bf16>
+template <typename Tin, typename T>
+cudaError_t layer_norm(const Tin* x, long ldx, const T* g, const T* b, T* y, long ldy, int rows,
+                       int d, float eps, cudaStream_t st);
 
 // the geometry every layer kernel takes
 bool shapes_ok(int dtype, int B, int S, int D, int H, int HD, int M);

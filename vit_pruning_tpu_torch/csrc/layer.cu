@@ -37,8 +37,6 @@
 
 namespace vpt {
 
-constexpr float kNegInf = -1e30f;  // masked-key logit, as the TPU kernel
-
 // ---------------------------------------------------------------------------
 // LayerNorm: one warp per row, f32 statistics, output in T.
 
@@ -261,178 +259,32 @@ cudaError_t layer_norm(const Tin* x, long ldx, const T* g, const T* b, T* y, lon
                                                                               rows, d, eps);
   return cudaGetLastError();
 }
+template cudaError_t layer_norm<float, float>(const float*, long, const float*, const float*,
+                                              float*, long, int, int, float, cudaStream_t);
+template cudaError_t layer_norm<bf16, bf16>(const bf16*, long, const bf16*, const bf16*, bf16*,
+                                            long, int, int, float, cudaStream_t);
+template cudaError_t layer_norm<float, bf16>(const float*, long, const bf16*, const bf16*, bf16*,
+                                             long, int, int, float, cudaStream_t);
 
 // ---------------------------------------------------------------------------
 // B1 attention, one block per (head, image), two implementations with the
-// staged2 numerics: float32 on the CUDA cores (FMA, below) and bfloat16 on
-// the tensor cores (further down).
-//
-// f32: K (transposed) and V of the image's head sit in smem; each warp takes
-// NQ query rows at a time, one key per lane and chunk of 32 keys for QK^T,
-// one output column per lane for PV. NC = ceil(S / 32) is a template
-// argument so that short sequences (17, 33) do no work for absent chunks.
-
-constexpr int kAttnWarps = 8;
-constexpr int kNQ = 4;            // query rows per warp pass
-
-__host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
-
-// Key j of image b: 0 absent (j >= S), 1 valid, 2 masked (-1e30). The mask
-// is a [B, S] byte mask (B1), or the image's kept count, keys j < counts[b]
-// valid (B3's compacted rows), or neither (every key valid).
-__device__ __forceinline__ unsigned char key_flag(const unsigned char* mask, const int* counts,
-                                                  int b, int S, int j) {
-  if (j >= S) return 0;
-  if (counts) return j < counts[b] ? 1 : 2;
-  return (mask == nullptr || mask[(long)b * S + j]) ? 1 : 2;
-}
-
-// smem layout; K^T rows padded by one word so the transposing store is
-// free of bank conflicts
-template <typename T, int NC>
-struct AttnSmem {
-  static constexpr int ldp = NC * 32;
-  static constexpr int ldk = ldp + 4 / sizeof(T);
-  int s;
-  __host__ __device__ explicit AttnSmem(int s_) : s(s_) {}
-  __host__ __device__ size_t v() const { return align16(sizeof(T) * kHD * ldk); }
-  __host__ __device__ size_t qs() const { return align16(v() + sizeof(T) * kHD * s); }
-  __host__ __device__ size_t ps() const { return align16(qs() + sizeof(float) * kAttnWarps * kNQ * kHD); }
-  __host__ __device__ size_t flag() const { return align16(ps() + sizeof(float) * kAttnWarps * kNQ * ldp); }
-  __host__ __device__ size_t bytes() const { return align16(flag() + ldp); }
-};
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(kAttnWarps * 32)
-attention_kernel(const T* __restrict__ qkv, const unsigned char* __restrict__ mask,
-                 const int* __restrict__ counts, T* __restrict__ ctx, int S, int KW, float scale) {
-  constexpr int HD = kHD;
-  using L = AttnSmem<T, NC>;
-  constexpr int ldk = L::ldk, ldp = L::ldp;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const L lay(S);
-  T* Kt = reinterpret_cast<T*>(smem);                    // [HD][ldk]
-  T* Vs = reinterpret_cast<T*>(smem + lay.v());          // [S][HD]
-  float* Qs = reinterpret_cast<float*>(smem + lay.qs()); // [warps][NQ][HD]
-  float* Ps = reinterpret_cast<float*>(smem + lay.ps()); // [warps][NQ][ldp]
-  unsigned char* flag = smem + lay.flag();               // 0 absent, 1 valid, 2 masked
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long row_stride = 3L * KW;
-  const T* base = qkv + (long)b * S * row_stride;
-
-  for (int i = tid; i < S * HD; i += blockDim.x) {
-    const int j = i / HD, d = i % HD;
-    const T* r = base + j * row_stride + h * HD + d;
-    Kt[d * ldk + j] = r[KW];
-    Vs[j * HD + d] = r[2 * KW];
-  }
-  for (int i = tid; i < (ldp - S) * HD; i += blockDim.x) {
-    const int j = S + i / HD, d = i % HD;
-    Kt[d * ldk + j] = from_f<T>(0.f);
-  }
-  for (int j = tid; j < ldp; j += blockDim.x) flag[j] = key_flag(mask, counts, b, S, j);
-  __syncthreads();
-
-  float* q_w = Qs + warp * kNQ * HD;
-  float* p_w = Ps + warp * kNQ * ldp;
-  for (int q0 = warp * kNQ; q0 < S; q0 += kAttnWarps * kNQ) {
-    for (int i = lane; i < kNQ * HD; i += 32) {
-      const int qi = i / HD, d = i % HD;
-      q_w[i] = (q0 + qi < S) ? to_f(base[(q0 + qi) * row_stride + h * HD + d]) : 0.f;
-    }
-    __syncwarp();
-
-    float acc[kNQ][NC];
-#pragma unroll
-    for (int qi = 0; qi < kNQ; ++qi)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[qi][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float kv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) kv[c] = to_f(Kt[d * ldk + c * 32 + lane]);
-#pragma unroll
-      for (int qi = 0; qi < kNQ; ++qi) {
-        const float qd = q_w[qi * HD + d];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[qi][c] = fmaf(qd, kv[c], acc[qi][c]);
-      }
-    }
-
-    float rinv[kNQ];
-#pragma unroll
-    for (int qi = 0; qi < kNQ; ++qi) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int f = flag[c * 32 + lane];
-        const float l = f == 2 ? kNegInf : acc[qi][c] * scale;
-        acc[qi][c] = l;
-        if (f) mx = fmaxf(mx, l);
-      }
-      mx = warp_max(mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int j = c * 32 + lane;
-        // numerator rounded to T, as the TPU kernel stores it; the row sum
-        // adds the rounded values (its ones-column trick in the PV product)
-        const float p = flag[j] ? round_to<T>(expf(acc[qi][c] - mx)) : 0.f;
-        p_w[qi * ldp + j] = p;
-        sum += p;
-      }
-      rinv[qi] = 1.0f / warp_sum(sum);
-    }
-    __syncwarp();
-
-#pragma unroll
-    for (int dd = 0; dd < HD / 32; ++dd) {
-      const int d = dd * 32 + lane;
-      float o[kNQ] = {};
-      for (int j = 0; j < S; ++j) {
-        const float vj = to_f(Vs[j * HD + d]);
-#pragma unroll
-        for (int qi = 0; qi < kNQ; ++qi) o[qi] = fmaf(p_w[qi * ldp + j], vj, o[qi]);
-      }
-#pragma unroll
-      for (int qi = 0; qi < kNQ; ++qi)
-        if (q0 + qi < S) ctx[((long)b * S + q0 + qi) * KW + h * HD + d] = from_f<T>(o[qi] * rinv[qi]);
-    }
-    __syncwarp();
-  }
-}
+// staged2 numerics: float32 on the CUDA cores (common.cuh's attention_f32,
+// shared with B6) and bfloat16 on the tensor cores (below). NC = ceil(S /
+// 32) is a template argument so that short sequences (17, 33) do no work
+// for absent chunks.
 
 // 1/sqrt(hd) as the TPU wrapper computes it (in double, then f32)
 inline float attn_scale() { return static_cast<float>(1.0 / sqrt(static_cast<double>(kHD))); }
 
-template <typename T, int NC>
-cudaError_t attention_nc(const T* qkv, const unsigned char* mask, const int* counts, T* ctx, int B,
-                         int S, int H, int KW, cudaStream_t st) {
-  const size_t smem = AttnSmem<T, NC>(S).bytes();
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  attention_kernel<T, NC><<<dim3(H, B), kAttnWarps * 32, smem, st>>>(qkv, mask, counts, ctx, S,
-                                                                      KW, attn_scale());
-  return cudaGetLastError();
-}
-
 cudaError_t attention(const float* qkv, const unsigned char* mask, const int* counts, float* ctx,
-                      int B, int S, int H, int KW, cudaStream_t st) {
-  switch ((S + 31) / 32) {
-    case 1: return attention_nc<float, 1>(qkv, mask, counts, ctx, B, S, H, KW, st);
-    case 2: return attention_nc<float, 2>(qkv, mask, counts, ctx, B, S, H, KW, st);
-    case 3: return attention_nc<float, 3>(qkv, mask, counts, ctx, B, S, H, KW, st);
-    case 4: return attention_nc<float, 4>(qkv, mask, counts, ctx, B, S, H, KW, st);
-    case 5: return attention_nc<float, 5>(qkv, mask, counts, ctx, B, S, H, KW, st);
-    case 6: return attention_nc<float, 6>(qkv, mask, counts, ctx, B, S, H, KW, st);
-    case 7: return attention_nc<float, 7>(qkv, mask, counts, ctx, B, S, H, KW, st);
-    case 8: return attention_nc<float, 8>(qkv, mask, counts, ctx, B, S, H, KW, st);
-    default: return cudaErrorInvalidValue;
-  }
+                      int B, int S, int H, int KW, cudaStream_t st, bool normalized) {
+  // q, k, v are the three KW-wide thirds of each qkv row, the context is [B*S, KW]
+  const AttnLayout in{(long)S * 3 * KW, kHD, 3L * KW}, ol{(long)S * KW, kHD, KW};
+  return normalized
+             ? attention_f32<float, kHD, true>(qkv, qkv + KW, qkv + 2 * KW, in, mask, counts, ctx,
+                                               ol, B, H, S, kHD, st)
+             : attention_f32<float, kHD, false>(qkv, qkv + KW, qkv + 2 * KW, in, mask, counts, ctx,
+                                                ol, B, H, S, kHD, st);
 }
 
 // bf16: WMMA 16x16x16 tiles. K, V of the image's head sit in smem as
@@ -443,6 +295,9 @@ cudaError_t attention(const float* qkv, const unsigned char* mask, const int* co
 // feeds them to the PV product; the context is scaled by 1/sum at the end.
 // Recomputing QK^T (cheap on the tensor cores) keeps only a 16x16 logits
 // tile per warp instead of the [16, S] rows, so two blocks fit on an SM.
+// NORM (B5's numerics): pass 1 also sums the f32 numerators (a running sum,
+// rescaled when the row max grows), so that pass 2 forms P = exp(l - max) /
+// sum and rounds it to bf16 before PV.
 namespace ta {
 constexpr int WARPS = 4, THREADS = WARPS * 32;
 constexpr int LDKV = kHD + 8;  // bf16; +8 staggers the banks
@@ -463,6 +318,7 @@ __host__ __device__ inline size_t warp_base(int s) { return (kv_bytes(s) + s16(s
 __host__ __device__ inline size_t smem_bytes(int s) { return warp_base(s) + WARPS * WARP_BYTES; }
 }  // namespace ta
 
+template <bool NORM>
 __global__ void __launch_bounds__(ta::THREADS)
 attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restrict__ mask,
                     const int* __restrict__ counts, bf16* __restrict__ ctx, int S, int KW,
@@ -521,17 +377,38 @@ attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restric
       __syncwarp();
     };
 
-    float mx = -INFINITY;
+    // pass 1: the row max and, for NORM, the row's sum of f32 numerators,
+    // kept as a running sum rescaled whenever the max grows (-INFINITY: no
+    // key seen yet by this lane)
+    float mx = -INFINITY, rowsum = 1.f;
+    if (NORM) rowsum = 0.f;
     for (int jt = 0; jt < ntiles; ++jt) {
       logits_tile(jt);
+      float l8[8], tmax = -INFINITY;
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
         const int f = flag[jt * 16 + c0 + t];
-        if (f) mx = fmaxf(mx, f == 2 ? kNegInf : Lt[r * 16 + c0 + t] * scale);
+        l8[t] = f == 2 ? kNegInf : Lt[r * 16 + c0 + t] * scale;
+        if (f) tmax = fmaxf(tmax, l8[t]);
       }
       __syncwarp();
+      if (NORM && tmax > -INFINITY) {
+        const float m = fmaxf(mx, tmax);
+        float s = 0.f;
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          if (flag[jt * 16 + c0 + t]) s += expf(l8[t] - m);
+        rowsum = (mx > -INFINITY ? rowsum * expf(mx - m) : 0.f) + s;
+      }
+      mx = fmaxf(mx, tmax);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    const float mo = __shfl_xor_sync(0xffffffffu, mx, 1);
+    if (NORM) {  // the two lanes of the row, each rescaled to the row max
+      const float so = __shfl_xor_sync(0xffffffffu, rowsum, 1), m = fmaxf(mx, mo);
+      rowsum = (mx > -INFINITY ? rowsum * expf(mx - m) : 0.f) +
+               (mo > -INFINITY ? so * expf(mo - m) : 0.f);
+    }
+    mx = fmaxf(mx, mo);
 
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kHD / 16];
 #pragma unroll
@@ -543,7 +420,8 @@ attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restric
       for (int t = 0; t < 8; ++t) {
         const int f = flag[jt * 16 + c0 + t];
         const float l = f == 2 ? kNegInf : Lt[r * 16 + c0 + t] * scale;
-        const bf16 p = __float2bfloat16(f ? expf(l - mx) : 0.f);
+        const float e = f ? expf(l - mx) : 0.f;
+        const bf16 p = __float2bfloat16(NORM ? e / rowsum : e);
         sum += __bfloat162float(p);
         Pt[r * LDP + c0 + t] = p;
       }
@@ -559,7 +437,7 @@ attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restric
       __syncwarp();
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float rinv = 1.0f / sum;
+    const float rinv = NORM ? 1.0f : 1.0f / sum;
 
 #pragma unroll
     for (int dt = 0; dt < kHD / 16; ++dt)
@@ -580,15 +458,22 @@ attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restric
   }
 }
 
-cudaError_t attention(const bf16* qkv, const unsigned char* mask, const int* counts, bf16* ctx,
-                      int B, int S, int H, int KW, cudaStream_t st) {
+template <bool NORM>
+cudaError_t attention_tc(const bf16* qkv, const unsigned char* mask, const int* counts, bf16* ctx,
+                         int B, int S, int H, int KW, cudaStream_t st) {
   static const cudaError_t attr =
-      cudaFuncSetAttribute(attention_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cudaFuncSetAttribute(attention_tc_kernel<NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)ta::smem_bytes(kMaxSeq));
   if (attr != cudaSuccess) return attr;
-  attention_tc_kernel<<<dim3(H, B), ta::THREADS, ta::smem_bytes(S), st>>>(qkv, mask, counts, ctx,
-                                                                         S, KW, attn_scale());
+  attention_tc_kernel<NORM><<<dim3(H, B), ta::THREADS, ta::smem_bytes(S), st>>>(
+      qkv, mask, counts, ctx, S, KW, attn_scale());
   return cudaGetLastError();
+}
+
+cudaError_t attention(const bf16* qkv, const unsigned char* mask, const int* counts, bf16* ctx,
+                      int B, int S, int H, int KW, cudaStream_t st, bool normalized) {
+  return normalized ? attention_tc<true>(qkv, mask, counts, ctx, B, S, H, KW, st)
+                    : attention_tc<false>(qkv, mask, counts, ctx, B, S, H, KW, st);
 }
 
 // ---------------------------------------------------------------------------

@@ -19,6 +19,9 @@ Kernels: a budget-bounded layer (topk, mask with mask_budget, random) runs
 as kernel B3 (ops/cuda/layer.py::fused_vit_layer_bucketed); every other
 layer goes through vit_layer (kernel B1); with logits_only=True the
 progressive path's last layer, final LN and classifier run as kernel B2.
+Under encoder fusion the progressive path's layers between two drops run as
+one call of kernel B5 each (ops/cuda/model.py), and mode 'none' inherits
+vit_forward's route.
 Under int8 serving (`quant`) every layer goes through vit_layer's int8
 route (kernel B4), B3 included: a budget-bounded layer gathers to its cap
 and runs B4 there. The stacked weights are quantized once per forward; the
@@ -31,7 +34,6 @@ and raises NotImplementedError here.
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import torch
@@ -46,8 +48,10 @@ from vit_pruning_tpu_torch.models.predictors import (
 from vit_pruning_tpu_torch.models.vit import (
     check_attn_geometry,
     embed,
+    encoder_route,
     init_vit_params,
     layer_norm,
+    layer_range,
     layer_slice,
     layers_for,
     vit_forward,
@@ -474,14 +478,28 @@ def progressive_topk_forward(
     kernels on the last layer, final LN and classifier run as the float B2
     kernel, as the JAX package's Pallas route does (a layer whose query,
     attention and MLP touch one row gains nothing from int8); in 'eager'
-    the last layer runs int8, as its jnp route does."""
-    if os.environ.get("VIT_PRUNING_TPU_ENCODER") == "1":
-        raise NotImplementedError("whole-encoder segments: kernel B5, ROADMAP A.12")
+    the last layer runs int8, as its jnp route does.
+
+    The layers between two drops run at one sequence length: as one call of
+    kernel B5 each where models/vit.py::encoder_route says so (in float,
+    under int8 too, as the JAX package's segments), else layer by layer."""
     backbone = params["backbone"]
     pred = params.get("predictor")
     check_attn_geometry(backbone["layers"]["attn"]["q"]["w"].shape[-1], config)
     quant = resolve_quant(quant)
-    layers = layers_for(backbone["layers"], quant)
+    fuse = encoder_route(backbone["layers"], config)
+    layers = backbone["layers"] if fuse else layers_for(backbone["layers"], quant)
+
+    def run_segment(x, l0, l1):
+        """Layers [l0, l1) at a fixed sequence length."""
+        if fuse and l1 > l0:
+            from vit_pruning_tpu_torch.ops.cuda.model import fused_vit_encoder
+
+            return fused_vit_encoder(x, layer_range(backbone["layers"], l0, l1),
+                                     config.num_heads, config.layernorm_eps)
+        for j in range(l0, l1):
+            x = vit_layer(x, layer_slice(layers, j), config, quant=quant)
+        return x
 
     x = x0 if x0 is not None else embed(pixel_values, backbone["embed"], config)
     b, s, _ = x.shape
@@ -494,12 +512,15 @@ def progressive_topk_forward(
     cur = s
     sizes = torch.ones((b, s), dtype=x.dtype, device=x.device) if pcfg.merge_dropped else None
     use_cls_kernel = logits_only and kernels_enabled()
+    seg_start = 0
     for i in range(L):
-        lp = layer_slice(layers, i)
         k_i = schedule[i]
         if k_i and k_i < cur - 1 and _is_active(pcfg, i):
+            x = run_segment(x, seg_start, i)
+            seg_start = i
             x_full = x
-            x, scores, cidx = progressive_drop(x, pred, i, k_i, config, pcfg, layer_params=lp)
+            x, scores, cidx = progressive_drop(x, pred, i, k_i, config, pcfg,
+                                               layer_params=layer_slice(layers, i))
             if pcfg.merge_dropped:
                 x, sizes = merge_dropped_tokens(x_full, x, scores, k_i, sizes)
             full = torch.full((b, s - 1), float("-inf"), dtype=scores.dtype, device=x.device)
@@ -509,19 +530,18 @@ def progressive_topk_forward(
         else:
             scores_l.append(torch.full((b, s - 1), float("-inf"), dtype=x.dtype, device=x.device))
         masks.append(torch.zeros((b, s), dtype=torch.bool, device=x.device).scatter(1, orig, True))
-        if i == L - 1 and use_cls_kernel:
-            break
-        x = vit_layer(x, lp, config, quant=quant)
 
     if use_cls_kernel:
         from vit_pruning_tpu_torch.ops.cuda.layer import fused_vit_layer_cls_logits
 
+        x = run_segment(x, seg_start, L - 1)
         logits = fused_vit_layer_cls_logits(
             x, layer_slice(backbone["layers"], L - 1), backbone["ln_f"], backbone["head"],
             config.num_heads, config.layernorm_eps,
         )
         return {"logits": logits, "keep_masks": torch.stack(masks), "scores": torch.stack(scores_l)}
 
+    x = run_segment(x, seg_start, L)
     x = layer_norm(x, backbone["ln_f"], config.layernorm_eps)
     cls = x[:, 0]
     out = {

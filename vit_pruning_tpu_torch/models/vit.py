@@ -14,6 +14,11 @@ below (layer_norm -> mha -> mlp_block with erf GELU), the counterpart of the
 JAX package's use_pallas=False path. Under int8 serving (`quant`, or the
 dispatch switch when it is None) the layer runs kernel B4
 (ops/cuda/layer_int8.py) or, in 'eager', ops/quant.py::int8_vit_layer_ref.
+With head_mask or return_probs the layer takes the per-op route in float:
+layer_norm -> mha (kernel B6 in mode 'kernel') -> layer_norm -> mlp_block
+(kernel B7 when kernels are on). `vit_forward` runs all layers as one call
+of kernel B5 (ops/cuda/model.py) when encoder fusion is on and the weights
+fit (`encoder_route`).
 """
 
 from __future__ import annotations
@@ -26,7 +31,12 @@ import torch.nn.functional as F
 from vit_pruning_tpu_torch.configs import ViTConfig
 from vit_pruning_tpu_torch.models.convert import check_device, tree_to
 from vit_pruning_tpu_torch.ops.attention import mha
-from vit_pruning_tpu_torch.ops.dispatch import kernels_enabled, resolve_quant
+from vit_pruning_tpu_torch.ops.dispatch import (
+    attention_kernel_enabled,
+    encoder_fusion_enabled,
+    kernels_enabled,
+    resolve_quant,
+)
 from vit_pruning_tpu_torch.ops.patch_embed import patch_embed
 from vit_pruning_tpu_torch.ops.quant import (
     attach_int8_weights,
@@ -42,8 +52,16 @@ def layer_norm(x: torch.Tensor, params: dict, eps: float) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + eps) * params["g"] + params["b"]
 
 
-def mlp_block(x: torch.Tensor, params: dict) -> torch.Tensor:
-    """Linear -> GELU (erf) -> Linear."""
+def mlp_block(x: torch.Tensor, params: dict, use_kernel: bool = False) -> torch.Tensor:
+    """Linear -> GELU (erf) -> Linear; use_kernel: kernel B7 on the [B*S, D]
+    rows (f32 arithmetic, output in x's dtype)."""
+    if use_kernel:
+        from vit_pruning_tpu_torch.ops.cuda.mlp import fused_mlp
+
+        b, s, d = x.shape
+        y = fused_mlp(x.reshape(b * s, d), params["fc1"]["w"], params["fc1"]["b"],
+                      params["fc2"]["w"], params["fc2"]["b"])
+        return y.reshape(b, s, d)
     h = F.gelu(x @ params["fc1"]["w"] + params["fc1"]["b"])
     return h @ params["fc2"]["w"] + params["fc2"]["b"]
 
@@ -67,21 +85,32 @@ def vit_layer(
     head_mask: Optional[torch.Tensor] = None,
     return_probs: bool = False,
     quant: Optional[str] = None,
-) -> torch.Tensor:
+    use_kernels: Optional[bool] = None,
+):
     """One pre-LN block. token_mask [B, S] bool restricts attention keys to
     kept tokens; outputs at masked rows are computed but meaningless.
 
     quant: 'none', 'int8' or None (read the dispatch switch now). Under
     int8 the layer's weights are quantized here unless `params` already
     carries 'wq' / 'wscale' (ops/quant.py::attach_int8_weights), which is
-    how the forwards below quantize once per call."""
+    how the forwards below quantize once per call.
+
+    head_mask [H] or [B, H] multiplies the attention probabilities;
+    return_probs returns (x, probs [B, H, S, S]). Either one turns int8
+    off and takes the per-op route (LN in x's dtype -> mha -> LN ->
+    mlp_block), as the JAX package does.
+
+    use_kernels: None = the dispatch mode (kernels unless 'eager'); False
+    runs the plain layer on every device, as the JAX package's vit_layer
+    does by default (its use_pallas=False), which is what its return_probs
+    callers rely on (ops/structured.py::head_importance)."""
     q = params["attn"]["q"]
     check_attn_geometry((q["w"] if "w" in q else q["wq"]).shape[-1], config)
-    if head_mask is not None or return_probs:
-        raise NotImplementedError("head_mask / return_probs: ROADMAP A.2 (later slice)")
-    if resolve_quant(quant) == "int8":
+    use_kernels = kernels_enabled() if use_kernels is None else use_kernels
+    per_op = head_mask is not None or return_probs
+    if not per_op and resolve_quant(quant) == "int8":
         qp = params if is_quantized(params) else attach_int8_weights(params)
-        if kernels_enabled():
+        if use_kernels:
             from vit_pruning_tpu_torch.ops.cuda.layer_int8 import fused_vit_layer_int8
 
             return fused_vit_layer_int8(x, qp, config.num_heads, config.layernorm_eps,
@@ -89,14 +118,19 @@ def vit_layer(
         return int8_vit_layer_ref(x, qp, config, token_mask)
     if "w" not in q:
         raise ValueError("params carry int8 weights only: run them with quant='int8'")
-    if kernels_enabled():
+    if use_kernels and not per_op:
         from vit_pruning_tpu_torch.ops.cuda.layer import fused_vit_layer
 
         return fused_vit_layer(x, params, config.num_heads, config.layernorm_eps, token_mask)
     h = layer_norm(x, params["ln1"], config.layernorm_eps)
-    x = x + mha(h, params["attn"], config.num_heads, token_mask=token_mask)
+    attn = mha(h, params["attn"], config.num_heads, token_mask=token_mask, head_mask=head_mask,
+               return_probs=return_probs, use_kernel=use_kernels and attention_kernel_enabled())
+    if return_probs:
+        attn, probs = attn
+    x = x + attn
     h = layer_norm(x, params["ln2"], config.layernorm_eps)
-    return x + mlp_block(h, params["mlp"])
+    x = x + mlp_block(h, params["mlp"], use_kernel=use_kernels)
+    return (x, probs) if return_probs else x
 
 
 def embed(pixel_values: torch.Tensor, params: dict, config: ViTConfig) -> torch.Tensor:
@@ -128,28 +162,66 @@ def layers_for(layers: dict, quant: str) -> dict:
     return layers
 
 
+def layer_range(layers: dict, start: int, stop: int) -> dict:
+    """Layers [start, stop) of a stacked tree, still stacked (views, no copy)."""
+    if isinstance(layers, dict):
+        return {k: layer_range(v, start, stop) for k, v in layers.items()}
+    return layers[start:stop]
+
+
+def encoder_route(layers: dict, config: ViTConfig) -> bool:
+    """Does a fixed-length stretch of these layers run as kernel B5? When
+    kernels are on, encoder fusion is on and the float weights fit the JAX
+    package's budget (ops/cuda/model.py::encoder_weights_fit), as its
+    vit_forward and progressive_topk_forward decide. The route does not look
+    at the serving quantization: under int8 it runs the float B5, as the
+    JAX package's does."""
+    from vit_pruning_tpu_torch.ops.cuda.model import encoder_weights_fit
+
+    return (kernels_enabled() and encoder_fusion_enabled() and encoder_weights_fit(
+        config.num_layers, config.hidden_size, config.mlp_dim,
+        layers["attn"]["q"]["b"].element_size()))
+
+
 def vit_forward(
     params: dict,
     pixel_values: torch.Tensor,
     config: ViTConfig,
     head_mask: Optional[torch.Tensor] = None,
+    output_hidden_states: bool = False,
     quant: Optional[str] = None,
 ) -> dict:
-    """Dense forward. Returns dict(logits, cls, last_hidden).
+    """Dense forward. Returns dict(logits, cls, last_hidden[, hidden_states]).
 
+    head_mask: [L, H] or [L, B, H] float (multiplies each layer's attention
+    probabilities) or None. output_hidden_states: also return the L + 1
+    layer inputs and output as a list. Either one runs the layers one by
+    one, as vit_layer routes them; without them the encoder is one call of
+    kernel B5 where `encoder_route` says so.
     quant: 'none', 'int8' or None (read the dispatch switch once, here).
     Under int8 the stacked layer weights are quantized once per call."""
-    if head_mask is not None:
-        raise NotImplementedError("head_mask: ROADMAP A.2 (later slice)")
     quant = resolve_quant(quant)
-    layers = layers_for(params["layers"], quant)
     x = embed(pixel_values, params["embed"], config)
-    for i in range(config.num_layers):
-        x = vit_layer(x, layer_slice(layers, i), config, quant=quant)
+    hidden_states = [x] if output_hidden_states else None
+    if head_mask is None and not output_hidden_states and encoder_route(params["layers"], config):
+        from vit_pruning_tpu_torch.ops.cuda.model import fused_vit_encoder
+
+        x = fused_vit_encoder(x, params["layers"], config.num_heads, config.layernorm_eps)
+    else:
+        # a head-masked layer runs in float (vit_layer): no int8 weights needed
+        layers = layers_for(params["layers"], quant if head_mask is None else "none")
+        for i in range(config.num_layers):
+            hm = head_mask[i] if head_mask is not None else None
+            x = vit_layer(x, layer_slice(layers, i), config, head_mask=hm, quant=quant)
+            if output_hidden_states:
+                hidden_states.append(x)
     x = layer_norm(x, params["ln_f"], config.layernorm_eps)
     cls = x[:, 0]
     logits = cls @ params["head"]["w"] + params["head"]["b"]
-    return {"logits": logits, "cls": cls, "last_hidden": x}
+    out = {"logits": logits, "cls": cls, "last_hidden": x}
+    if output_hidden_states:
+        out["hidden_states"] = hidden_states
+    return out
 
 
 # --- Initialization -------------------------------------------------------------

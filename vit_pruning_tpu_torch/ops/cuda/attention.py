@@ -1,0 +1,84 @@
+"""Kernel B6: multi-head attention on q, k, v [B, H, S, hd], all in f32.
+
+`fused_attention` replaces vit_pruning_tpu/ops/pallas/attention.py::
+fused_attention: softmax(q k^T / sqrt(hd), masked keys at -1e30) v, with q,
+k, v upcast to f32, the softmax normalised before PV, and the output cast
+to q's dtype. The CUDA kernel is csrc/attention.cu, B1's f32 attention
+from csrc/common.cuh with the head dim read at run time (one block per head
+and image, K^T and V in shared memory, FMA on the CUDA cores; the head of
+that file says what bounds it).
+
+ops/attention.py::mha runs it with use_kernel=True, which the models set in
+dispatch mode 'kernel' only, for attention without head_mask or
+return_probs. The wrapper launches the kernel for CUDA tensors and counts
+the launch in its `launches` attribute; for CPU tensors it runs the plain
+version (mode 'auto') or raises (mode 'kernel').
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from vit_pruning_tpu_torch.ops.attention import NEG_INF
+from vit_pruning_tpu_torch.ops.cuda.layer import _check, _check_token_mask, _raise_on, _stream
+from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
+
+
+def fused_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    token_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel B6: f32 logits, masked keys -1e30,
+    P = exp(l - max) / sum in f32, PV in f32, cast to q's dtype."""
+    logits = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+    if token_mask is not None:
+        logits = torch.where(token_mask[:, None, None, :], logits, NEG_INF)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    return (p @ v.float()).to(q.dtype)
+
+
+def fused_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    token_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel B6. q, k, v [B, H, S, hd] contiguous, float32 or bfloat16;
+    token_mask [B, S] bool (True = valid key) or None. Returns [B, H, S, hd]
+    in q's dtype; rows of masked tokens are computed but meaningless.
+    Takes S <= 257 and hd <= 128."""
+    if not launch_kernel_for(q):
+        return fused_attention_ref(q, k, v, token_mask)
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    who = "fused_attention"
+    lib = load_library()
+    if q.dim() != 4:
+        raise ValueError(f"{who}: q must be [B, H, S, hd], got {tuple(q.shape)}")
+    b, h, s, hd = q.shape
+    if not 1 <= s <= lib.vpt_attention_max_seq_len():
+        raise ValueError(f"{who}: sequence length {s} not in [1, {lib.vpt_attention_max_seq_len()}]")
+    if not 1 <= hd <= lib.vpt_attention_max_head_dim():
+        raise ValueError(f"{who}: head dim {hd} not in [1, {lib.vpt_attention_max_head_dim()}]")
+    dtype = _check(q, {"k": k, "v": v}, {"k": tuple(q.shape), "v": tuple(q.shape)}, who)
+    _check_token_mask(token_mask, q, b, s, who)
+
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = lib.vpt_attention_forward(
+            dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if token_mask is None else token_mask.data_ptr(), out.data_ptr(),
+            b, h, s, hd, _stream(q),
+        )
+    _raise_on(lib, rc, who)
+    fused_attention.launches += 1
+    return out
+
+
+fused_attention.launches = 0

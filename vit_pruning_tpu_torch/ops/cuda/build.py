@@ -30,7 +30,7 @@ NVCC_FLAGS = [
 ]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of the entry points in csrc/layer.cu and csrc/layer_int8.cu
+# C signatures of the entry points in csrc/*.cu
 SIGNATURES = {
     "vpt_error_string": ([I], ctypes.c_char_p),
     "vpt_max_seq_len": ([], I),
@@ -47,6 +47,16 @@ SIGNATURES = {
     "vpt_vit_layer_int8_forward": ([I] + [P] * 31 + [I] * 6 + [F, P], I),
     # dtype, x, codes, scales, rows, k, stream
     "vpt_rowquant": ([I, P, P, P, I, I, P], I),
+    # dtype, x, mask, 12 stacked layer weights, out, 6 workspaces,
+    # L B S D H HD M, eps, stream
+    "vpt_vit_encoder_forward": ([I] + [P] * 21 + [I] * 7 + [F, P], I),
+    "vpt_attention_max_seq_len": ([], I),
+    "vpt_attention_max_head_dim": ([], I),
+    # dtype, q, k, v, mask, out, B H S HD, stream
+    "vpt_attention_forward": ([I] + [P] * 5 + [I] * 4 + [P], I),
+    "vpt_mlp_max_hidden": ([], I),
+    # dtype, x, w1, b1, w2, b2, out, T D M, stream
+    "vpt_mlp_forward": ([I] + [P] * 6 + [I] * 3 + [P], I),
 }
 
 

@@ -69,19 +69,25 @@ def staged2_attention(
     v: torch.Tensor,
     num_heads: int,
     token_mask: Optional[torch.Tensor] = None,
+    normalized: bool = False,
 ) -> torch.Tensor:
-    """The TPU kernels' staged2 attention core on q, k, v [B, S, KW] in the
-    serving dtype: f32 logits, masked keys -1e30, unnormalised numerators
-    rounded to the dtype, PV in f32 divided by the sum of the rounded
-    numerators. Returns ctx [B, S, KW] in the dtype."""
+    """The TPU kernels' attention core on q, k, v [B, S, KW] in the serving
+    dtype: f32 logits, masked keys -1e30; staged2 (B1, B3, B4): unnormalised
+    numerators rounded to the dtype, PV in f32 divided by the sum of the
+    rounded numerators; normalized (B5): P = exp / sum rounded to the dtype,
+    then PV in f32. Returns ctx [B, S, KW] in the dtype."""
     dt = q.dtype
     b, s, kw = q.shape
     q, k, v = (_heads(t, num_heads) for t in (q, k, v))
     logits = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(kw // num_heads))
     if token_mask is not None:
         logits = torch.where(token_mask[:, None, None, :], logits, NEG_INF)
-    p = torch.exp(logits - logits.amax(-1, keepdim=True)).to(dt).float()
-    ctx = (p @ v.float()) * (1.0 / p.sum(-1, keepdim=True))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    if normalized:
+        ctx = (p / p.sum(-1, keepdim=True)).to(dt).float() @ v.float()
+    else:
+        p = p.to(dt).float()
+        ctx = (p @ v.float()) * (1.0 / p.sum(-1, keepdim=True))
     return ctx.to(dt).transpose(1, 2).reshape(b, s, kw)
 
 
@@ -205,6 +211,16 @@ def _check(x: torch.Tensor, tensors: dict, shapes: dict, who: str,
     return _DTYPES[x.dtype]
 
 
+def _check_token_mask(token_mask: Optional[torch.Tensor], x: torch.Tensor, b: int, s: int,
+                      who: str):
+    if token_mask is None:
+        return
+    if token_mask.shape != (b, s) or token_mask.dtype != torch.bool:
+        raise ValueError(f"{who}: token_mask must be bool [{b}, {s}]")
+    if token_mask.device != x.device or not token_mask.is_contiguous():
+        raise ValueError(f"{who}: token_mask must be contiguous on {x.device}")
+
+
 def _weight(linear: dict) -> torch.Tensor:
     """A linear's weight matrix: the float 'w', or the int8 'wq' of a
     quantized tree."""
@@ -278,11 +294,7 @@ def fused_vit_layer(
     shapes = {"qkv.w": (d, 3 * kw), "qkv.b": (3 * kw,), **_layer_shapes(d, kw, m)}
     w = _layer_weights(params)
     dtype = _check(x, {"qkv.w": wqkv, "qkv.b": bqkv, **w}, shapes, who)
-    if token_mask is not None:
-        if token_mask.shape != (b, s) or token_mask.dtype != torch.bool:
-            raise ValueError(f"{who}: token_mask must be bool [{b}, {s}]")
-        if token_mask.device != x.device or not token_mask.is_contiguous():
-            raise ValueError(f"{who}: token_mask must be contiguous on {x.device}")
+    _check_token_mask(token_mask, x, b, s, who)
 
     out = torch.empty_like(x)
     rows = b * s

@@ -31,6 +31,7 @@ import torch
 
 from vit_pruning_tpu_torch.ops.cuda.layer import (
     _check,
+    _check_token_mask,
     _gelu_for,
     _geometry,
     _ln_f32,
@@ -166,11 +167,7 @@ def fused_vit_layer_int8(
     dtypes = {k: torch.int8 for k in w if k.endswith(".wq")}
     dtypes.update({k: torch.float32 for k in w if k.endswith(".ws")})
     dtype = _check(x, w, shapes, who, dtypes)
-    if token_mask is not None:
-        if token_mask.shape != (b, s) or token_mask.dtype != torch.bool:
-            raise ValueError(f"{who}: token_mask must be bool [{b}, {s}]")
-        if token_mask.device != x.device or not token_mask.is_contiguous():
-            raise ValueError(f"{who}: token_mask must be contiguous on {x.device}")
+    _check_token_mask(token_mask, x, b, s, who)
 
     rows = b * s
     out = torch.empty_like(x)

@@ -18,11 +18,17 @@ set with `set_serving_quant` or scoped with `quant_mode`), turns every
 inference layer of every entry point into int8 weight products (ops/quant.py
 scheme): kernel B4 in modes 'auto' / 'kernel', the eager int8 layer in
 'eager'. An entry point's `quant=None` reads it at call time.
+
+A third, encoder fusion (`set_encoder_fusion`, scoped with
+`encoder_fusion`, else the environment variable VIT_PRUNING_TPU_ENCODER=1),
+runs every fixed-length stretch of layers as one call of kernel B5
+(ops/cuda/model.py) when kernels are on and the weights fit.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
@@ -54,6 +60,40 @@ def kernel_mode(mode: str):
 def kernels_enabled() -> bool:
     """Should model code route through the kernel wrappers?"""
     return _MODE != "eager"
+
+
+def attention_kernel_enabled() -> bool:
+    """Should the per-op attention (mha) run kernel B6? Only in mode
+    'kernel', as the JAX package runs its fused attention only in 'pallas':
+    every route of the models reaches attention inside B1 / B5 instead."""
+    return _MODE == "kernel"
+
+
+_ENCODER_FUSION = None
+
+
+def set_encoder_fusion(enabled):
+    """Opt into (True) or out of (False) the whole-encoder kernel B5; None
+    hands the choice back to the environment variable."""
+    global _ENCODER_FUSION
+    _ENCODER_FUSION = None if enabled is None else bool(enabled)
+
+
+def encoder_fusion_enabled() -> bool:
+    """An explicit setting wins, else VIT_PRUNING_TPU_ENCODER == '1'."""
+    if _ENCODER_FUSION is not None:
+        return _ENCODER_FUSION
+    return os.environ.get("VIT_PRUNING_TPU_ENCODER") == "1"
+
+
+@contextlib.contextmanager
+def encoder_fusion(enabled: bool):
+    prev = _ENCODER_FUSION
+    set_encoder_fusion(enabled)
+    try:
+        yield
+    finally:
+        set_encoder_fusion(prev)
 
 
 def launch_kernel_for(t: torch.Tensor) -> bool:

@@ -1,7 +1,13 @@
-"""Structured pruning: physically remove attention heads or MLP channels.
+"""Structured pruning: attention heads and MLP channels.
 
-Mirrors prune_heads / prune_mlp_channels of vit_pruning_tpu/ops/structured.py
-over the port's tensor tree (per-layer leaves stacked [L, ...]).
+Mirrors vit_pruning_tpu/ops/structured.py over the port's tensor tree
+(per-layer leaves stacked [L, ...]), at its two levels:
+  * soft masks for mask search: a head mask [L, H] multiplies attention
+    probabilities (models/vit.py::vit_forward's head_mask), and
+    `apply_channel_mask` zeroes MLP hidden units; `head_importance` and
+    `channel_importance` score the units;
+  * physical slicing: `prune_heads` / `prune_mlp_channels` rebuild the tree
+    with the pruned units removed.
 """
 
 from __future__ import annotations
@@ -11,6 +17,16 @@ from typing import Sequence
 import torch
 
 from vit_pruning_tpu_torch.configs import ViTConfig
+
+
+def apply_channel_mask(params: dict, channel_mask: torch.Tensor) -> dict:
+    """Soft-zero MLP hidden channels: channel_mask [L, M] in {0, 1}. Zeroing
+    fc1's output columns (weight and bias) equals masking the hidden
+    activation, since GELU(0) = 0 flows through fc2."""
+    fc1 = params["layers"]["mlp"]["fc1"]
+    cm = channel_mask.to(fc1["w"].dtype)
+    mlp = dict(params["layers"]["mlp"], fc1={"w": fc1["w"] * cm[:, None, :], "b": fc1["b"] * cm})
+    return dict(params, layers=dict(params["layers"], mlp=mlp))
 
 
 def _gather(a: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
@@ -64,3 +80,28 @@ def prune_mlp_channels(params: dict, keep_channels: Sequence[Sequence[int]]) -> 
     new_params = dict(params)
     new_params["layers"] = dict(params["layers"], mlp=new_mlp)
     return new_params
+
+
+def channel_importance(params: dict) -> torch.Tensor:
+    """Weight-magnitude importance of every MLP hidden unit, [L, M]:
+    ||fc1[:, j]|| * ||fc2[j, :]||, the unit's input gain times its output
+    gain. Data-free."""
+    mlp = params["layers"]["mlp"]
+    return (torch.linalg.vector_norm(mlp["fc1"]["w"], dim=1)
+            * torch.linalg.vector_norm(mlp["fc2"]["w"], dim=2))
+
+
+def head_importance(params: dict, pixel_values: torch.Tensor, config: ViTConfig) -> torch.Tensor:
+    """Mean CLS-row attention mass per head, per layer, [L, H]: for each
+    layer, the probabilities from CLS to the patches summed over patches and
+    averaged over the batch. Runs the plain return_probs layer on every
+    device (no kernel), as the JAX package's does."""
+    from vit_pruning_tpu_torch.models.vit import embed, layer_slice, vit_layer
+
+    x = embed(pixel_values, params["embed"], config)
+    scores = []
+    for i in range(config.num_layers):
+        x, probs = vit_layer(x, layer_slice(params["layers"], i), config, return_probs=True,
+                             use_kernels=False)
+        scores.append(probs[:, :, 0, 1:].sum(-1).mean(0))
+    return torch.stack(scores)
