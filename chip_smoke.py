@@ -29,6 +29,17 @@ kernels from csrc/ itself. Phases:
      with cap 99 / 131 / 197 and S 99 with cap 50, random kept counts up to
      the cap and an image with only CLS kept; skipped rows must be x
      bit for bit
+  3g. kernels B8a / B8b (fused_patch_embed_u8 / _f) against their plain
+     versions at DeiT-S's (K 768, D 384) and ViT-H's (K 588, D 1280) patch
+     embedding, batch 64, float32 and bfloat16 weights, uint8 / float
+     patches, pos in the weights' dtype and in float32; bad inputs raise
+  3h. ViT-H/14's geometry (head dim 80, S 257) in B1-B5 against their plain
+     versions at every length phase 5e gives them: B1 and B4 at S 257 / 171
+     / 129 / 86 / 43 / 22 with KW 1280 and 640, B2 at S 129 / 43 / 22, B3 at
+     S 257 with cap 129 and the last token kept, B5 on two layers at S 257;
+     masked and not, float32 at batch 4 and bfloat16 at batch 32; the head
+     dims the C predicate takes equal the wrappers'; head dims 16 and 128
+     raise
   5. end to end, DeiT-S @224 with 100 labels at batch 64: dense vit_forward
      and headline / composed / ultra through serving_forward, kernels
      (mode 'auto') against plain PyTorch (mode 'eager'), with the launch
@@ -53,15 +64,29 @@ kernels from csrc/ itself. Phases:
      use_kernel in mode 'kernel' (B6 x 1); kernels against plain PyTorch,
      and in bfloat16 every B5 route also against itself with B5's plain
      version in the kernel's place
+  5e. ViT-H/14 @224 end to end at full width and depth (32 layers), random
+     weights from a seed: dense vit_forward, headline / composed / ultra
+     through serving_forward, topk50 through pruned_vit_forward, f32 at
+     batch 4 and bf16 at batch 32, kernels against plain PyTorch with the
+     launch counts (B1 x 32; B1 x 31 + B2; B3 x 32), and dense / headline
+     under int8 (B4 x 32; B4 x 31 + the float B2) held as in 5c
+  5f. the fused embed entry points embed_u8 / embed_fused (B8a / B8b) at
+     DeiT-S and ViT-H, batch 64, against embed_from_u8 and the model's
+     embed, with their launch counts
   6. times at batch 512 in bfloat16, kernel path and plain path (float and
      int8), and each kernel beside its plain version and its eager PyTorch
      equivalent (info only); each kernel's bound from its shapes; the device
      time of the dense, headline, topk50, mask, dense_int8, topk50_int8 and
      dense-with-encoder-fusion forwards by kernel family and of the
      once-per-forward weight quantization (torch.profiler); dense and ultra
-     with encoder fusion on and off
+     with encoder fusion on and off; B8a / B8b at DeiT-S batch 512 and ViT-H
+     batch 64 beside the library (cuBLAS addmm) on the same patches, their
+     entry points and the eager equivalents on the images; ViT-H at
+     batch 64: B1-B5 at its geometry and dense / headline / composed /
+     ultra, kernel path and plain path (mean of 5 after 2 warm-ups)
   7. records: nothing of jax or of the JAX package was loaded (by module
-     name or by file), the kernels' JSON line, the device line
+     name or by file), the kernels' JSON line (launches: B1-B7 on the DeiT-S
+     paths of 5-5d, B8 on 5f's; ViT-H's are logged in 5e), the device line
 
 Any failed check raises, so the exit code is non-zero. The line before the
 last is the kernels' JSON record; the last line is the device record.
@@ -162,10 +187,38 @@ def perturbed_layer(lp: dict, gen: torch.Generator) -> dict:
         if isinstance(v, dict):
             out[k] = perturbed_layer(v, gen)
         elif k in ("g", "b"):
-            out[k] = v + 0.1 * torch.randn(v.shape, generator=gen)
+            out[k] = v + 0.1 * torch.randn(v.shape, generator=gen).to(v.device)
         else:
             out[k] = v
     return out
+
+
+def vit_h_params(cfg, pcfg, dev, seed: int = SEED) -> dict:
+    """ViT-H/14 with its predictor, random from a seed, in float32 on the
+    card. init_pruned_vit_params draws on the CPU, ~1.4 s per 10M values
+    here, so 632M would take minutes: it draws a one-layer model (the embed,
+    the head and the init's rules), and every per-layer leaf is then drawn
+    again for all layers on the card by the same rule: trunc-normal(0.02)
+    weights ('w'); biases and LN gains copied (0 and 1)."""
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.models.pruned_vit import init_pruned_vit_params
+
+    one = init_pruned_vit_params(cfg.replace(num_layers=1), pcfg,
+                                 torch.Generator().manual_seed(seed), "cpu")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_layers = cfg.num_layers
+
+    def grow(tree, key=""):
+        if isinstance(tree, dict):
+            return {k: grow(v, k) for k, v in tree.items()}
+        if key != "w":
+            return tree.to(dev).expand(n_layers, *tree.shape[1:]).contiguous()
+        w = torch.empty((n_layers, *tree.shape[1:]), device=dev)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return w * 0.02
+
+    backbone = dict(tree_to(one["backbone"], dev), layers=grow(one["backbone"]["layers"]))
+    return {"backbone": backbone, "predictor": grow(one["predictor"])}
 
 
 def main():
@@ -175,14 +228,16 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from vit_pruning_tpu_torch.configs import (
-        PruneConfig, composed_schedule, deit_small, ultra_schedule)
+        PruneConfig, composed_schedule, deit_small, ultra_schedule, vit_huge)
+    from vit_pruning_tpu_torch.data.preprocess import VIT_MEAN, VIT_STD
     from vit_pruning_tpu_torch.models.convert import tree_to
     from vit_pruning_tpu_torch.models import pruned_vit as tp
     from vit_pruning_tpu_torch.models.pruned_vit import init_pruned_vit_params, pruned_vit_forward
     from vit_pruning_tpu_torch.models.vit import (
-        layer_norm, layer_range, layer_slice, mlp_block, vit_forward, vit_layer)
+        embed, layer_norm, layer_range, layer_slice, mlp_block, vit_forward, vit_layer)
     from vit_pruning_tpu_torch.ops.attention import mha
     from vit_pruning_tpu_torch.ops.cuda import attention as ka
+    from vit_pruning_tpu_torch.ops.cuda import embed as kemb
     from vit_pruning_tpu_torch.ops.cuda import layer as kl
     from vit_pruning_tpu_torch.ops.cuda import layer_int8 as k8
     from vit_pruning_tpu_torch.ops.cuda import mlp as kmlp
@@ -191,8 +246,9 @@ def main():
     from vit_pruning_tpu_torch.ops.dispatch import encoder_fusion, kernel_mode, quant_mode
     from vit_pruning_tpu_torch.ops.quant import attach_int8_weights, quantize_layer_params
     from vit_pruning_tpu_torch.ops.masking import compact_dest
+    from vit_pruning_tpu_torch.ops.patch_embed import extract_patches
     from vit_pruning_tpu_torch.ops.structured import prune_heads, prune_mlp_channels
-    from vit_pruning_tpu_torch.serving import serving_forward
+    from vit_pruning_tpu_torch.serving import embed_from_u8, serving_forward
 
     dev = torch.device("cuda", 0)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -205,7 +261,7 @@ def main():
 
     # --- 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
-    load_library()
+    lib = load_library()
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
     # --- models (CPU init from one seed, then to the card) -------------------------
@@ -242,6 +298,32 @@ def main():
             "b": base["backbone"]["head"]["b"] + 0.1 * torch.randn(100, generator=gen)}
     err = {"b1": 0.0, "b2": 0.0, "b3": 0.0, "b4": 0.0}
 
+    # ViT-H/14 @224 (D 1280, 16 heads of 80, MLP 5120, 32 layers, S 257), f32 on the
+    # card; its composed / ultra geometry keeps 8 of 16 heads (KW 640) and MLP 2560.
+    # The cls_mlp predictor's gain is scaled by sqrt(384 / D) so that its inputs'
+    # spread stays DeiT-S's and the scores do not saturate at 1.
+    t0 = time.perf_counter()
+    hcfg = vit_huge(num_labels=100)
+    hn, hL = hcfg.num_patches, hcfg.num_layers
+    base_h = vit_h_params(hcfg, PruneConfig(mode="topk_prog", predictor="cls_mlp"), dev)
+    h_gain = PREDICTOR_GAIN * math.sqrt(384 / hcfg.hidden_size)
+    base_h["predictor"]["mlp"] = {
+        name: {"w": p["w"] * h_gain, "b": p["b"]} for name, p in base_h["predictor"]["mlp"].items()
+    }
+    hbb, hc_cfg = prune_heads(base_h["backbone"], hcfg, [list(range(0, hcfg.num_heads, 2))] * hL)
+    pruned_h = dict(base_h, backbone=prune_mlp_channels(
+        hbb, [list(range(0, hcfg.mlp_dim, 2))] * hL))
+    geometries_h = {  # ViT-H kernel phases: (config, one perturbed layer on the card)
+        "vit_h": (hcfg, perturbed_layer(layer_slice(base_h["backbone"]["layers"], 0), gen)),
+        "vit_h composed": (hc_cfg, perturbed_layer(
+            layer_slice(pruned_h["backbone"]["layers"], 0), gen)),
+    }
+    lnf_h = perturbed_layer(base_h["backbone"]["ln_f"], gen)
+    head_h = perturbed_layer(base_h["backbone"]["head"], gen)
+    torch.cuda.synchronize()
+    log(f"ViT-H params (random, seed {SEED}, f32 on the card) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
     # --- 3. B1 against its plain version ------------------------------------------------
     check = Checks("phase 3 (B1 vs plain)")
     for gname, (gcfg, lp_cpu) in geometries.items():
@@ -267,7 +349,7 @@ def main():
     gcfg, lp_cpu = geometries["deit_s"]
     lp = tree_to(lp_cpu, dev, torch.bfloat16)
     bad = {
-        "S=257 (ViT-H)": torch.zeros(2, 257, gcfg.hidden_size, device=dev, dtype=torch.bfloat16),
+        "S=289": torch.zeros(2, 289, gcfg.hidden_size, device=dev, dtype=torch.bfloat16),
         "float16": torch.zeros(2, 17, gcfg.hidden_size, device=dev, dtype=torch.float16),
         "non-contiguous": torch.zeros(2, gcfg.hidden_size, 17, device=dev,
                                       dtype=torch.bfloat16).transpose(1, 2),
@@ -450,8 +532,8 @@ def main():
                     check(bool(torch.isfinite(got).all()) and d <= tol, tag)
     st = tree_to(layer_range(stack_s, 0, 2), dev, torch.bfloat16)
     bad = {  # what the kernel does not take must raise, not run
-        "S=257 (ViT-H)": (torch.zeros(2, 257, cfg.hidden_size, device=dev, dtype=torch.bfloat16),
-                          cfg.num_heads),
+        "S=289": (torch.zeros(2, 289, cfg.hidden_size, device=dev, dtype=torch.bfloat16),
+                  cfg.num_heads),
         "head dim 96": (torch.zeros(2, 17, cfg.hidden_size, device=dev, dtype=torch.bfloat16), 4),
         "float16": (torch.zeros(2, 17, cfg.hidden_size, device=dev, dtype=torch.float16),
                     cfg.num_heads),
@@ -531,6 +613,178 @@ def main():
             check(False, f"B3 accepted {what}")
         except (TypeError, ValueError) as e:
             log(f"  B3 rejects {what}: {e}")
+    check.done()
+
+    # --- 3g. B8a and B8b against their plain versions -------------------------------------
+    check = Checks("phase 3g (B8a, B8b vs plain)")
+    err.update(b8a=0.0, b8b=0.0)
+    embed_shapes = {  # patches a image, patch width C*P*P, D
+        "deit_s": (cfg.num_patches, cfg.patch_dim, cfg.hidden_size),
+        "vit_h": (hn, hcfg.patch_dim, hcfg.hidden_size),
+    }
+
+    def embed_tol(ref, dt):
+        top = float(ref.float().abs().max())
+        return 1e-5 * top + 1e-5 if dt == torch.float32 else bf16_tol(ref.float())
+
+    for gname, (n_p, pd, d) in embed_shapes.items():
+        w0, b0 = 0.02 * torch.randn(pd, d, generator=gen), 0.1 * torch.randn(d, generator=gen)
+        pos0 = 0.02 * torch.randn(n_p, d, generator=gen)
+        u8p = torch.randint(0, 256, (64, n_p, pd), generator=gen, dtype=torch.uint8).to(dev)
+        fp = torch.randn(64, n_p, pd, generator=gen).to(dev)
+        for dname, dt in dtypes.items():
+            w, b, pos = (t.to(dev, dt) for t in (w0, b0, pos0))
+            cases = [("b8a", kemb.fused_patch_embed_u8, kemb.fused_patch_embed_u8_ref, u8p, pos),
+                     ("b8b", kemb.fused_patch_embed_f, kemb.fused_patch_embed_f_ref, fp.to(dt), pos)]
+            if dt == torch.bfloat16:  # embed_u8's pos may be f32; embed_fused's pixels too
+                cases += [("b8a", kemb.fused_patch_embed_u8, kemb.fused_patch_embed_u8_ref, u8p,
+                           pos.float()),
+                          ("b8b", kemb.fused_patch_embed_f, kemb.fused_patch_embed_f_ref, fp, pos)]
+            for key, fn, ref_fn, patches, ps in cases:
+                got, ref = fn(patches, w, b, ps), ref_fn(patches, w, b, ps)
+                torch.cuda.synchronize()
+                dmax = (got.float() - ref.float()).abs().max().item()
+                tol = embed_tol(ref, dt)
+                if dt == torch.float32:
+                    err[key] = max(err[key], dmax)
+                tag = (f"{key.upper()} {gname} (K {pd}, D {d}) {dname} weights, {patches.dtype} "
+                       f"patches, {ps.dtype} pos")
+                log(f"  {tag}: max_abs_err {dmax:.3e} (tol {tol:.1e})")
+                check(got.shape == (64, n_p, d) and got.dtype == dt
+                      and bool(torch.isfinite(got).all()) and dmax <= tol, tag)
+    w, b, pos = (t.to(dev, torch.bfloat16) for t in (w0, b0, pos0))  # ViT-H's
+    bad = {  # what the kernels do not take must raise, not run
+        "B8a float patches": (kemb.fused_patch_embed_u8, fp, w, b, pos),
+        "B8b uint8 patches": (kemb.fused_patch_embed_f, u8p, w, b, pos),
+        "float16 weights": (kemb.fused_patch_embed_u8, u8p, w.half(), b.half(), pos.half()),
+        "D 1276 (not a multiple of 8)": (kemb.fused_patch_embed_u8, u8p, w[:, :-4].contiguous(),
+                                         b[:-4].contiguous(), pos[:, :-4].contiguous()),
+        "pos of another length": (kemb.fused_patch_embed_u8, u8p, w, b, pos[1:]),
+    }
+    for what, (fn, patches, *ws) in bad.items():
+        try:
+            fn(patches, *ws)
+            check(False, f"B8 accepted {what}")
+        except (TypeError, ValueError) as e:
+            log(f"  B8 rejects {what}: {e}")
+    try:
+        with kernel_mode("kernel"):
+            kemb.fused_patch_embed_u8(u8p.cpu(), w0, b0, pos0)
+        check(False, "B8a ran a CPU tensor in mode 'kernel'")
+    except RuntimeError as e:
+        log(f"  B8a rejects a CPU tensor in mode 'kernel': {e}")
+    check.done()
+
+    # --- 3h. ViT-H's geometry (hd 80, S 257) in B1-B5 against their plain versions ----------
+    check = Checks("phase 3h (ViT-H geometry in B1-B5 vs plain)")
+    taken = tuple(h for h in range(1, 257) if lib.vpt_layer_head_dim_ok(h))
+    log(f"  head dims the layer kernels take: {taken}")
+    check(taken == kl.LAYER_HEAD_DIMS, f"the wrappers' head dims {kl.LAYER_HEAD_DIMS}")
+
+    def last_kept_mask(b, s, counts):
+        """CLS, the last token and counts[i] - 2 random others of image i."""
+        rank = torch.rand(b, s - 2, generator=gen).argsort(-1).argsort(-1)
+        mid = rank < (counts[:, None] - 2)
+        ends = torch.ones(b, 1, dtype=torch.bool)
+        return torch.cat([ends, mid, ends], 1).to(dev)
+
+    # every length phase 5e gives these kernels: dense 257, headline / ultra /
+    # topk50's cap 129, composed 171 / 86 / 43, ultra 43 / 22; B2 the last of
+    # headline / composed / ultra; phase 5e's batches (f32 4, bf16 32)
+    h_lens, h_tails = (257, 171, 129, 86, 43, 22), (129, 43, 22)
+    h_batch = {torch.float32: 4, torch.bfloat16: 32}
+    for gname, (gcfg, lp_src) in geometries_h.items():
+        for dname, dt in dtypes.items():
+            lp = tree_to(lp_src, dev, dt)
+            qp = quantize_layer_params(lp)
+            ftol = (lambda ref: F32_ATOL) if dt == torch.float32 else bf16_tol
+            hb = h_batch[dt]
+            for s in h_lens:
+                x = torch.randn(hb, s, gcfg.hidden_size, generator=gen).to(dev, dt)
+                m = torch.rand(hb, s, generator=gen) > 0.3
+                m[:, 0] = True
+                for mask in (None, m.to(dev)):
+                    mtag = "mask" if mask is not None else "nomask"
+                    got = kl.fused_vit_layer(x, lp, gcfg.num_heads, gcfg.layernorm_eps, mask)
+                    ref = kl.fused_vit_layer_ref(x, lp, gcfg.num_heads, gcfg.layernorm_eps, mask)
+                    torch.cuda.synchronize()
+                    d, tol = valid_rows(got, ref, mask), ftol(ref.float())
+                    if dt == torch.float32:
+                        err["b1"] = max(err["b1"], d)
+                    tag = f"B1 {gname} (KW {gcfg.attn_width}) {dname} B={hb} S={s} {mtag}"
+                    log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.1e})")
+                    check(bool(torch.isfinite(got).all()) and d <= tol, tag)
+                    got = k8.fused_vit_layer_int8(x, qp, gcfg.num_heads, gcfg.layernorm_eps, mask)
+                    ref = k8.fused_vit_layer_int8_ref(x, qp, gcfg.num_heads, gcfg.layernorm_eps,
+                                                      mask)
+                    torch.cuda.synchronize()
+                    d, tol = valid_rows(got, ref, mask), ftol(ref.float()) + int8_step(ref, x)
+                    if dt == torch.float32:
+                        err["b4"] = max(err["b4"], d)
+                    tag = f"B4 {gname} (KW {gcfg.attn_width}) {dname} B={hb} S={s} {mtag}"
+                    log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.2e})")
+                    check(bool(torch.isfinite(got).all()) and d <= tol, tag)
+            f, h = tree_to(lnf_h, dev, dt), tree_to(head_h, dev, dt)
+            for s in h_tails:
+                x = torch.randn(hb, s, gcfg.hidden_size, generator=gen).to(dev, dt)
+                got = kl.fused_vit_layer_cls_logits(x, lp, f, h, gcfg.num_heads,
+                                                    gcfg.layernorm_eps)
+                ref = kl.fused_vit_layer_cls_logits_ref(x, lp, f, h, gcfg.num_heads,
+                                                        gcfg.layernorm_eps)
+                torch.cuda.synchronize()
+                d, tol = (got.float() - ref.float()).abs().max().item(), ftol(ref.float())
+                if dt == torch.float32:
+                    err["b2"] = max(err["b2"], d)
+                tag = f"B2 {gname} {dname} B={hb} S={s}"
+                log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.1e})")
+                check(got.shape == (hb, 100) and bool(torch.isfinite(got).all()) and d <= tol, tag)
+            # B3 at topk50's bucket: S 257, cap 129, the last token kept in every image
+            x = torch.randn(hb, 257, gcfg.hidden_size, generator=gen).to(dev, dt)
+            counts = torch.tensor([129, 2, 60, 100] * (hb // 4))
+            mask = last_kept_mask(hb, 257, counts)
+            dest = compact_dest(mask)
+            got = kl.fused_vit_layer_bucketed(x, lp, dest, mask, 129, gcfg.num_heads,
+                                              gcfg.layernorm_eps)
+            ref = kl.fused_vit_layer_bucketed_ref(x, lp, dest, mask, 129, gcfg.num_heads,
+                                                  gcfg.layernorm_eps)
+            torch.cuda.synchronize()
+            d, tol = (got.float() - ref.float()).abs()[mask].max().item(), ftol(ref.float())
+            last = (got[:, -1].float() - ref[:, -1].float()).abs().max().item()
+            moved = bool((got[:, -1] != x[:, -1]).any(-1).all())
+            skipped_exact = bool(torch.equal(got[~mask], x[~mask]))
+            if dt == torch.float32:
+                err["b3"] = max(err["b3"], d)
+            tag = f"B3 {gname} {dname} B={hb} S=257 cap=129 (last token kept)"
+            log(f"  {tag}: kept rows max_abs_err {d:.3e} (tol {tol:.1e}), last token's "
+                f"{last:.3e}, the last token went through the layer in every image: {moved}; "
+                f"skipped rows bit-identical to x: {skipped_exact}")
+            check(bool(torch.isfinite(got).all()) and d <= tol and moved and skipped_exact, tag)
+    st_h = perturbed_layer(layer_range(base_h["backbone"]["layers"], 0, 2), gen)
+    for dname, dt in dtypes.items():  # B5 on two ViT-H layers: a direct call
+        st, hb = tree_to(st_h, dev, dt), h_batch[dt]
+        x = torch.randn(hb, 257, hcfg.hidden_size, generator=gen).to(dev, dt)
+        m = torch.rand(hb, 257, generator=gen) > 0.3
+        m[:, 0] = True
+        for mask in (None, m.to(dev)):
+            got = kmod.fused_vit_encoder(x, st, hcfg.num_heads, hcfg.layernorm_eps, mask)
+            ref = kmod.fused_vit_encoder_ref(x, st, hcfg.num_heads, hcfg.layernorm_eps, mask)
+            torch.cuda.synchronize()
+            d = valid_rows(got, ref, mask)
+            tol = F32_ATOL if dt == torch.float32 else bf16_tol(ref.float())
+            if dt == torch.float32:
+                err["b5"] = max(err["b5"], d)
+            tag = (f"B5 vit_h layers 0-2 {dname} B={hb} S=257 "
+                   f"{'mask' if mask is not None else 'nomask'}")
+            log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.1e})")
+            check(bool(torch.isfinite(got).all()) and d <= tol, tag)
+    lp = tree_to(geometries_h["vit_h"][1], dev, torch.bfloat16)
+    x = torch.zeros(2, 17, hcfg.hidden_size, device=dev, dtype=torch.bfloat16)
+    for heads in (10, 80):  # head dims 128 and 16: not taken, must raise, not run
+        try:
+            kl.fused_vit_layer(x, lp, heads)
+            check(False, f"B1 accepted head dim {hcfg.hidden_size // heads}")
+        except ValueError as e:
+            log(f"  B1 rejects head dim {hcfg.hidden_size // heads}: {e}")
     check.done()
 
     # --- 5. end to end: kernels vs plain PyTorch, launch counts -------------------------
@@ -728,13 +982,13 @@ def main():
     def counts():
         return tuple(k.launches for k in wrappers)  # B1, B2, B3, B4
 
-    def compare(tag, got, ref, fl, fixed_layers):
+    def compare(tag, got, ref, fl, fixed_layers, batch=64):
         """got / ref: the int8 kernel / plain path's outputs, fl the float plain
         path's logits; keep masks must agree on the first `fixed_layers` layers
         (all of them: None)."""
         lg, lr = got["logits"].float(), ref["logits"].float()
-        check(lg.shape == (64, 100) and bool(torch.isfinite(lg).all()),
-              f"{tag}: logits not finite [64, 100]")
+        check(lg.shape == (batch, 100) and bool(torch.isfinite(lg).all()),
+              f"{tag}: logits not finite [{batch}, 100]")
         routes, int8_err, kernel_err = rel_err(lg, lr), rel_err(lr, fl), rel_err(lg, fl)
         agree = (lg.argmax(-1) == lr.argmax(-1)).float().mean().item()
         line = (f"logits kernel vs plain {routes:.4f} relative (max_abs {(lg - lr).abs().max():.3e}"
@@ -986,6 +1240,156 @@ def main():
     check(all(launches[k] > 0 for k in ("b5", "b6", "b7")), "a kernel of the path never launched")
     check.done()
 
+    # --- 5e. ViT-H/14 end to end: kernels vs plain PyTorch, launch counts -----------------
+    # Full width and depth (32 layers), random weights; f32 at batch 4 and bf16 at batch 32,
+    # mode 'auto' against mode 'eager', as phases 5, 5b and 5c hold DeiT-S.
+    check = Checks("phase 5e (ViT-H end to end)")
+    h_presets = {  # name -> (config, prune config or None for dense, f32 params on the card)
+        "dense": (hcfg, None, base_h),
+        "headline": (hcfg, PruneConfig(mode="topk_prog", predictor="cls_mlp",
+                                       loss="mse_attention", top_k=hn // 2), base_h),
+        "composed": (hc_cfg, prune_cfg(composed_schedule(hn, hL)), pruned_h),
+        "ultra": (hc_cfg, prune_cfg(ultra_schedule(hn, hL)), pruned_h),
+        "topk50": (hcfg, PruneConfig(mode="topk", predictor="cls_mlp", top_k=hn // 2), base_h),
+    }
+
+    def h_forward(name, params, u8, logits_only=True):
+        pc, pcfg, _ = h_presets[name]
+        pix = ((u8.float() / 255.0 - 0.5) / 0.5).to(params["backbone"]["head"]["w"].dtype)
+        if pcfg is None:
+            return lambda: {"logits": vit_forward(params["backbone"], pix, pc)["logits"]}
+        if pcfg.mode == "topk":
+            return lambda: pruned_vit_forward(params, pix, pc, pcfg)
+        return lambda: serving_forward(params, u8, pc, pcfg, logits_only=logits_only)
+
+    h_params = {}
+
+    def h_tree(tree, dt):
+        """The f32 tree in dtype dt, converted once."""
+        key = (id(tree), dt)
+        if key not in h_params:
+            h_params[key] = tree_to(tree, dev, dt)
+        return h_params[key]
+
+    want_h = {"dense": (hL, 0, 0, 0), "topk50": (0, 0, hL, 0)}  # B1, B2, B3, B4
+    for k in wrappers:  # the counts of this path's run only
+        k.launches = 0
+    for dname, dt, batch in (("float32", torch.float32, 4), ("bfloat16", torch.bfloat16, 32)):
+        u8h = images(batch)
+        for name, (pc, pcfg, f32_params) in h_presets.items():
+            fwd = h_forward(name, h_tree(f32_params, dt), u8h)
+            c0 = counts()
+            with kernel_mode("auto"):
+                got = fwd()
+            torch.cuda.synchronize()
+            n = tuple(b - a for a, b in zip(c0, counts()))
+            with kernel_mode("eager"):
+                ref = fwd()
+            torch.cuda.synchronize()
+            tag = f"vit_h {name} {dname} batch {batch}"
+            want = want_h.get(name, (hL - 1, 1, 0, 0))
+            check(n == want, f"{tag}: launches B1/B2/B3/B4 {n}, want {want}")
+            lg, lr = got["logits"].float(), ref["logits"].float()
+            check(lg.shape == (batch, 100) and bool(torch.isfinite(lg).all()),
+                  f"{tag}: logits not finite [{batch}, 100]")
+            d = (lg - lr).abs().max().item()
+            line = (f"  {tag}: launches B1/B2/B3/B4 {n}; logits max_abs_err {d:.3e} (max|ref| "
+                    f"{lr.abs().max().item():.3f}), relative {rel_err(lg, lr):.2e}, argmax agree "
+                    f"{(lg.argmax(-1) == lr.argmax(-1)).float().mean().item():.3f}")
+            same_masks = True
+            if pcfg is not None:
+                km_, em = got["keep_masks"], ref["keep_masks"]
+                same_masks = bool(torch.equal(km_, em))
+                gap = (decision_gap(ref, pcfg) if pcfg.mode == "topk"
+                       else cut_gap(ref, pcfg))
+                line += (f"; keep masks equal {same_masks} (images x layers agreeing "
+                         f"{(km_ == em).all(-1).float().mean().item():.4f}); min cut gap "
+                         f"(plain) {gap:.2e}")
+                # the first decision is taken from the embedding, before any kernel
+                check(bool(torch.equal(km_[0], em[0])), f"{tag}: first keep masks differ")
+            log(line)
+            if dt == torch.float32:
+                check(same_masks, f"{tag}: keep masks differ")
+                check(d <= F32_ATOL + 1e-4 * lr.abs().max().item(), f"{tag}: logits differ")
+        for name in ("dense", "headline"):  # int8 serving, held as phase 5c holds it
+            pc, pcfg, f32_params = h_presets[name]
+            fwd = h_forward(name, h_tree(f32_params, dt), u8h, logits_only=False)
+            with kernel_mode("eager"):
+                fl = fwd()["logits"]  # float, the plain path
+            with quant_mode("int8"):
+                c0 = counts()
+                with kernel_mode("auto"):
+                    got = fwd()
+                torch.cuda.synchronize()
+                c1 = counts()
+                with kernel_mode("eager"):
+                    ref = fwd()
+                if pcfg is not None:
+                    with kernel_mode("auto"):
+                        tail = h_forward(name, h_tree(f32_params, dt), u8h)()
+                torch.cuda.synchronize()
+                c2 = counts()
+            tag = f"vit_h {name}_int8 {dname} batch {batch}"
+            n = tuple(b - a for a, b in zip(c0, c1))
+            check(n == (0, 0, 0, hL), f"{tag}: launches B1/B2/B3/B4 {n}, want (0, 0, 0, {hL})")
+            log(f"  {tag}: launches B4={n[3]}; " + compare(tag, got, ref, fl, None, batch))
+            if pcfg is not None:
+                n = tuple(b - a for a, b in zip(c1, c2))
+                rel = rel_err(tail["logits"], got["logits"])
+                same = bool(torch.equal(tail["keep_masks"], got["keep_masks"]))
+                log(f"  {tag} logits_only (float B2 tail): launches B4={n[3]} B2={n[1]}; keep "
+                    f"masks equal {same}; logits {rel:.4f} relative from the int8 last layer's")
+                check(n == (0, 1, 0, hL - 1), f"{tag} logits_only: launches B1/B2/B3/B4 {n}, "
+                      f"want (0, 1, 0, {hL - 1})")
+                check(same and rel < 0.05, f"{tag} logits_only: masks or logits differ")
+    # logged here only: the kernels line's launches are the DeiT-S paths' (phases 5-5d)
+    h_launches = dict(zip(("b1", "b2", "b3", "b4"), counts()))
+    log("  ViT-H path launches: " + ", ".join(f"{k.upper()} {v}" for k, v in h_launches.items()))
+    check(all(v > 0 for v in h_launches.values()), "a kernel of the path never launched")
+    check.done()
+
+    # --- 5f. the fused embed entry points end to end ------------------------------------------
+    # embed_u8 and embed_fused (kernels B8a and B8b) at DeiT-S and ViT-H, batch 64, against
+    # the plain serving embed (embed_from_u8) and the model's embed: in f32 within
+    # test_pallas.py's bounds (the u8 normalisation rounds differently: 2e-4), in bf16 two
+    # roundings of one function (within 1% relative over the batch).
+    check = Checks("phase 5f (embed_u8 / embed_fused end to end)")
+    b8 = (kemb.fused_patch_embed_u8, kemb.fused_patch_embed_f)
+    for k in b8:  # the counts of this path's run only
+        k.launches = 0
+    calls = 0
+    u8 = images(64)
+    for mname, (mcfg, mparams) in {"deit_s": (cfg, base), "vit_h": (hcfg, base_h)}.items():
+        for dname, dt in dtypes.items():
+            ep = tree_to(mparams["backbone"]["embed"], dev, dt)
+            pix = ((u8.float() / 255.0 - 0.5) / 0.5).to(dt)
+            got_u, want_u = kemb.embed_u8(u8, ep, mcfg), embed_from_u8(u8, ep, mcfg)
+            got_f, want_f = kemb.embed_fused(pix, ep, mcfg), embed(pix, ep, mcfg)
+            torch.cuda.synchronize()
+            calls += 1
+            shape = (64, mcfg.seq_len, mcfg.hidden_size)
+            du = (got_u.float() - want_u.float()).abs().max().item()
+            df = (got_f.float() - want_f.float()).abs().max().item()
+            if dt == torch.float32:
+                tol_u, tol_f = 2e-4, 1e-5 * float(want_f.abs().max()) + 1e-5
+                ok = du <= tol_u and df <= tol_f
+                bounds_ = f"(tol {tol_u:.1e}, {tol_f:.1e})"
+            else:
+                ok = rel_err(got_u, want_u) < 0.01 and rel_err(got_f, want_f) < 0.01
+                bounds_ = "(bf16: within 1% relative)"
+            tag = f"{mname} {dname}"
+            log(f"  {tag}: embed_u8 vs embed_from_u8 max_abs_err {du:.3e}, relative "
+                f"{rel_err(got_u, want_u):.2e}; embed_fused vs embed max_abs_err {df:.3e}, "
+                f"relative {rel_err(got_f, want_f):.2e} {bounds_}")
+            check(got_u.shape == got_f.shape == shape and got_u.dtype == got_f.dtype == dt
+                  and bool(torch.isfinite(got_u).all() and torch.isfinite(got_f).all()) and ok,
+                  tag)
+    launches["b8a"], launches["b8b"] = (k.launches for k in b8)
+    log(f"  embed path launches: B8a {launches['b8a']}, B8b {launches['b8b']} ({calls} calls each)")
+    check(launches["b8a"] == calls and launches["b8b"] == calls,
+          "a kernel of the path did not launch once per call")
+    check.done()
+
     # --- 6. times at batch 512, bf16 (info) --------------------------------------------
     def time_ms(fn, iters=10, warmup=3) -> float:
         for _ in range(warmup):
@@ -999,11 +1403,11 @@ def main():
         end.synchronize()
         return start.elapsed_time(end) / iters
 
-    def abba(kernel_fn, plain_fn):
+    def abba(kernel_fn, plain_fn, **kw):
         """plain, kernel, kernel, plain; mean of each pair (ms)."""
-        p1 = time_ms(plain_fn)
-        k1, k2 = time_ms(kernel_fn), time_ms(kernel_fn)
-        p2 = time_ms(plain_fn)
+        p1 = time_ms(plain_fn, **kw)
+        k1, k2 = time_ms(kernel_fn, **kw), time_ms(kernel_fn, **kw)
+        p2 = time_ms(plain_fn, **kw)
         return (k1 + k2) / 2, (p1 + p2) / 2
 
     def device_breakdown(tag, fn, wall_ms, reps=3):
@@ -1037,6 +1441,10 @@ def main():
             + "; ".join(f"{k} {v:.3f}" for k, v in top) + f"); busy {busy:.3f} of wall "
             f"{wall_ms:.3f}, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
 
+    # DeiT-S is timed first, without ViT-H's bf16 copies and on an emptied allocator
+    # cache: after phases 5e/5f, composed ran 25% slower here than alone in a process
+    h_params.clear()
+    torch.cuda.empty_cache()
     log(f"phase 6 (bf16, batch 512, CUDA events, mean of 10 after 3 warm-up; {smi})")
     bf = torch.bfloat16
     u8 = images(512)
@@ -1249,6 +1657,111 @@ def main():
         if name == "dense":
             device_breakdown("dense, encoder fusion on", lambda: run(True), f_ms)
 
+    # B8a / B8b at DeiT-S batch 512 and ViT-H batch 64: the kernel on the patch matrix, its
+    # plain version, the library on the same patch matrix (the affine and cast, then one
+    # cuBLAS addmm, then + pos), the entry point on the images (extract + kernel + CLS) and
+    # the eager equivalent on the images (embed_from_u8 for B8a, the model's embed for B8b)
+    scale, shift = 1.0 / (255.0 * VIT_STD), -VIT_MEAN / VIT_STD
+    for mname, mcfg, mparams, batch in (("deit_s", cfg, base, 512), ("vit_h", hcfg, base_h, 64)):
+        ep = tree_to(mparams["backbone"]["embed"], dev, bf)
+        w, b, pos = ep["patch"]["w"], ep["patch"]["b"], ep["pos"][0][1:]
+        u8b = u8[:batch] if batch <= len(u8) else images(batch)
+        pix = ((u8b.float() / 255.0 - 0.5) / 0.5).to(bf)
+        n_p, pd, d = mcfg.num_patches, mcfg.patch_dim, mcfg.hidden_size
+        rows = batch * n_p
+        const_bytes = (pd * d + d + n_p * d) * 2  # W, b, pos [N, D] once, bf16
+        library = {
+            "b8a": lambda p: (torch.addmm(b, (p.view(rows, pd).float() * scale + shift).to(bf), w)
+                              .view(batch, n_p, d) + pos),
+            "b8b": lambda p: torch.addmm(b, p.view(rows, pd), w).view(batch, n_p, d) + pos,
+        }
+        for key, fn, ref_fn, entry, eager, src, in_bytes in (
+                ("b8a", kemb.fused_patch_embed_u8, kemb.fused_patch_embed_u8_ref, kemb.embed_u8,
+                 embed_from_u8, u8b, 1),
+                ("b8b", kemb.fused_patch_embed_f, kemb.fused_patch_embed_f_ref, kemb.embed_fused,
+                 embed, pix, 2)):
+            patches = extract_patches(src, mcfg.patch_size)
+            k_ms, p_ms = abba(lambda: fn(patches, w, b, pos), lambda: ref_fn(patches, w, b, pos))
+            l_ms = time_ms(lambda: library[key](patches))
+            l_err = rel_err(library[key](patches), ref_fn(patches, w, b, pos))
+            en_ms = time_ms(lambda: entry(src, ep, mcfg))
+            e_ms = time_ms(lambda: eager(src, ep, mcfg))
+            b_ms, b_by = bound(2.0 * rows * pd * d, rows * pd * in_bytes + const_bytes + rows * d * 2)
+            log(f"  {key.upper()} {mname} batch {batch} (K {pd}, D {d}): kernel {k_ms:.4f} ms, plain "
+                f"version {p_ms:.3f} ms, library on the patches {l_ms:.4f} ms (relative "
+                f"{l_err:.2e} from the plain version), entry point {entry.__name__} {en_ms:.4f} "
+                f"ms, eager {eager.__name__} {e_ms:.4f} ms; {2.0 * rows * pd * d:.3e} FLOP, bound "
+                f"{b_ms:.4f} ms ({b_by})")
+            if mname == "deit_s":
+                kernel_ms[key], bounds[key] = (k_ms, p_ms, l_ms), (b_ms, b_by)
+        del pix
+
+    # ViT-H/14 at batch 64: the kernels at its geometry and the end-to-end rows (mean of 5
+    # after 2 warm-ups: a dense forward is ~21 TFLOP)
+    hbatch, quick = 64, {"iters": 5, "warmup": 2}
+    log(f"  ViT-H/14, bf16, batch {hbatch}, CUDA events, mean of 5 after 2 warm-ups")
+    hlp = tree_to(geometries_h["vit_h"][1], dev, bf)
+    for s in (257, 129):  # dense's length and headline's
+        x = torch.randn(hbatch, s, hcfg.hidden_size, generator=gen).to(dev, bf)
+        k_ms, p_ms = abba(lambda: kl.fused_vit_layer(x, hlp, hcfg.num_heads),
+                          lambda: kl.fused_vit_layer_ref(x, hlp, hcfg.num_heads), **quick)
+        with kernel_mode("eager"):
+            e_ms = time_ms(lambda: vit_layer(x, hlp, hcfg), **quick)
+        b_ms, b_by = bound(layer_work(hcfg, hbatch * s, hbatch * hcfg.num_heads * s * s),
+                           2 * x.numel() * x.element_size() + weight_bytes(hlp))
+        log(f"  B1 vit_h S={s}: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, eager layer "
+            f"{e_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
+    fh, hh = tree_to(lnf_h, dev, bf), tree_to(head_h, dev, bf)
+    x = torch.randn(hbatch, 129, hcfg.hidden_size, generator=gen).to(dev, bf)
+    k_ms, p_ms = abba(lambda: kl.fused_vit_layer_cls_logits(x, hlp, fh, hh, hcfg.num_heads),
+                      lambda: kl.fused_vit_layer_cls_logits_ref(x, hlp, fh, hh, hcfg.num_heads),
+                      **quick)
+    d, kw, m = hcfg.hidden_size, hcfg.attn_width, hcfg.mlp_dim
+    flops = (2.0 * hbatch * 129 * d * 2 * kw + 2.0 * hbatch * (d * kw + kw * d + 2 * d * m + d * 100)
+             + 4.0 * hbatch * hcfg.num_heads * 129 * hcfg.head_dim)
+    b_ms, b_by = bound(flops, x.numel() * 2 + hbatch * 200 + weight_bytes(hlp) + weight_bytes(fh)
+                       + weight_bytes(hh))
+    log(f"  B2 vit_h S=129: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms; bound {b_ms:.4f} ms "
+        f"({b_by})")
+    x = torch.randn(hbatch, 257, hcfg.hidden_size, generator=gen).to(dev, bf)
+    mask = random_mask(hbatch, 257, torch.full((hbatch,), 129))  # topk50's bucket, full
+    dest = compact_dest(mask)
+    k_ms, p_ms = abba(
+        lambda: kl.fused_vit_layer_bucketed(x, hlp, dest, mask, 129, hcfg.num_heads),
+        lambda: kl.fused_vit_layer_bucketed_ref(x, hlp, dest, mask, 129, hcfg.num_heads), **quick)
+    b_ms, b_by = bound(layer_work(hcfg, hbatch * 129, hbatch * hcfg.num_heads * 129 * 129),
+                       2 * x.numel() * 2 + dest.numel() * 5 + weight_bytes(hlp))
+    log(f"  B3 vit_h S=257 cap=129: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    hqlp = quantize_layer_params(hlp)
+    k_ms, p_ms = abba(lambda: k8.fused_vit_layer_int8(x, hqlp, hcfg.num_heads),
+                      lambda: k8.fused_vit_layer_int8_ref(x, hqlp, hcfg.num_heads), **quick)
+    b_ms, b_by = bound_int8(hcfg, hbatch * 257, hbatch * hcfg.num_heads * 257 * 257,
+                            2 * x.numel() * 2 + weight_bytes(hqlp))
+    log(f"  B4 vit_h S=257: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms; bound {b_ms:.4f} ms "
+        f"({b_by})")
+    hst = tree_to(st_h, dev, bf)
+    k_ms, p_ms = abba(lambda: kmod.fused_vit_encoder(x, hst, hcfg.num_heads),
+                      lambda: kmod.fused_vit_encoder_ref(x, hst, hcfg.num_heads), **quick)
+    b_ms, b_by = bound(2 * layer_work(hcfg, hbatch * 257, hbatch * hcfg.num_heads * 257 * 257),
+                       2 * x.numel() * 2 + weight_bytes(hst))
+    log(f"  B5 vit_h 2 layers S=257: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    del x, hqlp
+    u8h = images(hbatch)
+    for name in ("dense", "headline", "composed", "ultra"):
+        fwd = h_forward(name, h_tree(h_presets[name][2], bf), u8h)
+
+        def run(mode, fwd=fwd):
+            with kernel_mode(mode):
+                fwd()
+
+        k_ms, p_ms = abba(lambda: run("auto"), lambda: run("eager"), **quick)
+        log(f"  vit_h {name}: kernel path {k_ms:.3f} ms/batch ({hbatch / k_ms * 1e3:.1f} img/s), "
+            f"plain path {p_ms:.3f} ms/batch ({hbatch / p_ms * 1e3:.1f} img/s)")
+        if name == "dense":
+            device_breakdown("vit_h dense", lambda: run("auto"), k_ms, reps=2)
+
     # --- 7. records ------------------------------------------------------------------
     import importlib
     import pkgutil
@@ -1281,6 +1794,8 @@ def main():
         ("b5", "fused_vit_encoder", "encoder", "model", 150, launches["b5"]),
         ("b6", "fused_attention", "attention", "attention", 58, launches["b6"]),
         ("b7", "fused_mlp", "mlp", "mlp", 85, launches["b7"]),
+        ("b8a", "fused_patch_embed_u8", "embed", "embed", 48, launches["b8a"]),
+        ("b8b", "fused_patch_embed_f", "embed", "embed", 125, launches["b8b"]),
     )
     kernels = [
         {"name": name, "route": "cuda", "source": f"{pkg}/csrc/{src}.cu",

@@ -22,7 +22,8 @@ import vit_pruning_tpu_torch as p
 names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]
 for n in names:
     importlib.import_module(n)
-assert len(names) >= 21, names
+assert len(names) >= 24, names
+assert {'vit_pruning_tpu_torch.data.preprocess', 'vit_pruning_tpu_torch.ops.cuda.embed'} <= set(names)
 jax_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(p.__file__))),
                        'vit_pruning_tpu') + os.sep
 jax_pkg = [m for m in sys.modules if m == 'vit_pruning_tpu' or m.startswith('vit_pruning_tpu.')]
@@ -60,7 +61,7 @@ def test_build_covers_every_kernel_source():
     from vit_pruning_tpu_torch.ops.cuda import build
 
     names = {p.name for p in build.sources()}
-    assert {"layer.cu", "layer_int8.cu", "encoder.cu", "attention.cu", "mlp.cu",
+    assert {"layer.cu", "layer_int8.cu", "encoder.cu", "attention.cu", "mlp.cu", "embed.cu",
             "common.cuh"} <= names
     text = "".join(p.read_text() for p in build.sources())
     missing = [fn for fn in build.SIGNATURES if f" {fn}(" not in text]
@@ -89,6 +90,27 @@ def test_init_functions_default_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert init_vit_params(cfg, gen, "cpu")["ln_f"]["g"].device.type == "cpu"
+
+
+def test_an_edited_kernel_source_rebuilds(tmp_path, monkeypatch):
+    """The library's name is keyed by the hash of every source, embed.cu
+    included: an edit there names another library, which build() makes."""
+    from vit_pruning_tpu_torch.ops.cuda import build
+
+    for src in build.sources():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    before = build.source_hash()
+    embed_cu = tmp_path / "embed.cu"
+    embed_cu.write_text(embed_cu.read_text() + "\n// edited\n")
+    assert build.source_hash() != before
+
+
+def test_package_exports_the_embed_entry_points():
+    import vit_pruning_tpu_torch as port
+    from vit_pruning_tpu_torch.ops.cuda import embed as te
+
+    assert port.embed_u8 is te.embed_u8 and port.embed_fused is te.embed_fused
 
 
 def test_cpu_tensors_run_plain_versions_without_launching():

@@ -11,13 +11,16 @@ every predictor kind). Both serve in float or int8 (`quant='int8'`, or
 surface is ported too: models/vit.py::vit_forward with head_mask and
 output_hidden_states, vit_layer with return_probs, ops/attention.py::mha,
 the soft-mask and importance helpers of ops/structured.py, and the
-whole-encoder route (`encoder_fusion(True)` or VIT_PRUNING_TPU_ENCODER=1).
-They run through seven CUDA C++ kernels written for Hopper (B1-B7 in
-ops/cuda/, sources in csrc/); everything else is plain PyTorch. Params are
-built on the card unless the caller asks for 'cpu'.
+whole-encoder route (`encoder_fusion(True)` or VIT_PRUNING_TPU_ENCODER=1),
+for DeiT-S and ViT-H/14 alike. The fused patch embeddings `embed_u8` (uint8
+pixels) and `embed_fused` (float pixels) are entry points of their own. All
+of it runs through nine CUDA C++ kernels written for Hopper (B1-B7, B8a,
+B8b in ops/cuda/, sources in csrc/); everything else is plain PyTorch.
+Params are built on the card unless the caller asks for 'cpu'.
 
 Layout:
     configs    — the port's own copy of the model and pruning configs
+    data       — the image normalisation constants
     models     — ViT forward, every skip predictor, the re-decide and
                  progressive forwards, weight bridge to and from the JAX
                  param tree
@@ -33,6 +36,7 @@ from vit_pruning_tpu_torch.configs import (  # noqa: F401
     PruneConfig,
     ViTConfig,
     deit_small,
+    vit_huge,
     vit_tiny,
 )
 from vit_pruning_tpu_torch.ops.dispatch import (  # noqa: F401
@@ -45,4 +49,5 @@ from vit_pruning_tpu_torch.ops.dispatch import (  # noqa: F401
     set_kernel_mode,
     set_serving_quant,
 )
+from vit_pruning_tpu_torch.ops.cuda.embed import embed_fused, embed_u8  # noqa: F401
 from vit_pruning_tpu_torch.ops.quant import quantize_layer_params  # noqa: F401

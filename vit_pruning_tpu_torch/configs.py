@@ -118,9 +118,9 @@ def vit_large(num_labels: int = 1000) -> ViTConfig:
 
 def vit_huge(num_labels: int = 1000) -> ViTConfig:
     """ViT-H/14 @224 (632M params, 1.26 GB of bf16 weights); patch 14 ->
-    16x16 = 256 patches, seq 257. The port's CUDA kernels take S <= 256 and
-    hd 64, so this geometry runs only on the plain path for now (ROADMAP
-    A.3). Like vit_large, beyond the reference's largest model (ViT-B)."""
+    16x16 = 256 patches, seq 257, head dim 80. The port's layer kernels
+    (B1-B5) take this geometry, so it serves on the kernel path. Like
+    vit_large, beyond the reference's largest model (ViT-B)."""
     return ViTConfig(
         patch_size=14, hidden_size=1280, num_layers=32, num_heads=16,
         mlp_dim=5120, num_labels=num_labels,

@@ -1,7 +1,8 @@
 // Shared by the kernels' translation units (layer.cu, layer_int8.cu,
-// encoder.cu, attention.cu, mlp.cu): the numerics helpers, the GEMM epilogue
-// (bias, activation, residual, cast), the f32 attention kernel that B1 (in
-// float32) and B6 share, and the declarations of the launchers
+// encoder.cu, attention.cu, mlp.cu, embed.cu): the numerics helpers, the GEMM
+// epilogue (bias, activation, residual, cast), the f32 GEMM body that B1 and
+// B8 share, the f32 attention kernel that B1 (in float32) and B6 share, and
+// the declarations of the launchers
 // that layer.cu defines and layer_int8.cu and encoder.cu reuse (B1's
 // attention, GEMMs and LayerNorm, the shape rules). Everything defined here
 // is inline or a template, so every unit may include it.
@@ -16,8 +17,10 @@ namespace vpt {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kHD = 64;           // head dim the kernels take (DeiT-S; ViT-H's 80 is ROADMAP)
-constexpr int kMaxChunks = 8;     // keys per lane of the attention kernels: S <= 256
+// The head dims the layer kernels (B1-B5) take, each an instance of the
+// attention kernels: DeiT-S's 64 and ViT-H's 80 (five WMMA k-tiles of 16).
+__host__ __device__ constexpr bool layer_head_dim_ok(int hd) { return hd == 64 || hd == 80; }
+constexpr int kMaxChunks = 9;     // chunks of 32 keys of the attention kernels: S <= 288
 constexpr int kMaxSeq = kMaxChunks * 32;
 
 enum Act { ACT_NONE = 0, ACT_GELU_ERF = 1, ACT_GELU_TANH = 2 };
@@ -181,6 +184,63 @@ __device__ __forceinline__ void epilogue_store8(const Epilogue& e, int m, int n,
     cudaError_t err_ = (__VA_ARGS__);         \
     if (err_ != cudaSuccess) return err_;     \
   } while (0)
+
+// ---------------------------------------------------------------------------
+// One block of the f32 GEMM on the CUDA cores: layer.cu's (B1-B5 in float32)
+// and embed.cu's (B8 with f32 weights). A 64x64 output tile at (m0, n0), 256
+// threads, 4x4 outputs a thread, K in steps of 16, plain FMA (full f32, no
+// TF32, so it matches a f32 reference closely). load_a(m, k) gives A's value
+// in f32 (the caller's prologue) and store(m, n, v) takes each product (the
+// caller's epilogue); both are asked only for m < M, k < K and n < N.
+namespace fg {
+constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
+}
+
+template <typename LoadA, typename Store>
+__device__ __forceinline__ void gemm_f32_tile(long m0, int n0, long M, int N, int K,
+                                              const float* __restrict__ W, LoadA load_a,
+                                              Store store) {
+  using namespace fg;
+  __shared__ float As[BK][BM + 4];  // transposed: As[k][m]
+  __shared__ float Bs[BK][BN + 4];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += BK) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = tid + q * THREADS;
+      const int ar = c >> 4, ak = c & 15;  // A: 64 rows x 16
+      const long m = m0 + ar;
+      const int k = k0 + ak;
+      As[ak][ar] = (m < M && k < K) ? load_a(m, k) : 0.f;
+      const int bk = c >> 6, bn = c & 63;  // W: 16 rows x 64
+      const int kb = k0 + bk, n = n0 + bn;
+      Bs[bk][bn] = (kb < K && n < N) ? W[(long)kb * N + n] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long m = m0 + ty + 16 * i;
+      const int n = n0 + tx + 16 * j;
+      if (m < M && n < N) store(m, n, acc[i][j]);
+    }
+}
 
 // ---------------------------------------------------------------------------
 // Attention in f32 on the CUDA cores: B1, B3, B4 and B5 in float32 (through
@@ -406,7 +466,8 @@ cudaError_t attention_f32(const T* q, const T* k, const T* v, AttnLayout in,
 
 // --- defined in layer.cu ---------------------------------------------------
 
-// B1's attention on qkv [B*S, 3KW] -> ctx [B*S, KW]; keys masked by `mask`
+// B1's attention on qkv [B*S, 3KW] -> ctx [B*S, KW], head dim KW / H (one of
+// layer_head_dim_ok's); keys masked by `mask`
 // [B, S] bytes or by the kept counts [B] (either may be null). normalized
 // false: staged2 numerics (B1, B3, B4: numerators rounded to T, PV scaled by
 // 1/rowsum); true: B5's (P = exp / rowsum, then rounded to T, then PV).
@@ -428,7 +489,8 @@ template <typename Tin, typename T>
 cudaError_t layer_norm(const Tin* x, long ldx, const T* g, const T* b, T* y, long ldy, int rows,
                        int d, float eps, cudaStream_t st);
 
-// the geometry every layer kernel takes
+// the geometry every layer kernel takes: HD one of layer_head_dim_ok's,
+// S <= kMaxSeq, D and M multiples of 8
 bool shapes_ok(int dtype, int B, int S, int D, int H, int HD, int M);
 
 }  // namespace vpt

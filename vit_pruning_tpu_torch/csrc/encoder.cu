@@ -27,8 +27,8 @@
 // masked keys at -1e30, as in B1. The TPU kernel's erf is a polynomial
 // (|err| <= 1.5e-7); this one is the device's erff.
 //
-// Limits: B1's (head dim 64, S <= 256, D and M multiples of 8); one key
-// mask [B, S] or none, the same at every layer. A persistent one-launch
+// Limits: B1's (head dim 64 or 80, S <= 288, D and M multiples of 8); one
+// key mask [B, S] or none, the same at every layer. A persistent one-launch
 // kernel is later work.
 
 #include "common.cuh"
@@ -40,8 +40,8 @@ cudaError_t encoder_forward(const T* x, const unsigned char* mask, const T* ln1g
                             const T* wqkv, const T* bqkv, const T* wo, const T* bo, const T* ln2g,
                             const T* ln2b, const T* w1, const T* b1, const T* w2, const T* b2,
                             T* out, T* h, T* qkv, T* ctx, float* x1, T* m1, float* xr, int L, int B,
-                            int S, int D, int H, int M, float eps, cudaStream_t st) {
-  const int rows = B * S, KW = H * kHD;
+                            int S, int D, int H, int HD, int M, float eps, cudaStream_t st) {
+  const int rows = B * S, KW = H * HD;
   for (int l = 0; l < L; ++l) {
     const bool first = l == 0, last = l == L - 1;
     const long ld = (long)l * D, lm = (long)l * M, lq = (long)l * 3 * KW;
@@ -93,7 +93,7 @@ int vpt_vit_encoder_forward(int dtype, const void* x, const void* mask, const vo
   encoder_forward<T>((const T*)x, mk, (const T*)ln1g, (const T*)ln1b, (const T*)wqkv,             \
                      (const T*)bqkv, (const T*)wo, (const T*)bo, (const T*)ln2g, (const T*)ln2b,  \
                      (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (T*)out, (T*)h,      \
-                     (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, (float*)xr, L, B, S, D, H, M, eps, st)
+                     (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, (float*)xr, L, B, S, D, H, HD, M, eps, st)
   return dtype == 0 ? VPT_ENCODER(float) : VPT_ENCODER(bf16);
 #undef VPT_ENCODER
 }

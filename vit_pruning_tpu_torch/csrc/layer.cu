@@ -184,54 +184,14 @@ gemm_bf16_kernel(const bf16* __restrict__ A, long lda, const bf16* __restrict__ 
     }
 }
 
-// f32: 64x64 block tile, 256 threads, 4x4 outputs per thread, K in steps of
-// 16, plain FMA (full f32, no TF32, so it matches a f32 reference closely).
-namespace fg {
-constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
-}
-
+// f32: common.cuh's gemm_f32_tile with A read as is and the Epilogue
 __global__ void __launch_bounds__(fg::THREADS)
 gemm_f32_kernel(const float* __restrict__ A, long lda, const float* __restrict__ W, int M, int N,
                 int K, Epilogue e) {
-  using namespace fg;
-  __shared__ float As[BK][BM + 4];  // transposed: As[k][m]
-  __shared__ float Bs[BK][BN + 4];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = tid + q * THREADS;
-      const int ar = c >> 4, ak = c & 15;  // A: 64 rows x 16
-      const int m = m0 + ar, k = k0 + ak;
-      As[ak][ar] = (m < M && k < K) ? A[m * lda + k] : 0.f;
-      const int bk = c >> 6, bn = c & 63;  // W: 16 rows x 64
-      const int kb = k0 + bk, n = n0 + bn;
-      Bs[bk][bn] = (kb < K && n < N) ? W[(long)kb * N + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m < M && n < N) epilogue_store<float>(e, m, n, acc[i][j]);
-    }
+  gemm_f32_tile(
+      (long)blockIdx.y * fg::BM, blockIdx.x * fg::BN, M, N, K, W,
+      [&](long m, int k) { return A[m * lda + k]; },
+      [&](long m, int n, float v) { epilogue_store<float>(e, static_cast<int>(m), n, v); });
 }
 
 cudaError_t gemm(const bf16* A, long lda, const bf16* W, int M, int N, int K, Epilogue e,
@@ -274,75 +234,87 @@ template cudaError_t layer_norm<float, bf16>(const float*, long, const bf16*, co
 // for absent chunks.
 
 // 1/sqrt(hd) as the TPU wrapper computes it (in double, then f32)
-inline float attn_scale() { return static_cast<float>(1.0 / sqrt(static_cast<double>(kHD))); }
+inline float attn_scale(int hd) { return static_cast<float>(1.0 / sqrt(static_cast<double>(hd))); }
 
 cudaError_t attention(const float* qkv, const unsigned char* mask, const int* counts, float* ctx,
                       int B, int S, int H, int KW, cudaStream_t st, bool normalized) {
   // q, k, v are the three KW-wide thirds of each qkv row, the context is [B*S, KW]
-  const AttnLayout in{(long)S * 3 * KW, kHD, 3L * KW}, ol{(long)S * KW, kHD, KW};
-  return normalized
-             ? attention_f32<float, kHD, true>(qkv, qkv + KW, qkv + 2 * KW, in, mask, counts, ctx,
-                                               ol, B, H, S, kHD, st)
-             : attention_f32<float, kHD, false>(qkv, qkv + KW, qkv + 2 * KW, in, mask, counts, ctx,
-                                                ol, B, H, S, kHD, st);
+  const int hd = KW / H;
+  const AttnLayout in{(long)S * 3 * KW, hd, 3L * KW}, ol{(long)S * KW, hd, KW};
+#define VPT_F32(HD, NORM)                                                                         \
+  attention_f32<float, HD, NORM>(qkv, qkv + KW, qkv + 2 * KW, in, mask, counts, ctx, ol, B, H, S, \
+                                 hd, st)
+  if (hd == 64) return normalized ? VPT_F32(64, true) : VPT_F32(64, false);
+  if (hd == 80) return normalized ? VPT_F32(80, true) : VPT_F32(80, false);
+#undef VPT_F32
+  return cudaErrorInvalidValue;
 }
 
-// bf16: WMMA 16x16x16 tiles. K, V of the image's head sit in smem as
-// [S16][hd] (S16 = S rounded up to 16, zero rows beyond S); each warp takes
+// bf16: WMMA 16x16x16 tiles, one instance per head dim HD (64: four k-tiles
+// of 16, 80: five). K, V of the image's head sit in smem as
+// [S16][HD] (S16 = S rounded up to 16, zero rows beyond S); each warp takes
 // 16 query rows at a time. Pass 1 runs QK^T over all key tiles for the row
 // maxima; pass 2 runs it again, forms the numerators exp(l - max) rounded
 // to bf16 (as the TPU kernel stores them), sums the rounded values and
 // feeds them to the PV product; the context is scaled by 1/sum at the end.
 // Recomputing QK^T (cheap on the tensor cores) keeps only a 16x16 logits
-// tile per warp instead of the [16, S] rows, so two blocks fit on an SM.
+// tile per warp instead of the [16, S] rows, so two blocks fit in an H100
+// SM's 228 KB at hd 64 and S 197 (86,784 bytes a block); at hd 80 and S 257
+// a block takes 128,896 bytes and only one fits.
 // NORM (B5's numerics): pass 1 also sums the f32 numerators (a running sum,
 // rescaled when the row max grows), so that pass 2 forms P = exp(l - max) /
 // sum and rounds it to bf16 before PV.
 namespace ta {
 constexpr int WARPS = 4, THREADS = WARPS * 32;
-constexpr int LDKV = kHD + 8;  // bf16; +8 staggers the banks
-constexpr int LDP = 16 + 8;    // bf16 numerator tile
-constexpr int LDO = kHD + 4;   // f32 output tile
-// per-warp region: logits tile [16][16] f32 at 0, numerator tile [16][LDP]
-// bf16 at 1024, both reused for the output tile [16][LDO] f32 at the end;
-// the query tile [16][LDKV] bf16 after that
-constexpr size_t P_OFF = 16 * 16 * sizeof(float);
-constexpr size_t Q_OFF = 16 * LDO * sizeof(float);
-constexpr size_t WARP_BYTES = Q_OFF + 16 * LDKV * sizeof(bf16);
-static_assert(P_OFF + 16 * LDP * sizeof(bf16) <= Q_OFF, "tiles overlap");
-static_assert(Q_OFF % 32 == 0 && WARP_BYTES % 32 == 0, "WMMA needs 256-bit aligned tiles");
+constexpr int LDP = 16 + 8;  // bf16 numerator tile
+template <int HD>
+struct Geo {
+  static_assert(HD % 16 == 0 && layer_head_dim_ok(HD), "a head dim the layer kernels take");
+  static constexpr int LDKV = HD + 8;  // bf16; +8 staggers the banks
+  static constexpr int LDO = HD + 4;   // f32 output tile
+  // per-warp region: logits tile [16][16] f32 at 0, numerator tile
+  // [16][LDP] bf16 at P_OFF, both reused for the output tile [16][LDO] f32
+  // at the end; the query tile [16][LDKV] bf16 after that
+  static constexpr size_t P_OFF = 16 * 16 * sizeof(float);
+  static constexpr size_t Q_OFF = 16 * LDO * sizeof(float);
+  static constexpr size_t WARP_BYTES = Q_OFF + 16 * LDKV * sizeof(bf16);
+  static_assert(P_OFF + 16 * LDP * sizeof(bf16) <= Q_OFF, "tiles overlap");
+  static_assert(Q_OFF % 32 == 0 && WARP_BYTES % 32 == 0, "WMMA needs 256-bit aligned tiles");
 
-__host__ __device__ inline int s16(int s) { return (s + 15) / 16 * 16; }
-__host__ __device__ inline size_t kv_bytes(int s) { return size_t(2) * s16(s) * LDKV * sizeof(bf16); }
-__host__ __device__ inline size_t warp_base(int s) { return (kv_bytes(s) + s16(s) + 127) / 128 * 128; }
-__host__ __device__ inline size_t smem_bytes(int s) { return warp_base(s) + WARPS * WARP_BYTES; }
+  __host__ __device__ static int s16(int s) { return (s + 15) / 16 * 16; }
+  __host__ __device__ static size_t kv_bytes(int s) { return size_t(2) * s16(s) * LDKV * sizeof(bf16); }
+  __host__ __device__ static size_t warp_base(int s) { return (kv_bytes(s) + s16(s) + 127) / 128 * 128; }
+  __host__ __device__ static size_t smem_bytes(int s) { return warp_base(s) + WARPS * WARP_BYTES; }
+};
 }  // namespace ta
 
-template <bool NORM>
+template <int HD, bool NORM>
 __global__ void __launch_bounds__(ta::THREADS)
 attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restrict__ mask,
                     const int* __restrict__ counts, bf16* __restrict__ ctx, int S, int KW,
                     float scale) {
   using namespace nvcuda;
   using namespace ta;
+  using G = Geo<HD>;
+  constexpr int LDKV = G::LDKV, LDO = G::LDO, KT = HD / 16, CH = HD / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int sp = s16(S), ntiles = sp / 16;
+  const int sp = G::s16(S), ntiles = sp / 16;
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [sp][LDKV]
   bf16* Vs = Ks + sp * LDKV;                 // [sp][LDKV]
-  unsigned char* flag = smem + kv_bytes(S);  // [sp]: 0 absent, 1 valid, 2 masked
+  unsigned char* flag = smem + G::kv_bytes(S);  // [sp]: 0 absent, 1 valid, 2 masked
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  unsigned char* wbase = smem + warp_base(S) + warp * WARP_BYTES;
+  unsigned char* wbase = smem + G::warp_base(S) + warp * G::WARP_BYTES;
   float* Lt = reinterpret_cast<float*>(wbase);
-  bf16* Pt = reinterpret_cast<bf16*>(wbase + P_OFF);
+  bf16* Pt = reinterpret_cast<bf16*>(wbase + G::P_OFF);
   float* Ot = reinterpret_cast<float*>(wbase);
-  bf16* Qt = reinterpret_cast<bf16*>(wbase + Q_OFF);
+  bf16* Qt = reinterpret_cast<bf16*>(wbase + G::Q_OFF);
 
   const long row_stride = 3L * KW;
-  const bf16* base = qkv + (long)b * S * row_stride + h * kHD;
+  const bf16* base = qkv + (long)b * S * row_stride + h * HD;
   const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int c = tid; c < sp * (kHD / 8); c += THREADS) {  // 16-byte chunks
-    const int j = c / (kHD / 8), d = (c % (kHD / 8)) * 8;
+  for (int c = tid; c < sp * CH; c += THREADS) {  // 16-byte chunks
+    const int j = c / CH, d = (c % CH) * 8;
     const bf16* r = base + j * row_stride + d;
     *reinterpret_cast<uint4*>(Ks + j * LDKV + d) = j < S ? *reinterpret_cast<const uint4*>(r + KW) : zero;
     *reinterpret_cast<uint4*>(Vs + j * LDKV + d) = j < S ? *reinterpret_cast<const uint4*>(r + 2 * KW) : zero;
@@ -353,22 +325,22 @@ attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restric
   const int r = lane >> 1, c0 = (lane & 1) * 8;  // softmax: two lanes per row
   for (int qt = warp; qt < ntiles; qt += WARPS) {
     const int q0 = qt * 16;
-    for (int c = lane; c < 16 * (kHD / 8); c += 32) {
-      const int i = c / (kHD / 8), d = (c % (kHD / 8)) * 8;
+    for (int c = lane; c < 16 * CH; c += 32) {
+      const int i = c / CH, d = (c % CH) * 8;
       *reinterpret_cast<uint4*>(Qt + i * LDKV + d) =
           q0 + i < S ? *reinterpret_cast<const uint4*>(base + (q0 + i) * row_stride + d) : zero;
     }
     __syncwarp();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[kHD / 16];
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[KT];
 #pragma unroll
-    for (int kk = 0; kk < kHD / 16; ++kk) wmma::load_matrix_sync(qa[kk], Qt + kk * 16, LDKV);
+    for (int kk = 0; kk < KT; ++kk) wmma::load_matrix_sync(qa[kk], Qt + kk * 16, LDKV);
 
     // logits tile jt -> Lt (f32, unscaled)
     auto logits_tile = [&](int jt) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> l;
       wmma::fill_fragment(l, 0.f);
 #pragma unroll
-      for (int kk = 0; kk < kHD / 16; ++kk) {
+      for (int kk = 0; kk < KT; ++kk) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;  // K^T
         wmma::load_matrix_sync(kb, Ks + jt * 16 * LDKV + kk * 16, LDKV);
         wmma::mma_sync(l, qa[kk], kb, l);
@@ -410,9 +382,9 @@ attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restric
     }
     mx = fmaxf(mx, mo);
 
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kHD / 16];
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[KT];
 #pragma unroll
-    for (int dt = 0; dt < kHD / 16; ++dt) wmma::fill_fragment(o[dt], 0.f);
+    for (int dt = 0; dt < KT; ++dt) wmma::fill_fragment(o[dt], 0.f);
     float sum = 0.f;
     for (int jt = 0; jt < ntiles; ++jt) {
       logits_tile(jt);
@@ -429,7 +401,7 @@ attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restric
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
       wmma::load_matrix_sync(pa, Pt, LDP);
 #pragma unroll
-      for (int dt = 0; dt < kHD / 16; ++dt) {
+      for (int dt = 0; dt < KT; ++dt) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
         wmma::load_matrix_sync(vb, Vs + jt * 16 * LDKV + dt * 16, LDKV);
         wmma::mma_sync(o[dt], pa, vb, o[dt]);
@@ -440,14 +412,14 @@ attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restric
     const float rinv = NORM ? 1.0f : 1.0f / sum;
 
 #pragma unroll
-    for (int dt = 0; dt < kHD / 16; ++dt)
+    for (int dt = 0; dt < KT; ++dt)
       wmma::store_matrix_sync(Ot + dt * 16, o[dt], LDO, wmma::mem_row_major);
     __syncwarp();
-    if (q0 + r < S) {
-      bf16* out = ctx + ((long)b * S + q0 + r) * KW + h * kHD + (lane & 1) * (kHD / 2);
-      const float* src = Ot + r * LDO + (lane & 1) * (kHD / 2);
+    if (q0 + r < S) {  // each lane of the row's pair writes half of it (HD / 2, a multiple of 8)
+      bf16* out = ctx + ((long)b * S + q0 + r) * KW + h * HD + (lane & 1) * (HD / 2);
+      const float* src = Ot + r * LDO + (lane & 1) * (HD / 2);
 #pragma unroll
-      for (int c = 0; c < kHD / 2; c += 8) {
+      for (int c = 0; c < HD / 2; c += 8) {
         float v[8];
 #pragma unroll
         for (int t = 0; t < 8; ++t) v[t] = src[c + t] * rinv;
@@ -458,32 +430,42 @@ attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restric
   }
 }
 
-template <bool NORM>
+// the kernel instance's dynamic shared memory limit, set once, at the
+// longest sequence
+template <int HD, bool NORM>
+cudaError_t attention_tc_attr() {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(attention_tc_kernel<HD, NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)ta::Geo<HD>::smem_bytes(kMaxSeq));
+  return attr;
+}
+
+template <int HD, bool NORM>
 cudaError_t attention_tc(const bf16* qkv, const unsigned char* mask, const int* counts, bf16* ctx,
                          int B, int S, int H, int KW, cudaStream_t st) {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(attention_tc_kernel<NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)ta::smem_bytes(kMaxSeq));
-  if (attr != cudaSuccess) return attr;
-  attention_tc_kernel<NORM><<<dim3(H, B), ta::THREADS, ta::smem_bytes(S), st>>>(
-      qkv, mask, counts, ctx, S, KW, attn_scale());
+  VPT_TRY(attention_tc_attr<HD, NORM>());
+  attention_tc_kernel<HD, NORM><<<dim3(H, B), ta::THREADS, ta::Geo<HD>::smem_bytes(S), st>>>(
+      qkv, mask, counts, ctx, S, KW, attn_scale(HD));
   return cudaGetLastError();
 }
 
 cudaError_t attention(const bf16* qkv, const unsigned char* mask, const int* counts, bf16* ctx,
                       int B, int S, int H, int KW, cudaStream_t st, bool normalized) {
-  return normalized ? attention_tc<true>(qkv, mask, counts, ctx, B, S, H, KW, st)
-                    : attention_tc<false>(qkv, mask, counts, ctx, B, S, H, KW, st);
+  const int hd = KW / H;
+#define VPT_TC(HD, NORM) attention_tc<HD, NORM>(qkv, mask, counts, ctx, B, S, H, KW, st)
+  if (hd == 64) return normalized ? VPT_TC(64, true) : VPT_TC(64, false);
+  if (hd == 80) return normalized ? VPT_TC(80, true) : VPT_TC(80, false);
+#undef VPT_TC
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
 // B2 attention: the CLS query only, one warp per (head, image); each lane
 // reads its keys straight from the K/V buffer (S*hd values per block).
 
-template <typename T>
+template <typename T, int HD>
 __global__ void cls_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                                      T* __restrict__ ctx, int S, int KW, float scale) {
-  constexpr int HD = kHD;
   __shared__ float qs[HD];
   __shared__ float ps[kMaxSeq];
   const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
@@ -529,7 +511,13 @@ __global__ void cls_attention_kernel(const T* __restrict__ q, const T* __restric
 template <typename T>
 cudaError_t cls_attention(const T* q, const T* kv, T* ctx, int B, int S, int H, int KW,
                           cudaStream_t st) {
-  cls_attention_kernel<T><<<dim3(H, B), 32, 0, st>>>(q, kv, ctx, S, KW, attn_scale());
+  const int hd = KW / H;
+  if (hd == 64)
+    cls_attention_kernel<T, 64><<<dim3(H, B), 32, 0, st>>>(q, kv, ctx, S, KW, attn_scale(hd));
+  else if (hd == 80)
+    cls_attention_kernel<T, 80><<<dim3(H, B), 32, 0, st>>>(q, kv, ctx, S, KW, attn_scale(hd));
+  else
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
@@ -540,8 +528,8 @@ cudaError_t layer_forward(const T* x, const unsigned char* mask, const int* coun
                           const T* ln1b, const T* wqkv, const T* bqkv, const T* wo, const T* bo,
                           const T* ln2g, const T* ln2b, const T* w1, const T* b1, const T* w2,
                           const T* b2, T* out, T* h, T* qkv, T* ctx, float* x1, T* m1, int B, int S,
-                          int D, int H, int M, float eps, cudaStream_t st) {
-  const int rows = B * S, KW = H * kHD;
+                          int D, int H, int HD, int M, float eps, cudaStream_t st) {
+  const int rows = B * S, KW = H * HD;
   const int act = sizeof(T) == 2 ? ACT_GELU_TANH : ACT_GELU_ERF;
   VPT_TRY(layer_norm<T, T>(x, D, ln1g, ln1b, h, D, rows, D, eps, st));
   VPT_TRY(gemm(h, D, wqkv, rows, 3 * KW, D, epi(bqkv, ACT_NONE, nullptr, 0, false, qkv, 3 * KW, false), st));
@@ -559,8 +547,8 @@ cudaError_t cls_logits_forward(const T* x, const T* ln1g, const T* ln1b, const T
                                const T* ln2b, const T* w1, const T* b1, const T* w2, const T* b2,
                                const T* lnfg, const T* lnfb, const T* wh, const T* bh, T* logits,
                                T* h, T* kv, T* q, T* ctx, float* x1, T* m1, float* x2, int B, int S,
-                               int D, int H, int M, int labels, float eps, cudaStream_t st) {
-  const int rows = B * S, KW = H * kHD;
+                               int D, int H, int HD, int M, int labels, float eps, cudaStream_t st) {
+  const int rows = B * S, KW = H * HD;
   const long cls_stride = (long)S * D;  // CLS rows of x and h
   const int act = sizeof(T) == 2 ? ACT_GELU_TANH : ACT_GELU_ERF;
   VPT_TRY(layer_norm<T, T>(x, D, ln1g, ln1b, h, D, rows, D, eps, st));
@@ -592,7 +580,10 @@ cudaError_t cls_logits_forward(const T* x, const T* ln1g, const T* ln1b, const T
 // is one read of x and one write of out, [B, S, D] each; nothing syncs with
 // the host.
 
-constexpr int kInvertThreads = kMaxSeq;  // one thread a token: S <= 256
+// one thread a token: shapes_ok holds S <= kMaxSeq, so every token of every
+// sequence the kernels take (ViT-H's 257 included) is inverted and counted
+constexpr int kInvertThreads = kMaxSeq;
+static_assert(kInvertThreads % 32 == 0 && kInvertThreads <= 1024, "one block of whole warps");
 
 __global__ void __launch_bounds__(kInvertThreads)
 bucket_invert_kernel(const int* __restrict__ dest, const unsigned char* __restrict__ kept,
@@ -642,8 +633,8 @@ cudaError_t bucketed_forward(const T* x, const int* dest, const unsigned char* k
                              const T* ln1b, const T* wqkv, const T* bqkv, const T* wo, const T* bo,
                              const T* ln2g, const T* ln2b, const T* w1, const T* b1, const T* w2,
                              const T* b2, T* out, int* src, int* counts, T* xc, T* yc, T* h, T* qkv,
-                             T* ctx, float* x1, T* m1, int B, int S, int cap, int D, int H, int M,
-                             float eps, cudaStream_t st) {
+                             T* ctx, float* x1, T* m1, int B, int S, int cap, int D, int H, int HD,
+                             int M, float eps, cudaStream_t st) {
   const int chunks = D * static_cast<int>(sizeof(T)) / 16;
   bucket_invert_kernel<<<B, kInvertThreads, 0, st>>>(dest, kept, src, counts, S, cap);
   VPT_TRY(cudaGetLastError());
@@ -651,15 +642,15 @@ cudaError_t bucketed_forward(const T* x, const int* dest, const unsigned char* k
   gather_rows_kernel<T><<<(g + 255) / 256, 256, 0, st>>>(x, src, xc, S, cap, chunks, g);
   VPT_TRY(cudaGetLastError());
   VPT_TRY(layer_forward<T>(xc, nullptr, counts, ln1g, ln1b, wqkv, bqkv, wo, bo, ln2g, ln2b, w1, b1,
-                           w2, b2, yc, h, qkv, ctx, x1, m1, B, cap, D, H, M, eps, st));
+                           w2, b2, yc, h, qkv, ctx, x1, m1, B, cap, D, H, HD, M, eps, st));
   const long e = (long)B * S * chunks;
   expand_rows_kernel<T><<<(e + 255) / 256, 256, 0, st>>>(x, yc, dest, kept, out, S, cap, chunks, e);
   return cudaGetLastError();
 }
 
 bool shapes_ok(int dtype, int B, int S, int D, int H, int HD, int M) {
-  return (dtype == 0 || dtype == 1) && HD == kHD && B > 0 && S > 0 && S <= kMaxSeq && H > 0 &&
-         D % 8 == 0 && M % 8 == 0;
+  return (dtype == 0 || dtype == 1) && layer_head_dim_ok(HD) && B > 0 && S > 0 && S <= kMaxSeq &&
+         H > 0 && D % 8 == 0 && M % 8 == 0;
 }
 
 }  // namespace vpt
@@ -672,7 +663,7 @@ const char* vpt_error_string(int code) { return cudaGetErrorString(static_cast<c
 
 int vpt_max_seq_len() { return kMaxSeq; }
 
-int vpt_head_dim() { return kHD; }
+int vpt_layer_head_dim_ok(int hd) { return layer_head_dim_ok(hd); }
 
 // dtype: 0 = float32, 1 = bfloat16. mask: [B, S] bytes (torch.bool) or null.
 // Workspaces: h [B*S, D], qkv [B*S, 3KW], ctx [B*S, KW], m1 [B*S, M] in the
@@ -690,7 +681,7 @@ int vpt_vit_layer_forward(int dtype, const void* x, const void* mask, const void
   layer_forward<T>((const T*)x, mk, nullptr, (const T*)ln1g, (const T*)ln1b, (const T*)wqkv,      \
                    (const T*)bqkv, (const T*)wo, (const T*)bo, (const T*)ln2g, (const T*)ln2b,    \
                    (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (T*)out, (T*)h,        \
-                   (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, B, S, D, H, M, eps, st)
+                   (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, B, S, D, H, HD, M, eps, st)
   return dtype == 0 ? VPT_LAYER(float) : VPT_LAYER(bf16);
 #undef VPT_LAYER
 }
@@ -713,7 +704,7 @@ int vpt_vit_cls_logits_forward(int dtype, const void* x, const void* ln1g, const
                         (const T*)ln2b, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,   \
                         (const T*)lnfg, (const T*)lnfb, (const T*)wh, (const T*)bh, (T*)logits,   \
                         (T*)h, (T*)kv, (T*)q, (T*)ctx, (float*)x1, (T*)m1, (float*)x2, B, S, D,   \
-                        H, M, labels, eps, st)
+                        H, HD, M, labels, eps, st)
   return dtype == 0 ? VPT_CLS(float) : VPT_CLS(bf16);
 #undef VPT_CLS
 }
@@ -737,7 +728,7 @@ int vpt_vit_layer_bucketed_forward(int dtype, const void* x, const void* dest, c
                       (const T*)ln1b, (const T*)wqkv, (const T*)bqkv, (const T*)wo, (const T*)bo,  \
                       (const T*)ln2g, (const T*)ln2b, (const T*)w1, (const T*)b1, (const T*)w2,    \
                       (const T*)b2, (T*)out, (int*)src, (int*)counts, (T*)xc, (T*)yc, (T*)h,       \
-                      (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, B, S, cap, D, H, M, eps, st)
+                      (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, B, S, cap, D, H, HD, M, eps, st)
   return dtype == 0 ? VPT_BUCKETED(float) : VPT_BUCKETED(bf16);
 #undef VPT_BUCKETED
 }

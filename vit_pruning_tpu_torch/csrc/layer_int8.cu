@@ -305,9 +305,9 @@ cudaError_t layer_int8_forward(
     const T* ln2g, const T* ln2b, const signed char* w1, const float* s1, const T* b1,
     const signed char* w2, const float* s2, const T* b2, T* out, signed char* q_ln1, float* s_ln1,
     signed char* q_ctx, float* s_ctx, signed char* q_ln2, float* s_ln2, signed char* q_gelu,
-    float* s_gelu, T* qkv, T* ctx, float* x1, T* m1, int B, int S, int D, int H, int M, float eps,
-    cudaStream_t st) {
-  const int rows = B * S, KW = H * kHD;
+    float* s_gelu, T* qkv, T* ctx, float* x1, T* m1, int B, int S, int D, int H, int HD, int M,
+    float eps, cudaStream_t st) {
+  const int rows = B * S, KW = H * HD;
   const int act = sizeof(T) == 2 ? ACT_GELU_TANH : ACT_GELU_ERF;
   VPT_TRY(ln_rowquant<T, T>(x, D, ln1g, ln1b, q_ln1, s_ln1, rows, D, eps, st));
   VPT_TRY(gemm_s8<T>(q_ln1, D, s_ln1, wqkv, sqkv, rows, 3 * KW, D,
@@ -356,7 +356,7 @@ int vpt_vit_layer_int8_forward(
                         (fp)s2, (const T*)b2, (T*)out, (signed char*)q_ln1, (float*)s_ln1,         \
                         (signed char*)q_ctx, (float*)s_ctx, (signed char*)q_ln2, (float*)s_ln2,    \
                         (signed char*)q_gelu, (float*)s_gelu, (T*)qkv, (T*)ctx, (float*)x1,        \
-                        (T*)m1, B, S, D, H, M, eps, st)
+                        (T*)m1, B, S, D, H, HD, M, eps, st)
   return dtype == 0 ? VPT_INT8(float) : VPT_INT8(bf16);
 #undef VPT_INT8
 }

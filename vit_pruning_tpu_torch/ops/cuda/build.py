@@ -34,7 +34,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "vpt_error_string": ([I], ctypes.c_char_p),
     "vpt_max_seq_len": ([], I),
-    "vpt_head_dim": ([], I),
+    "vpt_layer_head_dim_ok": ([I], I),
     # dtype, x, mask, 12 layer weights, out, 5 workspaces, B S D H HD M, eps, stream
     "vpt_vit_layer_forward": ([I] + [P] * 20 + [I] * 6 + [F, P], I),
     # dtype, x, 18 weights, logits, 7 workspaces, B S D H HD M labels, eps, stream
@@ -57,6 +57,9 @@ SIGNATURES = {
     "vpt_mlp_max_hidden": ([], I),
     # dtype, x, w1, b1, w2, b2, out, T D M, stream
     "vpt_mlp_forward": ([I] + [P] * 6 + [I] * 3 + [P], I),
+    # input dtype, weight dtype, pos in f32, patches, w, b, pos, out, T N K D,
+    # scale, shift, stream
+    "vpt_patch_embed_forward": ([I] * 3 + [P] * 5 + [I] * 4 + [F, F, P], I),
 }
 
 

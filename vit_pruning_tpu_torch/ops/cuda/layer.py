@@ -40,6 +40,9 @@ from vit_pruning_tpu_torch.ops.attention import NEG_INF
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the head dims B1-B5 take: csrc/common.cuh::layer_head_dim_ok, which gates
+# every call; this copy only words the error
+LAYER_HEAD_DIMS = (64, 80)
 
 
 # --- plain versions ---------------------------------------------------------------
@@ -234,9 +237,9 @@ def _geometry(lib, x: torch.Tensor, params: dict, num_heads: int, who: str):
     kw = _weight(params["attn"]["q"]).shape[1]
     m = _weight(params["mlp"]["fc1"]).shape[1]
     hd = kw // num_heads
-    if kw % num_heads or hd != lib.vpt_head_dim():
+    if kw % num_heads or not lib.vpt_layer_head_dim_ok(hd):
         raise ValueError(f"{who}: head dim {kw}/{num_heads} not supported (the kernel takes "
-                         f"{lib.vpt_head_dim()})")
+                         f"{', '.join(map(str, LAYER_HEAD_DIMS))})")
     if not 1 <= s <= lib.vpt_max_seq_len():
         raise ValueError(f"{who}: sequence length {s} not in [1, {lib.vpt_max_seq_len()}]")
     if d % 8 or m % 8:

@@ -86,8 +86,8 @@ def fused_vit_encoder(
     """Kernel B5: x [B, S, D] through every layer of `layers`, the float
     layer tree stacked on a leading [L] axis (a slice [l0:l1] of a model's
     layers runs those layers). token_mask [B, S] bool or None masks keys at
-    every layer. Returns [B, S, D] in x's dtype. B1's limits: head dim 64,
-    S <= 256."""
+    every layer. Returns [B, S, D] in x's dtype. B1's limits: head dim 64
+    or 80, S <= 288."""
     if not launch_kernel_for(x):
         return fused_vit_encoder_ref(x, layers, num_heads, eps, token_mask)
     from vit_pruning_tpu_torch.ops.cuda.build import load_library

@@ -14,12 +14,9 @@ from typing import Optional
 import torch
 
 from vit_pruning_tpu_torch.configs import PruneConfig, ViTConfig
+from vit_pruning_tpu_torch.data.preprocess import VIT_MEAN, VIT_STD
 from vit_pruning_tpu_torch.models.pruned_vit import progressive_topk_forward
 from vit_pruning_tpu_torch.ops.patch_embed import patch_embed
-
-# HF ViTImageProcessor normalisation (vit_pruning_tpu/data/preprocess.py)
-VIT_MEAN = 0.5
-VIT_STD = 0.5
 
 
 def _require_u8(pixels: torch.Tensor, who: str):
@@ -27,13 +24,17 @@ def _require_u8(pixels: torch.Tensor, who: str):
         raise ValueError(f"{who} expects uint8 pixels, got {pixels.dtype}")
 
 
-def embed_from_u8(pixels_u8: torch.Tensor, embed_params: dict, config: ViTConfig) -> torch.Tensor:
+def embed_from_u8(
+    pixels_u8: torch.Tensor, embed_params: dict, config: ViTConfig, impl: str = "auto"
+) -> torch.Tensor:
     """uint8 [B, C, H, W] -> embeddings [B, S, D]: normalise, patch
-    projection, position add, CLS."""
+    projection (ops/patch_embed.py `impl`), position add, CLS. The serving
+    embed, in plain PyTorch as the JAX package's is in XLA; the fused
+    kernel form of the same function is ops/cuda/embed.py::embed_u8."""
     _require_u8(pixels_u8, "embed_from_u8")
     w_dtype = embed_params["patch"]["w"].dtype
     x = (pixels_u8.float() / 255.0 - VIT_MEAN) / VIT_STD
-    y = patch_embed(x.to(w_dtype), embed_params["patch"], config.patch_size)
+    y = patch_embed(x.to(w_dtype), embed_params["patch"], config.patch_size, impl=impl)
     pos = embed_params["pos"]
     y = y + pos[:, 1:]
     cls = (embed_params["cls"] + pos[:, :1]).to(y.dtype).expand(y.shape[0], 1, y.shape[-1])
