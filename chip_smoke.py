@@ -32,18 +32,30 @@ kernels from csrc/ itself. Phases:
   3g. kernels B8a / B8b (fused_patch_embed_u8 / _f) against their plain
      versions at DeiT-S's (K 768, D 384) and ViT-H's (K 588, D 1280) patch
      embedding, batch 64, float32 and bfloat16 weights, uint8 / float
-     patches, pos in the weights' dtype and in float32; bad inputs raise
+     patches, pos in the weights' dtype and in float32; B8b at patch width
+     75 (rows no 8-byte multiple); bad inputs raise
   3h. ViT-H/14's geometry (head dim 80, S 257) in B1-B5 against their plain
      versions at every length phase 5e gives them: B1 and B4 at S 257 / 171
      / 129 / 86 / 43 / 22 with KW 1280 and 640, B2 at S 129 / 43 / 22, B3 at
      S 257 with cap 129 and the last token kept, B5 on two layers at S 257;
      masked and not, float32 at batch 4 and bfloat16 at batch 32; the head
-     dims the C predicate takes equal the wrappers'; head dims 16 and 128
-     raise
+     dims the C predicate takes equal the wrappers'; head dim 128 raises,
+     naming the dims taken; then the short head dims of the repo's configs,
+     vit_tiny's 16 (S 17, D 64, MLP 128) and the quality gate model's 32
+     (S 65, D 128, MLP 256): B1-B5 masked and not, float32 and bfloat16,
+     batch 8
+  3i. the bf16 GEMM bodies under B1, B2, B3 and B5 (ops/cuda/gemm.py)
+     against their plain version at every product shape of the main paths
+     (DeiT-S and composed widths at S 197 / 131 / 99 / 66 / 33 / 17, ViT-H
+     and its composed width at S 257 / 171 / 129 / 86 / 43 / 22, B2's
+     strided CLS rows and N 100 classifier, every epilogue), with the body
+     each took (wgmma where TMA can describe the operands, else WMMA); the
+     main shapes at batch 512 x 197 and 64 x 257 timed beside torch.matmul
   5. end to end, DeiT-S @224 with 100 labels at batch 64: dense vit_forward
      and headline / composed / ultra through serving_forward, kernels
      (mode 'auto') against plain PyTorch (mode 'eager'), with the launch
-     counts of every forward
+     counts of every forward; vit_tiny (hd 16) dense and headline the same
+     way
   5b. the re-decide path end to end, same model and batch: pruned_vit_forward
      in modes topk (top_k 98), mask with mask_budget 98, mask without a
      budget (per-layer median thresholds from a measure_only probe) and
@@ -73,7 +85,9 @@ kernels from csrc/ itself. Phases:
   5f. the fused embed entry points embed_u8 / embed_fused (B8a / B8b) at
      DeiT-S and ViT-H, batch 64, against embed_from_u8 and the model's
      embed, with their launch counts
-  6. times at batch 512 in bfloat16, kernel path and plain path (float and
+  6. which GEMM body ran the bf16 products of phases 5-5f (launches per
+     body, the shapes that took the WMMA body); times at batch 512 in
+     bfloat16, kernel path and plain path (float and
      int8), and each kernel beside its plain version and its eager PyTorch
      equivalent (info only); each kernel's bound from its shapes; the device
      time of the dense, headline, topk50, mask, dense_int8, topk50_int8 and
@@ -82,8 +96,9 @@ kernels from csrc/ itself. Phases:
      with encoder fusion on and off; B8a / B8b at DeiT-S batch 512 and ViT-H
      batch 64 beside the library (cuBLAS addmm) on the same patches, their
      entry points and the eager equivalents on the images; ViT-H at
-     batch 64: B1-B5 at its geometry and dense / headline / composed /
-     ultra, kernel path and plain path (mean of 5 after 2 warm-ups)
+     batch 64: B1-B5 at its geometry beside their eager equivalents, and
+     dense / headline / composed / ultra, kernel path and plain path (mean
+     of 5 after 2 warm-ups)
   7. records: nothing of jax or of the JAX package was loaded (by module
      name or by file), the kernels' JSON line (launches: B1-B7 on the DeiT-S
      paths of 5-5d, B8 on 5f's; ViT-H's are logged in 5e), the device line
@@ -228,16 +243,18 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from vit_pruning_tpu_torch.configs import (
-        PruneConfig, composed_schedule, deit_small, ultra_schedule, vit_huge)
+        PruneConfig, ViTConfig, composed_schedule, deit_small, ultra_schedule, vit_huge, vit_tiny)
     from vit_pruning_tpu_torch.data.preprocess import VIT_MEAN, VIT_STD
     from vit_pruning_tpu_torch.models.convert import tree_to
     from vit_pruning_tpu_torch.models import pruned_vit as tp
     from vit_pruning_tpu_torch.models.pruned_vit import init_pruned_vit_params, pruned_vit_forward
     from vit_pruning_tpu_torch.models.vit import (
-        embed, layer_norm, layer_range, layer_slice, mlp_block, vit_forward, vit_layer)
+        embed, init_vit_params, layer_norm, layer_range, layer_slice, mlp_block, vit_forward,
+        vit_layer)
     from vit_pruning_tpu_torch.ops.attention import mha
     from vit_pruning_tpu_torch.ops.cuda import attention as ka
     from vit_pruning_tpu_torch.ops.cuda import embed as kemb
+    from vit_pruning_tpu_torch.ops.cuda import gemm as kg
     from vit_pruning_tpu_torch.ops.cuda import layer as kl
     from vit_pruning_tpu_torch.ops.cuda import layer_int8 as k8
     from vit_pruning_tpu_torch.ops.cuda import mlp as kmlp
@@ -417,6 +434,25 @@ def main():
         garbage by contract); got / ref [B, S, ...], mask [B, S] or None."""
         d = (got.float() - ref.float()).abs()
         return (d if mask is None else d[mask]).max().item()
+
+    def time_ms(fn, iters=10, warmup=3) -> float:
+        for _ in range(warmup):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def abba(kernel_fn, plain_fn, **kw):
+        """plain, kernel, kernel, plain; mean of each pair (ms)."""
+        p1 = time_ms(plain_fn, **kw)
+        k1, k2 = time_ms(kernel_fn, **kw), time_ms(kernel_fn, **kw)
+        p2 = time_ms(plain_fn, **kw)
+        return (k1 + k2) / 2, (p1 + p2) / 2
 
     # --- 3d. B6 against its plain version ------------------------------------------------
     check = Checks("phase 3d (B6 vs plain)")
@@ -673,6 +709,22 @@ def main():
         check(False, "B8a ran a CPU tensor in mode 'kernel'")
     except RuntimeError as e:
         log(f"  B8a rejects a CPU tensor in mode 'kernel': {e}")
+    # B8b's third A producer: patch rows that are no 8-byte multiple (patch 5: K 75), bf16
+    # and f32 patches through the producer warps' registers; a generator of its own
+    gen_o = torch.Generator().manual_seed(SEED + 4)
+    w, b, pos = (0.02 * torch.randn(75, 128, generator=gen_o),
+                 0.1 * torch.randn(128, generator=gen_o),
+                 0.02 * torch.randn(49, 128, generator=gen_o))
+    w, b = w.to(dev, torch.bfloat16), b.to(dev, torch.bfloat16)
+    fp = torch.randn(16, 49, 75, generator=gen_o).to(dev)
+    for patches in (fp.to(torch.bfloat16), fp):
+        got = kemb.fused_patch_embed_f(patches, w, b, pos.to(dev))
+        ref = kemb.fused_patch_embed_f_ref(patches, w, b, pos.to(dev))
+        torch.cuda.synchronize()
+        dmax, tol = (got.float() - ref.float()).abs().max().item(), bf16_tol(ref.float())
+        tag = f"B8B K 75, D 128 bfloat16 weights, {patches.dtype} patches"
+        log(f"  {tag}: max_abs_err {dmax:.3e} (tol {tol:.1e})")
+        check(bool(torch.isfinite(got).all()) and dmax <= tol, tag)
     check.done()
 
     # --- 3h. ViT-H's geometry (hd 80, S 257) in B1-B5 against their plain versions ----------
@@ -779,12 +831,177 @@ def main():
             check(bool(torch.isfinite(got).all()) and d <= tol, tag)
     lp = tree_to(geometries_h["vit_h"][1], dev, torch.bfloat16)
     x = torch.zeros(2, 17, hcfg.hidden_size, device=dev, dtype=torch.bfloat16)
-    for heads in (10, 80):  # head dims 128 and 16: not taken, must raise, not run
-        try:
-            kl.fused_vit_layer(x, lp, heads)
-            check(False, f"B1 accepted head dim {hcfg.hidden_size // heads}")
-        except ValueError as e:
-            log(f"  B1 rejects head dim {hcfg.hidden_size // heads}: {e}")
+    try:  # head dim 128: not taken, must raise naming the head dims taken, not run
+        kl.fused_vit_layer(x, lp, 10)
+        check(False, "B1 accepted head dim 128")
+    except ValueError as e:
+        log(f"  B1 rejects head dim 128: {e}")
+        check("16, 32, 64, 80" in str(e), "the error does not name the head dims taken")
+
+    # the short head dims of the repo's own configs: vit_tiny's 16 (D 64, 4 heads, MLP
+    # 128, S 17) and the quality gate model's 32 (D 128, 4 heads, MLP 256, S 65), B1-B5
+    # masked and not, f32 and bf16, batch 8; drawn from a generator of their own so that
+    # every later phase sees the inputs it saw before these cases existed
+    gen_s = torch.Generator().manual_seed(SEED + 1)
+    short = {"vit_tiny (hd 16)": vit_tiny(num_labels=100),
+             "gate (hd 32)": ViTConfig(image_size=32, patch_size=4, hidden_size=128,
+                                       num_layers=3, num_heads=4, mlp_dim=256, num_labels=100)}
+    for gname, gcfg in short.items():
+        sp = init_vit_params(gcfg, gen_s, "cpu")
+        stack = perturbed_layer(sp["layers"], gen_s)
+        lp_cpu, f_cpu, h_cpu = (layer_slice(stack, 0), perturbed_layer(sp["ln_f"], gen_s),
+                                perturbed_layer(sp["head"], gen_s))
+        s = gcfg.seq_len
+        for dname, dt in dtypes.items():
+            lp, f, h, st = (tree_to(t, dev, dt) for t in (lp_cpu, f_cpu, h_cpu, stack))
+            qp = quantize_layer_params(lp)
+            ftol = (lambda ref: F32_ATOL) if dt == torch.float32 else bf16_tol
+            x = torch.randn(8, s, gcfg.hidden_size, generator=gen_s).to(dev, dt)
+            m = torch.rand(8, s, generator=gen_s) > 0.3
+            m[:, 0] = True
+            for mask in (None, m.to(dev)):
+                mtag = "mask" if mask is not None else "nomask"
+                cases = (
+                    ("B1", lambda: kl.fused_vit_layer(x, lp, gcfg.num_heads, gcfg.layernorm_eps,
+                                                      mask),
+                     lambda: kl.fused_vit_layer_ref(x, lp, gcfg.num_heads, gcfg.layernorm_eps,
+                                                    mask), 0.0),
+                    ("B4", lambda: k8.fused_vit_layer_int8(x, qp, gcfg.num_heads,
+                                                           gcfg.layernorm_eps, mask),
+                     lambda: k8.fused_vit_layer_int8_ref(x, qp, gcfg.num_heads,
+                                                         gcfg.layernorm_eps, mask), None),
+                    ("B5", lambda: kmod.fused_vit_encoder(x, st, gcfg.num_heads,
+                                                          gcfg.layernorm_eps, mask),
+                     lambda: kmod.fused_vit_encoder_ref(x, st, gcfg.num_heads,
+                                                        gcfg.layernorm_eps, mask), 0.0),
+                )
+                for key, fn, ref_fn, extra in cases:
+                    got, ref = fn(), ref_fn()
+                    torch.cuda.synchronize()
+                    d = valid_rows(got, ref, mask)
+                    tol = ftol(ref.float()) + (int8_step(ref, x) if extra is None else extra)
+                    if dt == torch.float32:
+                        err[key.lower()] = max(err[key.lower()], d)
+                    tag = f"{key} {gname} {dname} B=8 S={s} {mtag}"
+                    log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.2e})")
+                    check(bool(torch.isfinite(got).all()) and d <= tol, tag)
+            got = kl.fused_vit_layer_cls_logits(x, lp, f, h, gcfg.num_heads, gcfg.layernorm_eps)
+            ref = kl.fused_vit_layer_cls_logits_ref(x, lp, f, h, gcfg.num_heads,
+                                                    gcfg.layernorm_eps)
+            torch.cuda.synchronize()
+            d, tol = (got.float() - ref.float()).abs().max().item(), ftol(ref.float())
+            if dt == torch.float32:
+                err["b2"] = max(err["b2"], d)
+            tag = f"B2 {gname} {dname} B=8 S={s}"
+            log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.1e})")
+            check(got.shape == (8, 100) and bool(torch.isfinite(got).all()) and d <= tol, tag)
+            cap = s // 2 + 1
+            counts = torch.randint(1, cap + 1, (8,), generator=gen_s)
+            counts[0], counts[1] = 1, cap  # only CLS kept; a full bucket
+            rank = torch.rand(8, s - 1, generator=gen_s).argsort(-1).argsort(-1)
+            kmask = torch.cat([torch.ones(8, 1, dtype=torch.bool), rank < (counts[:, None] - 1)],
+                              1).to(dev)
+            dest = compact_dest(kmask)
+            got = kl.fused_vit_layer_bucketed(x, lp, dest, kmask, cap, gcfg.num_heads,
+                                              gcfg.layernorm_eps)
+            ref = kl.fused_vit_layer_bucketed_ref(x, lp, dest, kmask, cap, gcfg.num_heads,
+                                                  gcfg.layernorm_eps)
+            torch.cuda.synchronize()
+            d, tol = (got.float() - ref.float()).abs()[kmask].max().item(), ftol(ref.float())
+            skipped_exact = bool(torch.equal(got[~kmask], x[~kmask]))
+            if dt == torch.float32:
+                err["b3"] = max(err["b3"], d)
+            tag = f"B3 {gname} {dname} B=8 S={s} cap={cap}"
+            log(f"  {tag}: kept rows max_abs_err {d:.3e} (tol {tol:.1e}); skipped rows "
+                f"bit-identical to x: {skipped_exact}")
+            check(bool(torch.isfinite(got).all()) and d <= tol and skipped_exact, tag)
+    check.done()
+
+    # --- 3i. the bf16 GEMM bodies against their plain version ----------------------------
+    # Every product shape of the main paths, one product at a time through ops/cuda/gemm.py
+    # (the C gemm() the layer kernels call): B1 / B3's four products and B5's variants (f32
+    # residual stream, erf GELU) at DeiT-S and composed width, S 197/131/99/66/33/17, and at
+    # ViT-H and its composed width, S 257/171/129/86/43/22, batch 8 (ragged M); B2's
+    # products at the tails (DeiT-S 99/33/17, ViT-H 129/43/22) with A's and the residual's
+    # strided CLS rows and the classifier's N 100. The body each product took is read from
+    # the launch counters: the wgmma body wherever TMA can describe A and W, the WMMA body
+    # only where it cannot. Then the main shapes at the timed batches (DeiT-S 512 x 197,
+    # ViT-H 64 x 257), each against its plain version and timed beside torch.matmul's bf16
+    # product on the same operands (a yardstick only).
+    check = Checks("phase 3i (bf16 GEMM bodies vs plain)")
+    gen_g = torch.Generator().manual_seed(SEED + 2)
+    bfl, f32 = torch.bfloat16, torch.float32
+
+    def gemm_operands(m, k, n, res=None, lda=None, ldr=None):
+        a = torch.randn(m, lda or k, generator=gen_g).to(dev, bfl)[:, :k]
+        w = (torch.randn(k, n, generator=gen_g) / math.sqrt(k)).to(dev, bfl)
+        b = (0.1 * torch.randn(n, generator=gen_g)).to(dev, bfl)
+        r = None if res is None else torch.randn(m, ldr or n, generator=gen_g).to(dev, res)[:, :n]
+        return a, w, b, r
+
+    def gemm_check(tag, ops, act="none", out=bfl):
+        a, w, b, r = ops
+        c0 = kg.body_counts()
+        got = kg.gemm_bf16(a, w, b, act, r, out)
+        torch.cuda.synchronize()
+        c1 = kg.body_counts()
+        ref = kg.gemm_bf16_ref(a, w, b, act, r, out)
+        body = "wgmma" if c1["wgmma"] > c0["wgmma"] else "wmma"
+        want = "wgmma" if kg.takes_wgmma(a, w) else "wmma"
+        d = (got.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        tol = bf16_tol(ref.float()) if out == bfl else F32_ATOL * max(1.0, top)
+        log(f"  GEMM {tag} M={a.shape[0]} N={w.shape[1]} K={a.shape[1]} (lda {a.stride(0)}"
+            f"{'' if r is None else f', residual {r.dtype} ldr {r.stride(0)}'}, {act}, out "
+            f"{out}): body {body}; max_abs_err {d:.3e} (tol {tol:.1e})")
+        check(got.shape == ref.shape and bool(torch.isfinite(got).all()) and d <= tol
+              and body == want and c1["wgmma"] + c1["wmma"] == c0["wgmma"] + c0["wmma"] + 1,
+              f"GEMM {tag}: err {d:.3e}, body {body} (want {want})")
+        return a, w, got
+
+    gemm_geoms = (("deit_s", cfg, (197, 131, 99, 66, 33, 17), (99, 33, 17)),
+                  ("composed", c_cfg, (197, 131, 99, 66, 33, 17), (33, 17)),
+                  ("vit_h", hcfg, h_lens, (129,)),
+                  ("vit_h composed", hc_cfg, h_lens, (43, 22)))
+    for gname, gcfg, lens, tails in gemm_geoms:
+        d, kw, mm = gcfg.hidden_size, gcfg.attn_width, gcfg.mlp_dim
+        for s in lens:
+            r8 = 8 * s
+            for tag, (m, k, n, res, act, out) in {
+                    "qkv": (r8, d, 3 * kw, None, "none", bfl),
+                    "o": (r8, kw, d, bfl, "none", f32),
+                    "fc1": (r8, d, mm, None, "gelu_tanh", bfl),
+                    "fc2": (r8, mm, d, f32, "none", bfl),
+                    "B5 o": (r8, kw, d, f32, "none", f32),
+                    "B5 fc1": (r8, d, mm, None, "gelu_erf", bfl),
+                    "B5 fc2": (r8, mm, d, f32, "none", f32)}.items():
+                gemm_check(f"{gname} S={s} {tag}", gemm_operands(m, k, n, res), act, out)
+        for s in tails:
+            gemm_check(f"{gname} B2 S={s} kv", gemm_operands(8 * s, d, 2 * kw))
+            gemm_check(f"{gname} B2 S={s} q (CLS rows)", gemm_operands(8, d, kw, lda=s * d))
+            gemm_check(f"{gname} B2 S={s} o (CLS residual)",
+                       gemm_operands(8, kw, d, bfl, ldr=s * d), out=f32)
+            gemm_check(f"{gname} B2 S={s} fc1", gemm_operands(8, d, mm), "gelu_tanh")
+            gemm_check(f"{gname} B2 S={s} fc2", gemm_operands(8, mm, d, f32), out=f32)
+            gemm_check(f"{gname} B2 S={s} classifier", gemm_operands(8, d, 100))
+    gemm_rates = []
+    for gname, gcfg, batch, s in (("deit_s", cfg, 512, 197), ("vit_h", hcfg, 64, 257)):
+        d, kw, mm = gcfg.hidden_size, gcfg.attn_width, gcfg.mlp_dim
+        rows = batch * s
+        for tag, (k, n, res, act, out) in {"qkv": (d, 3 * kw, None, "none", bfl),
+                                           "o": (kw, d, bfl, "none", f32),
+                                           "fc1": (d, mm, None, "gelu_tanh", bfl),
+                                           "fc2": (mm, d, f32, "none", bfl)}.items():
+            ops = gemm_operands(rows, k, n, res)
+            a, w, _ = gemm_check(f"{gname} batch {batch} S={s} {tag}", ops, act, out)
+            k_ms = time_ms(lambda: kg.gemm_bf16(a, w, ops[2], act, ops[3], out))
+            l_ms = time_ms(lambda: torch.matmul(a, w))
+            flops = 2.0 * rows * k * n
+            gemm_rates.append((f"{gname} {tag}", rows, n, k, k_ms, l_ms))
+            log(f"  GEMM {gname} batch {batch} S={s} {tag} M={rows} N={n} K={k}: kernel {k_ms:.4f} "
+                f"ms ({flops / k_ms / 1e9:.1f} TFLOP/s), torch.matmul bf16 {l_ms:.4f} ms "
+                f"({flops / l_ms / 1e9:.1f} TFLOP/s); {smi}")
+            del ops, a, w
     check.done()
 
     # --- 5. end to end: kernels vs plain PyTorch, launch counts -------------------------
@@ -818,6 +1035,7 @@ def main():
     wrappers = (kl.fused_vit_layer, kl.fused_vit_layer_cls_logits, kl.fused_vit_layer_bucketed)
     for k in wrappers:  # the counts of this path's run only
         k.launches = 0
+    kg.reset_body_counts()  # the GEMM bodies' launches on the paths of phases 5-5f
     for dname, dt in dtypes.items():
         for name, (pc, pcfg, cpu_params) in presets.items():
             params = tree_to(cpu_params, dev, dt)
@@ -855,6 +1073,55 @@ def main():
             elif name == "headline":
                 # the only drop comes before any kernel runs: masks must agree
                 check(same_masks, f"{tag}: keep masks differ")
+    # vit_tiny (hd 16, S 17) through the same entry points: dense vit_forward (B1 x 3) and
+    # the headline, 8 of 16 patches kept before layer 0, through serving_forward (B1 x 2 +
+    # B2); weights and images from seeds of their own
+    tcfg = vit_tiny(num_labels=100)
+    tiny = init_pruned_vit_params(tcfg, PruneConfig(mode="topk_prog", predictor="cls_mlp"),
+                                  torch.Generator().manual_seed(SEED + 3), "cpu")
+    t_gain = PREDICTOR_GAIN * math.sqrt(384 / tcfg.hidden_size)
+    tiny["predictor"]["mlp"] = {name: {"w": p["w"] * t_gain, "b": p["b"]}
+                                for name, p in tiny["predictor"]["mlp"].items()}
+    u8t = torch.from_numpy(np.random.RandomState(SEED + 3).randint(
+        0, 256, (64, 3, tcfg.image_size, tcfg.image_size), dtype=np.uint8)).to(dev)
+    t_head = PruneConfig(mode="topk_prog", predictor="cls_mlp", loss="mse_attention", top_k=8)
+    for dname, dt in dtypes.items():
+        tparams = tree_to(tiny, dev, dt)
+        pix_t = ((u8t.float() / 255.0 - 0.5) / 0.5).to(dt)
+        for name, pcfg, fwd, want in (
+                ("dense", None,
+                 lambda: {"logits": vit_forward(tparams["backbone"], pix_t, tcfg)["logits"]},
+                 (tcfg.num_layers, 0)),
+                ("headline", t_head, lambda: serving_forward(tparams, u8t, tcfg, t_head),
+                 (tcfg.num_layers - 1, 1))):
+            n1, n2 = kl.fused_vit_layer.launches, kl.fused_vit_layer_cls_logits.launches
+            with kernel_mode("auto"):
+                got = fwd()
+            torch.cuda.synchronize()
+            l1 = kl.fused_vit_layer.launches - n1
+            l2 = kl.fused_vit_layer_cls_logits.launches - n2
+            with kernel_mode("eager"):
+                ref = fwd()
+            torch.cuda.synchronize()
+            tag = f"vit_tiny {name} {dname}"
+            check((l1, l2) == want, f"{tag}: launches B1={l1} B2={l2}, want {want}")
+            lg, lr = got["logits"].float(), ref["logits"].float()
+            check(lg.shape == (64, 100) and bool(torch.isfinite(lg).all()),
+                  f"{tag}: logits not finite [64, 100]")
+            d = (lg - lr).abs().max().item()
+            line = (f"  {tag}: launches B1={l1} B2={l2}; logits max_abs_err {d:.3e} (max|ref| "
+                    f"{lr.abs().max().item():.3f}), argmax agree "
+                    f"{(lg.argmax(-1) == lr.argmax(-1)).float().mean().item():.3f}")
+            same_masks = True
+            if pcfg is not None:
+                same_masks = bool(torch.equal(got["keep_masks"], ref["keep_masks"]))
+                line += (f"; keep masks equal {same_masks}; min cut gap (plain) "
+                         f"{cut_gap(ref, pcfg):.2e}")
+                # the only drop comes before any kernel runs: masks must agree
+                check(same_masks, f"{tag}: keep masks differ")
+            log(line)
+            if dt == torch.float32:
+                check(d <= F32_ATOL + 1e-4 * lr.abs().max().item(), f"{tag}: logits differ")
     launches = {"b1": kl.fused_vit_layer.launches, "b2": kl.fused_vit_layer_cls_logits.launches}
     log(f"  progressive path launches: B1 {launches['b1']}, B2 {launches['b2']}, "
         f"B3 {kl.fused_vit_layer_bucketed.launches}")
@@ -1391,31 +1658,12 @@ def main():
     check.done()
 
     # --- 6. times at batch 512, bf16 (info) --------------------------------------------
-    def time_ms(fn, iters=10, warmup=3) -> float:
-        for _ in range(warmup):
-            fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def abba(kernel_fn, plain_fn, **kw):
-        """plain, kernel, kernel, plain; mean of each pair (ms)."""
-        p1 = time_ms(plain_fn, **kw)
-        k1, k2 = time_ms(kernel_fn, **kw), time_ms(kernel_fn, **kw)
-        p2 = time_ms(plain_fn, **kw)
-        return (k1 + k2) / 2, (p1 + p2) / 2
-
     def device_breakdown(tag, fn, wall_ms, reps=3):
         """Device time per forward by kernel family (torch.profiler, CUDA
         activity only), and the idle share against the CUDA-event wall time."""
         from torch.profiler import ProfilerActivity, profile
 
-        families = (("GEMM", ("gemm_bf16", "gemm_f32")), ("int8 GEMM", ("gemm_s8",)),
+        families = (("GEMM", ("gemm_bf16", "gemm_f32", "wgmma_gemm")), ("int8 GEMM", ("gemm_s8",)),
                     ("attention", ("attention",)), ("LN", ("layer_norm_kernel",)),
                     ("row-quant", ("rowquant",)),
                     ("B3 rows", ("bucket_invert", "gather_rows", "expand_rows")))
@@ -1441,6 +1689,14 @@ def main():
             + "; ".join(f"{k} {v:.3f}" for k, v in top) + f"); busy {busy:.3f} of wall "
             f"{wall_ms:.3f}, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
 
+    # which bf16 GEMM body ran the products of phases 5-5f: the wgmma body wherever TMA
+    # can describe A and W; the WMMA body only for a product whose N is no multiple of 8
+    bodies = kg.body_counts()
+    log(f"  GEMM bodies on the paths of phases 5-5f: wgmma {bodies['wgmma']} launches, WMMA "
+        f"{bodies['wmma']} launches, at (M, N, K) "
+        + (", ".join(map(str, bodies["wmma_shapes"])) or "none"))
+    if bodies["wgmma"] == 0 or any(n % 8 == 0 for _, n, _ in bodies["wmma_shapes"]):
+        raise AssertionError(f"phase 6: a product TMA can describe took the WMMA body: {bodies}")
     # DeiT-S is timed first, without ViT-H's bf16 copies and on an emptied allocator
     # cache: after phases 5e/5f, composed ran 25% slower here than alone in a process
     h_params.clear()
@@ -1721,8 +1977,15 @@ def main():
              + 4.0 * hbatch * hcfg.num_heads * 129 * hcfg.head_dim)
     b_ms, b_by = bound(flops, x.numel() * 2 + hbatch * 200 + weight_bytes(hlp) + weight_bytes(fh)
                        + weight_bytes(hh))
-    log(f"  B2 vit_h S=129: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms; bound {b_ms:.4f} ms "
-        f"({b_by})")
+
+    def eager_cls_h():  # the plain path's tail: whole last layer, LN_f, head on CLS
+        y = layer_norm(vit_layer(x, hlp, hcfg), fh, hcfg.layernorm_eps)[:, 0]
+        return y @ hh["w"] + hh["b"]
+
+    with kernel_mode("eager"):
+        e_ms = time_ms(eager_cls_h, **quick)
+    log(f"  B2 vit_h S=129: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, eager last layer + "
+        f"LN_f + head {e_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
     x = torch.randn(hbatch, 257, hcfg.hidden_size, generator=gen).to(dev, bf)
     mask = random_mask(hbatch, 257, torch.full((hbatch,), 129))  # topk50's bucket, full
     dest = compact_dest(mask)
@@ -1731,22 +1994,35 @@ def main():
         lambda: kl.fused_vit_layer_bucketed_ref(x, hlp, dest, mask, 129, hcfg.num_heads), **quick)
     b_ms, b_by = bound(layer_work(hcfg, hbatch * 129, hbatch * hcfg.num_heads * 129 * 129),
                        2 * x.numel() * 2 + dest.numel() * 5 + weight_bytes(hlp))
-    log(f"  B3 vit_h S=257 cap=129: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms; bound "
-        f"{b_ms:.4f} ms ({b_by})")
+    with kernel_mode("eager"):  # index gather, cuBLAS bf16 masked layer at 129, scatter
+        e_ms = time_ms(lambda: tp.bucketed_masked_layer(x, hlp, mask, hcfg, cap_hint=129), **quick)
+    log(f"  B3 vit_h S=257 cap=129: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, eager "
+        f"bucketed layer {e_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
     hqlp = quantize_layer_params(hlp)
     k_ms, p_ms = abba(lambda: k8.fused_vit_layer_int8(x, hqlp, hcfg.num_heads),
                       lambda: k8.fused_vit_layer_int8_ref(x, hqlp, hcfg.num_heads), **quick)
     b_ms, b_by = bound_int8(hcfg, hbatch * 257, hbatch * hcfg.num_heads * 257 * 257,
                             2 * x.numel() * 2 + weight_bytes(hqlp))
-    log(f"  B4 vit_h S=257: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms; bound {b_ms:.4f} ms "
-        f"({b_by})")
+    with kernel_mode("eager"):  # torch._int_mm for the four products, bf16 attention
+        e_ms = time_ms(lambda: vit_layer(x, hqlp, hcfg, quant="int8"), **quick)
+    log(f"  B4 vit_h S=257: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, eager int8 layer "
+        f"(torch._int_mm) {e_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
     hst = tree_to(st_h, dev, bf)
     k_ms, p_ms = abba(lambda: kmod.fused_vit_encoder(x, hst, hcfg.num_heads),
                       lambda: kmod.fused_vit_encoder_ref(x, hst, hcfg.num_heads), **quick)
     b_ms, b_by = bound(2 * layer_work(hcfg, hbatch * 257, hbatch * hcfg.num_heads * 257 * 257),
                        2 * x.numel() * 2 + weight_bytes(hst))
-    log(f"  B5 vit_h 2 layers S=257: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms; bound "
-        f"{b_ms:.4f} ms ({b_by})")
+
+    def eager_encoder_h():  # the plain path's layer loop over the same two layers
+        y = x
+        for i in range(2):
+            y = vit_layer(y, layer_slice(hst, i), hcfg)
+        return y
+
+    with kernel_mode("eager"):
+        e_ms = time_ms(eager_encoder_h, **quick)
+    log(f"  B5 vit_h 2 layers S=257: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, eager "
+        f"layer loop {e_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
     del x, hqlp
     u8h = images(hbatch)
     for name in ("dense", "headline", "composed", "ultra"):

@@ -1,11 +1,12 @@
-// Shared by the kernels' translation units (layer.cu, layer_int8.cu,
+// Shared by the kernels' translation units (layer.cu, gemm.cu, layer_int8.cu,
 // encoder.cu, attention.cu, mlp.cu, embed.cu): the numerics helpers, the GEMM
 // epilogue (bias, activation, residual, cast), the f32 GEMM body that B1 and
 // B8 share, the f32 attention kernel that B1 (in float32) and B6 share, and
-// the declarations of the launchers
-// that layer.cu defines and layer_int8.cu and encoder.cu reuse (B1's
-// attention, GEMMs and LayerNorm, the shape rules). Everything defined here
-// is inline or a template, so every unit may include it.
+// the declarations of the launchers that layer.cu and gemm.cu define and
+// layer_int8.cu and encoder.cu reuse (B1's attention and LayerNorm, the
+// GEMMs, the shape rules). The bf16 GEMM body on wgmma + TMA, which gemm.cu
+// and embed.cu share, is wgmma.cuh. Everything defined here is inline or a
+// template, so every unit may include it.
 
 #pragma once
 
@@ -18,8 +19,11 @@ namespace vpt {
 using bf16 = __nv_bfloat16;
 
 // The head dims the layer kernels (B1-B5) take, each an instance of the
-// attention kernels: DeiT-S's 64 and ViT-H's 80 (five WMMA k-tiles of 16).
-__host__ __device__ constexpr bool layer_head_dim_ok(int hd) { return hd == 64 || hd == 80; }
+// attention kernels: vit_tiny's 16 (one WMMA k-tile of 16), the quality
+// gate model's 32 (two), DeiT-S's 64 (four) and ViT-H's 80 (five).
+__host__ __device__ constexpr bool layer_head_dim_ok(int hd) {
+  return hd == 16 || hd == 32 || hd == 64 || hd == 80;
+}
 constexpr int kMaxChunks = 9;     // chunks of 32 keys of the attention kernels: S <= 288
 constexpr int kMaxSeq = kMaxChunks * 32;
 
@@ -464,7 +468,7 @@ cudaError_t attention_f32(const T* q, const T* k, const T* v, AttnLayout in,
 #undef VPT_NC
 }
 
-// --- defined in layer.cu ---------------------------------------------------
+// --- defined in layer.cu and gemm.cu -----------------------------------------
 
 // B1's attention on qkv [B*S, 3KW] -> ctx [B*S, KW], head dim KW / H (one of
 // layer_head_dim_ok's); keys masked by `mask`
@@ -476,8 +480,9 @@ cudaError_t attention(const float* qkv, const unsigned char* mask, const int* co
 cudaError_t attention(const bf16* qkv, const unsigned char* mask, const int* counts, bf16* ctx,
                       int B, int S, int H, int KW, cudaStream_t st, bool normalized = false);
 
-// out[M, N] = epilogue(A[M, K] (row stride lda) @ W[K, N]): WMMA tiles in
-// bf16, FMA tiles (full f32) in float32
+// out[M, N] = epilogue(A[M, K] (row stride lda) @ W[K, N]), defined in
+// gemm.cu: in bf16 the wgmma + TMA body where TMA can describe A and W (else
+// WMMA tiles), FMA tiles (full f32) in float32
 cudaError_t gemm(const bf16* A, long lda, const bf16* W, int M, int N, int K, Epilogue e,
                  cudaStream_t st);
 cudaError_t gemm(const float* A, long lda, const float* W, int M, int N, int K, const Epilogue& e,

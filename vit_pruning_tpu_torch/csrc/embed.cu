@@ -21,28 +21,42 @@
 // patches (4 T K of float) + T D output values. At DeiT-S width (K 768,
 // D 384) that is ~250 operations per byte in bf16, just under the ridge
 // (~295), so the bound is the tensor cores' and the memory's alike; at
-// ViT-H's (K 588, D 1280) it is operations. The design: one tiled product
-// whose A-tile load (the prologue) applies the affine and the rounding, so
-// no normalised copy of the patches reaches device memory, and whose
-// epilogue adds b and the position row and casts, so the output is written
-// once. bf16: WMMA 16x16x16 tiles (mma.sync) with f32 accumulators, 128x128
-// block tile, K in steps of 32 through two shared-memory buffers filled
-// from registers (the next tile's loads are in flight during the current
-// tile's products). f32: FMA tiles, full f32 (no TF32).
+// ViT-H's (K 588, D 1280) it is operations.
+//
+// B8a (uint8 patches): one tiled product whose A-tile load (the prologue)
+// applies the affine and the rounding, so no normalised copy of the
+// patches reaches device memory, and whose epilogue adds b and the
+// position row and casts, so the output is written once. bf16 weights:
+// WMMA 16x16x16 tiles (mma.sync) with f32 accumulators, 128x128 block tile,
+// K in steps of 32 through two shared-memory buffers filled from registers
+// (the next tile's loads are in flight during the current tile's products).
+//
+// B8b (float patches, bf16 weights) has no affine to fold (scale 1, shift
+// 0 are the identity), so it runs wgmma.cuh's wgmma + TMA body with its own
+// epilogue (+ b, + pos[t % N] in f32, one cast) and one of three A
+// producers, chosen by shape: bf16 patches whose rows TMA can describe
+// (K % 8 == 0, 16-byte aligned: DeiT-S's K 768) go by TMA straight into the
+// swizzled ring; bf16 rows that are 8-byte but not 16-byte multiples
+// (ViT-H's K 588: 1,176 bytes) by 8-byte cp.async into the same layout; f32
+// patches (and bf16 rows of any other width) through the producer warps'
+// registers, rounded to bf16 there. The K tail is zero filled in each.
+//
+// f32 weights (both): FMA tiles, full f32 (no TF32).
 //
 // ViT-H's K = 3*14*14 = 588 is not a multiple of the 32-wide K step, and its
 // patch rows (588 bytes in uint8, 1,176 in bf16) are not 16-byte aligned:
-// A is read one element a lane (a warp reads 32 consecutive values of one
+// B8a reads A one element a lane (a warp reads 32 consecutive values of one
 // row), never in 16-byte vectors, and the K tail of both A and W is zero
 // filled. W, b, pos and out rows are read and written 8 values at a time:
 // D % 8 == 0 and 16-byte aligned pointers, checked by the wrapper.
 //
-// The simple first version: an embed that reads the [B, C, H, W] image
-// directly (no patch matrix), wgmma and TMA are later work.
+// Later work: an embed that reads the [B, C, H, W] image directly (no patch
+// matrix), and B8a on the wgmma body.
 
 #include <mma.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace vpt {
 
@@ -205,15 +219,61 @@ embed_f32_kernel(const Tin* __restrict__ A, const float* __restrict__ W,
       [&](long m, int n, float v) { out[m * D + n] = (v + bias[n]) + pos[(m % N) * D + n]; });
 }
 
+// B8b's epilogue on the wgmma body: + b, + pos[m % N] (f32 or bf16) in f32,
+// one cast. D % 8 == 0: the 8 columns are all in or all out.
+struct EmbedEpi {
+  const bf16* bias;
+  const void* pos;
+  int pos_f32, tokens;  // pos rows: tokens = N patches an image
+  bf16* out;
+  __device__ __forceinline__ void operator()(int m, int n, float* v, int M, int D) const {
+    if (m >= M || n >= D) return;
+    float t[8];
+    load8(bias + n, t);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] += t[u];
+    load_pos8(pos, pos_f32, (long)(m % tokens) * D + n, t);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] += t[u];
+    store8(out + (long)m * D + n, v);
+  }
+};
+
+template <typename Tin>
+cudaError_t embed_wgmma(const Tin* A, const bf16* W, const bf16* b, const void* pos, int pos_f32,
+                        bf16* out, int T, int N, int K, int D, cudaStream_t st) {
+  CUtensorMap tw;
+  VPT_TRY(tma_map_w(&tw, W, D, K));
+  const EmbedEpi epi{b, pos, pos_f32, N, out};
+  if constexpr (std::is_same<Tin, bf16>::value) {
+    if (aligned16(A) && K % 8 == 0) {
+      CUtensorMap ta;
+      VPT_TRY(tma_map_a(&ta, A, K, T, K));
+      return wgmma_gemm(ta, tw, TmaA{}, epi, T, D, K, st);
+    }
+    if ((reinterpret_cast<uintptr_t>(A) & 7) == 0 && K % 4 == 0)
+      return wgmma_gemm(tw, tw, CpAsyncA{A, K}, epi, T, D, K, st);
+    return wgmma_gemm(tw, tw, RegA<bf16>{A, K, 0}, epi, T, D, K, st);
+  } else {
+    const int wide = K % 4 == 0 && aligned16(A);  // two 16-byte loads a chunk
+    return wgmma_gemm(tw, tw, RegA<float>{A, K, wide}, epi, T, D, K, st);
+  }
+}
+
 template <typename Tin>
 cudaError_t patch_embed(int w_dtype, const Tin* A, const void* W, const void* b, const void* pos,
                         int pos_f32, void* out, long T, int N, int K, int D, float scale,
                         float shift, cudaStream_t st) {
   if (w_dtype == 1) {
-    const dim3 grid((T + pe::BM - 1) / pe::BM, (D + pe::BN - 1) / pe::BN);
-    embed_bf16_kernel<Tin><<<grid, pe::THREADS, 0, st>>>(A, (const bf16*)W, (const bf16*)b, pos,
-                                                          pos_f32, (bf16*)out, T, N, K, D, scale,
-                                                          shift);
+    if constexpr (std::is_same<Tin, uint8_t>::value) {  // B8a
+      const dim3 grid((T + pe::BM - 1) / pe::BM, (D + pe::BN - 1) / pe::BN);
+      embed_bf16_kernel<Tin><<<grid, pe::THREADS, 0, st>>>(A, (const bf16*)W, (const bf16*)b, pos,
+                                                            pos_f32, (bf16*)out, T, N, K, D, scale,
+                                                            shift);
+    } else {  // B8b: scale 1 and shift 0 are the identity
+      return embed_wgmma<Tin>(A, (const bf16*)W, (const bf16*)b, pos, pos_f32, (bf16*)out, (int)T,
+                              N, K, D, st);
+    }
   } else {
     const dim3 grid((T + fg::BM - 1) / fg::BM, (D + fg::BN - 1) / fg::BN);
     embed_f32_kernel<Tin><<<grid, fg::THREADS, 0, st>>>(A, (const float*)W, (const float*)b,

@@ -26,10 +26,11 @@
 // unnormalised in the input dtype and scales the PV sum by 1/rowsum; B2
 // normalises before PV; GELU is the tanh form for bf16 and erf for f32.
 //
-// This is the simple first version: in bf16, WMMA (mma.sync) tiles for the
-// GEMMs (3-stage cp.async ring) and for both attention products; in f32,
-// FMA tiles throughout (no TF32, so f32 matches a f32 reference closely).
-// wgmma, TMA and tuning are later work.
+// The GEMMs are gemm.cu's: in bf16 wgmma.cuh's wgmma + TMA body for every
+// layer product (the WMMA body only for a classifier whose label count is
+// not a multiple of 8), in f32 FMA tiles (no TF32, so f32 matches a f32
+// reference closely). The attention below runs WMMA (mma.sync) tiles for
+// both products in bf16 and FMA in f32, at head dims 16, 32, 64 and 80.
 
 #include <mma.h>
 
@@ -53,162 +54,6 @@ __global__ void layer_norm_kernel(const Tin* __restrict__ x, long ldx, const T* 
   T* yr = y + row * ldy;
   for (int i = lane; i < d; i += 32)
     yr[i] = from_f<T>((to_f(xr[i]) - mean) * rs * to_f(g[i]) + to_f(b[i]));
-}
-
-// ---------------------------------------------------------------------------
-// GEMM  out[M, N] = epilogue(A[M, K] @ W[K, N])  (A row stride lda, W dense
-// [K, N] row-major as the param tree stores it). Epilogue, in the TPU
-// kernel's order: + bias[n] (T), activation, + residual (T or f32), cast
-// (common.cuh).
-
-// bf16: 128x128 block tile, 8 warps (2 x 4), 64x32 per warp as 4x2 WMMA
-// 16x16x16 fragments (mma.sync) with f32 accumulators; K in steps of 32
-// through a 3-stage cp.async ring in dynamic smem. Needs K % 8 == 0,
-// lda % 8 == 0 and 16-byte aligned A (checked by the caller); W rows take a
-// scalar path when N % 8. The epilogue writes 8 outputs per lane with
-// 16-byte accesses where the strides allow (Epilogue::vec).
-namespace wg {
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
-constexpr int WM = 64, WN = 32, FM = WM / 16, FN = WN / 16;  // warp tile, fragments
-constexpr int LDA = BK + 8, LDB = BN + 8;  // +8 bf16 staggers the banks
-constexpr int A_STAGE = BM * LDA, B_STAGE = BK * LDB;        // elements
-constexpr size_t SMEM = sizeof(bf16) * STAGES * (A_STAGE + B_STAGE);
-static_assert(SMEM >= sizeof(float) * (THREADS / 32) * 256, "epilogue tiles reuse the ring");
-}
-
-__global__ void __launch_bounds__(wg::THREADS)
-gemm_bf16_kernel(const bf16* __restrict__ A, long lda, const bf16* __restrict__ W, int M, int N,
-                 int K, Epilogue e) {
-  using namespace nvcuda;
-  using namespace wg;
-  extern __shared__ __align__(128) unsigned char gsmem[];
-  bf16* As = reinterpret_cast<bf16*>(gsmem);  // [STAGES][BM][LDA]
-  bf16* Bs = As + STAGES * A_STAGE;           // [STAGES][BK][LDB]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const bool vec_w = (N % 8) == 0;
-
-  auto load_tile = [&](int kt, int stage) {
-    const int k0 = kt * BK;
-    bf16* as = As + stage * A_STAGE;
-    bf16* bs = Bs + stage * B_STAGE;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {  // A: 128 rows x 4 chunks of 8
-      const int c = tid + q * THREADS;
-      const int r = c >> 2, kc = (c & 3) * 8;
-      const int m = m0 + r, k = k0 + kc;
-      const bool ok = m < M && k < K;
-      cp_async16(as + r * LDA + kc, ok ? A + m * lda + k : A, ok);
-    }
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {  // W: 32 rows x 16 chunks of 8
-      const int c = tid + q * THREADS;
-      const int r = c >> 4, nc = (c & 15) * 8;
-      const int k = k0 + r, n = n0 + nc;
-      if (vec_w) {
-        const bool ok = k < K && n < N;
-        cp_async16(bs + r * LDB + nc, ok ? W + (long)k * N + n : W, ok);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          bs[r * LDB + nc + j] = (k < K && n + j < N) ? W[(long)k * N + n + j] : __float2bfloat16(0.f);
-      }
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_tile(s, s);
-    cp_async_commit();  // empty groups keep the count uniform
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed (this thread's copies)
-    __syncthreads();              // ... everyone's, and stage kt-1 is free
-    if (kt + STAGES - 1 < nk) load_tile(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const bf16* as = As + (kt % STAGES) * A_STAGE;
-    const bf16* bs = Bs + (kt % STAGES) * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], as + (wm * WM + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], bs + kk * LDB + wn * WN + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: reuse it for the epilogue tiles
-
-  // epilogue: each fragment through a per-warp 16x16 f32 tile; lane owns
-  // half a row (8 values)
-  float* cs = reinterpret_cast<float*>(gsmem) + warp * 256;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + wm * WM + i * 16 + r;
-      const int nb = n0 + wn * WN + j * 16 + c0;
-      if (m < M) {
-        float v[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t) v[t] = cs[r * 16 + c0 + t];
-        if (e.vec && nb + 8 <= N) {
-          epilogue_store8<bf16>(e, m, nb, v);
-        } else {
-#pragma unroll
-          for (int t = 0; t < 8; ++t)
-            if (nb + t < N) epilogue_store<bf16>(e, m, nb + t, v[t]);
-        }
-      }
-      __syncwarp();
-    }
-}
-
-// f32: common.cuh's gemm_f32_tile with A read as is and the Epilogue
-__global__ void __launch_bounds__(fg::THREADS)
-gemm_f32_kernel(const float* __restrict__ A, long lda, const float* __restrict__ W, int M, int N,
-                int K, Epilogue e) {
-  gemm_f32_tile(
-      (long)blockIdx.y * fg::BM, blockIdx.x * fg::BN, M, N, K, W,
-      [&](long m, int k) { return A[m * lda + k]; },
-      [&](long m, int n, float v) { epilogue_store<float>(e, static_cast<int>(m), n, v); });
-}
-
-cudaError_t gemm(const bf16* A, long lda, const bf16* W, int M, int N, int K, Epilogue e,
-                 cudaStream_t st) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wg::SMEM);
-  if (attr != cudaSuccess) return attr;
-  set_vec<bf16>(e);
-  dim3 grid((N + wg::BN - 1) / wg::BN, (M + wg::BM - 1) / wg::BM);
-  gemm_bf16_kernel<<<grid, wg::THREADS, wg::SMEM, st>>>(A, lda, W, M, N, K, e);
-  return cudaGetLastError();
-}
-cudaError_t gemm(const float* A, long lda, const float* W, int M, int N, int K,
-                 const Epilogue& e, cudaStream_t st) {
-  dim3 grid((N + fg::BN - 1) / fg::BN, (M + fg::BM - 1) / fg::BM);
-  gemm_f32_kernel<<<grid, fg::THREADS, 0, st>>>(A, lda, W, M, N, K, e);
-  return cudaGetLastError();
 }
 
 template <typename Tin, typename T>
@@ -246,12 +91,14 @@ cudaError_t attention(const float* qkv, const unsigned char* mask, const int* co
                                  hd, st)
   if (hd == 64) return normalized ? VPT_F32(64, true) : VPT_F32(64, false);
   if (hd == 80) return normalized ? VPT_F32(80, true) : VPT_F32(80, false);
+  // the short head dims share one instance that reads hd at run time
+  if (hd == 16 || hd == 32) return normalized ? VPT_F32(0, true) : VPT_F32(0, false);
 #undef VPT_F32
   return cudaErrorInvalidValue;
 }
 
-// bf16: WMMA 16x16x16 tiles, one instance per head dim HD (64: four k-tiles
-// of 16, 80: five). K, V of the image's head sit in smem as
+// bf16: WMMA 16x16x16 tiles, one instance per head dim HD (16: one k-tile
+// of 16, 32: two, 64: four, 80: five). K, V of the image's head sit in smem as
 // [S16][HD] (S16 = S rounded up to 16, zero rows beyond S); each warp takes
 // 16 query rows at a time. Pass 1 runs QK^T over all key tiles for the row
 // maxima; pass 2 runs it again, forms the numerators exp(l - max) rounded
@@ -276,7 +123,11 @@ struct Geo {
   // [16][LDP] bf16 at P_OFF, both reused for the output tile [16][LDO] f32
   // at the end; the query tile [16][LDKV] bf16 after that
   static constexpr size_t P_OFF = 16 * 16 * sizeof(float);
-  static constexpr size_t Q_OFF = 16 * LDO * sizeof(float);
+  // past both the output tile and the numerator tile (at HD 16 the output
+  // tile [16][20] f32 ends before the numerators [16][24] bf16 do)
+  static constexpr size_t Q_OFF = (16 * LDO * sizeof(float) > P_OFF + 16 * LDP * sizeof(bf16)
+                                       ? 16 * LDO * sizeof(float)
+                                       : P_OFF + 16 * LDP * sizeof(bf16));
   static constexpr size_t WARP_BYTES = Q_OFF + 16 * LDKV * sizeof(bf16);
   static_assert(P_OFF + 16 * LDP * sizeof(bf16) <= Q_OFF, "tiles overlap");
   static_assert(Q_OFF % 32 == 0 && WARP_BYTES % 32 == 0, "WMMA needs 256-bit aligned tiles");
@@ -453,6 +304,8 @@ cudaError_t attention(const bf16* qkv, const unsigned char* mask, const int* cou
                       int B, int S, int H, int KW, cudaStream_t st, bool normalized) {
   const int hd = KW / H;
 #define VPT_TC(HD, NORM) attention_tc<HD, NORM>(qkv, mask, counts, ctx, B, S, H, KW, st)
+  if (hd == 16) return normalized ? VPT_TC(16, true) : VPT_TC(16, false);
+  if (hd == 32) return normalized ? VPT_TC(32, true) : VPT_TC(32, false);
   if (hd == 64) return normalized ? VPT_TC(64, true) : VPT_TC(64, false);
   if (hd == 80) return normalized ? VPT_TC(80, true) : VPT_TC(80, false);
 #undef VPT_TC
@@ -512,12 +365,16 @@ template <typename T>
 cudaError_t cls_attention(const T* q, const T* kv, T* ctx, int B, int S, int H, int KW,
                           cudaStream_t st) {
   const int hd = KW / H;
-  if (hd == 64)
-    cls_attention_kernel<T, 64><<<dim3(H, B), 32, 0, st>>>(q, kv, ctx, S, KW, attn_scale(hd));
-  else if (hd == 80)
-    cls_attention_kernel<T, 80><<<dim3(H, B), 32, 0, st>>>(q, kv, ctx, S, KW, attn_scale(hd));
-  else
-    return cudaErrorInvalidValue;
+#define VPT_CLS_ATTN(HD) \
+  cls_attention_kernel<T, HD><<<dim3(H, B), 32, 0, st>>>(q, kv, ctx, S, KW, attn_scale(hd))
+  switch (hd) {
+    case 16: VPT_CLS_ATTN(16); break;
+    case 32: VPT_CLS_ATTN(32); break;
+    case 64: VPT_CLS_ATTN(64); break;
+    case 80: VPT_CLS_ATTN(80); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef VPT_CLS_ATTN
   return cudaGetLastError();
 }
 

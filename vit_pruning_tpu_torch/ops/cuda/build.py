@@ -2,7 +2,8 @@
 
 nvcc compiles each source into an object, all of them at once in parallel
 processes, and links the objects into one shared library with a plain C
-interface, which is loaded with ctypes: no PyTorch headers are compiled, so
+interface (and libcuda, for the TMA descriptors' encoder
+cuTensorMapEncodeTiled), which is loaded with ctypes: no PyTorch headers are compiled, so
 a build takes seconds rather than the minutes of
 torch.utils.cpp_extension.load. The library lands in the package's _build/
 directory, named by a hash of the sources (headers included) and flags, so
@@ -29,7 +30,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 # C signatures of the entry points in csrc/*.cu
 SIGNATURES = {
     "vpt_error_string": ([I], ctypes.c_char_p),
@@ -60,6 +61,12 @@ SIGNATURES = {
     # input dtype, weight dtype, pos in f32, patches, w, b, pos, out, T N K D,
     # scale, shift, stream
     "vpt_patch_embed_forward": ([I] * 3 + [P] * 5 + [I] * 4 + [F, F, P], I),
+    # A, lda, W, M N K, bias, act, residual, ldr, residual in f32, out, ldc,
+    # out in f32, stream
+    "vpt_gemm_bf16": ([P, L, P, I, I, I, P, I, P, L, I, P, L, I, P], I),
+    "vpt_gemm_body_counts": ([P], None),
+    "vpt_gemm_body_reset": ([], None),
+    "vpt_gemm_wmma_shapes": ([P, I], I),
 }
 
 
@@ -71,6 +78,14 @@ def find_nvcc() -> str:
     if nvcc is None:
         raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
     return nvcc
+
+
+def cuda_stub_dirs(nvcc: str) -> list:
+    """Where the toolkit keeps the libcuda.so stub to link against (the
+    card's own libcuda is loaded at run time)."""
+    root = Path(nvcc).resolve().parents[1]
+    return [str(d) for d in (root / "lib64" / "stubs", root / "targets" / "x86_64-linux" / "lib" /
+                             "stubs") if d.is_dir()]
 
 
 def sources() -> list:
@@ -112,7 +127,8 @@ def build() -> Path:
         _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / f"{obj.stem}.cu")]
                   for obj in objs])
         so = Path(tmp) / "lib.so"
-        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(so), *map(str, objs)]])
+        links = [f"-L{d}" for d in cuda_stub_dirs(nvcc)] + ["-lcuda"]
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(so), *map(str, objs), *links]])
         os.replace(so, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 

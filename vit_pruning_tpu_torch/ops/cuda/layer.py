@@ -42,7 +42,7 @@ from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims B1-B5 take: csrc/common.cuh::layer_head_dim_ok, which gates
 # every call; this copy only words the error
-LAYER_HEAD_DIMS = (64, 80)
+LAYER_HEAD_DIMS = (16, 32, 64, 80)
 
 
 # --- plain versions ---------------------------------------------------------------
@@ -241,7 +241,9 @@ def _geometry(lib, x: torch.Tensor, params: dict, num_heads: int, who: str):
         raise ValueError(f"{who}: head dim {kw}/{num_heads} not supported (the kernel takes "
                          f"{', '.join(map(str, LAYER_HEAD_DIMS))})")
     if not 1 <= s <= lib.vpt_max_seq_len():
-        raise ValueError(f"{who}: sequence length {s} not in [1, {lib.vpt_max_seq_len()}]")
+        raise ValueError(f"{who}: sequence length {s} not in [1, {lib.vpt_max_seq_len()}] (longer "
+                         f"sequences, from a resized position table, wait for ROADMAP A.1's "
+                         f"interpolate_pos_embed)")
     if d % 8 or m % 8:
         raise ValueError(f"{who}: hidden {d} and MLP width {m} must be multiples of 8")
     return b, s, d, hd, kw, m

@@ -49,18 +49,25 @@ def quantize_rows(x: torch.Tensor):
     return q, scale
 
 
+# cuBLASLt's int8 GEMM finds no algorithm for K 32 or 64 on an H100
+# (CUBLAS_STATUS_NOT_SUPPORTED, vit_tiny's K 64 among them) and ran every
+# product tried from K 128 up (128, 192, 256, 384; 136 to 1,576 rows)
+INT_MM_MIN_K = 128
+
+
 def int_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Exact int8 x int8 -> int32 product, a [..., K] @ w [K, N].
 
     On the CPU an int32 product. On the card torch._int_mm (cuBLASLt int8)
-    where its shape rules hold (more than 16 rows, K and N multiples of 8),
-    else a float64 product, exact here since |sum| <= 127^2 * K < 2^53.
+    where its shape rules hold (more than 16 rows, K and N multiples of 8)
+    and K is at least INT_MM_MIN_K, else a float64 product, exact here since
+    |sum| <= 127^2 * K < 2^53.
     """
     lead, k = a.shape[:-1], a.shape[-1]
     a2 = a.reshape(-1, k)
     if not a.is_cuda:
         acc = a2.int() @ w.int()
-    elif a2.shape[0] > 16 and k % 8 == 0 and w.shape[1] % 8 == 0:
+    elif a2.shape[0] > 16 and k % 8 == 0 and w.shape[1] % 8 == 0 and k >= INT_MM_MIN_K:
         acc = torch._int_mm(a2.contiguous(), w.contiguous())
     else:
         acc = (a2.double() @ w.double()).int()
