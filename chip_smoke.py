@@ -16,11 +16,14 @@ kernels from csrc/ itself. Phases:
      (the count that differ is printed), and a row whose scaled values land
      on k + 0.5 through the row-quantization kernel (half to even)
   3d. kernel B6 (fused_attention) against its plain version: DeiT-S heads
-     (hd 64), S in {197, 99, 17}, and hd 128 at S 257, masked and not,
-     float32 and bfloat16
+     (hd 64), S in {197, 99, 17}, hd 128 and hd 80 (ViT-H) at S 257, hd 16
+     at S 17, unmasked, masked, and masked with one image's keys all
+     masked (every row compared), float32 and bfloat16, with the body each
+     case took (the tensor-core body for every bf16 case it takes)
   3e. kernel B7 (fused_mlp) against its plain version: the rows of S in
      {197, 99, 17} at DeiT-S width (MLP 1536) and composed width (MLP 768),
-     and 136 rows at ViT-L width (D 1024, MLP 4096)
+     136 rows at ViT-L width (D 1024, MLP 4096) and 514 rows at ViT-H width
+     (D 1280, MLP 5120), with the body each case took, as in 3d
   3f. kernel B5 (fused_vit_encoder) against its plain version: DeiT-S at 12
      layers and a 3-layer segment, composed geometry at a 3-layer segment,
      S in {197, 99, 17}, masked and not, float32 and bfloat16
@@ -73,7 +76,9 @@ kernels from csrc/ itself. Phases:
      headline / composed / ultra through serving_forward (B5 once per
      non-empty segment, B2 x 1); pruned_vit_forward mode 'none' (B5 x 1);
      dense and headline under int8 (the float B5, equal to float); mha with
-     use_kernel in mode 'kernel' (B6 x 1); kernels against plain PyTorch,
+     use_kernel in mode 'kernel' (B6 x 1), with B6's and B7's launches per
+     body (the bf16 forwards on the tensor-core bodies); kernels against
+     plain PyTorch,
      and in bfloat16 every B5 route also against itself with B5's plain
      version in the kernel's place
   5e. ViT-H/14 @224 end to end at full width and depth (32 layers), random
@@ -89,7 +94,9 @@ kernels from csrc/ itself. Phases:
      body, the shapes that took the WMMA body); times at batch 512 in
      bfloat16, kernel path and plain path (float and
      int8), and each kernel beside its plain version and its eager PyTorch
-     equivalent (info only); each kernel's bound from its shapes; the device
+     equivalent (info only); each kernel's bound from its shapes and its
+     share of it (B6 and B7 must stay within theirs); the head_mask forward
+     (B7 x 12), kernel path and plain path; the device
      time of the dense, headline, topk50, mask, dense_int8, topk50_int8 and
      dense-with-encoder-fusion forwards by kernel family and of the
      once-per-forward weight quantization (torch.profiler); dense and ultra
@@ -101,7 +108,8 @@ kernels from csrc/ itself. Phases:
      of 5 after 2 warm-ups)
   7. records: nothing of jax or of the JAX package was loaded (by module
      name or by file), the kernels' JSON line (launches: B1-B7 on the DeiT-S
-     paths of 5-5d, B8 on 5f's; ViT-H's are logged in 5e), the device line
+     paths of 5-5d, B8 on 5f's, B6's and B7's also per body; ViT-H's are
+     logged in 5e), the device line
 
 Any failed check raises, so the exit code is non-zero. The line before the
 last is the kernels' JSON record; the last line is the device record.
@@ -130,8 +138,11 @@ F32_ATOL = 1e-4  # kernel vs plain, both f32-accumulated; sums in another order
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
-# and the CUDA cores' float32 rate: B6's PV and B7's second product take
-# unrounded f32 operands by contract
+# and the CUDA cores' float32 rate. B6's PV and B7's second product take an
+# unrounded f32 operand by contract; split exactly into three bf16 parts it
+# runs as three bf16 tensor-core passes, so such a product's least time is
+# the smaller of its FLOP at this rate and three times its FLOP at the bf16
+# peak (bound_split)
 PEAK_FP32_FLOPS = 67e12
 # the codes of a quantized row that the half-to-even check expects: amax 127
 # makes the row scale exactly 1, so each code is the value rounded half to even
@@ -457,25 +468,48 @@ def main():
     # --- 3d. B6 against its plain version ------------------------------------------------
     check = Checks("phase 3d (B6 vs plain)")
     err.update(b5=0.0, b6=0.0, b7=0.0)
-    # DeiT-S's heads, and hd 128 at S 257, where K and V do not both fit in
-    # shared memory and V is read from L2 (the kernel's other path)
-    shapes = [("deit_s", 8, cfg.num_heads, s, cfg.head_dim) for s in (197, 99, 17)]
-    shapes.append(("hd128", 2, 3, 257, 128))
+    # the cases added with the tensor-core bodies draw from a generator of their own, so
+    # that every later phase sees the inputs it saw before them
+    gen67 = torch.Generator().manual_seed(SEED + 67)
+
+    def body_took(mod, tc: bool, tag: str) -> str:
+        """The body of the one launch since mod.reset_body_counts(); a case
+        the tensor-core body takes must have taken it."""
+        n = mod.body_counts()
+        body = "wgmma" if n["wgmma"] else "fma"
+        check(n["wgmma"] + n["fma"] == 1 and (body == "wgmma") == tc,
+              f"{tag}: bodies {n}, tensor-core body expected {tc}")
+        return body
+
+    # DeiT-S's heads; hd 128 at S 257, where the FMA body reads V from L2; ViT-H's hd 80
+    # at S 257 (two 64-wide hd boxes and five key chunks in the tensor-core body) and
+    # vit_tiny's hd 16 (a box wider than the head); each unmasked, masked, and masked
+    # with image 0's keys all masked (uniform attention, every row compared)
+    shapes = [("deit_s", 8, cfg.num_heads, s, cfg.head_dim, gen) for s in (197, 99, 17)]
+    shapes += [("hd128", 2, 3, 257, 128, gen), ("vit_h", 2, 16, 257, 80, gen67),
+               ("vit_tiny", 4, 3, 17, 16, gen67)]
     for dname, dt in dtypes.items():
-        for gname, b, h, s, hd in shapes:
-            q, k, v = (torch.randn(b, h, s, hd, generator=gen).to(dev, dt) for _ in range(3))
-            m = torch.rand(b, s, generator=gen) > 0.3
+        for gname, b, h, s, hd, g in shapes:
+            q, k, v = (torch.randn(b, h, s, hd, generator=g).to(dev, dt) for _ in range(3))
+            m = torch.rand(b, s, generator=g) > 0.3
             m[:, 0] = True
-            for mask in (None, m.to(dev)):
+            empty = m.clone()
+            empty[0] = False
+            for mname, mask in (("nomask", None), ("mask", m.to(dev)),
+                                ("empty image", empty.to(dev))):
+                tag = f"B6 {gname} {dname} S={s} {mname}"
+                ka.reset_body_counts()
                 got = ka.fused_attention(q, k, v, mask)
+                torch.cuda.synchronize()
+                body = body_took(ka, ka.takes_tensor_cores(q, k, v), tag)
                 ref = ka.fused_attention_ref(q, k, v, mask)
                 torch.cuda.synchronize()
-                d = valid_rows(got.transpose(1, 2), ref.transpose(1, 2), mask)
+                d = valid_rows(got.transpose(1, 2), ref.transpose(1, 2),
+                               mask if mname == "mask" else None)
                 tol = F32_ATOL if dt == torch.float32 else bf16_tol(ref.float())
                 if dt == torch.float32:
                     err["b6"] = max(err["b6"], d)
-                tag = f"B6 {gname} {dname} S={s} {'mask' if mask is not None else 'nomask'}"
-                log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.1e})")
+                log(f"  {tag}: {body} body, max_abs_err {d:.3e} (tol {tol:.1e})")
                 check(bool(torch.isfinite(got).all()) and d <= tol, tag)
     bad = {  # what the kernel does not take must raise, not run
         "S=258": torch.zeros(2, 2, 258, 64, device=dev),
@@ -493,34 +527,37 @@ def main():
 
     # --- 3e. B7 against its plain version ------------------------------------------------
     check = Checks("phase 3e (B7 vs plain)")
+
+    def b7_case(tag, x, w, dt):
+        kmlp.reset_body_counts()
+        got = kmlp.fused_mlp(x, *w)
+        torch.cuda.synchronize()
+        body = body_took(kmlp, kmlp.takes_tensor_cores(x, w[0], w[2]), tag)
+        ref = kmlp.fused_mlp_ref(x, *w)
+        torch.cuda.synchronize()
+        d = valid_rows(got, ref, None)
+        tol = F32_ATOL if dt == torch.float32 else bf16_tol(ref.float())
+        if dt == torch.float32:
+            err["b7"] = max(err["b7"], d)
+        log(f"  {tag}: {body} body, max_abs_err {d:.3e} (tol {tol:.1e})")
+        check(bool(torch.isfinite(got).all()) and d <= tol, tag)
+
     for gname, (gcfg, lp_cpu) in geometries.items():
         for dname, dt in dtypes.items():
             mlp = tree_to(lp_cpu["mlp"], dev, dt)
             w = (mlp["fc1"]["w"], mlp["fc1"]["b"], mlp["fc2"]["w"], mlp["fc2"]["b"])
             for s in (197, 99, 17):
                 x = torch.randn(8 * s, gcfg.hidden_size, generator=gen).to(dev, dt)
-                got = kmlp.fused_mlp(x, *w)
-                ref = kmlp.fused_mlp_ref(x, *w)
-                torch.cuda.synchronize()
-                d = valid_rows(got, ref, None)
-                tol = F32_ATOL if dt == torch.float32 else bf16_tol(ref.float())
-                if dt == torch.float32:
-                    err["b7"] = max(err["b7"], d)
-                tag = f"B7 {gname} (MLP {gcfg.mlp_dim}) {dname} rows={8 * s}"
-                log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.1e})")
-                check(bool(torch.isfinite(got).all()) and d <= tol, tag)
-    for dname, dt in dtypes.items():  # ViT-L width: the kernel's 16-row tile
-        x = torch.randn(136, 1024, generator=gen).to(dev, dt)
-        w = [(0.03 * torch.randn(shape, generator=gen)).to(dev, dt)
-             for shape in ((1024, 4096), (4096,), (4096, 1024), (1024,))]
-        got, ref = kmlp.fused_mlp(x, *w), kmlp.fused_mlp_ref(x, *w)
-        torch.cuda.synchronize()
-        d = valid_rows(got, ref, None)
-        tol = F32_ATOL if dt == torch.float32 else bf16_tol(ref.float())
-        if dt == torch.float32:
-            err["b7"] = max(err["b7"], d)
-        log(f"  B7 D=1024 (MLP 4096) {dname} rows=136: max_abs_err {d:.3e} (tol {tol:.1e})")
-        check(bool(torch.isfinite(got).all()) and d <= tol, f"B7 D=1024 {dname}")
+                b7_case(f"B7 {gname} (MLP {gcfg.mlp_dim}) {dname} rows={8 * s}", x, w, dt)
+    # ViT-L width, 136 = 8 x 17 rows (the FMA body's 16-row tile; a partial row tile in
+    # both bodies); ViT-H width, 514 = 2 x 257 rows (the tensor-core body's 64-row
+    # blocks, seven column blocks)
+    for d_, m_, rows, g in ((1024, 4096, 136, gen), (1280, 5120, 514, gen67)):
+        for dname, dt in dtypes.items():
+            x = torch.randn(rows, d_, generator=g).to(dev, dt)
+            w = [(0.03 * torch.randn(shape, generator=g)).to(dev, dt)
+                 for shape in ((d_, m_), (m_,), (m_, d_), (d_,))]
+            b7_case(f"B7 D={d_} (MLP {m_}) {dname} rows={rows}", x, w, dt)
     mlp = tree_to(geometries["deit_s"][1]["mlp"], dev, torch.bfloat16)
     w = (mlp["fc1"]["w"], mlp["fc1"]["b"], mlp["fc2"]["w"], mlp["fc2"]["b"])
     wide = torch.zeros(4, 2048, device=dev, dtype=torch.bfloat16)
@@ -1390,6 +1427,8 @@ def main():
     hm[5, 2] = 0.5
     for w in all_wrappers.values():  # the counts of this path's run only
         w.launches = 0
+    ka.reset_body_counts()
+    kmlp.reset_body_counts()
     for dname, dt in dtypes.items():
         pix = ((u8.float() / 255.0 - 0.5) / 0.5).to(dt)
         dense_p = tree_to(base, dev, dt)
@@ -1500,6 +1539,13 @@ def main():
               f"mha(use_kernel) {dname}: launches {n} or err {d:.3e} / {rel:.2e}")
     for k in ("b5", "b6", "b7"):
         launches[k] = all_wrappers[k].launches
+    # B6 and B7 per body: the float32 forwards on the FMA bodies, the bfloat16 ones on the
+    # tensor-core bodies (DeiT-S's shapes are theirs)
+    bodies67 = {"b6": ka.body_counts(), "b7": kmlp.body_counts()}
+    log(f"  phase 5d launches per body: B6 {bodies67['b6']}, B7 {bodies67['b7']}")
+    for k, n in bodies67.items():
+        check(n["wgmma"] > 0 and n["fma"] > 0 and n["wgmma"] + n["fma"] == launches[k],
+              f"{k.upper()} bodies {n} on {launches[k]} launches")
     launches["b1"] += kl.fused_vit_layer.launches
     launches["b2"] += kl.fused_vit_layer_cls_logits.launches
     log("  phase 5d launches: " + ", ".join(f"{k.upper()} {w.launches}"
@@ -1664,7 +1710,8 @@ def main():
         from torch.profiler import ProfilerActivity, profile
 
         families = (("GEMM", ("gemm_bf16", "gemm_f32", "wgmma_gemm")), ("int8 GEMM", ("gemm_s8",)),
-                    ("attention", ("attention",)), ("LN", ("layer_norm_kernel",)),
+                    ("attention", ("attention",)), ("MLP (B7)", ("mlp_kernel", "mlp_tc_kernel")),
+                    ("LN", ("layer_norm_kernel",)),
                     ("row-quant", ("rowquant",)),
                     ("B3 rows", ("bucket_invert", "gather_rows", "expand_rows")))
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1867,11 +1914,21 @@ def main():
     def bound_split(flops_bf16: float, flops_fp32: float, nbytes: float):
         """B6 / B7: the first product multiplies bf16 inputs, exact in f32, so
         bf16 tensor cores with f32 accumulation compute it; the second takes
-        unrounded f32 operands and is held to the FP32 rate. (least ms, what
-        bounds it)"""
-        t_op = (flops_bf16 / PEAK_BF16_FLOPS + flops_fp32 / PEAK_FP32_FLOPS) * 1e3
+        an unrounded f32 operand, which an exact split into three bf16 parts
+        turns into three bf16 passes: the least of the FP32 rate and three
+        times the bf16 work at the bf16 peak. (least ms, what bounds it)"""
+        t_split = min(flops_fp32 / PEAK_FP32_FLOPS, 3 * flops_fp32 / PEAK_BF16_FLOPS)
+        t_op = (flops_bf16 / PEAK_BF16_FLOPS + t_split) * 1e3
         t_mem = nbytes / PEAK_HBM_BYTES * 1e3
         return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
+    def within_bound(key, k_ms, b_ms):
+        """B6 / B7 at their bound's share; a time under the least time the
+        card could take means a wrong bound or a wrong time"""
+        log(f"  {key.upper()} at {100 * b_ms / k_ms:.1f}% of its bound")
+        if k_ms < b_ms:
+            raise AssertionError(f"phase 6: {key.upper()} took {k_ms:.4f} ms, under its bound "
+                                 f"{b_ms:.4f} ms")
 
     q, k, v = (torch.randn(512, cfg.num_heads, 197, cfg.head_dim, generator=gen).to(dev, bf)
                for _ in range(3))
@@ -1882,7 +1939,9 @@ def main():
     b_ms, b_by = bound_split(half, half, 4 * q.numel() * q.element_size())
     log(f"  B6 deit_s S=197 (512 x 6 heads): kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, "
         f"f32 scaled_dot_product_attention {e_ms:.3f} ms; {2 * half:.3e} FLOP, bound {b_ms:.4f} ms "
-        f"({b_by}, QK^T at the bf16 peak, PV at the FP32 peak)")
+        f"({b_by}, QK^T at the bf16 peak, PV as three bf16 passes); kernel / f32 SDPA "
+        f"{k_ms / e_ms:.3f}")
+    within_bound("b6", k_ms, b_ms)
     kernel_ms["b6"], bounds["b6"] = (k_ms, p_ms, e_ms), (b_ms, b_by)
     del q, k, v, qf, kf, vf
 
@@ -1894,11 +1953,29 @@ def main():
         e_ms = time_ms(lambda: mlp_block(xm, mlp))
     half = 2.0 * xm.shape[0] * cfg.hidden_size * cfg.mlp_dim  # x.W1 on bf16, then GELU.W2 on f32
     b_ms, b_by = bound_split(half, half, 2 * xm.numel() * xm.element_size() + weight_bytes(mlp))
-    log(f"  B7 deit_s rows={xm.shape[0]}: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, eager "
-        f"mlp_block (bf16 cuBLAS + F.gelu) {e_ms:.3f} ms; {2 * half:.3e} FLOP, bound {b_ms:.4f} ms "
-        f"({b_by}, x.W1 at the bf16 peak, GELU.W2 at the FP32 peak)")
+    log(f"  B7 deit_s rows={xm.shape[0]}: kernel {k_ms:.3f} ms, plain version (f32 cuBLAS) "
+        f"{p_ms:.3f} ms, eager mlp_block (bf16 cuBLAS + F.gelu) {e_ms:.3f} ms; {2 * half:.3e} "
+        f"FLOP, bound {b_ms:.4f} ms ({b_by}, x.W1 at the bf16 peak, GELU.W2 as three bf16 "
+        f"passes); kernel / plain version {k_ms / p_ms:.3f}")
+    within_bound("b7", k_ms, b_ms)
     kernel_ms["b7"], bounds["b7"] = (k_ms, p_ms, e_ms), (b_ms, b_by)
     del xm
+
+    # the head_mask forward (the mask-search route: B7 x 12 and the plain attention with
+    # the head mask), kernels against plain PyTorch
+    bb = tree_to(base, dev, bf)["backbone"]
+    hmd = hm.to(dev, bf)
+    pix = ((u8.float() / 255.0 - 0.5) / 0.5).to(bf)
+
+    def run_head_mask(mode):
+        with kernel_mode(mode):
+            vit_forward(bb, pix, cfg, head_mask=hmd)
+
+    k_ms, p_ms = abba(lambda: run_head_mask("auto"), lambda: run_head_mask("eager"))
+    log(f"  head_mask forward (B7 x 12): kernel path {k_ms:.3f} ms/batch ({512 / k_ms * 1e3:.0f} "
+        f"img/s), plain path {p_ms:.3f} ms/batch ({512 / p_ms * 1e3:.0f} img/s)")
+    device_breakdown("head_mask", lambda: run_head_mask("auto"), k_ms)
+    del bb
 
     for name in ("dense", "ultra"):  # the encoder route against the per-layer one (info)
         fwd = forward_fn(name, tree_to(presets[name][2], dev, bf), bf, u8)
@@ -2077,7 +2154,8 @@ def main():
         {"name": name, "route": "cuda", "source": f"{pkg}/csrc/{src}.cu",
          "replaces": f"vit_pruning_tpu/ops/pallas/{tpu}.py:{line}", "launches": n,
          "max_abs_err": err[key], "ms": kernel_ms[key][0], "plain_ms": kernel_ms[key][1],
-         "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": kernel_ms[key][2]}
+         "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": kernel_ms[key][2],
+         **({"launches_by_body": bodies67[key]} if key in bodies67 else {})}
         for key, name, src, tpu, line, n in rows
     ]
     log(smi)

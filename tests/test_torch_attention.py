@@ -7,6 +7,14 @@ contract), bf16 within one bf16 step of the output's magnitude (both do
 every operation in f32 and round once, at the end; the sums run in another
 order). mha is held to the JAX mha in f32 at atol 2e-5, as
 tests/test_torch_vit.py does.
+
+The kernel's tensor-core body (bf16 operands) runs only on the card; its
+arithmetic is held here through a torch emulation (tests/torch_parity.py):
+the split of softmax probabilities into three bf16 parts gives them back
+bit for bit, and the emulated body (keys in chunks of 64, the row max and
+sum in a first pass, P normalised in a second, PV as three bf16 passes
+over its split) is held to the Pallas kernel at the same tolerances, on
+bf16-valued operands, and to B6's plain version on every row.
 """
 
 import functools
@@ -19,7 +27,8 @@ import pytest
 import torch
 
 import vit_pruning_tpu.ops.pallas.attention as pallas_attention
-from torch_parity import as_numpy, as_torch, jax_and_torch_params, randn
+from torch_parity import (
+    as_numpy, as_torch, fused_attention_emulated, jax_and_torch_params, randn, split_bf16x3)
 from vit_pruning_tpu.configs import vit_tiny
 from vit_pruning_tpu.models.vit import init_vit_params
 from vit_pruning_tpu.ops.attention import mha as jax_mha
@@ -128,3 +137,63 @@ def test_mha_use_kernel_matches_jax_pallas_route(masked, monkeypatch):
     mha(as_torch(x), tattn, cfg.num_heads, token_mask=tm, head_mask=torch.ones(4),
         use_kernel=True)
     assert len(calls) == 1  # the probabilities are asked for: the plain route
+
+
+def test_split_bf16x3_reconstructs_probabilities_bit_for_bit():
+    """Softmax rows over logits spread wide (probabilities down to ~1e-30)
+    split into three bf16 parts that sum back to P exactly."""
+    rs = np.random.RandomState(9)
+    logits = torch.from_numpy((rs.randn(64, 257) * 12.0).astype(np.float32))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    p = p[p > 1e-30]
+    hi, mid, lo = split_bf16x3(p)
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), p)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), p.double())
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 29, 32), (2, 2, 130, 16)])
+@pytest.mark.parametrize("masked", ["none", "mask", "empty_image"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_attention_emulated_split_matches_pallas(shape, masked, dtype):
+    """The tensor-core body's arithmetic against the Pallas kernel on the
+    rows of valid tokens, and against B6's plain version on every row (an
+    image whose keys are all masked attends uniformly); S 130 takes three
+    chunks of 64 keys, the last one padded."""
+    q, k, v, mask = _qkv_mask(7, shape)
+    if masked == "empty_image":
+        mask[0] = False
+    q, k, v = (np.array(jnp.asarray(t).astype(jnp.bfloat16).astype(jnp.float32))
+               for t in (q, k, v))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jm = None if masked == "none" else jnp.asarray(mask)
+    tmask = None if masked == "none" else torch.from_numpy(mask)
+    want = np.asarray(pallas_attention.fused_attention(
+        *(jnp.asarray(t).astype(jdt) for t in (q, k, v)), jm, interpret=True).astype(jnp.float32))
+    tq, tk, tv = (as_torch(t, tdt) for t in (q, k, v))
+    got = fused_attention_emulated(tq, tk, tv, tmask)
+    plain = as_numpy(ta.fused_attention_ref(tq, tk, tv, tmask))
+    assert got.dtype == tdt
+    got = as_numpy(got)
+    rows = np.ones_like(mask) if masked == "none" else mask
+    tol = 1e-5 if dtype == "float32" else bf16_step(want)
+    assert (np.abs(got - want) * rows[:, None, :, None]).max() <= tol
+    assert np.abs(got - plain).max() <= (1e-5 if dtype == "float32" else bf16_step(plain))
+
+
+def test_corrected_reciprocal_quotient_is_the_division():
+    """B6's tensor-core body forms P = e / sum as q = e rc, then q + (e - q
+    sum) rc, with rc = RN(1 / sum) and the last two steps FMAs (Markstein's
+    correction): the correctly rounded quotient, the division's, for every
+    normal quotient. Emulated in float64, where each product of two f32
+    values is exact, over the kernel's range: e = exp(l - max) in (0, 1],
+    sum in [1, 257]."""
+    rs = np.random.RandomState(3)
+    e = np.exp(-rs.uniform(0.0, 80.0, 200_000)).astype(np.float32)
+    s = (1.0 + rs.uniform(0.0, 256.0, e.size)).astype(np.float32)
+    rc = (1.0 / s.astype(np.float64)).astype(np.float32)
+    q = (e.astype(np.float64) * rc).astype(np.float32)
+    r = (e.astype(np.float64) - q.astype(np.float64) * s).astype(np.float32)
+    got = (r.astype(np.float64) * rc + q).astype(np.float32)
+    assert np.array_equal(got, e / s)

@@ -1,7 +1,10 @@
 // The bf16 GEMM body on Hopper's warpgroup MMA (wgmma) and Tensor Memory
 // Accelerator (TMA), sm_90a. gemm.cu runs it for every bf16 product of the
 // layer kernels B1, B2, B3 and B5 (with common.cuh's Epilogue), embed.cu for
-// B8b (with + b + pos[t % N]).
+// B8b (with + b + pos[t % N]). At the end of the file: the 64-column wgmma
+// shapes (A from shared memory or from registers), the exact three-way bf16
+// split of an f32 operand and a 3-D TMA map, which the tensor-core bodies
+// of B6 (attention.cu) and B7 (mlp.cu) are built from.
 //
 //   out[M, N] = epilogue(A[M, K] @ W[K, N])
 //
@@ -433,6 +436,152 @@ cudaError_t wgmma_gemm(const CUtensorMap& tmA, const CUtensorMap& tmW, const ALo
   kernel<<<grid, wgm::CONSUMERS + 32 * ProducerWarps<ALoad>::value, smem, st>>>(tmA, tmW, aload,
                                                                                  epi, M, N, K);
   return cudaGetLastError();
+}
+
+// The 64-column products of kernels B6 and B7 (attention.cu, mlp.cu).
+// d[64 x 64] += A[64 x 16] @ B[16 x 64], A K-major in shared memory; B
+// K-major (TB 0: B6's K rows) or MN-major (TB 1: B7's W1 and W2) in shared
+// memory
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+// d[64 x 192] += A[64 x 16] (K-major) @ B[16 x 192] (MN-major, three
+// 64-column boxes LBO apart): kernel B7's second product, A from its planes
+__device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(1));
+}
+// the same with A from registers, in the accumulator's layout (the four
+// 32-bit registers of bf16 pairs that mma.sync's m16n8k16 A fragment has,
+// warp w holding rows 16 w ..): B MN-major (B6's V)
+__device__ __forceinline__ void wgmma_m64n64k16_ra(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// An unrounded f32 value a as hi + mid + lo, three bf16 values whose sum is
+// a exactly (for finite |a| above ~2^-110, where lo is still a normal bf16
+// number): hi = bf16(a), mid = bf16(a - hi), lo = a - hi - mid. Each
+// residual is one f32 subtraction, exact, with nothing to contract into an
+// FMA; lo then has at most 8 significant bits. Each bf16 x bf16 product is
+// exact in f32, so three bf16 tensor-core passes compute an f32 product of
+// a bf16 operand and an f32 one up to the order of the sums. A NaN stays a
+// NaN in hi; an infinite hi leaves mid = lo = 0, so a * w stays what the
+// plain f32 product gives.
+__device__ __forceinline__ void split_bf16x3(float a, float& hi, float& mid, float& lo) {
+  hi = __bfloat162float(__float2bfloat16_rn(a));
+  const float r1 = isinf(hi) ? 0.f : __fsub_rn(a, hi);
+  mid = __bfloat162float(__float2bfloat16_rn(r1));
+  lo = __fsub_rn(r1, mid);
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo_col, float hi_col) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// B6: the 32 accumulators of an m64n64 product, each passed through f(i, v)
+// and split, as the A fragments of a product whose 64-deep k runs over
+// those 64 columns. Accumulator i of a thread is row warp * 16 + lane / 4 +
+// 8 * ((i / 2) % 2), column (i / 4) * 8 + 2 * (lane % 4) + i % 2, which is
+// the A fragment's layout: the pair (2 p, 2 p + 1) is register p of a
+// plane, and k-slice s (columns 16 s ..) is registers 4 s .. 4 s + 3.
+// plane[0] holds hi, [1] mid, [2] lo.
+template <typename F>
+__device__ __forceinline__ void split_fragments(const float (&acc)[32], F f,
+                                                uint32_t (&plane)[3][16]) {
+#pragma unroll
+  for (int p = 0; p < 16; ++p) {
+    float h0, m0, l0, h1, m1, l1;
+    split_bf16x3(f(2 * p, acc[2 * p]), h0, m0, l0);
+    split_bf16x3(f(2 * p + 1, acc[2 * p + 1]), h1, m1, l1);
+    plane[0][p] = pack_bf16x2(h0, h1);
+    plane[1][p] = pack_bf16x2(m0, m1);
+    plane[2][p] = pack_bf16x2(l0, l1);
+  }
+}
+
+// B6: acc += (lo + mid + hi) @ B over one 64-deep k block: B MN-major at
+// shared address b (64 k-rows of 128 bytes, 128-byte swizzle), the small
+// planes first
+__device__ __forceinline__ void wgmma_split_k64(float (&acc)[32], const uint32_t (&plane)[3][16],
+                                                uint32_t b) {
+#pragma unroll
+  for (int pl = 2; pl >= 0; --pl)
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      wgmma_m64n64k16_ra(acc, plane[pl][4 * s], plane[pl][4 * s + 1], plane[pl][4 * s + 2],
+                         plane[pl][4 * s + 3], gmma_desc(b + s * 2048, 8192, 1024));
+}
+
+// a 3-D tile at (c0 inner, c1, c2 outer) of the tensor map into shared memory
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A contiguous bf16 tensor [outer, mid, inner] as a TMA map with boxes of
+// [1, 64, 64] and the 128-byte swizzle (zeros past every edge); not cached
+inline cudaError_t tma_map_3d_64(CUtensorMap* map, const void* base, uint64_t inner, uint64_t mid,
+                                 uint64_t outer) {
+  const cuuint64_t dims[3] = {inner, mid, outer};
+  const cuuint64_t strides[2] = {inner * 2, inner * mid * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace vpt

@@ -3,10 +3,13 @@
 `fused_attention` replaces vit_pruning_tpu/ops/pallas/attention.py::
 fused_attention: softmax(q k^T / sqrt(hd), masked keys at -1e30) v, with q,
 k, v upcast to f32, the softmax normalised before PV, and the output cast
-to q's dtype. The CUDA kernel is csrc/attention.cu, B1's f32 attention
-from csrc/common.cuh with the head dim read at run time (one block per head
-and image, K^T and V in shared memory, FMA on the CUDA cores; the head of
-that file says what bounds it).
+to q's dtype. The CUDA kernel is csrc/attention.cu, with two bodies that C
+picks by dtype and shape: in bf16 (hd a multiple of 8, q, k, v 16-byte
+aligned) a wgmma + TMA body, one 64-query tile of one head a block, whose
+PV runs as three bf16 passes over an exact split of the f32 P; in f32, or
+for any other hd, B1's f32 attention from csrc/common.cuh (FMA on the CUDA
+cores). `body_counts()` reads the launches per body; the head of the .cu
+file says what bounds each.
 
 ops/attention.py::mha runs it with use_kernel=True, which the models set in
 dispatch mode 'kernel' only, for attention without head_mask or
@@ -17,6 +20,7 @@ version (mode 'auto') or raises (mode 'kernel').
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -82,3 +86,26 @@ def fused_attention(
 
 
 fused_attention.launches = 0
+
+
+def takes_tensor_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether B6 runs these operands (which fused_attention accepts) on its
+    tensor-core body: the C rule, csrc/attention.cu::attention_tc_takes."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
+def body_counts() -> dict:
+    """Launches of B6's tensor-core ('wgmma') and FMA ('fma') bodies since
+    the last reset_body_counts()."""
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    counts = (ctypes.c_longlong * 2)()
+    load_library().vpt_attention_body_counts(counts)
+    return {"wgmma": counts[0], "fma": counts[1]}
+
+
+def reset_body_counts():
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    load_library().vpt_attention_body_reset()

@@ -55,9 +55,13 @@ SIGNATURES = {
     "vpt_attention_max_head_dim": ([], I),
     # dtype, q, k, v, mask, out, B H S HD, stream
     "vpt_attention_forward": ([I] + [P] * 5 + [I] * 4 + [P], I),
+    "vpt_attention_body_counts": ([P], None),
+    "vpt_attention_body_reset": ([], None),
     "vpt_mlp_max_hidden": ([], I),
     # dtype, x, w1, b1, w2, b2, out, T D M, stream
     "vpt_mlp_forward": ([I] + [P] * 6 + [I] * 3 + [P], I),
+    "vpt_mlp_body_counts": ([P], None),
+    "vpt_mlp_body_reset": ([], None),
     # input dtype, weight dtype, pos in f32, patches, w, b, pos, out, T N K D,
     # scale, shift, stream
     "vpt_patch_embed_forward": ([I] * 3 + [P] * 5 + [I] * 4 + [F, F, P], I),

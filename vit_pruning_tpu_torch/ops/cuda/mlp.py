@@ -3,9 +3,12 @@
 `fused_mlp` replaces vit_pruning_tpu/ops/pallas/mlp.py::fused_mlp: x and the
 weights are upcast to f32, both products, the bias adds and the GELU run
 in f32 (the second product takes the unrounded GELU output), and the output
-is cast to x's dtype. The CUDA kernel is csrc/mlp.cu (a row tile per block,
-M walked in blocks with an f32 accumulator, FMA on the CUDA cores; the head
-of that file says what bounds it).
+is cast to x's dtype. The CUDA kernel is csrc/mlp.cu, with two bodies that
+C picks by dtype and shape: in bf16 (D and M multiples of 8, x, w1, w2
+16-byte aligned) a wgmma + TMA body whose second product runs as three
+bf16 passes over an exact split of the f32 GELU output; in f32, or for
+any other shape, an FMA body on the CUDA cores. `body_counts()` reads the
+launches per body; the head of the .cu file says what bounds each.
 
 models/vit.py::mlp_block runs it when kernels are on, which is the MLP of
 the per-op layer route (head_mask, return_probs). The wrapper launches the
@@ -15,6 +18,8 @@ for CPU tensors it runs the plain version (mode 'auto') or raises (mode
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -71,3 +76,28 @@ def fused_mlp(
 
 
 fused_mlp.launches = 0
+
+
+def takes_tensor_cores(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> bool:
+    """Whether B7 runs these operands (which fused_mlp accepts) on its
+    tensor-core body: the C rule, csrc/mlp.cu::mlp_tc_takes (its shared
+    memory does not depend on D or M)."""
+    d, m = w1.shape
+    return (x.dtype == torch.bfloat16 and d % 8 == 0 and m % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, w1, w2)))
+
+
+def body_counts() -> dict:
+    """Launches of B7's tensor-core ('wgmma') and FMA ('fma') bodies since
+    the last reset_body_counts()."""
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    counts = (ctypes.c_longlong * 2)()
+    load_library().vpt_mlp_body_counts(counts)
+    return {"wgmma": counts[0], "fma": counts[1]}
+
+
+def reset_body_counts():
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    load_library().vpt_mlp_body_reset()
