@@ -14,7 +14,8 @@ kernels from csrc/ itself. Phases:
   3c. kernel B4 (fused_vit_layer_int8) against its plain version on the
      same cases, with the int8 codes of every quantized activation compared
      (the count that differ is printed), and a row whose scaled values land
-     on k + 0.5 through the row-quantization kernel (half to even)
+     on k + 0.5 through the row-quantization kernel (half to even); every
+     B4 call's four products on the wgmma s8 body (its launch counter)
   3d. kernel B6 (fused_attention) against its plain version: DeiT-S heads
      (hd 64), S in {197, 99, 17}, hd 128 and hd 80 (ViT-H) at S 257, hd 16
      at S 17, unmasked, masked, and masked with one image's keys all
@@ -35,8 +36,10 @@ kernels from csrc/ itself. Phases:
   3g. kernels B8a / B8b (fused_patch_embed_u8 / _f) against their plain
      versions at DeiT-S's (K 768, D 384) and ViT-H's (K 588, D 1280) patch
      embedding, batch 64, float32 and bfloat16 weights, uint8 / float
-     patches, pos in the weights' dtype and in float32; B8b at patch width
-     75 (rows no 8-byte multiple); bad inputs raise
+     patches, pos in the weights' dtype and in float32, with the body each
+     case ran (the wgmma body for bf16 weights, FMA tiles for f32); B8a and
+     B8b at patch width 75 (rows no 4- or 8-byte multiple); bad inputs
+     raise
   3h. ViT-H/14's geometry (head dim 80, S 257) in B1-B5 against their plain
      versions at every length phase 5e gives them: B1 and B4 at S 257 / 171
      / 129 / 86 / 43 / 22 with KW 1280 and 640, B2 at S 129 / 43 / 22, B3 at
@@ -46,7 +49,7 @@ kernels from csrc/ itself. Phases:
      naming the dims taken; then the short head dims of the repo's configs,
      vit_tiny's 16 (S 17, D 64, MLP 128) and the quality gate model's 32
      (S 65, D 128, MLP 256): B1-B5 masked and not, float32 and bfloat16,
-     batch 8
+     batch 8; B4's products on the wgmma s8 body in every case
   3i. the bf16 GEMM bodies under B1, B2, B3 and B5 (ops/cuda/gemm.py)
      against their plain version at every product shape of the main paths
      (DeiT-S and composed widths at S 197 / 131 / 99 / 66 / 33 / 17, ViT-H
@@ -54,6 +57,11 @@ kernels from csrc/ itself. Phases:
      strided CLS rows and N 100 classifier, every epilogue), with the body
      each took (wgmma where TMA can describe the operands, else WMMA); the
      main shapes at batch 512 x 197 and 64 x 257 timed beside torch.matmul
+  3j. B4's int8 product body (wgmma s8 + TMA) one product at a time at
+     every product shape of B4 at DeiT-S (batch 512 x 197) and ViT-H (64 x
+     257), and at vit_tiny's (136 rows, N 192, K 64) and a ragged one, the
+     output bit-equal to the exact int32 product's dequant (+ bias), timed
+     beside torch._int_mm on the same operands (TOP/s)
   5. end to end, DeiT-S @224 with 100 labels at batch 64: dense vit_forward
      and headline / composed / ultra through serving_forward, kernels
      (mode 'auto') against plain PyTorch (mode 'eager'), with the launch
@@ -68,8 +76,8 @@ kernels from csrc/ itself. Phases:
      (logits_only=False in both modes, then logits_only=True in 'auto', whose
      last layer is the float B2), topk50 / mask_budget50 / mask / random50
      through pruned_vit_forward, kernels against plain PyTorch with the
-     launch counts of every forward, and the int8 logits against the float
-     ones
+     launch counts of every forward (and four wgmma s8 products for each B4
+     launch), and the int8 logits against the float ones
   5d. the dense model's remaining routes end to end, same model and batch,
      with encoder fusion on: vit_forward with a head_mask (B7 x 12, no B1),
      with output_hidden_states (B1 x 12, no B5), and plain (B5 x 1);
@@ -86,10 +94,11 @@ kernels from csrc/ itself. Phases:
      through serving_forward, topk50 through pruned_vit_forward, f32 at
      batch 4 and bf16 at batch 32, kernels against plain PyTorch with the
      launch counts (B1 x 32; B1 x 31 + B2; B3 x 32), and dense / headline
-     under int8 (B4 x 32; B4 x 31 + the float B2) held as in 5c
+     under int8 (B4 x 32; B4 x 31 + the float B2, four wgmma s8 products
+     each) held as in 5c
   5f. the fused embed entry points embed_u8 / embed_fused (B8a / B8b) at
      DeiT-S and ViT-H, batch 64, against embed_from_u8 and the model's
-     embed, with their launch counts
+     embed, with their launch counts and bodies (bf16 weights: wgmma)
   6. which GEMM body ran the bf16 products of phases 5-5f (launches per
      body, the shapes that took the WMMA body); times at batch 512 in
      bfloat16, kernel path and plain path (float and
@@ -108,8 +117,8 @@ kernels from csrc/ itself. Phases:
      of 5 after 2 warm-ups)
   7. records: nothing of jax or of the JAX package was loaded (by module
      name or by file), the kernels' JSON line (launches: B1-B7 on the DeiT-S
-     paths of 5-5d, B8 on 5f's, B6's and B7's also per body; ViT-H's are
-     logged in 5e), the device line
+     paths of 5-5d, B8 on 5f's; B4's, B6's, B7's and B8's also per body;
+     ViT-H's are logged in 5e), the device line
 
 Any failed check raises, so the exit code is non-zero. The line before the
 last is the kernels' JSON record; the last line is the device record.
@@ -260,8 +269,8 @@ def main():
     from vit_pruning_tpu_torch.models import pruned_vit as tp
     from vit_pruning_tpu_torch.models.pruned_vit import init_pruned_vit_params, pruned_vit_forward
     from vit_pruning_tpu_torch.models.vit import (
-        embed, init_vit_params, layer_norm, layer_range, layer_slice, mlp_block, vit_forward,
-        vit_layer)
+        embed, init_vit_params, layer_norm, layer_range, layer_slice, layers_for, mlp_block,
+        vit_forward, vit_layer)
     from vit_pruning_tpu_torch.ops.attention import mha
     from vit_pruning_tpu_torch.ops.cuda import attention as ka
     from vit_pruning_tpu_torch.ops.cuda import embed as kemb
@@ -272,7 +281,7 @@ def main():
     from vit_pruning_tpu_torch.ops.cuda import model as kmod
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
     from vit_pruning_tpu_torch.ops.dispatch import encoder_fusion, kernel_mode, quant_mode
-    from vit_pruning_tpu_torch.ops.quant import attach_int8_weights, quantize_layer_params
+    from vit_pruning_tpu_torch.ops.quant import quantize_layer_params, with_kmajor_int8_weights
     from vit_pruning_tpu_torch.ops.masking import compact_dest
     from vit_pruning_tpu_torch.ops.patch_embed import extract_patches
     from vit_pruning_tpu_torch.ops.structured import prune_heads, prune_mlp_channels
@@ -392,6 +401,17 @@ def main():
 
     # --- 3c. B4 against its plain version ------------------------------------------------
     check = Checks("phase 3c (B4 vs plain)")
+
+    def s8_products_since(n_b4: int, tag: str):
+        """Every B4 launch since the counters read n_b4 (its wrapper's count)
+        and 0 (the s8 body's, reset then) ran its four products on the
+        wgmma s8 body."""
+        calls, s8 = k8.fused_vit_layer_int8.launches - n_b4, k8.body_launches()
+        log(f"  {tag}: B4's products on the wgmma s8 body: {s8} launches for {calls} B4 calls")
+        check(calls > 0 and s8 == 4 * calls, f"{tag}: {s8} s8 products for {calls} B4 calls")
+
+    k8.reset_body_launches()
+    n_b4 = k8.fused_vit_layer_int8.launches
     flipped = {k: 0 for k in k8.STAGES}
     n_codes = {k: 0 for k in k8.STAGES}
     for gname, (gcfg, lp_cpu) in geometries.items():
@@ -424,6 +444,7 @@ def main():
                     check(bool(torch.isfinite(got).all()) and d <= tol, tag)
     log("  int8 codes the kernel and its plain version round apart, all cases: "
         + ", ".join(f"{k} {flipped[k]} of {n_codes[k]}" for k in k8.STAGES))
+    s8_products_since(n_b4, "phase 3c")
     for dname, dt in dtypes.items():  # half to even, on the card
         q, sc = k8.rowquant(torch.tensor([HALF_EVEN_ROW], device=dev, dtype=dt))
         codes = q.cpu().tolist()[0]
@@ -714,17 +735,23 @@ def main():
                            pos.float()),
                           ("b8b", kemb.fused_patch_embed_f, kemb.fused_patch_embed_f_ref, fp, pos)]
             for key, fn, ref_fn, patches, ps in cases:
-                got, ref = fn(patches, w, b, ps), ref_fn(patches, w, b, ps)
+                kemb.reset_body_counts()
+                got = fn(patches, w, b, ps)
                 torch.cuda.synchronize()
+                bodies = kemb.body_counts()
+                ref = ref_fn(patches, w, b, ps)
                 dmax = (got.float() - ref.float()).abs().max().item()
                 tol = embed_tol(ref, dt)
                 if dt == torch.float32:
                     err[key] = max(err[key], dmax)
                 tag = (f"{key.upper()} {gname} (K {pd}, D {d}) {dname} weights, {patches.dtype} "
                        f"patches, {ps.dtype} pos")
-                log(f"  {tag}: max_abs_err {dmax:.3e} (tol {tol:.1e})")
+                want = "wgmma" if dt == torch.bfloat16 else "fma"  # bf16 weights: the wgmma body
+                log(f"  {tag}: max_abs_err {dmax:.3e} (tol {tol:.1e}); {want} body "
+                    f"(launches by body {bodies})")
                 check(got.shape == (64, n_p, d) and got.dtype == dt
-                      and bool(torch.isfinite(got).all()) and dmax <= tol, tag)
+                      and bool(torch.isfinite(got).all()) and dmax <= tol
+                      and bodies[want] == 1 and sum(bodies.values()) == 1, tag)
     w, b, pos = (t.to(dev, torch.bfloat16) for t in (w0, b0, pos0))  # ViT-H's
     bad = {  # what the kernels do not take must raise, not run
         "B8a float patches": (kemb.fused_patch_embed_u8, fp, w, b, pos),
@@ -762,10 +789,21 @@ def main():
         tag = f"B8B K 75, D 128 bfloat16 weights, {patches.dtype} patches"
         log(f"  {tag}: max_abs_err {dmax:.3e} (tol {tol:.1e})")
         check(bool(torch.isfinite(got).all()) and dmax <= tol, tag)
+    # B8a's uint8 rows of 75 bytes: read byte by byte, the K tail masked in registers
+    u8o = torch.randint(0, 256, (16, 49, 75), generator=gen_o, dtype=torch.uint8).to(dev)
+    got = kemb.fused_patch_embed_u8(u8o, w, b, pos.to(dev))
+    ref = kemb.fused_patch_embed_u8_ref(u8o, w, b, pos.to(dev))
+    torch.cuda.synchronize()
+    dmax, tol = (got.float() - ref.float()).abs().max().item(), bf16_tol(ref.float())
+    log(f"  B8A K 75, D 128 bfloat16 weights, uint8 patches: max_abs_err {dmax:.3e} "
+        f"(tol {tol:.1e})")
+    check(bool(torch.isfinite(got).all()) and dmax <= tol, "B8A K 75")
     check.done()
 
     # --- 3h. ViT-H's geometry (hd 80, S 257) in B1-B5 against their plain versions ----------
     check = Checks("phase 3h (ViT-H geometry in B1-B5 vs plain)")
+    k8.reset_body_launches()
+    n_b4 = k8.fused_vit_layer_int8.launches
     taken = tuple(h for h in range(1, 257) if lib.vpt_layer_head_dim_ok(h))
     log(f"  head dims the layer kernels take: {taken}")
     check(taken == kl.LAYER_HEAD_DIMS, f"the wrappers' head dims {kl.LAYER_HEAD_DIMS}")
@@ -952,6 +990,7 @@ def main():
             log(f"  {tag}: kept rows max_abs_err {d:.3e} (tol {tol:.1e}); skipped rows "
                 f"bit-identical to x: {skipped_exact}")
             check(bool(torch.isfinite(got).all()) and d <= tol and skipped_exact, tag)
+    s8_products_since(n_b4, "phase 3h")
     check.done()
 
     # --- 3i. the bf16 GEMM bodies against their plain version ----------------------------
@@ -1039,6 +1078,52 @@ def main():
                 f"ms ({flops / k_ms / 1e9:.1f} TFLOP/s), torch.matmul bf16 {l_ms:.4f} ms "
                 f"({flops / l_ms / 1e9:.1f} TFLOP/s); {smi}")
             del ops, a, w
+    check.done()
+
+    # --- 3j. B4's int8 product body against its plain version ----------------------------
+    # Every product shape of B4 at the timed batches (DeiT-S 512 x 197, ViT-H 64 x 257), and
+    # vit_tiny's QKV (136 rows, N 192, K 64: a K step and a column tile past the edges) and a
+    # ragged one, one product at a time through ops/cuda/layer_int8.py::gemm_s8 (the C body the
+    # layer runs): int8 codes and row scales as a row quantization gives them, K-major int8
+    # weights with column scales, + bias, f32 out. The output must equal the exact int32
+    # product's dequant bit for bit (int sums are exact in any order, and the dequant is the
+    # same f32 multiplies and add); the timed shapes also run beside torch._int_mm (cuBLASLt
+    # int8) on the same operands, a yardstick only.
+    check = Checks("phase 3j (B4's int8 product body vs plain)")
+    gen_j = torch.Generator(device=dev).manual_seed(SEED + 5)  # drawn on the card
+
+    def s8_operands(m, k, n):
+        codes, rs = k8.rowquant_ref(torch.randn(m, k, generator=gen_j, device=dev))
+        wt = torch.randint(-127, 128, (n, k), generator=gen_j, dtype=torch.int8, device=dev)
+        ws = torch.rand(n, generator=gen_j, device=dev) * 2e-3 + 1e-4
+        return codes, rs, wt, ws, 0.1 * torch.randn(n, generator=gen_j, device=dev)
+
+    shapes_j = [("vit_tiny qkv", 136, 64, 192), ("ragged", 1000, 1280, 640)]
+    for gname, gcfg, batch, s in (("deit_s", cfg, 512, 197), ("vit_h", hcfg, 64, 257)):
+        d, kw, mm = gcfg.hidden_size, gcfg.attn_width, gcfg.mlp_dim
+        shapes_j += [(f"{gname} batch {batch} S={s} {tag}", batch * s, k, n) for tag, (k, n) in
+                     {"qkv": (d, 3 * kw), "o": (kw, d), "fc1": (d, mm), "fc2": (mm, d)}.items()]
+    for tag, m, k, n in shapes_j:
+        ops = s8_operands(m, k, n)
+        n0 = k8.body_launches()
+        got = k8.gemm_s8(*ops)
+        torch.cuda.synchronize()
+        ran = k8.body_launches() - n0
+        exact = bool(torch.equal(got, k8.gemm_s8_ref(*ops)))
+        line = (f"  int8 GEMM {tag} M={m} N={n} K={k}: wgmma s8 body launches {ran}; bit-equal "
+                f"to the exact int product's dequant: {exact}")
+        if "batch" in tag:
+            wkn = ops[2].t().contiguous()  # torch._int_mm's [K, N]
+            k_ms = time_ms(lambda: k8.gemm_s8(*ops))
+            l_ms = time_ms(lambda: torch._int_mm(ops[0], wkn))
+            tops = 2.0 * m * n * k / 1e9
+            line += (f"; kernel {k_ms:.4f} ms ({tops / k_ms:.1f} TOP/s), torch._int_mm "
+                     f"{l_ms:.4f} ms ({tops / l_ms:.1f} TOP/s); {smi}")
+            del wkn
+        log(line)
+        check(exact and ran == 1 and got.shape == (m, n),
+              f"int8 GEMM {tag}: bit-equal {exact}, s8 launches {ran}")
+        del ops, got
     check.done()
 
     # --- 5. end to end: kernels vs plain PyTorch, launch counts -------------------------
@@ -1315,6 +1400,7 @@ def main():
 
     for k in wrappers:  # the counts of this path's run only
         k.launches = 0
+    k8.reset_body_launches()
     for dname, dt in dtypes.items():
         for name, (pc, pcfg, cpu_params) in presets.items():
             params = tree_to(cpu_params, dev, dt)
@@ -1383,6 +1469,8 @@ def main():
             log(f"  {tag}: launches B4={n[3]}; {line}; min threshold/cut gap (plain) "
                 f"{decision_gap(ref, pcfg):.2e}")
     launches["b4"] = k8.fused_vit_layer_int8.launches
+    launches["b4_s8"] = k8.body_launches()
+    s8_products_since(0, "phase 5c")
     launches["b2"] += kl.fused_vit_layer_cls_logits.launches
     log(f"  int8 path launches: B1 {kl.fused_vit_layer.launches}, B2 "
         f"{kl.fused_vit_layer_cls_logits.launches} (the float tail), B3 "
@@ -1587,6 +1675,7 @@ def main():
     want_h = {"dense": (hL, 0, 0, 0), "topk50": (0, 0, hL, 0)}  # B1, B2, B3, B4
     for k in wrappers:  # the counts of this path's run only
         k.launches = 0
+    k8.reset_body_launches()
     for dname, dt, batch in (("float32", torch.float32, 4), ("bfloat16", torch.bfloat16, 32)):
         u8h = images(batch)
         for name, (pc, pcfg, f32_params) in h_presets.items():
@@ -1659,6 +1748,7 @@ def main():
     h_launches = dict(zip(("b1", "b2", "b3", "b4"), counts()))
     log("  ViT-H path launches: " + ", ".join(f"{k.upper()} {v}" for k, v in h_launches.items()))
     check(all(v > 0 for v in h_launches.values()), "a kernel of the path never launched")
+    s8_products_since(0, "phase 5e")
     check.done()
 
     # --- 5f. the fused embed entry points end to end ------------------------------------------
@@ -1670,14 +1760,25 @@ def main():
     b8 = (kemb.fused_patch_embed_u8, kemb.fused_patch_embed_f)
     for k in b8:  # the counts of this path's run only
         k.launches = 0
+    b8_bodies = {"b8a": {"wgmma": 0, "fma": 0}, "b8b": {"wgmma": 0, "fma": 0}}
+
+    def bodies_of(key, fn):
+        """fn's output, its launches per body added to b8_bodies[key]"""
+        kemb.reset_body_counts()
+        out = fn()
+        for body, n_ in kemb.body_counts().items():
+            b8_bodies[key][body] += n_
+        return out
+
     calls = 0
     u8 = images(64)
     for mname, (mcfg, mparams) in {"deit_s": (cfg, base), "vit_h": (hcfg, base_h)}.items():
         for dname, dt in dtypes.items():
             ep = tree_to(mparams["backbone"]["embed"], dev, dt)
             pix = ((u8.float() / 255.0 - 0.5) / 0.5).to(dt)
-            got_u, want_u = kemb.embed_u8(u8, ep, mcfg), embed_from_u8(u8, ep, mcfg)
-            got_f, want_f = kemb.embed_fused(pix, ep, mcfg), embed(pix, ep, mcfg)
+            got_u = bodies_of("b8a", lambda: kemb.embed_u8(u8, ep, mcfg))
+            got_f = bodies_of("b8b", lambda: kemb.embed_fused(pix, ep, mcfg))
+            want_u, want_f = embed_from_u8(u8, ep, mcfg), embed(pix, ep, mcfg)
             torch.cuda.synchronize()
             calls += 1
             shape = (64, mcfg.seq_len, mcfg.hidden_size)
@@ -1698,9 +1799,13 @@ def main():
                   and bool(torch.isfinite(got_u).all() and torch.isfinite(got_f).all()) and ok,
                   tag)
     launches["b8a"], launches["b8b"] = (k.launches for k in b8)
-    log(f"  embed path launches: B8a {launches['b8a']}, B8b {launches['b8b']} ({calls} calls each)")
+    log(f"  embed path launches: B8a {launches['b8a']}, B8b {launches['b8b']} ({calls} calls each); "
+        f"by body B8a {b8_bodies['b8a']}, B8b {b8_bodies['b8b']} (bf16 weights: wgmma)")
     check(launches["b8a"] == calls and launches["b8b"] == calls,
           "a kernel of the path did not launch once per call")
+    for key in b8_bodies:  # half the calls in each dtype
+        check(b8_bodies[key] == {"wgmma": calls // 2, "fma": calls // 2},
+              f"{key.upper()} bodies {b8_bodies[key]} on {calls} calls")
     check.done()
 
     # --- 6. times at batch 512, bf16 (info) --------------------------------------------
@@ -1709,7 +1814,7 @@ def main():
         activity only), and the idle share against the CUDA-event wall time."""
         from torch.profiler import ProfilerActivity, profile
 
-        families = (("GEMM", ("gemm_bf16", "gemm_f32", "wgmma_gemm")), ("int8 GEMM", ("gemm_s8",)),
+        families = (("GEMM", ("gemm_bf16", "gemm_f32", "wgmma_gemm")), ("int8 GEMM", ("wgmma_s8",)),
                     ("attention", ("attention",)), ("MLP (B7)", ("mlp_kernel", "mlp_tc_kernel")),
                     ("LN", ("layer_norm_kernel",)),
                     ("row-quant", ("rowquant",)),
@@ -1794,9 +1899,10 @@ def main():
         if name in ("dense", "topk50"):
             device_breakdown(f"{name}_int8", lambda: run("auto"), k_ms)
     layers = params["backbone"]["layers"]
-    q_ms = time_ms(lambda: attach_int8_weights(layers))
-    log(f"  weight quantization, once per int8 forward (12 layers, bf16 -> int8): {q_ms:.3f} ms")
-    device_breakdown("weight quantization", lambda: attach_int8_weights(layers), q_ms)
+    q_ms = time_ms(lambda: layers_for(layers, "int8"))
+    log(f"  weight quantization and B4's K-major layout, once per int8 forward (12 layers, bf16 "
+        f"-> int8): {q_ms:.3f} ms")
+    device_breakdown("weight quantization", lambda: layers_for(layers, "int8"), q_ms)
 
     def bound(flops: float, nbytes: float):
         """(least ms for the work on this card, what bounds it)."""
@@ -1877,7 +1983,7 @@ def main():
         t_mem = nbytes / PEAK_HBM_BYTES * 1e3
         return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
 
-    qlp = quantize_layer_params(lp)
+    qlp = with_kmajor_int8_weights(quantize_layer_params(lp))  # as a forward lays them out
     for s in (197, 99):  # the dense length and the capacity of topk50's bucket
         x = torch.randn(512, s, cfg.hidden_size, generator=gen).to(dev, bf)
         k_ms, p_ms = abba(lambda: k8.fused_vit_layer_int8(x, qlp, cfg.num_heads),
@@ -2075,7 +2181,7 @@ def main():
         e_ms = time_ms(lambda: tp.bucketed_masked_layer(x, hlp, mask, hcfg, cap_hint=129), **quick)
     log(f"  B3 vit_h S=257 cap=129: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, eager "
         f"bucketed layer {e_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
-    hqlp = quantize_layer_params(hlp)
+    hqlp = with_kmajor_int8_weights(quantize_layer_params(hlp))
     k_ms, p_ms = abba(lambda: k8.fused_vit_layer_int8(x, hqlp, hcfg.num_heads),
                       lambda: k8.fused_vit_layer_int8_ref(x, hqlp, hcfg.num_heads), **quick)
     b_ms, b_by = bound_int8(hcfg, hbatch * 257, hbatch * hcfg.num_heads * 257 * 257,
@@ -2150,12 +2256,15 @@ def main():
         ("b8a", "fused_patch_embed_u8", "embed", "embed", 48, launches["b8a"]),
         ("b8b", "fused_patch_embed_f", "embed", "embed", 125, launches["b8b"]),
     )
+    # B4: every launch on the wgmma s8 body, four products each; B8: bf16 weights on wgmma
+    by_body = {**bodies67, "b4": {"wgmma_s8": launches["b4"]}, **b8_bodies}
     kernels = [
         {"name": name, "route": "cuda", "source": f"{pkg}/csrc/{src}.cu",
          "replaces": f"vit_pruning_tpu/ops/pallas/{tpu}.py:{line}", "launches": n,
          "max_abs_err": err[key], "ms": kernel_ms[key][0], "plain_ms": kernel_ms[key][1],
          "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": kernel_ms[key][2],
-         **({"launches_by_body": bodies67[key]} if key in bodies67 else {})}
+         **({"launches_by_body": by_body[key]} if key in by_body else {}),
+         **({"products_on_wgmma_s8": launches["b4_s8"]} if key == "b4" else {})}
         for key, name, src, tpu, line, n in rows
     ]
     log(smi)

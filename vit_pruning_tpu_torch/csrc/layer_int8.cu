@@ -1,10 +1,11 @@
-// Kernel B4, the int8 serving layer, for Hopper (sm_90a). Two C entry points:
+// Kernel B4, the int8 serving layer, for Hopper (sm_90a). C entry points:
 //
 //   vpt_vit_layer_int8_forward  replaces vit_pruning_tpu/ops/pallas/layer_int8.py
 //                               ::fused_vit_layer_int8: B1's pre-LN block
 //                               (layer.cu) with QKV, O, fc1 and fc2 as
 //                               int8 x int8 -> int32 products
 //   vpt_rowquant                the per-row quantization on its own
+//   vpt_gemm_s8                 one int8 product, for tests of the body
 //
 // What it computes, in the TPU kernel's order: LN1 in f32, its f32 output
 // quantized per row (scale = max(amax, 1e-12) * (1/127), x / scale rounded
@@ -19,21 +20,27 @@
 // are ~90% of the operations and run on the int8 tensor cores (1,979 TOP/s
 // dense, twice the bf16 rate), attention stays in the serving dtype (989
 // TFLOP/s bf16), so the layer is bound by operations; the least time is
-// int8 ops / 1979e12 + attention FLOPs / 989e12. The design does what B1
-// does about it: one tiled GEMM per product with its dequant, bias, GELU,
-// residual and cast fused into the epilogue, and the per-row quantization
-// fused where the row is whole in one warp: into the layer norms. ctx (KW
-// wide) and the GELU output (MLP wide) span several GEMM column tiles, so
-// each has a row-quantization pass of its own (a read in x's dtype and an
-// int8 write, a few percent of the layer's bytes).
-//
-// The simple first version: mma.sync m16n8k32 int8 tiles with int32
-// accumulators fed by ldmatrix from a 3-stage cp.async ring, the weights
-// transposed to [N, K] by the wrapper; wgmma, TMA and fusing the two row
-// passes are later work. The dequant multiplies with __fmul_rn so that no
-// FMA contraction moves it off the plain version's rounding.
+// int8 ops / 1979e12 + attention FLOPs / 989e12. The design:
+//   - the four products run wgmma_s8.cuh's wgmma s8 + TMA body, the weights
+//     K-major [N, K] as 8-bit wgmma requires (laid out once per forward by
+//     the caller), with the dequant, bias, GELU, residual and cast fused
+//     into the epilogue (__int2float_rn, then __fmul_rn by the row scale,
+//     then by the column scale, so that no FMA contraction moves it off the
+//     plain version's rounding; int32 sums are exact in any order);
+//   - the row quantization is fused where the row is whole in one warp,
+//     into the layer norms;
+//   - ctx (KW wide) and the GELU output (MLP wide) span several column
+//     tiles of the kernel that writes them, so each has a row-quantization
+//     pass of its own (a read in x's dtype and an int8 write). Fusing them
+//     into the next product's A producer (each row's amax recorded by the
+//     writer's epilogue, the codes formed in registers) was measured and
+//     kept out: every column tile of the next product re-reads and
+//     re-quantizes its rows in x's dtype, which cost more than the passes
+//     (PERF.md, B4's row).
 
-#include "common.cuh"
+#include <atomic>
+
+#include "wgmma_s8.cuh"
 
 namespace vpt {
 
@@ -122,175 +129,83 @@ cudaError_t rowquant(const T* x, long ldx, signed char* q, float* qs, int rows, 
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// int8 GEMM  out[M, N] = epilogue((A[M, K] @ W[K, N]) * rs[m] * ws[n]),
-// A int8 row-major with row stride lda, W given transposed, Wt [N, K]
-// row-major (both operands K-contiguous, as mma's row.col form reads them),
-// int32 accumulation with mma.sync m16n8k32 (the native int8 shape: twice
-// the k of a bf16 m16n8k16 per instruction). 128x128 block tile, 8 warps
-// (2 x 4), 64x32 per warp as 4x4 tiles of 16x8; K in steps of 64 through a
-// 3-stage cp.async ring; fragments by ldmatrix.x4. Each 64-byte tile row
-// keeps its four 16-byte chunks XOR-swizzled by (row / 2) % 4, so the eight
-// rows an ldmatrix reads, and the ring's 16-byte writes, fall in distinct
-// banks. Needs K % 16 == 0, lda % 16 == 0 and 16-byte aligned A and Wt
-// (checked by the callers).
-namespace i8 {
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3, THREADS = 256;
-constexpr int WM = 64, WN = 32, MT = WM / 16, NT = WN / 8;
-constexpr int A_STAGE = BM * BK, B_STAGE = BN * BK;  // bytes
-constexpr size_t SMEM = STAGES * (A_STAGE + B_STAGE);
-constexpr int LDS = WN + 4;  // epilogue staging row (ints)
-static_assert(SMEM >= sizeof(int) * (THREADS / 32) * 16 * LDS, "epilogue tiles reuse the ring");
-}  // namespace i8
-
-// byte offset of 16-byte chunk c (0..3) of tile row r
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * i8::BK + ((c ^ ((r >> 1) & 3)) << 4);
+// 8 consecutive values read through the read-only path: the epilogue's
+// inputs do not alias its output, so the loads may run ahead of its stores
+__device__ __forceinline__ void ldg8(const bf16* p, float* v) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const float2 f = __bfloat1622float2(h[t]);
+    v[2 * t] = f.x;
+    v[2 * t + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void ldg8(const float* p, float* v) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                       unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
+// The products' epilogue: v = (acc * row scale) * column scale, then
+// common.cuh's order (+ bias, activation, + residual, cast). e.vec also
+// asks for a 16-byte aligned ws.
 template <typename T>
-__global__ void __launch_bounds__(i8::THREADS)
-gemm_s8_kernel(const signed char* __restrict__ A, long lda, const float* __restrict__ rs,
-               const signed char* __restrict__ Wt, const float* __restrict__ ws, int M, int N,
-               int K, Epilogue e) {
-  using namespace i8;
-  extern __shared__ __align__(128) unsigned char gsmem[];
-  unsigned char* As = gsmem;                     // [STAGES][BM][BK], swizzled
-  unsigned char* Bs = gsmem + STAGES * A_STAGE;  // [STAGES][BN][BK], swizzled
+struct Int8Epi {
+  Epilogue e;
+  const float* rs;
+  const float* ws;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  auto load_tile = [&](int kt, int stage) {
-    const int k0 = kt * BK;
-    unsigned char* as = As + stage * A_STAGE;
-    unsigned char* bs = Bs + stage * B_STAGE;
+  __device__ __forceinline__ void operator()(int m, int n, const int* acc, int M, int N) const {
+    if (m >= M || n >= N) return;
+    const float r = __ldg(rs + m);
+    if (e.vec && n + 8 <= N) {
+      float v[8], t8[8];
+      ldg8(ws + n, t8);
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {  // 128 rows x 4 chunks of 16 bytes, each operand
-      const int c = tid + t * THREADS;
-      const int r = c >> 2, kc = c & 3, k = k0 + kc * 16;
-      const int m = m0 + r, n = n0 + r;
-      const bool oka = m < M && k < K, okb = n < N && k < K;
-      cp_async16(as + swz(r, kc), oka ? A + m * lda + k : A, oka);
-      cp_async16(bs + swz(r, kc), okb ? Wt + (long)n * K + k : Wt, okb);
-    }
-  };
-
-  int acc[MT][NT][4];
+      for (int t = 0; t < 8; ++t) v[t] = __fmul_rn(__fmul_rn(__int2float_rn(acc[t]), r), t8[t]);
+      if (e.bias) {
+        ldg8(static_cast<const T*>(e.bias) + n, t8);
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
-
-  const int nk = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_tile(s, s);
-    cp_async_commit();  // empty groups keep the count uniform
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed (this thread's copies)
-    __syncthreads();              // ... everyone's, and stage kt-1 is free
-    if (kt + STAGES - 1 < nk) load_tile(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const unsigned char* as = As + (kt % STAGES) * A_STAGE;
-    const unsigned char* bs = Bs + (kt % STAGES) * B_STAGE;
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      // A 16x32: matrices (rows 0-7 | 8-15) x (k 0-15 | 16-31) -> a0..a3;
-      // B 16(n)x32: matrices (n 0-7, k lo), (n 0-7, k hi), (n 8-15, k lo), (n 8-15, k hi)
-      unsigned a[MT][4], b[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(a[i], as + swz(wm * WM + i * 16 + (lane & 15), ks * 2 + (lane >> 4)));
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        unsigned r[4];
-        ldmatrix_x4(r, bs + swz(wn * WN + j * 8 + (lane & 7) + (lane >> 4) * 8,
-                                ks * 2 + ((lane >> 3) & 1)));
-        b[j][0] = r[0], b[j][1] = r[1], b[j + 1][0] = r[2], b[j + 1][1] = r[3];
+        for (int t = 0; t < 8; ++t) v[t] += t8[t];
       }
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int t = 0; t < 8; ++t) v[t] = gelu(v[t], e.act);
+      if (e.res) {
+        const long ri = m * e.ldr + n;
+        if (e.res_f32)
+          ldg8(static_cast<const float*>(e.res) + ri, t8);
+        else
+          ldg8(static_cast<const T*>(e.res) + ri, t8);
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: reuse it for the epilogue tiles
-
-  // epilogue: each 16-row slab of the warp's tile through a per-warp
-  // [16][LDS] int tile; lane owns half a row (16 values, two 8-wide stores):
-  // dequant, then bias / GELU / residual / cast
-  int* cs = reinterpret_cast<int*>(gsmem) + warp * 16 * LDS;
-  const int g = lane >> 2, tig = lane & 3;
-  const int r = lane >> 1, cb = (lane & 1) * 16;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {  // mma's accumulator layout: rows g, g + 8; cols 2 tig, +1
-      const int col = j * 8 + tig * 2;
-      cs[g * LDS + col] = acc[i][j][0];
-      cs[g * LDS + col + 1] = acc[i][j][1];
-      cs[(g + 8) * LDS + col] = acc[i][j][2];
-      cs[(g + 8) * LDS + col + 1] = acc[i][j][3];
-    }
-    __syncwarp();
-    const int m = m0 + wm * WM + i * 16 + r;
-    if (m < M) {
-      const float rsm = rs[m];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int nb = n0 + wn * WN + cb + h * 8;
-        float v[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-          v[t] = nb + t < N
-                     ? __fmul_rn(__fmul_rn(__int2float_rn(cs[r * LDS + cb + h * 8 + t]), rsm),
-                                 ws[nb + t])
-                     : 0.f;
-        if (e.vec && nb + 8 <= N) {
-          epilogue_store8<T>(e, m, nb, v);
-        } else {
-#pragma unroll
-          for (int t = 0; t < 8; ++t)
-            if (nb + t < N) epilogue_store<T>(e, m, nb + t, v[t]);
-        }
+        for (int t = 0; t < 8; ++t) v[t] += t8[t];
       }
+      const long o = m * e.ldc + n;
+      if (e.out_f32)
+        store8(static_cast<float*>(e.out) + o, v);
+      else
+        store8(static_cast<T*>(e.out) + o, v);
+    } else {
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        if (n + t < N)
+          epilogue_store<T>(e, m, n + t, __fmul_rn(__fmul_rn(__int2float_rn(acc[t]), r), ws[n + t]));
     }
-    __syncwarp();
   }
-}
+};
 
+// launches of the s8 body since the last reset (four a layer)
+std::atomic<long long> g_s8_launches;
+
+// out = epilogue(A codes [M, K] (row stride lda) @ Wt^T), rs their row scales
 template <typename T>
 cudaError_t gemm_s8(const signed char* A, long lda, const float* rs, const signed char* Wt,
                     const float* ws, int M, int N, int K, Epilogue e, cudaStream_t st) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_s8_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)i8::SMEM);
-  if (attr != cudaSuccess) return attr;
   set_vec<T>(e);
-  dim3 grid((N + i8::BN - 1) / i8::BN, (M + i8::BM - 1) / i8::BM);
-  gemm_s8_kernel<T><<<grid, i8::THREADS, i8::SMEM, st>>>(A, lda, rs, Wt, ws, M, N, K, e);
-  return cudaGetLastError();
+  e.vec = e.vec && aligned16(ws);
+  VPT_TRY(wgmma_s8(A, lda, Wt, Int8Epi<T>{e, rs, ws}, M, N, K, st));
+  g_s8_launches++;
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -332,11 +247,11 @@ using namespace vpt;
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, biases, LN params, out, qkv, ctx,
-// m1); weights int8 and transposed, [N, K] row-major, their scales f32 [N].
-// mask: [B, S]
-// bytes (torch.bool) or null. Workspaces: codes int8 and scales f32 [B*S]
-// of each stage (LN1 [B*S, D], ctx [B*S, KW], LN2 [B*S, D], GELU [B*S, M]);
-// qkv [B*S, 3KW], ctx [B*S, KW], m1 [B*S, M] in the dtype; x1 [B*S, D] f32.
+// m1); weights int8 K-major, [N, K] row-major (ops/quant.py::
+// kmajor_int8_weights), their scales f32 [N]. mask: [B, S] bytes
+// (torch.bool) or null. Workspaces: codes int8 and scales f32 [B*S] of each
+// stage (LN1 [B*S, D], ctx [B*S, KW], LN2 [B*S, D], GELU [B*S, M]); qkv
+// [B*S, 3KW], ctx [B*S, KW], m1 [B*S, M] in the dtype; x1 [B*S, D] f32.
 int vpt_vit_layer_int8_forward(
     int dtype, const void* x, const void* mask, const void* ln1g, const void* ln1b,
     const void* wqkv, const void* sqkv, const void* bqkv, const void* wo, const void* so,
@@ -345,7 +260,9 @@ int vpt_vit_layer_int8_forward(
     void* s_ln1, void* q_ctx, void* s_ctx, void* q_ln2, void* s_ln2, void* q_gelu, void* s_gelu,
     void* qkv, void* ctx, void* x1, void* m1, int B, int S, int D, int H, int HD, int M, float eps,
     void* stream) {
-  if (!shapes_ok(dtype, B, S, D, H, HD, M) || D % 16 || M % 16) return cudaErrorInvalidValue;
+  if (!shapes_ok(dtype, B, S, D, H, HD, M) || D % 16 || M % 16 ||
+      (long)B * S > 65535L * w8::BM)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using i8p = const signed char*;
   using fp = const float*;
@@ -369,5 +286,32 @@ int vpt_rowquant(int dtype, const void* x, void* q, void* s, int rows, int k, vo
   return dtype == 0 ? rowquant<float>((const float*)x, k, (signed char*)q, (float*)s, rows, k, st)
                     : rowquant<bf16>((const bf16*)x, k, (signed char*)q, (float*)s, rows, k, st);
 }
+
+// One product on the s8 body, as B4 runs it, for tests of the body: out [M,
+// N] = epilogue(A @ Wt^T), A int8 codes [M, K] (row stride lda, a multiple
+// of 16), rs their f32 row scales [M], Wt int8 [N, K], ws f32 [N]. dtype 0 =
+// float32, 1 = bfloat16: bias [N], residual and out in it unless res_f32 /
+// out_f32; act 0 none, 1 erf GELU, 2 tanh GELU. N % 8 == 0, K % 16 == 0,
+// 16-byte aligned A and Wt.
+int vpt_gemm_s8(int dtype, const void* A, long lda, const void* rs, const void* Wt, const void* ws,
+                int M, int N, int K, const void* bias, int act, const void* res, long ldr,
+                int res_f32, void* out, long ldc, int out_f32, void* stream) {
+  if ((dtype != 0 && dtype != 1) || M < 1 || N < 1 || N % 8 || K < 1 || K % 16 || lda % 16 || lda < K ||
+      act < 0 || act > 2 || ldc < N || (res && ldr < N) || !aligned16(A) || !aligned16(Wt))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Epilogue e = epi(bias, act, res, ldr, res_f32 != 0, out, ldc, out_f32 != 0);
+  const signed char* a = static_cast<const signed char*>(A);
+  const signed char* w = static_cast<const signed char*>(Wt);
+  const float* r = static_cast<const float*>(rs);
+  const float* s = static_cast<const float*>(ws);
+  return dtype == 0 ? gemm_s8<float>(a, lda, r, w, s, M, N, K, e, st)
+                    : gemm_s8<bf16>(a, lda, r, w, s, M, N, K, e, st);
+}
+
+// launches of the s8 body since the last reset
+long long vpt_int8_body_launches() { return g_s8_launches.load(); }
+
+void vpt_int8_body_reset() { g_s8_launches = 0; }
 
 }  // extern "C"

@@ -1,14 +1,16 @@
 // The bf16 GEMM body on Hopper's warpgroup MMA (wgmma) and Tensor Memory
 // Accelerator (TMA), sm_90a. gemm.cu runs it for every bf16 product of the
 // layer kernels B1, B2, B3 and B5 (with common.cuh's Epilogue), embed.cu for
-// B8b (with + b + pos[t % N]). At the end of the file: the 64-column wgmma
-// shapes (A from shared memory or from registers), the exact three-way bf16
-// split of an f32 operand and a 3-D TMA map, which the tensor-core bodies
-// of B6 (attention.cu) and B7 (mlp.cu) are built from.
+// B8a and B8b (with + b + pos[t % N]). At the end of the file: the 64-column
+// wgmma shapes (A from shared memory or from registers), the exact three-way
+// bf16 split of an f32 operand and a 3-D TMA map, which the tensor-core
+// bodies of B6 (attention.cu) and B7 (mlp.cu) are built from. B4's int8
+// products run the s8 body of wgmma_s8.cuh, built from this file's
+// barriers, TMA loads and descriptors.
 //
 //   out[M, N] = epilogue(A[M, K] @ W[K, N])
 //
-// A is bf16 [M, K] with row stride lda, or B8b's patches that TMA cannot
+// A is bf16 [M, K] with row stride lda, or B8's patches that TMA cannot
 // describe (CpAsyncA, RegA below); W is bf16 [K, N] row-major, as the
 // param tree stores it, so it is wgmma's MN-major ("transposed") B operand.
 // No copy of W is made.
@@ -18,8 +20,9 @@
 //     two W boxes [64 k x 64 n] per step into a ring of shared-memory
 //     stages, with the 128-byte swizzle, completing on an mbarrier ("full")
 //     with the bytes it expects; or four warps bring A by cp.async
-//     (CpAsyncA) or through registers, rounding f32 to bf16 (RegA), into
-//     the same swizzled layout, while one thread still brings W by TMA;
+//     (CpAsyncA) or through registers, rounding f32 to bf16 or applying
+//     B8a's affine to uint8 (RegA), into the same swizzled layout, while one
+//     thread still brings W by TMA;
 //   - consumers: two warpgroups, 64 rows each, run wgmma.mma_async
 //     m64n128k16 on the stage that has arrived (four per step), f32
 //     accumulators in registers (64 a thread), wait for them and hand the
@@ -147,17 +150,27 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 // by TMA: bf16, lda % 8 == 0, 16-byte aligned (the host encodes the map)
 struct TmaA {};
 
-// through registers (B8b's f32 patches, and bf16 rows that are not 8-byte
-// multiples): 4 producer warps, each thread 8 chunks of 8 k-values a step,
-// rounded to bf16 and stored where the 128-byte swizzle puts them; zeros
-// past M and K. wide: f32 rows whose 8-value chunks may be read as two
-// 16-byte loads (lda % 4 == 0, a 16-byte aligned base).
+// through registers (B8b's f32 patches, bf16 rows that are not 8-byte
+// multiples, and B8a's uint8 patches): 4 producer warps, rounded to bf16 and
+// stored where the 128-byte swizzle puts them; zeros past M and K.
+//   f32 / bf16: each thread 8 chunks of 8 k-values a step; wide: f32 rows
+//     whose 8-value chunks may be read as two 16-byte loads (lda % 4 == 0,
+//     a 16-byte aligned base).
+//   uint8 (B8a): 8 producer warps, each thread 2 rows of 16 k-values a
+//     step, read with the widest load the rows allow (wide: 16 bytes where lda % 16 == 0 and
+//     the base is 16-byte aligned, DeiT-S's K 768; 4 bytes where they are
+//     4-byte multiples, ViT-H's K 588; else single bytes), then the affine
+//     x * scale + shift in f32, each step rounded on its own (no FMA
+//     contraction), as the TPU kernel's f32 ops, then rounded to bf16.
 template <typename Tin>
 struct RegA {
-  static constexpr int PRODUCER_WARPS = 4;
+  // uint8: 8 warps, so that twice as many warps hide the affine's latency
+  static constexpr bool kU8 = std::is_same<Tin, uint8_t>::value;
+  static constexpr int PRODUCER_WARPS = kU8 ? 8 : 4;
   const Tin* A;
   long lda;
   int wide;
+  float scale = 1.f, shift = 0.f;  // uint8 only
 
   __device__ __forceinline__ void chunk(const Tin* row, int k, int K, float* v) const {
     if constexpr (std::is_same<Tin, float>::value) {
@@ -173,28 +186,91 @@ struct RegA {
     for (int t = 0; t < 8; ++t) v[t] = k + t < K ? to_f(row[k + t]) : 0.f;
   }
 
+  // 16 bytes of a uint8 row from k on, zeros past K
+  __device__ __forceinline__ uint4 bytes16(const uint8_t* row, int k, int K) const {
+    uint4 u = make_uint4(0, 0, 0, 0);
+    if (k >= K) return u;
+    if (wide == 16) return __ldg(reinterpret_cast<const uint4*>(row + k));  // K % 16 == 0
+    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+    if (wide == 4) {  // K % 4 == 0: a word is all in or all out
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i] = k + 4 * i < K ? __ldg(reinterpret_cast<const unsigned int*>(row + k + 4 * i)) : 0u;
+      return u;
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (k + i < K) w[i >> 2] |= static_cast<uint32_t>(row[k + i]) << (8 * (i & 3));
+    return u;
+  }
+
+  // 8 producer warps: each thread 2 rows (pt / 4 + 64 i) of 16 k-values
+  __device__ __forceinline__ void stage_u8(unsigned char* st, int pt, int m0, int k0, int M,
+                                           int K) const {
+    const int kp = pt & 3, k = k0 + kp * 16;
+    uint4 raw[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // every load in flight before the first use
+      const int m = m0 + (pt >> 2) + 64 * i;
+      raw[i] = m < M ? bytes16(reinterpret_cast<const uint8_t*>(A) + m * lda, k, K)
+                     : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = (pt >> 2) + 64 * i;
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw[i]);
+      // value i8 of the 16: the byte as 2^23 + byte in f32, less 2^23 (exact,
+      // and no integer-to-float conversion, an instruction at an eighth of
+      // the FMA rate), then the affine
+      auto affine_u8 = [&](int i8) {
+        const float x = __fsub_rn(
+            __uint_as_float(__byte_perm(w[i8 >> 2], 0x4B000000u, 0x7540u | (i8 & 3))), 8388608.f);
+        return __fadd_rn(__fmul_rn(x, scale), shift);
+      };
+      uint4 u[2];  // two 8-value chunks: 2 kp, 2 kp + 1
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(u);
+      if (m0 + row < M && k + 16 <= K) {
+#pragma unroll
+        for (int t = 0; t < 8; ++t) o[t] = __floats2bfloat162_rn(affine_u8(2 * t), affine_u8(2 * t + 1));
+      } else {  // zeros past M and K
+        const int n = m0 + row < M ? K - k : 0;
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          o[t] = __floats2bfloat162_rn(2 * t < n ? affine_u8(2 * t) : 0.f,
+                                       2 * t + 1 < n ? affine_u8(2 * t + 1) : 0.f);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint4*>(st + row * 128 + (((2 * kp + h) ^ (row & 7)) << 4)) = u[h];
+    }
+  }
+
   // the A tile of step k0 into the stage; pt = the producer thread, 0..127
   __device__ __forceinline__ void stage(unsigned char* st, int pt, int m0, int k0, int M,
                                         int K) const {
-    const int kc = pt & 7, k = k0 + kc * 8;
-    float v[8][8];
+    if constexpr (std::is_same<Tin, uint8_t>::value) {
+      stage_u8(st, pt, m0, k0, M, K);
+    } else {
+      const int kc = pt & 7, k = k0 + kc * 8;
+      float v[8][8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + (pt >> 3) + 16 * i;
-      if (m < M && k < K)
-        chunk(A + m * lda, k, K, v[i]);
-      else
+      for (int i = 0; i < 8; ++i) {
+        const int m = m0 + (pt >> 3) + 16 * i;
+        if (m < M && k < K)
+          chunk(A + m * lda, k, K, v[i]);
+        else
 #pragma unroll
-        for (int t = 0; t < 8; ++t) v[i][t] = 0.f;
-    }
+          for (int t = 0; t < 8; ++t) v[i][t] = 0.f;
+      }
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = (pt >> 3) + 16 * i;
-      uint4 u;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+      for (int i = 0; i < 8; ++i) {
+        const int row = (pt >> 3) + 16 * i;
+        uint4 u;
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
-      for (int t = 0; t < 4; ++t) h[t] = __floats2bfloat162_rn(v[i][2 * t], v[i][2 * t + 1]);
-      *reinterpret_cast<uint4*>(st + row * 128 + ((kc ^ (row & 7)) << 4)) = u;
+        for (int t = 0; t < 4; ++t) h[t] = __floats2bfloat162_rn(v[i][2 * t], v[i][2 * t + 1]);
+        *reinterpret_cast<uint4*>(st + row * 128 + ((kc ^ (row & 7)) << 4)) = u;
+      }
     }
   }
 };
@@ -367,16 +443,19 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant
 // ---------------------------------------------------------------------------
 // Host side.
 
-// A row-major bf16 matrix [outer, inner] (row stride row_bytes) as a TMA map
-// with box [box_outer, box_inner] and the 128-byte swizzle. Encoding costs
-// host time on every launch, so the maps are kept per host thread, keyed by
-// everything they encode (a map holds no data, only this).
+// A row-major matrix [outer, inner] (row stride row_bytes) of bf16 (or of
+// `type`: B4's int8 codes) as a TMA map with box [box_outer, box_inner] and
+// the 128-byte swizzle. Encoding costs host time on every launch, so the
+// maps are kept per host thread, keyed by everything they encode (a map
+// holds no data, only this).
 inline cudaError_t tma_map_2d(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
-                              uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer) {
+                              uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer,
+                              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   struct Entry {
     const void* base;
     uint64_t inner, outer, row_bytes;
     uint32_t box_inner, box_outer;
+    CUtensorMapDataType type;
     CUtensorMap map;
   };
   constexpr int kEntries = 64;
@@ -385,7 +464,7 @@ inline cudaError_t tma_map_2d(CUtensorMap* map, const void* base, uint64_t inner
   for (int i = 0; i < kEntries; ++i) {
     const Entry& c = cache[i];
     if (c.base == base && c.inner == inner && c.outer == outer && c.row_bytes == row_bytes &&
-        c.box_inner == box_inner && c.box_outer == box_outer) {
+        c.box_inner == box_inner && c.box_outer == box_outer && c.type == type) {
       *map = c.map;
       return cudaSuccess;
     }
@@ -395,13 +474,13 @@ inline cudaError_t tma_map_2d(CUtensorMap* map, const void* base, uint64_t inner
   const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = cuTensorMapEncodeTiled(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
+      map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // out of bounds: zeros
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   Entry& e = cache[next];
   next = (next + 1) % kEntries;
-  e = Entry{base, inner, outer, row_bytes, box_inner, box_outer, *map};
+  e = Entry{base, inner, outer, row_bytes, box_inner, box_outer, type, *map};
   return cudaSuccess;
 }
 
@@ -419,9 +498,9 @@ inline bool wgmma_takes(const bf16* A, long lda, const bf16* W, int N, int K) {
   return aligned16(A) && aligned16(W) && lda % 8 == 0 && N % 8 == 0 && K % 8 == 0;
 }
 
-// Layer products (TmaA): 3 stages, two blocks an SM. B8b's cp.async and
-// register producers: 4 stages, one block an SM (their 4 producer warps
-// take the registers a second block would need).
+// Layer products (TmaA): 3 stages, two blocks an SM. B8's cp.async and
+// register producers: 4 stages, one block an SM (their 4 or 8 producer
+// warps take the registers a second block would need).
 template <typename ALoad, typename Epi>
 cudaError_t wgmma_gemm(const CUtensorMap& tmA, const CUtensorMap& tmW, const ALoad& aload,
                        const Epi& epi, int M, int N, int K, cudaStream_t st) {

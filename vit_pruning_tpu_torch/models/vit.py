@@ -42,6 +42,7 @@ from vit_pruning_tpu_torch.ops.quant import (
     attach_int8_weights,
     int8_vit_layer_ref,
     is_quantized,
+    with_kmajor_int8_weights,
 )
 
 
@@ -156,10 +157,14 @@ def layer_slice(layers: dict, i: int) -> dict:
 def layers_for(layers: dict, quant: str) -> dict:
     """The stacked layer tree a forward runs: under int8, the float tree
     with every layer's int8 weights attached (one quantization per call)
-    unless it carries them already."""
-    if quant == "int8" and not is_quantized(layers):
-        return attach_int8_weights(layers)
-    return layers
+    unless it carries them already, and, when kernels are on, kernel B4's
+    K-major layout of them (ops/quant.py::kmajor_int8_weights), also built
+    once per call rather than once per layer launch."""
+    if quant != "int8":
+        return layers
+    if not is_quantized(layers):
+        layers = attach_int8_weights(layers)
+    return with_kmajor_int8_weights(layers) if kernels_enabled() else layers
 
 
 def layer_range(layers: dict, start: int, stop: int) -> dict:

@@ -48,6 +48,11 @@ SIGNATURES = {
     "vpt_vit_layer_int8_forward": ([I] + [P] * 31 + [I] * 6 + [F, P], I),
     # dtype, x, codes, scales, rows, k, stream
     "vpt_rowquant": ([I, P, P, P, I, I, P], I),
+    # dtype, codes, lda, row scales, Wt, ws, M N K, bias, act, residual, ldr,
+    # residual in f32, out, ldc, out in f32, stream
+    "vpt_gemm_s8": ([I, P, L, P, P, P, I, I, I, P, I, P, L, I, P, L, I, P], I),
+    "vpt_int8_body_launches": ([], ctypes.c_longlong),
+    "vpt_int8_body_reset": ([], None),
     # dtype, x, mask, 12 stacked layer weights, out, 6 workspaces,
     # L B S D H HD M, eps, stream
     "vpt_vit_encoder_forward": ([I] + [P] * 21 + [I] * 7 + [F, P], I),
@@ -65,6 +70,8 @@ SIGNATURES = {
     # input dtype, weight dtype, pos in f32, patches, w, b, pos, out, T N K D,
     # scale, shift, stream
     "vpt_patch_embed_forward": ([I] * 3 + [P] * 5 + [I] * 4 + [F, F, P], I),
+    "vpt_embed_body_counts": ([P], None),
+    "vpt_embed_body_reset": ([], None),
     # A, lda, W, M N K, bias, act, residual, ldr, residual in f32, out, ldc,
     # out in f32, stream
     "vpt_gemm_bf16": ([P, L, P, I, I, I, P, I, P, L, I, P, L, I, P], I),

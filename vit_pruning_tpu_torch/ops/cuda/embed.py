@@ -29,6 +29,8 @@ A wrapper launches its kernel for CUDA tensors and counts the launch in its
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from vit_pruning_tpu_torch.data.preprocess import VIT_MEAN, VIT_STD
@@ -128,6 +130,22 @@ def fused_patch_embed_f(patches: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 fused_patch_embed_f.launches = 0
+
+
+def body_counts() -> dict:
+    """Launches of B8a's and B8b's bodies since the last reset_body_counts():
+    'wgmma' (bf16 weights) and 'fma' (f32 weights)."""
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    counts = (ctypes.c_longlong * 2)()
+    load_library().vpt_embed_body_counts(counts)
+    return {"wgmma": counts[0], "fma": counts[1]}
+
+
+def reset_body_counts():
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    load_library().vpt_embed_body_reset()
 
 
 def _with_cls(x: torch.Tensor, embed_params: dict, pos: torch.Tensor) -> torch.Tensor:

@@ -4,9 +4,12 @@ csrc/layer_int8.cu beside its plain PyTorch version.
 `fused_vit_layer_int8` replaces vit_pruning_tpu/ops/pallas/layer_int8.py::
 fused_vit_layer_int8: B1's block (ops/cuda/layer.py) with QKV, O, fc1 and
 fc2 as int8 x int8 -> int32 products on per-row quantized activations and
-per-column quantized weights (ops/quant.py::quantize_layer_params). What
-bounds it on an H100 and what the CUDA design does about it is in the head
-of csrc/layer_int8.cu.
+per-column quantized weights (ops/quant.py::quantize_layer_params), on the
+wgmma s8 + TMA body (csrc/wgmma_s8.cuh). What bounds it on an H100 and what
+the CUDA design does about it is in the head of csrc/layer_int8.cu. The
+kernel reads the weights K-major (ops/quant.py::kmajor_int8_weights): from
+the tree's KMAJOR entry, which the forwards build once per call, or built
+here for a tree without one.
 
 The plain version keeps the TPU kernel's numerics, which differ from the
 eager int8 layer (ops/quant.py::int8_vit_layer_ref) in three places:
@@ -28,7 +31,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from vit_pruning_tpu_torch.ops.cuda.gemm import ACTS
 from vit_pruning_tpu_torch.ops.cuda.layer import (
     _check,
     _check_token_mask,
@@ -40,7 +45,7 @@ from vit_pruning_tpu_torch.ops.cuda.layer import (
     staged2_attention,
 )
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
-from vit_pruning_tpu_torch.ops.quant import int_matmul
+from vit_pruning_tpu_torch.ops.quant import KMAJOR, int_matmul, kmajor_int8_weights
 
 # the activations quantized inside the layer, in order: LN1's output (QKV
 # input), the attention context (O input), LN2's output (fc1 input) and the
@@ -133,7 +138,7 @@ def fused_vit_layer_int8(
 
     qparams: one layer's tree from quantize_layer_params (int8 'wq' [K, N],
     f32 'wscale' [N], biases and LN params in x's dtype; a float 'w' beside
-    them is ignored). token_mask [B, S] bool or None (False = key masked
+    them is ignored), with or without its KMAJOR layout. token_mask [B, S] bool or None (False = key masked
     with -1e30). With return_codes, also returns the int8 codes and row
     scales of every stage of STAGES, as the plain version does.
     """
@@ -147,18 +152,15 @@ def fused_vit_layer_int8(
     b, s, d, hd, kw, m = _geometry(lib, x, qparams, num_heads, who)
     if d % 16 or m % 16:
         raise ValueError(f"{who}: hidden {d} and MLP width {m} must be multiples of 16")
-    # the int8 products read both operands K-contiguous: weights as [N, K]
+    # the int8 products read both operands K-major: weights as [N, K]
+    nk = qparams.get(KMAJOR) or kmajor_int8_weights(qparams)
     w = {
         "ln1.g": qparams["ln1"]["g"], "ln1.b": qparams["ln1"]["b"],
-        "qkv.wq": torch.cat([a[n]["wq"].t() for n in "qkv"], dim=0),
-        "qkv.ws": torch.cat([a[n]["wscale"] for n in "qkv"]),
-        "qkv.b": torch.cat([a[n]["b"] for n in "qkv"]),
-        "o.wq": a["o"]["wq"].t().contiguous(), "o.ws": a["o"]["wscale"], "o.b": a["o"]["b"],
+        "qkv.wq": nk["qkv"]["wq"], "qkv.ws": nk["qkv"]["wscale"], "qkv.b": nk["qkv"]["b"],
+        "o.wq": nk["o"]["wq"], "o.ws": a["o"]["wscale"], "o.b": a["o"]["b"],
         "ln2.g": qparams["ln2"]["g"], "ln2.b": qparams["ln2"]["b"],
-        "fc1.wq": mlp["fc1"]["wq"].t().contiguous(), "fc1.ws": mlp["fc1"]["wscale"],
-        "fc1.b": mlp["fc1"]["b"],
-        "fc2.wq": mlp["fc2"]["wq"].t().contiguous(), "fc2.ws": mlp["fc2"]["wscale"],
-        "fc2.b": mlp["fc2"]["b"],
+        "fc1.wq": nk["fc1"]["wq"], "fc1.ws": mlp["fc1"]["wscale"], "fc1.b": mlp["fc1"]["b"],
+        "fc2.wq": nk["fc2"]["wq"], "fc2.ws": mlp["fc2"]["wscale"], "fc2.b": mlp["fc2"]["b"],
     }
     shapes = {"ln1.g": (d,), "ln1.b": (d,), "qkv.wq": (3 * kw, d), "qkv.ws": (3 * kw,),
               "qkv.b": (3 * kw,), "o.wq": (d, kw), "o.ws": (d,), "o.b": (d,), "ln2.g": (d,),
@@ -195,3 +197,92 @@ def fused_vit_layer_int8(
 
 
 fused_vit_layer_int8.launches = 0
+
+
+# --- one product of the body, for tests of it ------------------------------------------
+
+
+def gemm_s8_ref(codes: torch.Tensor, rs: torch.Tensor, wt: torch.Tensor, ws: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, act: str = "none",
+                residual: Optional[torch.Tensor] = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of one of B4's products: int8 codes [M, K] with their
+    f32 row scales rs [M, 1], wt int8 [N, K] (the K-major weight), ws f32
+    [N]. The exact int32 product, (acc * rs) * ws in f32, + bias, activation,
+    + residual, one cast."""
+    y = int_matmul(codes, wt.t()).float() * rs * ws
+    if bias is not None:
+        y = y + bias.float()
+    if act != "none":
+        y = F.gelu(y, approximate="tanh" if act == "gelu_tanh" else "none")
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(out_dtype)
+
+
+def gemm_s8(codes: torch.Tensor, rs: torch.Tensor, wt: torch.Tensor, ws: torch.Tensor,
+            bias: Optional[torch.Tensor] = None, act: str = "none",
+            residual: Optional[torch.Tensor] = None,
+            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One product on B4's wgmma s8 + TMA body, as the layer runs each of its
+    four: arguments and result as gemm_s8_ref. The epilogue's dtype is
+    bias's (float32 or bfloat16; float32 without a bias), out_dtype it or
+    float32, residual it or float32. Not exported: chip_smoke.py and the
+    tests hold the body to gemm_s8_ref with it."""
+    who = "gemm_s8"
+    if codes.dim() != 2 or wt.dim() != 2 or codes.shape[1] != wt.shape[1]:
+        raise ValueError(f"{who}: codes [M, K] and wt [N, K], got {tuple(codes.shape)} and "
+                         f"{tuple(wt.shape)}")
+    m, k = codes.shape
+    n = wt.shape[0]
+    if not launch_kernel_for(codes):
+        return gemm_s8_ref(codes, rs, wt, ws, bias, act, residual, out_dtype)
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    dt = torch.float32 if bias is None else bias.dtype
+    if act not in ACTS or dt not in (torch.float32, torch.bfloat16) or \
+            out_dtype not in (dt, torch.float32) or k % 16 or n % 8:
+        raise ValueError(f"{who}: act {act!r}, epilogue dtype {dt}, out {out_dtype}, K {k}, N "
+                         f"{n} not taken (K a multiple of 16, N of 8)")
+    tensors = {"codes": (codes, (m, k), torch.int8), "rs": (rs, (m, 1), torch.float32),
+               "wt": (wt, (n, k), torch.int8), "ws": (ws, (n,), torch.float32)}
+    if bias is not None:
+        tensors["bias"] = (bias, (n,), dt)
+    if residual is not None:
+        tensors["residual"] = (residual, (m, n), residual.dtype)
+        if residual.dtype not in (dt, torch.float32):
+            raise ValueError(f"{who}: residual is {residual.dtype}; it takes {dt} or float32")
+    for name, (t_, shape, dtype) in tensors.items():
+        if (tuple(t_.shape) != shape or t_.dtype != dtype or t_.device != codes.device
+                or not t_.is_contiguous() or t_.data_ptr() % 16):
+            raise ValueError(f"{who}: {name} must be contiguous 16-byte aligned {dtype} "
+                             f"{shape} on {codes.device}, got {t_.dtype} {tuple(t_.shape)}")
+    out = torch.empty((m, n), dtype=out_dtype, device=codes.device)
+    with torch.cuda.device(codes.device):
+        rc = lib.vpt_gemm_s8(
+            int(dt == torch.bfloat16), codes.data_ptr(), k, rs.data_ptr(), wt.data_ptr(),
+            ws.data_ptr(), m, n, k, None if bias is None else bias.data_ptr(), ACTS[act],
+            None if residual is None else residual.data_ptr(), n,
+            int(residual is not None and residual.dtype == torch.float32), out.data_ptr(), n,
+            int(out_dtype == torch.float32), _stream(codes))
+    _raise_on(lib, rc, who)
+    gemm_s8.launches += 1
+    return out
+
+
+gemm_s8.launches = 0
+
+
+def body_launches() -> int:
+    """Launches of the wgmma s8 body since the last reset_body_launches():
+    B4's four products a layer, and gemm_s8's one."""
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    return int(load_library().vpt_int8_body_launches())
+
+
+def reset_body_launches():
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    load_library().vpt_int8_body_reset()

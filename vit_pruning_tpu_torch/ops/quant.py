@@ -13,7 +13,9 @@ Mirrors vit_pruning_tpu/ops/quant.py, the scheme's ground truth:
 Rounding is half to even (torch.round, as jnp.round), clipped to +-127.
 `int8_vit_layer_ref` is the eager int8 layer (kernel mode 'eager'); kernel
 B4 (ops/cuda/layer_int8.py) follows the TPU kernel's numerics instead, which
-differ in three places listed there.
+differ in three places listed there. B4 reads its weights K-major
+(`kmajor_int8_weights`), a layout the forwards build once per call beside
+the tree's own leaves (`with_kmajor_int8_weights`).
 
 Every function keeps its input's device.
 """
@@ -103,6 +105,41 @@ def quantize_layer_params(params: dict) -> dict:
     'wq' + 'wscale'; biases and layer norms stay float. Works on the stacked
     [L, K, N] weights too (each layer its own scales)."""
     return attach_int8_weights(params, keep_float=False)
+
+
+# the key of a layer tree under which a forward keeps kernel B4's weight
+# layout (kmajor_int8_weights) beside the tree's own leaves
+KMAJOR = "int8_kmajor"
+
+
+def _kmajor(wq: torch.Tensor) -> torch.Tensor:
+    return wq.transpose(-1, -2).contiguous()
+
+
+def kmajor_int8_weights(qparams: dict) -> dict:
+    """Kernel B4's weights for one layer's (or the stacked layers') quantized
+    tree. 8-bit wgmma reads both operands K-major, so each int8 [..., K, N]
+    'wq' becomes [..., N, K], and the three QKV products are one:
+    {'qkv': {'wq' [..., 3KW, D], 'wscale' [..., 3KW], 'b' [..., 3KW]},
+    'o' / 'fc1' / 'fc2': {'wq' [..., N, K]}}. New tensors; the tree's own
+    leaves, which the plain versions read, are left as they are."""
+    a, m = qparams["attn"], qparams["mlp"]
+    return {
+        "qkv": {"wq": torch.cat([a[n]["wq"].transpose(-1, -2) for n in "qkv"], dim=-2),
+                "wscale": torch.cat([a[n]["wscale"] for n in "qkv"], dim=-1),
+                "b": torch.cat([a[n]["b"] for n in "qkv"], dim=-1)},
+        "o": {"wq": _kmajor(a["o"]["wq"])},
+        "fc1": {"wq": _kmajor(m["fc1"]["wq"])},
+        "fc2": {"wq": _kmajor(m["fc2"]["wq"])},
+    }
+
+
+def with_kmajor_int8_weights(qparams: dict) -> dict:
+    """A shallow copy of a quantized layer tree (one layer or stacked) with
+    kmajor_int8_weights under KMAJOR; the tree itself if it has them."""
+    if KMAJOR in qparams:
+        return qparams
+    return {**qparams, KMAJOR: kmajor_int8_weights(qparams)}
 
 
 def is_quantized(params: dict) -> bool:
