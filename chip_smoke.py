@@ -57,6 +57,11 @@ kernels from csrc/ itself. Phases:
      strided CLS rows and N 100 classifier, every epilogue), with the body
      each took (wgmma where TMA can describe the operands, else WMMA); the
      main shapes at batch 512 x 197 and 64 x 257 timed beside torch.matmul
+  3k. sequences past the attention bodies' resident limit (K and V
+     streamed): B1, B2, B3 (cap S // 2 + 1, the last token kept), B4, B5
+     (two layers) and B6 against their plain versions at S 577 with hd 64
+     (DeiT-S at 384) and hd 80 (ViT-H/14 at 336, full width) and at S 785
+     (DeiT-S at 448), masked and not, float32 at batch 2, bfloat16 at 4
   3j. B4's int8 product body (wgmma s8 + TMA) one product at a time at
      every product shape of B4 at DeiT-S (batch 512 x 197) and ViT-H (64 x
      257), and at vit_tiny's (136 rows, N 192, K 64) and a ragged one, the
@@ -99,6 +104,18 @@ kernels from csrc/ itself. Phases:
   5f. the fused embed entry points embed_u8 / embed_fused (B8a / B8b) at
      DeiT-S and ViT-H, batch 64, against embed_from_u8 and the model's
      embed, with their launch counts and bodies (bf16 weights: wgmma)
+  5g. DeiT-S at 384 (interpolate_pos_embed: S 577) end to end, dense and the
+     headline (288 of 576 patches) through serving_forward, kernels against
+     plain PyTorch with the launch counts, float32 and bfloat16, batch 32
+  5h. training at DeiT-S width (12 layers, batch 32, cls_mlp predictor,
+     float32): one B1 layer's and one two-layer B5 call's backward against
+     the eager layers' for one upstream gradient; three train steps of each
+     phase (cosine, then classification) in modes mask and topk and one
+     classification step of mode none under encoder fusion (B5), kernel
+     path against the eager path (losses within 1e-4 relative, first keep
+     masks equal, B1 / B5 launched in the steps); remat against no remat;
+     bf16 compute finite; ms/step of each phase on both paths (host clock,
+     the mean of 5 steps after the compared ones)
   6. which GEMM body ran the bf16 products of phases 5-5f (launches per
      body, the shapes that took the WMMA body); times at batch 512 in
      bfloat16, kernel path and plain path (float and
@@ -114,11 +131,13 @@ kernels from csrc/ itself. Phases:
      entry points and the eager equivalents on the images; ViT-H at
      batch 64: B1-B5 at its geometry beside their eager equivalents, and
      dense / headline / composed / ultra, kernel path and plain path (mean
-     of 5 after 2 warm-ups)
+     of 5 after 2 warm-ups); B1 and B6 at DeiT-S S 577, batch 128, beside
+     the cuBLAS layer and f32 SDPA
   7. records: nothing of jax or of the JAX package was loaded (by module
-     name or by file), the kernels' JSON line (launches: B1-B7 on the DeiT-S
+     name or by file), nor pandas or transformers, the kernels' JSON line (launches: B1-B7 on the DeiT-S
      paths of 5-5d, B8 on 5f's; B4's, B6's, B7's and B8's also per body;
-     ViT-H's are logged in 5e), the device line
+     ViT-H's are logged in 5e; B1's and B5's also launches_train, those
+     of 5h's train steps), the device line
 
 Any failed check raises, so the exit code is non-zero. The line before the
 last is the kernels' JSON record; the last line is the device record.
@@ -256,6 +275,362 @@ def vit_h_params(cfg, pcfg, dev, seed: int = SEED) -> dict:
     return {"backbone": backbone, "predictor": grow(one["predictor"])}
 
 
+def long_sequences(dev, err: dict):
+    """Phase 3k: sequences past the resident limits (C.1): B1-B6 against their
+    plain versions at S 577 with hd 64 (DeiT-S at 384) and hd 80 (ViT-H/14 at
+    336, full width) and at S 785 (DeiT-S at 448). B1, B4 and B5 (two layers)
+    masked and not, B2, B3 at cap S // 2 + 1 with the last token kept, B6 on
+    [B, H, S, hd] masked and not; float32 at batch 2, bfloat16 at batch 4,
+    with phase 3h's tolerances. Random layers from a generator of its own."""
+    from vit_pruning_tpu_torch.configs import deit_small, vit_huge
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_slice
+    from vit_pruning_tpu_torch.ops.cuda import attention as ka
+    from vit_pruning_tpu_torch.ops.cuda import layer as kl
+    from vit_pruning_tpu_torch.ops.cuda import layer_int8 as k8
+    from vit_pruning_tpu_torch.ops.cuda import model as kmod
+    from vit_pruning_tpu_torch.ops.masking import compact_dest
+    from vit_pruning_tpu_torch.ops.quant import quantize_layer_params
+
+    check = Checks("phase 3k (long sequences in B1-B6 vs plain)")
+    gen = torch.Generator().manual_seed(SEED + 577)
+    geos = (("deit_s@384 (hd 64)", deit_small(num_labels=100).replace(image_size=384)),
+            ("deit_s@448 (hd 64)", deit_small(num_labels=100).replace(image_size=448)),
+            ("vit_h@336 (hd 80)", vit_huge(num_labels=100).replace(image_size=336)))
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    batch = {torch.float32: 2, torch.bfloat16: 4}
+
+    def valid_rows(got, ref, mask):
+        d = (got.float() - ref.float()).abs()
+        return (d if mask is None else d[mask]).max().item()
+
+    for gname, gcfg in geos:
+        s, nh = gcfg.seq_len, gcfg.num_heads
+        sp = init_vit_params(gcfg.replace(num_layers=2), gen, "cpu")
+        stack = perturbed_layer(sp["layers"], gen)
+        lp_cpu, f_cpu, h_cpu = (layer_slice(stack, 0), perturbed_layer(sp["ln_f"], gen),
+                                perturbed_layer(sp["head"], gen))
+        for dname, dt in dtypes.items():
+            lp, f, h, st = (tree_to(t, dev, dt) for t in (lp_cpu, f_cpu, h_cpu, stack))
+            qp = quantize_layer_params(lp)
+            ftol = (lambda ref: F32_ATOL) if dt == torch.float32 else bf16_tol
+            hb = batch[dt]
+            x = torch.randn(hb, s, gcfg.hidden_size, generator=gen).to(dev, dt)
+            m = torch.rand(hb, s, generator=gen) > 0.3
+            m[:, 0] = True
+            for mask in (None, m.to(dev)):
+                mtag = "mask" if mask is not None else "nomask"
+                cases = (
+                    ("B1", lambda: kl.fused_vit_layer(x, lp, nh, gcfg.layernorm_eps, mask),
+                     lambda: kl.fused_vit_layer_ref(x, lp, nh, gcfg.layernorm_eps, mask), 0.0),
+                    ("B4", lambda: k8.fused_vit_layer_int8(x, qp, nh, gcfg.layernorm_eps, mask),
+                     lambda: k8.fused_vit_layer_int8_ref(x, qp, nh, gcfg.layernorm_eps, mask),
+                     None),
+                    ("B5", lambda: kmod.fused_vit_encoder(x, st, nh, gcfg.layernorm_eps, mask),
+                     lambda: kmod.fused_vit_encoder_ref(x, st, nh, gcfg.layernorm_eps, mask),
+                     0.0),
+                )
+                for key, fn, ref_fn, extra in cases:
+                    got, ref = fn(), ref_fn()
+                    torch.cuda.synchronize()
+                    d = valid_rows(got, ref, mask)
+                    tol = ftol(ref.float()) + (int8_step(ref, x) if extra is None else extra)
+                    if dt == torch.float32:
+                        err[key.lower()] = max(err[key.lower()], d)
+                    tag = f"{key} {gname} {dname} B={hb} S={s} {mtag}"
+                    log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.2e})")
+                    check(bool(torch.isfinite(got).all()) and d <= tol, tag)
+            got = kl.fused_vit_layer_cls_logits(x, lp, f, h, nh, gcfg.layernorm_eps)
+            ref = kl.fused_vit_layer_cls_logits_ref(x, lp, f, h, nh, gcfg.layernorm_eps)
+            torch.cuda.synchronize()
+            d, tol = (got.float() - ref.float()).abs().max().item(), ftol(ref.float())
+            if dt == torch.float32:
+                err["b2"] = max(err["b2"], d)
+            tag = f"B2 {gname} {dname} B={hb} S={s}"
+            log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.1e})")
+            check(got.shape == (hb, 100) and bool(torch.isfinite(got).all()) and d <= tol, tag)
+            # B3 at about half: CLS, the last token and count - 2 random others kept
+            cap = s // 2 + 1
+            counts = torch.tensor([cap, 2, cap // 3, cap - 7] * (hb // 2))[:hb]
+            rank = torch.rand(hb, s - 2, generator=gen).argsort(-1).argsort(-1)
+            ends = torch.ones(hb, 1, dtype=torch.bool)
+            kmask = torch.cat([ends, rank < (counts[:, None] - 2), ends], 1).to(dev)
+            dest = compact_dest(kmask)
+            got = kl.fused_vit_layer_bucketed(x, lp, dest, kmask, cap, nh, gcfg.layernorm_eps)
+            ref = kl.fused_vit_layer_bucketed_ref(x, lp, dest, kmask, cap, nh,
+                                                  gcfg.layernorm_eps)
+            torch.cuda.synchronize()
+            d, tol = (got.float() - ref.float()).abs()[kmask].max().item(), ftol(ref.float())
+            moved = bool((got[:, -1] != x[:, -1]).any(-1).all())
+            skipped_exact = bool(torch.equal(got[~kmask], x[~kmask]))
+            if dt == torch.float32:
+                err["b3"] = max(err["b3"], d)
+            tag = f"B3 {gname} {dname} B={hb} S={s} cap={cap} (last token kept)"
+            log(f"  {tag}: kept rows max_abs_err {d:.3e} (tol {tol:.1e}); the last token went "
+                f"through the layer: {moved}; skipped rows bit-identical to x: {skipped_exact}")
+            check(bool(torch.isfinite(got).all()) and d <= tol and moved and skipped_exact, tag)
+            q, k, v = (torch.randn(hb, nh, s, gcfg.head_dim, generator=gen).to(dev, dt)
+                       for _ in range(3))
+            for mask in (None, m.to(dev)):
+                ka.reset_body_counts()
+                got = ka.fused_attention(q, k, v, mask)
+                torch.cuda.synchronize()
+                n = ka.body_counts()
+                body = "wgmma" if n["wgmma"] else "fma"
+                ref = ka.fused_attention_ref(q, k, v, mask)
+                torch.cuda.synchronize()
+                d = valid_rows(got.transpose(1, 2), ref.transpose(1, 2), mask)
+                tol = F32_ATOL if dt == torch.float32 else bf16_tol(ref.float())
+                if dt == torch.float32:
+                    err["b6"] = max(err["b6"], d)
+                tag = f"B6 {gname} {dname} B={hb} S={s} {'mask' if mask is not None else 'nomask'}"
+                log(f"  {tag}: {body} body, max_abs_err {d:.3e} (tol {tol:.1e})")
+                check(bool(torch.isfinite(got).all()) and d <= tol
+                      and (body == "wgmma") == ka.takes_tensor_cores(q, k, v), tag)
+    check.done()
+
+
+def serve_at_384(dev, base: dict, cfg):
+    """Phase 5g: DeiT-S at 384 (its position table resized by
+    interpolate_pos_embed, S 577) end to end: dense vit_forward and the
+    headline (288 of 576 patches kept before layer 0) through
+    serving_forward, kernels (mode 'auto') against plain PyTorch ('eager'),
+    as phase 5 holds them, float32 and bfloat16 at batch 32, with the launch
+    counts (B1 x 12; B1 x 11 + B2)."""
+    from vit_pruning_tpu_torch.configs import PruneConfig
+    from vit_pruning_tpu_torch.models.convert import interpolate_pos_embed, tree_to
+    from vit_pruning_tpu_torch.models.vit import vit_forward
+    from vit_pruning_tpu_torch.ops.cuda import layer as kl
+    from vit_pruning_tpu_torch.ops.dispatch import kernel_mode
+    from vit_pruning_tpu_torch.serving import serving_forward
+
+    check = Checks("phase 5g (DeiT-S at 384, S 577, end to end)")
+    params384, c384 = interpolate_pos_embed(base, cfg, 384)
+    check(c384.seq_len == 577, f"DeiT-S at 384 runs S {c384.seq_len}")
+    head = PruneConfig(mode="topk_prog", predictor="cls_mlp", loss="mse_attention", top_k=288)
+    u8 = torch.from_numpy(np.random.RandomState(SEED + 384).randint(
+        0, 256, (32, 3, 384, 384), dtype=np.uint8)).to(dev)
+    L = c384.num_layers
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        params = tree_to(params384, dev, dt)
+        pix = ((u8.float() / 255.0 - 0.5) / 0.5).to(dt)
+        for name, pcfg, fwd, want in (
+                ("dense", None, lambda: {"logits": vit_forward(params["backbone"], pix,
+                                                                c384)["logits"]}, (L, 0)),
+                ("headline", head, lambda: serving_forward(params, u8, c384, head), (L - 1, 1))):
+            n1, n2 = kl.fused_vit_layer.launches, kl.fused_vit_layer_cls_logits.launches
+            with kernel_mode("auto"):
+                got = fwd()
+            torch.cuda.synchronize()
+            l1 = kl.fused_vit_layer.launches - n1
+            l2 = kl.fused_vit_layer_cls_logits.launches - n2
+            with kernel_mode("eager"):
+                ref = fwd()
+            torch.cuda.synchronize()
+            tag = f"deit_s@384 {name} {dname}"
+            check((l1, l2) == want, f"{tag}: launches B1={l1} B2={l2}, want {want}")
+            lg, lr = got["logits"].float(), ref["logits"].float()
+            check(lg.shape == (32, 100) and bool(torch.isfinite(lg).all()),
+                  f"{tag}: logits not finite [32, 100]")
+            d = (lg - lr).abs().max().item()
+            line = (f"  {tag}: launches B1={l1} B2={l2}; logits max_abs_err {d:.3e} (max|ref| "
+                    f"{lr.abs().max().item():.3f}), argmax agree "
+                    f"{(lg.argmax(-1) == lr.argmax(-1)).float().mean().item():.3f}")
+            if pcfg is not None:  # the only drop comes before any kernel runs
+                same = bool(torch.equal(got["keep_masks"], ref["keep_masks"]))
+                line += f"; keep masks equal {same}"
+                check(same, f"{tag}: keep masks differ")
+            log(line)
+            if dt == torch.float32:
+                check(d <= F32_ATOL + 1e-4 * lr.abs().max().item(), f"{tag}: logits differ")
+    check.done()
+
+
+def train_path(dev, base: dict, cfg) -> dict:
+    """Phase 5h: training at DeiT-S's full width (12 layers, batch 32,
+    cls_mlp predictor, float32), the kernel path (mode 'auto': B1 and B5
+    under their autograd Functions) against the eager path:
+      - one B1 layer and one two-layer B5 call, each backward against the
+        eager layer's (loop's) for the same upstream gradient;
+      - three steps of each phase (cosine, then classification) in modes
+        mask and topk: the losses within 1e-4 relative, the first step's
+        keep masks equal; a classification step of mode 'none' under
+        encoder fusion (B5);
+      - remat=True gives remat=False's loss; bf16 compute gives finite
+        losses; ms/step of both phases, kernel path and eager path (host
+        clock, the mean of 5 steps after the compared ones).
+    Every launch count is set to 0 just before the train steps run and read
+    just after; returns {'b1': ..., 'b5': ...} and the times."""
+    from vit_pruning_tpu_torch.configs import PruneConfig
+    from vit_pruning_tpu_torch.models.convert import flatten_tree
+    from vit_pruning_tpu_torch.models.pruned_vit import pruned_vit_forward
+    from vit_pruning_tpu_torch.models.vit import layer_range, layer_slice
+    from vit_pruning_tpu_torch.ops.cuda import layer as kl
+    from vit_pruning_tpu_torch.ops.cuda import model as kmod
+    from vit_pruning_tpu_torch.ops.dispatch import encoder_fusion, kernel_mode
+    from vit_pruning_tpu_torch.train.freeze import masked_adam
+    from vit_pruning_tpu_torch.train.harness import make_train_step, total_loss_fn
+
+    check = Checks("phase 5h (training at DeiT-S width)")
+
+    def fresh(tree):
+        """A copy of a CPU tree on the card (a train step updates it in place)."""
+        return {k: fresh(v) if isinstance(v, dict) else None if v is None
+                else v.detach().to(dev, copy=True) for k, v in tree.items()}
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    rs = np.random.RandomState(SEED + 5)
+    B, L, nh, eps = 32, cfg.num_layers, cfg.num_heads, cfg.layernorm_eps
+    pix = ((torch.from_numpy(rs.randint(0, 256, (B, 3, 224, 224))).float() / 255.0 - 0.5)
+           / 0.5).to(dev)
+    batch = {"pixel_values": pix, "labels": torch.from_numpy(rs.randint(0, 100, B)).to(dev)}
+
+    # backward of B1 (one layer) and B5 (two layers) against the eager layers', for the same
+    # upstream gradient
+    x = torch.randn(B, 197, cfg.hidden_size, generator=gen)
+    m = torch.rand(B, 197, generator=gen) > 0.3
+    m[:, 0] = True
+    g = torch.randn(B, 197, cfg.hidden_size, generator=gen).to(dev)
+    trees = {"B1": perturbed_layer(layer_slice(base["backbone"]["layers"], 0), gen),
+             "B5": perturbed_layer(layer_range(base["backbone"]["layers"], 0, 2), gen)}
+    for key, kern, eager in (("B1", kl.fused_vit_layer, kl.eager_layer),
+                             ("B5", kmod.fused_vit_encoder, kmod.eager_encoder)):
+        grads, n = [], []
+        for fn in (kern, eager):
+            xt = x.to(dev).requires_grad_(True)
+            p = fresh(trees[key])
+            leaves = [t.requires_grad_(True) for _, t in flatten_tree(p)]
+            n0 = kl.fused_vit_layer.launches + kmod.fused_vit_encoder.launches
+            y = fn(xt, p, nh, eps, m.to(dev))
+            n.append(kl.fused_vit_layer.launches + kmod.fused_vit_encoder.launches - n0)
+            grads.append(torch.autograd.grad(y, [xt] + leaves, g))
+        torch.cuda.synchronize()
+        diff = max((a - b).abs().max().item() for a, b in zip(*grads))
+        top = max(b.abs().max().item() for b in grads[1])
+        log(f"  {key} backward (f32, B={B}, S 197, masked) against the eager "
+            f"{'layer' if key == 'B1' else 'two-layer loop'}'s, one upstream gradient: largest "
+            f"difference {diff:.3e} over {len(grads[0])} tensors (max|grad| {top:.3e}); "
+            f"kernel launches {n[0]} (eager {n[1]})")
+        check(n == [1, 0] and all(bool(torch.isfinite(a).all()) for a in grads[0])
+              and diff <= 1e-6 * top, f"{key} backward differs from the eager one's")
+
+    # the train steps: DeiT-S with its cls_mlp predictor (PREDICTOR_GAIN), f32 master params.
+    # The decisions are made far from their cuts in the eager path's own first forward, so
+    # that numerics a rounding apart cannot flip them: mask mode's threshold of layer i
+    # is the middle of the widest gap among the middle fifth of layer i's scores (given
+    # the thresholds before it); topk's k (90..106) is the one whose smallest gap
+    # between the k-th and (k+1)-th score, over images and layers, is widest.
+    tpl = fresh(base)
+
+    def train_scores(pcfg):
+        with torch.no_grad(), kernel_mode("eager"):
+            return pruned_vit_forward(tpl, pix, cfg, pcfg, train=True,
+                                      oracle=False)["scores"].float()
+
+    thresholds = [0.5] * L
+    for i in range(L):
+        mcfg = PruneConfig(mode="mask", predictor="cls_mlp", mlp_threshold=tuple(thresholds))
+        srt = train_scores(mcfg)[i].flatten().sort().values
+        band = srt[int(0.4 * srt.numel()):int(0.6 * srt.numel())]
+        j = int((band[1:] - band[:-1]).argmax())
+        thresholds[i] = float((band[j] + band[j + 1]) / 2)
+    mcfg = PruneConfig(mode="mask", predictor="cls_mlp", mlp_threshold=tuple(thresholds))
+    margin = min((sc - t).abs().min().item() for sc, t in zip(train_scores(mcfg), thresholds))
+    gaps = {}
+    for k in range(90, 107):
+        top = train_scores(PruneConfig(mode="topk", predictor="cls_mlp", top_k=k)).topk(
+            k + 1, dim=-1).values
+        gaps[k] = (top[..., k - 1] - top[..., k]).min().item()
+    top_k = max(gaps, key=gaps.get)
+    modes = {"mask": PruneConfig(mode="mask", predictor="cls_mlp", loss="mse_cosine",
+                                 mlp_threshold=tuple(thresholds)),
+             "topk": PruneConfig(mode="topk", predictor="cls_mlp", loss="mse_cosine",
+                                 top_k=top_k)}
+    log(f"  mask: smallest |score - threshold| {margin:.2e}; topk: k {top_k}, smallest "
+        f"k-th / (k+1)-th gap {gaps[top_k]:.2e}")
+    phases = (("cosine", "mlp_train", 1e-3), ("classification", "vit_train", 1e-5))
+
+    def run(pcfg, kmode, compute_dtype=None, steps=3, fusion=False, phase_list=phases, timed=5):
+        """(losses per step, first keep masks, B1 / B5 launches in the steps, ms/step per
+        phase: host clock over `timed` more steps, after the compared ones)"""
+        p = fresh(base)
+        losses, n, ms = [], {"b1": 0, "b5": 0}, {}
+        with kernel_mode(kmode), encoder_fusion(fusion):
+            with torch.no_grad():
+                masks = pruned_vit_forward(p, pix, cfg, pcfg, train=True,
+                                           oracle=False)["keep_masks"]
+            for phase, policy, lr in phase_list:
+                step = make_train_step(cfg, pcfg, phase, masked_adam(p, policy, lr),
+                                       compute_dtype=compute_dtype)
+                for s in range(steps):
+                    kl.fused_vit_layer.launches = kmod.fused_vit_encoder.launches = 0
+                    metrics = step(p, batch, torch.Generator(device=dev).manual_seed(s))
+                    n["b1"] += kl.fused_vit_layer.launches
+                    n["b5"] += kmod.fused_vit_encoder.launches
+                    losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for s in range(timed):
+                    step(p, batch, torch.Generator(device=dev).manual_seed(steps + s))
+                torch.cuda.synchronize()
+                ms[phase] = (time.perf_counter() - t0) * 1e3 / timed
+        return losses, masks, n, ms
+
+    launches, times = {"b1": 0, "b5": 0}, {}
+    for mname, pcfg in modes.items():
+        kl_, km, kn, kms = run(pcfg, "auto")
+        el, em, en, ems = run(pcfg, "eager")
+        rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(kl_, el))
+        same = bool(torch.equal(km, em))
+        launches["b1"] += kn["b1"]
+        log(f"  {mname}: losses (cosine x 3, classification x 3) kernel path "
+            f"{[f'{v:.6f}' for v in kl_]}, eager {[f'{v:.6f}' for v in el]}; largest relative "
+            f"difference {rel:.2e}; first keep masks equal {same}; B1 launches in the steps "
+            f"{kn['b1']} (eager {en['b1']}); ms/step kernel / eager: cosine "
+            f"{kms['cosine']:.2f} / {ems['cosine']:.2f}, classification "
+            f"{kms['classification']:.2f} / {ems['classification']:.2f}")
+        check(rel <= 1e-4 and all(math.isfinite(v) for v in kl_), f"{mname}: losses differ")
+        check(same, f"{mname}: first keep masks differ")
+        check(kn["b1"] > 0 and en["b1"] == 0, f"{mname}: B1 launches {kn['b1']} / {en['b1']}")
+        times[mname] = (kms, ems)
+    dense = PruneConfig(mode="none", predictor="none")
+    cls_only = (phases[1],)
+    kl_, _, kn, kms = run(dense, "auto", steps=2, fusion=True, phase_list=cls_only)
+    el, _, en, ems = run(dense, "eager", steps=2, fusion=True, phase_list=cls_only)
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(kl_, el))
+    launches["b5"] += kn["b5"]
+    log(f"  none under encoder fusion: classification losses kernel {kl_}, eager {el}, largest "
+        f"relative difference {rel:.2e}; B5 launches in the steps {kn['b5']} (B1 {kn['b1']}); "
+        f"ms/step kernel / eager {kms['classification']:.2f} / {ems['classification']:.2f}")
+    check(rel <= 1e-4 and kn["b5"] > 0 and kn["b1"] == 0, "none under encoder fusion")
+
+    p = fresh(base)
+    for _, t in flatten_tree(p):
+        t.requires_grad_(True)
+    res = []
+    for remat in (False, True):
+        kl.fused_vit_layer.launches = 0
+        loss, _ = total_loss_fn(p, batch, cfg, modes["mask"], "both",
+                                torch.Generator(device=dev).manual_seed(0), remat=remat)
+        loss.backward()
+        res.append((float(loss.detach()), kl.fused_vit_layer.launches,
+                    float(p["backbone"]["layers"]["attn"]["q"]["w"].grad.norm())))
+        for _, t in flatten_tree(p):
+            t.grad = None
+    log(f"  remat: loss {res[0][0]:.7f} without, {res[1][0]:.7f} with; B1 launches {res[0][1]} / "
+        f"{res[1][1]} (the recompute launches again); |grad q.w| {res[0][2]:.6e} / {res[1][2]:.6e}")
+    check(res[0][0] == res[1][0] and res[1][1] > res[0][1]
+          and abs(res[0][2] - res[1][2]) <= 1e-5 * res[0][2], "remat changes the loss")
+
+    bl, _, bn, bms = run(modes["topk"], "auto", compute_dtype=torch.bfloat16, steps=2)
+    log(f"  bf16 compute, topk: losses {bl}; B1 launches {bn['b1']}; ms/step cosine "
+        f"{bms['cosine']:.2f}, classification {bms['classification']:.2f}")
+    check(all(math.isfinite(v) for v in bl) and bn["b1"] > 0, "bf16 training losses not finite")
+    times["topk_bf16"] = bms
+    check.done()
+    return {"launches": launches, "times": times}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -386,7 +761,6 @@ def main():
     gcfg, lp_cpu = geometries["deit_s"]
     lp = tree_to(lp_cpu, dev, torch.bfloat16)
     bad = {
-        "S=289": torch.zeros(2, 289, gcfg.hidden_size, device=dev, dtype=torch.bfloat16),
         "float16": torch.zeros(2, 17, gcfg.hidden_size, device=dev, dtype=torch.float16),
         "non-contiguous": torch.zeros(2, gcfg.hidden_size, 17, device=dev,
                                       dtype=torch.bfloat16).transpose(1, 2),
@@ -533,7 +907,6 @@ def main():
                 log(f"  {tag}: {body} body, max_abs_err {d:.3e} (tol {tol:.1e})")
                 check(bool(torch.isfinite(got).all()) and d <= tol, tag)
     bad = {  # what the kernel does not take must raise, not run
-        "S=258": torch.zeros(2, 2, 258, 64, device=dev),
         "head dim 160": torch.zeros(2, 2, 17, 160, device=dev),
         "float16": torch.zeros(2, 2, 17, 64, device=dev, dtype=torch.float16),
         "non-contiguous": torch.zeros(2, 17, 2, 64, device=dev).transpose(1, 2),
@@ -626,8 +999,6 @@ def main():
                     check(bool(torch.isfinite(got).all()) and d <= tol, tag)
     st = tree_to(layer_range(stack_s, 0, 2), dev, torch.bfloat16)
     bad = {  # what the kernel does not take must raise, not run
-        "S=289": (torch.zeros(2, 289, cfg.hidden_size, device=dev, dtype=torch.bfloat16),
-                  cfg.num_heads),
         "head dim 96": (torch.zeros(2, 17, cfg.hidden_size, device=dev, dtype=torch.bfloat16), 4),
         "float16": (torch.zeros(2, 17, cfg.hidden_size, device=dev, dtype=torch.float16),
                     cfg.num_heads),
@@ -992,6 +1363,9 @@ def main():
             check(bool(torch.isfinite(got).all()) and d <= tol and skipped_exact, tag)
     s8_products_since(n_b4, "phase 3h")
     check.done()
+
+    # --- 3k. sequences past the resident limits in B1-B6 against their plain versions ------
+    long_sequences(dev, err)
 
     # --- 3i. the bf16 GEMM bodies against their plain version ----------------------------
     # Every product shape of the main paths, one product at a time through ops/cuda/gemm.py
@@ -1808,6 +2182,12 @@ def main():
               f"{key.upper()} bodies {b8_bodies[key]} on {calls} calls")
     check.done()
 
+    # --- 5g. DeiT-S at 384 (S 577) end to end ---------------------------------------------
+    serve_at_384(dev, base, cfg)
+
+    # --- 5h. training at DeiT-S width through B1 and B5 under autograd ----------------------
+    trained = train_path(dev, base, cfg)
+
     # --- 6. times at batch 512, bf16 (info) --------------------------------------------
     def device_breakdown(tag, fn, wall_ms, reps=3):
         """Device time per forward by kernel family (torch.profiler, CUDA
@@ -2050,6 +2430,29 @@ def main():
     within_bound("b6", k_ms, b_ms)
     kernel_ms["b6"], bounds["b6"] = (k_ms, p_ms, e_ms), (b_ms, b_by)
     del q, k, v, qf, kf, vf
+    # past the resident limit: DeiT-S at 384 (S 577, K and V streamed), batch 128
+    x = torch.randn(128, 577, cfg.hidden_size, generator=gen).to(dev, bf)
+    k_ms, p_ms = abba(lambda: kl.fused_vit_layer(x, lp, cfg.num_heads),
+                      lambda: kl.fused_vit_layer_ref(x, lp, cfg.num_heads), iters=5)
+    with kernel_mode("eager"):
+        e_ms = time_ms(lambda: vit_layer(x, lp, cfg), iters=5)
+    b_ms, b_by = bound(layer_work(cfg, 128 * 577, 128 * cfg.num_heads * 577 * 577),
+                       2 * x.numel() * x.element_size() + weight_bytes(lp))
+    log(f"  B1 deit_s@384 S=577 (batch 128): kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, "
+        f"eager layer (bf16 cuBLAS) {e_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
+    q, k, v = (torch.randn(128, cfg.num_heads, 577, cfg.head_dim, generator=gen).to(dev, bf)
+               for _ in range(3))
+    k_ms, p_ms = abba(lambda: ka.fused_attention(q, k, v), lambda: ka.fused_attention_ref(q, k, v),
+                      iters=5)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    e_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qf, kf, vf), iters=5)
+    half = 2.0 * q.numel() * 577
+    b_ms, b_by = bound_split(half, half, 4 * q.numel() * q.element_size())
+    log(f"  B6 deit_s@384 S=577 (128 x 6 heads, K/V streamed): kernel {k_ms:.3f} ms, plain "
+        f"version {p_ms:.3f} ms, f32 scaled_dot_product_attention {e_ms:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}); kernel / f32 SDPA {k_ms / e_ms:.3f}")
+    within_bound("b6", k_ms, b_ms)
+    del q, k, v, qf, kf, vf, x
 
     mlp = layer_slice(st, 0)["mlp"]
     w = (mlp["fc1"]["w"], mlp["fc1"]["b"], mlp["fc2"]["w"], mlp["fc2"]["b"])
@@ -2238,6 +2641,9 @@ def main():
                        if jax_dir in Path(getattr(m, "__file__", None) or "/").resolve().parents)
     if jax_loaded or jax_files:
         raise AssertionError(f"the port loaded jax or the JAX package: {(jax_loaded + jax_files)[:5]}")
+    lazy = [m for m in ("pandas", "transformers") if m in sys.modules]
+    if lazy:
+        raise AssertionError(f"importing the port loaded {lazy}, which it imports only when used")
     for src in sorted(port_dir.rglob("*.py")):
         text = src.read_text()
         for needle in ('"vit_pruning_tpu"', "'vit_pruning_tpu'", '"vit_pruning_tpu/',
@@ -2264,7 +2670,8 @@ def main():
          "max_abs_err": err[key], "ms": kernel_ms[key][0], "plain_ms": kernel_ms[key][1],
          "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": kernel_ms[key][2],
          **({"launches_by_body": by_body[key]} if key in by_body else {}),
-         **({"products_on_wgmma_s8": launches["b4_s8"]} if key == "b4" else {})}
+         **({"products_on_wgmma_s8": launches["b4_s8"]} if key == "b4" else {}),
+         **({"launches_train": trained["launches"][key]} if key in trained["launches"] else {})}
         for key, name, src, tpu, line, n in rows
     ]
     log(smi)

@@ -29,17 +29,20 @@ jax_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(p.__file_
 jax_pkg = [m for m in sys.modules if m == 'vit_pruning_tpu' or m.startswith('vit_pruning_tpu.')]
 jax_files = sorted(n for n, m in list(sys.modules.items())
                    if os.path.abspath(getattr(m, '__file__', None) or '').startswith(jax_dir))
-print('jax' in sys.modules, jax_pkg, jax_files)
+lazy = sorted(m for m in ('pandas', 'transformers') if m in sys.modules)
+print('jax' in sys.modules, jax_pkg, jax_files, lazy)
 """
 
 
 def test_import_leaves_jax_out():
     """Importing every module of the port loads neither jax nor the JAX
     package, under any module name: no loaded module's file lies in
-    vit_pruning_tpu/ (the port keeps its own copy of what it needs)."""
+    vit_pruning_tpu/ (the port keeps its own copy of what it needs). Nor
+    pandas or transformers, which the machine with the card lacks: the
+    metrics tables and load_hf_vit import them when called."""
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL], capture_output=True, text=True,
                          check=True)
-    assert out.stdout.strip() == "False [] []", out.stdout + out.stderr
+    assert out.stdout.strip() == "False [] [] []", out.stdout + out.stderr
 
 
 def test_no_source_builds_a_path_into_the_jax_package():
@@ -150,14 +153,19 @@ def test_kernel_mode_names_are_checked():
 
 
 def test_unported_options_raise():
-    """What waits for a later slice raises and names the ROADMAP item:
-    training and the oracle instrumentation."""
+    """What waits for a later slice raises and names the ROADMAP item: the
+    training harness's per-epoch mask montages (viz, A.11). Training and the
+    oracle instrumentation (A.9) run now."""
     from vit_pruning_tpu_torch.models.pruned_vit import init_pruned_vit_params, pruned_vit_forward
+    from vit_pruning_tpu_torch.train.harness import train
 
     cfg = vit_tiny()
     pcfg = PruneConfig(mode="topk", predictor="token_mlp", top_k=8)
     params = init_pruned_vit_params(cfg, pcfg, torch.Generator().manual_seed(0), "cpu")
     pix = torch.zeros(1, 3, cfg.image_size, cfg.image_size)
     for kw in ({"train": True}, {"compute_oracle": True}, {"oracle": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-            pruned_vit_forward(params, pix, cfg, pcfg, **kw)
+        out = pruned_vit_forward(params, pix, cfg, pcfg, **kw)
+        assert out["aux"]["pred_loss"].shape == (cfg.num_layers,)
+    batch = [{"pixel_values": pix, "labels": torch.zeros(1, dtype=torch.long)}]
+    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+        train(params, batch, batch, cfg, pcfg, num_epochs=1, viz_dir="viz_out")

@@ -24,8 +24,13 @@ using bf16 = __nv_bfloat16;
 __host__ __device__ constexpr bool layer_head_dim_ok(int hd) {
   return hd == 16 || hd == 32 || hd == 64 || hd == 80;
 }
-constexpr int kMaxChunks = 9;     // chunks of 32 keys of the attention kernels: S <= 288
-constexpr int kMaxSeq = kMaxChunks * 32;
+// The longest sequence whose keys the attention kernels keep resident in
+// shared memory for a whole (head, image): 9 chunks of 32 keys. Longer
+// sequences (a position table resized past 288 tokens: DeiT-S at 384 gives
+// 577) stream their keys through shared memory in chunks, with the same
+// numerics.
+constexpr int kResidentChunks = 9;
+constexpr int kResidentSeq = kResidentChunks * 32;
 
 enum Act { ACT_NONE = 0, ACT_GELU_ERF = 1, ACT_GELU_TANH = 2 };
 
@@ -248,8 +253,8 @@ __device__ __forceinline__ void gemm_f32_tile(long m0, int n0, long M, int N, in
 
 // ---------------------------------------------------------------------------
 // Attention in f32 on the CUDA cores: B1, B3, B4 and B5 in float32 (through
-// layer.cu's attention()) and B6 in every dtype. One block per (head,
-// image): K^T of the head sits in shared memory as f32, rows padded by one
+// layer.cu's attention()) and B6's FMA body. Up to kResidentSeq keys, one
+// block per (head, image): K^T of the head sits in shared memory as f32, rows padded by one
 // word so the transposing store is free of bank conflicts, and V too where
 // both fit in the 227 KB (at hd 64 always; at hd 128 and long sequences V is
 // read from global memory, where L1 and L2 hold it). Each of the 8 warps
@@ -438,6 +443,186 @@ attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+// Sequences past kResidentSeq: one block per (head, image, 32 query rows),
+// each warp its NQ rows, the keys streamed through shared memory in chunks
+// of KC (K^T and, in the last pass, V as f32). Pass 1 takes the row max
+// over all keys; with NORM pass 2 the row sum; the last pass forms P (the
+// staged2 numerators, or P / sum with NORM) into the warp's P rows and adds
+// its PV into registers, one output column a lane per 32 of hd. Each lane
+// sees its keys, and each output column its keys, in the resident kernel's
+// order, so both give the same sums.
+namespace fs {
+constexpr int KC = 64, NCB = KC / 32;  // keys a chunk, per lane 2
+constexpr int ODC = 4;                 // output columns a lane: hd <= 128
+constexpr int QROWS = fa::WARPS * fa::NQ;
+// offsets in floats: K^T [hd][KC + 1], V [KC][hd], Q rows [WARPS][NQ][r4(hd)],
+// P rows [WARPS][NQ][KC], then KC key flags
+struct Smem {
+  int v, q, p, flag;
+  __host__ __device__ explicit Smem(int hd) {
+    v = fa::r4(hd * (KC + 1));
+    q = v + fa::r4(KC * hd);
+    p = q + QROWS * fa::r4(hd);
+    flag = p + QROWS * KC;
+  }
+  __host__ __device__ size_t bytes() const { return sizeof(float) * flag + KC; }
+};
+}  // namespace fs
+
+template <typename T, int HDT, bool NORM>
+__global__ void __launch_bounds__(fa::THREADS)
+attention_f32_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, AttnLayout in,
+                            const unsigned char* __restrict__ mask, const int* __restrict__ counts,
+                            T* __restrict__ out, AttnLayout ol, int S, int hd_, float scale) {
+  using namespace fa;
+  using fs::KC;
+  using fs::NCB;
+  using fs::ODC;
+  constexpr int ldk = KC + 1;
+  const int hd = HDT ? HDT : hd_, ldq = r4(hd);
+  extern __shared__ __align__(16) float sm[];
+  const fs::Smem lay(hd);
+  float* Kt = sm;            // [hd][ldk]
+  float* Vs = sm + lay.v;    // [KC][hd]
+  float* Qs = sm + lay.q;    // [WARPS][NQ][ldq]
+  float* Ps = sm + lay.p;    // [WARPS][NQ][KC]
+  unsigned char* flag = reinterpret_cast<unsigned char*>(sm + lay.flag);  // [KC]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long at = b * in.img + h * in.head;
+  const T *qb = q + at, *kb = k + at, *vb = v + at;
+  T* ob = out + b * ol.img + h * ol.head;
+  const int q0 = (blockIdx.z * WARPS + warp) * NQ;
+  float* q_w = Qs + warp * NQ * ldq;
+  float* p_w = Ps + warp * NQ * KC;
+  for (int i = lane; i < NQ * hd; i += 32) {
+    const int qi = i / hd, d = i % hd;
+    q_w[qi * ldq + d] = q0 + qi < S ? to_f(qb[(q0 + qi) * in.row + d]) : 0.f;
+  }
+  __syncwarp();
+
+  float mx[NQ], sum[NQ], o[NQ][ODC];
+#pragma unroll
+  for (int qi = 0; qi < NQ; ++qi) {
+    mx[qi] = -INFINITY;
+    sum[qi] = 0.f;
+#pragma unroll
+    for (int u = 0; u < ODC; ++u) o[qi][u] = 0.f;
+  }
+  const int hd4 = hd & ~3, nch = (S + KC - 1) / KC;
+  constexpr int kPasses = NORM ? 3 : 2;
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const bool last = pass == kPasses - 1;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int j0 = ch * KC, nk = min(KC, S - j0);
+      __syncthreads();  // every warp is done with the previous chunk
+      for (int i = tid; i < KC * hd; i += THREADS) {
+        const int jj = i / hd, d = i % hd;
+        const bool ok = jj < nk;
+        Kt[d * ldk + jj] = ok ? to_f(kb[(long)(j0 + jj) * in.row + d]) : 0.f;
+        if (last) Vs[i] = ok ? to_f(vb[(long)(j0 + jj) * in.row + d]) : 0.f;
+      }
+      for (int jj = tid; jj < KC; jj += THREADS) flag[jj] = key_flag(mask, counts, b, S, j0 + jj);
+      __syncthreads();
+
+      float acc[NQ][NCB];
+#pragma unroll
+      for (int qi = 0; qi < NQ; ++qi)
+#pragma unroll
+        for (int c = 0; c < NCB; ++c) acc[qi][c] = 0.f;
+      auto qk_step = [&](int d, const float (&qd)[NQ]) {
+        float kv[NCB];
+#pragma unroll
+        for (int c = 0; c < NCB; ++c) kv[c] = Kt[d * ldk + c * 32 + lane];
+#pragma unroll
+        for (int qi = 0; qi < NQ; ++qi)
+#pragma unroll
+          for (int c = 0; c < NCB; ++c) acc[qi][c] = fmaf(qd[qi], kv[c], acc[qi][c]);
+      };
+      for (int d0 = 0; d0 < hd4; d0 += 4) {
+        float4 q4[NQ];
+#pragma unroll
+        for (int qi = 0; qi < NQ; ++qi) q4[qi] = *reinterpret_cast<const float4*>(q_w + qi * ldq + d0);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          float qd[NQ];
+#pragma unroll
+          for (int qi = 0; qi < NQ; ++qi) qd[qi] = lane4(q4[qi], t);
+          qk_step(d0 + t, qd);
+        }
+      }
+      for (int d = hd4; d < hd; ++d) {
+        float qd[NQ];
+#pragma unroll
+        for (int qi = 0; qi < NQ; ++qi) qd[qi] = q_w[qi * ldq + d];
+        qk_step(d, qd);
+      }
+
+#pragma unroll
+      for (int qi = 0; qi < NQ; ++qi)
+#pragma unroll
+        for (int c = 0; c < NCB; ++c) {
+          const int f = flag[c * 32 + lane];
+          const float l = f == 2 ? kNegInf : acc[qi][c] * scale;
+          if (pass == 0) {
+            if (f) mx[qi] = fmaxf(mx[qi], l);
+          } else if (!last) {  // NORM's sum pass
+            if (f) sum[qi] += expf(l - mx[qi]);
+          } else {
+            const float e = f ? expf(l - mx[qi]) : 0.f;
+            if (!NORM) sum[qi] += e;
+            p_w[qi * KC + c * 32 + lane] = NORM ? e / sum[qi] : e;
+          }
+        }
+      if (last) {
+        __syncwarp();
+#pragma unroll
+        for (int u = 0; u < ODC; ++u) {
+          const int d = lane + 32 * u;
+          if (d < hd)
+            for (int j = 0; j < nk; ++j) {
+              const float vj = Vs[j * hd + d];
+#pragma unroll
+              for (int qi = 0; qi < NQ; ++qi) o[qi][u] = fmaf(p_w[qi * KC + j], vj, o[qi][u]);
+            }
+        }
+        __syncwarp();
+      }
+    }
+#pragma unroll
+    for (int qi = 0; qi < NQ; ++qi) {
+      if (pass == 0) mx[qi] = warp_max(mx[qi]);
+      if (NORM && pass == 1) sum[qi] = warp_sum(sum[qi]);
+    }
+  }
+#pragma unroll
+  for (int qi = 0; qi < NQ; ++qi) {
+    const float rinv = NORM ? 1.0f : 1.0f / warp_sum(sum[qi]);
+    if (q0 + qi < S)
+#pragma unroll
+      for (int u = 0; u < ODC; ++u) {
+        const int d = lane + 32 * u;
+        if (d < hd) ob[(q0 + qi) * ol.row + d] = from_f<T>(o[qi][u] * rinv);
+      }
+  }
+}
+
+template <typename T, int HDT, bool NORM>
+cudaError_t attention_f32_stream(const T* q, const T* k, const T* v, AttnLayout in,
+                                 const unsigned char* mask, const int* counts, T* out,
+                                 AttnLayout ol, int B, int H, int S, int hd, cudaStream_t st) {
+  if (hd > 32 * fs::ODC) return cudaErrorInvalidValue;
+  const size_t smem = fs::Smem(hd).bytes();
+  auto kernel = attention_f32_stream_kernel<T, HDT, NORM>;
+  VPT_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
+  const dim3 grid(H, B, (S + fs::QROWS - 1) / fs::QROWS);
+  kernel<<<grid, fa::THREADS, smem, st>>>(q, k, v, in, mask, counts, out, ol, S, hd, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int NC, int HDT, bool NORM>
 cudaError_t attention_f32_nc(const T* q, const T* k, const T* v, AttnLayout in,
                              const unsigned char* mask, const int* counts, T* out, AttnLayout ol,
@@ -454,7 +639,8 @@ cudaError_t attention_f32_nc(const T* q, const T* k, const T* v, AttnLayout in,
   return cudaGetLastError();
 }
 
-// the launch for S <= 288 (9 chunks of 32 keys), else cudaErrorInvalidValue
+// the resident kernel for S <= kResidentSeq (9 chunks of 32 keys), the
+// streamed one past it
 template <typename T, int HDT, bool NORM>
 cudaError_t attention_f32(const T* q, const T* k, const T* v, AttnLayout in,
                           const unsigned char* mask, const int* counts, T* out, AttnLayout ol,
@@ -463,7 +649,8 @@ cudaError_t attention_f32(const T* q, const T* k, const T* v, AttnLayout in,
   case n: return attention_f32_nc<T, n, HDT, NORM>(q, k, v, in, mask, counts, out, ol, B, H, S, hd, st)
   switch ((S + 31) / 32) {
     VPT_NC(1); VPT_NC(2); VPT_NC(3); VPT_NC(4); VPT_NC(5); VPT_NC(6); VPT_NC(7); VPT_NC(8); VPT_NC(9);
-    default: return cudaErrorInvalidValue;
+    default:
+      return attention_f32_stream<T, HDT, NORM>(q, k, v, in, mask, counts, out, ol, B, H, S, hd, st);
   }
 #undef VPT_NC
 }
@@ -495,7 +682,7 @@ cudaError_t layer_norm(const Tin* x, long ldx, const T* g, const T* b, T* y, lon
                        int d, float eps, cudaStream_t st);
 
 // the geometry every layer kernel takes: HD one of layer_head_dim_ok's,
-// S <= kMaxSeq, D and M multiples of 8
+// any S >= 1, D and M multiples of 8
 bool shapes_ok(int dtype, int B, int S, int D, int H, int HD, int M);
 
 }  // namespace vpt

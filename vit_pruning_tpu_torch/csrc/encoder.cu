@@ -27,7 +27,7 @@
 // masked keys at -1e30, as in B1. The TPU kernel's erf is a polynomial
 // (|err| <= 1.5e-7); this one is the device's erff.
 //
-// Limits: B1's (head dim 16, 32, 64 or 80, S <= 288, D and M multiples of 8); one
+// Limits: B1's (head dim 16, 32, 64 or 80, any S, D and M multiples of 8); one
 // key mask [B, S] or none, the same at every layer. A persistent one-launch
 // kernel is later work.
 

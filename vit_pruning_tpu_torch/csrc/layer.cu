@@ -12,7 +12,7 @@
 // What bounds them on an H100: at DeiT-S width the four layer products
 // (QKV, O, fc1, fc2) are ~90% of a layer's operations and, at batch 512,
 // well above the bf16 ridge (~295 FLOP/byte), so they are bound by tensor-core
-// throughput; attention (S <= 197, hd 64) is a few percent of the FLOPs, and
+// throughput; attention (S 197, hd 64) is a few percent of the FLOPs, and
 // its softmax runs on the CUDA cores. The TPU kernel kept the whole layer in 100 MB
 // of VMEM; an SM has 227 KB, so the layer is split into LN -> GEMM ->
 // attention -> GEMM -> LN -> GEMM -> GEMM, each GEMM with its epilogue (bias,
@@ -72,11 +72,11 @@ template cudaError_t layer_norm<float, bf16>(const float*, long, const bf16*, co
                                              long, int, int, float, cudaStream_t);
 
 // ---------------------------------------------------------------------------
-// B1 attention, one block per (head, image), two implementations with the
-// staged2 numerics: float32 on the CUDA cores (common.cuh's attention_f32,
-// shared with B6) and bfloat16 on the tensor cores (below). NC = ceil(S /
-// 32) is a template argument so that short sequences (17, 33) do no work
-// for absent chunks.
+// B1 attention, two implementations with the staged2 numerics: float32 on
+// the CUDA cores (common.cuh's attention_f32, shared with B6) and bfloat16
+// on the tensor cores (below). Each keeps a (head, image)'s keys resident in
+// shared memory up to kResidentSeq tokens and streams them in chunks past
+// it, with the same numerics.
 
 // 1/sqrt(hd) as the TPU wrapper computes it (in double, then f32)
 inline float attn_scale(int hd) { return static_cast<float>(1.0 / sqrt(static_cast<double>(hd))); }
@@ -108,12 +108,14 @@ cudaError_t attention(const float* qkv, const unsigned char* mask, const int* co
 // tile per warp instead of the [16, S] rows, so two blocks fit in an H100
 // SM's 228 KB at hd 64 and S 197 (86,784 bytes a block); at hd 80 and S 257
 // a block takes 128,896 bytes and only one fits.
+// Past kResidentSeq, attention_tc_stream_kernel (below) streams K and V.
 // NORM (B5's numerics): pass 1 also sums the f32 numerators (a running sum,
 // rescaled when the row max grows), so that pass 2 forms P = exp(l - max) /
 // sum and rounds it to bf16 before PV.
 namespace ta {
 constexpr int WARPS = 4, THREADS = WARPS * 32;
-constexpr int LDP = 16 + 8;  // bf16 numerator tile
+constexpr int LDP = 16 + 8;      // bf16 numerator tile
+constexpr int kStreamKeys = 64;  // K/V rows of one streamed chunk: four key tiles
 template <int HD>
 struct Geo {
   static_assert(HD % 16 == 0 && layer_head_dim_ok(HD), "a head dim the layer kernels take");
@@ -132,10 +134,19 @@ struct Geo {
   static_assert(P_OFF + 16 * LDP * sizeof(bf16) <= Q_OFF, "tiles overlap");
   static_assert(Q_OFF % 32 == 0 && WARP_BYTES % 32 == 0, "WMMA needs 256-bit aligned tiles");
 
+  // K and V [kv rows][LDKV] bf16 (all S16 rows resident, or one chunk of
+  // kStreamKeys rows streamed), the key flags [S16], the warps' regions
   __host__ __device__ static int s16(int s) { return (s + 15) / 16 * 16; }
   __host__ __device__ static size_t kv_bytes(int s) { return size_t(2) * s16(s) * LDKV * sizeof(bf16); }
   __host__ __device__ static size_t warp_base(int s) { return (kv_bytes(s) + s16(s) + 127) / 128 * 128; }
   __host__ __device__ static size_t smem_bytes(int s) { return warp_base(s) + WARPS * WARP_BYTES; }
+  static constexpr size_t STREAM_KV_BYTES = size_t(2) * kStreamKeys * LDKV * sizeof(bf16);
+  __host__ __device__ static size_t stream_warp_base(int s) {
+    return (STREAM_KV_BYTES + s16(s) + 127) / 128 * 128;
+  }
+  __host__ __device__ static size_t stream_smem_bytes(int s) {
+    return stream_warp_base(s) + WARPS * WARP_BYTES;
+  }
 };
 }  // namespace ta
 
@@ -281,21 +292,192 @@ attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restric
   }
 }
 
-// the kernel instance's dynamic shared memory limit, set once, at the
-// longest sequence
+// The streamed kernel, for S > kResidentSeq (K and V of a whole head no
+// longer fit): the resident kernel's per-tile steps, in the same key order,
+// so the same sums. A block takes one 16-row query tile a warp, four in all
+// (grid z walks the tiles), and streams K (pass 1) or K and V (pass 2)
+// through shared memory in chunks of kStreamKeys rows that the whole block
+// loads between two barriers; K and V are read from L2 once per pass and
+// block. Every warp stages equally often, past S included (its query rows
+// are zeros and nothing is written).
+template <int HD, bool NORM>
+__global__ void __launch_bounds__(ta::THREADS)
+attention_tc_stream_kernel(const bf16* __restrict__ qkv, const unsigned char* __restrict__ mask,
+                           const int* __restrict__ counts, bf16* __restrict__ ctx, int S, int KW,
+                           float scale) {
+  using namespace nvcuda;
+  using namespace ta;
+  using G = Geo<HD>;
+  constexpr int LDKV = G::LDKV, LDO = G::LDO, KT = HD / 16, CH = HD / 8;
+  constexpr int kChunkTiles = kStreamKeys / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int sp = G::s16(S), ntiles = sp / 16;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kStreamKeys][LDKV]
+  bf16* Vs = Ks + kStreamKeys * LDKV;        // [kStreamKeys][LDKV]
+  unsigned char* flag = smem + G::STREAM_KV_BYTES;  // [sp]: 0 absent, 1 valid, 2 masked
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  unsigned char* wbase = smem + G::stream_warp_base(S) + warp * G::WARP_BYTES;
+  float* Lt = reinterpret_cast<float*>(wbase);
+  bf16* Pt = reinterpret_cast<bf16*>(wbase + G::P_OFF);
+  float* Ot = reinterpret_cast<float*>(wbase);
+  bf16* Qt = reinterpret_cast<bf16*>(wbase + G::Q_OFF);
+
+  const long row_stride = 3L * KW;
+  const bf16* base = qkv + (long)b * S * row_stride + h * HD;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int j = tid; j < sp; j += THREADS) flag[j] = key_flag(mask, counts, b, S, j);
+  // keys [t0 * 16, t0 * 16 + n) into rows [0, n) of Ks (and Vs), zeros past S,
+  // between two barriers
+  auto stage = [&](int t0, bool with_v) {
+    __syncthreads();  // every warp is done with the previous chunk
+    const int n = min(kChunkTiles, ntiles - t0) * 16;
+    for (int c = tid; c < n * CH; c += THREADS) {
+      const int jj = c / CH, d = (c % CH) * 8, j = t0 * 16 + jj;
+      const bf16* r = base + (long)j * row_stride + d;
+      *reinterpret_cast<uint4*>(Ks + jj * LDKV + d) = j < S ? *reinterpret_cast<const uint4*>(r + KW) : zero;
+      if (with_v)
+        *reinterpret_cast<uint4*>(Vs + jj * LDKV + d) = j < S ? *reinterpret_cast<const uint4*>(r + 2 * KW) : zero;
+    }
+    __syncthreads();
+  };
+
+  const int r = lane >> 1, c0 = (lane & 1) * 8;  // softmax: two lanes per row
+  const int q0 = (blockIdx.z * WARPS + warp) * 16;
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int i = c / CH, d = (c % CH) * 8;
+    *reinterpret_cast<uint4*>(Qt + i * LDKV + d) =
+        q0 + i < S ? *reinterpret_cast<const uint4*>(base + (q0 + i) * row_stride + d) : zero;
+  }
+  __syncwarp();
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[KT];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) wmma::load_matrix_sync(qa[kk], Qt + kk * 16, LDKV);
+
+  // logits of the key tile in rows [16 lt, 16 lt + 16) of Ks -> Lt (f32, unscaled)
+  auto logits_tile = [&](int lt) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> l;
+    wmma::fill_fragment(l, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;  // K^T
+      wmma::load_matrix_sync(kb, Ks + lt * 16 * LDKV + kk * 16, LDKV);
+      wmma::mma_sync(l, qa[kk], kb, l);
+    }
+    wmma::store_matrix_sync(Lt, l, 16, wmma::mem_row_major);
+    __syncwarp();
+  };
+
+  // pass 1, as the resident kernel's
+  float mx = -INFINITY, rowsum = 1.f;
+  if (NORM) rowsum = 0.f;
+  for (int t0 = 0; t0 < ntiles; t0 += kChunkTiles) {
+    stage(t0, false);
+    for (int jt = t0; jt < min(t0 + kChunkTiles, ntiles); ++jt) {
+      logits_tile(jt - t0);
+      float l8[8], tmax = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int f = flag[jt * 16 + c0 + t];
+        l8[t] = f == 2 ? kNegInf : Lt[r * 16 + c0 + t] * scale;
+        if (f) tmax = fmaxf(tmax, l8[t]);
+      }
+      __syncwarp();
+      if (NORM && tmax > -INFINITY) {
+        const float m = fmaxf(mx, tmax);
+        float s = 0.f;
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          if (flag[jt * 16 + c0 + t]) s += expf(l8[t] - m);
+        rowsum = (mx > -INFINITY ? rowsum * expf(mx - m) : 0.f) + s;
+      }
+      mx = fmaxf(mx, tmax);
+    }
+  }
+  const float mo = __shfl_xor_sync(0xffffffffu, mx, 1);
+  if (NORM) {
+    const float so = __shfl_xor_sync(0xffffffffu, rowsum, 1), m = fmaxf(mx, mo);
+    rowsum = (mx > -INFINITY ? rowsum * expf(mx - m) : 0.f) +
+             (mo > -INFINITY ? so * expf(mo - m) : 0.f);
+  }
+  mx = fmaxf(mx, mo);
+
+  // pass 2, as the resident kernel's
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[KT];
+#pragma unroll
+  for (int dt = 0; dt < KT; ++dt) wmma::fill_fragment(o[dt], 0.f);
+  float sum = 0.f;
+  for (int t0 = 0; t0 < ntiles; t0 += kChunkTiles) {
+    stage(t0, true);
+    for (int jt = t0; jt < min(t0 + kChunkTiles, ntiles); ++jt) {
+      logits_tile(jt - t0);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int f = flag[jt * 16 + c0 + t];
+        const float l = f == 2 ? kNegInf : Lt[r * 16 + c0 + t] * scale;
+        const float e = f ? expf(l - mx) : 0.f;
+        const bf16 p = __float2bfloat16(NORM ? e / rowsum : e);
+        sum += __bfloat162float(p);
+        Pt[r * LDP + c0 + t] = p;
+      }
+      __syncwarp();
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
+      wmma::load_matrix_sync(pa, Pt, LDP);
+#pragma unroll
+      for (int dt = 0; dt < KT; ++dt) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
+        wmma::load_matrix_sync(vb, Vs + (jt - t0) * 16 * LDKV + dt * 16, LDKV);
+        wmma::mma_sync(o[dt], pa, vb, o[dt]);
+      }
+      __syncwarp();
+    }
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  const float rinv = NORM ? 1.0f : 1.0f / sum;
+
+#pragma unroll
+  for (int dt = 0; dt < KT; ++dt)
+    wmma::store_matrix_sync(Ot + dt * 16, o[dt], LDO, wmma::mem_row_major);
+  __syncwarp();
+  if (q0 + r < S) {
+    bf16* out = ctx + ((long)b * S + q0 + r) * KW + h * HD + (lane & 1) * (HD / 2);
+    const float* src = Ot + r * LDO + (lane & 1) * (HD / 2);
+#pragma unroll
+    for (int c = 0; c < HD / 2; c += 8) {
+      float v[8];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) v[t] = src[c + t] * rinv;
+      store8(out + c, v);
+    }
+  }
+}
+
+// the resident kernel's dynamic shared memory limit, set once, at the
+// longest resident sequence
 template <int HD, bool NORM>
 cudaError_t attention_tc_attr() {
   static const cudaError_t attr =
       cudaFuncSetAttribute(attention_tc_kernel<HD, NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)ta::Geo<HD>::smem_bytes(kMaxSeq));
+                           (int)ta::Geo<HD>::smem_bytes(kResidentSeq));
   return attr;
 }
 
 template <int HD, bool NORM>
 cudaError_t attention_tc(const bf16* qkv, const unsigned char* mask, const int* counts, bf16* ctx,
                          int B, int S, int H, int KW, cudaStream_t st) {
-  VPT_TRY(attention_tc_attr<HD, NORM>());
-  attention_tc_kernel<HD, NORM><<<dim3(H, B), ta::THREADS, ta::Geo<HD>::smem_bytes(S), st>>>(
+  using G = ta::Geo<HD>;
+  if (S <= kResidentSeq) {
+    VPT_TRY(attention_tc_attr<HD, NORM>());
+    attention_tc_kernel<HD, NORM><<<dim3(H, B), ta::THREADS, G::smem_bytes(S), st>>>(
+        qkv, mask, counts, ctx, S, KW, attn_scale(HD));
+    return cudaGetLastError();
+  }
+  // streamed: the flags grow with S, so the limit is set per launch
+  const size_t smem = G::stream_smem_bytes(S);
+  VPT_TRY(cudaFuncSetAttribute(attention_tc_stream_kernel<HD, NORM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  const int blocks = (G::s16(S) / 16 + ta::WARPS - 1) / ta::WARPS;
+  attention_tc_stream_kernel<HD, NORM><<<dim3(H, B, blocks), ta::THREADS, smem, st>>>(
       qkv, mask, counts, ctx, S, KW, attn_scale(HD));
   return cudaGetLastError();
 }
@@ -314,46 +496,15 @@ cudaError_t attention(const bf16* qkv, const unsigned char* mask, const int* cou
 
 // ---------------------------------------------------------------------------
 // B2 attention: the CLS query only, one warp per (head, image); each lane
-// reads its keys straight from the K/V buffer (S*hd values per block).
+// reads its keys (j = lane, lane + 32, ...) straight from the K/V buffer
+// (S*hd values per block). Up to kResidentSeq keys a lane keeps its logits
+// in registers; past it (cls_attention_long_kernel) in a dynamic shared row
+// ps [S]; both sum in the same order.
 
+// the context row from P [S] (normalised, rounded to T) in shared memory
 template <typename T, int HD>
-__global__ void cls_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-                                     T* __restrict__ ctx, int S, int KW, float scale) {
-  __shared__ float qs[HD];
-  __shared__ float ps[kMaxSeq];
+__device__ __forceinline__ void cls_pv(const float* ps, const T* kb, T* ctx, int S, int KW) {
   const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
-  for (int d = lane; d < HD; d += 32) qs[d] = to_f(q[(long)b * KW + h * HD + d]);
-  __syncwarp();
-  const T* kb = kv + (long)b * S * 2 * KW + h * HD;
-  float l[kMaxChunks];
-  float mx = -INFINITY;
-#pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    const int j = c * 32 + lane;
-    l[c] = 0.f;
-    if (j < S) {
-      const T* kr = kb + (long)j * 2 * KW;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) acc = fmaf(qs[d], to_f(kr[d]), acc);
-      l[c] = acc * scale;
-      mx = fmaxf(mx, l[c]);
-    }
-  }
-  mx = warp_max(mx);
-  float sum = 0.f;
-#pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    l[c] = c * 32 + lane < S ? expf(l[c] - mx) : 0.f;
-    sum += l[c];
-  }
-  sum = warp_sum(sum);
-#pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    const int j = c * 32 + lane;
-    if (j < S) ps[j] = round_to<T>(l[c] / sum);  // normalised, then cast (TPU B2)
-  }
-  __syncwarp();
   for (int d = lane; d < HD; d += 32) {
     float o = 0.f;
     for (int j = 0; j < S; ++j) o = fmaf(ps[j], to_f(kb[(long)j * 2 * KW + KW + d]), o);
@@ -361,21 +512,104 @@ __global__ void cls_attention_kernel(const T* __restrict__ q, const T* __restric
   }
 }
 
+template <typename T, int HD>
+__device__ __forceinline__ float cls_logit(const float* qs, const T* kb, int j, int KW, float scale) {
+  const T* kr = kb + (long)j * 2 * KW;
+  float acc = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < HD; ++d) acc = fmaf(qs[d], to_f(kr[d]), acc);
+  return acc * scale;
+}
+
+template <typename T, int HD>
+__global__ void cls_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                                     T* __restrict__ ctx, int S, int KW, float scale) {
+  __shared__ float qs[HD];
+  __shared__ float ps[kResidentSeq];
+  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
+  for (int d = lane; d < HD; d += 32) qs[d] = to_f(q[(long)b * KW + h * HD + d]);
+  __syncwarp();
+  const T* kb = kv + (long)b * S * 2 * KW + h * HD;
+  float l[kResidentChunks];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < kResidentChunks; ++c) {
+    const int j = c * 32 + lane;
+    l[c] = 0.f;
+    if (j < S) {
+      l[c] = cls_logit<T, HD>(qs, kb, j, KW, scale);
+      mx = fmaxf(mx, l[c]);
+    }
+  }
+  mx = warp_max(mx);
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < kResidentChunks; ++c) {
+    l[c] = c * 32 + lane < S ? expf(l[c] - mx) : 0.f;
+    sum += l[c];
+  }
+  sum = warp_sum(sum);
+#pragma unroll
+  for (int c = 0; c < kResidentChunks; ++c) {
+    const int j = c * 32 + lane;
+    if (j < S) ps[j] = round_to<T>(l[c] / sum);  // normalised, then cast (TPU B2)
+  }
+  __syncwarp();
+  cls_pv<T, HD>(ps, kb, ctx, S, KW);
+}
+
+template <typename T, int HD>
+__global__ void cls_attention_long_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                                          T* __restrict__ ctx, int S, int KW, float scale) {
+  __shared__ float qs[HD];
+  extern __shared__ float pl[];  // [S]
+  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
+  for (int d = lane; d < HD; d += 32) qs[d] = to_f(q[(long)b * KW + h * HD + d]);
+  __syncwarp();
+  const T* kb = kv + (long)b * S * 2 * KW + h * HD;
+  float mx = -INFINITY;
+  for (int j = lane; j < S; j += 32) {
+    pl[j] = cls_logit<T, HD>(qs, kb, j, KW, scale);
+    mx = fmaxf(mx, pl[j]);
+  }
+  mx = warp_max(mx);
+  float sum = 0.f;
+  for (int j = lane; j < S; j += 32) {
+    pl[j] = expf(pl[j] - mx);
+    sum += pl[j];
+  }
+  sum = warp_sum(sum);
+  for (int j = lane; j < S; j += 32) pl[j] = round_to<T>(pl[j] / sum);
+  __syncwarp();
+  cls_pv<T, HD>(pl, kb, ctx, S, KW);
+}
+
+template <typename T, int HD>
+cudaError_t cls_attention_launch(const T* q, const T* kv, T* ctx, int B, int S, int H, int KW,
+                                 cudaStream_t st) {
+  if (S <= kResidentSeq) {
+    cls_attention_kernel<T, HD><<<dim3(H, B), 32, 0, st>>>(q, kv, ctx, S, KW, attn_scale(HD));
+    return cudaGetLastError();
+  }
+  const size_t smem = sizeof(float) * S;  // past 48 KB (S > 12288) only with the opt-in
+  if (smem > 48 * 1024)
+    VPT_TRY(cudaFuncSetAttribute(cls_attention_long_kernel<T, HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  cls_attention_long_kernel<T, HD><<<dim3(H, B), 32, smem, st>>>(q, kv, ctx, S, KW,
+                                                                 attn_scale(HD));
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t cls_attention(const T* q, const T* kv, T* ctx, int B, int S, int H, int KW,
                           cudaStream_t st) {
-  const int hd = KW / H;
-#define VPT_CLS_ATTN(HD) \
-  cls_attention_kernel<T, HD><<<dim3(H, B), 32, 0, st>>>(q, kv, ctx, S, KW, attn_scale(hd))
-  switch (hd) {
-    case 16: VPT_CLS_ATTN(16); break;
-    case 32: VPT_CLS_ATTN(32); break;
-    case 64: VPT_CLS_ATTN(64); break;
-    case 80: VPT_CLS_ATTN(80); break;
+  switch (KW / H) {
+    case 16: return cls_attention_launch<T, 16>(q, kv, ctx, B, S, H, KW, st);
+    case 32: return cls_attention_launch<T, 32>(q, kv, ctx, B, S, H, KW, st);
+    case 64: return cls_attention_launch<T, 64>(q, kv, ctx, B, S, H, KW, st);
+    case 80: return cls_attention_launch<T, 80>(q, kv, ctx, B, S, H, KW, st);
     default: return cudaErrorInvalidValue;
   }
-#undef VPT_CLS_ATTN
-  return cudaGetLastError();
 }
 
 // The B1 layer on x [B, S, D]; keys masked by `mask` [B, S] bytes or, for
@@ -437,23 +671,28 @@ cudaError_t cls_logits_forward(const T* x, const T* ln1g, const T* ln1b, const T
 // is one read of x and one write of out, [B, S, D] each; nothing syncs with
 // the host.
 
-// one thread a token: shapes_ok holds S <= kMaxSeq, so every token of every
-// sequence the kernels take (ViT-H's 257 included) is inverted and counted
-constexpr int kInvertThreads = kMaxSeq;
+// The block's threads walk the tokens in rounds of kInvertThreads, every
+// thread in every round (the count is a barrier), so every token of any
+// sequence length is inverted and counted: one round up to kResidentSeq.
+constexpr int kInvertThreads = kResidentSeq;
 static_assert(kInvertThreads % 32 == 0 && kInvertThreads <= 1024, "one block of whole warps");
 
 __global__ void __launch_bounds__(kInvertThreads)
 bucket_invert_kernel(const int* __restrict__ dest, const unsigned char* __restrict__ kept,
                      int* __restrict__ src, int* __restrict__ counts, int S, int cap) {
-  const int b = blockIdx.x, t = threadIdx.x;
-  for (int r = t; r < cap; r += blockDim.x) src[(long)b * cap + r] = 0;
-  // a barrier as well: the zero fill is done before any row is written below
-  const int count = __syncthreads_count(t < S && kept[(long)b * S + t]);
-  if (t < S) {
-    const int r = dest[(long)b * S + t];
-    if (r >= 0 && r < cap) src[(long)b * cap + r] = t;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  for (int r = tid; r < cap; r += blockDim.x) src[(long)b * cap + r] = 0;
+  __syncthreads();  // the zero fill is done before any row is written below
+  int count = 0;
+  for (int t0 = 0; t0 < S; t0 += blockDim.x) {
+    const int t = t0 + tid;
+    count += __syncthreads_count(t < S && kept[(long)b * S + t]);
+    if (t < S) {
+      const int r = dest[(long)b * S + t];
+      if (r >= 0 && r < cap) src[(long)b * cap + r] = t;
+    }
   }
-  if (t == 0) counts[b] = count;
+  if (tid == 0) counts[b] = count;
 }
 
 // Rows move as 16-byte chunks: D % 8 == 0 makes a row a whole number of
@@ -506,7 +745,7 @@ cudaError_t bucketed_forward(const T* x, const int* dest, const unsigned char* k
 }
 
 bool shapes_ok(int dtype, int B, int S, int D, int H, int HD, int M) {
-  return (dtype == 0 || dtype == 1) && layer_head_dim_ok(HD) && B > 0 && S > 0 && S <= kMaxSeq &&
+  return (dtype == 0 || dtype == 1) && layer_head_dim_ok(HD) && B > 0 && B <= 65535 && S > 0 &&
          H > 0 && D % 8 == 0 && M % 8 == 0;
 }
 
@@ -517,8 +756,6 @@ using namespace vpt;
 extern "C" {
 
 const char* vpt_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
-
-int vpt_max_seq_len() { return kMaxSeq; }
 
 int vpt_layer_head_dim_ok(int hd) { return layer_head_dim_ok(hd); }
 

@@ -226,3 +226,9 @@ def apply_predictor(
     else:
         raise ValueError(f"predictor kind {kind!r} has no apply rule")
     return scores, extras
+
+
+def predictor_param_filter(path_leaf: str) -> bool:
+    """True for predictor params (a leaf's path, '/'-joined from the root):
+    the test the freeze policies select predictors by (train/freeze.py)."""
+    return path_leaf.startswith("predictor")

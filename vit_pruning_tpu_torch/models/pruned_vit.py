@@ -1,7 +1,6 @@
 """Pruned ViT: the re-decide modes and progressive top-k compaction.
 
-Mirrors vit_pruning_tpu/models/pruned_vit.py for serving (no oracle
-instrumentation, no training):
+Mirrors vit_pruning_tpu/models/pruned_vit.py, serving and training:
 
   pruned_vit_forward  every layer scores all positions again, keeps some and
                       carries the skipped ones through (modes mask, topk,
@@ -27,16 +26,25 @@ route (kernel B4), B3 included: a budget-bounded layer gathers to its cap
 and runs B4 there. The stacked weights are quantized once per forward; the
 float weights stay beside them for the predictors and the float B2 tail.
 
-The training side (train=True, the oracle instrumentation and its dense
-teacher pass, oracle_stream='parallel', the predictor losses) is ROADMAP A.9
-and raises NotImplementedError here.
+Training (train=True) and the oracle instrumentation (compute_oracle /
+oracle: the dense teacher pass per layer, or the parallel teacher stream,
+the predictor losses and the aux outputs) take the JAX package's static
+training paths: the full-length masked layer (B1 with the key mask) in
+modes mask / random / query_only, and in mode topk the top-k gather, the
+layer at k + 1 (B1) and the scatter back; topk_prog trains as topk. B1 and
+B5 are differentiable (their Functions recompute the plain layers in the
+backward); the teacher signals are computed under torch.no_grad() where
+the JAX package stop-grads them, outside the (remat'd) layer where it
+hoists them. Training runs unquantized.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from vit_pruning_tpu_torch.configs import PruneConfig, ViTConfig
 from vit_pruning_tpu_torch.models.predictors import (
@@ -66,12 +74,22 @@ from vit_pruning_tpu_torch.ops.dispatch import kernels_enabled, resolve_quant
 from vit_pruning_tpu_torch.ops.masking import (
     add_cls_keep,
     compact_dest,
+    confusion_counts,
+    gather_compact,
     neighbor_average,
     neighbor_index_table,
     random_keep_mask,
     rank_keep_mask,
+    scatter_back,
     similarity_oracle,
     threshold_keep_mask,
+    topk_keep_mask,
+)
+from vit_pruning_tpu_torch.train.losses import (
+    focal_loss,
+    mse_attention_loss,
+    mse_cosine_loss,
+    weighted_bce_oracle,
 )
 
 
@@ -169,6 +187,54 @@ def _mlp_threshold(pcfg: PruneConfig, layer_idx: int) -> float:
     return mt[layer_idx] if isinstance(mt, tuple) else mt
 
 
+def _hoistable_oracle(pcfg: PruneConfig) -> bool:
+    """Can the layer's teacher signals be computed outside its autograd /
+    remat scope (_hoisted_oracle_targets)? Every consumer detaches them
+    and the dense pass is not the layer's output. Not for mode 'oracle'
+    and measure_only (the dense pass is the output) nor key_cosine (its
+    predictor runs the dense pass anyway)."""
+    return (pcfg.mode in ("mask", "topk", "topk_prog", "random")
+            and not pcfg.measure_only and pcfg.predictor != "key_cosine")
+
+
+def _cos_target(dense_p: torch.Tensor, oracle_in: torch.Tensor) -> torch.Tensor:
+    """(cos(dense_p, oracle_in) + 1) / 2 per token: mse_cosine's target."""
+    dot = (dense_p * oracle_in).sum(-1)
+    nrm = torch.linalg.vector_norm(dense_p, dim=-1) * torch.linalg.vector_norm(oracle_in, dim=-1)
+    return (dot / nrm.clamp_min(1e-12) + 1.0) / 2.0
+
+
+@torch.no_grad()
+def _hoisted_oracle_targets(layer_params: dict, layer_idx: int, x: torch.Tensor,
+                            config: ViTConfig, pcfg: PruneConfig,
+                            teacher: Optional[tuple]) -> dict:
+    """The predictor loss's teacher signals, outside the layer's autograd
+    and remat scope: one dense pass with no graph, and small [B, N]
+    results kept for the backward instead of [B, S, D] activations.
+    Returns {'similarity', 'oracle_keep'} and 'attn_target' (mse_attention)
+    or 'cos_target' (mse_cosine)."""
+    t: dict = {}
+    dense_out = None
+    if pcfg.loss == "mse_attention":
+        # the target needs the probabilities: the per-op plain layer, as the
+        # JAX package's (use_pallas False)
+        dense_out, probs = vit_layer(x, layer_params, config, return_probs=True,
+                                     use_kernels=False)
+        t["attn_target"] = probs[:, :, 0, 1:].mean(dim=1)
+    elif teacher is None:
+        dense_out = vit_layer(x, layer_params, config, quant="none")
+    if teacher is not None:  # the parallel teacher stream
+        oracle_in, dense_p = teacher[0][:, 1:], teacher[1][:, 1:]
+    else:
+        oracle_in, dense_p = x[:, 1:], dense_out[:, 1:]
+    sim = similarity_oracle(oracle_in, dense_p, pcfg.oracle_alpha)
+    t["similarity"] = sim
+    t["oracle_keep"] = sim < _sim_threshold(pcfg, layer_idx)
+    if pcfg.loss == "mse_cosine":
+        t["cos_target"] = _cos_target(dense_p, oracle_in)
+    return t
+
+
 def _passthrough(x: torch.Tensor, extras: dict, mask: torch.Tensor) -> torch.Tensor:
     """Value carried by skipped tokens: x itself, or x + the learned /
     CLS-direction approximation of the layer's residual."""
@@ -187,12 +253,25 @@ def pruned_layer_forward(
     *,
     prev_keep: Optional[torch.Tensor],
     nbr_idx: torch.Tensor,
-    generator: Optional[torch.Generator] = None,
+    random_keep: Optional[torch.Tensor] = None,
     updatenet_params: Optional[dict] = None,
     quant: str = "none",
+    need_oracle: bool = False,
+    teacher: Optional[tuple] = None,
+    train: bool = False,
+    oracle_targets: Optional[dict] = None,
 ):
-    """One pruned encoder layer (serving). Returns (x_out, {'keep_mask'
-    [B, S] bool, 'scores' [B, N]}). Under quant='int8' every layer pass
+    """One pruned encoder layer. Returns (x_out, info): info holds
+    'keep_mask' [B, S] bool and 'scores' [B, N], and with need_oracle also
+    'pred_loss' (scalar), 'similarity' [B, N], 'oracle_keep' [B, N] bool,
+    'confusion' [2, 2] (+ 'cos_target' / 'attn_target' for those losses).
+
+    random_keep [B, N] bool is mode random's patch mask, drawn by the
+    caller (outside any checkpointed scope, so that a recompute sees it).
+    train (or need_oracle) takes the static training paths instead of the
+    serving-only bucketed layer. teacher (x_in, x_out) of the parallel
+    teacher stream; oracle_targets from _hoisted_oracle_targets, when given,
+    spare the layer its own dense pass. Under quant='int8' every layer pass
     runs int8 except key_cosine's own dense pass, which stays float (and is
     reused as the oracle / measure_only pass, as in the JAX package)."""
     b, s, _ = x.shape
@@ -220,8 +299,16 @@ def pruned_layer_forward(
 
     # key_cosine computed the dense pass already: reuse it
     dense_out = extras.get("dense_out")
-    if (pcfg.mode == "oracle" or pcfg.measure_only) and dense_out is None:
-        dense_out = vit_layer(x, layer_params, config, quant=quant)
+    probs = None
+    need_probs = need_oracle and pcfg.loss == "mse_attention" and oracle_targets is None
+    if (pcfg.mode == "oracle" or pcfg.measure_only or need_probs
+            or (need_oracle and teacher is None and oracle_targets is None)):
+        if need_probs:
+            dense_out, probs = vit_layer(x, layer_params, config, return_probs=True,
+                                         use_kernels=False)
+        elif dense_out is None:
+            dense_out = vit_layer(x, layer_params, config, quant=quant)
+    static = need_oracle or train  # the training paths: one differentiable shape
 
     def passthrough_arg(mask):
         return _passthrough(x, extras, mask) if "approx_residual" in extras else None
@@ -239,10 +326,21 @@ def pruned_layer_forward(
             # skipped tokens stay in K/V; only their own outputs are discarded
             y = vit_layer(x, layer_params, config, quant=quant)
             out = torch.where(mask[..., None], y, _passthrough(x, extras, mask))
+        elif static:
+            y = vit_layer(x, layer_params, config, token_mask=mask, quant=quant)
+            out = torch.where(mask[..., None], y, _passthrough(x, extras, mask))
         else:
             hint = pcfg.mask_budget + 1 if pcfg.mask_budget is not None else None
             out = bucketed_masked_layer(x, layer_params, mask, config, cap_hint=hint,
                                         passthrough=passthrough_arg(mask), quant=quant)
+    elif pcfg.mode == "topk" and static:
+        # CLS + the sorted top-k patches, gathered, the layer at k + 1, scattered back
+        keep, kidx = topk_keep_mask(scores, pcfg.top_k)
+        mask = add_cls_keep(keep)
+        cidx = torch.cat([torch.zeros((b, 1), dtype=torch.long, device=x.device),
+                          torch.sort(kidx, dim=-1).values + 1], dim=1)
+        yc = vit_layer(gather_compact(x, cidx), layer_params, config, quant=quant)
+        out = scatter_back(_passthrough(x, extras, mask), cidx, yc)
     elif pcfg.mode == "topk":
         # the same set as topk_keep_mask (ties to the lower index), mask only
         mask = add_cls_keep(rank_keep_mask(scores, pcfg.top_k))
@@ -253,12 +351,16 @@ def pruned_layer_forward(
         mask = add_cls_keep(sim_o < _sim_threshold(pcfg, layer_idx))  # changes a lot: process
         out = torch.where(mask[..., None], dense_out, x)
     elif pcfg.mode == "random":
-        if generator is None:
-            raise ValueError("mode='random' requires a generator")
-        budget = pcfg.random_keep[layer_idx] if pcfg.random_keep is not None else pcfg.top_k
-        mask = add_cls_keep(random_keep_mask(generator, b, n, budget, x.device))
-        out = bucketed_masked_layer(x, layer_params, mask, config, cap_hint=budget + 1,
-                                    quant=quant)
+        if random_keep is None:
+            raise ValueError("mode='random' requires random_keep, the caller's draw")
+        mask = add_cls_keep(random_keep)
+        if static:
+            y = vit_layer(x, layer_params, config, token_mask=mask, quant=quant)
+            out = torch.where(mask[..., None], y, x)
+        else:
+            out = bucketed_masked_layer(x, layer_params, mask, config,
+                                        cap_hint=_random_budget(pcfg, layer_idx) + 1,
+                                        quant=quant)
     else:
         raise ValueError(f"unknown prune mode {pcfg.mode!r}")
 
@@ -269,7 +371,65 @@ def pruned_layer_forward(
         mask = torch.where(skip_layer[:, None], torch.zeros_like(mask), mask)
         mask[:, 0] = True  # CLS counted as live for reporting
 
-    return out, {"keep_mask": mask, "scores": scores}
+    info = {"keep_mask": mask, "scores": scores}
+    if need_oracle:
+        if oracle_targets is not None:  # hoisted, already without a graph
+            sim, oracle_keep = oracle_targets["similarity"], oracle_targets["oracle_keep"]
+            cos, target = oracle_targets.get("cos_target"), oracle_targets.get("attn_target")
+        else:
+            if teacher is not None:  # the oracle from the unpruned trajectory
+                oracle_in, dense_p = teacher[0][:, 1:].detach(), teacher[1][:, 1:].detach()
+            else:
+                oracle_in, dense_p = x[:, 1:].detach(), dense_out[:, 1:].detach()
+            sim = similarity_oracle(oracle_in, dense_p, pcfg.oracle_alpha)
+            oracle_keep = sim < _sim_threshold(pcfg, layer_idx)
+            if pcfg.loss == "mse_cosine":
+                cos = _cos_target(dense_p, oracle_in)
+            elif pcfg.loss == "mse_attention":
+                target = probs[:, :, 0, 1:].mean(dim=1).detach()
+        if pcfg.loss == "bce_oracle":
+            pred_loss = weighted_bce_oracle(scores, oracle_keep)
+        elif pcfg.loss == "mse_cosine":
+            pred_loss = mse_cosine_loss(scores, cos)
+            info["cos_target"] = cos  # the detached cosine step's target
+        elif pcfg.loss == "mse_attention":
+            pred_loss = mse_attention_loss(scores, target)
+            info["attn_target"] = target
+        elif pcfg.loss == "focal":
+            pred_loss = focal_loss(scores, oracle_keep, alpha=pcfg.focal_alpha,
+                                   gamma=pcfg.focal_gamma)
+        else:
+            raise ValueError(f"unknown loss {pcfg.loss!r}")
+        info.update(pred_loss=pred_loss, similarity=sim, oracle_keep=oracle_keep,
+                    confusion=confusion_counts(oracle_keep, mask[:, 1:]))
+    return out, info
+
+
+def _random_budget(pcfg: PruneConfig, layer_idx: int) -> int:
+    return pcfg.random_keep[layer_idx] if pcfg.random_keep is not None else pcfg.top_k
+
+
+def _aux_keys(pcfg: PruneConfig) -> list:
+    keys = ["pred_loss", "similarity", "oracle_keep", "confusion"]
+    if pcfg.loss == "mse_attention":
+        keys.append("attn_target")
+    elif pcfg.loss == "mse_cosine":
+        keys.append("cos_target")
+    return keys
+
+
+def _inactive_aux(pcfg: PruneConfig, b: int, n: int, dtype, device) -> dict:
+    """The aux entries of a layer that prunes nothing: no loss, similarity
+    0, every token kept, no confusion counts."""
+    aux = {"pred_loss": torch.zeros((), device=device),
+           "similarity": torch.zeros((b, n), dtype=dtype, device=device),
+           "oracle_keep": torch.ones((b, n), dtype=torch.bool, device=device),
+           "confusion": torch.zeros((2, 2), dtype=torch.int32, device=device)}
+    if pcfg.loss == "mse_attention":
+        aux["attn_target"] = torch.zeros((b, n), dtype=dtype, device=device)
+    elif pcfg.loss == "mse_cosine":
+        aux["cos_target"] = torch.ones((b, n), dtype=dtype, device=device)
+    return aux
 
 
 def pruned_vit_forward(
@@ -284,46 +444,62 @@ def pruned_vit_forward(
     return_layer_inputs: bool = False,
     generator: Optional[torch.Generator] = None,
     quant: Optional[str] = None,
+    remat: bool = False,
 ) -> dict:
-    """Full pruned forward (serving).
+    """Full pruned forward.
 
     Returns dict(logits [B, labels], cls [B, D], last_hidden [B, S, D],
     keep_masks [L, B, S] bool, scores [L, B, N]; + layer_inputs [L, B, S, D],
-    each layer's input as its predictor saw it, when return_layer_inputs).
-    `generator` draws mode='random''s noise, layer after layer.
-    quant: 'none', 'int8' or None (read the dispatch switch once, here).
+    each layer's input as its predictor saw it, when return_layer_inputs;
+    + aux when the oracle instrumentation runs: pred_loss [L], similarity
+    [L, B, N], oracle_keep [L, B, N], confusion [L, 2, 2], and attn_target /
+    cos_target [L, B, N] for those losses).
+
+    The instrumentation (one dense pass per layer as the label source, or
+    the parallel teacher stream) runs when `train or compute_oracle`, unless
+    `oracle` says otherwise: the classification phase passes oracle=False
+    and trains on the static paths without it. `generator` draws mode
+    'random''s noise, layer after layer. quant: 'none', 'int8' or None
+    (read the dispatch switch once, here); training and the instrumentation
+    run unquantized. remat: recompute each layer in the backward
+    (torch.utils.checkpoint), inactive ones and mode 'none' too.
     """
     need_oracle = (train or compute_oracle) if oracle is None else oracle
     # training and the oracle instrumentation run unquantized, as in the JAX
     # package (round and clip have no useful gradient)
     quant = "none" if (train or need_oracle) else resolve_quant(quant)
-    if train or need_oracle:
-        raise NotImplementedError(
-            "train / the oracle instrumentation (dense teacher pass, oracle_stream, "
-            "predictor losses): ROADMAP A.9"
-        )
     L = config.num_layers
     if pcfg.mode == "none" and not return_layer_inputs:
         # dense: vit_forward, with the masks and scores of an all-inactive run
-        dense = vit_forward(params["backbone"], pixel_values, config, quant=quant)
+        dense = vit_forward(params["backbone"], pixel_values, config, quant=quant, remat=remat)
         x = dense["last_hidden"]
         b, s = x.shape[:2]
-        return {
+        out = {
             "logits": dense["logits"],
             "cls": dense["cls"],
             "last_hidden": x,
             "keep_masks": torch.ones((L, b, s), dtype=torch.bool, device=x.device),
             "scores": torch.ones((L, b, s - 1), dtype=x.dtype, device=x.device),
         }
+        if need_oracle:
+            aux = _inactive_aux(pcfg, b, s - 1, x.dtype, x.device)
+            out["aux"] = {k: v.expand(L, *v.shape).clone() for k, v in aux.items()}
+        return out
     if pcfg.mode == "topk_prog":
-        return progressive_topk_forward(params, pixel_values, config, pcfg, quant=quant)
+        if not (train or need_oracle):
+            return progressive_topk_forward(params, pixel_values, config, pcfg, quant=quant)
+        # training and the oracle take the per-layer re-decide semantics the
+        # predictor is trained with; deployment then runs progressive
+        pcfg = pcfg.replace(mode="topk")
     backbone = params["backbone"]
     pred = params.get("predictor")
     layers = layers_for(backbone["layers"], quant)
 
     x = embed(pixel_values, backbone["embed"], config)
     nbr_idx = torch.from_numpy(neighbor_index_table(config.grid_size)).long().to(x.device)
-    masks, scores_l, layer_inputs = [], [], []
+    use_teacher = need_oracle and pcfg.oracle_stream == "parallel"
+    x_teacher = x if use_teacher else None
+    masks, scores_l, aux_l, layer_inputs = [], [], [], []
     prev_keep = None
     # skip-next flag [B] bool, set by the previous layer's thresholded mask:
     # flagged images bypass this layer
@@ -332,9 +508,17 @@ def pruned_vit_forward(
         if return_layer_inputs:
             layer_inputs.append(x)
         lp = layer_slice(layers, i)
+        teacher = None
+        if use_teacher:  # the unpruned trajectory beside the pruned one
+            t_out = vit_layer(x_teacher, lp, config, quant=quant)
+            teacher = (x_teacher, t_out)
+            x_teacher = t_out
         x_in = x
         if not _is_active(pcfg, i):
-            x = vit_layer(x, lp, config, quant=quant)
+            if remat:
+                x = checkpoint(vit_layer, x, lp, config, quant=quant, use_reentrant=False)
+            else:
+                x = vit_layer(x, lp, config, quant=quant)
             if skip_vec is not None:
                 # "the next layer" is the physically next one, active or not
                 x = torch.where(skip_vec[:, None, None], x_in, x)
@@ -342,11 +526,31 @@ def pruned_vit_forward(
             b, s = x.shape[:2]
             info = {"keep_mask": torch.ones((b, s), dtype=torch.bool, device=x.device),
                     "scores": torch.ones((b, s - 1), dtype=x.dtype, device=x.device)}
+            if need_oracle:
+                info.update(_inactive_aux(pcfg, b, s - 1, x.dtype, x.device))
         else:
-            x, info = pruned_layer_forward(
-                lp, pred, i, x, config, pcfg, prev_keep=prev_keep, nbr_idx=nbr_idx,
-                generator=generator, updatenet_params=params.get("updatenet"), quant=quant,
-            )
+            otargets = None
+            if need_oracle and _hoistable_oracle(pcfg):
+                otargets = _hoisted_oracle_targets(lp, i, x, config, pcfg, teacher)
+            rkeep = None
+            if pcfg.mode == "random":
+                # drawn here, outside the checkpointed layer: a recompute
+                # restores the default generators only, not this one
+                if generator is None:
+                    raise ValueError("mode='random' requires a generator")
+                rkeep = random_keep_mask(generator, x.shape[0], x.shape[1] - 1,
+                                         _random_budget(pcfg, i), x.device)
+            layer_fn = functools.partial(
+                pruned_layer_forward, config=config, pcfg=pcfg, nbr_idx=nbr_idx, quant=quant,
+                need_oracle=need_oracle, train=train)
+            args = (lp, pred, i, x)
+            kw = dict(prev_keep=prev_keep, random_keep=rkeep,
+                      updatenet_params=params.get("updatenet"), teacher=teacher,
+                      oracle_targets=otargets)
+            if remat:
+                x, info = checkpoint(layer_fn, *args, use_reentrant=False, **kw)
+            else:
+                x, info = layer_fn(*args, **kw)
             if pcfg.skip_next_threshold > 0.0:
                 # this layer's thresholded mask decides whether each image
                 # skips the next layer; an image skipped here reports an
@@ -355,17 +559,20 @@ def pruned_vit_forward(
                 trigger = raw_mask[:, 1:].float().mean(dim=1) > pcfg.skip_next_threshold
                 if skip_vec is not None:
                     x = torch.where(skip_vec[:, None, None], x_in, x)
-                    info = {
-                        "keep_mask": torch.where(skip_vec[:, None], torch.ones_like(raw_mask),
-                                                 raw_mask),
-                        "scores": torch.where(skip_vec[:, None], torch.ones_like(info["scores"]),
-                                              info["scores"]),
-                    }
+                    info = dict(
+                        info,
+                        keep_mask=torch.where(skip_vec[:, None], torch.ones_like(raw_mask),
+                                              raw_mask),
+                        scores=torch.where(skip_vec[:, None], torch.ones_like(info["scores"]),
+                                           info["scores"]),
+                    )
                     trigger = trigger & ~skip_vec
                 skip_vec = trigger
         prev_keep = info["keep_mask"]
         masks.append(info["keep_mask"])
         scores_l.append(info["scores"])
+        if need_oracle:
+            aux_l.append({k: info[k] for k in _aux_keys(pcfg)})
 
     x = layer_norm(x, backbone["ln_f"], config.layernorm_eps)
     cls = x[:, 0]
@@ -376,6 +583,8 @@ def pruned_vit_forward(
         "keep_masks": torch.stack(masks),
         "scores": torch.stack(scores_l),
     }
+    if need_oracle:
+        out["aux"] = {k: torch.stack([a[k] for a in aux_l]) for k in aux_l[0]}
     if return_layer_inputs:
         out["layer_inputs"] = torch.stack(layer_inputs)
     return out

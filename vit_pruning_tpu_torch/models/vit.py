@@ -8,8 +8,9 @@ Mirrors vit_pruning_tpu/models/vit.py, in the same param layout:
              # every layer leaf stacked on a leading [L] axis
    'ln_f': {'g','b'}, 'head': {'w' [D, labels], 'b'}}
 
-`vit_layer` routes through kernel B1 (ops/cuda/layer.py::fused_vit_layer)
-unless the dispatch mode is 'eager', in which case it runs the plain layer
+`vit_layer` routes through kernel B1 (ops/cuda/layer.py::fused_vit_layer;
+under autograd through its Function, whose backward recomputes the plain
+layer) unless the dispatch mode is 'eager', in which case it runs the plain layer
 below (layer_norm -> mha -> mlp_block with erf GELU), the counterpart of the
 JAX package's use_pallas=False path. Under int8 serving (`quant`, or the
 dispatch switch when it is None) the layer runs kernel B4
@@ -17,8 +18,10 @@ dispatch switch when it is None) the layer runs kernel B4
 With head_mask or return_probs the layer takes the per-op route in float:
 layer_norm -> mha (kernel B6 in mode 'kernel') -> layer_norm -> mlp_block
 (kernel B7 when kernels are on). `vit_forward` runs all layers as one call
-of kernel B5 (ops/cuda/model.py) when encoder fusion is on and the weights
-fit (`encoder_route`).
+of kernel B5 (ops/cuda/model.py, differentiable the same way) when encoder
+fusion is on and the weights fit (`encoder_route`). `remat` checkpoints each
+layer of the layer loop (torch.utils.checkpoint), as the JAX package's
+jax.checkpoint of its scan body.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vit_pruning_tpu_torch.configs import ViTConfig
 from vit_pruning_tpu_torch.models.convert import check_device, tree_to
@@ -195,6 +199,7 @@ def vit_forward(
     head_mask: Optional[torch.Tensor] = None,
     output_hidden_states: bool = False,
     quant: Optional[str] = None,
+    remat: bool = False,
 ) -> dict:
     """Dense forward. Returns dict(logits, cls, last_hidden[, hidden_states]).
 
@@ -204,7 +209,10 @@ def vit_forward(
     one, as vit_layer routes them; without them the encoder is one call of
     kernel B5 where `encoder_route` says so.
     quant: 'none', 'int8' or None (read the dispatch switch once, here).
-    Under int8 the stacked layer weights are quantized once per call."""
+    Under int8 the stacked layer weights are quantized once per call.
+    remat: recompute each layer of the layer loop in the backward instead
+    of keeping its activations (the training memory lever); as in the JAX
+    package, the B5 route and the head_mask / hidden-states loop ignore it."""
     quant = resolve_quant(quant)
     x = embed(pixel_values, params["embed"], config)
     hidden_states = [x] if output_hidden_states else None
@@ -215,9 +223,14 @@ def vit_forward(
     else:
         # a head-masked layer runs in float (vit_layer): no int8 weights needed
         layers = layers_for(params["layers"], quant if head_mask is None else "none")
+        per_layer = head_mask is not None or output_hidden_states
         for i in range(config.num_layers):
             hm = head_mask[i] if head_mask is not None else None
-            x = vit_layer(x, layer_slice(layers, i), config, head_mask=hm, quant=quant)
+            if remat and not per_layer:
+                x = checkpoint(vit_layer, x, layer_slice(layers, i), config, quant=quant,
+                               use_reentrant=False)
+            else:
+                x = vit_layer(x, layer_slice(layers, i), config, head_mask=hm, quant=quant)
             if output_hidden_states:
                 hidden_states.append(x)
     x = layer_norm(x, params["ln_f"], config.layernorm_eps)
@@ -284,3 +297,10 @@ def init_vit_params(
         "head": linear_init(generator, d, config.num_labels),
     }
     return tree_to(params, device, dtype)
+
+
+def param_count(params: dict) -> int:
+    """Number of values in a param tree (None leaves count 0)."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    return 0 if params is None else params.numel()

@@ -27,7 +27,13 @@ from typing import Optional
 import torch
 
 from vit_pruning_tpu_torch.ops.attention import NEG_INF
-from vit_pruning_tpu_torch.ops.cuda.layer import _check, _check_token_mask, _raise_on, _stream
+from vit_pruning_tpu_torch.ops.cuda.layer import (
+    _check,
+    _check_token_mask,
+    _raise_on,
+    _stream,
+    refuse_grad,
+)
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 
 
@@ -56,18 +62,19 @@ def fused_attention(
     """Kernel B6. q, k, v [B, H, S, hd] contiguous, float32 or bfloat16;
     token_mask [B, S] bool (True = valid key) or None. Returns [B, H, S, hd]
     in q's dtype; rows of masked tokens are computed but meaningless.
-    Takes S <= 257 and hd <= 128."""
+    Takes any S and hd <= 128 (past S 257 the bf16 body streams K and V)."""
     if not launch_kernel_for(q):
         return fused_attention_ref(q, k, v, token_mask)
+    who = "fused_attention"
+    refuse_grad(who, q, k, v)
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
 
-    who = "fused_attention"
     lib = load_library()
     if q.dim() != 4:
         raise ValueError(f"{who}: q must be [B, H, S, hd], got {tuple(q.shape)}")
     b, h, s, hd = q.shape
-    if not 1 <= s <= lib.vpt_attention_max_seq_len():
-        raise ValueError(f"{who}: sequence length {s} not in [1, {lib.vpt_attention_max_seq_len()}]")
+    if s < 1 or not 1 <= b <= 65535:
+        raise ValueError(f"{who}: batch {b} not in [1, 65535] or empty sequence")
     if not 1 <= hd <= lib.vpt_attention_max_head_dim():
         raise ValueError(f"{who}: head dim {hd} not in [1, {lib.vpt_attention_max_head_dim()}]")
     dtype = _check(q, {"k": k, "v": v}, {"k": tuple(q.shape), "v": tuple(q.shape)}, who)

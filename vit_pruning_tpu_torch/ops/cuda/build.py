@@ -34,7 +34,6 @@ P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 # C signatures of the entry points in csrc/*.cu
 SIGNATURES = {
     "vpt_error_string": ([I], ctypes.c_char_p),
-    "vpt_max_seq_len": ([], I),
     "vpt_layer_head_dim_ok": ([I], I),
     # dtype, x, mask, 12 layer weights, out, 5 workspaces, B S D H HD M, eps, stream
     "vpt_vit_layer_forward": ([I] + [P] * 20 + [I] * 6 + [F, P], I),
@@ -56,7 +55,6 @@ SIGNATURES = {
     # dtype, x, mask, 12 stacked layer weights, out, 6 workspaces,
     # L B S D H HD M, eps, stream
     "vpt_vit_encoder_forward": ([I] + [P] * 21 + [I] * 7 + [F, P], I),
-    "vpt_attention_max_seq_len": ([], I),
     "vpt_attention_max_head_dim": ([], I),
     # dtype, q, k, v, mask, out, B H S HD, stream
     "vpt_attention_forward": ([I] + [P] * 5 + [I] * 4 + [P], I),

@@ -34,7 +34,7 @@ import ctypes
 import torch
 
 from vit_pruning_tpu_torch.data.preprocess import VIT_MEAN, VIT_STD
-from vit_pruning_tpu_torch.ops.cuda.layer import _check, _raise_on, _stream
+from vit_pruning_tpu_torch.ops.cuda.layer import _check, _raise_on, _stream, refuse_grad
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 from vit_pruning_tpu_torch.ops.patch_embed import extract_patches
 
@@ -81,6 +81,7 @@ def _embed(who: str, in_dtypes: tuple, patches, w, b, pos, scale: float, shift: 
                          f"{tuple(pos.shape)} do not fit patches {tuple(patches.shape)}")
     if not launch_kernel_for(patches):
         return ref()
+    refuse_grad(who, patches, w, b, pos)
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()

@@ -19,6 +19,19 @@ A wrapper launches its kernel for CUDA tensors and counts the launch in its
 `launches` attribute; for CPU tensors it runs the plain version (mode
 'auto') or raises (mode 'kernel'). It never falls back from a CUDA tensor.
 
+Gradients. The kernels have no backward, and the JAX package has none
+either: it trains through B1 (and B5, ops/cuda/model.py) with a custom VJP
+whose backward recomputes its jnp reference layer from the saved inputs and
+differentiates that (ops/pallas/layer.py::differentiable_fused_layer). Here
+`RecomputedBackward` is that VJP: when autograd records (grad enabled and x
+or a weight requiring grad), `fused_vit_layer` runs its forward, the
+kernel (or, on the CPU, its plain version), through it, and the backward is
+`eager_layer`'s. The weights go to the Function as a flat list of tensors
+(autograd does not see tensors inside a dict). The other kernels (B2, B3,
+B4 here, B6, B7, B8a, B8b) have no VJP in the JAX package, and their
+wrappers raise for a CUDA input that requires grad (`refuse_grad`) instead
+of returning a result without a graph.
+
 The plain versions keep the TPU kernels' numerics, which differ from the
 jnp reference layer (models/vit.py) in three places: products take operands
 in the weight dtype and accumulate in f32 before the bias and the cast; the
@@ -35,8 +48,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from vit_pruning_tpu_torch.models.vit import layer_norm
-from vit_pruning_tpu_torch.ops.attention import NEG_INF
+from vit_pruning_tpu_torch.models.convert import flatten_tree, unflatten_tree
+from vit_pruning_tpu_torch.models.vit import layer_norm, mlp_block
+from vit_pruning_tpu_torch.ops.attention import NEG_INF, mha
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -190,6 +204,66 @@ def fused_vit_layer_bucketed_ref(
     return bucket_expand(x, yc, dest, kept, cap)
 
 
+# --- gradients ----------------------------------------------------------------------
+
+def grad_needed(*trees) -> bool:
+    """Does autograd record through these tensors (or trees of them) now?"""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for tree in trees for _, t in flatten_tree(tree))
+
+
+def refuse_grad(who: str, *trees):
+    """Raise where autograd would record through a kernel without a backward
+    (its result would carry no graph, and the weights behind it would get no
+    gradient without a word)."""
+    if grad_needed(*trees):
+        raise RuntimeError(
+            f"{who}: this kernel has no backward (nor has its TPU counterpart); call it "
+            f"under torch.no_grad(), or train through kernel_mode('eager')")
+
+
+def eager_layer(x: torch.Tensor, params: dict, num_heads: int, eps: float,
+                token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain layer whose gradient B1's backward takes, as the JAX
+    package's differentiable_fused_layer does: LN -> mha -> LN -> mlp_block
+    (erf GELU) in x's dtype."""
+    x1 = x + mha(layer_norm(x, params["ln1"], eps), params["attn"], num_heads,
+                 token_mask=token_mask)
+    return x1 + mlp_block(layer_norm(x1, params["ln2"], eps), params["mlp"])
+
+
+class RecomputedBackward(torch.autograd.Function):
+    """Forward: kernel(x, params, token_mask), a launch (or its plain
+    version on the CPU); backward: eager(x, params, token_mask) recomputed
+    from the saved x and weights and differentiated for the upstream
+    gradient. The weights come as the flat `leaves` at `paths`; token_mask
+    gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, kernel, eager, token_mask, paths, x, *leaves):
+        ctx.eager, ctx.token_mask, ctx.paths = eager, token_mask, paths
+        ctx.save_for_backward(x, *leaves)
+        return kernel(x, unflatten_tree(paths, leaves), token_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[4:]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        with torch.enable_grad():
+            y = ctx.eager(inputs[0], unflatten_tree(ctx.paths, inputs[1:]), ctx.token_mask)
+        wrt = [t for t, n in zip(inputs, need) if n]
+        grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
+        return (None, None, None, None) + tuple(next(grads) if n else None for n in need)
+
+
+def recomputed(kernel, eager, x: torch.Tensor, params: dict,
+               token_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """kernel(x, params, token_mask) through RecomputedBackward."""
+    paths, leaves = zip(*flatten_tree(params))
+    return RecomputedBackward.apply(kernel, eager, token_mask, paths, x, *leaves)
+
+
 # --- wrappers -----------------------------------------------------------------------
 
 def _check(x: torch.Tensor, tensors: dict, shapes: dict, who: str,
@@ -240,10 +314,8 @@ def _geometry(lib, x: torch.Tensor, params: dict, num_heads: int, who: str):
     if kw % num_heads or not lib.vpt_layer_head_dim_ok(hd):
         raise ValueError(f"{who}: head dim {kw}/{num_heads} not supported (the kernel takes "
                          f"{', '.join(map(str, LAYER_HEAD_DIMS))})")
-    if not 1 <= s <= lib.vpt_max_seq_len():
-        raise ValueError(f"{who}: sequence length {s} not in [1, {lib.vpt_max_seq_len()}] (longer "
-                         f"sequences, from a resized position table, wait for ROADMAP A.1's "
-                         f"interpolate_pos_embed)")
+    if s < 1 or b < 1:
+        raise ValueError(f"{who}: x must have a batch and a sequence, got {tuple(x.shape)}")
     if d % 8 or m % 8:
         raise ValueError(f"{who}: hidden {d} and MLP width {m} must be multiples of 8")
     return b, s, d, hd, kw, m
@@ -285,7 +357,19 @@ def fused_vit_layer(
 
     params: one layer's dict {'ln1','attn','ln2','mlp'}; token_mask [B, S]
     bool or None (False = key masked with -1e30). hd = q width / num_heads.
+    Differentiable: under autograd the call runs through
+    RecomputedBackward, whose backward is eager_layer's.
     """
+    if grad_needed(x, params):
+        return recomputed(
+            lambda x_, p_, m_: _fused_vit_layer(x_, p_, num_heads, eps, m_),
+            lambda x_, p_, m_: eager_layer(x_, p_, num_heads, eps, m_),
+            x, params, token_mask)
+    return _fused_vit_layer(x, params, num_heads, eps, token_mask)
+
+
+def _fused_vit_layer(x, params, num_heads, eps, token_mask):
+    """B1's launch, or its plain version for a CPU tensor."""
     if not launch_kernel_for(x):
         return fused_vit_layer_ref(x, params, num_heads, eps, token_mask)
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
@@ -341,9 +425,10 @@ def fused_vit_layer_cls_logits(
     """
     if not launch_kernel_for(x):
         return fused_vit_layer_cls_logits_ref(x, params, lnf, head, num_heads, eps)
+    who = "fused_vit_layer_cls_logits"
+    refuse_grad(who, x, params, lnf, head)
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
 
-    who = "fused_vit_layer_cls_logits"
     lib = load_library()
     a = params["attn"]
     wkv = torch.cat([a["k"]["w"], a["v"]["w"]], dim=1)
@@ -405,9 +490,10 @@ def fused_vit_layer_bucketed(
     """
     if not launch_kernel_for(x):
         return fused_vit_layer_bucketed_ref(x, params, dest, kept, cap, num_heads, eps)
+    who = "fused_vit_layer_bucketed"
+    refuse_grad(who, x, params)
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
 
-    who = "fused_vit_layer_bucketed"
     lib = load_library()
     a = params["attn"]
     wqkv = torch.cat([a["q"]["w"], a["k"]["w"], a["v"]["w"]], dim=1)

@@ -42,6 +42,7 @@ from vit_pruning_tpu_torch.ops.cuda.layer import (
     _ln_f32,
     _raise_on,
     _stream,
+    refuse_grad,
     staged2_attention,
 )
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
@@ -144,9 +145,10 @@ def fused_vit_layer_int8(
     """
     if not launch_kernel_for(x):
         return fused_vit_layer_int8_ref(x, qparams, num_heads, eps, token_mask, return_codes)
+    who = "fused_vit_layer_int8"
+    refuse_grad(who, x, qparams)
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
 
-    who = "fused_vit_layer_int8"
     lib = load_library()
     a, mlp = qparams["attn"], qparams["mlp"]
     b, s, d, hd, kw, m = _geometry(lib, x, qparams, num_heads, who)

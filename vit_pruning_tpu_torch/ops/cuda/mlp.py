@@ -24,7 +24,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from vit_pruning_tpu_torch.ops.cuda.layer import _check, _raise_on, _stream
+from vit_pruning_tpu_torch.ops.cuda.layer import _check, _raise_on, _stream, refuse_grad
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 
 
@@ -53,9 +53,10 @@ def fused_mlp(
     dtype."""
     if not launch_kernel_for(x):
         return fused_mlp_ref(x, w1, b1, w2, b2)
+    who = "fused_mlp"
+    refuse_grad(who, x, w1, b1, w2, b2)
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
 
-    who = "fused_mlp"
     lib = load_library()
     if x.dim() != 2 or x.shape[0] < 1:
         raise ValueError(f"{who}: x must be [T, D] with T >= 1, got {tuple(x.shape)}")

@@ -34,6 +34,9 @@ from vit_pruning_tpu_torch.ops.cuda.layer import (
     _ln_f32,
     _raise_on,
     _stream,
+    eager_layer,
+    grad_needed,
+    recomputed,
     staged2_attention,
 )
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
@@ -76,6 +79,15 @@ def fused_vit_encoder_ref(
     return xf.to(dt)
 
 
+def eager_encoder(x: torch.Tensor, layers: dict, num_heads: int, eps: float,
+                  token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain layer loop whose gradient B5's backward takes, as the JAX
+    package's differentiable_fused_encoder does."""
+    for i in range(layers["ln1"]["g"].shape[0]):
+        x = eager_layer(x, _layer(layers, i), num_heads, eps, token_mask)
+    return x
+
+
 def fused_vit_encoder(
     x: torch.Tensor,
     layers: dict,
@@ -86,8 +98,20 @@ def fused_vit_encoder(
     """Kernel B5: x [B, S, D] through every layer of `layers`, the float
     layer tree stacked on a leading [L] axis (a slice [l0:l1] of a model's
     layers runs those layers). token_mask [B, S] bool or None masks keys at
-    every layer. Returns [B, S, D] in x's dtype. B1's limits: head dim 64
-    or 80, S <= 288."""
+    every layer. Returns [B, S, D] in x's dtype. B1's limits: head dim 16,
+    32, 64 or 80, D and M multiples of 8; any S. Differentiable: under
+    autograd the call runs through ops/cuda/layer.py::RecomputedBackward,
+    whose backward is eager_encoder's."""
+    if grad_needed(x, layers):
+        return recomputed(
+            lambda x_, p_, m_: _fused_vit_encoder(x_, p_, num_heads, eps, m_),
+            lambda x_, p_, m_: eager_encoder(x_, p_, num_heads, eps, m_),
+            x, layers, token_mask)
+    return _fused_vit_encoder(x, layers, num_heads, eps, token_mask)
+
+
+def _fused_vit_encoder(x, layers, num_heads, eps, token_mask):
+    """B5's launch, or its plain version for a CPU tensor."""
     if not launch_kernel_for(x):
         return fused_vit_encoder_ref(x, layers, num_heads, eps, token_mask)
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
