@@ -9,8 +9,9 @@ kernels from csrc/ itself. Phases:
   1. the card's name and power limit (nvidia-smi)
   2. build the kernels, print the seconds
   3. kernel B1 (fused_vit_layer) against its plain version: DeiT-S and
-     composed geometry, S in {197, 131, 99, 66, 33, 17}, masked and not,
-     float32 and bfloat16, batch 8
+     composed geometry, S in {197, 131, 99, 66, 33, 17}, batch 8, and
+     ViT-B/16 (phase 8's model) at S 197, batch 16; masked and not,
+     float32 and bfloat16
   3c. kernel B4 (fused_vit_layer_int8) against its plain version on the
      same cases, with the int8 codes of every quantized activation compared
      (the count that differ is printed), and a row whose scaled values land
@@ -54,8 +55,9 @@ kernels from csrc/ itself. Phases:
      against their plain version at every product shape of the main paths
      (DeiT-S and composed widths at S 197 / 131 / 99 / 66 / 33 / 17, ViT-H
      and its composed width at S 257 / 171 / 129 / 86 / 43 / 22, B2's
-     strided CLS rows and N 100 classifier, every epilogue), with the body
-     each took (wgmma where TMA can describe the operands, else WMMA); the
+     strided CLS rows and N 100 classifier, every epilogue; B1's four
+     products at ViT-B/16, batch 16 x S 197), with the body each took
+     (wgmma where TMA can describe the operands, else WMMA); the
      main shapes at batch 512 x 197 and 64 x 257 timed beside torch.matmul
   3k. sequences past the attention bodies' resident limit (K and V
      streamed): B1, B2, B3 (cap S // 2 + 1, the last token kept), B4, B5
@@ -133,11 +135,33 @@ kernels from csrc/ itself. Phases:
      dense / headline / composed / ultra, kernel path and plain path (mean
      of 5 after 2 warm-ups); B1 and B6 at DeiT-S S 577, batch 128, beside
      the cuBLAS layer and f32 SDPA
-  7. records: nothing of jax or of the JAX package was loaded (by module
-     name or by file), nor pandas or transformers, the kernels' JSON line (launches: B1-B7 on the DeiT-S
-     paths of 5-5d, B8 on 5f's; B4's, B6's, B7's and B8's also per body;
-     ViT-H's are logged in 5e; B1's and B5's also launches_train, those
-     of 5h's train steps), the device line
+  8. the user's CLI (vit_pruning_tpu_torch/cli.py) at ViT-B/16 @224, the
+     reference's own model: the native preprocessing library built from
+     the checkout and held against vit_preprocess on the card; `train
+     --model vit_base --dataset synthetic --train_size 64 --test_size 32
+     --train_batch_size 16 --num_epochs 1 1 --bf16` from a random ViT-B
+     given as --torch_checkpoint (the CLI writes its best checkpoint; B1
+     launched inside the train steps; the first step of each phase within
+     1e-4 relative of the same command under kernel mode 'eager'), `eval`
+     of that checkpoint through its config sidecar (every batch's logits
+     against the eager path's), `export` (the checkpoint's tensors); ms
+     per train step and per eval batch
+  9. the quality gates on the card: quality_torch.main on the gate model
+     with --kernels auto, epochs cut (GATE_ARGV): quality.py's own checks
+     (dense baseline at least 5x chance, the JSON schema), finite
+     accuracies, B1 / B3 / B4 launched
+  7. records: before 8, importing every module of the port and
+     quality_torch.py loads neither pandas nor transformers (8 and 9 print
+     the metrics tables, which import pandas where it is installed); after
+     9, nothing of jax or of the JAX package was loaded (by module name or
+     by file) and no line of quality_torch.py or of this script imports
+     them; the kernels'
+     JSON line (launches: B1-B7 on the DeiT-S paths of 5-5d, B8 on 5f's;
+     B4's, B6's, B7's and B8's also per body; ViT-H's are logged in 5e;
+     B1's and B5's also launches_train, those of 5h's train steps; every
+     row launches_cli, by command of phase 8, and launches_gate, phase
+     9's; train_steps_* count only the launches inside phase 8's train
+     steps), the device line
 
 Any failed check raises, so the exit code is non-zero. The line before the
 last is the kernels' JSON record; the last line is the device record.
@@ -147,8 +171,10 @@ Weights are random, from a torch.Generator seed; images from a numpy seed.
 import functools
 import json
 import math
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -177,6 +203,10 @@ PEAK_FP32_FLOPS = 67e12
 HALF_EVEN_ROW = [127.0, 0.5, 1.5, 2.5, 3.5, -0.5, -1.5, -2.5, 126.5, -126.5, 0.49, 2.51,
                  -127.0, 64.5, -64.5, 7.0]
 HALF_EVEN_CODES = [127, 0, 2, 2, 4, 0, -2, -2, 126, -126, 0, 3, -127, 64, -64, 7]
+# phase 9: quality_torch.py on the gate model with the kernels, its epochs cut so
+# that the phase stays short (the full default runs are recorded in PERF.md)
+GATE_ARGV = ["--kernels", "auto", "--preset", "both", "--epochs", "4", "--pred_epochs", "3",
+             "--recover_epochs", "2"]
 
 
 def log(msg: str):
@@ -631,6 +661,348 @@ def train_path(dev, base: dict, cfg) -> dict:
     return {"launches": launches, "times": times}
 
 
+def kernel_wrappers() -> dict:
+    """Every kernel's wrapper by its JSON key; each counts its launches."""
+    from vit_pruning_tpu_torch.ops.cuda import attention as ka
+    from vit_pruning_tpu_torch.ops.cuda import embed as kemb
+    from vit_pruning_tpu_torch.ops.cuda import layer as kl
+    from vit_pruning_tpu_torch.ops.cuda import layer_int8 as k8
+    from vit_pruning_tpu_torch.ops.cuda import mlp as kmlp
+    from vit_pruning_tpu_torch.ops.cuda import model as kmod
+
+    return {"b1": kl.fused_vit_layer, "b2": kl.fused_vit_layer_cls_logits,
+            "b3": kl.fused_vit_layer_bucketed, "b4": k8.fused_vit_layer_int8,
+            "b5": kmod.fused_vit_encoder, "b6": ka.fused_attention, "b7": kmlp.fused_mlp,
+            "b8a": kemb.fused_patch_embed_u8, "b8b": kemb.fused_patch_embed_f}
+
+
+def reset_launches(keys=None):
+    """Sets the launch counts of `keys` (default: every kernel) to 0."""
+    for k, w in kernel_wrappers().items():
+        if keys is None or k in keys:
+            w.launches = 0
+
+
+def read_launches(keys=None) -> dict:
+    """The launch counts of `keys` (default: every kernel), by JSON key."""
+    return {k: w.launches for k, w in kernel_wrappers().items() if keys is None or k in keys}
+
+
+class StepRecorder:
+    """Wraps train/harness.py's make_train_step and make_eval_step for the
+    length of a `with`: records each train step's loss, the kernel launches
+    made inside the train steps, each eval step's logits and keep masks, and
+    each step's wall time (the card synchronised before and after it)."""
+
+    def __init__(self):
+        self.losses, self.train_ms, self.eval_ms = [], [], []
+        self.step_launches = dict.fromkeys(kernel_wrappers(), 0)
+        self.eval_logits, self.eval_masks = [], []
+        self.params = None
+
+    def __enter__(self):
+        from vit_pruning_tpu_torch.train import harness
+
+        self.harness = harness
+        self.make_train, self.make_eval = harness.make_train_step, harness.make_eval_step
+
+        def timed(step, on_metrics, times):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*a, **kw)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                on_metrics(out)
+                return out
+            return run
+
+        def make_train(*a, **kw):
+            phase = []
+            self.losses.append(phase)
+            self.train_ms.append([])
+            step = timed(self.make_train(*a, **kw), lambda m: phase.append(float(m["loss"])),
+                         self.train_ms[-1])
+
+            def counted(params, *rest, **kw2):
+                self.params = params  # updated in place by every step
+                c0 = read_launches()
+                out = step(params, *rest, **kw2)
+                for k, n in read_launches().items():
+                    self.step_launches[k] += n - c0[k]
+                return out
+            return counted
+
+        def make_eval(*a, **kw):
+            step = self.make_eval(*a, **kw)
+
+            def captured(*ea, **ekw):
+                real = harness.pruned_vit_forward
+
+                def forward(*fa, **fkw):
+                    out = real(*fa, **fkw)
+                    self.eval_logits.append(out["logits"].float().cpu())
+                    self.eval_masks.append(out["keep_masks"].cpu())
+                    return out
+
+                harness.pruned_vit_forward = forward
+                try:
+                    return step(*ea, **ekw)
+                finally:
+                    harness.pruned_vit_forward = real
+            return timed(captured, lambda m: None, self.eval_ms)
+
+        harness.make_train_step, harness.make_eval_step = make_train, make_eval
+        return self
+
+    def __exit__(self, *exc):
+        self.harness.make_train_step = self.make_train
+        self.harness.make_eval_step = self.make_eval
+
+
+def cli_path(dev) -> dict:
+    """Phase 8: the user's CLI (python -m vit_pruning_tpu_torch.cli) at the
+    reference's own model, ViT-B/16 at 224 (D 768, 12 heads of 64, 12 layers,
+    1000 labels), through cli.main on the card (the default device):
+      - the native preprocessing library built from the checkout, its fused
+        preprocess held against vit_preprocess on the card (the tolerance of
+        tests/test_data.py: mean < 0.02, max < 0.5 after normalisation);
+      - `train -d ... --model vit_base --dataset synthetic --train_size 64
+        --test_size 32 --train_batch_size 16 --num_epochs 1 1 --bf16` (mode
+        mask, cls_mlp, the predictor phase then the backbone phase) from a
+        random ViT-B given as an HF state dict (--torch_checkpoint) whose
+        classifier bias favours the first test image's class, so that the
+        first epoch's accuracy beats 0 and the CLI writes its best checkpoint:
+        rc 0, finite losses, the checkpoint written, B1 launched inside the
+        train steps; the same command under kernel mode 'eager': the first
+        step of each phase within 1e-4 relative (as phase 5h holds its
+        losses), no kernel launched;
+      - `eval` of the CLI's checkpoint through its config sidecar (float32),
+        kernel path and eager path: every batch's logits held against the
+        eager path's within F32_ATOL + 1e-4 max|logits| on the images whose
+        keep masks agree at every layer (a score within float noise of the
+        threshold may decide a token the other way; at least half must
+        agree), and the same accuracy line; `export` to an HF state dict
+        whose tensors equal the checkpoint's.
+    The launch counts are set to 0 just before each command and read just
+    after. Returns the launches and the times (ms per train step, the
+    median of each phase's steps after its first; ms per eval batch)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from vit_pruning_tpu_torch import cli, native
+    from vit_pruning_tpu_torch.checkpoint import restore_checkpoint
+    from vit_pruning_tpu_torch.data.datasets import synthetic_dataset
+    from vit_pruning_tpu_torch.data.preprocess import vit_preprocess
+    from vit_pruning_tpu_torch.models.convert import (
+        flatten_tree, params_to_torch_state_dict, torch_state_dict_to_params)
+    from vit_pruning_tpu_torch.models.vit import init_vit_params
+    from vit_pruning_tpu_torch.ops.dispatch import kernel_mode
+
+    check = Checks("phase 8 (the CLI at ViT-B/16 width)")
+    t0 = time.perf_counter()
+    built = native.available()
+    log(f"  native preprocessing library built from the checkout: {built} "
+        f"({time.perf_counter() - t0:.1f} s, in {native.build_dir()})")
+    check(built, "the native preprocessing library did not build")
+    if built:
+        u8 = np.random.RandomState(SEED + 8).randint(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+        host = torch.from_numpy(native.preprocess(u8, size=224)).to(dev)
+        card = vit_preprocess(torch.from_numpy(u8).to(dev), 224)
+        diff = (host - card).abs()
+        log(f"  native preprocess (PIL numerics) vs vit_preprocess on the card, 32 -> 224: mean "
+            f"|diff| {float(diff.mean()):.4f}, max {float(diff.max()):.4f}")
+        check(float(diff.mean()) < 0.02 and float(diff.max()) < 0.5,
+              "native preprocess far from vit_preprocess")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    b_cfg = cli.MODELS["vit_base"]()
+    backbone = init_vit_params(b_cfg, torch.Generator().manual_seed(SEED + 9), "cpu")
+    label0 = int(synthetic_dataset(n=32, image_size=b_cfg.image_size,
+                                   num_labels=b_cfg.num_labels, seed=1)[1][0])
+    backbone["head"]["b"][label0] += 8.0
+    init_pth = os.path.join(work, "init_vit_b.pth")
+    torch.save(params_to_torch_state_dict(backbone, b_cfg), init_pth)
+    del backbone
+    common = ["--model", "vit_base", "--dataset", "synthetic", "--train_size", "64",
+              "--test_size", "32", "--train_batch_size", "16", "--num_epochs", "1", "1",
+              "--bf16", "--torch_checkpoint", init_pth, "--quiet",
+              "--csv_path", os.path.join(work, "stats.csv"), "--log_dir", os.path.join(work, "logs")]
+    runs, launches = {}, {}
+    for mode in ("auto", "eager"):
+        models = os.path.join(work, f"models_{mode}")
+        reset_launches()
+        t1 = time.perf_counter()
+        with StepRecorder() as rec, kernel_mode(mode):
+            rc = cli.main(["train", "-d", f"smoke_{mode}", "--models_dir", models] + common)
+        torch.cuda.synchronize()
+        launches[f"train_{mode}"] = read_launches()
+        launches[f"train_steps_{mode}"] = dict(rec.step_launches)
+        side = [f for f in os.listdir(models) if f.endswith(".config.json")]
+        ckpt = os.path.join(models, side[0][:-len(".config.json")]) if side else None
+        wrote = bool(ckpt) and os.path.exists(ckpt)
+        runs[mode] = (rc, rec, ckpt, wrote)
+        ms = [statistics.median(p[1:]) for p in rec.train_ms]
+        log(f"  train ({mode}): rc {rc} in {time.perf_counter() - t1:.1f} s; best checkpoint "
+            f"written by the CLI: {wrote}; losses by phase "
+            + "; ".join(", ".join(f"{v:.6f}" for v in p) for p in rec.losses)
+            + f"; ms/step by phase (median after the first) {', '.join(f'{m:.2f}' for m in ms)}; "
+            f"eval ms/batch (median) {statistics.median(rec.eval_ms):.2f}; launches in the "
+            "train steps " + ", ".join(f"{k.upper()} {v}" for k, v in rec.step_launches.items()
+                                       if v)
+            + "; in the whole command "
+            + ", ".join(f"{k.upper()} {v}" for k, v in launches[f'train_{mode}'].items() if v))
+    (rc_k, rec_k, ckpt, wrote_k), (rc_e, rec_e, _, wrote_e) = runs["auto"], runs["eager"]
+    check(rc_k == 0 and rc_e == 0, f"train rc {rc_k} / {rc_e}")
+    check(wrote_k and wrote_e, "the CLI wrote no best checkpoint")
+    flat_k = [v for p in rec_k.losses for v in p]
+    check(len(flat_k) == 8 and all(math.isfinite(v) for v in flat_k),
+          f"train losses not 8 finite values: {flat_k}")
+    firsts = [(pk[0], pe[0]) for pk, pe in zip(rec_k.losses, rec_e.losses)]
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in firsts)
+    log(f"  first step of each phase, kernel path against eager: {firsts}; largest relative "
+        f"difference {rel:.2e}")
+    check(len(firsts) == 2 and rel <= 1e-4, "the first steps' losses differ from the eager path's")
+    check(launches["train_steps_auto"]["b1"] > 0, "B1 not launched in the CLI's train steps")
+    check(not any(launches["train_eager"].values()), "the eager run launched a kernel")
+    times = {"train_ms_by_phase": [statistics.median(p[1:]) for p in rec_k.train_ms],
+             "train_eval_ms": statistics.median(rec_k.eval_ms)}
+
+    # eval from the CLI's best checkpoint (its sidecar rebuilds ViT-B and the mask config)
+    evals = {}
+    for mode in ("auto", "eager"):
+        out = io.StringIO()
+        reset_launches()
+        with StepRecorder() as rec, kernel_mode(mode), contextlib.redirect_stdout(out):
+            rc = cli.main(["eval", "--checkpoint", ckpt, "--test_batch_size", "16"])
+        torch.cuda.synchronize()
+        launches[f"eval_{mode}"] = read_launches()
+        line = [ln for ln in out.getvalue().splitlines() if ln.startswith("accuracy=")]
+        evals[mode] = (rc, line[-1] if line else None, rec)
+        log(f"  eval ({mode}): rc {rc}, {evals[mode][1]}, {len(rec.eval_ms)} batches, ms/batch "
+            f"(median) {statistics.median(rec.eval_ms):.2f}; launches "
+            + ", ".join(f"{k.upper()} {v}" for k, v in launches[f'eval_{mode}'].items() if v))
+    (rc_k, line_k, rec_k), (rc_e, line_e, rec_e) = evals["auto"], evals["eager"]
+    check(rc_k == 0 and rc_e == 0 and line_k is not None and line_k == line_e,
+          f"eval: rc {rc_k} / {rc_e}, {line_k} / {line_e}")
+    # eval reads the CLI's default synthetic test split: 128 images, 8 batches of 16
+    check(len(rec_k.eval_logits) == 8 and len(rec_e.eval_logits) == 8,
+          f"eval batches {len(rec_k.eval_logits)} / {len(rec_e.eval_logits)}, want 8")
+    for i, (lk, le, mk, me) in enumerate(zip(rec_k.eval_logits, rec_e.eval_logits,
+                                             rec_k.eval_masks, rec_e.eval_masks)):
+        agree = (mk == me).flatten(2).all(-1).all(0)  # [L, B, S] -> [B]
+        n_agree = int(agree.sum())
+        d = (lk - le)[agree].abs().max().item() if n_agree else float("inf")
+        tol = F32_ATOL + 1e-4 * le.abs().max().item()
+        log(f"  eval batch {i}, kernel path against eager: logits [{', '.join(map(str, lk.shape))}]"
+            f", keep masks agree on {n_agree}/{lk.shape[0]} images, logits max_abs_err there "
+            f"{d:.3e} (tol {tol:.1e}, max|ref| {le.abs().max().item():.3f})")
+        check(lk.shape == (16, 1000) and bool(torch.isfinite(lk).all()) and n_agree * 2 >= 16
+              and d <= tol, f"eval batch {i}: {n_agree} images agree, err {d:.3e}")
+    check(launches["eval_auto"]["b1"] > 0, "eval launched no B1")
+    check(not any(launches["eval_eager"].values()), "the eager eval launched a kernel")
+    times["eval_ms"] = statistics.median(rec_k.eval_ms)
+
+    out_pth = os.path.join(work, "export", "vit_b.pth")
+    reset_launches()
+    rc = cli.main(["export", "--checkpoint", ckpt, "--out", out_pth])
+    launches["export"] = read_launches()
+    sd = torch.load(out_pth, map_location="cpu", weights_only=True)
+    saved = dict(flatten_tree(restore_checkpoint(ckpt)["backbone"]))
+    back = dict(flatten_tree(torch_state_dict_to_params(sd, b_cfg, device="cpu")))
+    same = back.keys() == saved.keys() and all(torch.equal(v, saved[k]) for k, v in back.items())
+    log(f"  export: rc {rc}, {len(sd)} tensors, equal to the checkpoint's: {same}")
+    check(rc == 0 and len(sd) == 200 and same, "export")
+
+    # B1 alone at the shapes of eval (float32) and of the train steps (bfloat16), masked as
+    # mode mask runs it, beside its plain version: info for the kernel path's ms/batch
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.models.vit import layer_slice
+    from vit_pruning_tpu_torch.ops.cuda import layer as kl
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    lp_cpu = layer_slice(init_vit_params(b_cfg.replace(num_layers=1), gen, "cpu")["layers"], 0)
+    m = (torch.rand(16, 197, generator=gen) > 0.3).to(dev)
+    m[:, 0] = True
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        lp = tree_to(lp_cpu, dev, dt)
+        x = torch.randn(16, 197, b_cfg.hidden_size, generator=gen).to(dev, dt)
+        k_ms, p_ms = (event_ms(lambda f=f: f(x, lp, b_cfg.num_heads, b_cfg.layernorm_eps, m))
+                      for f in (kl.fused_vit_layer, kl.fused_vit_layer_ref))
+        times[f"b1_{dname}_ms"] = (k_ms, p_ms)
+        log(f"  B1 at ViT-B/16, batch 16, S 197, masked, {dname}: kernel {k_ms:.3f} ms, plain "
+            f"version {p_ms:.3f} ms (mean of 10 after 3)")
+    check.done()
+    return {"launches": launches, "times": times}
+
+
+def event_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    """Mean ms of fn() on the card over `iters` calls after `warmup`, from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def gate_path(dev, argv) -> dict:
+    """Phase 9: the quality gates on the card, quality_torch.main(argv) on
+    the gate model (32x32, patch 4, D 128, 4 heads of 32, 6 layers, 128
+    classes), kernels 'auto' (B1 / B5 under autograd in training; B1-B4 in
+    evaluation), epochs cut to keep the phase short. Held to the checks
+    quality.py makes itself: the dense baseline at least 5x chance (else it
+    exits 2), the JSON record's current schema (quality.py's
+    validate_section), finite accuracies; exit code 0 or 1 (a gate that
+    fails at cut epochs is reported, not hidden). The launch counts are set
+    to 0 just before and read just after."""
+    import contextlib
+    import io
+
+    import quality_torch
+
+    check = Checks("phase 9 (the quality gates on the card)")
+    out, err = io.StringIO(), io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = quality_torch.main(argv)
+    finally:
+        from vit_pruning_tpu_torch.ops.dispatch import set_kernel_mode
+
+        set_kernel_mode("auto")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    lines = err.getvalue().splitlines()
+    for ln in [ln for ln in lines if not ln.startswith(("epoch", "Test acc", "Overall"))
+               and ln.strip() and "  " not in ln[:2]][-12:]:
+        log(f"  | {ln[:200]}")
+    record = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"  quality_torch.main({' '.join(argv)}): rc {rc} in {seconds:.1f} s; launches "
+        + ", ".join(f"{k.upper()} {v}" for k, v in launches.items() if v))
+    log(f"  gate JSON: {json.dumps(record)}")
+    problems = quality_torch.validate_section(record) if "presets" in record else ["no presets"]
+    accs = [record.get("dense_top1"), record.get("dense_top1_int8")] + [
+        p[k] for p in record.get("presets", {}).values()
+        for k in ("pruned_top1", "pruned_top1_int8")]
+    check(rc in (0, 1), f"quality_torch exit code {rc} (2: dense baseline at chance)")
+    check(not problems, f"gate JSON schema: {problems}")
+    check(all(a is not None and math.isfinite(a) for a in accs), f"accuracies {accs}")
+    check(record.get("dense_top1", 0.0) >= 5.0 / 128, "dense baseline within 5x chance")
+    for key in ("b1", "b3", "b4"):
+        check(launches[key] > 0, f"{key.upper()} not launched by the gates")
+    check.done()
+    return {"launches": launches, "record": record, "rc": rc, "seconds": seconds}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -638,7 +1010,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from vit_pruning_tpu_torch.configs import (
-        PruneConfig, ViTConfig, composed_schedule, deit_small, ultra_schedule, vit_huge, vit_tiny)
+        PruneConfig, ViTConfig, composed_schedule, deit_small, ultra_schedule,
+        vit_base_patch16_224, vit_huge, vit_tiny)
     from vit_pruning_tpu_torch.data.preprocess import VIT_MEAN, VIT_STD
     from vit_pruning_tpu_torch.models.convert import tree_to
     from vit_pruning_tpu_torch.models import pruned_vit as tp
@@ -736,14 +1109,26 @@ def main():
     log(f"ViT-H params (random, seed {SEED}, f32 on the card) built in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # ViT-B/16 @224 (D 768, 12 heads of 64, MLP 3072), the CLI's model in phase 8: one
+    # perturbed layer, from a generator of its own so that the other phases draw as before
+    gen_b = torch.Generator().manual_seed(SEED + 8)
+    b_cfg = vit_base_patch16_224()
+    b_layer = perturbed_layer(layer_slice(
+        init_vit_params(b_cfg.replace(num_layers=1), gen_b, "cpu")["layers"], 0), gen_b)
+
     # --- 3. B1 against its plain version ------------------------------------------------
+    # DeiT-S and composed geometry at batch 8 and every length of the pruned paths; ViT-B at
+    # the shapes phase 8's train and eval steps give B1 (batch 16, S 197)
     check = Checks("phase 3 (B1 vs plain)")
-    for gname, (gcfg, lp_cpu) in geometries.items():
+    b1_cases = [(gname, gcfg, lp_cpu, 8, (197, 131, 99, 66, 33, 17), gen)
+                for gname, (gcfg, lp_cpu) in geometries.items()]
+    b1_cases.append(("vit_b", b_cfg, b_layer, 16, (197,), gen_b))
+    for gname, gcfg, lp_cpu, batch, lens, g in b1_cases:
         for dname, dt in dtypes.items():
             lp = tree_to(lp_cpu, dev, dt)
-            for s in (197, 131, 99, 66, 33, 17):
-                x = torch.randn(8, s, gcfg.hidden_size, generator=gen).to(dev, dt)
-                m = torch.rand(8, s, generator=gen) > 0.3
+            for s in lens:
+                x = torch.randn(batch, s, gcfg.hidden_size, generator=g).to(dev, dt)
+                m = torch.rand(batch, s, generator=g) > 0.3
                 m[:, 0] = True
                 for mask in (None, m.to(dev)):
                     got = kl.fused_vit_layer(x, lp, gcfg.num_heads, gcfg.layernorm_eps, mask)
@@ -841,17 +1226,7 @@ def main():
         d = (got.float() - ref.float()).abs()
         return (d if mask is None else d[mask]).max().item()
 
-    def time_ms(fn, iters=10, warmup=3) -> float:
-        for _ in range(warmup):
-            fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
+    time_ms = event_ms
 
     def abba(kernel_fn, plain_fn, **kw):
         """plain, kernel, kernel, plain; mean of each pair (ms)."""
@@ -1434,6 +1809,13 @@ def main():
             gemm_check(f"{gname} B2 S={s} fc1", gemm_operands(8, d, mm), "gelu_tanh")
             gemm_check(f"{gname} B2 S={s} fc2", gemm_operands(8, mm, d, f32), out=f32)
             gemm_check(f"{gname} B2 S={s} classifier", gemm_operands(8, d, 100))
+    # ViT-B/16's four B1 products at phase 8's batch 16 x S 197 (K 768 / 3072, N 2304 / 3072)
+    d, kw, mm, r16 = b_cfg.hidden_size, b_cfg.attn_width, b_cfg.mlp_dim, 16 * 197
+    for tag, (k, n, res, act, out) in {"qkv": (d, 3 * kw, None, "none", bfl),
+                                       "o": (kw, d, bfl, "none", f32),
+                                       "fc1": (d, mm, None, "gelu_tanh", bfl),
+                                       "fc2": (mm, d, f32, "none", bfl)}.items():
+        gemm_check(f"vit_b batch 16 S=197 {tag}", gemm_operands(r16, k, n, res), act, out)
     gemm_rates = []
     for gname, gcfg, batch, s in (("deit_s", cfg, 512, 197), ("vit_h", hcfg, 64, 257)):
         d, kw, mm = gcfg.hidden_size, gcfg.attn_width, gcfg.mlp_dim
@@ -1859,12 +2241,8 @@ def main():
     # are B5's (normalised P, erf GELU, f32 residual), so in bf16 the two paths are two
     # roundings: checked finite, with the masks of decisions taken before any layer equal.
     check = Checks("phase 5d (head_mask, hidden states, encoder route, mha)")
-    all_wrappers = {"b1": kl.fused_vit_layer, "b2": kl.fused_vit_layer_cls_logits,
-                    "b3": kl.fused_vit_layer_bucketed, "b4": k8.fused_vit_layer_int8,
-                    "b5": kmod.fused_vit_encoder, "b6": ka.fused_attention, "b7": kmlp.fused_mlp}
-
-    def snapshot():
-        return {k: w.launches for k, w in all_wrappers.items()}
+    keys_5d = ("b1", "b2", "b3", "b4", "b5", "b6", "b7")
+    snapshot = functools.partial(read_launches, keys_5d)
 
     def ran(c0):
         c1 = snapshot()
@@ -1887,8 +2265,7 @@ def main():
     hm[:, 1] = 0.0  # head 1 off everywhere
     hm[3] = 0.0     # layer 3's attention off
     hm[5, 2] = 0.5
-    for w in all_wrappers.values():  # the counts of this path's run only
-        w.launches = 0
+    reset_launches(keys_5d)  # the counts of this path's run only
     ka.reset_body_counts()
     kmlp.reset_body_counts()
     for dname, dt in dtypes.items():
@@ -1957,8 +2334,8 @@ def main():
                         alt = fwd()
                 finally:
                     kmod.fused_vit_encoder = real
-                    for k, w in all_wrappers.items():  # comparison launches do not count
-                        w.launches = c1[k]
+                    for k, w in kernel_wrappers().items():  # comparison launches do not count
+                        w.launches = c1.get(k, w.launches)
                 la = alt["logits"].float()
                 agree = torch.ones(lg.shape[0], dtype=torch.bool, device=dev)
                 if "keep_masks" in got:
@@ -1999,8 +2376,7 @@ def main():
         close = d <= F32_ATOL if dt == torch.float32 else rel < 0.02
         check(n == {"b6": 1} and bool(torch.isfinite(got).all()) and close,
               f"mha(use_kernel) {dname}: launches {n} or err {d:.3e} / {rel:.2e}")
-    for k in ("b5", "b6", "b7"):
-        launches[k] = all_wrappers[k].launches
+    launches.update(read_launches(("b5", "b6", "b7")))
     # B6 and B7 per body: the float32 forwards on the FMA bodies, the bfloat16 ones on the
     # tensor-core bodies (DeiT-S's shapes are theirs)
     bodies67 = {"b6": ka.body_counts(), "b7": kmlp.body_counts()}
@@ -2010,8 +2386,7 @@ def main():
               f"{k.upper()} bodies {n} on {launches[k]} launches")
     launches["b1"] += kl.fused_vit_layer.launches
     launches["b2"] += kl.fused_vit_layer_cls_logits.launches
-    log("  phase 5d launches: " + ", ".join(f"{k.upper()} {w.launches}"
-                                           for k, w in all_wrappers.items()))
+    log("  phase 5d launches: " + ", ".join(f"{k.upper()} {n}" for k, n in snapshot().items()))
     check(all(launches[k] > 0 for k in ("b5", "b6", "b7")), "a kernel of the path never launched")
     check.done()
 
@@ -2624,15 +2999,30 @@ def main():
         if name == "dense":
             device_breakdown("vit_h dense", lambda: run("auto"), k_ms, reps=2)
 
-    # --- 7. records ------------------------------------------------------------------
+    # --- 7 (first half). importing every module of the port, and quality_torch, loads
+    # neither pandas nor transformers: they are imported only when called (phases 8 and 9
+    # print the metrics tables, which import pandas where it is installed)
     import importlib
     import pkgutil
     from pathlib import Path
 
+    import quality_torch  # noqa: F401
     import vit_pruning_tpu_torch as port
 
     for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
         importlib.import_module(mod.name)
+    lazy = [m for m in ("pandas", "transformers") if m in sys.modules]
+    if lazy:
+        raise AssertionError(f"importing the port loaded {lazy}, which it imports only when used")
+
+    # --- 8. the CLI at ViT-B/16 width: train, eval, export -----------------------------
+    torch.cuda.empty_cache()
+    cli_run = cli_path(dev)
+
+    # --- 9. the quality gates on the card (gate model, kernels auto, cut epochs) ----------
+    gate_run = gate_path(dev, GATE_ARGV + ["--cache_dir", tempfile.mkdtemp(prefix="gate_cache_")])
+
+    # --- 7. records: after every phase, nothing of jax or of the JAX package was loaded ---
     port_dir = Path(port.__file__).resolve().parent
     jax_dir = port_dir.parent / "vit_pruning_tpu"
     jax_loaded = sorted(m for m in sys.modules
@@ -2641,15 +3031,23 @@ def main():
                        if jax_dir in Path(getattr(m, "__file__", None) or "/").resolve().parents)
     if jax_loaded or jax_files:
         raise AssertionError(f"the port loaded jax or the JAX package: {(jax_loaded + jax_files)[:5]}")
-    lazy = [m for m in ("pandas", "transformers") if m in sys.modules]
-    if lazy:
-        raise AssertionError(f"importing the port loaded {lazy}, which it imports only when used")
     for src in sorted(port_dir.rglob("*.py")):
         text = src.read_text()
         for needle in ('"vit_pruning_tpu"', "'vit_pruning_tpu'", '"vit_pruning_tpu/',
                        "spec_from_file_location", "exec_module"):
             if needle in text:
                 raise AssertionError(f"{src}: builds a path into the JAX package ({needle})")
+    for src in (port_dir.parent / "quality_torch.py", port_dir.parent / "chip_smoke.py"):
+        bad = [ln for ln in src.read_text().splitlines()
+               if ln.strip().startswith(("import jax", "from jax", "import vit_pruning_tpu ",
+                                         "import vit_pruning_tpu.", "from vit_pruning_tpu ",
+                                         "from vit_pruning_tpu."))]
+        if bad:
+            raise AssertionError(f"{src.name} imports jax or the JAX package: {bad[:3]}")
+    log(f"  phase 8 (CLI, ViT-B/16, bf16, batch 16): ms/step by phase "
+        f"{[round(v, 3) for v in cli_run['times']['train_ms_by_phase']]}, eval ms/batch "
+        f"{cli_run['times']['eval_ms']:.3f}; phase 9 (gates, kernels auto): rc {gate_run['rc']} "
+        f"in {gate_run['seconds']:.1f} s")
     pkg = "vit_pruning_tpu_torch"
     rows = (  # key, wrapper, csrc file, the TPU kernel's file and line, launches
         ("b1", "fused_vit_layer", "layer", "layer", 359, launches["b1"] + launches["b1_redecide"]),
@@ -2671,7 +3069,9 @@ def main():
          "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": kernel_ms[key][2],
          **({"launches_by_body": by_body[key]} if key in by_body else {}),
          **({"products_on_wgmma_s8": launches["b4_s8"]} if key == "b4" else {}),
-         **({"launches_train": trained["launches"][key]} if key in trained["launches"] else {})}
+         **({"launches_train": trained["launches"][key]} if key in trained["launches"] else {}),
+         "launches_cli": {run: c[key] for run, c in cli_run["launches"].items()},
+         "launches_gate": gate_run["launches"][key]}
         for key, name, src, tpu, line, n in rows
     ]
     log(smi)

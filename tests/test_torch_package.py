@@ -169,3 +169,56 @@ def test_unported_options_raise():
     batch = [{"pixel_values": pix, "labels": torch.zeros(1, dtype=torch.long)}]
     with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
         train(params, batch, batch, cfg, pcfg, num_epochs=1, viz_dir="viz_out")
+
+
+IMPORT_ENTRY_POINTS = """
+import os, sys
+sys.path.insert(0, os.getcwd())
+import quality_torch
+import vit_pruning_tpu_torch.cli, vit_pruning_tpu_torch.data, vit_pruning_tpu_torch.native
+import vit_pruning_tpu_torch.utils.housekeeping, vit_pruning_tpu_torch.utils.profiling
+import vit_pruning_tpu_torch.utils.sweep, vit_pruning_tpu_torch.data.fetch
+bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'vit_pruning_tpu', 'pandas',
+                                                           'transformers', 'optax', 'PIL'))
+print(bad)
+"""
+
+
+def test_entry_points_load_no_jax():
+    """The user's entry points (the CLI, the data pipeline, the utils, the
+    native bindings, quality_torch.py) load neither jax nor the JAX package,
+    nor what they import only when used (pandas, transformers, PIL), nor
+    optax (the gate's schedule is the port's own)."""
+    out = subprocess.run([sys.executable, "-c", IMPORT_ENTRY_POINTS], capture_output=True,
+                         text=True, check=True, cwd=PORT_DIR.parent)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_scripts_import_nothing_of_jax():
+    """quality_torch.py and chip_smoke.py import neither jax nor the JAX
+    package, at module level or inside a function."""
+    import re
+
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|optax|vit_pruning_tpu)(\s|\.|$)", re.M)
+    for name in ("quality_torch.py", "chip_smoke.py"):
+        text = (PORT_DIR.parent / name).read_text()
+        assert not pattern.findall(text), (name, pattern.findall(text))
+
+
+def test_cli_viz_raises_naming_the_roadmap_item():
+    from vit_pruning_tpu_torch import cli
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+        cli.main(["viz", "--device", "cpu"])
+
+
+def test_cli_runs_on_the_card_unless_asked(monkeypatch, tmp_path):
+    """Without --device the CLI asks for the card, and without one it
+    raises instead of falling back to the CPU."""
+    from vit_pruning_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.build_parser().parse_args(["eval", "--checkpoint", "x"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "-d", "x", "--preset", "smoke", "--quiet",
+                  "--log_dir", str(tmp_path), "--models_dir", str(tmp_path)])
