@@ -135,6 +135,19 @@ kernels from csrc/ itself. Phases:
      dense / headline / composed / ultra, kernel path and plain path (mean
      of 5 after 2 warm-ups); B1 and B6 at DeiT-S S 577, batch 128, beside
      the cuBLAS layer and f32 SDPA
+  3l. (after 6, so that 6's GEMM body counts stay those of 5-5h) widths
+     that are not multiples of the kernels' (ROADMAP C.1), zero-padded by
+     the wrappers: B1, B2, B3, B4 and B5 (two layers) at DeiT-S with 1000
+     of 1536 MLP channels kept and at hidden width 100 (4 heads of 16, MLP
+     300), B8a / B8b at D 100, float32 and bfloat16, against their plain
+     versions on the unpadded weights; every kernel launched
+  5i. the serving export (serving.py::export_serving / load_exported) of
+     the DeiT-S headline, bf16 at batch 512, float32 and int8 at batch 64:
+     the program's vpt:: operators (B1 x 11 + B2, or B4 x 11 + B2), its
+     logits bit-equal to the direct kernel-path forward's, the same
+     launches, a wrong batch refused, the float32 program loaded and run in
+     a fresh process that imports the port alone; ms/batch of the loaded
+     program and of the direct forward (median of 10), info
   8. the user's CLI (vit_pruning_tpu_torch/cli.py) at ViT-B/16 @224, the
      reference's own model: the native preprocessing library built from
      the checkout and held against vit_preprocess on the card; `train
@@ -161,7 +174,8 @@ kernels from csrc/ itself. Phases:
      B1's and B5's also launches_train, those of 5h's train steps; every
      row launches_cli, by command of phase 8, and launches_gate, phase
      9's; train_steps_* count only the launches inside phase 8's train
-     steps), the device line
+     steps; launches_widths, phase 3l's; launches_export, each of 5i's
+     loaded programs' calls), the device line
 
 Any failed check raises, so the exit code is non-zero. The line before the
 last is the kernels' JSON record; the last line is the device record.
@@ -474,6 +488,271 @@ def serve_at_384(dev, base: dict, cfg):
             if dt == torch.float32:
                 check(d <= F32_ATOL + 1e-4 * lr.abs().max().item(), f"{tag}: logits differ")
     check.done()
+
+
+def median_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    """Median ms of fn() on the card over `iters` calls after `warmup`, each
+    call between two CUDA events of its own (the card idle before each)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def narrow_attention(lp: dict, kw: int) -> dict:
+    """A layer tree (one layer or stacked) whose q, k, v project to the first
+    kw columns and whose o reads them: the geometry of ViTConfig(
+    attn_head_dim=...), where the attention width is heads x head dim and
+    not the hidden width."""
+    a = lp["attn"]
+    attn = {n: {"w": a[n]["w"][..., :kw].contiguous(), "b": a[n]["b"][..., :kw].contiguous()}
+            for n in "qkv"}
+    attn["o"] = {"w": a["o"]["w"][..., :kw, :].contiguous(), "b": a["o"]["b"]}
+    return dict(lp, attn=attn)
+
+
+def widths_path(dev, base: dict, cfg) -> dict:
+    """Phase 3l (ROADMAP C.1): widths that are not multiples of the kernels'
+    own, zero-padded by the wrappers (ops/cuda/widths.py), held to the plain
+    versions on the unpadded weights with the tolerances of phases 3-4b and
+    3g. Two geometries, two layers each, float32 and bfloat16, batch 8, S
+    197, masked and not: DeiT-S with 1000 of its 1536 MLP channels a layer
+    kept (prune_mlp_channels; M 1000 is a multiple of 8 and not of 16, so
+    only B4 pads it) and a model of hidden width 100 with 4 heads of 16 and
+    MLP 300 (D and M no multiple of 8); B1, B2, B3 (cap 99), B4, B5; then
+    B8a / B8b at D 100 (DeiT-S's patches, K 768, batch 64). No ValueError
+    for a width; every kernel launched. A generator of its own, so that the
+    other phases draw as before. Returns the launches by kernel."""
+    from vit_pruning_tpu_torch.configs import ViTConfig
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_range, layer_slice
+    from vit_pruning_tpu_torch.ops.cuda import embed as kemb
+    from vit_pruning_tpu_torch.ops.cuda import layer as kl
+    from vit_pruning_tpu_torch.ops.cuda import layer_int8 as k8
+    from vit_pruning_tpu_torch.ops.cuda import model as kmod
+    from vit_pruning_tpu_torch.ops.masking import compact_dest
+    from vit_pruning_tpu_torch.ops.quant import quantize_layer_params
+    from vit_pruning_tpu_torch.ops.structured import prune_mlp_channels
+
+    check = Checks("phase 3l (C.1: widths no multiple of 8 or 16 in B1-B5, B8a, B8b)")
+    g = torch.Generator().manual_seed(SEED + 11)
+    keep = sorted(torch.randperm(cfg.mlp_dim, generator=g)[:1000].tolist())
+    m1000 = prune_mlp_channels(base["backbone"], [keep] * cfg.num_layers)
+    d_cfg = ViTConfig(hidden_size=100, num_layers=2, num_heads=4, attn_head_dim=16, mlp_dim=300,
+                      num_labels=100)
+    d100 = init_vit_params(d_cfg.replace(attn_head_dim=None), g, "cpu")
+    shapes = {  # name -> (config, two stacked layers, final LN, classifier), on the CPU
+        "deit_s M 1000": (cfg, layer_range(m1000["layers"], 0, 2), m1000["ln_f"],
+                          m1000["head"]),
+        "D 100 M 300 (4 heads of 16)": (d_cfg, narrow_attention(d100["layers"], 64),
+                                        d100["ln_f"], d100["head"]),
+    }
+    reset_launches()
+    b, s, cap = 8, cfg.seq_len, 99
+    for sname, (gcfg, st_cpu, lnf_cpu, head_cpu) in shapes.items():
+        st_cpu, lnf_cpu = perturbed_layer(st_cpu, g), perturbed_layer(lnf_cpu, g)
+        head_cpu = perturbed_layer(head_cpu, g)
+        dd = gcfg.hidden_size
+        for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            st, f, h = (tree_to(t, dev, dt) for t in (st_cpu, lnf_cpu, head_cpu))
+            lp = layer_slice(st, 0)
+            qp = quantize_layer_params(lp)
+            x = torch.randn(b, s, dd, generator=g).to(dev, dt)
+            m = torch.rand(b, s, generator=g) > 0.3
+            m[:, 0] = True
+            m = m.to(dev)
+            ftol = F32_ATOL if dt == torch.float32 else None
+            cases = []
+            for mask in (None, m):
+                mt = "mask" if mask is not None else "nomask"
+                cases += [
+                    (f"B1 {mt}", mask,
+                     kl.fused_vit_layer(x, lp, gcfg.num_heads, gcfg.layernorm_eps, mask),
+                     kl.fused_vit_layer_ref(x, lp, gcfg.num_heads, gcfg.layernorm_eps, mask), 0),
+                    (f"B4 {mt}", mask,
+                     k8.fused_vit_layer_int8(x, qp, gcfg.num_heads, gcfg.layernorm_eps, mask),
+                     k8.fused_vit_layer_int8_ref(x, qp, gcfg.num_heads, gcfg.layernorm_eps,
+                                                 mask), 1),
+                    (f"B5 (2 layers) {mt}", mask,
+                     kmod.fused_vit_encoder(x, st, gcfg.num_heads, gcfg.layernorm_eps, mask),
+                     kmod.fused_vit_encoder_ref(x, st, gcfg.num_heads, gcfg.layernorm_eps, mask),
+                     0)]
+            cases.append(("B2", None,
+                          kl.fused_vit_layer_cls_logits(x, lp, f, h, gcfg.num_heads,
+                                                        gcfg.layernorm_eps),
+                          kl.fused_vit_layer_cls_logits_ref(x, lp, f, h, gcfg.num_heads,
+                                                            gcfg.layernorm_eps), 0))
+            counts = torch.randint(1, cap + 1, (b,), generator=g)
+            rank = torch.rand(b, s - 1, generator=g).argsort(-1).argsort(-1)
+            kept = torch.cat([torch.ones(b, 1, dtype=torch.bool), rank < (counts[:, None] - 1)],
+                             1).to(dev)
+            dest = compact_dest(kept)
+            cases.append(("B3 cap 99", kept,
+                          kl.fused_vit_layer_bucketed(x, lp, dest, kept, cap, gcfg.num_heads,
+                                                      gcfg.layernorm_eps),
+                          kl.fused_vit_layer_bucketed_ref(x, lp, dest, kept, cap,
+                                                          gcfg.num_heads, gcfg.layernorm_eps), 0))
+            torch.cuda.synchronize()
+            for what, rows, got, ref, int8 in cases:
+                diff = (got.float() - ref.float()).abs()
+                d = (diff if rows is None else diff[rows]).max().item()
+                tol = (ftol if ftol is not None else bf16_tol(ref.float()))
+                tol += int8_step(ref, x) if int8 else 0.0
+                tag = f"{what} {sname} {dname}"
+                log(f"  {tag}: shape {tuple(got.shape)}; max_abs_err {d:.3e} (tol {tol:.2e})")
+                check(got.shape == ref.shape and bool(torch.isfinite(got).all()) and d <= tol,
+                      tag)
+    # B8a / B8b at D 100: DeiT-S's patches (K 768), batch 64
+    w0 = 0.02 * torch.randn(cfg.patch_dim, 100, generator=g)
+    b0 = 0.1 * torch.randn(100, generator=g)
+    pos0 = 0.02 * torch.randn(cfg.num_patches, 100, generator=g)
+    u8p = torch.randint(0, 256, (64, cfg.num_patches, cfg.patch_dim), generator=g,
+                        dtype=torch.uint8).to(dev)
+    fp = torch.randn(64, cfg.num_patches, cfg.patch_dim, generator=g).to(dev)
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        w, bb, pos = (t.to(dev, dt) for t in (w0, b0, pos0))
+        for key, fn, ref_fn, patches in (
+                ("B8a", kemb.fused_patch_embed_u8, kemb.fused_patch_embed_u8_ref, u8p),
+                ("B8b", kemb.fused_patch_embed_f, kemb.fused_patch_embed_f_ref, fp.to(dt))):
+            got, ref = fn(patches, w, bb, pos), ref_fn(patches, w, bb, pos)
+            torch.cuda.synchronize()
+            d = (got.float() - ref.float()).abs().max().item()
+            top = float(ref.float().abs().max())
+            tol = 1e-5 * top + 1e-5 if dt == torch.float32 else bf16_tol(ref.float())
+            tag = f"{key} D 100 {dname}"
+            log(f"  {tag}: shape {tuple(got.shape)}; max_abs_err {d:.3e} (tol {tol:.1e})")
+            check(got.shape == (64, cfg.num_patches, 100) and got.dtype == dt
+                  and bool(torch.isfinite(got).all()) and d <= tol, tag)
+    launches = read_launches()
+    log("  launches: " + ", ".join(f"{k.upper()} {v}" for k, v in launches.items() if v))
+    for key in ("b1", "b2", "b3", "b4", "b5", "b8a", "b8b"):
+        check(launches[key] > 0, f"{key.upper()} never launched in phase 3l")
+    check.done()
+    return launches
+
+
+# a fresh process that imports the port alone, loads an exported program and runs it:
+# argv = program, inputs (torch.save of params and pixels), where to write the logits
+FRESH_LOAD = """
+import json, sys
+import torch
+from vit_pruning_tpu_torch.serving import load_exported
+from vit_pruning_tpu_torch.ops.cuda import layer as kl
+f = load_exported(sys.argv[1])
+inputs = torch.load(sys.argv[2], map_location="cuda")
+logits = f(inputs["params"], inputs["u8"])
+torch.save(logits.cpu(), sys.argv[3])
+print(json.dumps({"b1": kl.fused_vit_layer.launches, "b2": kl.fused_vit_layer_cls_logits.launches,
+                  "foreign": sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "vit_pruning_tpu"))}))
+"""
+
+
+def export_path(dev, base: dict, cfg, smi: str) -> dict:
+    """Phase 5i: the serving export (serving.py::export_serving /
+    load_exported) at DeiT-S @224, the headline (98 patches kept before layer
+    0, cls_mlp), random weights from SEED: bf16 at batch 512, float32 at
+    batch 64, int8 (bf16 weights) at batch 64. The program holds the kernels
+    as vpt:: operators (B1 x 11 and B2 x 1 in float, B4 x 11 and B2 x 1
+    under int8); the loaded program's logits equal the direct kernel-path
+    serving_forward's bit for bit, and its launches the direct call's; the
+    float32 program also loads and runs in a fresh process that imports the
+    port alone. ms/batch of the loaded program and the direct forward
+    (median of 10 CUDA-event timings after 3 warm-up calls), info. Returns
+    the launches of each loaded program's call, and the times."""
+    import os
+    from collections import Counter
+    from pathlib import Path
+
+    from vit_pruning_tpu_torch.configs import PruneConfig
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.ops.dispatch import kernel_mode
+    from vit_pruning_tpu_torch.serving import export_serving, load_exported, serving_forward
+
+    check = Checks("phase 5i (the serving export: DeiT-S headline)")
+    pcfg = PruneConfig(mode="topk_prog", predictor="cls_mlp", loss="mse_attention", top_k=98)
+    L = cfg.num_layers
+    want = {"none": {"vpt.fused_vit_layer.default": L - 1,
+                     "vpt.fused_vit_layer_cls_logits.default": 1},
+            "int8": {"vpt.fused_vit_layer_int8.default": L - 1,
+                     "vpt.fused_vit_layer_cls_logits.default": 1}}
+    rs = np.random.RandomState(SEED + 5)
+    tmp = tempfile.mkdtemp(prefix="vpt_export_")
+    launches, times = {}, {}
+    for tag, dt, batch, quant in (("bfloat16", torch.bfloat16, 512, "none"),
+                                  ("float32", torch.float32, 64, "none"),
+                                  ("int8", torch.bfloat16, 64, "int8")):
+        params = tree_to(base, dev, dt)
+        u8 = torch.from_numpy(rs.randint(0, 256, (batch, 3, 224, 224), dtype=np.uint8)).to(dev)
+        path = os.path.join(tmp, f"serving_{tag}.pt2")
+        with kernel_mode("auto"):
+            t0 = time.perf_counter()
+            program = export_serving(params, cfg, pcfg, batch, path=path, quant=quant)
+            t_export = time.perf_counter() - t0
+            ops = dict(Counter(str(n.target) for n in program.graph.nodes
+                               if n.op == "call_function" and str(n.target).startswith("vpt.")))
+            check(ops == want[quant], f"{tag}: the program's kernel operators {ops}, want "
+                                      f"{want[quant]}")
+            served = load_exported(path)
+
+            def direct():
+                return serving_forward(params, u8, cfg, pcfg, quant=quant)["logits"]
+
+            reset_launches()
+            ref = direct()
+            torch.cuda.synchronize()
+            n_direct = read_launches()
+            reset_launches()
+            got = served(params, u8)
+            torch.cuda.synchronize()
+            n_loaded = read_launches()
+            same = bool(torch.equal(got, ref))
+            check(same and got.shape == (batch, 100) and bool(torch.isfinite(got).all()),
+                  f"{tag}: the loaded program's logits differ from the direct forward's")
+            check(n_loaded == n_direct, f"{tag}: launches {n_loaded} loaded, {n_direct} direct")
+            layer_key = "b4" if quant == "int8" else "b1"
+            check(n_loaded[layer_key] == L - 1 and n_loaded["b2"] == 1,
+                  f"{tag}: {layer_key.upper()} {n_loaded[layer_key]}, B2 {n_loaded['b2']}")
+            try:
+                served(params, u8[: batch // 2])
+                check(False, f"{tag}: the program took a batch of {batch // 2}")
+            except Exception as e:  # the program's input checks
+                log(f"  {tag}: a batch of {batch // 2} refused ({type(e).__name__})")
+            ms_loaded, ms_direct = median_ms(lambda: served(params, u8)), median_ms(direct)
+        launches[tag] = n_loaded
+        times[tag] = (ms_loaded, ms_direct)
+        log(f"  {tag} batch {batch}: exported in {t_export:.1f} s, {os.path.getsize(path)} bytes; "
+            f"operators {ops}; logits bit-equal {same}; launches loaded "
+            + ", ".join(f"{k.upper()} {v}" for k, v in n_loaded.items() if v)
+            + f" (direct the same: {n_loaded == n_direct}); ms/batch loaded {ms_loaded:.3f}, "
+            f"direct {ms_direct:.3f} ({smi})")
+        if tag == "float32":  # the same program in a fresh process
+            inputs, out = os.path.join(tmp, "inputs.pt"), os.path.join(tmp, "logits.pt")
+            torch.save({"params": params, "u8": u8}, inputs)
+            root = str(Path(__file__).resolve().parent)
+            proc = subprocess.run([sys.executable, "-c", FRESH_LOAD, path, inputs, out],
+                                  capture_output=True, text=True, timeout=600, cwd=root,
+                                  env={**os.environ, "PYTHONPATH": root})
+            if proc.returncode != 0:
+                check(False, f"fresh process failed: {proc.stderr[-2000:]}")
+            else:
+                rec = json.loads(proc.stdout.strip().splitlines()[-1])
+                fresh_same = bool(torch.equal(torch.load(out), ref.cpu()))
+                log(f"  float32 in a fresh process: logits bit-equal {fresh_same}; launches B1 "
+                    f"{rec['b1']}, B2 {rec['b2']}; jax or the JAX package loaded: "
+                    f"{rec['foreign'] or 'no'}")
+                check(fresh_same and rec["b1"] == L - 1 and rec["b2"] == 1
+                      and not rec["foreign"], "the fresh process's run")
+    check.done()
+    return {"launches": launches, "times": times}
 
 
 def train_path(dev, base: dict, cfg) -> dict:
@@ -1503,8 +1782,6 @@ def main():
         "B8a float patches": (kemb.fused_patch_embed_u8, fp, w, b, pos),
         "B8b uint8 patches": (kemb.fused_patch_embed_f, u8p, w, b, pos),
         "float16 weights": (kemb.fused_patch_embed_u8, u8p, w.half(), b.half(), pos.half()),
-        "D 1276 (not a multiple of 8)": (kemb.fused_patch_embed_u8, u8p, w[:, :-4].contiguous(),
-                                         b[:-4].contiguous(), pos[:, :-4].contiguous()),
         "pos of another length": (kemb.fused_patch_embed_u8, u8p, w, b, pos[1:]),
     }
     for what, (fn, patches, *ws) in bad.items():
@@ -2999,6 +3276,14 @@ def main():
         if name == "dense":
             device_breakdown("vit_h dense", lambda: run("auto"), k_ms, reps=2)
 
+    # --- 3l. widths no multiple of the kernels' (C.1), after 6 so that 6's body counts
+    # stay those of phases 5-5h ----------------------------------------------------------
+    torch.cuda.empty_cache()
+    widths_launches = widths_path(dev, base, cfg)
+
+    # --- 5i. the serving export: DeiT-S headline, float and int8 ---------------------------
+    exported = export_path(dev, base, cfg, smi)
+
     # --- 7 (first half). importing every module of the port, and quality_torch, loads
     # neither pandas nor transformers: they are imported only when called (phases 8 and 9
     # print the metrics tables, which import pandas where it is installed)
@@ -3071,7 +3356,9 @@ def main():
          **({"products_on_wgmma_s8": launches["b4_s8"]} if key == "b4" else {}),
          **({"launches_train": trained["launches"][key]} if key in trained["launches"] else {}),
          "launches_cli": {run: c[key] for run, c in cli_run["launches"].items()},
-         "launches_gate": gate_run["launches"][key]}
+         "launches_gate": gate_run["launches"][key],
+         "launches_widths": widths_launches[key],
+         "launches_export": {run: c[key] for run, c in exported["launches"].items()}}
         for key, name, src, tpu, line, n in rows
     ]
     log(smi)

@@ -209,7 +209,8 @@ def b4_calls(libs: dict, gen, dev, stream):
     def call(lib):
         return lib.vpt_vit_layer_int8_forward(
             1, x.data_ptr(), None, *(t.data_ptr() for t in w), out.data_ptr(),
-            *(t.data_ptr() for t in bufs), b, s, d, h, kw // h, m, cfg.layernorm_eps, stream)
+            *(t.data_ptr() for t in bufs), b, s, d, h, kw // h, m, d, cfg.layernorm_eps,
+            stream)
 
     return {name: (lambda lib=lib: call(lib)) for name, lib in libs.items()}, out
 

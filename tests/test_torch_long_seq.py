@@ -74,21 +74,16 @@ def test_b6_plain_matches_pallas_at_long_sequences(s):
 
 def test_layer_wrappers_take_any_sequence_length():
     """The wrappers' shape check (what runs before a launch) takes S 577
-    and S 4097; only the head dim is the kernel's to refuse."""
-
-    class Lib:
-        @staticmethod
-        def vpt_layer_head_dim_ok(hd):
-            return int(hd in tl.LAYER_HEAD_DIMS)
-
+    and S 4097; only the head dim is the kernel's to refuse (the wrappers
+    check LAYER_HEAD_DIMS, the C predicate's copy, without the library)."""
     params = init_vit_params(jax.random.PRNGKey(0), ViTConfig(hidden_size=64, num_heads=1,
                                                               num_layers=1, mlp_dim=128))
     lp = jax_and_torch_params(jax.tree.map(lambda a: a[0], params["layers"]))[1]
     for s in (577, 4097):
-        got = tl._geometry(Lib, torch.zeros(1, s, 64), lp, 1, "test")
+        got = tl._geometry(torch.zeros(1, s, 64), lp, 1, "test")
         assert got == (1, s, 64, 64, 64, 128)
     with pytest.raises(ValueError, match="head dim"):
-        tl._geometry(Lib, torch.zeros(1, 577, 64), lp, 8, "test")  # hd 8
+        tl._geometry(torch.zeros(1, 577, 64), lp, 8, "test")  # hd 8
 
 
 def test_vit_and_serving_at_384_match_jax():

@@ -152,10 +152,10 @@ def test_kernel_mode_names_are_checked():
         set_kernel_mode("pallas")
 
 
-def test_unported_options_raise():
-    """What waits for a later slice raises and names the ROADMAP item: the
-    training harness's per-epoch mask montages (viz, A.11). Training and the
-    oracle instrumentation (A.9) run now."""
+def test_unported_options_raise(tmp_path):
+    """What earlier slices left out runs now: the oracle instrumentation
+    (A.9) and the training harness's per-epoch mask montages (viz, A.11),
+    which write the JAX package's files."""
     from vit_pruning_tpu_torch.models.pruned_vit import init_pruned_vit_params, pruned_vit_forward
     from vit_pruning_tpu_torch.train.harness import train
 
@@ -167,8 +167,10 @@ def test_unported_options_raise():
         out = pruned_vit_forward(params, pix, cfg, pcfg, **kw)
         assert out["aux"]["pred_loss"].shape == (cfg.num_layers,)
     batch = [{"pixel_values": pix, "labels": torch.zeros(1, dtype=torch.long)}]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        train(params, batch, batch, cfg, pcfg, num_epochs=1, viz_dir="viz_out")
+    train(params, batch, batch, cfg, pcfg, num_epochs=1, viz_dir=str(tmp_path / "viz"))
+    names = sorted(p.name for p in (tmp_path / "viz").iterdir())
+    assert names == ["step0_img0.png"]  # a batch of one image
+    assert (tmp_path / "viz" / names[0]).stat().st_size > 1000
 
 
 IMPORT_ENTRY_POINTS = """
@@ -178,38 +180,57 @@ import quality_torch
 import vit_pruning_tpu_torch.cli, vit_pruning_tpu_torch.data, vit_pruning_tpu_torch.native
 import vit_pruning_tpu_torch.utils.housekeeping, vit_pruning_tpu_torch.utils.profiling
 import vit_pruning_tpu_torch.utils.sweep, vit_pruning_tpu_torch.data.fetch
+import vit_pruning_tpu_torch.viz, vit_pruning_tpu_torch.viz.analysis
+import vit_pruning_tpu_torch.viz.demo_app, vit_pruning_tpu_torch.serving
+import vit_pruning_tpu_torch.ops.cuda.library
+vit_pruning_tpu_torch.ops.cuda.library.load_ops()
 bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'vit_pruning_tpu', 'pandas',
-                                                           'transformers', 'optax', 'PIL'))
+                                                           'transformers', 'optax', 'PIL',
+                                                           'matplotlib', 'streamlit'))
 print(bad)
 """
 
 
 def test_entry_points_load_no_jax():
     """The user's entry points (the CLI, the data pipeline, the utils, the
-    native bindings, quality_torch.py) load neither jax nor the JAX package,
-    nor what they import only when used (pandas, transformers, PIL), nor
-    optax (the gate's schedule is the port's own)."""
+    native bindings, quality_torch.py, the viz suite, the serving export and
+    the kernels' operators) load neither jax nor the JAX package, nor what
+    they import only when used (pandas, transformers, PIL, matplotlib,
+    streamlit), nor optax (the gate's schedule is the port's own)."""
     out = subprocess.run([sys.executable, "-c", IMPORT_ENTRY_POINTS], capture_output=True,
                          text=True, check=True, cwd=PORT_DIR.parent)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
 def test_scripts_import_nothing_of_jax():
-    """quality_torch.py and chip_smoke.py import neither jax nor the JAX
-    package, at module level or inside a function."""
+    """quality_torch.py, chip_smoke.py and the port's examples import
+    neither jax nor the JAX package, at module level or inside a function."""
     import re
 
     pattern = re.compile(r"^\s*(import|from)\s+(jax|optax|vit_pruning_tpu)(\s|\.|$)", re.M)
-    for name in ("quality_torch.py", "chip_smoke.py"):
+    for name in ("quality_torch.py", "chip_smoke.py", "examples/deploy_serving_torch.py",
+                 "examples/serve_http_torch.py", "examples/train_skip_predictor_torch.py"):
         text = (PORT_DIR.parent / name).read_text()
         assert not pattern.findall(text), (name, pattern.findall(text))
 
 
-def test_cli_viz_raises_naming_the_roadmap_item():
+def test_cli_viz_raises_naming_the_roadmap_item(tmp_path):
+    """`cli viz` (ROADMAP A.11, ported) writes the JAX package's artifacts:
+    the three heatmap directories, montages, the skip chart, the similarity
+    plot and report.html."""
     from vit_pruning_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        cli.main(["viz", "--device", "cpu"])
+    out = tmp_path / "viz"
+    assert cli.main(["viz", "--device", "cpu", "--num_images", "6", "--out_dir", str(out)]) == 0
+    L = vit_tiny().num_layers
+    for d, name in (("skipped_heatmaps", "skipped"), ("to_skip_heatmaps", "to_skip"),
+                    ("misclassified_heatmaps", "misclassified")):
+        assert sorted(p.name for p in (out / d).iterdir()) == sorted(
+            f"layer_{i}_{name}_heatmap.png" for i in range(L))
+    files = {p.name for p in out.iterdir() if p.is_file()}
+    assert files == {"skips_per_layer.png", "cosine_similarity.png", "report.html",
+                     *(f"blackout_img{i}.png" for i in range(4))}
+    assert "Token-skip inference report" in (out / "report.html").read_text()
 
 
 def test_cli_runs_on_the_card_unless_asked(monkeypatch, tmp_path):

@@ -343,8 +343,10 @@ def test_phased_train_runs_both_phases(tmp_path):
                   - before["predictor"]["mlp"]["l0"]["w"]).max() > 0
     assert np.abs(after["backbone"]["layers"]["mlp"]["fc1"]["w"]
                   - before["backbone"]["layers"]["mlp"]["fc1"]["w"]).max() > 0
-    with pytest.raises(NotImplementedError, match="A.11"):
-        th.train(tparams, data, data, CFG, pcfg, num_epochs=1, viz_dir=str(tmp_path / "v"))
+    # viz_dir: each epoch's keep-mask montages of the first test batch's first two images
+    th.train(tparams, data, data, CFG, pcfg, num_epochs=2, viz_dir=str(tmp_path / "v"))
+    assert sorted(p.name for p in (tmp_path / "v").iterdir()) == [
+        f"step{e}_img{i}.png" for e in (0, 1) for i in (0, 1)]
 
 
 def test_eval_metrics_match_jax():

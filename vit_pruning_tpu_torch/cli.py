@@ -3,6 +3,7 @@
     python -m vit_pruning_tpu_torch.cli train -d my_experiment [--preset smoke] ...
     python -m vit_pruning_tpu_torch.cli eval --checkpoint models/<run>
     python -m vit_pruning_tpu_torch.cli export --checkpoint models/<run> --out backbone.pth
+    python -m vit_pruning_tpu_torch.cli viz [--checkpoint models/<run>] --out_dir viz_out
 
 Mirrors vit_pruning_tpu/cli.py (himanshu/hi_main.py:36-187): config,
 run-name encoding, optional pretrained-weight surgery, phase-1 predictor
@@ -12,7 +13,7 @@ sidecar's JSON are the reference's. Everything runs on the card unless
 `--device cpu` is given; the seed draws the params from a torch.Generator;
 `--bf16` computes in torch.bfloat16 over float32 master params. A
 checkpoint is one file (checkpoint.py), with `<checkpoint>.config.json`
-beside it. `viz` waits for the port's viz package (ROADMAP A.11).
+beside it. `viz` writes the visualization suite (viz/) of one forward.
 """
 
 from __future__ import annotations
@@ -150,8 +151,7 @@ def build_parser() -> argparse.ArgumentParser:
     _device_flag(x)
 
     v = sub.add_parser(
-        "viz", help="generate the visualization suite (heatmaps, montages, report); "
-                    "not ported yet (ROADMAP A.11)"
+        "viz", help="generate the visualization suite (heatmaps, montages, report)"
     )
     v.add_argument("--model", choices=sorted(MODELS), default="vit_tiny")
     v.add_argument("--dataset", choices=DATASETS, default="synthetic")
@@ -343,8 +343,81 @@ def cmd_export(args) -> int:
 
 
 def cmd_viz(args) -> int:
-    raise NotImplementedError("cli viz: the visualization suite (heatmaps, montages, report) "
-                              "needs the port's viz package, ROADMAP A.11")
+    """Generate V1-V8 artifacts: skip/oracle/error heatmaps, blackout
+    montages, skip bar chart, similarity analysis, HTML report."""
+    import numpy as np
+
+    from vit_pruning_tpu_torch.data.preprocess import vit_preprocess
+    from vit_pruning_tpu_torch.models.pruned_vit import pruned_vit_forward
+    from vit_pruning_tpu_torch.viz import (
+        blackout_montage,
+        inference_report,
+        misclassified_heatmaps,
+        skipped_heatmaps,
+        skips_per_layer_chart,
+        to_skip_heatmaps,
+    )
+    from vit_pruning_tpu_torch.viz.analysis import (
+        layer_similarity_profile,
+        plot_similarity_distributions,
+    )
+
+    device = check_device(args.device)
+    side = _load_config_sidecar(args.checkpoint) if args.checkpoint else None
+    if side is not None:
+        config, pcfg = side
+    else:
+        config = _build_config(args)
+        pcfg = PruneConfig(mode=args.mode, predictor=args.predictor)
+    if args.checkpoint:
+        params = _restore(args.checkpoint, device)
+    else:
+        params = init_pruned_vit_params(config, pcfg, torch.Generator().manual_seed(0), device)
+
+    if args.dataset == "synthetic":
+        images, labels = synthetic_dataset(
+            n=args.num_images, image_size=config.image_size, num_labels=config.num_labels
+        )
+    elif args.dataset == "cifar100":
+        images, labels = load_cifar100(args.data_path, train=False, size=args.num_images)
+    else:
+        images, labels = load_image_folder(
+            args.data_path, size=args.num_images, image_size=config.image_size
+        )
+
+    with torch.no_grad():
+        x = vit_preprocess(torch.from_numpy(images).to(device), config.image_size)
+        out = pruned_vit_forward(params, x, config, pcfg, compute_oracle=True,
+                                 generator=torch.Generator(device=device).manual_seed(0))
+    km = out["keep_masks"].cpu().numpy()
+    ok = out["aux"]["oracle_keep"].cpu().numpy()
+    xs = x.cpu().numpy()
+
+    o = args.out_dir
+    skipped_heatmaps(km, os.path.join(o, "skipped_heatmaps"))
+    to_skip_heatmaps(ok, os.path.join(o, "to_skip_heatmaps"))
+    misclassified_heatmaps(km, ok, os.path.join(o, "misclassified_heatmaps"))
+    skips_per_layer_chart(km, os.path.join(o, "skips_per_layer.png"))
+    for bi in range(min(4, len(images))):
+        blackout_montage(
+            xs[bi], km[:, bi], config.patch_size,
+            out_path=os.path.join(o, f"blackout_img{bi}.png"),
+        )
+    sims = layer_similarity_profile(params["backbone"], x, config)
+    plot_similarity_distributions(sims, os.path.join(o, "cosine_similarity.png"))
+    hwc = [xi.transpose(1, 2, 0) * 0.5 + 0.5 for xi in xs[:4]]
+    class_names = None
+    if config.num_labels == 100:
+        from vit_pruning_tpu_torch.data.cifar100_labels import CIFAR100_FINE_LABELS
+
+        class_names = CIFAR100_FINE_LABELS
+    inference_report(
+        hwc, km[:, :4], out["logits"][:4].float().cpu().numpy(), config.patch_size,
+        class_names=class_names,
+        out_path=os.path.join(o, "report.html"),
+    )
+    print(f"viz artifacts written to {o}/")
+    return 0
 
 
 def main(argv=None) -> int:

@@ -675,14 +675,15 @@ cudaError_t gemm(const bf16* A, long lda, const bf16* W, int M, int N, int K, Ep
 cudaError_t gemm(const float* A, long lda, const float* W, int M, int N, int K, const Epilogue& e,
                  cudaStream_t st);
 
-// LayerNorm of `rows` rows of x (Tin) into y (T), f32 statistics; instances
-// <float, float>, <bf16, bf16> and <float, bf16>
+// LayerNorm of `rows` rows of x (Tin) into y (T), d values a row, f32
+// statistics over the first dn of them; instances <float, float>,
+// <bf16, bf16> and <float, bf16>
 template <typename Tin, typename T>
 cudaError_t layer_norm(const Tin* x, long ldx, const T* g, const T* b, T* y, long ldy, int rows,
-                       int d, float eps, cudaStream_t st);
+                       int d, int dn, float eps, cudaStream_t st);
 
 // the geometry every layer kernel takes: HD one of layer_head_dim_ok's,
-// any S >= 1, D and M multiples of 8
-bool shapes_ok(int dtype, int B, int S, int D, int H, int HD, int M);
+// any S >= 1, D and M multiples of 8, the layer norms' width 1 <= DN <= D
+bool shapes_ok(int dtype, int B, int S, int D, int H, int HD, int M, int DN);
 
 }  // namespace vpt

@@ -39,18 +39,22 @@
 namespace vpt {
 
 // ---------------------------------------------------------------------------
-// LayerNorm: one warp per row, f32 statistics, output in T.
+// LayerNorm: one warp per row, f32 statistics, output in T. The statistics
+// run over the first dn of the row's d values: a row zero-padded from the
+// model's width dn up to a width the GEMMs take (ROADMAP C.1) is normalised
+// over its true width, and its padded columns, whose g and b are zero, come
+// out zero.
 
 template <typename Tin, typename T>
 __global__ void layer_norm_kernel(const Tin* __restrict__ x, long ldx, const T* __restrict__ g,
                                   const T* __restrict__ b, T* __restrict__ y, long ldy, int rows,
-                                  int d, float eps) {
+                                  int d, int dn, float eps) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= rows) return;
   const Tin* xr = x + row * ldx;
   float mean, rs;
-  ln_stats(xr, d, eps, mean, rs);
+  ln_stats(xr, dn, eps, mean, rs);
   T* yr = y + row * ldy;
   for (int i = lane; i < d; i += 32)
     yr[i] = from_f<T>((to_f(xr[i]) - mean) * rs * to_f(g[i]) + to_f(b[i]));
@@ -58,18 +62,18 @@ __global__ void layer_norm_kernel(const Tin* __restrict__ x, long ldx, const T* 
 
 template <typename Tin, typename T>
 cudaError_t layer_norm(const Tin* x, long ldx, const T* g, const T* b, T* y, long ldy, int rows,
-                       int d, float eps, cudaStream_t st) {
+                       int d, int dn, float eps, cudaStream_t st) {
   const int warps = 8;
   layer_norm_kernel<Tin, T><<<(rows + warps - 1) / warps, warps * 32, 0, st>>>(x, ldx, g, b, y, ldy,
-                                                                              rows, d, eps);
+                                                                              rows, d, dn, eps);
   return cudaGetLastError();
 }
 template cudaError_t layer_norm<float, float>(const float*, long, const float*, const float*,
-                                              float*, long, int, int, float, cudaStream_t);
+                                              float*, long, int, int, int, float, cudaStream_t);
 template cudaError_t layer_norm<bf16, bf16>(const bf16*, long, const bf16*, const bf16*, bf16*,
-                                            long, int, int, float, cudaStream_t);
+                                            long, int, int, int, float, cudaStream_t);
 template cudaError_t layer_norm<float, bf16>(const float*, long, const bf16*, const bf16*, bf16*,
-                                             long, int, int, float, cudaStream_t);
+                                             long, int, int, int, float, cudaStream_t);
 
 // ---------------------------------------------------------------------------
 // B1 attention, two implementations with the staged2 numerics: float32 on
@@ -619,14 +623,14 @@ cudaError_t layer_forward(const T* x, const unsigned char* mask, const int* coun
                           const T* ln1b, const T* wqkv, const T* bqkv, const T* wo, const T* bo,
                           const T* ln2g, const T* ln2b, const T* w1, const T* b1, const T* w2,
                           const T* b2, T* out, T* h, T* qkv, T* ctx, float* x1, T* m1, int B, int S,
-                          int D, int H, int HD, int M, float eps, cudaStream_t st) {
+                          int D, int H, int HD, int M, int DN, float eps, cudaStream_t st) {
   const int rows = B * S, KW = H * HD;
   const int act = sizeof(T) == 2 ? ACT_GELU_TANH : ACT_GELU_ERF;
-  VPT_TRY(layer_norm<T, T>(x, D, ln1g, ln1b, h, D, rows, D, eps, st));
+  VPT_TRY(layer_norm<T, T>(x, D, ln1g, ln1b, h, D, rows, D, DN, eps, st));
   VPT_TRY(gemm(h, D, wqkv, rows, 3 * KW, D, epi(bqkv, ACT_NONE, nullptr, 0, false, qkv, 3 * KW, false), st));
   VPT_TRY(attention(qkv, mask, counts, ctx, B, S, H, KW, st));
   VPT_TRY(gemm(ctx, KW, wo, rows, D, KW, epi(bo, ACT_NONE, x, D, false, x1, D, true), st));
-  VPT_TRY(layer_norm<float, T>(x1, D, ln2g, ln2b, h, D, rows, D, eps, st));
+  VPT_TRY(layer_norm<float, T>(x1, D, ln2g, ln2b, h, D, rows, D, DN, eps, st));
   VPT_TRY(gemm(h, D, w1, rows, M, D, epi(b1, act, nullptr, 0, false, m1, M, false), st));
   VPT_TRY(gemm(m1, M, w2, rows, D, M, epi(b2, ACT_NONE, x1, D, true, out, D, false), st));
   return cudaSuccess;
@@ -638,19 +642,20 @@ cudaError_t cls_logits_forward(const T* x, const T* ln1g, const T* ln1b, const T
                                const T* ln2b, const T* w1, const T* b1, const T* w2, const T* b2,
                                const T* lnfg, const T* lnfb, const T* wh, const T* bh, T* logits,
                                T* h, T* kv, T* q, T* ctx, float* x1, T* m1, float* x2, int B, int S,
-                               int D, int H, int HD, int M, int labels, float eps, cudaStream_t st) {
+                               int D, int H, int HD, int M, int DN, int labels, float eps,
+                               cudaStream_t st) {
   const int rows = B * S, KW = H * HD;
   const long cls_stride = (long)S * D;  // CLS rows of x and h
   const int act = sizeof(T) == 2 ? ACT_GELU_TANH : ACT_GELU_ERF;
-  VPT_TRY(layer_norm<T, T>(x, D, ln1g, ln1b, h, D, rows, D, eps, st));
+  VPT_TRY(layer_norm<T, T>(x, D, ln1g, ln1b, h, D, rows, D, DN, eps, st));
   VPT_TRY(gemm(h, D, wkv, rows, 2 * KW, D, epi(bkv, ACT_NONE, nullptr, 0, false, kv, 2 * KW, false), st));
   VPT_TRY(gemm(h, cls_stride, wq, B, KW, D, epi(bq, ACT_NONE, nullptr, 0, false, q, KW, false), st));
   VPT_TRY(cls_attention<T>(q, kv, ctx, B, S, H, KW, st));
   VPT_TRY(gemm(ctx, KW, wo, B, D, KW, epi(bo, ACT_NONE, x, cls_stride, false, x1, D, true), st));
-  VPT_TRY(layer_norm<float, T>(x1, D, ln2g, ln2b, h, D, B, D, eps, st));
+  VPT_TRY(layer_norm<float, T>(x1, D, ln2g, ln2b, h, D, B, D, DN, eps, st));
   VPT_TRY(gemm(h, D, w1, B, M, D, epi(b1, act, nullptr, 0, false, m1, M, false), st));
   VPT_TRY(gemm(m1, M, w2, B, D, M, epi(b2, ACT_NONE, x1, D, true, x2, D, true), st));
-  VPT_TRY(layer_norm<float, T>(x2, D, lnfg, lnfb, h, D, B, D, eps, st));
+  VPT_TRY(layer_norm<float, T>(x2, D, lnfg, lnfb, h, D, B, D, DN, eps, st));
   VPT_TRY(gemm(h, D, wh, B, labels, D, epi(bh, ACT_NONE, nullptr, 0, false, logits, labels, false), st));
   return cudaSuccess;
 }
@@ -730,7 +735,7 @@ cudaError_t bucketed_forward(const T* x, const int* dest, const unsigned char* k
                              const T* ln2g, const T* ln2b, const T* w1, const T* b1, const T* w2,
                              const T* b2, T* out, int* src, int* counts, T* xc, T* yc, T* h, T* qkv,
                              T* ctx, float* x1, T* m1, int B, int S, int cap, int D, int H, int HD,
-                             int M, float eps, cudaStream_t st) {
+                             int M, int DN, float eps, cudaStream_t st) {
   const int chunks = D * static_cast<int>(sizeof(T)) / 16;
   bucket_invert_kernel<<<B, kInvertThreads, 0, st>>>(dest, kept, src, counts, S, cap);
   VPT_TRY(cudaGetLastError());
@@ -738,15 +743,15 @@ cudaError_t bucketed_forward(const T* x, const int* dest, const unsigned char* k
   gather_rows_kernel<T><<<(g + 255) / 256, 256, 0, st>>>(x, src, xc, S, cap, chunks, g);
   VPT_TRY(cudaGetLastError());
   VPT_TRY(layer_forward<T>(xc, nullptr, counts, ln1g, ln1b, wqkv, bqkv, wo, bo, ln2g, ln2b, w1, b1,
-                           w2, b2, yc, h, qkv, ctx, x1, m1, B, cap, D, H, HD, M, eps, st));
+                           w2, b2, yc, h, qkv, ctx, x1, m1, B, cap, D, H, HD, M, DN, eps, st));
   const long e = (long)B * S * chunks;
   expand_rows_kernel<T><<<(e + 255) / 256, 256, 0, st>>>(x, yc, dest, kept, out, S, cap, chunks, e);
   return cudaGetLastError();
 }
 
-bool shapes_ok(int dtype, int B, int S, int D, int H, int HD, int M) {
+bool shapes_ok(int dtype, int B, int S, int D, int H, int HD, int M, int DN) {
   return (dtype == 0 || dtype == 1) && layer_head_dim_ok(HD) && B > 0 && B <= 65535 && S > 0 &&
-         H > 0 && D % 8 == 0 && M % 8 == 0;
+         H > 0 && D % 8 == 0 && M % 8 == 0 && DN > 0 && DN <= D;
 }
 
 }  // namespace vpt
@@ -761,21 +766,23 @@ int vpt_layer_head_dim_ok(int hd) { return layer_head_dim_ok(hd); }
 
 // dtype: 0 = float32, 1 = bfloat16. mask: [B, S] bytes (torch.bool) or null.
 // Workspaces: h [B*S, D], qkv [B*S, 3KW], ctx [B*S, KW], m1 [B*S, M] in the
-// dtype; x1 [B*S, D] float32.
+// dtype; x1 [B*S, D] float32. DN: the width the layer norms run over, D
+// unless the caller zero-padded x and the weights from DN up to D (every
+// entry point below takes it the same way).
 int vpt_vit_layer_forward(int dtype, const void* x, const void* mask, const void* ln1g,
                           const void* ln1b, const void* wqkv, const void* bqkv, const void* wo,
                           const void* bo, const void* ln2g, const void* ln2b, const void* w1,
                           const void* b1, const void* w2, const void* b2, void* out, void* h,
                           void* qkv, void* ctx, void* x1, void* m1, int B, int S, int D, int H,
-                          int HD, int M, float eps, void* stream) {
-  if (!shapes_ok(dtype, B, S, D, H, HD, M)) return cudaErrorInvalidValue;
+                          int HD, int M, int DN, float eps, void* stream) {
+  if (!shapes_ok(dtype, B, S, D, H, HD, M, DN)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned char* mk = static_cast<const unsigned char*>(mask);
 #define VPT_LAYER(T)                                                                              \
   layer_forward<T>((const T*)x, mk, nullptr, (const T*)ln1g, (const T*)ln1b, (const T*)wqkv,      \
                    (const T*)bqkv, (const T*)wo, (const T*)bo, (const T*)ln2g, (const T*)ln2b,    \
                    (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (T*)out, (T*)h,        \
-                   (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, B, S, D, H, HD, M, eps, st)
+                   (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, B, S, D, H, HD, M, DN, eps, st)
   return dtype == 0 ? VPT_LAYER(float) : VPT_LAYER(bf16);
 #undef VPT_LAYER
 }
@@ -789,8 +796,8 @@ int vpt_vit_cls_logits_forward(int dtype, const void* x, const void* ln1g, const
                                const void* lnfg, const void* lnfb, const void* wh, const void* bh,
                                void* logits, void* h, void* kv, void* q, void* ctx, void* x1,
                                void* m1, void* x2, int B, int S, int D, int H, int HD, int M,
-                               int labels, float eps, void* stream) {
-  if (!shapes_ok(dtype, B, S, D, H, HD, M) || labels <= 0) return cudaErrorInvalidValue;
+                               int DN, int labels, float eps, void* stream) {
+  if (!shapes_ok(dtype, B, S, D, H, HD, M, DN) || labels <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define VPT_CLS(T)                                                                                \
   cls_logits_forward<T>((const T*)x, (const T*)ln1g, (const T*)ln1b, (const T*)wq, (const T*)bq,  \
@@ -798,7 +805,7 @@ int vpt_vit_cls_logits_forward(int dtype, const void* x, const void* ln1g, const
                         (const T*)ln2b, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,   \
                         (const T*)lnfg, (const T*)lnfb, (const T*)wh, (const T*)bh, (T*)logits,   \
                         (T*)h, (T*)kv, (T*)q, (T*)ctx, (float*)x1, (T*)m1, (float*)x2, B, S, D,   \
-                        H, HD, M, labels, eps, st)
+                        H, HD, M, DN, labels, eps, st)
   return dtype == 0 ? VPT_CLS(float) : VPT_CLS(bf16);
 #undef VPT_CLS
 }
@@ -814,15 +821,15 @@ int vpt_vit_layer_bucketed_forward(int dtype, const void* x, const void* dest, c
                                    const void* b1, const void* w2, const void* b2, void* out,
                                    void* src, void* counts, void* xc, void* yc, void* h, void* qkv,
                                    void* ctx, void* x1, void* m1, int B, int S, int cap, int D,
-                                   int H, int HD, int M, float eps, void* stream) {
-  if (!shapes_ok(dtype, B, S, D, H, HD, M) || cap < 1 || cap > S) return cudaErrorInvalidValue;
+                                   int H, int HD, int M, int DN, float eps, void* stream) {
+  if (!shapes_ok(dtype, B, S, D, H, HD, M, DN) || cap < 1 || cap > S) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define VPT_BUCKETED(T)                                                                            \
   bucketed_forward<T>((const T*)x, (const int*)dest, (const unsigned char*)kept, (const T*)ln1g,   \
                       (const T*)ln1b, (const T*)wqkv, (const T*)bqkv, (const T*)wo, (const T*)bo,  \
                       (const T*)ln2g, (const T*)ln2b, (const T*)w1, (const T*)b1, (const T*)w2,    \
                       (const T*)b2, (T*)out, (int*)src, (int*)counts, (T*)xc, (T*)yc, (T*)h,       \
-                      (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, B, S, cap, D, H, HD, M, eps, st)
+                      (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, B, S, cap, D, H, HD, M, DN, eps, st)
   return dtype == 0 ? VPT_BUCKETED(float) : VPT_BUCKETED(bf16);
 #undef VPT_BUCKETED
 }

@@ -57,18 +57,21 @@ __device__ __forceinline__ signed char quantize(float v, float s) {
 // ---------------------------------------------------------------------------
 // LayerNorm fused with the row quantization of its f32 output: one warp per
 // row; the LN value is formed with _rn intrinsics (no contraction) so that
-// the amax pass and the quantizing pass see the same numbers.
+// the amax pass and the quantizing pass see the same numbers. As
+// layer.cu's layer_norm, the statistics run over the first dn of the d
+// values; zero-padded columns (g = b = 0) give LN value 0 and code 0, and
+// leave the row's amax as it is.
 
 template <typename Tin, typename Tg>
 __global__ void ln_rowquant_kernel(const Tin* __restrict__ x, long ldx, const Tg* __restrict__ g,
                                    const Tg* __restrict__ b, signed char* __restrict__ q,
-                                   float* __restrict__ qs, int rows, int d, float eps) {
+                                   float* __restrict__ qs, int rows, int d, int dn, float eps) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= rows) return;
   const Tin* xr = x + row * ldx;
   float mean, rs;
-  ln_stats(xr, d, eps, mean, rs);
+  ln_stats(xr, dn, eps, mean, rs);
   auto ln = [&](int i) {
     return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(to_f(xr[i]), mean), rs), to_f(g[i])),
                      to_f(b[i]));
@@ -115,9 +118,9 @@ constexpr int kRowWarps = 8;
 
 template <typename Tin, typename Tg>
 cudaError_t ln_rowquant(const Tin* x, long ldx, const Tg* g, const Tg* b, signed char* q, float* qs,
-                        int rows, int d, float eps, cudaStream_t st) {
+                        int rows, int d, int dn, float eps, cudaStream_t st) {
   ln_rowquant_kernel<Tin, Tg><<<(rows + kRowWarps - 1) / kRowWarps, kRowWarps * 32, 0, st>>>(
-      x, ldx, g, b, q, qs, rows, d, eps);
+      x, ldx, g, b, q, qs, rows, d, dn, eps);
   return cudaGetLastError();
 }
 
@@ -221,17 +224,17 @@ cudaError_t layer_int8_forward(
     const signed char* w2, const float* s2, const T* b2, T* out, signed char* q_ln1, float* s_ln1,
     signed char* q_ctx, float* s_ctx, signed char* q_ln2, float* s_ln2, signed char* q_gelu,
     float* s_gelu, T* qkv, T* ctx, float* x1, T* m1, int B, int S, int D, int H, int HD, int M,
-    float eps, cudaStream_t st) {
+    int DN, float eps, cudaStream_t st) {
   const int rows = B * S, KW = H * HD;
   const int act = sizeof(T) == 2 ? ACT_GELU_TANH : ACT_GELU_ERF;
-  VPT_TRY(ln_rowquant<T, T>(x, D, ln1g, ln1b, q_ln1, s_ln1, rows, D, eps, st));
+  VPT_TRY(ln_rowquant<T, T>(x, D, ln1g, ln1b, q_ln1, s_ln1, rows, D, DN, eps, st));
   VPT_TRY(gemm_s8<T>(q_ln1, D, s_ln1, wqkv, sqkv, rows, 3 * KW, D,
                      epi(bqkv, ACT_NONE, nullptr, 0, false, qkv, 3 * KW, false), st));
   VPT_TRY(attention(qkv, mask, nullptr, ctx, B, S, H, KW, st));
   VPT_TRY(rowquant<T>(ctx, KW, q_ctx, s_ctx, rows, KW, st));
   VPT_TRY(gemm_s8<T>(q_ctx, KW, s_ctx, wo, so, rows, D, KW,
                      epi(bo, ACT_NONE, x, D, false, x1, D, true), st));
-  VPT_TRY(ln_rowquant<float, T>(x1, D, ln2g, ln2b, q_ln2, s_ln2, rows, D, eps, st));
+  VPT_TRY(ln_rowquant<float, T>(x1, D, ln2g, ln2b, q_ln2, s_ln2, rows, D, DN, eps, st));
   VPT_TRY(gemm_s8<T>(q_ln2, D, s_ln2, w1, s1, rows, M, D,
                      epi(b1, act, nullptr, 0, false, m1, M, false), st));
   VPT_TRY(rowquant<T>(m1, M, q_gelu, s_gelu, rows, M, st));
@@ -251,16 +254,17 @@ extern "C" {
 // kmajor_int8_weights), their scales f32 [N]. mask: [B, S] bytes
 // (torch.bool) or null. Workspaces: codes int8 and scales f32 [B*S] of each
 // stage (LN1 [B*S, D], ctx [B*S, KW], LN2 [B*S, D], GELU [B*S, M]); qkv
-// [B*S, 3KW], ctx [B*S, KW], m1 [B*S, M] in the dtype; x1 [B*S, D] f32.
+// [B*S, 3KW], ctx [B*S, KW], m1 [B*S, M] in the dtype; x1 [B*S, D] f32. DN:
+// the layer norms' width, as layer.cu's vpt_vit_layer_forward's.
 int vpt_vit_layer_int8_forward(
     int dtype, const void* x, const void* mask, const void* ln1g, const void* ln1b,
     const void* wqkv, const void* sqkv, const void* bqkv, const void* wo, const void* so,
     const void* bo, const void* ln2g, const void* ln2b, const void* w1, const void* s1,
     const void* b1, const void* w2, const void* s2, const void* b2, void* out, void* q_ln1,
     void* s_ln1, void* q_ctx, void* s_ctx, void* q_ln2, void* s_ln2, void* q_gelu, void* s_gelu,
-    void* qkv, void* ctx, void* x1, void* m1, int B, int S, int D, int H, int HD, int M, float eps,
-    void* stream) {
-  if (!shapes_ok(dtype, B, S, D, H, HD, M) || D % 16 || M % 16 ||
+    void* qkv, void* ctx, void* x1, void* m1, int B, int S, int D, int H, int HD, int M, int DN,
+    float eps, void* stream) {
+  if (!shapes_ok(dtype, B, S, D, H, HD, M, DN) || D % 16 || M % 16 ||
       (long)B * S > 65535L * w8::BM)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -273,7 +277,7 @@ int vpt_vit_layer_int8_forward(
                         (fp)s2, (const T*)b2, (T*)out, (signed char*)q_ln1, (float*)s_ln1,         \
                         (signed char*)q_ctx, (float*)s_ctx, (signed char*)q_ln2, (float*)s_ln2,    \
                         (signed char*)q_gelu, (float*)s_gelu, (T*)qkv, (T*)ctx, (float*)x1,        \
-                        (T*)m1, B, S, D, H, HD, M, eps, st)
+                        (T*)m1, B, S, D, H, HD, M, DN, eps, st)
   return dtype == 0 ? VPT_INT8(float) : VPT_INT8(bf16);
 #undef VPT_INT8
 }

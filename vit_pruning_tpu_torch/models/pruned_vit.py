@@ -697,15 +697,15 @@ def progressive_topk_forward(
     check_attn_geometry(backbone["layers"]["attn"]["q"]["w"].shape[-1], config)
     quant = resolve_quant(quant)
     fuse = encoder_route(backbone["layers"], config)
-    layers = backbone["layers"] if fuse else layers_for(backbone["layers"], quant)
+    layers = layers_for(backbone["layers"], "none" if fuse else quant)
 
     def run_segment(x, l0, l1):
         """Layers [l0, l1) at a fixed sequence length."""
         if fuse and l1 > l0:
             from vit_pruning_tpu_torch.ops.cuda.model import fused_vit_encoder
 
-            return fused_vit_encoder(x, layer_range(backbone["layers"], l0, l1),
-                                     config.num_heads, config.layernorm_eps)
+            return fused_vit_encoder(x, layer_range(layers, l0, l1), config.num_heads,
+                                     config.layernorm_eps)
         for j in range(l0, l1):
             x = vit_layer(x, layer_slice(layers, j), config, quant=quant)
         return x
@@ -745,7 +745,7 @@ def progressive_topk_forward(
 
         x = run_segment(x, seg_start, L - 1)
         logits = fused_vit_layer_cls_logits(
-            x, layer_slice(backbone["layers"], L - 1), backbone["ln_f"], backbone["head"],
+            x, layer_slice(layers, L - 1), backbone["ln_f"], backbone["head"],
             config.num_heads, config.layernorm_eps,
         )
         return {"logits": logits, "keep_masks": torch.stack(masks), "scores": torch.stack(scores_l)}

@@ -35,6 +35,12 @@ from torch.utils.checkpoint import checkpoint
 from vit_pruning_tpu_torch.configs import ViTConfig
 from vit_pruning_tpu_torch.models.convert import check_device, tree_to
 from vit_pruning_tpu_torch.ops.attention import mha
+from vit_pruning_tpu_torch.ops.cuda.widths import (
+    INT8_MULTIPLE,
+    LAYER_MULTIPLE,
+    PADDED,
+    with_kernel_weights,
+)
 from vit_pruning_tpu_torch.ops.dispatch import (
     attention_kernel_enabled,
     encoder_fusion_enabled,
@@ -161,14 +167,21 @@ def layer_slice(layers: dict, i: int) -> dict:
 def layers_for(layers: dict, quant: str) -> dict:
     """The stacked layer tree a forward runs: under int8, the float tree
     with every layer's int8 weights attached (one quantization per call)
-    unless it carries them already, and, when kernels are on, kernel B4's
-    K-major layout of them (ops/quant.py::kmajor_int8_weights), also built
-    once per call rather than once per layer launch."""
-    if quant != "int8":
-        return layers
-    if not is_quantized(layers):
+    unless it carries them already. When kernels are on, also what the
+    layer kernels read, built once per call rather than once per layer
+    launch: for widths the kernels do not take, the zero-padded tree
+    (ops/cuda/widths.py, under PADDED), and under int8 kernel B4's K-major
+    layout (ops/quant.py::kmajor_int8_weights) of the tree it reads."""
+    if quant == "int8" and not is_quantized(layers):
         layers = attach_int8_weights(layers)
-    return with_kmajor_int8_weights(layers) if kernels_enabled() else layers
+    if not kernels_enabled():
+        return layers
+    if quant != "int8":
+        return with_kernel_weights(layers, LAYER_MULTIPLE)
+    layers = with_kernel_weights(layers, INT8_MULTIPLE)
+    if PADDED in layers:
+        return {**layers, PADDED: with_kmajor_int8_weights(layers[PADDED])}
+    return with_kmajor_int8_weights(layers)
 
 
 def layer_range(layers: dict, start: int, stop: int) -> dict:
@@ -219,7 +232,8 @@ def vit_forward(
     if head_mask is None and not output_hidden_states and encoder_route(params["layers"], config):
         from vit_pruning_tpu_torch.ops.cuda.model import fused_vit_encoder
 
-        x = fused_vit_encoder(x, params["layers"], config.num_heads, config.layernorm_eps)
+        x = fused_vit_encoder(x, layers_for(params["layers"], "none"), config.num_heads,
+                              config.layernorm_eps)
     else:
         # a head-masked layer runs in float (vit_layer): no int8 weights needed
         layers = layers_for(params["layers"], quant if head_mask is None else "none")

@@ -13,9 +13,10 @@ file says what bounds each.
 
 ops/attention.py::mha runs it with use_kernel=True, which the models set in
 dispatch mode 'kernel' only, for attention without head_mask or
-return_probs. The wrapper launches the kernel for CUDA tensors and counts
-the launch in its `launches` attribute; for CPU tensors it runs the plain
-version (mode 'auto') or raises (mode 'kernel').
+return_probs. The wrapper launches the kernel for CUDA tensors through the
+registered operator vpt::fused_attention (ops/cuda/library.py), which counts
+the launch in the wrapper's `launches` attribute; for CPU tensors it runs
+the plain version (mode 'auto') or raises (mode 'kernel').
 """
 
 from __future__ import annotations
@@ -27,13 +28,8 @@ from typing import Optional
 import torch
 
 from vit_pruning_tpu_torch.ops.attention import NEG_INF
-from vit_pruning_tpu_torch.ops.cuda.layer import (
-    _check,
-    _check_token_mask,
-    _raise_on,
-    _stream,
-    refuse_grad,
-)
+from vit_pruning_tpu_torch.ops.cuda.layer import _DTYPES, _check, _check_token_mask, refuse_grad
+from vit_pruning_tpu_torch.ops.cuda.library import check_aligned, kernel_op, ptr, run
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 
 
@@ -53,6 +49,29 @@ def fused_attention_ref(
     return (p @ v.float()).to(q.dtype)
 
 
+def _b6_fake(q, k, v, token_mask):
+    return torch.empty_like(q)
+
+
+@kernel_op("fused_attention", _b6_fake)
+def _b6_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           token_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """B6's launch."""
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    who = "fused_attention"
+    b, h, s, hd = q.shape
+    max_hd = load_library().vpt_attention_max_head_dim()
+    if hd > max_hd:
+        raise ValueError(f"{who}: head dim {hd} not in [1, {max_hd}]")
+    check_aligned(who, q=q, k=k, v=v)
+    out = torch.empty_like(q)
+    run(who, q.device, "vpt_attention_forward", _DTYPES[q.dtype], ptr(q), ptr(k), ptr(v),
+        ptr(token_mask), ptr(out), b, h, s, hd)
+    fused_attention.launches += 1
+    return out
+
+
 def fused_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -67,29 +86,14 @@ def fused_attention(
         return fused_attention_ref(q, k, v, token_mask)
     who = "fused_attention"
     refuse_grad(who, q, k, v)
-    from vit_pruning_tpu_torch.ops.cuda.build import load_library
-
-    lib = load_library()
     if q.dim() != 4:
         raise ValueError(f"{who}: q must be [B, H, S, hd], got {tuple(q.shape)}")
     b, h, s, hd = q.shape
-    if s < 1 or not 1 <= b <= 65535:
-        raise ValueError(f"{who}: batch {b} not in [1, 65535] or empty sequence")
-    if not 1 <= hd <= lib.vpt_attention_max_head_dim():
-        raise ValueError(f"{who}: head dim {hd} not in [1, {lib.vpt_attention_max_head_dim()}]")
-    dtype = _check(q, {"k": k, "v": v}, {"k": tuple(q.shape), "v": tuple(q.shape)}, who)
+    if s < 1 or not 1 <= b <= 65535 or hd < 1:
+        raise ValueError(f"{who}: batch {b} not in [1, 65535], or an empty sequence or head")
+    _check(q, {"k": k, "v": v}, {"k": tuple(q.shape), "v": tuple(q.shape)}, who)
     _check_token_mask(token_mask, q, b, s, who)
-
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = lib.vpt_attention_forward(
-            dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if token_mask is None else token_mask.data_ptr(), out.data_ptr(),
-            b, h, s, hd, _stream(q),
-        )
-    _raise_on(lib, rc, who)
-    fused_attention.launches += 1
-    return out
+    return torch.ops.vpt.fused_attention(q, k, v, token_mask)
 
 
 fused_attention.launches = 0

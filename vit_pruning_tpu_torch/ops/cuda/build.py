@@ -35,16 +35,17 @@ P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 SIGNATURES = {
     "vpt_error_string": ([I], ctypes.c_char_p),
     "vpt_layer_head_dim_ok": ([I], I),
-    # dtype, x, mask, 12 layer weights, out, 5 workspaces, B S D H HD M, eps, stream
-    "vpt_vit_layer_forward": ([I] + [P] * 20 + [I] * 6 + [F, P], I),
-    # dtype, x, 18 weights, logits, 7 workspaces, B S D H HD M labels, eps, stream
-    "vpt_vit_cls_logits_forward": ([I] + [P] * 27 + [I] * 7 + [F, P], I),
+    # (DN: the layer norms' width, D unless x and the weights were padded)
+    # dtype, x, mask, 12 layer weights, out, 5 workspaces, B S D H HD M DN, eps, stream
+    "vpt_vit_layer_forward": ([I] + [P] * 20 + [I] * 7 + [F, P], I),
+    # dtype, x, 18 weights, logits, 7 workspaces, B S D H HD M DN labels, eps, stream
+    "vpt_vit_cls_logits_forward": ([I] + [P] * 27 + [I] * 8 + [F, P], I),
     # dtype, x, dest, kept, 12 layer weights, out, src, counts, 7 workspaces,
-    # B S cap D H HD M, eps, stream
-    "vpt_vit_layer_bucketed_forward": ([I] + [P] * 25 + [I] * 7 + [F, P], I),
+    # B S cap D H HD M DN, eps, stream
+    "vpt_vit_layer_bucketed_forward": ([I] + [P] * 25 + [I] * 8 + [F, P], I),
     # dtype, x, mask, 16 layer weights (int8 products with f32 scales), out,
-    # 8 code / scale buffers, 4 workspaces, B S D H HD M, eps, stream
-    "vpt_vit_layer_int8_forward": ([I] + [P] * 31 + [I] * 6 + [F, P], I),
+    # 8 code / scale buffers, 4 workspaces, B S D H HD M DN, eps, stream
+    "vpt_vit_layer_int8_forward": ([I] + [P] * 31 + [I] * 7 + [F, P], I),
     # dtype, x, codes, scales, rows, k, stream
     "vpt_rowquant": ([I, P, P, P, I, I, P], I),
     # dtype, codes, lda, row scales, Wt, ws, M N K, bias, act, residual, ldr,
@@ -53,8 +54,8 @@ SIGNATURES = {
     "vpt_int8_body_launches": ([], ctypes.c_longlong),
     "vpt_int8_body_reset": ([], None),
     # dtype, x, mask, 12 stacked layer weights, out, 6 workspaces,
-    # L B S D H HD M, eps, stream
-    "vpt_vit_encoder_forward": ([I] + [P] * 21 + [I] * 7 + [F, P], I),
+    # L B S D H HD M DN, eps, stream
+    "vpt_vit_encoder_forward": ([I] + [P] * 21 + [I] * 8 + [F, P], I),
     "vpt_attention_max_head_dim": ([], I),
     # dtype, q, k, v, mask, out, B H S HD, stream
     "vpt_attention_forward": ([I] + [P] * 5 + [I] * 4 + [P], I),

@@ -22,9 +22,13 @@ as a multiply, then an add, each rounded in f32; the result rounded to w's
 dtype; an f32 product; + b in f32, + pos in f32, one cast. They are not
 embed_from_u8, which computes (x / 255 - mean) / std and rounds elsewhere.
 
-A wrapper launches its kernel for CUDA tensors and counts the launch in its
-`launches` attribute; for CPU tensors it runs the plain version (mode
-'auto') or raises (mode 'kernel'). It never falls back from a CUDA tensor.
+A wrapper launches its kernel for CUDA tensors through its registered
+operator (vpt::fused_patch_embed_u8 / vpt::fused_patch_embed_f,
+ops/cuda/library.py), which counts the launch in the wrapper's `launches`
+attribute; for CPU tensors it runs the plain version (mode 'auto') or
+raises (mode 'kernel'). It never falls back from a CUDA tensor. An
+embedding width D that is not a multiple of 8 is zero-padded in w, b and
+pos, and the output sliced back (ops/cuda/widths.py).
 """
 
 from __future__ import annotations
@@ -34,7 +38,9 @@ import ctypes
 import torch
 
 from vit_pruning_tpu_torch.data.preprocess import VIT_MEAN, VIT_STD
-from vit_pruning_tpu_torch.ops.cuda.layer import _check, _raise_on, _stream, refuse_grad
+from vit_pruning_tpu_torch.ops.cuda.layer import _check, refuse_grad
+from vit_pruning_tpu_torch.ops.cuda.library import check_aligned, kernel_op, ptr, run
+from vit_pruning_tpu_torch.ops.cuda.widths import LAYER_MULTIPLE, pad_dim, round_up
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 from vit_pruning_tpu_torch.ops.patch_embed import extract_patches
 
@@ -65,9 +71,42 @@ def fused_patch_embed_f_ref(patches, w, b, pos) -> torch.Tensor:
     return _embed_ref(patches, w, b, pos, 1.0, 0.0)
 
 
+def _embed_fake(patches, w, b, pos, scale, shift):
+    return w.new_empty((*patches.shape[:2], w.shape[1]))
+
+
+def _launch(who: str, patches, w, b, pos, scale: float, shift: float) -> torch.Tensor:
+    """B8a's or B8b's launch (one C entry; the input dtype tells them apart)."""
+    check_aligned(who, w=w, b=b, pos=pos)
+    bsz, n, k = patches.shape
+    d = w.shape[1]
+    out = w.new_empty((bsz, n, d))
+    run(who, w.device, "vpt_patch_embed_forward", _IN_DTYPES[patches.dtype], _IN_DTYPES[w.dtype],
+        int(pos.dtype == torch.float32), ptr(patches), ptr(w), ptr(b), ptr(pos), ptr(out),
+        bsz * n, n, k, d, scale, shift)
+    return out
+
+
+@kernel_op("fused_patch_embed_u8", _embed_fake)
+def _b8a_op(patches: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pos: torch.Tensor,
+            scale: float, shift: float) -> torch.Tensor:
+    out = _launch("fused_patch_embed_u8", patches, w, b, pos, scale, shift)
+    fused_patch_embed_u8.launches += 1
+    return out
+
+
+@kernel_op("fused_patch_embed_f", _embed_fake)
+def _b8b_op(patches: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pos: torch.Tensor,
+            scale: float, shift: float) -> torch.Tensor:
+    out = _launch("fused_patch_embed_f", patches, w, b, pos, scale, shift)
+    fused_patch_embed_f.launches += 1
+    return out
+
+
 def _embed(who: str, in_dtypes: tuple, patches, w, b, pos, scale: float, shift: float,
-           ref, counter) -> torch.Tensor:
-    """Checks shared by both wrappers, then the kernel (CUDA) or `ref` (CPU)."""
+           ref, op) -> torch.Tensor:
+    """Checks shared by both wrappers, then the kernel's operator (CUDA) or
+    `ref` (CPU)."""
     if patches.dim() != 3:
         raise ValueError(f"{who}: patches must be [B, N, C*P*P], got {tuple(patches.shape)}")
     if patches.dtype not in in_dtypes:
@@ -82,27 +121,15 @@ def _embed(who: str, in_dtypes: tuple, patches, w, b, pos, scale: float, shift: 
     if not launch_kernel_for(patches):
         return ref()
     refuse_grad(who, patches, w, b, pos)
-    from vit_pruning_tpu_torch.ops.cuda.build import load_library
-
-    lib = load_library()
-    if d % 8:
-        raise ValueError(f"{who}: embedding width {d} must be a multiple of 8")
     if pos.dtype not in (w.dtype, torch.float32):
         raise ValueError(f"{who}: pos is {pos.dtype}; it must be {w.dtype} or float32")
-    w_dtype = _check(w, {"b": b, "pos": pos}, {}, who, {"pos": pos.dtype})
+    dp = round_up(d, LAYER_MULTIPLE)
+    w, b, pos = pad_dim(w, -1, dp), pad_dim(b, -1, dp), pad_dim(pos, -1, dp)
+    _check(w, {"b": b, "pos": pos}, {}, who, {"pos": pos.dtype})
     if patches.device != w.device or not patches.is_contiguous():
         raise ValueError(f"{who}: patches must be contiguous on {w.device}")
-
-    out = torch.empty((bsz, n, d), dtype=w.dtype, device=w.device)
-    with torch.cuda.device(w.device):
-        rc = lib.vpt_patch_embed_forward(
-            _IN_DTYPES[patches.dtype], w_dtype, int(pos.dtype == torch.float32),
-            patches.data_ptr(), w.data_ptr(), b.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            bsz * n, n, k, d, scale, shift, _stream(w),
-        )
-    _raise_on(lib, rc, who)
-    counter.launches += 1
-    return out
+    out = op(patches, w, b, pos, scale, shift)
+    return out if dp == d else out[..., :d]
 
 
 def fused_patch_embed_u8(patches_u8: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -116,7 +143,7 @@ def fused_patch_embed_u8(patches_u8: torch.Tensor, w: torch.Tensor, b: torch.Ten
     scale, shift = _affine(mean, std)
     return _embed("fused_patch_embed_u8", (torch.uint8,), patches_u8, w, b, pos, scale, shift,
                   lambda: fused_patch_embed_u8_ref(patches_u8, w, b, pos, mean, std),
-                  fused_patch_embed_u8)
+                  torch.ops.vpt.fused_patch_embed_u8)
 
 
 fused_patch_embed_u8.launches = 0
@@ -127,7 +154,8 @@ def fused_patch_embed_f(patches: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Kernel B8b: float32 or bfloat16 patches [B, N, C*P*P] -> [B, N, D] in
     w's dtype; w, b and pos as for fused_patch_embed_u8."""
     return _embed("fused_patch_embed_f", _FLOAT, patches, w, b, pos, 1.0, 0.0,
-                  lambda: fused_patch_embed_f_ref(patches, w, b, pos), fused_patch_embed_f)
+                  lambda: fused_patch_embed_f_ref(patches, w, b, pos),
+                  torch.ops.vpt.fused_patch_embed_f)
 
 
 fused_patch_embed_f.launches = 0

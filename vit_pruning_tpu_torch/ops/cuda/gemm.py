@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from vit_pruning_tpu_torch.ops.cuda.layer import _raise_on, _stream
+from vit_pruning_tpu_torch.ops.cuda.library import ptr, run
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 
 ACTS = {"none": 0, "gelu_erf": 1, "gelu_tanh": 2}
@@ -93,20 +93,11 @@ def gemm_bf16(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = N
     m, n, k, lda = _check(a, w, bias, act, residual, out_dtype)
     if not launch_kernel_for(a):
         return gemm_bf16_ref(a, w, bias, act, residual, out_dtype)
-    from vit_pruning_tpu_torch.ops.cuda.build import load_library
-
-    lib = load_library()
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    with torch.cuda.device(a.device):
-        rc = lib.vpt_gemm_bf16(
-            a.data_ptr(), lda, w.data_ptr(), m, n, k,
-            None if bias is None else bias.data_ptr(), ACTS[act],
-            None if residual is None else residual.data_ptr(),
-            n if residual is None else residual.stride(0),
-            int(residual is not None and residual.dtype == torch.float32),
-            out.data_ptr(), n, int(out_dtype == torch.float32), _stream(a),
-        )
-    _raise_on(lib, rc, "gemm_bf16")
+    run("gemm_bf16", a.device, "vpt_gemm_bf16", ptr(a), lda, ptr(w), m, n, k, ptr(bias),
+        ACTS[act], ptr(residual), n if residual is None else residual.stride(0),
+        int(residual is not None and residual.dtype == torch.float32), ptr(out), n,
+        int(out_dtype == torch.float32))
     gemm_bf16.launches += 1
     return out
 

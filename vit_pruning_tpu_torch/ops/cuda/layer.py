@@ -15,9 +15,13 @@ one tiled GEMM with its bias / GELU / residual / cast fused into the
 epilogue, and the residual stream stays f32 between the attention and MLP
 halves as it stayed in VMEM on the TPU.
 
-A wrapper launches its kernel for CUDA tensors and counts the launch in its
-`launches` attribute; for CPU tensors it runs the plain version (mode
-'auto') or raises (mode 'kernel'). It never falls back from a CUDA tensor.
+A wrapper launches its kernel for CUDA tensors, through the registered
+operator vpt::<name> (ops/cuda/library.py), whose implementation counts the
+launch in the wrapper's `launches` attribute; for CPU tensors it runs the
+plain version (mode 'auto') or raises (mode 'kernel'). It never falls back
+from a CUDA tensor. Widths the kernels do not take (D or M not a multiple of
+8) are zero-padded on the way in and sliced on the way out
+(ops/cuda/widths.py).
 
 Gradients. The kernels have no backward, and the JAX package has none
 either: it trains through B1 (and B5, ops/cuda/model.py) with a custom VJP
@@ -51,18 +55,32 @@ import torch.nn.functional as F
 from vit_pruning_tpu_torch.models.convert import flatten_tree, unflatten_tree
 from vit_pruning_tpu_torch.models.vit import layer_norm, mlp_block
 from vit_pruning_tpu_torch.ops.attention import NEG_INF, mha
+from vit_pruning_tpu_torch.ops.cuda.library import check_aligned, kernel_op, ptr, run
+from vit_pruning_tpu_torch.ops.cuda.widths import LAYER_MULTIPLE, kernel_layer, pad_dim
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims B1-B5 take: csrc/common.cuh::layer_head_dim_ok, which gates
-# every call; this copy only words the error
+# every call in C; the wrappers check this copy, so that a trace without a
+# card needs no library (chip_smoke.py holds the two equal)
 LAYER_HEAD_DIMS = (16, 32, 64, 80)
 
 
 # --- plain versions ---------------------------------------------------------------
 
-def _ln_f32(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
-    return layer_norm(x.float(), {"g": p["g"].float(), "b": p["b"].float()}, eps)
+def _ln_f32(x: torch.Tensor, p: dict, eps: float, norm_width: Optional[int] = None
+            ) -> torch.Tensor:
+    """LN in f32. norm_width: the statistics run over the first norm_width
+    columns only, as the kernels' do on a row zero-padded past the model's
+    width (ops/cuda/widths.py); None = every column."""
+    g, b = p["g"].float(), p["b"].float()
+    if norm_width is None or norm_width == x.shape[-1]:
+        return layer_norm(x.float(), {"g": g, "b": b}, eps)
+    xf = x.float()
+    t = xf[..., :norm_width]
+    mean = t.mean(-1, keepdim=True)
+    var = ((t - mean) ** 2).mean(-1, keepdim=True)
+    return (xf - mean) * torch.rsqrt(var + eps) * g + b
 
 
 def _linear_f32(a: torch.Tensor, p_w: torch.Tensor, p_b: torch.Tensor) -> torch.Tensor:
@@ -114,16 +132,19 @@ def fused_vit_layer_ref(
     num_heads: int,
     eps: float = 1e-12,
     token_mask: Optional[torch.Tensor] = None,
+    norm_width: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of kernel B1 (staged2 numerics)."""
+    """Plain PyTorch version of kernel B1 (staged2 numerics). norm_width:
+    the layer norms' width, for x and weights zero-padded past it (the
+    kernel's DN); None = D."""
     dt = x.dtype
     a = params["attn"]
     xf = x.float()
-    h1 = _ln_f32(xf, params["ln1"], eps)
+    h1 = _ln_f32(xf, params["ln1"], eps, norm_width)
     q, k, v = (_linear_f32(h1, a[n]["w"], a[n]["b"]).to(dt) for n in "qkv")
     ctx = staged2_attention(q, k, v, num_heads, token_mask)
     x1 = xf + _linear_f32(ctx, a["o"]["w"], a["o"]["b"])
-    h2 = _ln_f32(x1, params["ln2"], eps)
+    h2 = _ln_f32(x1, params["ln2"], eps, norm_width)
     mlp = params["mlp"]
     m1 = _gelu_for(dt)(_linear_f32(h2, mlp["fc1"]["w"], mlp["fc1"]["b"]))
     return (x1 + _linear_f32(m1, mlp["fc2"]["w"], mlp["fc2"]["b"])).to(dt)
@@ -136,15 +157,17 @@ def fused_vit_layer_cls_logits_ref(
     head: dict,
     num_heads: int,
     eps: float = 1e-12,
+    norm_width: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of kernel B2: logits [B, labels] in x's dtype."""
+    """Plain PyTorch version of kernel B2: logits [B, labels] in x's dtype.
+    norm_width as fused_vit_layer_ref's (the final LN's too)."""
     dt = x.dtype
     b, s, d = x.shape
     a = params["attn"]
     kw = a["q"]["w"].shape[1]
     hd = kw // num_heads
     xf = x.float()
-    h1 = _ln_f32(xf, params["ln1"], eps)
+    h1 = _ln_f32(xf, params["ln1"], eps, norm_width)
     k, v = (_heads(_linear_f32(h1, a[n]["w"], a[n]["b"]).to(dt), num_heads) for n in "kv")
     q = _heads(_linear_f32(h1[:, :1], a["q"]["w"], a["q"]["b"]).to(dt), num_heads)  # [B,H,1,hd]
     logits = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))
@@ -152,11 +175,11 @@ def fused_vit_layer_cls_logits_ref(
     p = (p / p.sum(-1, keepdim=True)).to(dt).float()
     ctx = (p @ v.float()).transpose(1, 2).reshape(b, kw)  # f32
     x1 = xf[:, 0] + _linear_f32(ctx, a["o"]["w"], a["o"]["b"])
-    h2 = _ln_f32(x1, params["ln2"], eps)
+    h2 = _ln_f32(x1, params["ln2"], eps, norm_width)
     mlp = params["mlp"]
     m1 = _gelu_for(dt)(_linear_f32(h2, mlp["fc1"]["w"], mlp["fc1"]["b"]))
     x2 = x1 + _linear_f32(m1, mlp["fc2"]["w"], mlp["fc2"]["b"])
-    yn = _ln_f32(x2, lnf, eps)
+    yn = _ln_f32(x2, lnf, eps, norm_width)
     return _linear_f32(yn, head["w"], head["b"]).to(dt)
 
 
@@ -196,11 +219,13 @@ def fused_vit_layer_bucketed_ref(
     cap: int,
     num_heads: int,
     eps: float = 1e-12,
+    norm_width: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel B3: gather, B1's plain layer at `cap`
-    with the count key mask, scatter + identity passthrough."""
+    with the count key mask, scatter + identity passthrough. norm_width as
+    fused_vit_layer_ref's."""
     xc, key_ok = bucket_compact(x, dest, kept, cap)
-    yc = fused_vit_layer_ref(xc, params, num_heads, eps, key_ok)
+    yc = fused_vit_layer_ref(xc, params, num_heads, eps, key_ok, norm_width)
     return bucket_expand(x, yc, dest, kept, cap)
 
 
@@ -268,9 +293,10 @@ def recomputed(kernel, eager, x: torch.Tensor, params: dict,
 
 def _check(x: torch.Tensor, tensors: dict, shapes: dict, who: str,
            dtypes: Optional[dict] = None) -> int:
-    """Device, dtype, shape, contiguity and alignment checks shared by the
-    wrappers; returns the kernel's dtype code. A tensor named in `dtypes`
-    must have that dtype, every other one x's."""
+    """Device, dtype, shape and contiguity checks shared by the wrappers
+    (alignment is checked where the memory is, in the ops); returns the
+    kernel's dtype code. A tensor named in `dtypes` must have that dtype,
+    every other one x's."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"{who}: dtype {x.dtype} not supported (float32, bfloat16)")
     for name, t in {"x": x, **tensors}.items():
@@ -283,8 +309,6 @@ def _check(x: torch.Tensor, tensors: dict, shapes: dict, who: str,
             )
         if not t.is_contiguous():
             raise ValueError(f"{who}: {name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{who}: {name} must be 16-byte aligned")
     return _DTYPES[x.dtype]
 
 
@@ -304,21 +328,27 @@ def _weight(linear: dict) -> torch.Tensor:
     return linear["w"] if "w" in linear else linear["wq"]
 
 
-def _geometry(lib, x: torch.Tensor, params: dict, num_heads: int, who: str):
+def _geometry(x: torch.Tensor, params: dict, num_heads: int, who: str):
+    """(B, S, D, hd, KW, M) of a layer call, at the model's widths."""
     if x.dim() != 3:
         raise ValueError(f"{who}: x must be [B, S, D], got {tuple(x.shape)}")
     b, s, d = x.shape
-    kw = _weight(params["attn"]["q"]).shape[1]
-    m = _weight(params["mlp"]["fc1"]).shape[1]
+    kw = _weight(params["attn"]["q"]).shape[-1]
+    m = _weight(params["mlp"]["fc1"]).shape[-1]
     hd = kw // num_heads
-    if kw % num_heads or not lib.vpt_layer_head_dim_ok(hd):
+    if kw % num_heads or hd not in LAYER_HEAD_DIMS:
         raise ValueError(f"{who}: head dim {kw}/{num_heads} not supported (the kernel takes "
                          f"{', '.join(map(str, LAYER_HEAD_DIMS))})")
     if s < 1 or b < 1:
         raise ValueError(f"{who}: x must have a batch and a sequence, got {tuple(x.shape)}")
-    if d % 8 or m % 8:
-        raise ValueError(f"{who}: hidden {d} and MLP width {m} must be multiples of 8")
+    if params["ln1"]["g"].shape[-1] != d:
+        raise ValueError(f"{who}: x has width {d}, the layer {params['ln1']['g'].shape[-1]}")
     return b, s, d, hd, kw, m
+
+
+# the names of _layer_weights' twelve, in the C entries' order
+LAYER_WEIGHTS = ("ln1.g", "ln1.b", "qkv.w", "qkv.b", "o.w", "o.b", "ln2.g", "ln2.b", "fc1.w",
+                 "fc1.b", "fc2.w", "fc2.b")
 
 
 def _layer_shapes(d: int, kw: int, m: int) -> dict:
@@ -326,24 +356,60 @@ def _layer_shapes(d: int, kw: int, m: int) -> dict:
             "ln2.b": (d,), "fc1.w": (d, m), "fc1.b": (m,), "fc2.w": (m, d), "fc2.b": (d,)}
 
 
-def _layer_weights(params: dict) -> dict:
+def _layer_weights(params: dict, qkv: bool = True) -> dict:
+    """A float layer tree's (or stacked tree's) weights in the C entries'
+    order, by name: LN1, the fused QKV (`qkv`; B2 takes Q and the fused KV
+    in its place, see _cls_weights), O, LN2, fc1, fc2. The concatenations
+    are copies, made where the kernel is called (in an export, graph ops)."""
     a, mlp = params["attn"], params["mlp"]
-    return {
-        "ln1.g": params["ln1"]["g"], "ln1.b": params["ln1"]["b"],
-        "o.w": a["o"]["w"], "o.b": a["o"]["b"],
-        "ln2.g": params["ln2"]["g"], "ln2.b": params["ln2"]["b"],
-        "fc1.w": mlp["fc1"]["w"], "fc1.b": mlp["fc1"]["b"],
-        "fc2.w": mlp["fc2"]["w"], "fc2.b": mlp["fc2"]["b"],
-    }
+    w = {"ln1.g": params["ln1"]["g"], "ln1.b": params["ln1"]["b"]}
+    if qkv:
+        w["qkv.w"] = torch.cat([a[n]["w"] for n in "qkv"], dim=-1)
+        w["qkv.b"] = torch.cat([a[n]["b"] for n in "qkv"], dim=-1)
+    w.update({"o.w": a["o"]["w"], "o.b": a["o"]["b"], "ln2.g": params["ln2"]["g"],
+              "ln2.b": params["ln2"]["b"], "fc1.w": mlp["fc1"]["w"], "fc1.b": mlp["fc1"]["b"],
+              "fc2.w": mlp["fc2"]["w"], "fc2.b": mlp["fc2"]["b"]})
+    return w
 
 
-def _raise_on(lib, rc: int, who: str):
-    if rc != 0:
-        raise RuntimeError(f"{who}: CUDA error {rc}: {lib.vpt_error_string(rc).decode()}")
+def _padded_call(x: torch.Tensor, params: dict, multiple: int):
+    """(x, the layer tree the kernel reads, D at the kernel): both padded to
+    `multiple` where the widths need it (ops/cuda/widths.py)."""
+    kp = kernel_layer(params, multiple)
+    dp = kp["ln1"]["g"].shape[-1]
+    return pad_dim(x, -1, dp), kp, dp
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _unpad(y: torch.Tensor, d: int) -> torch.Tensor:
+    return y if y.shape[-1] == d else y[..., :d]
+
+
+def _workspaces(x: torch.Tensor, rows: int, d: int, kw: int, m: int, qkv_cols: int) -> list:
+    """h [rows, D], qkv [rows, qkv_cols], ctx [rows, KW], x1 [rows, D] f32,
+    m1 [rows, M]: the buffers of B1's launch sequence."""
+    return [x.new_empty((rows, d)), x.new_empty((rows, qkv_cols)), x.new_empty((rows, kw)),
+            torch.empty((rows, d), dtype=torch.float32, device=x.device), x.new_empty((rows, m))]
+
+
+def _b1_fake(x, token_mask, weights, num_heads, norm_width, eps):
+    return torch.empty_like(x)
+
+
+@kernel_op("fused_vit_layer", _b1_fake)
+def _b1_op(x: torch.Tensor, token_mask: Optional[torch.Tensor], weights: list[torch.Tensor],
+           num_heads: int, norm_width: int, eps: float) -> torch.Tensor:
+    """B1's launch. weights: _layer_weights' twelve, in their order."""
+    who = "fused_vit_layer"
+    b, s, d = x.shape
+    kw, m = weights[4].shape[0], weights[8].shape[1]
+    check_aligned(who, x=x, **dict(zip(LAYER_WEIGHTS, weights)))
+    out = torch.empty_like(x)
+    ws = _workspaces(x, b * s, d, kw, m, 3 * kw)
+    run(who, x.device, "vpt_vit_layer_forward", _DTYPES[x.dtype], ptr(x), ptr(token_mask),
+        *map(ptr, weights), ptr(out), *map(ptr, ws), b, s, d, num_heads, kw // num_heads, m,
+        norm_width, eps)
+    fused_vit_layer.launches += 1
+    return out
 
 
 def fused_vit_layer(
@@ -369,44 +435,55 @@ def fused_vit_layer(
 
 
 def _fused_vit_layer(x, params, num_heads, eps, token_mask):
-    """B1's launch, or its plain version for a CPU tensor."""
+    """B1's operator, or its plain version for a CPU tensor."""
     if not launch_kernel_for(x):
         return fused_vit_layer_ref(x, params, num_heads, eps, token_mask)
-    from vit_pruning_tpu_torch.ops.cuda.build import load_library
-
     who = "fused_vit_layer"
-    lib = load_library()
-    a = params["attn"]
-    wqkv = torch.cat([a["q"]["w"], a["k"]["w"], a["v"]["w"]], dim=1)
-    bqkv = torch.cat([a["q"]["b"], a["k"]["b"], a["v"]["b"]])
-    b, s, d, hd, kw, m = _geometry(lib, x, params, num_heads, who)
-    shapes = {"qkv.w": (d, 3 * kw), "qkv.b": (3 * kw,), **_layer_shapes(d, kw, m)}
-    w = _layer_weights(params)
-    dtype = _check(x, {"qkv.w": wqkv, "qkv.b": bqkv, **w}, shapes, who)
+    b, s, d, hd, kw, m = _geometry(x, params, num_heads, who)
+    xk, kp, dp = _padded_call(x, params, LAYER_MULTIPLE)
+    mp = kp["mlp"]["fc1"]["w"].shape[-1]
+    w = _layer_weights(kp)
+    _check(xk, w, {"qkv.w": (dp, 3 * kw), "qkv.b": (3 * kw,), **_layer_shapes(dp, kw, mp)}, who)
     _check_token_mask(token_mask, x, b, s, who)
-
-    out = torch.empty_like(x)
-    rows = b * s
-    h = x.new_empty((rows, d))
-    qkv = x.new_empty((rows, 3 * kw))
-    ctx = x.new_empty((rows, kw))
-    x1 = torch.empty((rows, d), dtype=torch.float32, device=x.device)
-    m1 = x.new_empty((rows, m))
-    with torch.cuda.device(x.device):
-        rc = lib.vpt_vit_layer_forward(
-            dtype, x.data_ptr(), None if token_mask is None else token_mask.data_ptr(),
-            w["ln1.g"].data_ptr(), w["ln1.b"].data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-            w["o.w"].data_ptr(), w["o.b"].data_ptr(), w["ln2.g"].data_ptr(), w["ln2.b"].data_ptr(),
-            w["fc1.w"].data_ptr(), w["fc1.b"].data_ptr(), w["fc2.w"].data_ptr(), w["fc2.b"].data_ptr(),
-            out.data_ptr(), h.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), x1.data_ptr(), m1.data_ptr(),
-            b, s, d, num_heads, hd, m, eps, _stream(x),
-        )
-    _raise_on(lib, rc, who)
-    fused_vit_layer.launches += 1
-    return out
+    return _unpad(torch.ops.vpt.fused_vit_layer(xk, token_mask, list(w.values()), num_heads, d,
+                                                eps), d)
 
 
 fused_vit_layer.launches = 0
+
+
+def _cls_weights(params: dict, lnf: dict, head: dict) -> dict:
+    """B2's eighteen weights in its C entry's order: LN1, Q, the fused KV,
+    O, LN2, fc1, fc2, the final LN, the classifier."""
+    a = params["attn"]
+    w = _layer_weights(params, qkv=False)
+    return {"ln1.g": w.pop("ln1.g"), "ln1.b": w.pop("ln1.b"), "q.w": a["q"]["w"],
+            "q.b": a["q"]["b"], "kv.w": torch.cat([a["k"]["w"], a["v"]["w"]], dim=-1),
+            "kv.b": torch.cat([a["k"]["b"], a["v"]["b"]], dim=-1), **w,
+            "ln_f.g": lnf["g"], "ln_f.b": lnf["b"], "head.w": head["w"], "head.b": head["b"]}
+
+
+def _b2_fake(x, weights, num_heads, norm_width, eps):
+    return x.new_empty((x.shape[0], weights[16].shape[1]))
+
+
+@kernel_op("fused_vit_layer_cls_logits", _b2_fake)
+def _b2_op(x: torch.Tensor, weights: list[torch.Tensor], num_heads: int, norm_width: int,
+           eps: float) -> torch.Tensor:
+    """B2's launch. weights: _cls_weights' eighteen, in their order."""
+    who = "fused_vit_layer_cls_logits"
+    b, s, d = x.shape
+    kw, m, labels = weights[2].shape[1], weights[10].shape[1], weights[16].shape[1]
+    check_aligned(who, x=x, **{f"weight {i}": t for i, t in enumerate(weights)})
+    logits = x.new_empty((b, labels))
+    ws = [x.new_empty((b * s, d)), x.new_empty((b * s, 2 * kw)), x.new_empty((b, kw)),
+          x.new_empty((b, kw)), torch.empty((b, d), dtype=torch.float32, device=x.device),
+          x.new_empty((b, m)), torch.empty((b, d), dtype=torch.float32, device=x.device)]
+    run(who, x.device, "vpt_vit_cls_logits_forward", _DTYPES[x.dtype], ptr(x),
+        *map(ptr, weights), ptr(logits), *map(ptr, ws), b, s, d, num_heads, kw // num_heads, m,
+        norm_width, labels, eps)
+    fused_vit_layer_cls_logits.launches += 1
+    return logits
 
 
 def fused_vit_layer_cls_logits(
@@ -427,48 +504,47 @@ def fused_vit_layer_cls_logits(
         return fused_vit_layer_cls_logits_ref(x, params, lnf, head, num_heads, eps)
     who = "fused_vit_layer_cls_logits"
     refuse_grad(who, x, params, lnf, head)
-    from vit_pruning_tpu_torch.ops.cuda.build import load_library
-
-    lib = load_library()
-    a = params["attn"]
-    wkv = torch.cat([a["k"]["w"], a["v"]["w"]], dim=1)
-    bkv = torch.cat([a["k"]["b"], a["v"]["b"]])
-    w = _layer_weights(params)
-    tensors = {"q.w": a["q"]["w"], "q.b": a["q"]["b"], "kv.w": wkv, "kv.b": bkv, **w,
-               "ln_f.g": lnf["g"], "ln_f.b": lnf["b"], "head.w": head["w"], "head.b": head["b"]}
-    b, s, d, hd, kw, m = _geometry(lib, x, params, num_heads, who)
+    b, s, d, hd, kw, m = _geometry(x, params, num_heads, who)
+    xk, kp, dp = _padded_call(x, params, LAYER_MULTIPLE)
+    mp = kp["mlp"]["fc1"]["w"].shape[-1]
+    lnf = {k: pad_dim(v, -1, dp) for k, v in lnf.items()}
+    head = {"w": pad_dim(head["w"], 0, dp), "b": head["b"]}
+    w = _cls_weights(kp, lnf, head)
     labels = head["w"].shape[1]
-    shapes = {"q.w": (d, kw), "q.b": (kw,), "kv.w": (d, 2 * kw), "kv.b": (2 * kw,),
-              **_layer_shapes(d, kw, m), "ln_f.g": (d,), "ln_f.b": (d,),
-              "head.w": (d, labels), "head.b": (labels,)}
-    dtype = _check(x, tensors, shapes, who)
-
-    logits = x.new_empty((b, labels))
-    h = x.new_empty((b * s, d))
-    kv = x.new_empty((b * s, 2 * kw))
-    q = x.new_empty((b, kw))
-    ctx = x.new_empty((b, kw))
-    x1 = torch.empty((b, d), dtype=torch.float32, device=x.device)
-    m1 = x.new_empty((b, m))
-    x2 = torch.empty((b, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.vpt_vit_cls_logits_forward(
-            dtype, x.data_ptr(),
-            w["ln1.g"].data_ptr(), w["ln1.b"].data_ptr(), a["q"]["w"].data_ptr(),
-            a["q"]["b"].data_ptr(), wkv.data_ptr(), bkv.data_ptr(),
-            w["o.w"].data_ptr(), w["o.b"].data_ptr(), w["ln2.g"].data_ptr(), w["ln2.b"].data_ptr(),
-            w["fc1.w"].data_ptr(), w["fc1.b"].data_ptr(), w["fc2.w"].data_ptr(), w["fc2.b"].data_ptr(),
-            lnf["g"].data_ptr(), lnf["b"].data_ptr(), head["w"].data_ptr(), head["b"].data_ptr(),
-            logits.data_ptr(), h.data_ptr(), kv.data_ptr(), q.data_ptr(), ctx.data_ptr(),
-            x1.data_ptr(), m1.data_ptr(), x2.data_ptr(),
-            b, s, d, num_heads, hd, m, labels, eps, _stream(x),
-        )
-    _raise_on(lib, rc, who)
-    fused_vit_layer_cls_logits.launches += 1
-    return logits
+    shapes = {"q.w": (dp, kw), "q.b": (kw,), "kv.w": (dp, 2 * kw), "kv.b": (2 * kw,),
+              **_layer_shapes(dp, kw, mp), "ln_f.g": (dp,), "ln_f.b": (dp,),
+              "head.w": (dp, labels), "head.b": (labels,)}
+    _check(xk, w, shapes, who)
+    return torch.ops.vpt.fused_vit_layer_cls_logits(xk, list(w.values()), num_heads, d, eps)
 
 
 fused_vit_layer_cls_logits.launches = 0
+
+
+def _b3_fake(x, dest, kept, weights, cap, num_heads, norm_width, eps):
+    return torch.empty_like(x)
+
+
+@kernel_op("fused_vit_layer_bucketed", _b3_fake)
+def _b3_op(x: torch.Tensor, dest: torch.Tensor, kept: torch.Tensor, weights: list[torch.Tensor],
+           cap: int, num_heads: int, norm_width: int, eps: float) -> torch.Tensor:
+    """B3's launch. weights: _layer_weights' twelve, in their order."""
+    who = "fused_vit_layer_bucketed"
+    b, s, d = x.shape
+    kw, m = weights[4].shape[0], weights[8].shape[1]
+    check_aligned(who, x=x, **dict(zip(LAYER_WEIGHTS, weights)))
+    out = torch.empty_like(x)
+    rows = b * cap
+    src = torch.empty((b, cap), dtype=torch.int32, device=x.device)
+    counts = torch.empty((b,), dtype=torch.int32, device=x.device)
+    xc, yc = x.new_empty((rows, d)), x.new_empty((rows, d))
+    h, qkv, ctx, x1, m1 = _workspaces(x, rows, d, kw, m, 3 * kw)
+    run(who, x.device, "vpt_vit_layer_bucketed_forward", _DTYPES[x.dtype], ptr(x), ptr(dest),
+        ptr(kept), *map(ptr, weights), ptr(out), ptr(src), ptr(counts), ptr(xc), ptr(yc),
+        ptr(h), ptr(qkv), ptr(ctx), ptr(x1), ptr(m1), b, s, cap, d, num_heads,
+        kw // num_heads, m, norm_width, eps)
+    fused_vit_layer_bucketed.launches += 1
+    return out
 
 
 def fused_vit_layer_bucketed(
@@ -492,47 +568,21 @@ def fused_vit_layer_bucketed(
         return fused_vit_layer_bucketed_ref(x, params, dest, kept, cap, num_heads, eps)
     who = "fused_vit_layer_bucketed"
     refuse_grad(who, x, params)
-    from vit_pruning_tpu_torch.ops.cuda.build import load_library
-
-    lib = load_library()
-    a = params["attn"]
-    wqkv = torch.cat([a["q"]["w"], a["k"]["w"], a["v"]["w"]], dim=1)
-    bqkv = torch.cat([a["q"]["b"], a["k"]["b"], a["v"]["b"]])
-    b, s, d, hd, kw, m = _geometry(lib, x, params, num_heads, who)
+    b, s, d, hd, kw, m = _geometry(x, params, num_heads, who)
     if not 1 <= cap <= s:
         raise ValueError(f"{who}: cap {cap} not in [1, S={s}]")
-    shapes = {"qkv.w": (d, 3 * kw), "qkv.b": (3 * kw,), **_layer_shapes(d, kw, m)}
-    w = _layer_weights(params)
-    dtype = _check(x, {"qkv.w": wqkv, "qkv.b": bqkv, **w}, shapes, who)
+    xk, kp, dp = _padded_call(x, params, LAYER_MULTIPLE)
+    mp = kp["mlp"]["fc1"]["w"].shape[-1]
+    w = _layer_weights(kp)
+    _check(xk, w, {"qkv.w": (dp, 3 * kw), "qkv.b": (3 * kw,), **_layer_shapes(dp, kw, mp)}, who)
     dest = dest.to(torch.int32)
     for name, t, want in (("dest", dest, torch.int32), ("kept", kept, torch.bool)):
         if t.shape != (b, s) or t.dtype != want:
             raise ValueError(f"{who}: {name} must be {want} [{b}, {s}]")
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{who}: {name} must be contiguous on {x.device}")
-
-    out = torch.empty_like(x)
-    rows = b * cap
-    src = torch.empty((b, cap), dtype=torch.int32, device=x.device)
-    counts = torch.empty((b,), dtype=torch.int32, device=x.device)
-    xc, yc, h = (x.new_empty((rows, d)) for _ in range(3))
-    qkv = x.new_empty((rows, 3 * kw))
-    ctx = x.new_empty((rows, kw))
-    x1 = torch.empty((rows, d), dtype=torch.float32, device=x.device)
-    m1 = x.new_empty((rows, m))
-    with torch.cuda.device(x.device):
-        rc = lib.vpt_vit_layer_bucketed_forward(
-            dtype, x.data_ptr(), dest.data_ptr(), kept.data_ptr(),
-            w["ln1.g"].data_ptr(), w["ln1.b"].data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-            w["o.w"].data_ptr(), w["o.b"].data_ptr(), w["ln2.g"].data_ptr(), w["ln2.b"].data_ptr(),
-            w["fc1.w"].data_ptr(), w["fc1.b"].data_ptr(), w["fc2.w"].data_ptr(), w["fc2.b"].data_ptr(),
-            out.data_ptr(), src.data_ptr(), counts.data_ptr(), xc.data_ptr(), yc.data_ptr(),
-            h.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), x1.data_ptr(), m1.data_ptr(),
-            b, s, cap, d, num_heads, hd, m, eps, _stream(x),
-        )
-    _raise_on(lib, rc, who)
-    fused_vit_layer_bucketed.launches += 1
-    return out
+    return _unpad(torch.ops.vpt.fused_vit_layer_bucketed(xk, dest, kept, list(w.values()), cap,
+                                                         num_heads, d, eps), d)
 
 
 fused_vit_layer_bucketed.launches = 0

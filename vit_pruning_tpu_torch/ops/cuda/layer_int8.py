@@ -21,9 +21,12 @@ eager int8 layer (ops/quant.py::int8_vit_layer_ref) in three places:
     divided after PV); ctx and the GELU output are rounded to x's dtype
     before they are quantized, as in the eager layer.
 
-The wrapper launches for CUDA tensors and counts the launch in `launches`;
-for CPU tensors it runs the plain version (mode 'auto') or raises (mode
-'kernel'). It never falls back from a CUDA tensor.
+The wrapper launches for CUDA tensors, through the registered operator
+vpt::fused_vit_layer_int8 (ops/cuda/library.py), which counts the launch in
+`launches`; for CPU tensors it runs the plain version (mode 'auto') or
+raises (mode 'kernel'). It never falls back from a CUDA tensor. D and M that
+are not multiples of 16 (the products' K step) are zero-padded on the way
+in, and the output and codes sliced on the way out (ops/cuda/widths.py).
 """
 
 from __future__ import annotations
@@ -35,16 +38,19 @@ import torch.nn.functional as F
 
 from vit_pruning_tpu_torch.ops.cuda.gemm import ACTS
 from vit_pruning_tpu_torch.ops.cuda.layer import (
+    _DTYPES,
     _check,
     _check_token_mask,
     _gelu_for,
     _geometry,
     _ln_f32,
-    _raise_on,
-    _stream,
+    _padded_call,
+    _unpad,
     refuse_grad,
     staged2_attention,
 )
+from vit_pruning_tpu_torch.ops.cuda.library import check_aligned, kernel_op, ptr, run
+from vit_pruning_tpu_torch.ops.cuda.widths import INT8_MULTIPLE
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 from vit_pruning_tpu_torch.ops.quant import KMAJOR, int_matmul, kmajor_int8_weights
 
@@ -77,21 +83,23 @@ def fused_vit_layer_int8_ref(
     eps: float = 1e-12,
     token_mask: Optional[torch.Tensor] = None,
     return_codes: bool = False,
+    norm_width: Optional[int] = None,
 ):
     """Plain PyTorch version of kernel B4. qparams: one layer's tree with
     'wq' / 'wscale' per linear. With return_codes, also returns {stage:
-    (int8 codes, f32 row scales)} for every stage of STAGES."""
+    (int8 codes, f32 row scales)} for every stage of STAGES. norm_width as
+    layer.py::fused_vit_layer_ref's."""
     dt = x.dtype
     a, mlp = qparams["attn"], qparams["mlp"]
     xf = x.float()
-    codes = {"ln1": rowquant_ref(_ln_f32(xf, qparams["ln1"], eps))}
+    codes = {"ln1": rowquant_ref(_ln_f32(xf, qparams["ln1"], eps, norm_width))}
     qkv = _dequant(*codes["ln1"], torch.cat([a[n]["wq"] for n in "qkv"], 1),
                    torch.cat([a[n]["wscale"] for n in "qkv"]),
                    torch.cat([a[n]["b"] for n in "qkv"])).to(dt)
     ctx = staged2_attention(*qkv.chunk(3, dim=-1), num_heads, token_mask)
     codes["ctx"] = rowquant_ref(ctx)
     x1 = xf + _dequant(*codes["ctx"], a["o"]["wq"], a["o"]["wscale"], a["o"]["b"])
-    codes["ln2"] = rowquant_ref(_ln_f32(x1, qparams["ln2"], eps))
+    codes["ln2"] = rowquant_ref(_ln_f32(x1, qparams["ln2"], eps, norm_width))
     m1 = _dequant(*codes["ln2"], mlp["fc1"]["wq"], mlp["fc1"]["wscale"], mlp["fc1"]["b"])
     codes["gelu"] = rowquant_ref(_gelu_for(dt)(m1).to(dt))
     out = (x1 + _dequant(*codes["gelu"], mlp["fc2"]["wq"], mlp["fc2"]["wscale"],
@@ -106,24 +114,60 @@ def rowquant(x: torch.Tensor):
     bfloat16 -> (int8 [R, K], f32 [R, 1]), as rowquant_ref."""
     if not launch_kernel_for(x):
         return rowquant_ref(x)
-    from vit_pruning_tpu_torch.ops.cuda.build import load_library
-
     who = "rowquant"
-    lib = load_library()
     if x.dim() != 2 or x.shape[1] % 16:
         raise ValueError(f"{who}: x must be [R, K] with K a multiple of 16, got {tuple(x.shape)}")
     dtype = _check(x, {}, {}, who)
+    check_aligned(who, x=x)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     s = torch.empty((x.shape[0], 1), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.vpt_rowquant(dtype, x.data_ptr(), q.data_ptr(), s.data_ptr(), x.shape[0],
-                              x.shape[1], _stream(x))
-    _raise_on(lib, rc, who)
+    run(who, x.device, "vpt_rowquant", dtype, ptr(x), ptr(q), ptr(s), x.shape[0], x.shape[1])
     rowquant.launches += 1
     return q, s
 
 
 rowquant.launches = 0
+
+
+# the names of B4's sixteen weights, in its C entry's order
+INT8_WEIGHTS = ("ln1.g", "ln1.b", "qkv.wq", "qkv.ws", "qkv.b", "o.wq", "o.ws", "o.b", "ln2.g",
+                "ln2.b", "fc1.wq", "fc1.ws", "fc1.b", "fc2.wq", "fc2.ws", "fc2.b")
+
+
+def _stage_buffers(x: torch.Tensor, rows: int, widths: tuple) -> list:
+    """The int8 codes [rows, n] and f32 row scales [rows, 1] of each stage
+    of STAGES, flat: codes, scales, codes, scales, ..."""
+    return [t for n in widths for t in (x.new_empty((rows, n), dtype=torch.int8),
+                                        x.new_empty((rows, 1), dtype=torch.float32))]
+
+
+def _b4_fake(x, token_mask, weights, num_heads, norm_width, eps):
+    b, s, d = x.shape
+    kw, m = weights[5].shape[1], weights[10].shape[0]
+    return (torch.empty_like(x), *_stage_buffers(x, b * s, (d, kw, d, m)))
+
+
+@kernel_op("fused_vit_layer_int8", _b4_fake)
+def _b4_op(x: torch.Tensor, token_mask: Optional[torch.Tensor], weights: list[torch.Tensor],
+           num_heads: int, norm_width: int, eps: float
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                      torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B4's launch: (out, then the codes and row scales of every stage of
+    STAGES). weights: INT8_WEIGHTS, in their order."""
+    who = "fused_vit_layer_int8"
+    b, s, d = x.shape
+    kw, m = weights[5].shape[1], weights[10].shape[0]
+    check_aligned(who, x=x, **dict(zip(INT8_WEIGHTS, weights)))
+    rows = b * s
+    out = torch.empty_like(x)
+    codes = _stage_buffers(x, rows, (d, kw, d, m))
+    ws = [x.new_empty((rows, 3 * kw)), x.new_empty((rows, kw)),
+          torch.empty((rows, d), dtype=torch.float32, device=x.device), x.new_empty((rows, m))]
+    run(who, x.device, "vpt_vit_layer_int8_forward", _DTYPES[x.dtype], ptr(x), ptr(token_mask),
+        *map(ptr, weights), ptr(out), *map(ptr, codes), *map(ptr, ws), b, s, d, num_heads,
+        kw // num_heads, m, norm_width, eps)
+    fused_vit_layer_int8.launches += 1
+    return (out, *codes)
 
 
 def fused_vit_layer_int8(
@@ -147,55 +191,36 @@ def fused_vit_layer_int8(
         return fused_vit_layer_int8_ref(x, qparams, num_heads, eps, token_mask, return_codes)
     who = "fused_vit_layer_int8"
     refuse_grad(who, x, qparams)
-    from vit_pruning_tpu_torch.ops.cuda.build import load_library
-
-    lib = load_library()
-    a, mlp = qparams["attn"], qparams["mlp"]
-    b, s, d, hd, kw, m = _geometry(lib, x, qparams, num_heads, who)
-    if d % 16 or m % 16:
-        raise ValueError(f"{who}: hidden {d} and MLP width {m} must be multiples of 16")
+    b, s, d, hd, kw, m = _geometry(x, qparams, num_heads, who)
+    xk, kp, dp = _padded_call(x, qparams, INT8_MULTIPLE)
+    mp = kp["mlp"]["fc1"]["wq"].shape[-1]
+    a, mlp = kp["attn"], kp["mlp"]
     # the int8 products read both operands K-major: weights as [N, K]
-    nk = qparams.get(KMAJOR) or kmajor_int8_weights(qparams)
+    nk = kp.get(KMAJOR) or kmajor_int8_weights(kp)
     w = {
-        "ln1.g": qparams["ln1"]["g"], "ln1.b": qparams["ln1"]["b"],
+        "ln1.g": kp["ln1"]["g"], "ln1.b": kp["ln1"]["b"],
         "qkv.wq": nk["qkv"]["wq"], "qkv.ws": nk["qkv"]["wscale"], "qkv.b": nk["qkv"]["b"],
         "o.wq": nk["o"]["wq"], "o.ws": a["o"]["wscale"], "o.b": a["o"]["b"],
-        "ln2.g": qparams["ln2"]["g"], "ln2.b": qparams["ln2"]["b"],
+        "ln2.g": kp["ln2"]["g"], "ln2.b": kp["ln2"]["b"],
         "fc1.wq": nk["fc1"]["wq"], "fc1.ws": mlp["fc1"]["wscale"], "fc1.b": mlp["fc1"]["b"],
         "fc2.wq": nk["fc2"]["wq"], "fc2.ws": mlp["fc2"]["wscale"], "fc2.b": mlp["fc2"]["b"],
     }
-    shapes = {"ln1.g": (d,), "ln1.b": (d,), "qkv.wq": (3 * kw, d), "qkv.ws": (3 * kw,),
-              "qkv.b": (3 * kw,), "o.wq": (d, kw), "o.ws": (d,), "o.b": (d,), "ln2.g": (d,),
-              "ln2.b": (d,), "fc1.wq": (m, d), "fc1.ws": (m,), "fc1.b": (m,),
-              "fc2.wq": (d, m), "fc2.ws": (d,), "fc2.b": (d,)}
+    shapes = {"ln1.g": (dp,), "ln1.b": (dp,), "qkv.wq": (3 * kw, dp), "qkv.ws": (3 * kw,),
+              "qkv.b": (3 * kw,), "o.wq": (dp, kw), "o.ws": (dp,), "o.b": (dp,), "ln2.g": (dp,),
+              "ln2.b": (dp,), "fc1.wq": (mp, dp), "fc1.ws": (mp,), "fc1.b": (mp,),
+              "fc2.wq": (dp, mp), "fc2.ws": (dp,), "fc2.b": (dp,)}
     dtypes = {k: torch.int8 for k in w if k.endswith(".wq")}
     dtypes.update({k: torch.float32 for k in w if k.endswith(".ws")})
-    dtype = _check(x, w, shapes, who, dtypes)
+    _check(xk, w, shapes, who, dtypes)
     _check_token_mask(token_mask, x, b, s, who)
-
-    rows = b * s
-    out = torch.empty_like(x)
-    widths = {"ln1": d, "ctx": kw, "ln2": d, "gelu": m}
-    codes = {k: (torch.empty((rows, n), dtype=torch.int8, device=x.device),
-                 torch.empty((rows, 1), dtype=torch.float32, device=x.device))
-             for k, n in widths.items()}
-    qkv = x.new_empty((rows, 3 * kw))
-    ctx = x.new_empty((rows, kw))
-    x1 = torch.empty((rows, d), dtype=torch.float32, device=x.device)
-    m1 = x.new_empty((rows, m))
-    with torch.cuda.device(x.device):
-        rc = lib.vpt_vit_layer_int8_forward(
-            dtype, x.data_ptr(), None if token_mask is None else token_mask.data_ptr(),
-            *(t.data_ptr() for t in w.values()), out.data_ptr(),
-            *(t.data_ptr() for k in STAGES for t in codes[k]),
-            qkv.data_ptr(), ctx.data_ptr(), x1.data_ptr(), m1.data_ptr(),
-            b, s, d, num_heads, hd, m, eps, _stream(x),
-        )
-    _raise_on(lib, rc, who)
-    fused_vit_layer_int8.launches += 1
+    out, *codes = torch.ops.vpt.fused_vit_layer_int8(xk, token_mask, [w[k] for k in INT8_WEIGHTS],
+                                                     num_heads, d, eps)
+    out = _unpad(out, d)
     if not return_codes:
         return out
-    return out, {k: (q.reshape(b, s, -1), sc.reshape(b, s, 1)) for k, (q, sc) in codes.items()}
+    widths = {"ln1": d, "ctx": kw, "ln2": d, "gelu": m}
+    return out, {k: (codes[2 * i][:, :widths[k]].reshape(b, s, -1),
+                     codes[2 * i + 1].reshape(b, s, 1)) for i, k in enumerate(STAGES)}
 
 
 fused_vit_layer_int8.launches = 0
@@ -239,9 +264,6 @@ def gemm_s8(codes: torch.Tensor, rs: torch.Tensor, wt: torch.Tensor, ws: torch.T
     n = wt.shape[0]
     if not launch_kernel_for(codes):
         return gemm_s8_ref(codes, rs, wt, ws, bias, act, residual, out_dtype)
-    from vit_pruning_tpu_torch.ops.cuda.build import load_library
-
-    lib = load_library()
     dt = torch.float32 if bias is None else bias.dtype
     if act not in ACTS or dt not in (torch.float32, torch.bfloat16) or \
             out_dtype not in (dt, torch.float32) or k % 16 or n % 8:
@@ -261,14 +283,10 @@ def gemm_s8(codes: torch.Tensor, rs: torch.Tensor, wt: torch.Tensor, ws: torch.T
             raise ValueError(f"{who}: {name} must be contiguous 16-byte aligned {dtype} "
                              f"{shape} on {codes.device}, got {t_.dtype} {tuple(t_.shape)}")
     out = torch.empty((m, n), dtype=out_dtype, device=codes.device)
-    with torch.cuda.device(codes.device):
-        rc = lib.vpt_gemm_s8(
-            int(dt == torch.bfloat16), codes.data_ptr(), k, rs.data_ptr(), wt.data_ptr(),
-            ws.data_ptr(), m, n, k, None if bias is None else bias.data_ptr(), ACTS[act],
-            None if residual is None else residual.data_ptr(), n,
-            int(residual is not None and residual.dtype == torch.float32), out.data_ptr(), n,
-            int(out_dtype == torch.float32), _stream(codes))
-    _raise_on(lib, rc, who)
+    run(who, codes.device, "vpt_gemm_s8", int(dt == torch.bfloat16), ptr(codes), k, ptr(rs),
+        ptr(wt), ptr(ws), m, n, k, ptr(bias), ACTS[act], ptr(residual), n,
+        int(residual is not None and residual.dtype == torch.float32), ptr(out), n,
+        int(out_dtype == torch.float32))
     gemm_s8.launches += 1
     return out
 

@@ -12,9 +12,10 @@ launches per body; the head of the .cu file says what bounds each.
 
 models/vit.py::mlp_block runs it when kernels are on, which is the MLP of
 the per-op layer route (head_mask, return_probs). The wrapper launches the
-kernel for CUDA tensors and counts the launch in its `launches` attribute;
-for CPU tensors it runs the plain version (mode 'auto') or raises (mode
-'kernel').
+kernel for CUDA tensors through the registered operator vpt::fused_mlp
+(ops/cuda/library.py), which counts the launch in the wrapper's `launches`
+attribute; for CPU tensors it runs the plain version (mode 'auto') or
+raises (mode 'kernel').
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from vit_pruning_tpu_torch.ops.cuda.layer import _check, _raise_on, _stream, refuse_grad
+from vit_pruning_tpu_torch.ops.cuda.layer import _DTYPES, _check, refuse_grad
+from vit_pruning_tpu_torch.ops.cuda.library import check_aligned, kernel_op, ptr, run
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 
 
@@ -41,6 +43,29 @@ def fused_mlp_ref(
     return (h @ w2.float() + b2.float()).to(x.dtype)
 
 
+def _b7_fake(x, w1, b1, w2, b2):
+    return torch.empty_like(x)
+
+
+@kernel_op("fused_mlp", _b7_fake)
+def _b7_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+           b2: torch.Tensor) -> torch.Tensor:
+    """B7's launch."""
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    who = "fused_mlp"
+    t, d = x.shape
+    max_d = load_library().vpt_mlp_max_hidden()
+    if d > max_d:
+        raise ValueError(f"{who}: hidden size {d} over the kernel's {max_d}")
+    check_aligned(who, x=x, w1=w1, b1=b1, w2=w2, b2=b2)
+    out = torch.empty_like(x)
+    run(who, x.device, "vpt_mlp_forward", _DTYPES[x.dtype], ptr(x), ptr(w1), ptr(b1), ptr(w2),
+        ptr(b2), ptr(out), t, d, w1.shape[-1])
+    fused_mlp.launches += 1
+    return out
+
+
 def fused_mlp(
     x: torch.Tensor,
     w1: torch.Tensor,
@@ -55,25 +80,12 @@ def fused_mlp(
         return fused_mlp_ref(x, w1, b1, w2, b2)
     who = "fused_mlp"
     refuse_grad(who, x, w1, b1, w2, b2)
-    from vit_pruning_tpu_torch.ops.cuda.build import load_library
-
-    lib = load_library()
     if x.dim() != 2 or x.shape[0] < 1:
         raise ValueError(f"{who}: x must be [T, D] with T >= 1, got {tuple(x.shape)}")
-    t, d = x.shape
-    m = w1.shape[-1]
-    if d > lib.vpt_mlp_max_hidden():
-        raise ValueError(f"{who}: hidden size {d} over the kernel's {lib.vpt_mlp_max_hidden()}")
+    d, m = x.shape[1], w1.shape[-1]
     shapes = {"w1": (d, m), "b1": (m,), "w2": (m, d), "b2": (d,)}
-    dtype = _check(x, {"w1": w1, "b1": b1, "w2": w2, "b2": b2}, shapes, who)
-
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = lib.vpt_mlp_forward(dtype, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                                 b2.data_ptr(), out.data_ptr(), t, d, m, _stream(x))
-    _raise_on(lib, rc, who)
-    fused_mlp.launches += 1
-    return out
+    _check(x, {"w1": w1, "b1": b1, "w2": w2, "b2": b2}, shapes, who)
+    return torch.ops.vpt.fused_mlp(x, w1, b1, w2, b2)
 
 
 fused_mlp.launches = 0

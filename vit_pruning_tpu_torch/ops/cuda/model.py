@@ -12,9 +12,11 @@ after layer from C, with no Python between layers.
 Models take this route (models/vit.py::encoder_route) for a stretch of
 layers at a fixed sequence length when kernels are on, encoder fusion is on
 (ops/dispatch.py) and `encoder_weights_fit` holds. The wrapper launches the
-kernel for CUDA tensors and counts the launch in its `launches` attribute;
-for CPU tensors it runs the plain version (mode 'auto') or raises (mode
-'kernel').
+kernel for CUDA tensors through the registered operator
+vpt::fused_vit_encoder (ops/cuda/library.py), which counts the launch in
+the wrapper's `launches` attribute; for CPU tensors it runs the plain
+version (mode 'auto') or raises (mode 'kernel'). Widths that are not
+multiples of 8 are zero-padded as B1's (ops/cuda/widths.py).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from vit_pruning_tpu_torch.ops.cuda.layer import (
+    _DTYPES,
+    LAYER_WEIGHTS,
     _check,
     _check_token_mask,
     _geometry,
@@ -32,13 +36,16 @@ from vit_pruning_tpu_torch.ops.cuda.layer import (
     _layer_weights,
     _linear_f32,
     _ln_f32,
-    _raise_on,
-    _stream,
+    _padded_call,
+    _unpad,
+    _workspaces,
     eager_layer,
     grad_needed,
     recomputed,
     staged2_attention,
 )
+from vit_pruning_tpu_torch.ops.cuda.library import check_aligned, kernel_op, ptr, run
+from vit_pruning_tpu_torch.ops.cuda.widths import LAYER_MULTIPLE
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 
 
@@ -63,18 +70,21 @@ def fused_vit_encoder_ref(
     num_heads: int,
     eps: float = 1e-12,
     token_mask: Optional[torch.Tensor] = None,
+    norm_width: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of kernel B5 (the TPU kernel's numerics)."""
+    """Plain PyTorch version of kernel B5 (the TPU kernel's numerics).
+    norm_width as layer.py::fused_vit_layer_ref's."""
     dt = x.dtype
     xf = x.float()
     for i in range(layers["ln1"]["g"].shape[0]):
         p = _layer(layers, i)
         a, mlp = p["attn"], p["mlp"]
-        h1 = _ln_f32(xf, p["ln1"], eps)
+        h1 = _ln_f32(xf, p["ln1"], eps, norm_width)
         q, k, v = (_linear_f32(h1, a[n]["w"], a[n]["b"]).to(dt) for n in "qkv")
         ctx = staged2_attention(q, k, v, num_heads, token_mask, normalized=True)
         x1 = xf + _linear_f32(ctx, a["o"]["w"], a["o"]["b"])
-        m1 = F.gelu(_linear_f32(_ln_f32(x1, p["ln2"], eps), mlp["fc1"]["w"], mlp["fc1"]["b"]))
+        m1 = F.gelu(_linear_f32(_ln_f32(x1, p["ln2"], eps, norm_width), mlp["fc1"]["w"],
+                                mlp["fc1"]["b"]))
         xf = x1 + _linear_f32(m1, mlp["fc2"]["w"], mlp["fc2"]["b"])  # m1 rounded to the dtype
     return xf.to(dt)
 
@@ -99,7 +109,7 @@ def fused_vit_encoder(
     layer tree stacked on a leading [L] axis (a slice [l0:l1] of a model's
     layers runs those layers). token_mask [B, S] bool or None masks keys at
     every layer. Returns [B, S, D] in x's dtype. B1's limits: head dim 16,
-    32, 64 or 80, D and M multiples of 8; any S. Differentiable: under
+    32, 64 or 80; any S, D and M. Differentiable: under
     autograd the call runs through ops/cuda/layer.py::RecomputedBackward,
     whose backward is eager_encoder's."""
     if grad_needed(x, layers):
@@ -110,44 +120,45 @@ def fused_vit_encoder(
     return _fused_vit_encoder(x, layers, num_heads, eps, token_mask)
 
 
-def _fused_vit_encoder(x, layers, num_heads, eps, token_mask):
-    """B5's launch, or its plain version for a CPU tensor."""
-    if not launch_kernel_for(x):
-        return fused_vit_encoder_ref(x, layers, num_heads, eps, token_mask)
-    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+def _b5_fake(x, token_mask, weights, num_heads, norm_width, eps):
+    return torch.empty_like(x)
 
+
+@kernel_op("fused_vit_encoder", _b5_fake)
+def _b5_op(x: torch.Tensor, token_mask: Optional[torch.Tensor], weights: list[torch.Tensor],
+           num_heads: int, norm_width: int, eps: float) -> torch.Tensor:
+    """B5's launch. weights: B1's twelve (layer.py::LAYER_WEIGHTS), stacked
+    on a leading [L] axis."""
     who = "fused_vit_encoder"
-    lib = load_library()
-    a = layers["attn"]
-    n_layers = a["q"]["w"].shape[0]
-    b, s, d, hd, kw, m = _geometry(lib, x, _layer(layers, 0), num_heads, who)
-    wqkv = torch.cat([a["q"]["w"], a["k"]["w"], a["v"]["w"]], dim=2)
-    bqkv = torch.cat([a["q"]["b"], a["k"]["b"], a["v"]["b"]], dim=1)
-    shapes = {"qkv.w": (n_layers, d, 3 * kw), "qkv.b": (n_layers, 3 * kw),
-              **{k: (n_layers, *v) for k, v in _layer_shapes(d, kw, m).items()}}
-    w = _layer_weights(layers)
-    dtype = _check(x, {"qkv.w": wqkv, "qkv.b": bqkv, **w}, shapes, who)
-    _check_token_mask(token_mask, x, b, s, who)
-
+    b, s, d = x.shape
+    n_layers, kw, m = weights[4].shape[0], weights[4].shape[1], weights[8].shape[2]
+    check_aligned(who, x=x, **dict(zip(LAYER_WEIGHTS, weights)))
     out = torch.empty_like(x)
-    rows = b * s
-    h = x.new_empty((rows, d))
-    qkv = x.new_empty((rows, 3 * kw))
-    ctx = x.new_empty((rows, kw))
-    m1 = x.new_empty((rows, m))
-    x1, xr = (torch.empty((rows, d), dtype=torch.float32, device=x.device) for _ in range(2))
-    with torch.cuda.device(x.device):
-        rc = lib.vpt_vit_encoder_forward(
-            dtype, x.data_ptr(), None if token_mask is None else token_mask.data_ptr(),
-            w["ln1.g"].data_ptr(), w["ln1.b"].data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-            w["o.w"].data_ptr(), w["o.b"].data_ptr(), w["ln2.g"].data_ptr(), w["ln2.b"].data_ptr(),
-            w["fc1.w"].data_ptr(), w["fc1.b"].data_ptr(), w["fc2.w"].data_ptr(), w["fc2.b"].data_ptr(),
-            out.data_ptr(), h.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), x1.data_ptr(),
-            m1.data_ptr(), xr.data_ptr(), n_layers, b, s, d, num_heads, hd, m, eps, _stream(x),
-        )
-    _raise_on(lib, rc, who)
+    h, qkv, ctx, x1, m1 = _workspaces(x, b * s, d, kw, m, 3 * kw)
+    xr = torch.empty_like(x1)
+    run(who, x.device, "vpt_vit_encoder_forward", _DTYPES[x.dtype], ptr(x), ptr(token_mask),
+        *map(ptr, weights), ptr(out), ptr(h), ptr(qkv), ptr(ctx), ptr(x1), ptr(m1), ptr(xr),
+        n_layers, b, s, d, num_heads, kw // num_heads, m, norm_width, eps)
     fused_vit_encoder.launches += 1
     return out
+
+
+def _fused_vit_encoder(x, layers, num_heads, eps, token_mask):
+    """B5's operator, or its plain version for a CPU tensor."""
+    if not launch_kernel_for(x):
+        return fused_vit_encoder_ref(x, layers, num_heads, eps, token_mask)
+    who = "fused_vit_encoder"
+    n_layers = layers["attn"]["q"]["w"].shape[0]
+    b, s, d, hd, kw, m = _geometry(x, _layer(layers, 0), num_heads, who)
+    xk, kl, dp = _padded_call(x, layers, LAYER_MULTIPLE)
+    mp = kl["mlp"]["fc1"]["w"].shape[-1]
+    w = _layer_weights(kl)
+    shapes = {"qkv.w": (n_layers, dp, 3 * kw), "qkv.b": (n_layers, 3 * kw),
+              **{k: (n_layers, *v) for k, v in _layer_shapes(dp, kw, mp).items()}}
+    _check(xk, w, shapes, who)
+    _check_token_mask(token_mask, x, b, s, who)
+    return _unpad(torch.ops.vpt.fused_vit_encoder(xk, token_mask, list(w.values()), num_heads, d,
+                                                  eps), d)
 
 
 fused_vit_encoder.launches = 0

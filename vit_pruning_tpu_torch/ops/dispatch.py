@@ -97,12 +97,18 @@ def encoder_fusion(enabled: bool):
 
 
 def launch_kernel_for(t: torch.Tensor) -> bool:
-    """Inside a wrapper: True = launch the CUDA kernel on `t`; False = `t`
-    lies on the CPU and mode 'auto' runs the plain version. Raises for a
-    CPU tensor in mode 'kernel'."""
+    """Inside a wrapper: True = launch the CUDA kernel on `t` (through its
+    registered operator, ops/cuda/library.py); False = `t` lies on the CPU
+    and mode 'auto' runs the plain version. Raises for a CPU tensor in mode
+    'kernel'. In mode 'kernel' a meta tensor (shapes only) also takes the
+    operator, whose fake implementation gives the output's shape: how a
+    trace such as serving.py::export_serving sees the kernels without a
+    card."""
     if t.is_cuda:
         return True
     if _MODE == "kernel":
+        if t.is_meta:
+            return True
         raise RuntimeError(
             f"kernel mode 'kernel' needs CUDA tensors; got one on {t.device}"
         )

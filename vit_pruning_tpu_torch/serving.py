@@ -1,15 +1,20 @@
 """Serving entry point: raw uint8 images -> logits.
 
-Mirrors embed_from_u8 and serving_forward of vit_pruning_tpu/serving.py:
-uint8 pixels go to the device (4x fewer bytes than float32), are normalised
-there in float32, cast to the weight dtype, patch-projected, and then run
-through the progressive top-k forward, in float or, with quant='int8',
-through int8 weight products (kernel B4).
+Mirrors vit_pruning_tpu/serving.py: uint8 pixels go to the device (4x fewer
+bytes than float32), are normalised there in float32, cast to the weight
+dtype, patch-projected, and then run through the progressive top-k forward,
+in float or, with quant='int8', through int8 weight products (kernel B4).
+
+`export_serving` stages the whole uint8 -> logits program out with
+torch.export, the kernels included as their registered operators (vpt::*,
+ops/cuda/library.py), as the JAX package stages its program out with
+jax.export, Pallas kernels included as tpu_custom_call; `load_exported`
+reloads it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -56,3 +61,62 @@ def serving_forward(
     x0 = embed_from_u8(pixels_u8, params["backbone"]["embed"], config)
     return progressive_topk_forward(params, None, config, pcfg, x0=x0, logits_only=logits_only,
                                     quant=quant)
+
+
+class _Serving(torch.nn.Module):
+    """fwd(params, pixels_u8) -> serving_forward's logits: the module
+    torch.export traces (the params pytree and the pixels are its inputs)."""
+
+    def __init__(self, config: ViTConfig, pcfg: PruneConfig, quant: str):
+        super().__init__()
+        self.config, self.pcfg, self.quant = config, pcfg, quant
+
+    def forward(self, params: dict, pixels_u8: torch.Tensor) -> torch.Tensor:
+        return serving_forward(params, pixels_u8, self.config, self.pcfg, logits_only=True,
+                               quant=self.quant)["logits"]
+
+
+def export_serving(
+    params: dict,
+    config: ViTConfig,
+    pcfg: PruneConfig,
+    batch_size: int,
+    path: Optional[str] = None,
+    quant: str = "none",
+):
+    """Stage the serving forward out as a torch.export program.
+
+    The uint8 [batch_size, C, H, W] -> logits program (embed, progressive
+    compaction, the CLS-only last layer) is traced once, at a static batch
+    and config.image_size, with the params pytree as an input beside the
+    pixels, as the JAX package's export takes them: the program holds no
+    weights, nor keeps the trace's example inputs. The kernel mode
+    (ops/dispatch.py) read during the trace picks the route, as use_pallas
+    does in the JAX package: with CUDA params in modes 'auto' / 'kernel'
+    (or meta params in mode 'kernel': a trace without a card) the program
+    calls the kernels as vpt:: operators (B1 for L - 1 layers and B2 once
+    in float; B4 for L - 1 and the float B2 under int8); with CPU params in
+    mode 'auto' it holds their plain versions.
+
+    Returns the ExportedProgram; with `path`, also writes it there
+    (torch.export.save)."""
+    side = config.image_size
+    # on the params' device (meta params: meta pixels)
+    pixels = params["backbone"]["head"]["w"].new_zeros(
+        (batch_size, config.num_channels, side, side), dtype=torch.uint8)
+    program = torch.export.export(_Serving(config, pcfg, quant), (params, pixels))
+    program.example_inputs = None  # the trace's params: not part of the program
+    if path is not None:
+        torch.export.save(program, path)
+    return program
+
+
+def load_exported(path: str) -> Callable:
+    """Reload an `export_serving` program: returns f(params, pixels_u8) ->
+    logits. The call checks the inputs against the export (a wrong batch or
+    dtype raises). The kernel operators are registered first, so that the
+    program's vpt:: calls resolve."""
+    from vit_pruning_tpu_torch.ops.cuda.library import load_ops
+
+    load_ops()
+    return torch.export.load(path).module()

@@ -245,6 +245,21 @@ def evaluate(params: dict, batches, config: ViTConfig, pcfg: PruneConfig,
     return acc.accuracy, acc.mlp_accuracy, acc
 
 
+@torch.no_grad()
+def _dump_masks(params, test_batches, config: ViTConfig, pcfg: PruneConfig, viz_dir: str,
+                epoch: int):
+    """The epoch's mask montages (V9) of the first test batch's first two
+    images, as the JAX package's train() draws them."""
+    from vit_pruning_tpu_torch.viz.blackout import training_mask_dump
+
+    device = _device_of(params)
+    vb = _to_device(next(iter(test_batches)), device)
+    gen = torch.Generator(device=device).manual_seed(0)  # mode 'random', as make_eval_step
+    out = pruned_vit_forward(params, vb["pixel_values"], config, pcfg, generator=gen)
+    training_mask_dump([img.float().cpu().numpy() for img in vb["pixel_values"][:2]],
+                       out["keep_masks"].cpu().numpy(), config.patch_size, viz_dir, step=epoch)
+
+
 def train(
     params: dict,
     train_batches,
@@ -275,11 +290,9 @@ def train(
     rate per layer's predictor. state_dir: {'params', 'opt_state', 'epoch'}
     saved after every epoch, and a run resumes from it exactly (batches
     with a set_epoch method are reshuffled per epoch; each epoch's random
-    draws come from a generator seeded by (seed, epoch)). viz_dir (the
-    per-epoch mask montages) needs the port's viz package, ROADMAP A.11."""
-    if viz_dir:
-        raise NotImplementedError("train(viz_dir=...): the mask montages need the port's viz "
-                                  "package, ROADMAP A.11")
+    draws come from a generator seeded by (seed, epoch)). viz_dir: after
+    every epoch, the keep-mask montages of the first test batch's first two
+    images (viz/blackout.py::training_mask_dump, step{epoch}_img{i}.png)."""
     log = log or (lambda s: None)
     device = _device_of(params)
 
@@ -335,6 +348,8 @@ def train(
             if loss_type != "alternate":
                 state["opt_state"] = optimizer.state_dict()
             save_checkpoint(state_path, state)
+        if viz_dir:
+            _dump_masks(params, test_batches, config, pcfg, viz_dir, epoch)
         log(f"Test accuracy after {epoch + 1} epochs: {val_acc:.2%}\n")
     if best is not None:
         log(f"Best accuracy: {best.best_accuracy * 100}%\n")
