@@ -163,6 +163,19 @@ kernels from csrc/ itself. Phases:
      with --kernels auto, epochs cut (GATE_ARGV): quality.py's own checks
      (dense baseline at least 5x chance, the JSON schema), finite
      accuracies, B1 / B3 / B4 launched
+ 10. parallelism (vit_pruning_tpu_torch/parallel/) at DeiT-S width on 2
+     gloo ranks sharing the card, spawned after the build (parallel_rank):
+     the data 2 train step (bce_oracle, f32, batch 32), its ZeRO-1 twin and
+     the data 1 x model 2 step against the single-process step through
+     dryrun_multichip_torch.py's helpers (loss 1e-5 relative, params 1e-5
+     where |grad| >= GRAD_FLOOR, Adam's first moments 1e-3 of each leaf's
+     largest; ZeRO's moments halved); dp uint8 serving of the headline in
+     bf16 at batch 512 and data 1 x model 2 serving of 256 rows against
+     serving_forward (bit-equal, else two bf16 steps); pipeline_forward (2
+     stages of 6 layers, batch 64) and pruned_pipeline_forward (headline +
+     merge_dropped) within 2e-5 of the single-process forwards. B1 and B2
+     launched on every rank; the backend, the hops staged through the
+     host, times and peak memory are printed
   7. records: before 8, importing every module of the port and
      quality_torch.py loads neither pandas nor transformers (8 and 9 print
      the metrics tables, which import pandas where it is installed); after
@@ -175,7 +188,8 @@ kernels from csrc/ itself. Phases:
      row launches_cli, by command of phase 8, and launches_gate, phase
      9's; train_steps_* count only the launches inside phase 8's train
      steps; launches_widths, phase 3l's; launches_export, each of 5i's
-     loaded programs' calls), the device line
+     loaded programs' calls; launches_parallel, phase 10's by rank), the
+     device line
 
 Any failed check raises, so the exit code is non-zero. The line before the
 last is the kernels' JSON record; the last line is the device record.
@@ -1280,6 +1294,204 @@ def gate_path(dev, argv) -> dict:
         check(launches[key] > 0, f"{key.upper()} not launched by the gates")
     check.done()
     return {"launches": launches, "record": record, "rc": rc, "seconds": seconds}
+
+
+# phase 10: parallelism on 2 gloo ranks of the one card (parallel/), at DeiT-S width
+PARALLEL_RANKS = 2
+# Adam's first update is -lr g / (|g| + 1e-8): where |g| is near 1e-8 it
+# turns the rounding of a gradient (two summation orders: one batch of 32
+# or two of 16 added) into up to lr, so phase 10 holds params to 1e-5 where
+# the single-process |grad| >= GRAD_FLOOR (there the update is lr sign(g)
+# to 1%) and the gradients themselves through Adam's first moments
+GRAD_FLOOR = 1e-6
+
+
+def parallel_rank(smi: str) -> dict:
+    """One rank of phase 10, run by parallel/launch.py::run_ranks. At
+    DeiT-S @224 width (random weights from SEED, cls_mlp with
+    PREDICTOR_GAIN), against the single-process call on the card, on every
+    rank:
+      - the data 2 train step (mode mask, bce_oracle, 'both', f32, batch 32,
+        16 a rank), its ZeRO-1 twin and the data 1 x model 2 step (weights
+        gathered before the layers), through dryrun_multichip_torch.py's
+        parallel_train / single_train / train_checks: loss within 1e-5
+        relative; params after the step within 1e-5 where the single-process
+        |grad| >= 1e-6 (GRAD_FLOOR), the count left out printed; Adam's first
+        moments (0.1 g) within 1e-3 of each leaf's largest (MU_RTOL), which
+        holds the gradients' scale; ZeRO-1 within 1e-5 of the data 2 step and each
+        rank's moments half of every leaf with an even dim;
+      - dp serving, the headline in bf16 (uint8 batch 512, 256 a rank):
+        logits bit-equal to serving_forward's rows, else within two bf16
+        steps; and the same 256 rows at data 1 x model 2, with the step's
+        peak memory beside the single-process call's;
+      - pipeline_forward over 2 stages of 6 layers (f32, batch 64, 4
+        microbatches) within 2e-5 of vit_forward, and pruned_pipeline_forward
+        (the headline's drop with merge_dropped) within 2e-5 of
+        progressive_topk_forward.
+    Counts B1 / B2 launches inside the parallel calls only; returns the
+    checks (ok, detail), the counts, the backend, the host-staged hops,
+    times (host clock, the card synchronised) and peak memory (MiB above
+    what was allocated before the call; params' MiB resident)."""
+    import torch.distributed as dist
+
+    from dryrun_multichip_torch import parallel_train, single_train, train_checks
+    from vit_pruning_tpu_torch.configs import PruneConfig, deit_small
+    from vit_pruning_tpu_torch.models.convert import flatten_tree, tree_to
+    from vit_pruning_tpu_torch.models.pruned_vit import (
+        init_pruned_vit_params, progressive_topk_forward)
+    from vit_pruning_tpu_torch.models.vit import init_vit_params, vit_forward
+    from vit_pruning_tpu_torch.parallel import (
+        make_mesh, make_parallel_serving_step, shard_batch, shard_params)
+    from vit_pruning_tpu_torch.parallel import collectives
+    from vit_pruning_tpu_torch.parallel.pipeline import (
+        make_stage_mesh, pipeline_forward, pruned_pipeline_forward)
+    from vit_pruning_tpu_torch.serving import serving_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = deit_small(num_labels=100)
+    checks, ms, peak, launches = {}, {}, {}, {"b1": 0, "b2": 0}
+    collectives.reset_host_staged()
+
+    def timed(fn, name=None):
+        """fn() and its host-clock time (ms); its peak memory under `name`."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t = (time.perf_counter() - t0) * 1e3
+        if name is not None:
+            peak[name] = (torch.cuda.max_memory_allocated() - before) / 2**20
+        return out, t
+
+    def counted(fn, name=None):
+        """timed(fn) with its B1 / B2 launches added to this rank's counts."""
+        reset_launches(("b1", "b2"))
+        out, t = timed(fn, name)
+        for k, v in read_launches(("b1", "b2")).items():
+            launches[k] += v
+        return out, t
+
+    def mib(tree):
+        return sum(t.numel() * t.element_size() for _, t in flatten_tree(tree)) / 2**20
+
+    def pruned_params(pcfg, dtype=torch.float32):
+        p = init_pruned_vit_params(cfg, pcfg, torch.Generator().manual_seed(SEED), "cpu")
+        p["predictor"]["mlp"] = {name: {"w": q["w"] * PREDICTOR_GAIN, "b": q["b"]}
+                                 for name, q in p["predictor"]["mlp"].items()}
+        return tree_to(p, dev, dtype)
+
+    rs = np.random.RandomState(SEED + 10)
+    u8 = torch.from_numpy(rs.randint(0, 256, (512, 3, 224, 224), dtype=np.uint8)).to(dev)
+    batch = {"pixel_values": ((u8[:32].float() / 255.0 - 0.5) / 0.5),
+             "labels": torch.from_numpy(rs.randint(0, 100, 32)).long().to(dev)}
+
+    # train steps: data 2, its ZeRO-1 twin, data 1 x model 2; the single-process step
+    pcfg = PruneConfig(mode="mask", predictor="cls_mlp", loss="bce_oracle")
+    want = single_train(cfg, pcfg, pruned_params(pcfg), batch, timer=timed)
+    ms["train_single"] = want["ms"]
+    got = {}
+    for name, data, model, zero1 in (("dp2", 2, 1, False), ("dp2_zero1", 2, 1, True),
+                                     ("mp2", 1, 2, False)):
+        got[name] = parallel_train(cfg, pcfg, pruned_params(pcfg), batch, data, model,
+                                   zero1=zero1, timer=counted)
+        ms[f"train_{name}"] = got[name]["ms"]
+        checks.update(train_checks(name, got[name], want, grad_floor=GRAD_FLOOR))
+    # ZeRO-1 halves a moment where the leaf has an even dim that its spec
+    # leaves unsharded ('model' of size 1 still names its dim)
+    z = got["dp2_zero1"]
+    halved = [p for p, (m, _) in z["moments"].items()
+              if math.prod(m) * 2 == math.prod(z["local"][p])]
+    even = [p for p in z["moments"] if any(
+        n >= 2 and n % 2 == 0 and (i >= len(z["specs"][p]) or z["specs"][p][i] is None)
+        for i, n in enumerate(z["local"][p]))]
+    checks["dp2_zero1 moments"] = (sorted(halved) == sorted(even) and len(even) > 0,
+                                   f"{len(halved)} of {len(z['moments'])} moments halved")
+    d = max(float((t - got["dp2"]["params"][k]).abs().max()) for k, t in z["params"].items())
+    checks["dp2_zero1 vs dp2 params"] = (d < 1e-5, f"max |diff| {d:.2e}")
+    del got, want, z
+    torch.cuda.empty_cache()
+
+    # dp serving: the headline, bf16, uint8 batch 512 (256 a rank); then 256
+    # rows at data 1 x model 2
+    head = PruneConfig(mode="topk_prog", predictor="cls_mlp", loss="mse_attention", top_k=98)
+    params = pruned_params(head, torch.bfloat16)
+    full, ms["serve_single_512"] = timed(lambda: serving_forward(params, u8, cfg, head)["logits"])
+    for name, data, model in (("dp2", PARALLEL_RANKS, 1), ("mp2", 1, PARALLEL_RANKS)):
+        mesh = make_mesh(data=data, model=model, device=dev.type)
+        local, specs = shard_params(params, mesh)
+        rows = shard_batch({"u8": u8[:512 // model]}, mesh)["u8"]
+        step = make_parallel_serving_step(cfg, head, mesh, specs)
+        got, ms[f"serve_{name}_{rows.shape[0]}"] = counted(lambda: step(local, rows),
+                                                           f"serve_{name}")
+        peak[f"params_{name}"] = mib(local)
+        ref = shard_batch({"l": full[:512 // model]}, mesh)["l"]
+        d = float((got.float() - ref.float()).abs().max())
+        tol = bf16_tol(ref)
+        checks[f"serving {name} bf16 {rows.shape[0]} a rank"] = (
+            d <= tol, "bit-equal to serving_forward" if d == 0 else
+            f"max |diff| {d:.3e}, two bf16 steps {tol:.3e}")
+        del local
+    _, ms["serve_single_256"] = timed(
+        lambda: serving_forward(params, u8[:256], cfg, head)["logits"], "serve_single")
+    peak["params_single"] = mib(params)
+    del params, full
+
+    # the GPipe pipelines: 2 stages of 6 layers, f32, batch 64 in 4 microbatches
+    x = torch.from_numpy(rs.randn(64, 3, 224, 224).astype(np.float32)).to(dev)
+    stage_mesh = make_stage_mesh(PARALLEL_RANKS, device=dev.type)
+    dense = init_vit_params(cfg, torch.Generator().manual_seed(SEED + 1), dev)
+    got, ms["pipeline_dense"] = counted(lambda: pipeline_forward(dense, x, cfg, stage_mesh))
+    want_l, ms["single_dense"] = timed(lambda: vit_forward(dense, x, cfg)["logits"])
+    ok = torch.allclose(got, want_l, rtol=2e-5, atol=2e-5)
+    checks["pipeline_forward"] = (ok, f"max |diff| {float((got - want_l).abs().max()):.2e}")
+    merged = head.replace(merge_dropped=True)
+    pp = pruned_params(merged)
+    got, ms["pipeline_headline_merge"] = counted(
+        lambda: pruned_pipeline_forward(pp, x, cfg, merged, stage_mesh))
+    want_l, ms["single_headline_merge"] = timed(
+        lambda: progressive_topk_forward(pp, x, cfg, merged)["logits"])
+    ok = torch.allclose(got, want_l, rtol=2e-5, atol=2e-5)
+    checks["pruned_pipeline_forward"] = (ok, f"max |diff| {float((got - want_l).abs().max()):.2e}")
+    dist.barrier()
+    return {"rank": dist.get_rank(), "backend": dist.get_backend(), "checks": checks,
+            "launches": launches, "host_staged": collectives.host_staged, "ms": ms,
+            "peak_mib": peak}
+
+
+def parallel_path(smi: str) -> dict:
+    """Phase 10: parallel_rank on PARALLEL_RANKS gloo ranks sharing the one
+    card (NCCL takes one rank a card), spawned after the kernels were built
+    in this process. Fails on any rank's failed check and unless B1 and B2
+    launched on every rank. Times are information only: two ranks on one
+    card measure no scaling."""
+    from vit_pruning_tpu_torch.parallel import run_ranks
+
+    check = Checks(f"phase 10 (parallel: {PARALLEL_RANKS} gloo ranks on one card, DeiT-S)")
+    t0 = time.perf_counter()
+    results = run_ranks(parallel_rank, PARALLEL_RANKS, smi, device="cuda", timeout_s=900)
+    seconds = time.perf_counter() - t0
+    for res in results:
+        r = res["rank"]
+        for name, (ok, detail) in res["checks"].items():
+            log(f"  rank {r} {name}: {detail}")
+            check(bool(ok), f"rank {r}: {name}: {detail}")
+        for key in ("b1", "b2"):
+            check(res["launches"][key] > 0, f"rank {r}: {key.upper()} never launched")
+        log(f"  rank {r}: backend {res['backend']}, host-staged hops {res['host_staged']}, "
+            f"launches B1 {res['launches']['b1']}, B2 {res['launches']['b2']}")
+        log(f"  rank {r} ms (host clock, {smi}): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in res["ms"].items()))
+        log(f"  rank {r} MiB (peak above the allocation before the call; params resident): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in res["peak_mib"].items()))
+    log(f"  phase 10: {seconds:.1f} s, spawn included ({smi})")
+    check.done()
+    return {"launches": [res["launches"] for res in results], "seconds": seconds,
+            "backend": results[0]["backend"],
+            "host_staged": [res["host_staged"] for res in results]}
 
 
 def main():
@@ -3307,6 +3519,11 @@ def main():
     # --- 9. the quality gates on the card (gate model, kernels auto, cut epochs) ----------
     gate_run = gate_path(dev, GATE_ARGV + ["--cache_dir", tempfile.mkdtemp(prefix="gate_cache_")])
 
+    # --- 10. parallelism: data / model steps, ZeRO-1, dp serving, the pipelines on
+    # PARALLEL_RANKS gloo ranks sharing the card, the kernels built above --------------
+    torch.cuda.empty_cache()
+    par_run = parallel_path(smi)
+
     # --- 7. records: after every phase, nothing of jax or of the JAX package was loaded ---
     port_dir = Path(port.__file__).resolve().parent
     jax_dir = port_dir.parent / "vit_pruning_tpu"
@@ -3332,7 +3549,8 @@ def main():
     log(f"  phase 8 (CLI, ViT-B/16, bf16, batch 16): ms/step by phase "
         f"{[round(v, 3) for v in cli_run['times']['train_ms_by_phase']]}, eval ms/batch "
         f"{cli_run['times']['eval_ms']:.3f}; phase 9 (gates, kernels auto): rc {gate_run['rc']} "
-        f"in {gate_run['seconds']:.1f} s")
+        f"in {gate_run['seconds']:.1f} s; phase 10 (parallel, {par_run['backend']}, host-staged "
+        f"hops by rank {par_run['host_staged']}): {par_run['seconds']:.1f} s")
     pkg = "vit_pruning_tpu_torch"
     rows = (  # key, wrapper, csrc file, the TPU kernel's file and line, launches
         ("b1", "fused_vit_layer", "layer", "layer", 359, launches["b1"] + launches["b1_redecide"]),
@@ -3358,6 +3576,7 @@ def main():
          "launches_cli": {run: c[key] for run, c in cli_run["launches"].items()},
          "launches_gate": gate_run["launches"][key],
          "launches_widths": widths_launches[key],
+         "launches_parallel": [c.get(key, 0) for c in par_run["launches"]],
          "launches_export": {run: c[key] for run, c in exported["launches"].items()}}
         for key, name, src, tpu, line, n in rows
     ]

@@ -183,6 +183,8 @@ import vit_pruning_tpu_torch.utils.sweep, vit_pruning_tpu_torch.data.fetch
 import vit_pruning_tpu_torch.viz, vit_pruning_tpu_torch.viz.analysis
 import vit_pruning_tpu_torch.viz.demo_app, vit_pruning_tpu_torch.serving
 import vit_pruning_tpu_torch.ops.cuda.library
+import vit_pruning_tpu_torch.parallel, vit_pruning_tpu_torch.parallel.pipeline
+import dryrun_multichip_torch
 vit_pruning_tpu_torch.ops.cuda.library.load_ops()
 bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'vit_pruning_tpu', 'pandas',
                                                            'transformers', 'optax', 'PIL',
@@ -193,8 +195,9 @@ print(bad)
 
 def test_entry_points_load_no_jax():
     """The user's entry points (the CLI, the data pipeline, the utils, the
-    native bindings, quality_torch.py, the viz suite, the serving export and
-    the kernels' operators) load neither jax nor the JAX package, nor what
+    native bindings, quality_torch.py, the viz suite, the serving export,
+    the kernels' operators, the parallel package and
+    dryrun_multichip_torch.py) load neither jax nor the JAX package, nor what
     they import only when used (pandas, transformers, PIL, matplotlib,
     streamlit), nor optax (the gate's schedule is the port's own)."""
     out = subprocess.run([sys.executable, "-c", IMPORT_ENTRY_POINTS], capture_output=True,
@@ -203,12 +206,14 @@ def test_entry_points_load_no_jax():
 
 
 def test_scripts_import_nothing_of_jax():
-    """quality_torch.py, chip_smoke.py and the port's examples import
+    """quality_torch.py, chip_smoke.py, dryrun_multichip_torch.py and the
+    port's examples import
     neither jax nor the JAX package, at module level or inside a function."""
     import re
 
     pattern = re.compile(r"^\s*(import|from)\s+(jax|optax|vit_pruning_tpu)(\s|\.|$)", re.M)
-    for name in ("quality_torch.py", "chip_smoke.py", "examples/deploy_serving_torch.py",
+    for name in ("quality_torch.py", "chip_smoke.py", "dryrun_multichip_torch.py",
+                 "examples/deploy_serving_torch.py",
                  "examples/serve_http_torch.py", "examples/train_skip_predictor_torch.py"):
         text = (PORT_DIR.parent / name).read_text()
         assert not pattern.findall(text), (name, pattern.findall(text))

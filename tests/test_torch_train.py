@@ -7,8 +7,9 @@ total_loss_fn's value (atol 2e-5 + rtol 1e-5) and its gradient on every leaf
 / none, for every loss type and every predictor loss; the optimizer's update
 for identical gradients against optax's (masked_adam with a schedule and
 clipping, per_predictor_adam), 1e-6; gradient accumulation against the full
-batch; the detached cosine step against the generic one; checkpoints and
-an exact resume; the eval metrics against the JAX ones. On the CPU the
+batch; the detached cosine step against the generic one; the distilled
+loss under bf16 compute; checkpoints and an exact resume; the eval
+metrics against the JAX ones. On the CPU the
 layer kernels' wrappers run their plain versions, B1 and B5 through their
 autograd Function (forward the plain version, backward the eager layer).
 
@@ -278,6 +279,26 @@ def test_mixed_precision_step_keeps_f32_master_params():
     assert all(t.dtype == torch.float32 for t in _leaves(tparams))
     assert max(float((a.detach() - b).abs().max())
                for a, b in zip(_leaves(tparams), before)) > 0
+
+
+def test_distilled_loss_under_bf16_compute_matches_jax():
+    """A bf16 student (compute_dtype casts params and pixels) distilled from
+    an f32 teacher, as quality_torch.py --bf16 recovers a structured preset:
+    the teacher runs in its own dtype on the cast pixels, as jnp promotes
+    bf16 pixels against f32 weights. The loss within bf16's rounding
+    (rtol 2e-2: 8 mantissa bits through two layers) of the JAX package's."""
+    pcfg = PruneConfig(mode="mask", predictor="cls_mlp", loss="bce_oracle")
+    (jp, tp), (jt, tt) = _params(pcfg), _params(pcfg, seed=1)
+    jb, tb = _batch()
+    jv, _ = jharness.total_loss_fn(
+        jax.tree.map(lambda a: a.astype(jnp.bfloat16), jp),
+        dict(jb, pixel_values=jb["pixel_values"].astype(jnp.bfloat16)), CFG, pcfg,
+        "classification", jax.random.PRNGKey(0), distill=(jt, CFG, 0.5, 2.0))
+    tv, _ = th.total_loss_fn(
+        th._cast(tp, torch.bfloat16), dict(tb, pixel_values=tb["pixel_values"].bfloat16()),
+        CFG, pcfg, "classification", torch.Generator().manual_seed(0),
+        distill=(tt, CFG, 0.5, 2.0))
+    np.testing.assert_allclose(float(tv.float()), float(jv), rtol=2e-2)
 
 
 def _loader(seed=0, n=4, b=4):

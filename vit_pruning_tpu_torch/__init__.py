@@ -28,6 +28,8 @@ Layout:
                  pruning, int8 quantization, kernel dispatch and the serving
                  quant switch, and the CUDA kernels' wrappers (ops/cuda)
     serving    — uint8 pixels -> logits
+    parallel   — data x model train / eval / serving steps with ZeRO-1 and
+                 the GPipe pipelines on torch.distributed ranks
 """
 
 __version__ = "0.1.0"

@@ -8,10 +8,29 @@ convention: True = keep (process) the token.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+# (rows of the whole batch, first row of this rank's shard) while a
+# data-parallel step runs (parallel/steps.py), set by `draw_rows`
+_DRAW_ROWS = contextvars.ContextVar("draw_rows", default=None)
+
+
+@contextlib.contextmanager
+def draw_rows(batch: int, start: int):
+    """Within the block, random_keep_mask draws the noise of a whole batch
+    of `batch` rows and keeps the caller's rows from `start` on: a
+    data-parallel rank draws what the single-process run draws and keeps
+    its shard's part, so the same generator gives the same masks."""
+    token = _DRAW_ROWS.set((batch, start))
+    try:
+        yield
+    finally:
+        _DRAW_ROWS.reset(token)
 
 
 # --- Oracle -----------------------------------------------------------------------
@@ -75,7 +94,12 @@ def random_keep_mask(
     device), as rank_keep_mask(noise, keep). torch's and JAX's generators
     give different bits from one seed, so the masks differ from the JAX
     package's; their law is the same."""
-    noise = torch.rand((batch, n), generator=generator, device=generator.device)
+    rows = _DRAW_ROWS.get()
+    if rows is None:
+        noise = torch.rand((batch, n), generator=generator, device=generator.device)
+    else:  # a shard of a larger batch: draw it all, keep this rank's rows
+        noise = torch.rand((rows[0], n), generator=generator,
+                           device=generator.device)[rows[1]:rows[1] + batch]
     return rank_keep_mask(noise.to(device or generator.device), keep)
 
 

@@ -76,13 +76,21 @@ class Adam(torch.optim.Optimizer):
         self.lr, self.clip_norm, self.b1, self.b2, self.eps = lr, clip_norm, b1, b2, eps
 
     @torch.no_grad()
-    def updates(self) -> list:
+    def updates(self, grads: Optional[list] = None, norm: Optional[torch.Tensor] = None) -> list:
         """The updates for the current gradients, one per param in group
-        order; advances the moments and the count. step() adds them."""
+        order; advances the moments and the count. step() adds them.
+
+        grads: the gradients to use instead of the params' .grad, one per
+        param in group order, each the param's shape or a block of it; a
+        param's moments take the shape of its first gradient, so ZeRO-1
+        (parallel/steps.py) keeps only its block's. norm: the global
+        gradient norm for clip_norm when the gradients are a part of it."""
         params = [p for g in self.param_groups for p in g["params"]]
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        if grads is None:
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         if self.clip_norm is not None:
-            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+            if norm is None:
+                norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
             if norm >= self.clip_norm:
                 grads = [g / norm.to(g.dtype) * self.clip_norm for g in grads]
         out, i = [], 0
@@ -92,7 +100,7 @@ class Adam(torch.optim.Optimizer):
                 i += 1
                 if not st:
                     st["count"] = 0
-                    st["mu"], st["nu"] = torch.zeros_like(p), torch.zeros_like(p)
+                    st["mu"], st["nu"] = torch.zeros_like(g), torch.zeros_like(g)
                 lr = self.lr(st["count"]) if callable(self.lr) else self.lr
                 st["count"] += 1
                 t = st["count"]

@@ -71,8 +71,11 @@ def total_loss_fn(params: dict, batch: dict, config: ViTConfig, pcfg: PruneConfi
     cls_loss = cross_entropy(out["logits"], batch["labels"])
     if distill is not None and loss_type in ("classification", "both"):
         t_params, t_config, w, temp = distill
+        # the teacher keeps its own dtype: under compute_dtype the pixels
+        # arrive cast, and jnp promotes them to the f32 teacher's dtype
+        t_pixels = batch["pixel_values"].to(t_params["backbone"]["embed"]["patch"]["w"].dtype)
         with torch.no_grad():
-            t_logits = pruned_vit_forward(t_params, batch["pixel_values"], t_config,
+            t_logits = pruned_vit_forward(t_params, t_pixels, t_config,
                                           PruneConfig(mode="none", predictor="none"))["logits"]
         cls_loss = (1.0 - w) * cls_loss + w * distillation_kl(out["logits"], t_logits, temp)
     if loss_type == "classification":

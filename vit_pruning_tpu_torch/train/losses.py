@@ -10,8 +10,28 @@ squashing), so trained thresholds transfer unchanged.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+# the process group over which a data-parallel step splits its batch
+# (parallel/steps.py), set for the length of a step by `batch_group`
+_BATCH_GROUP = contextvars.ContextVar("batch_group", default=None)
+
+
+@contextlib.contextmanager
+def batch_group(group):
+    """Within the block, weighted_bce_oracle takes its label mean over the
+    whole batch that `group`'s ranks hold in equal shards (None: this
+    rank's batch is the whole batch)."""
+    token = _BATCH_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BATCH_GROUP.reset(token)
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor, pos_weight=1.0) -> torch.Tensor:
@@ -23,9 +43,18 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor, pos_weight=1.0) 
 
 def weighted_bce_oracle(scores: torch.Tensor, keep_labels: torch.Tensor) -> torch.Tensor:
     """The predictor loss against the similarity oracle's keep labels
-    [B, N] bool, with pos_weight = mean(labels) / (1 - mean(labels))."""
+    [B, N] bool, with pos_weight = mean(labels) / (1 - mean(labels)).
+
+    mean(labels) is a statistic of the whole batch: under data parallelism
+    (inside `batch_group`) it is the mean over the group's equal shards, so
+    that each rank's loss is its share of the single-process loss. No
+    gradient flows through the labels."""
     labels = keep_labels.to(scores.dtype)
     focal_alpha = labels.mean()
+    group = _BATCH_GROUP.get()
+    if group is not None:
+        dist.all_reduce(focal_alpha, group=group)
+        focal_alpha = focal_alpha / dist.get_world_size(group)
     pos_weight = focal_alpha / (1.0 - focal_alpha + 1e-16)
     return bce_with_logits(scores, labels, pos_weight)
 
