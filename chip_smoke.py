@@ -64,6 +64,18 @@ kernels from csrc/ itself. Phases:
      (two layers) and B6 against their plain versions at S 577 with hd 64
      (DeiT-S at 384) and hd 80 (ViT-H/14 at 336, full width) and at S 785
      (DeiT-S at 448), masked and not, float32 at batch 2, bfloat16 at 4
+  3m. B1-B5's attention body (csrc/layer_attention.cu) at the edges of its
+     64-key chunks, 64-query tiles and residency, S in {63, 64, 65, 128,
+     129, 197, 256, 257, 288, 289}, at head dims 16, 32, 64 and 80 (ViT-H
+     at full width): B1 (staged2), B5 on one layer (normalised) and B4,
+     unmasked and masked (a whole chunk of keys blanked, one image's keys
+     all masked; every row compared), B3 at a capacity of each length with
+     per-image counts; bfloat16 at batch 4, float32 at S 65 and 257; each
+     call's attention on the body ops/cuda/layer.py::attention_body names,
+     by the C counters and the wrappers' tally; then the attention
+     isolated (attention_isolated: O = I, an MLP adding 0, a peaked
+     softmax, x ~ 1e-5) for B1, B3, B4 and B5 at the same edges, held to
+     x + staged2_attention at two bf16 steps of the context
   3j. B4's int8 product body (wgmma s8 + TMA) one product at a time at
      every product shape of B4 at DeiT-S (batch 512 x 197) and ViT-H (64 x
      257), and at vit_tiny's (136 rows, N 192, K 64) and a ragged one, the
@@ -118,7 +130,11 @@ kernels from csrc/ itself. Phases:
      masks equal, B1 / B5 launched in the steps); remat against no remat;
      bf16 compute finite; ms/step of each phase on both paths (host clock,
      the mean of 5 steps after the compared ones)
-  6. which GEMM body ran the bf16 products of phases 5-5f (launches per
+  6. which body ran B1-B5's attention on phases 5-5h (the C counters per
+     body equal to the wrappers' tally by the Python mirror of the C rule:
+     every bf16 launch on a wgmma body, the streamed one included; checked
+     again for 3l and 5i after them); which GEMM body ran the bf16 products
+     of phases 5-5f (launches per
      body, the shapes that took the WMMA body); times at batch 512 in
      bfloat16, kernel path and plain path (float and
      int8), and each kernel beside its plain version and its eager PyTorch
@@ -134,7 +150,8 @@ kernels from csrc/ itself. Phases:
      batch 64: B1-B5 at its geometry beside their eager equivalents, and
      dense / headline / composed / ultra, kernel path and plain path (mean
      of 5 after 2 warm-ups); B1 and B6 at DeiT-S S 577, batch 128, beside
-     the cuBLAS layer and f32 SDPA
+     the cuBLAS layer and f32 SDPA; B1-B5's attention a layer in the dense
+     forward beside bf16 SDPA at its shape (info: another rounding)
   3l. (after 6, so that 6's GEMM body counts stay those of 5-5h) widths
      that are not multiples of the kernels' (ROADMAP C.1), zero-padded by
      the wrappers: B1, B2, B3, B4 and B5 (two layers) at DeiT-S with 1000
@@ -183,7 +200,9 @@ kernels from csrc/ itself. Phases:
      by file) and no line of quality_torch.py or of this script imports
      them; the kernels'
      JSON line (launches: B1-B7 on the DeiT-S paths of 5-5d, B8 on 5f's;
-     B4's, B6's, B7's and B8's also per body; ViT-H's are logged in 5e;
+     B4's, B6's, B7's and B8's also per body, and B1's, B3's, B4's and
+     B5's attention launches per body on 5-5h, a wider window than
+     launches', as attention_5_to_5h; ViT-H's are logged in 5e;
      B1's and B5's also launches_train, those of 5h's train steps; every
      row launches_cli, by command of phase 8, and launches_gate, phase
      9's; train_steps_* count only the launches inside phase 8's train
@@ -446,6 +465,251 @@ def long_sequences(dev, err: dict):
                 check(bool(torch.isfinite(got).all()) and d <= tol
                       and (body == "wgmma") == ka.takes_tensor_cores(q, k, v), tag)
     check.done()
+
+
+# phase 3m: the sequence lengths around every edge of B1-B5's bf16 attention body:
+# 64-key chunks, 64-query tiles, the resident body's 256 keys, the old 288 limit
+EDGE_LENGTHS = (63, 64, 65, 128, 129, 197, 256, 257, 288, 289)
+
+
+def edge_geometries() -> tuple:
+    """Phase 3m's geometries, one at each head dim the layer kernels take:
+    vit_tiny 16, the gate model 32, DeiT-S 64, ViT-H 80 at full width."""
+    from vit_pruning_tpu_torch.configs import ViTConfig, deit_small, vit_huge, vit_tiny
+
+    return (("vit_tiny (hd 16)", vit_tiny(num_labels=100)),
+            ("gate (hd 32)", ViTConfig(image_size=32, patch_size=4, hidden_size=128, num_layers=3,
+                                       num_heads=4, mlp_dim=256, num_labels=100)),
+            ("deit_s (hd 64)", deit_small(num_labels=100)),
+            ("vit_h (hd 80)", vit_huge(num_labels=100)))
+
+
+def attention_edges(dev):
+    """Phase 3m: B1-B5's attention body (csrc/layer_attention.cu) at the
+    edges of its chunks, tiles and residency (EDGE_LENGTHS), at every head
+    dim the layer kernels take (vit_tiny 16, the gate model 32, DeiT-S 64,
+    ViT-H 80 at full width): B1 (staged2), B5 on one layer (normalised) and
+    B4, unmasked and masked (one whole 64-key chunk blanked, one image's
+    keys all masked), and B3 at a capacity of each length with per-image
+    counts (1, the capacity, two random); bfloat16 at batch 4, float32 at
+    S 65 and 257. Every row is compared, masked ones included, with phases
+    3 / 3f / 4b / 3c's tolerances (two bf16 steps; B4 one int8 step more),
+    and each call's attention must have run the body attention_body names,
+    once a layer, by the C counters and by the wrappers' tally. First the
+    mirror itself: attention_body equal to the C rule for f32, bf16 and
+    f16, head dims 8-128 and S 0-785. Last the cases of
+    attention_isolated, which see the attention at its own magnitude."""
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_slice
+    from vit_pruning_tpu_torch.ops.cuda import layer as kl
+    from vit_pruning_tpu_torch.ops.cuda import layer_int8 as k8
+    from vit_pruning_tpu_torch.ops.cuda import model as kmod
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+    from vit_pruning_tpu_torch.ops.masking import compact_dest
+    from vit_pruning_tpu_torch.ops.quant import quantize_layer_params
+
+    check = Checks("phase 3m (the attention body's edges in B1, B3, B4, B5 vs plain)")
+    c_rule = load_library().vpt_layer_attention_body
+    names = {**dict(enumerate(kl.ATTENTION_BODIES)), -1: None}
+    apart = [(dt, hd, s) for code, dt in enumerate((torch.float32, torch.bfloat16, torch.float16))
+             for hd in (8, 16, 32, 48, 64, 80, 96, 128) for s in range(786)
+             if names[c_rule(code, hd, s)] != kl.attention_body(dt, hd, s)]
+    log(f"  attention_body against the C rule on {3 * 8 * 786} inputs: {len(apart)} apart")
+    check(not apart, f"attention_body differs from the C rule at {apart[:3]}")
+    gen = torch.Generator().manual_seed(SEED + 13)
+    geos = edge_geometries()
+    batch, bodies = 4, {}
+    for gname, gcfg in geos:
+        nh, hd, eps = gcfg.num_heads, gcfg.head_dim, gcfg.layernorm_eps
+        stack_cpu = perturbed_layer(init_vit_params(gcfg.replace(num_layers=1), gen, "cpu")["layers"],
+                                    gen)
+        for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            st = tree_to(stack_cpu, dev, dt)
+            lp = layer_slice(st, 0)
+            qp = quantize_layer_params(lp)
+            ftol = (lambda ref: F32_ATOL) if dt == torch.float32 else bf16_tol
+            for s in EDGE_LENGTHS if dt == torch.bfloat16 else (65, 257):
+                want = kl.attention_body(dt, hd, s)
+                x = torch.randn(batch, s, gcfg.hidden_size, generator=gen).to(dev, dt)
+                m = torch.rand(batch, s, generator=gen) > 0.3
+                m[:, 0] = True
+                m[:, 64:128] = False  # keys 64-127: a whole chunk where S reaches it
+                m[1] = False  # every key of image 1
+                for mask in (None, m.to(dev)):
+                    mtag = "mask" if mask is not None else "nomask"
+                    cases = (
+                        ("B1", lambda: kl.fused_vit_layer(x, lp, nh, eps, mask),
+                         lambda: kl.fused_vit_layer_ref(x, lp, nh, eps, mask), 0.0),
+                        ("B4", lambda: k8.fused_vit_layer_int8(x, qp, nh, eps, mask),
+                         lambda: k8.fused_vit_layer_int8_ref(x, qp, nh, eps, mask), None),
+                        ("B5", lambda: kmod.fused_vit_encoder(x, st, nh, eps, mask),
+                         lambda: kmod.fused_vit_encoder_ref(x, st, nh, eps, mask), 0.0),
+                    )
+                    for key, fn, ref_fn, extra in cases:
+                        kl.reset_attention_body_counts()
+                        got = fn()
+                        torch.cuda.synchronize()
+                        ran, tally = kl.attention_body_counts(), dict(kl.attention_launches)
+                        ref = ref_fn()
+                        torch.cuda.synchronize()
+                        d = (got.float() - ref.float()).abs().max().item()
+                        tol = ftol(ref.float()) + (int8_step(ref, x) if extra is None else extra)
+                        one = {b: int(b == want) for b in kl.ATTENTION_BODIES}
+                        bodies[want] = bodies.get(want, 0) + 1
+                        tag = f"{key} {gname} {dname} B={batch} S={s} {mtag}"
+                        log(f"  {tag}: {want}, max_abs_err {d:.3e} (tol {tol:.2e})")
+                        check(bool(torch.isfinite(got).all()) and d <= tol, tag)
+                        check(ran == one and tally == {key.lower(): one},
+                              f"{tag}: attention bodies {ran}, tally {tally}, want {want}")
+                # B3 at a capacity of s: CLS and count - 1 random tokens of s + 7 kept
+                counts = torch.randint(1, s + 1, (batch,), generator=gen)
+                counts[0], counts[1] = 1, s  # only CLS kept; a full bucket
+                rank = torch.rand(batch, s + 6, generator=gen).argsort(-1).argsort(-1)
+                kmask = torch.cat([torch.ones(batch, 1, dtype=torch.bool),
+                                   rank < (counts[:, None] - 1)], 1).to(dev)
+                xb = torch.randn(batch, s + 7, gcfg.hidden_size, generator=gen).to(dev, dt)
+                dest = compact_dest(kmask)
+                kl.reset_attention_body_counts()
+                got = kl.fused_vit_layer_bucketed(xb, lp, dest, kmask, s, nh, eps)
+                torch.cuda.synchronize()
+                ran, tally = kl.attention_body_counts(), dict(kl.attention_launches)
+                ref = kl.fused_vit_layer_bucketed_ref(xb, lp, dest, kmask, s, nh, eps)
+                torch.cuda.synchronize()
+                d, tol = (got.float() - ref.float()).abs()[kmask].max().item(), ftol(ref.float())
+                skipped_exact = bool(torch.equal(got[~kmask], xb[~kmask]))
+                one = {b: int(b == want) for b in kl.ATTENTION_BODIES}
+                bodies[want] = bodies.get(want, 0) + 1
+                tag = f"B3 {gname} {dname} B={batch} S={s + 7} cap={s}"
+                log(f"  {tag}: {want}, kept rows max_abs_err {d:.3e} (tol {tol:.1e}); skipped "
+                    f"rows bit-identical to x: {skipped_exact}")
+                check(bool(torch.isfinite(got).all()) and d <= tol and skipped_exact, tag)
+                check(ran == one and tally == {"b3": one},
+                      f"{tag}: attention bodies {ran}, tally {tally}, want {want}")
+    log(f"  phase 3m calls by attention body: {bodies}")
+    check(set(bodies) == set(kl.ATTENTION_BODIES), f"a body never ran: {bodies}")
+    for r in attention_isolated(dev, log):
+        check(r["d"] <= r["tol"], f"{r['tag']}: err {r['d']:.3e} > tol {r['tol']:.2e}")
+        one = {b: int(b == r["want"]) for b in kl.ATTENTION_BODIES}
+        check(r["ran"] == one and r["tally"] == {r["key"].lower(): one},
+              f"{r['tag']}: attention bodies {r['ran']}, tally {r['tally']}, want {r['want']}")
+    check.done()
+
+
+# phase 3m's isolated cases: W_q and W_k redrawn at this std times 1/sqrt(D),
+# so that q and k have about this std and the logits about its square (~2.6):
+# the init's 0.02 leaves them within ~0.15 of each other at DeiT-S, and a
+# softmax that flat averages every key almost alike
+ISOLATED_QK_STD = 1.6
+
+
+def identity_tail(stack: dict, gen: torch.Generator) -> dict:
+    """A stacked one-layer tree with O = I and no O bias, the MLP's second
+    product zero (weights and bias: the MLP adds exactly 0), and W_q, W_k
+    redrawn at ISOLATED_QK_STD / sqrt(D). A layer (or the one-layer
+    encoder) then returns x + ctx rounded once to its dtype."""
+    out = {k: dict(v) if isinstance(v, dict) else v for k, v in stack.items()}
+    out["attn"] = {n: dict(p) for n, p in stack["attn"].items()}
+    out["mlp"] = {n: dict(p) for n, p in stack["mlp"].items()}
+    o = out["attn"]["o"]
+    d = o["w"].shape[-1]
+    o["w"] = torch.eye(d, dtype=o["w"].dtype, device=o["w"].device).expand_as(o["w"]).clone()
+    o["b"] = torch.zeros_like(o["b"])
+    out["mlp"]["fc2"] = {n: torch.zeros_like(t) for n, t in stack["mlp"]["fc2"].items()}
+    for n in "qk":
+        w = out["attn"][n]["w"]
+        out["attn"][n]["w"] = (ISOLATED_QK_STD / math.sqrt(d)
+                               * torch.randn(w.shape, generator=gen)).to(w.device, w.dtype)
+    return out
+
+
+def attention_isolated(dev, say) -> list:
+    """Phase 3m's cases that isolate the attention body through the real
+    wrappers: a layer with identity_tail (O = I, the MLP adding 0, q and k
+    spread so that the softmax is peaked) on x ~ 1e-5, so that the output
+    is x + ctx rounded once and its size is the context's, not the residual
+    stream's. B1 and B5 (one layer) against x + staged2_attention (staged2
+    and normalised) on the plain version's q, k, v; B3 (per-image counts)
+    on its kept rows against the same on the compacted bucket; B4 against
+    its plain version (staged2_attention on its int8 q, k, v, the context's
+    row quantization, O = I). Every EDGE_LENGTHS length at head dims 16, 32,
+    64 and 80, bfloat16 at batch 4, unmasked and masked (one 64-key chunk
+    blanked, one image's keys all masked). Tolerance: two bf16 steps of
+    the largest |x + ctx| (B4: one int8 step of the context more). Returns
+    one record per call: tag, kernel, the body attention_body names, the
+    bodies the C counters and the wrappers' tally saw, err and tol. Also
+    run by kernel_variants.py's `faults`, on libraries with faults planted
+    in the body."""
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_slice
+    from vit_pruning_tpu_torch.ops.cuda import layer as kl
+    from vit_pruning_tpu_torch.ops.cuda import layer_int8 as k8
+    from vit_pruning_tpu_torch.ops.cuda import model as kmod
+    from vit_pruning_tpu_torch.ops.masking import compact_dest
+    from vit_pruning_tpu_torch.ops.quant import quantize_layer_params
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    geos = edge_geometries()
+    batch, bf, out = 4, torch.bfloat16, []
+
+    def ctx_of(xs, lp, nh, eps, mask, normalized=False):
+        h = kl._ln_f32(xs.float(), lp["ln1"], eps)
+        q, k, v = (kl._linear_f32(h, lp["attn"][n]["w"], lp["attn"][n]["b"]).to(bf) for n in "qkv")
+        return kl.staged2_attention(q, k, v, nh, mask, normalized=normalized).float()
+
+    def record(tag, key, want, run, d_and_tol):
+        kl.reset_attention_body_counts()
+        got = run()
+        torch.cuda.synchronize()
+        ran, tally = kl.attention_body_counts(), dict(kl.attention_launches)
+        d, tol = d_and_tol(got)
+        say(f"  isolated {tag}: {want}, max_abs_err {d:.3e} (tol {tol:.2e})")
+        out.append({"tag": f"isolated {tag}", "key": key, "want": want, "ran": ran,
+                    "tally": tally, "d": d, "tol": tol})
+
+    for gname, gcfg in geos:
+        nh, hd, eps = gcfg.num_heads, gcfg.head_dim, gcfg.layernorm_eps
+        stack = perturbed_layer(init_vit_params(gcfg.replace(num_layers=1), gen, "cpu")["layers"],
+                                gen)
+        st = tree_to(identity_tail(stack, gen), dev, bf)
+        lp = layer_slice(st, 0)
+        qp = quantize_layer_params(lp)
+        for s in EDGE_LENGTHS:
+            want = kl.attention_body(bf, hd, s)
+            x = (1e-5 * torch.randn(batch, s, gcfg.hidden_size, generator=gen)).to(dev, bf)
+            m = torch.rand(batch, s, generator=gen) > 0.3
+            m[:, 0] = True
+            m[:, 64:128] = False
+            m[1] = False
+            for mask in (None, m.to(dev)):
+                tag = f"{gname} B={batch} S={s} {'mask' if mask is not None else 'nomask'}"
+                for key, normalized, run in (
+                        ("B1", False, lambda: kl.fused_vit_layer(x, lp, nh, eps, mask)),
+                        ("B5", True, lambda: kmod.fused_vit_encoder(x, st, nh, eps, mask))):
+                    ref = x.float() + ctx_of(x, lp, nh, eps, mask, normalized)
+                    record(f"{key} {tag}", key, want, run,
+                           lambda got: ((got.float() - ref).abs().max().item(), bf16_tol(ref)))
+                ref8 = k8.fused_vit_layer_int8_ref(x, qp, nh, eps, mask).float()
+                record(f"B4 {tag}", "B4", want, lambda: k8.fused_vit_layer_int8(x, qp, nh, eps, mask),
+                       lambda got: ((got.float() - ref8).abs().max().item(),
+                                    bf16_tol(ref8) + int8_step(ref8, x)))
+            # B3 at a capacity of s with per-image counts, as the cases above
+            counts = torch.randint(1, s + 1, (batch,), generator=gen)
+            counts[0], counts[1] = 1, s
+            rank = torch.rand(batch, s + 6, generator=gen).argsort(-1).argsort(-1)
+            kmask = torch.cat([torch.ones(batch, 1, dtype=torch.bool),
+                               rank < (counts[:, None] - 1)], 1).to(dev)
+            xb = (1e-5 * torch.randn(batch, s + 7, gcfg.hidden_size, generator=gen)).to(dev, bf)
+            dest = compact_dest(kmask)
+            xc, key_ok = kl.bucket_compact(xb, dest, kmask, s)
+            refc = xc.float() + ctx_of(xc, lp, nh, eps, key_ok)
+
+            def b3_err(got):
+                gc, _ = kl.bucket_compact(got, dest, kmask, s)
+                return ((gc.float() - refc).abs()[key_ok].max().item(), bf16_tol(refc[key_ok]))
+
+            record(f"B3 {gname} B={batch} S={s + 7} cap={s}", "B3", want,
+                   lambda: kl.fused_vit_layer_bucketed(xb, lp, dest, kmask, s, nh, eps), b3_err)
+    return out
 
 
 def serve_at_384(dev, base: dict, cfg):
@@ -2231,6 +2495,9 @@ def main():
     # --- 3k. sequences past the resident limits in B1-B6 against their plain versions ------
     long_sequences(dev, err)
 
+    # --- 3m. B1-B5's bf16 attention body at the edges of its chunks, tiles and residency --
+    attention_edges(dev)
+
     # --- 3i. the bf16 GEMM bodies against their plain version ----------------------------
     # Every product shape of the main paths, one product at a time through ops/cuda/gemm.py
     # (the C gemm() the layer kernels call): B1 / B3's four products and B5's variants (f32
@@ -2372,6 +2639,8 @@ def main():
     check.done()
 
     # --- 5. end to end: kernels vs plain PyTorch, launch counts -------------------------
+    # B1-B5's attention launches per body from here to phase 5h's end, read in phase 6
+    kl.reset_attention_body_counts()
     rs = np.random.RandomState(SEED)
 
     def images(batch):
@@ -3078,13 +3347,36 @@ def main():
         busy = sum(sums.values()) + sum(other.values())
         if not busy:
             log(f"  {tag} device breakdown: not measured (the profiler saw no device time)")
-            return
+            return None
         top = sorted(other.items(), key=lambda kv: -kv[1])[:4]
         log(f"  {tag} device ms/forward: " + ", ".join(f"{k} {v:.3f}" for k, v in sums.items())
             + f", other {sum(other.values()):.3f} (top: "
             + "; ".join(f"{k} {v:.3f}" for k, v in top) + f"); busy {busy:.3f} of wall "
             f"{wall_ms:.3f}, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+        return sums
 
+    def attention_bodies_agree(phases: str) -> dict:
+        """B1-B5's attention launches since the counters' last reset: the C
+        counters per body equal to the wrappers' tally by kl.attention_body
+        (the Python mirror of the C rule, which maps every bfloat16 launch to
+        a wgmma body), so no bf16 launch took the FMA body. Returns the tally
+        by kernel."""
+        ran = kl.attention_body_counts()
+        tally = {k: dict(v) for k, v in kl.attention_launches.items()}
+        mirror = {b: sum(per[b] for per in tally.values()) for b in kl.ATTENTION_BODIES}
+        log(f"  B1-B5's attention on phases {phases}, launches per body: C {ran}, the "
+            f"wrappers' tally {mirror}; by kernel {tally}")
+        if ran != mirror or not ran["wgmma_resident"]:
+            raise AssertionError(f"phases {phases}: attention bodies {ran} against the mirror's "
+                                 f"{mirror}")
+        return tally
+
+    # B1-B5's attention on phases 5-5h: every bf16 launch on a wgmma body, the streamed one
+    # included (5e's S 257, 5g's S 577), as the mirror says
+    attn_tally = attention_bodies_agree("5-5h")
+    if not sum(per["wgmma_streamed"] for per in attn_tally.values()):
+        raise AssertionError("phase 6: the streamed attention body never ran on phases 5-5h")
+    dense_fam = None
     # which bf16 GEMM body ran the products of phases 5-5f: the wgmma body wherever TMA
     # can describe A and W; the WMMA body only for a product whose N is no multiple of 8
     bodies = kg.body_counts()
@@ -3111,7 +3403,8 @@ def main():
         log(f"  {name}: kernel path {k_ms:.3f} ms/batch ({512 / k_ms * 1e3:.0f} img/s), "
             f"plain path {p_ms:.3f} ms/batch ({512 / p_ms * 1e3:.0f} img/s)")
         if name in ("dense", "headline"):
-            device_breakdown(name, lambda: run("auto"), k_ms)
+            fam = device_breakdown(name, lambda: run("auto"), k_ms)
+            dense_fam = fam if name == "dense" else dense_fam
     params = tree_to(base, dev, bf)
     pix = ((u8.float() / 255.0 - 0.5) / 0.5).to(bf)
     thresholds = calibrated(params, pix)  # at the timed shape, as bench.py probes
@@ -3293,6 +3586,14 @@ def main():
         f"{k_ms / e_ms:.3f}")
     within_bound("b6", k_ms, b_ms)
     kernel_ms["b6"], bounds["b6"] = (k_ms, p_ms, e_ms), (b_ms, b_by)
+    # B1-B5's attention against bf16 SDPA at the same shape (info: SDPA normalises P in
+    # another order and rounds it elsewhere, so it computes another function)
+    s_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    log(f"  B1-B5's attention body in the dense forward: "
+        + (f"{dense_fam['attention'] / L:.4f} ms a layer (device, 512 x 6 heads x S 197 x 64)"
+           if dense_fam else "not measured")
+        + f"; bf16 scaled_dot_product_attention at that shape {s_ms:.4f} ms (info, not the "
+        f"same rounding)")
     del q, k, v, qf, kf, vf
     # past the resident limit: DeiT-S at 384 (S 577, K and V streamed), batch 128
     x = torch.randn(128, 577, cfg.hidden_size, generator=gen).to(dev, bf)
@@ -3491,10 +3792,12 @@ def main():
     # --- 3l. widths no multiple of the kernels' (C.1), after 6 so that 6's body counts
     # stay those of phases 5-5h ----------------------------------------------------------
     torch.cuda.empty_cache()
+    kl.reset_attention_body_counts()
     widths_launches = widths_path(dev, base, cfg)
 
     # --- 5i. the serving export: DeiT-S headline, float and int8 ---------------------------
     exported = export_path(dev, base, cfg, smi)
+    attention_bodies_agree("3l and 5i")
 
     # --- 7 (first half). importing every module of the port, and quality_torch, loads
     # neither pandas nor transformers: they are imported only when called (phases 8 and 9
@@ -3564,7 +3867,12 @@ def main():
         ("b8b", "fused_patch_embed_f", "embed", "embed", 125, launches["b8b"]),
     )
     # B4: every launch on the wgmma s8 body, four products each; B8: bf16 weights on wgmma
-    by_body = {**bodies67, "b4": {"wgmma_s8": launches["b4"]}, **b8_bodies}
+    # B1, B3, B4, B5: their attention's launches per body on phases 5-5h (B5: one a layer),
+    # a wider window than `launches` (5-5d and 5f): it adds ViT-H (5e), S 577 (5g) and the
+    # train steps (5h), so the key names it
+    by_body = {**bodies67, **b8_bodies, "b4": {"wgmma_s8": launches["b4"]}}
+    for key in ("b1", "b3", "b4", "b5"):
+        by_body[key] = {**by_body.get(key, {}), "attention_5_to_5h": attn_tally.get(key, {})}
     kernels = [
         {"name": name, "route": "cuda", "source": f"{pkg}/csrc/{src}.cu",
          "replaces": f"vit_pruning_tpu/ops/pallas/{tpu}.py:{line}", "launches": n,

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where the hand-written bodies of kernels B4, B6, B7 and B8a spend their time, on one GPU.
+"""Where the hand-written bodies of kernels B1, B4, B6, B7 and B8a spend their time, on one
+GPU; whether phase 3m of chip_smoke.py catches faults planted in B1-B5's attention body;
+and the layer kernels' times for a checkout.
 
-    python3 kernel_variants.py [b7] [b6] [b4] [b8a]    (no argument: all four)
+    python3 kernel_variants.py [b7] [b6] [b4] [b8a] [b1]    (no argument: all five)
 
 Each kernel is built again from its sources (vit_pruning_tpu_torch/csrc) with one
 stage taken out or swapped: a diagnostic variant, not a kernel of the port. Each
@@ -12,14 +14,44 @@ and last (CUDA events, mean of 20 after 3 warm-ups):
   - B6: 512 x 6 heads of 64 at S 197, masked;
   - B4: the whole int8 layer at DeiT-S, batch 512, S 197, unmasked;
   - B8a: the uint8 patch embedding at DeiT-S batch 512 (K 768) and ViT-H batch 64
-    (K 588).
+    (K 588);
+  - B1, for the attention body it shares with B3, B4 and B5 (csrc/layer_attention.cu):
+    the whole bf16 layer at DeiT-S, batch 512, S 197 and 99 (the resident body) and
+    ViT-H, batch 64, S 257 (the streamed one), unmasked; each variant of the attention
+    body is also compiled with ptxas -v, and the registers and spills of its
+    instances are printed.
 Each line gives the variant's time and its largest distance from the real kernel's
-output: 0 where a variant computes the same numbers another way. Needs one CUDA
-card and nvcc (CUDA_HOME or /usr/local/cuda), like chip_smoke.py; the last line is
-the card's name and power limit.
+output: 0 where a variant computes the same numbers another way.
+
+    python3 kernel_variants.py faults
+
+builds the attention body again with a fault planted in it (ATTENTION_FAULTS: masked
+keys taken as valid, a uniform softmax, a misplaced chunk of V, a wrong normaliser),
+loads each library in the package's place and runs chip_smoke.py's isolated attention
+cases (phase 3m's attention_isolated) through the wrappers: the real body must pass
+every case and each fault must fail some; it exits non-zero otherwise.
+
+    python3 kernel_variants.py times [CHECKOUT]
+
+times the layer kernels B1, B3, B4 and B5 and the dense forward's attention family in
+bf16 for the package of CHECKOUT (default: this one; another commit unpacked with `git
+archive`, say, whose kernels are then built there), alone in its process. To compare
+two commits, run parent, change, change, parent in one call on one card. The shapes
+are the main path's: DeiT-S at batch 512 (S 197 and 99; B3 at S 197 with capacity 99,
+every image full; B1 at S 577, batch 128: DeiT-S at 384), ViT-H at batch 64 (S 257
+and 129), random weights and inputs from fixed seeds; CUDA events, the mean of 10
+launches after 3 (5 after 3 for the longer ones); the dense forward's device time by
+kernel family (attention or not) from torch.profiler over 3 forwards. It prints one
+JSON object of the times (ms) with the card's name and power limit.
+
+Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda), like chip_smoke.py; the
+last line is the card's name and power limit.
 """
 
 import ctypes
+import json
+import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -76,16 +108,55 @@ B8A_VARIANTS = [
      [("wgmma.cuh", "        return __fadd_rn(__fmul_rn(x, scale), shift);",
        "        return x;")]),
 ]
+LA_EXP = "      l[c][i] = expf(l[c][i] - mx[(i >> 1) & 1]);\n"
+LA_EXP2 = "    for (int i = 0; i < 32; ++i) l[i] = expf(l[i] - mx[(i >> 1) & 1]);\n"
+B1_VARIANTS = [
+    ("kernel", "the attention body as it is", []),
+    ("registers unbound", "the resident body's launch bound left to ptxas (255 registers at 4 "
+     "chunks: two blocks an SM)",
+     [("layer_attention.cu", "__launch_bounds__(128, la_blocks(HD, NKC))",
+       "__launch_bounds__(128)")]),
+    ("one pass to 320 keys", "the resident body up to 5 chunks: S 257 in one pass, not two",
+     [("layer_attention.cu", "constexpr int kLogitChunks = 4;", "constexpr int kLogitChunks = 5;"),
+      ("layer_attention.cu", "    default: return go(layer_attention_stream_kernel<HD>, 2);",
+       "    case 5: return go(layer_attention_kernel<HD, 5>, 5);\n"
+       "    default: return go(layer_attention_stream_kernel<HD>, 2);"),
+      ("layer_attention.cu", "static_assert(la::kLogitChunks == 4,", "static_assert(la::kLogitChunks == 5,")]),
+    ("streamed at 4 chunks", "S 193-256 on the streamed body (two passes, no logits held) "
+     "instead of the resident one, which spills at 4 chunks up to hd 64",
+     [("layer_attention.cu", "    case 4: return go(layer_attention_kernel<HD, 4>, 4);\n", "")]),
+    ("fast exp", "__expf for P's numerators: not expf's value",
+     [("layer_attention.cu", LA_EXP, LA_EXP.replace("expf(", "__expf(")),
+      ("layer_attention.cu", LA_EXP2, LA_EXP2.replace("expf(", "__expf("))]),
+]
+# Faults planted in the attention body, each of which chip_smoke.py's phase 3m
+# must catch in its isolated cases (attention_isolated): `faults` runs those
+# cases through the package's wrappers on each library and counts the failures
+LA_FLAG = "    l[i] = f == 1 ? l[i] * scale : f == 2 ? la::kMasked : -INFINITY;\n"
+ATTENTION_FAULTS = [
+    ("kernel", "the attention body as it is: no case may fail", []),
+    ("mask ignored", "masked keys taken as valid",
+     [("layer_attention.cu", LA_FLAG, LA_FLAG.replace("f == 2 ? la::kMasked", "f == 2 ? l[i] * scale"))]),
+    ("uniform softmax", "every valid key's logit 0: the average of the valid keys",
+     [("layer_attention.cu", LA_FLAG, LA_FLAG.replace("f == 1 ? l[i] * scale", "f == 1 ? 0.f"))]),
+    ("chunk misplaced", "the resident body's PV takes the next chunk's V for each chunk",
+     [("layer_attention.cu", "  for (int c = 0; c < NKC; ++c) la_pv<HD>(o, p[c], va + c * BOX, NKC);",
+       "  for (int c = 0; c < NKC; ++c) la_pv<HD>(o, p[c], va + (c + 1) % NKC * BOX, NKC);")]),
+    ("wrong normaliser", "each row's sum over two of its quad's four lanes only",
+     [("layer_attention.cu", "  return s + __shfl_xor_sync(0xffffffffu, s, 2);", "  return s;")]),
+]
 # Every variant of a source is loaded into one process: a static local of an
 # inline or template function is one symbol across the libraries, so the
 # attribute call must run in each.
 SHARED_STATIC = ("static const cudaError_t attr", "const cudaError_t attr")
 
 
-def build_variants(build, src: str, variants, out_dir: Path, extra=()) -> dict:
+def build_variants(build, src: str, variants, out_dir: Path, extra=(), ptxas=False) -> dict:
     """One library per variant: csrc/{src}.cu (and every source it includes)
     with the variant's replacements, linked with the objects of `extra`
-    (csrc sources the main one calls into), built once for all variants."""
+    (csrc sources the main one calls into), built once for all variants.
+    ptxas: compile the variants with -Xptxas -v and print the registers and
+    spills of each of their kernels."""
     nvcc = build.find_nvcc()
     links = [f"-L{d}" for d in build.cuda_stub_dirs(nvcc)] + ["-lcuda"]
 
@@ -105,14 +176,15 @@ def build_variants(build, src: str, variants, out_dir: Path, extra=()) -> dict:
         return subprocess.Popen([nvcc, *build.NVCC_FLAGS, *args], stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
 
-    def wait(procs: dict):
-        failed = []
+    def wait(procs: dict) -> dict:
+        failed, outs = [], {}
         for what, proc in procs.items():
-            out, _ = proc.communicate()
+            outs[what], _ = proc.communicate()
             if proc.returncode:
-                failed.append(f"{what}:\n{out[-2000:]}")
+                failed.append(f"{what}:\n{outs[what][-2000:]}")
         if failed:
             raise RuntimeError("\n".join(failed))
+        return outs
 
     common = copy_tree(out_dir / f"{src}_common")
     extra_objs = [common / f"{e}.o" for e in extra]
@@ -122,9 +194,13 @@ def build_variants(build, src: str, variants, out_dir: Path, extra=()) -> dict:
     for i, (name, _, reps) in enumerate(variants):
         d = copy_tree(out_dir / f"{src}_{i}", reps)
         objs[name] = d / f"{src}.o"
-        procs[f"{src}.cu variant {name!r}"] = nvcc_proc(["-c", "-o", str(objs[name]),
-                                                        str(d / f"{src}.cu")])
-    wait(procs)
+        procs[f"{src}.cu variant {name!r}"] = nvcc_proc(
+            ["-c", *(["-Xptxas", "-v"] if ptxas else []), "-o", str(objs[name]),
+             str(d / f"{src}.cu")])
+    outs = wait(procs)
+    if ptxas:
+        for name, _, _ in variants:
+            print_ptxas(f"{src}.cu variant {name!r}", outs[f"{src}.cu variant {name!r}"])
     sos = {name: obj.with_suffix(".so") for name, obj in objs.items()}
     wait({f"link {name!r}": nvcc_proc(["-shared", "-o", str(sos[name]), str(obj),
                                        *map(str, extra_objs), *links])
@@ -137,6 +213,18 @@ def build_variants(build, src: str, variants, out_dir: Path, extra=()) -> dict:
                 getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
         libs[name] = lib
     return libs
+
+
+def print_ptxas(what: str, text: str):
+    """Registers and spills of every kernel in ptxas -v's output."""
+    kernel = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = subprocess.run(["c++filt", m.group(1)], capture_output=True,
+                                    text=True).stdout.strip().split("(")[0]
+        elif kernel and ("registers" in line or "spill" in line):
+            print(f"{what}: {kernel}: {line.split(':', 1)[-1].strip()}", flush=True)
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
@@ -218,17 +306,25 @@ def b4_calls(libs: dict, gen, dev, stream):
 def main():
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: no CUDA device (torch.cuda.is_available() is False)")
+    if sys.argv[1:2] == ["times"]:
+        layer_times(sys.argv[2] if len(sys.argv) > 2 else ".")
+        return
     from vit_pruning_tpu_torch.ops.cuda import build
 
-    chosen = sys.argv[1:] or ["b7", "b6", "b4", "b8a"]
+    chosen = sys.argv[1:] or ["b7", "b6", "b4", "b8a", "b1"]
     plans = {"b7": ("mlp", B7_VARIANTS, ()), "b6": ("attention", B6_VARIANTS, ()),
-             "b4": ("layer_int8", B4_VARIANTS, ("layer", "gemm")),
-             "b8a": ("embed", B8A_VARIANTS, ())}
+             "b4": ("layer_int8", B4_VARIANTS, ("layer", "layer_attention", "gemm")),
+             "b8a": ("embed", B8A_VARIANTS, ()),
+             "b1": ("layer_attention", B1_VARIANTS, ("layer", "gemm")),
+             "faults": ("layer_attention", ATTENTION_FAULTS,
+                        tuple(f.stem for f in sorted(build.CSRC_DIR.glob("*.cu"))
+                              if f.stem != "layer_attention"))}
     if not set(chosen) <= set(plans):
         sys.exit(f"kernel_variants: kernels {chosen}; it knows {sorted(plans)}")
     with tempfile.TemporaryDirectory() as tmp:
         with ThreadPoolExecutor(len(chosen)) as pool:  # every nvcc process at once
-            futures = {key: pool.submit(build_variants, build, src, variants, Path(tmp), extra)
+            futures = {key: pool.submit(build_variants, build, src, variants, Path(tmp) / key,
+                                        extra, key == "b1")
                        for key, (src, variants, extra) in plans.items() if key in chosen}
             libs = {key: f.result() for key, f in futures.items()}
         dev, gen = "cuda", torch.Generator().manual_seed(0)
@@ -244,6 +340,10 @@ def main():
             del calls, out
         if "b8a" in libs:
             b8a_report(libs["b8a"], gen, dev, stream)
+        if "b1" in libs:
+            b1_report(libs["b1"], gen, dev, stream)
+        if "faults" in libs:
+            faults_report(build, libs["faults"], dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
@@ -294,6 +394,142 @@ def b8a_report(libs: dict, gen, dev, stream):
                 2, 1, 0, patches.data_ptr(), w.data_ptr(), bias.data_ptr(), pos.data_ptr(),
                 out.data_ptr(), bsz * n_p, n_p, kk, dd, scale, shift, stream))
             for name, lib in libs.items()}, out)
+
+
+def b1_report(libs: dict, gen, dev, stream):
+    """B1's C entry, bf16, random weights, unmasked: DeiT-S at batch 512, S 197
+    and 99 (the resident attention body at 4 and 2 chunks) and ViT-H at batch
+    64, S 257 (streamed)."""
+    from vit_pruning_tpu_torch.configs import deit_small, vit_huge
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_slice
+    from vit_pruning_tpu_torch.ops.cuda.layer import _layer_weights
+
+    bf = torch.bfloat16
+    for cfg, b, s in ((deit_small(num_labels=100), 512, 197), (deit_small(num_labels=100), 512, 99),
+                      (vit_huge(num_labels=100), 64, 257)):
+        tag = f"{'ViT-H' if cfg.head_dim == 80 else 'DeiT-S'} batch {b}, S {s}"
+        lp = layer_slice(init_vit_params(cfg.replace(num_layers=1), gen, "cpu")["layers"], 0)
+        w = list(_layer_weights(tree_to(lp, dev, bf)).values())
+        d, h, m, kw = cfg.hidden_size, cfg.num_heads, cfg.mlp_dim, cfg.attn_width
+        rows = b * s
+        x = torch.randn(b, s, d, generator=gen).to(dev, bf)
+        out = torch.empty_like(x)
+        ws = [torch.empty((rows, d), dtype=bf, device=dev),
+              torch.empty((rows, 3 * kw), dtype=bf, device=dev),
+              torch.empty((rows, kw), dtype=bf, device=dev),
+              torch.empty((rows, d), dtype=torch.float32, device=dev),
+              torch.empty((rows, m), dtype=bf, device=dev)]
+        report(f"B1 {tag}", B1_VARIANTS, {
+            name: (lambda lib=lib: lib.vpt_vit_layer_forward(
+                1, x.data_ptr(), None, *(t.data_ptr() for t in w), out.data_ptr(),
+                *(t.data_ptr() for t in ws), b, s, d, h, kw // h, m, d, cfg.layernorm_eps,
+                stream)) for name, lib in libs.items()}, out)
+        del x, out, ws, w
+
+
+def faults_report(build, libs: dict, dev):
+    """chip_smoke.py's isolated attention cases through the package's
+    wrappers with each library of ATTENTION_FAULTS in the package's place:
+    the real body must pass every case, each fault must fail at least one."""
+    import chip_smoke
+
+    real, wrong = build.load_library, []
+    try:
+        for name, what, _ in ATTENTION_FAULTS:
+            build.load_library = lambda lib=libs[name]: lib
+            recs = chip_smoke.attention_isolated(dev, lambda msg: None)
+            ratio = [r["d"] / r["tol"] if math.isfinite(r["d"]) else math.inf for r in recs]
+            bad = sum(not q <= 1.0 for q in ratio)
+            worst = max(range(len(recs)), key=lambda i: ratio[i])
+            print(f"attention fault {name!r}: {bad} of {len(recs)} isolated cases fail, worst "
+                  f"err / tol {ratio[worst]:.3g} ({recs[worst]['tag']}) ({what})", flush=True)
+            if (bad > 0) != (name != "kernel"):
+                wrong.append(name)
+    finally:
+        build.load_library = real
+    if wrong:
+        raise RuntimeError(f"phase 3m's isolated cases misjudge {wrong}")
+
+
+def layer_times(checkout: str):
+    """The `times` mode (module docstring) for the package of `checkout`."""
+    sys.path.insert(0, checkout)
+    from vit_pruning_tpu_torch.configs import deit_small, vit_huge
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_slice, vit_forward
+    from vit_pruning_tpu_torch.ops.cuda import layer as kl
+    from vit_pruning_tpu_torch.ops.cuda import layer_int8 as k8
+    from vit_pruning_tpu_torch.ops.cuda import model as kmod
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+    from vit_pruning_tpu_torch.ops.dispatch import encoder_fusion, kernel_mode, quant_mode
+    from vit_pruning_tpu_torch.ops.masking import compact_dest
+    from vit_pruning_tpu_torch.ops.quant import quantize_layer_params, with_kmajor_int8_weights
+
+    def family_ms(fn, reps=3) -> dict:
+        """Device ms per call of the kernels named *attention* and of the rest."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        tot = {"attention": 0.0, "other": 0.0}
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", 0.0) or 0.0
+            tot["attention" if "attention" in ev.key else "other"] += us / 1e3 / reps
+        return tot
+
+    res = {"checkout": checkout, "library": load_library()._name}
+    dev, bf = torch.device("cuda", 0), torch.bfloat16
+    gen = torch.Generator().manual_seed(7)
+    cfg = deit_small(num_labels=100)
+    params = tree_to(init_vit_params(cfg, gen, "cpu"), dev, bf)
+    lp, nh = layer_slice(params["layers"], 0), cfg.num_heads
+    qlp = with_kmajor_int8_weights(quantize_layer_params(lp))
+    for s in (197, 99):
+        x = torch.randn(512, s, cfg.hidden_size, generator=gen).to(dev, bf)
+        res[f"b1_s{s}"] = time_ms(lambda: kl.fused_vit_layer(x, lp, nh), iters=10)
+        res[f"b5_s{s}"] = time_ms(lambda: kmod.fused_vit_encoder(x, params["layers"], nh), iters=10)
+        res[f"b4_s{s}"] = time_ms(lambda: k8.fused_vit_layer_int8(x, qlp, nh), iters=10)
+    x = torch.randn(512, 197, cfg.hidden_size, generator=gen).to(dev, bf)
+    keep = torch.rand(512, 196, generator=gen).argsort(-1) < 98
+    mask = torch.cat([torch.ones(512, 1, dtype=torch.bool), keep], 1).to(dev)
+    dest = compact_dest(mask)
+    res["b3_s197_cap99"] = time_ms(lambda: kl.fused_vit_layer_bucketed(x, lp, dest, mask, 99, nh),
+                                   iters=10)
+    x = torch.randn(128, 577, cfg.hidden_size, generator=gen).to(dev, bf)
+    res["b1_s577_b128"] = time_ms(lambda: kl.fused_vit_layer(x, lp, nh), iters=5)
+    hcfg = vit_huge(num_labels=100)
+    hlp = tree_to(layer_slice(init_vit_params(hcfg.replace(num_layers=1), gen, "cpu")["layers"],
+                              0), dev, bf)
+    for s in (257, 129):
+        x = torch.randn(64, s, hcfg.hidden_size, generator=gen).to(dev, bf)
+        res[f"vit_h_b1_s{s}_b64"] = time_ms(lambda: kl.fused_vit_layer(x, hlp, hcfg.num_heads),
+                                            iters=5)
+    pix = torch.randn(512, 3, 224, 224, generator=gen).to(dev, bf)
+
+    def fwd():
+        return vit_forward(params, pix, cfg)
+
+    with kernel_mode("auto"):
+        res["dense_ms"] = time_ms(fwd, iters=10)
+        res["dense_device_ms"] = family_ms(fwd)
+        with encoder_fusion(True):
+            res["dense_fused_ms"] = time_ms(fwd, iters=10)
+            res["dense_fused_device_ms"] = family_ms(fwd)
+        with quant_mode("int8"):
+            res["dense_int8_ms"] = time_ms(fwd, iters=10)
+            res["dense_int8_device_ms"] = family_ms(fwd)
+    q, k, v = (torch.randn(512, 6, 197, 64, generator=gen).to(dev, bf) for _ in range(3))
+    res["sdpa_bf16_512x6x197x64"] = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), iters=10)
+    res["device"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps(res))
 
 
 if __name__ == "__main__":

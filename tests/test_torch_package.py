@@ -64,8 +64,8 @@ def test_build_covers_every_kernel_source():
     from vit_pruning_tpu_torch.ops.cuda import build
 
     names = {p.name for p in build.sources()}
-    assert {"layer.cu", "layer_int8.cu", "encoder.cu", "attention.cu", "mlp.cu", "embed.cu",
-            "common.cuh"} <= names
+    assert {"layer.cu", "layer_attention.cu", "layer_int8.cu", "encoder.cu", "attention.cu",
+            "mlp.cu", "embed.cu", "common.cuh"} <= names
     text = "".join(p.read_text() for p in build.sources())
     missing = [fn for fn in build.SIGNATURES if f" {fn}(" not in text]
     assert not missing, missing

@@ -1,12 +1,13 @@
-// Shared by the kernels' translation units (layer.cu, gemm.cu, layer_int8.cu,
-// encoder.cu, attention.cu, mlp.cu, embed.cu): the numerics helpers, the GEMM
-// epilogue (bias, activation, residual, cast), the f32 GEMM body that B1 and
-// B8 share, the f32 attention kernel that B1 (in float32) and B6 share, and
-// the declarations of the launchers that layer.cu and gemm.cu define and
-// layer_int8.cu and encoder.cu reuse (B1's attention and LayerNorm, the
-// GEMMs, the shape rules). The bf16 GEMM body on wgmma + TMA, which gemm.cu
-// and embed.cu share, is wgmma.cuh. Everything defined here is inline or a
-// template, so every unit may include it.
+// Shared by the kernels' translation units (layer.cu, layer_attention.cu,
+// gemm.cu, layer_int8.cu, encoder.cu, attention.cu, mlp.cu, embed.cu): the
+// numerics helpers, the GEMM epilogue (bias, activation, residual, cast), the
+// f32 GEMM body that B1 and B8 share, the f32 attention kernel that B1-B5 (in
+// float32) and B6 share, and the declarations of the launchers that layer.cu,
+// layer_attention.cu and gemm.cu define and layer_int8.cu and encoder.cu
+// reuse (B1's attention and LayerNorm, the GEMMs, the shape rules). The
+// bf16 GEMM body on wgmma + TMA, which gemm.cu and embed.cu share, is
+// wgmma.cuh. Everything defined here is inline or a template, so every unit
+// may include it.
 
 #pragma once
 
@@ -19,13 +20,15 @@ namespace vpt {
 using bf16 = __nv_bfloat16;
 
 // The head dims the layer kernels (B1-B5) take, each an instance of the
-// attention kernels: vit_tiny's 16 (one WMMA k-tile of 16), the quality
+// attention kernels: vit_tiny's 16 (one wgmma k-step of 16), the quality
 // gate model's 32 (two), DeiT-S's 64 (four) and ViT-H's 80 (five).
 __host__ __device__ constexpr bool layer_head_dim_ok(int hd) {
   return hd == 16 || hd == 32 || hd == 64 || hd == 80;
 }
-// The longest sequence whose keys the attention kernels keep resident in
-// shared memory for a whole (head, image): 9 chunks of 32 keys. Longer
+// The longest sequence whose keys the f32 attention kernel keeps resident
+// in shared memory for a whole (head, image), and whose logits B2's CLS
+// attention keeps in registers: 9 chunks of 32 keys (the bf16 attention of
+// B1-B5 has limits of its own, layer_attention.cu). Longer
 // sequences (a position table resized past 288 tokens: DeiT-S at 384 gives
 // 577) stream their keys through shared memory in chunks, with the same
 // numerics.
@@ -253,7 +256,7 @@ __device__ __forceinline__ void gemm_f32_tile(long m0, int n0, long M, int N, in
 
 // ---------------------------------------------------------------------------
 // Attention in f32 on the CUDA cores: B1, B3, B4 and B5 in float32 (through
-// layer.cu's attention()) and B6's FMA body. Up to kResidentSeq keys, one
+// layer_attention.cu's attention()) and B6's FMA body. Up to kResidentSeq keys, one
 // block per (head, image): K^T of the head sits in shared memory as f32, rows padded by one
 // word so the transposing store is free of bank conflicts, and V too where
 // both fit in the 227 KB (at hd 64 always; at hd 128 and long sequences V is
@@ -655,7 +658,7 @@ cudaError_t attention_f32(const T* q, const T* k, const T* v, AttnLayout in,
 #undef VPT_NC
 }
 
-// --- defined in layer.cu and gemm.cu -----------------------------------------
+// --- defined in layer_attention.cu, layer.cu and gemm.cu ----------------------
 
 // B1's attention on qkv [B*S, 3KW] -> ctx [B*S, KW], head dim KW / H (one of
 // layer_head_dim_ok's); keys masked by `mask`
@@ -666,6 +669,9 @@ cudaError_t attention(const float* qkv, const unsigned char* mask, const int* co
                       int B, int S, int H, int KW, cudaStream_t st, bool normalized = false);
 cudaError_t attention(const bf16* qkv, const unsigned char* mask, const int* counts, bf16* ctx,
                       int B, int S, int H, int KW, cudaStream_t st, bool normalized = false);
+// one launch of the layer attention's body 0 (wgmma resident), 1 (wgmma
+// streamed) or 2 (FMA), for vpt_layer_attention_body_counts
+void count_layer_attention(int body);
 
 // out[M, N] = epilogue(A[M, K] (row stride lda) @ W[K, N]), defined in
 // gemm.cu: in bf16 the wgmma + TMA body where TMA can describe A and W (else

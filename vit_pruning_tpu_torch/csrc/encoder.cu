@@ -17,6 +17,11 @@
 // What bounds it on an H100: at batch 512 the layer products are well above
 // the bf16 ridge, so tensor-core throughput; the f32 residual adds 8 bytes a
 // value per layer of traffic (read and write) that B1's bf16 x does not.
+// The attention is B1's body (layer_attention.cu: wgmma + TMA in bf16, the
+// logits of a 64-query tile in registers) with the normalised numerics
+// below: the sum of the f32 numerators is taken over the whole row before P
+// is formed (a reciprocal and one FMA correction give the correctly rounded
+// quotient), so normalising costs B5 one FMA chain a logit over B1.
 //
 // Numerics kept from the TPU kernel, where they differ from B1's: the
 // softmax is normalised, P = exp(l - max) / rowsum rounded to x's dtype
@@ -28,8 +33,8 @@
 // (|err| <= 1.5e-7); this one is the device's erff.
 //
 // Limits: B1's (head dim 16, 32, 64 or 80, any S, D and M multiples of 8); one
-// key mask [B, S] or none, the same at every layer. A persistent one-launch
-// kernel is later work.
+// key mask [B, S] or none, the same at every layer. The layers are B1's
+// launches in sequence, not one persistent kernel.
 
 #include "common.cuh"
 

@@ -29,10 +29,11 @@
 // The GEMMs are gemm.cu's: in bf16 wgmma.cuh's wgmma + TMA body for every
 // layer product (the WMMA body only for a classifier whose label count is
 // not a multiple of 8), in f32 FMA tiles (no TF32, so f32 matches a f32
-// reference closely). The attention below runs WMMA (mma.sync) tiles for
-// both products in bf16 and FMA in f32, at head dims 16, 32, 64 and 80.
-
-#include <mma.h>
+// reference closely). The attention of B1 and B3 (and of B4, B5), at head
+// dims 16, 32, 64 and 80: in bf16 layer_attention.cu's wgmma + TMA body
+// (one 64-query tile of one head a block, the logits in registers, P fed
+// to PV from registers), in f32 FMA on the CUDA cores (below). B2's CLS
+// attention (below) is one warp per (head, image) on the CUDA cores.
 
 #include "common.cuh"
 
@@ -75,12 +76,8 @@ template cudaError_t layer_norm<bf16, bf16>(const bf16*, long, const bf16*, cons
 template cudaError_t layer_norm<float, bf16>(const float*, long, const bf16*, const bf16*, bf16*,
                                              long, int, int, int, float, cudaStream_t);
 
-// ---------------------------------------------------------------------------
-// B1 attention, two implementations with the staged2 numerics: float32 on
-// the CUDA cores (common.cuh's attention_f32, shared with B6) and bfloat16
-// on the tensor cores (below). Each keeps a (head, image)'s keys resident in
-// shared memory up to kResidentSeq tokens and streams them in chunks past
-// it, with the same numerics.
+// B1's attention in float32 (shared with B3, B4 and B5): common.cuh's
+// attention_f32, FMA on the CUDA cores. The bf16 one is layer_attention.cu's.
 
 // 1/sqrt(hd) as the TPU wrapper computes it (in double, then f32)
 inline float attn_scale(int hd) { return static_cast<float>(1.0 / sqrt(static_cast<double>(hd))); }
@@ -89,413 +86,21 @@ cudaError_t attention(const float* qkv, const unsigned char* mask, const int* co
                       int B, int S, int H, int KW, cudaStream_t st, bool normalized) {
   // q, k, v are the three KW-wide thirds of each qkv row, the context is [B*S, KW]
   const int hd = KW / H;
+  if (!layer_head_dim_ok(hd) || S < 1 || KW % H) return cudaErrorInvalidValue;
   const AttnLayout in{(long)S * 3 * KW, hd, 3L * KW}, ol{(long)S * KW, hd, KW};
+  cudaError_t rc;
 #define VPT_F32(HD, NORM)                                                                         \
   attention_f32<float, HD, NORM>(qkv, qkv + KW, qkv + 2 * KW, in, mask, counts, ctx, ol, B, H, S, \
                                  hd, st)
-  if (hd == 64) return normalized ? VPT_F32(64, true) : VPT_F32(64, false);
-  if (hd == 80) return normalized ? VPT_F32(80, true) : VPT_F32(80, false);
-  // the short head dims share one instance that reads hd at run time
-  if (hd == 16 || hd == 32) return normalized ? VPT_F32(0, true) : VPT_F32(0, false);
+  if (hd == 64)
+    rc = normalized ? VPT_F32(64, true) : VPT_F32(64, false);
+  else if (hd == 80)
+    rc = normalized ? VPT_F32(80, true) : VPT_F32(80, false);
+  else  // the short head dims share one instance that reads hd at run time
+    rc = normalized ? VPT_F32(0, true) : VPT_F32(0, false);
 #undef VPT_F32
-  return cudaErrorInvalidValue;
-}
-
-// bf16: WMMA 16x16x16 tiles, one instance per head dim HD (16: one k-tile
-// of 16, 32: two, 64: four, 80: five). K, V of the image's head sit in smem as
-// [S16][HD] (S16 = S rounded up to 16, zero rows beyond S); each warp takes
-// 16 query rows at a time. Pass 1 runs QK^T over all key tiles for the row
-// maxima; pass 2 runs it again, forms the numerators exp(l - max) rounded
-// to bf16 (as the TPU kernel stores them), sums the rounded values and
-// feeds them to the PV product; the context is scaled by 1/sum at the end.
-// Recomputing QK^T (cheap on the tensor cores) keeps only a 16x16 logits
-// tile per warp instead of the [16, S] rows, so two blocks fit in an H100
-// SM's 228 KB at hd 64 and S 197 (86,784 bytes a block); at hd 80 and S 257
-// a block takes 128,896 bytes and only one fits.
-// Past kResidentSeq, attention_tc_stream_kernel (below) streams K and V.
-// NORM (B5's numerics): pass 1 also sums the f32 numerators (a running sum,
-// rescaled when the row max grows), so that pass 2 forms P = exp(l - max) /
-// sum and rounds it to bf16 before PV.
-namespace ta {
-constexpr int WARPS = 4, THREADS = WARPS * 32;
-constexpr int LDP = 16 + 8;      // bf16 numerator tile
-constexpr int kStreamKeys = 64;  // K/V rows of one streamed chunk: four key tiles
-template <int HD>
-struct Geo {
-  static_assert(HD % 16 == 0 && layer_head_dim_ok(HD), "a head dim the layer kernels take");
-  static constexpr int LDKV = HD + 8;  // bf16; +8 staggers the banks
-  static constexpr int LDO = HD + 4;   // f32 output tile
-  // per-warp region: logits tile [16][16] f32 at 0, numerator tile
-  // [16][LDP] bf16 at P_OFF, both reused for the output tile [16][LDO] f32
-  // at the end; the query tile [16][LDKV] bf16 after that
-  static constexpr size_t P_OFF = 16 * 16 * sizeof(float);
-  // past both the output tile and the numerator tile (at HD 16 the output
-  // tile [16][20] f32 ends before the numerators [16][24] bf16 do)
-  static constexpr size_t Q_OFF = (16 * LDO * sizeof(float) > P_OFF + 16 * LDP * sizeof(bf16)
-                                       ? 16 * LDO * sizeof(float)
-                                       : P_OFF + 16 * LDP * sizeof(bf16));
-  static constexpr size_t WARP_BYTES = Q_OFF + 16 * LDKV * sizeof(bf16);
-  static_assert(P_OFF + 16 * LDP * sizeof(bf16) <= Q_OFF, "tiles overlap");
-  static_assert(Q_OFF % 32 == 0 && WARP_BYTES % 32 == 0, "WMMA needs 256-bit aligned tiles");
-
-  // K and V [kv rows][LDKV] bf16 (all S16 rows resident, or one chunk of
-  // kStreamKeys rows streamed), the key flags [S16], the warps' regions
-  __host__ __device__ static int s16(int s) { return (s + 15) / 16 * 16; }
-  __host__ __device__ static size_t kv_bytes(int s) { return size_t(2) * s16(s) * LDKV * sizeof(bf16); }
-  __host__ __device__ static size_t warp_base(int s) { return (kv_bytes(s) + s16(s) + 127) / 128 * 128; }
-  __host__ __device__ static size_t smem_bytes(int s) { return warp_base(s) + WARPS * WARP_BYTES; }
-  static constexpr size_t STREAM_KV_BYTES = size_t(2) * kStreamKeys * LDKV * sizeof(bf16);
-  __host__ __device__ static size_t stream_warp_base(int s) {
-    return (STREAM_KV_BYTES + s16(s) + 127) / 128 * 128;
-  }
-  __host__ __device__ static size_t stream_smem_bytes(int s) {
-    return stream_warp_base(s) + WARPS * WARP_BYTES;
-  }
-};
-}  // namespace ta
-
-template <int HD, bool NORM>
-__global__ void __launch_bounds__(ta::THREADS)
-attention_tc_kernel(const bf16* __restrict__ qkv, const unsigned char* __restrict__ mask,
-                    const int* __restrict__ counts, bf16* __restrict__ ctx, int S, int KW,
-                    float scale) {
-  using namespace nvcuda;
-  using namespace ta;
-  using G = Geo<HD>;
-  constexpr int LDKV = G::LDKV, LDO = G::LDO, KT = HD / 16, CH = HD / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int sp = G::s16(S), ntiles = sp / 16;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [sp][LDKV]
-  bf16* Vs = Ks + sp * LDKV;                 // [sp][LDKV]
-  unsigned char* flag = smem + G::kv_bytes(S);  // [sp]: 0 absent, 1 valid, 2 masked
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  unsigned char* wbase = smem + G::warp_base(S) + warp * G::WARP_BYTES;
-  float* Lt = reinterpret_cast<float*>(wbase);
-  bf16* Pt = reinterpret_cast<bf16*>(wbase + G::P_OFF);
-  float* Ot = reinterpret_cast<float*>(wbase);
-  bf16* Qt = reinterpret_cast<bf16*>(wbase + G::Q_OFF);
-
-  const long row_stride = 3L * KW;
-  const bf16* base = qkv + (long)b * S * row_stride + h * HD;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int c = tid; c < sp * CH; c += THREADS) {  // 16-byte chunks
-    const int j = c / CH, d = (c % CH) * 8;
-    const bf16* r = base + j * row_stride + d;
-    *reinterpret_cast<uint4*>(Ks + j * LDKV + d) = j < S ? *reinterpret_cast<const uint4*>(r + KW) : zero;
-    *reinterpret_cast<uint4*>(Vs + j * LDKV + d) = j < S ? *reinterpret_cast<const uint4*>(r + 2 * KW) : zero;
-  }
-  for (int j = tid; j < sp; j += THREADS) flag[j] = key_flag(mask, counts, b, S, j);
-  __syncthreads();
-
-  const int r = lane >> 1, c0 = (lane & 1) * 8;  // softmax: two lanes per row
-  for (int qt = warp; qt < ntiles; qt += WARPS) {
-    const int q0 = qt * 16;
-    for (int c = lane; c < 16 * CH; c += 32) {
-      const int i = c / CH, d = (c % CH) * 8;
-      *reinterpret_cast<uint4*>(Qt + i * LDKV + d) =
-          q0 + i < S ? *reinterpret_cast<const uint4*>(base + (q0 + i) * row_stride + d) : zero;
-    }
-    __syncwarp();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[KT];
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) wmma::load_matrix_sync(qa[kk], Qt + kk * 16, LDKV);
-
-    // logits tile jt -> Lt (f32, unscaled)
-    auto logits_tile = [&](int jt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> l;
-      wmma::fill_fragment(l, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;  // K^T
-        wmma::load_matrix_sync(kb, Ks + jt * 16 * LDKV + kk * 16, LDKV);
-        wmma::mma_sync(l, qa[kk], kb, l);
-      }
-      wmma::store_matrix_sync(Lt, l, 16, wmma::mem_row_major);
-      __syncwarp();
-    };
-
-    // pass 1: the row max and, for NORM, the row's sum of f32 numerators,
-    // kept as a running sum rescaled whenever the max grows (-INFINITY: no
-    // key seen yet by this lane)
-    float mx = -INFINITY, rowsum = 1.f;
-    if (NORM) rowsum = 0.f;
-    for (int jt = 0; jt < ntiles; ++jt) {
-      logits_tile(jt);
-      float l8[8], tmax = -INFINITY;
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int f = flag[jt * 16 + c0 + t];
-        l8[t] = f == 2 ? kNegInf : Lt[r * 16 + c0 + t] * scale;
-        if (f) tmax = fmaxf(tmax, l8[t]);
-      }
-      __syncwarp();
-      if (NORM && tmax > -INFINITY) {
-        const float m = fmaxf(mx, tmax);
-        float s = 0.f;
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-          if (flag[jt * 16 + c0 + t]) s += expf(l8[t] - m);
-        rowsum = (mx > -INFINITY ? rowsum * expf(mx - m) : 0.f) + s;
-      }
-      mx = fmaxf(mx, tmax);
-    }
-    const float mo = __shfl_xor_sync(0xffffffffu, mx, 1);
-    if (NORM) {  // the two lanes of the row, each rescaled to the row max
-      const float so = __shfl_xor_sync(0xffffffffu, rowsum, 1), m = fmaxf(mx, mo);
-      rowsum = (mx > -INFINITY ? rowsum * expf(mx - m) : 0.f) +
-               (mo > -INFINITY ? so * expf(mo - m) : 0.f);
-    }
-    mx = fmaxf(mx, mo);
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[KT];
-#pragma unroll
-    for (int dt = 0; dt < KT; ++dt) wmma::fill_fragment(o[dt], 0.f);
-    float sum = 0.f;
-    for (int jt = 0; jt < ntiles; ++jt) {
-      logits_tile(jt);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int f = flag[jt * 16 + c0 + t];
-        const float l = f == 2 ? kNegInf : Lt[r * 16 + c0 + t] * scale;
-        const float e = f ? expf(l - mx) : 0.f;
-        const bf16 p = __float2bfloat16(NORM ? e / rowsum : e);
-        sum += __bfloat162float(p);
-        Pt[r * LDP + c0 + t] = p;
-      }
-      __syncwarp();
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-      wmma::load_matrix_sync(pa, Pt, LDP);
-#pragma unroll
-      for (int dt = 0; dt < KT; ++dt) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, Vs + jt * 16 * LDKV + dt * 16, LDKV);
-        wmma::mma_sync(o[dt], pa, vb, o[dt]);
-      }
-      __syncwarp();
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float rinv = NORM ? 1.0f : 1.0f / sum;
-
-#pragma unroll
-    for (int dt = 0; dt < KT; ++dt)
-      wmma::store_matrix_sync(Ot + dt * 16, o[dt], LDO, wmma::mem_row_major);
-    __syncwarp();
-    if (q0 + r < S) {  // each lane of the row's pair writes half of it (HD / 2, a multiple of 8)
-      bf16* out = ctx + ((long)b * S + q0 + r) * KW + h * HD + (lane & 1) * (HD / 2);
-      const float* src = Ot + r * LDO + (lane & 1) * (HD / 2);
-#pragma unroll
-      for (int c = 0; c < HD / 2; c += 8) {
-        float v[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t) v[t] = src[c + t] * rinv;
-        store8(out + c, v);
-      }
-    }
-    __syncwarp();
-  }
-}
-
-// The streamed kernel, for S > kResidentSeq (K and V of a whole head no
-// longer fit): the resident kernel's per-tile steps, in the same key order,
-// so the same sums. A block takes one 16-row query tile a warp, four in all
-// (grid z walks the tiles), and streams K (pass 1) or K and V (pass 2)
-// through shared memory in chunks of kStreamKeys rows that the whole block
-// loads between two barriers; K and V are read from L2 once per pass and
-// block. Every warp stages equally often, past S included (its query rows
-// are zeros and nothing is written).
-template <int HD, bool NORM>
-__global__ void __launch_bounds__(ta::THREADS)
-attention_tc_stream_kernel(const bf16* __restrict__ qkv, const unsigned char* __restrict__ mask,
-                           const int* __restrict__ counts, bf16* __restrict__ ctx, int S, int KW,
-                           float scale) {
-  using namespace nvcuda;
-  using namespace ta;
-  using G = Geo<HD>;
-  constexpr int LDKV = G::LDKV, LDO = G::LDO, KT = HD / 16, CH = HD / 8;
-  constexpr int kChunkTiles = kStreamKeys / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int sp = G::s16(S), ntiles = sp / 16;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kStreamKeys][LDKV]
-  bf16* Vs = Ks + kStreamKeys * LDKV;        // [kStreamKeys][LDKV]
-  unsigned char* flag = smem + G::STREAM_KV_BYTES;  // [sp]: 0 absent, 1 valid, 2 masked
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  unsigned char* wbase = smem + G::stream_warp_base(S) + warp * G::WARP_BYTES;
-  float* Lt = reinterpret_cast<float*>(wbase);
-  bf16* Pt = reinterpret_cast<bf16*>(wbase + G::P_OFF);
-  float* Ot = reinterpret_cast<float*>(wbase);
-  bf16* Qt = reinterpret_cast<bf16*>(wbase + G::Q_OFF);
-
-  const long row_stride = 3L * KW;
-  const bf16* base = qkv + (long)b * S * row_stride + h * HD;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int j = tid; j < sp; j += THREADS) flag[j] = key_flag(mask, counts, b, S, j);
-  // keys [t0 * 16, t0 * 16 + n) into rows [0, n) of Ks (and Vs), zeros past S,
-  // between two barriers
-  auto stage = [&](int t0, bool with_v) {
-    __syncthreads();  // every warp is done with the previous chunk
-    const int n = min(kChunkTiles, ntiles - t0) * 16;
-    for (int c = tid; c < n * CH; c += THREADS) {
-      const int jj = c / CH, d = (c % CH) * 8, j = t0 * 16 + jj;
-      const bf16* r = base + (long)j * row_stride + d;
-      *reinterpret_cast<uint4*>(Ks + jj * LDKV + d) = j < S ? *reinterpret_cast<const uint4*>(r + KW) : zero;
-      if (with_v)
-        *reinterpret_cast<uint4*>(Vs + jj * LDKV + d) = j < S ? *reinterpret_cast<const uint4*>(r + 2 * KW) : zero;
-    }
-    __syncthreads();
-  };
-
-  const int r = lane >> 1, c0 = (lane & 1) * 8;  // softmax: two lanes per row
-  const int q0 = (blockIdx.z * WARPS + warp) * 16;
-  for (int c = lane; c < 16 * CH; c += 32) {
-    const int i = c / CH, d = (c % CH) * 8;
-    *reinterpret_cast<uint4*>(Qt + i * LDKV + d) =
-        q0 + i < S ? *reinterpret_cast<const uint4*>(base + (q0 + i) * row_stride + d) : zero;
-  }
-  __syncwarp();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[KT];
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) wmma::load_matrix_sync(qa[kk], Qt + kk * 16, LDKV);
-
-  // logits of the key tile in rows [16 lt, 16 lt + 16) of Ks -> Lt (f32, unscaled)
-  auto logits_tile = [&](int lt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> l;
-    wmma::fill_fragment(l, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;  // K^T
-      wmma::load_matrix_sync(kb, Ks + lt * 16 * LDKV + kk * 16, LDKV);
-      wmma::mma_sync(l, qa[kk], kb, l);
-    }
-    wmma::store_matrix_sync(Lt, l, 16, wmma::mem_row_major);
-    __syncwarp();
-  };
-
-  // pass 1, as the resident kernel's
-  float mx = -INFINITY, rowsum = 1.f;
-  if (NORM) rowsum = 0.f;
-  for (int t0 = 0; t0 < ntiles; t0 += kChunkTiles) {
-    stage(t0, false);
-    for (int jt = t0; jt < min(t0 + kChunkTiles, ntiles); ++jt) {
-      logits_tile(jt - t0);
-      float l8[8], tmax = -INFINITY;
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int f = flag[jt * 16 + c0 + t];
-        l8[t] = f == 2 ? kNegInf : Lt[r * 16 + c0 + t] * scale;
-        if (f) tmax = fmaxf(tmax, l8[t]);
-      }
-      __syncwarp();
-      if (NORM && tmax > -INFINITY) {
-        const float m = fmaxf(mx, tmax);
-        float s = 0.f;
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-          if (flag[jt * 16 + c0 + t]) s += expf(l8[t] - m);
-        rowsum = (mx > -INFINITY ? rowsum * expf(mx - m) : 0.f) + s;
-      }
-      mx = fmaxf(mx, tmax);
-    }
-  }
-  const float mo = __shfl_xor_sync(0xffffffffu, mx, 1);
-  if (NORM) {
-    const float so = __shfl_xor_sync(0xffffffffu, rowsum, 1), m = fmaxf(mx, mo);
-    rowsum = (mx > -INFINITY ? rowsum * expf(mx - m) : 0.f) +
-             (mo > -INFINITY ? so * expf(mo - m) : 0.f);
-  }
-  mx = fmaxf(mx, mo);
-
-  // pass 2, as the resident kernel's
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[KT];
-#pragma unroll
-  for (int dt = 0; dt < KT; ++dt) wmma::fill_fragment(o[dt], 0.f);
-  float sum = 0.f;
-  for (int t0 = 0; t0 < ntiles; t0 += kChunkTiles) {
-    stage(t0, true);
-    for (int jt = t0; jt < min(t0 + kChunkTiles, ntiles); ++jt) {
-      logits_tile(jt - t0);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int f = flag[jt * 16 + c0 + t];
-        const float l = f == 2 ? kNegInf : Lt[r * 16 + c0 + t] * scale;
-        const float e = f ? expf(l - mx) : 0.f;
-        const bf16 p = __float2bfloat16(NORM ? e / rowsum : e);
-        sum += __bfloat162float(p);
-        Pt[r * LDP + c0 + t] = p;
-      }
-      __syncwarp();
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-      wmma::load_matrix_sync(pa, Pt, LDP);
-#pragma unroll
-      for (int dt = 0; dt < KT; ++dt) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, Vs + (jt - t0) * 16 * LDKV + dt * 16, LDKV);
-        wmma::mma_sync(o[dt], pa, vb, o[dt]);
-      }
-      __syncwarp();
-    }
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  const float rinv = NORM ? 1.0f : 1.0f / sum;
-
-#pragma unroll
-  for (int dt = 0; dt < KT; ++dt)
-    wmma::store_matrix_sync(Ot + dt * 16, o[dt], LDO, wmma::mem_row_major);
-  __syncwarp();
-  if (q0 + r < S) {
-    bf16* out = ctx + ((long)b * S + q0 + r) * KW + h * HD + (lane & 1) * (HD / 2);
-    const float* src = Ot + r * LDO + (lane & 1) * (HD / 2);
-#pragma unroll
-    for (int c = 0; c < HD / 2; c += 8) {
-      float v[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) v[t] = src[c + t] * rinv;
-      store8(out + c, v);
-    }
-  }
-}
-
-// the resident kernel's dynamic shared memory limit, set once, at the
-// longest resident sequence
-template <int HD, bool NORM>
-cudaError_t attention_tc_attr() {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(attention_tc_kernel<HD, NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)ta::Geo<HD>::smem_bytes(kResidentSeq));
-  return attr;
-}
-
-template <int HD, bool NORM>
-cudaError_t attention_tc(const bf16* qkv, const unsigned char* mask, const int* counts, bf16* ctx,
-                         int B, int S, int H, int KW, cudaStream_t st) {
-  using G = ta::Geo<HD>;
-  if (S <= kResidentSeq) {
-    VPT_TRY(attention_tc_attr<HD, NORM>());
-    attention_tc_kernel<HD, NORM><<<dim3(H, B), ta::THREADS, G::smem_bytes(S), st>>>(
-        qkv, mask, counts, ctx, S, KW, attn_scale(HD));
-    return cudaGetLastError();
-  }
-  // streamed: the flags grow with S, so the limit is set per launch
-  const size_t smem = G::stream_smem_bytes(S);
-  VPT_TRY(cudaFuncSetAttribute(attention_tc_stream_kernel<HD, NORM>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  const int blocks = (G::s16(S) / 16 + ta::WARPS - 1) / ta::WARPS;
-  attention_tc_stream_kernel<HD, NORM><<<dim3(H, B, blocks), ta::THREADS, smem, st>>>(
-      qkv, mask, counts, ctx, S, KW, attn_scale(HD));
-  return cudaGetLastError();
-}
-
-cudaError_t attention(const bf16* qkv, const unsigned char* mask, const int* counts, bf16* ctx,
-                      int B, int S, int H, int KW, cudaStream_t st, bool normalized) {
-  const int hd = KW / H;
-#define VPT_TC(HD, NORM) attention_tc<HD, NORM>(qkv, mask, counts, ctx, B, S, H, KW, st)
-  if (hd == 16) return normalized ? VPT_TC(16, true) : VPT_TC(16, false);
-  if (hd == 32) return normalized ? VPT_TC(32, true) : VPT_TC(32, false);
-  if (hd == 64) return normalized ? VPT_TC(64, true) : VPT_TC(64, false);
-  if (hd == 80) return normalized ? VPT_TC(80, true) : VPT_TC(80, false);
-#undef VPT_TC
-  return cudaErrorInvalidValue;
+  if (rc == cudaSuccess) count_layer_attention(2);  // the FMA body
+  return rc;
 }
 
 // ---------------------------------------------------------------------------

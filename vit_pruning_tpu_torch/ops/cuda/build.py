@@ -35,6 +35,11 @@ P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 SIGNATURES = {
     "vpt_error_string": ([I], ctypes.c_char_p),
     "vpt_layer_head_dim_ok": ([I], I),
+    # dtype, hd, S -> the body of B1-B5's attention (0 wgmma resident, 1 wgmma
+    # streamed, 2 FMA, -1 refused)
+    "vpt_layer_attention_body": ([I, I, I], I),
+    "vpt_layer_attention_body_counts": ([P], None),
+    "vpt_layer_attention_body_reset": ([], None),
     # (DN: the layer norms' width, D unless x and the weights were padded)
     # dtype, x, mask, 12 layer weights, out, 5 workspaces, B S D H HD M DN, eps, stream
     "vpt_vit_layer_forward": ([I] + [P] * 20 + [I] * 7 + [F, P], I),

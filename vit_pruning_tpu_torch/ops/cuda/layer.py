@@ -13,7 +13,12 @@ the CUDA design does about it is in the head of csrc/layer.cu: the layer
 products dominate and are tensor-core bound at batch 512, so each runs as
 one tiled GEMM with its bias / GELU / residual / cast fused into the
 epilogue, and the residual stream stays f32 between the attention and MLP
-halves as it stayed in VMEM on the TPU.
+halves as it stayed in VMEM on the TPU. The attention of B1, B3, B4 and B5
+is csrc/layer_attention.cu's: in bf16 a wgmma + TMA body, one pass with the
+logits in registers up to 256 keys ('wgmma_resident') and two passes over
+streamed K and V past it ('wgmma_streamed'); in f32 FMA on the CUDA cores
+('fma'). `attention_body` mirrors the C rule that picks the body, and
+`attention_body_counts` reads the launches per body.
 
 A wrapper launches its kernel for CUDA tensors, through the registered
 operator vpt::<name> (ops/cuda/library.py), whose implementation counts the
@@ -46,6 +51,7 @@ normalises first and keeps the context in f32 until the O product.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -64,6 +70,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # every call in C; the wrappers check this copy, so that a trace without a
 # card needs no library (chip_smoke.py holds the two equal)
 LAYER_HEAD_DIMS = (16, 32, 64, 80)
+# the bodies of their attention, in the order of csrc/layer_attention.cu's
+# counters, and the most 64-key chunks the resident body takes (la::kLogitChunks)
+ATTENTION_BODIES = ("wgmma_resident", "wgmma_streamed", "fma")
+ATTENTION_LOGIT_CHUNKS = 4
 
 
 # --- plain versions ---------------------------------------------------------------
@@ -227,6 +237,52 @@ def fused_vit_layer_bucketed_ref(
     xc, key_ok = bucket_compact(x, dest, kept, cap)
     yc = fused_vit_layer_ref(xc, params, num_heads, eps, key_ok, norm_width)
     return bucket_expand(x, yc, dest, kept, cap)
+
+
+# --- the attention body ------------------------------------------------------------
+
+def attention_body(dtype: torch.dtype, head_dim: int, seq_len: int) -> Optional[str]:
+    """The body that B1-B5's attention takes on the card for this dtype, head
+    dim and sequence length (the rule of csrc/layer_attention.cu::
+    layer_attention_body, which chip_smoke.py holds equal), or None where
+    the kernels refuse the call."""
+    if head_dim not in LAYER_HEAD_DIMS or seq_len < 1 or dtype not in _DTYPES:
+        return None
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma_resident" if -(-seq_len // 64) <= ATTENTION_LOGIT_CHUNKS else "wgmma_streamed"
+
+
+# B1-B5's attention launches since the last reset_attention_body_counts(),
+# by kernel ('b1', 'b3', 'b4', 'b5') and by the body attention_body names:
+# each op adds its calls where it launches, so that a run can hold the
+# mirror against the C counters and tell the kernels' launches apart
+attention_launches: dict = {}
+
+
+def count_attention(kernel: str, dtype: torch.dtype, head_dim: int, seq_len: int,
+                    calls: int = 1):
+    per = attention_launches.setdefault(kernel, dict.fromkeys(ATTENTION_BODIES, 0))
+    per[attention_body(dtype, head_dim, seq_len)] += calls
+
+
+def attention_body_counts() -> dict:
+    """Launches of each body of B1-B5's attention since the last
+    reset_attention_body_counts(), by ATTENTION_BODIES' names, as the C
+    library counted them."""
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    counts = (ctypes.c_longlong * len(ATTENTION_BODIES))()
+    load_library().vpt_layer_attention_body_counts(counts)
+    return dict(zip(ATTENTION_BODIES, counts))
+
+
+def reset_attention_body_counts():
+    """Zero the C counters and attention_launches."""
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    load_library().vpt_layer_attention_body_reset()
+    attention_launches.clear()
 
 
 # --- gradients ----------------------------------------------------------------------
@@ -409,6 +465,7 @@ def _b1_op(x: torch.Tensor, token_mask: Optional[torch.Tensor], weights: list[to
         *map(ptr, weights), ptr(out), *map(ptr, ws), b, s, d, num_heads, kw // num_heads, m,
         norm_width, eps)
     fused_vit_layer.launches += 1
+    count_attention("b1", x.dtype, kw // num_heads, s)
     return out
 
 
@@ -544,6 +601,7 @@ def _b3_op(x: torch.Tensor, dest: torch.Tensor, kept: torch.Tensor, weights: lis
         ptr(h), ptr(qkv), ptr(ctx), ptr(x1), ptr(m1), b, s, cap, d, num_heads,
         kw // num_heads, m, norm_width, eps)
     fused_vit_layer_bucketed.launches += 1
+    count_attention("b3", x.dtype, kw // num_heads, cap)
     return out
 
 

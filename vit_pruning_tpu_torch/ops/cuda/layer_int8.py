@@ -46,6 +46,7 @@ from vit_pruning_tpu_torch.ops.cuda.layer import (
     _ln_f32,
     _padded_call,
     _unpad,
+    count_attention,
     refuse_grad,
     staged2_attention,
 )
@@ -167,6 +168,7 @@ def _b4_op(x: torch.Tensor, token_mask: Optional[torch.Tensor], weights: list[to
         *map(ptr, weights), ptr(out), *map(ptr, codes), *map(ptr, ws), b, s, d, num_heads,
         kw // num_heads, m, norm_width, eps)
     fused_vit_layer_int8.launches += 1
+    count_attention("b4", x.dtype, kw // num_heads, s)
     return (out, *codes)
 
 

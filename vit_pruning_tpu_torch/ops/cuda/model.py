@@ -39,6 +39,7 @@ from vit_pruning_tpu_torch.ops.cuda.layer import (
     _padded_call,
     _unpad,
     _workspaces,
+    count_attention,
     eager_layer,
     grad_needed,
     recomputed,
@@ -140,6 +141,7 @@ def _b5_op(x: torch.Tensor, token_mask: Optional[torch.Tensor], weights: list[to
         *map(ptr, weights), ptr(out), ptr(h), ptr(qkv), ptr(ctx), ptr(x1), ptr(m1), ptr(xr),
         n_layers, b, s, d, num_heads, kw // num_heads, m, norm_width, eps)
     fused_vit_encoder.launches += 1
+    count_attention("b5", x.dtype, kw // num_heads, s, n_layers)
     return out
 
 
