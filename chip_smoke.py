@@ -29,7 +29,15 @@ kernels from csrc/ itself. Phases:
   3f. kernel B5 (fused_vit_encoder) against its plain version: DeiT-S at 12
      layers and a 3-layer segment, composed geometry at a 3-layer segment,
      S in {197, 99, 17}, masked and not, float32 and bfloat16
-  4. kernel B2 (fused_vit_layer_cls_logits) against its plain version
+  4. kernel B2 (fused_vit_layer_cls_logits) against its plain version:
+     DeiT-S and composed geometry, S in {197, 99, 33, 17}, batch 8, float32
+     and bfloat16, each call's launches by kind (the C counters, the
+     wrapper's tally and the plan of ops/cuda/layer.py::cls_logits_launches
+     equal; at most 4 in bf16), the plan's mirror against the C rule; then
+     the CLS attention isolated (cls_attention_isolated: O = I, fc2 = 0,
+     LN_f = (1, 0), the classifier the identity, a peaked softmax, x ~
+     1e-5) at hd 16-80 and widths D 100 / M 1000, S 2-577, batch 4 and 9,
+     held to LN_f of the plain version's CLS context
   4b. kernel B3 (fused_vit_layer_bucketed) against its plain version: S 197
      with cap 99 / 131 / 197 and S 99 with cap 50, random kept counts up to
      the cap and an image with only CLS kept; skipped rows must be x
@@ -138,7 +146,9 @@ kernels from csrc/ itself. Phases:
      body, the shapes that took the WMMA body); times at batch 512 in
      bfloat16, kernel path and plain path (float and
      int8), and each kernel beside its plain version and its eager PyTorch
-     equivalent (info only); each kernel's bound from its shapes and its
+     equivalent (info only; B2 also beside a CLS-only composition of
+     PyTorch calls, and its launches by kind on 5-5h held to the wrapper's
+     tally); each kernel's bound from its shapes and its
      share of it (B6 and B7 must stay within theirs); the head_mask forward
      (B7 x 12), kernel path and plain path; the device
      time of the dense, headline, topk50, mask, dense_int8, topk50_int8 and
@@ -215,6 +225,7 @@ last is the kernels' JSON record; the last line is the device record.
 Weights are random, from a torch.Generator seed; images from a numpy seed.
 """
 
+import ctypes
 import functools
 import json
 import math
@@ -709,6 +720,100 @@ def attention_isolated(dev, say) -> list:
 
             record(f"B3 {gname} B={batch} S={s + 7} cap={s}", "B3", want,
                    lambda: kl.fused_vit_layer_bucketed(xb, lp, dest, kmask, s, nh, eps), b3_err)
+    return out
+
+
+# phase 4's isolated cases (cls_attention_isolated): the lengths around every edge of
+# B2's bf16 launches (csrc/cls_logits.cu): one token, the 64-row tiles, the 128-row
+# passes (V in the accumulators up to 128 tokens, in shared memory past them), the old
+# 288 limit, S 577 (DeiT-S at 384: V recomputed at hd 64 and 80)
+CLS_EDGE_LENGTHS = (2, 17, 33, 63, 64, 65, 99, 128, 129, 257, 289, 577)
+
+
+def cls_isolated_geometries() -> tuple:
+    """Phase 4's isolated geometries: edge_geometries' four head dims, and the
+    widths the wrappers pad, DeiT-S with MLP 1000 and a model of hidden
+    width 100 (4 heads of 16, MLP 300; labels 100 = D, no multiple of 8)."""
+    from vit_pruning_tpu_torch.configs import ViTConfig, deit_small
+
+    return edge_geometries() + (
+        ("deit_s M 1000", deit_small(num_labels=100).replace(mlp_dim=1000)),
+        ("D 100 (4 heads of 16)", ViTConfig(hidden_size=100, num_layers=1, num_heads=4,
+                                            attn_head_dim=16, mlp_dim=300, num_labels=100)))
+
+
+def cls_identity_tail(lp: dict, lnf: dict, gen: torch.Generator):
+    """B2's weights with the CLS attention isolated: O the identity [KW, D]
+    (no bias), fc2 zero (weights and bias: the MLP adds exactly 0), W_q and
+    W_k redrawn at ISOLATED_QK_STD / sqrt(D) (a peaked softmax), LN_f (1, 0)
+    and the classifier the identity [D, D] (D labels, no bias). The logits
+    are then LN_f(x_cls + ctx) rounded once. Returns (layer, ln_f, head)."""
+    out = {k: dict(v) if isinstance(v, dict) else v for k, v in lp.items()}
+    out["attn"] = {n: dict(p) for n, p in lp["attn"].items()}
+    out["mlp"] = {n: dict(p) for n, p in lp["mlp"].items()}
+    kw, d = out["attn"]["o"]["w"].shape
+    dev, dt = out["attn"]["o"]["w"].device, out["attn"]["o"]["w"].dtype
+    out["attn"]["o"] = {"w": torch.eye(kw, d, dtype=dt, device=dev),
+                        "b": torch.zeros(d, dtype=dt, device=dev)}
+    out["mlp"]["fc2"] = {n: torch.zeros_like(t) for n, t in lp["mlp"]["fc2"].items()}
+    for n in "qk":
+        w = out["attn"][n]["w"]
+        out["attn"][n]["w"] = (ISOLATED_QK_STD / math.sqrt(d)
+                               * torch.randn(w.shape, generator=gen)).to(dev, dt)
+    f = {"g": torch.ones_like(lnf["g"]), "b": torch.zeros_like(lnf["b"])}
+    head = {"w": torch.eye(d, dtype=dt, device=dev), "b": torch.zeros(d, dtype=dt, device=dev)}
+    return out, f, head
+
+
+def cls_attention_isolated(dev, say) -> list:
+    """Phase 4's cases that isolate B2's CLS attention through the real
+    wrapper: cls_identity_tail's weights on x ~ 1e-5, so that the logits are
+    LN_f(x_cls + ctx) and a softmax dropped, made uniform, cut short or left
+    unnormalised moves them by far more than a rounding. Held to LN_f(x_cls +
+    the plain version's context rounded to bf16) (ops/cuda/layer.py::
+    cls_context_ref) at two bf16 steps of its largest magnitude. Every
+    CLS_EDGE_LENGTHS length at head dims 16, 32, 64 and 80 and at the padded
+    widths (cls_isolated_geometries), bfloat16, batch 4 and a ragged batch of
+    9 (a cluster of the K/V launch part empty, the q blocks part full).
+    Returns one record per call: tag, err and tol, and B2's launches by kind
+    as the C counters and the wrapper's tally saw them and as the mirror
+    (cls_logits_launches) plans them. Also run by kernel_variants.py's
+    `faults`, on libraries with faults planted in B2."""
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_norm, layer_slice
+    from vit_pruning_tpu_torch.ops.cuda import layer as kl
+    from vit_pruning_tpu_torch.ops.cuda.widths import LAYER_MULTIPLE, round_up
+
+    gen = torch.Generator().manual_seed(SEED + 19)
+    bf, out = torch.bfloat16, []
+    for gname, gcfg in cls_isolated_geometries():
+        nh, eps, d = gcfg.num_heads, gcfg.layernorm_eps, gcfg.hidden_size
+        p = init_vit_params(gcfg.replace(num_layers=1, attn_head_dim=None), gen, "cpu")
+        st = perturbed_layer(p["layers"], gen)
+        if gcfg.attn_head_dim:  # the attention narrower than D
+            st = narrow_attention(st, nh * gcfg.attn_head_dim)
+        lp, f, h = cls_identity_tail(tree_to(layer_slice(st, 0), dev, bf),
+                                     tree_to(p["ln_f"], dev, bf), gen)
+        ones = {"g": torch.ones(d, device=dev), "b": torch.zeros(d, device=dev)}
+        for s in CLS_EDGE_LENGTHS:
+            for batch in (4, 9):
+                x = (1e-5 * torch.randn(batch, s, d, generator=gen)).to(dev, bf)
+                kl.reset_cls_launch_counts()
+                got = kl.fused_vit_layer_cls_logits(x, lp, f, h, nh, eps)
+                torch.cuda.synchronize()
+                ran, tally = kl.cls_launch_counts(), dict(kl.cls_launches)
+                ctx = kl.cls_context_ref(x, lp, nh, eps).to(bf).float()
+                pad = torch.nn.functional.pad(ctx, (0, d - ctx.shape[1]))
+                ref = layer_norm(x[:, 0].float() + pad, ones, eps)
+                dd = (got.float() - ref).abs().max().item()
+                if not math.isfinite(dd):
+                    dd = math.inf
+                tol = bf16_tol(ref)
+                tag = f"isolated B2 {gname} B={batch} S={s}"
+                say(f"  {tag}: max_abs_err {dd:.3e} (tol {tol:.2e}), launches {ran}")
+                out.append({"tag": tag, "d": dd, "tol": tol, "ran": ran, "tally": tally,
+                            "plan": kl.cls_logits_launches(bf, gcfg.head_dim, s,
+                                                           round_up(d, LAYER_MULTIPLE))})
     return out
 
 
@@ -2143,13 +2248,30 @@ def main():
 
     # --- 4. B2 against its plain version ------------------------------------------------
     check = Checks("phase 4 (B2 vs plain)")
+    # the launch plan's mirror against the C rule (csrc/cls_logits.cu::vpt_cls_logits_plan)
+    plan_c = (ctypes.c_longlong * len(kl.CLS_LAUNCH_KINDS))()
+    apart = []
+    for code, dt in enumerate((torch.float32, torch.bfloat16, torch.float16)):
+        for hd in (8, 16, 32, 48, 64, 80, 96, 128):
+            for s in list(range(0, 800)) + [9000, 30000]:
+                for d in (104, 384, 1280):
+                    rc = lib.vpt_cls_logits_plan(code, hd, s, d, plan_c)
+                    c_plan = None if rc else dict(zip(kl.CLS_LAUNCH_KINDS, plan_c))
+                    if c_plan != kl.cls_logits_launches(dt, hd, s, d):
+                        apart.append((code, hd, s, d))
+    log(f"  cls_logits_launches against the C plan on {3 * 8 * 802 * 3} inputs: {len(apart)} apart")
+    check(not apart, f"cls_logits_launches differs from the C plan at {apart[:3]}")
     for gname, (gcfg, lp_cpu) in geometries.items():
         for dname, dt in dtypes.items():
             lp, f, h = (tree_to(t, dev, dt) for t in (lp_cpu, lnf, head))
             for s in (197, 99, 33, 17):
                 x = torch.randn(8, s, gcfg.hidden_size, generator=gen).to(dev, dt)
+                kl.reset_cls_launch_counts()
                 got = kl.fused_vit_layer_cls_logits(x, lp, f, h, gcfg.num_heads,
                                                     gcfg.layernorm_eps)
+                torch.cuda.synchronize()
+                ran, tally = kl.cls_launch_counts(), dict(kl.cls_launches)
+                plan = kl.cls_logits_launches(dt, gcfg.head_dim, s, gcfg.hidden_size)
                 ref = kl.fused_vit_layer_cls_logits_ref(x, lp, f, h, gcfg.num_heads,
                                                         gcfg.layernorm_eps)
                 torch.cuda.synchronize()
@@ -2158,8 +2280,16 @@ def main():
                 if dt == torch.float32:
                     err["b2"] = max(err["b2"], d)
                 tag = f"B2 {gname} {dname} S={s}"
-                log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.1e})")
+                log(f"  {tag}: max_abs_err {d:.3e} (tol {tol:.1e}); launches "
+                    f"{ {k: v for k, v in ran.items() if v} }")
                 check(got.shape == (8, 100) and bool(torch.isfinite(got).all()) and d <= tol, tag)
+                check(ran == tally == plan, f"{tag}: launches {ran}, tally {tally}, plan {plan}")
+                if dt == torch.bfloat16:
+                    check(sum(ran.values()) <= 4, f"{tag}: {sum(ran.values())} launches")
+    for r in cls_attention_isolated(dev, log):
+        check(r["d"] <= r["tol"], f"{r['tag']}: err {r['d']:.3e} > tol {r['tol']:.2e}")
+        check(r["ran"] == r["tally"] == r["plan"] and sum(r["ran"].values()) == 3,
+              f"{r['tag']}: launches {r['ran']}, tally {r['tally']}, plan {r['plan']}")
     check.done()
 
     # --- 4b. B3 against its plain version -----------------------------------------------
@@ -2639,8 +2769,10 @@ def main():
     check.done()
 
     # --- 5. end to end: kernels vs plain PyTorch, launch counts -------------------------
-    # B1-B5's attention launches per body from here to phase 5h's end, read in phase 6
+    # B1-B5's attention launches per body and B2's launches by kind from here to phase
+    # 5h's end, read in phase 6
     kl.reset_attention_body_counts()
+    kl.reset_cls_launch_counts()
     rs = np.random.RandomState(SEED)
 
     def images(batch):
@@ -3374,6 +3506,12 @@ def main():
     # B1-B5's attention on phases 5-5h: every bf16 launch on a wgmma body, the streamed one
     # included (5e's S 257, 5g's S 577), as the mirror says
     attn_tally = attention_bodies_agree("5-5h")
+    # B2's launches by kind on phases 5-5h: the C counters equal to the wrapper's tally by
+    # the mirror of the C plan (every bf16 call three launches, every f32 call ten)
+    b2_kinds, b2_tally = kl.cls_launch_counts(), dict(kl.cls_launches)
+    log(f"  B2's launches on phases 5-5h by kind: C {b2_kinds}, the wrapper's tally {b2_tally}")
+    if b2_kinds != b2_tally or not b2_kinds["tail"] or not b2_kinds["fma"]:
+        raise AssertionError(f"phase 6: B2's launches {b2_kinds} against the tally {b2_tally}")
     if not sum(per["wgmma_streamed"] for per in attn_tally.values()):
         raise AssertionError("phase 6: the streamed attention body never ran on phases 5-5h")
     dense_fam = None
@@ -3474,28 +3612,68 @@ def main():
             f"eager layer (bf16 cuBLAS) {e_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
         if (gname, s) == ("deit_s", 197):
             kernel_ms["b1"], bounds["b1"] = (k_ms, p_ms, e_ms), (b_ms, b_by)
-    for s in (99, 197):
-        x = torch.randn(512, s, cfg.hidden_size, generator=gen).to(dev, bf)
+    def cls_library(gcfg, glp, gf, gh):
+        """B2's function as a CLS-only composition of PyTorch calls (bf16: cuBLAS, the
+        fused layer norm, SDPA; another rounding): LN1 over every row, one addmm for K
+        and V, scaled_dot_product_attention with one query an image, then addmm /
+        layer_norm / gelu for the tail on the B rows. The fused K/V weights are made
+        once, outside the timed call."""
+        fn = torch.nn.functional
+        a, mlp, eps = glp["attn"], glp["mlp"], gcfg.layernorm_eps
+        nh, hd, d = gcfg.num_heads, gcfg.head_dim, gcfg.hidden_size
+        kvw = torch.cat([a["k"]["w"], a["v"]["w"]], 1)
+        kvb = torch.cat([a["k"]["b"], a["v"]["b"]])
+
+        def run(x):
+            b, s, _ = x.shape
+            h1 = fn.layer_norm(x, (d,), glp["ln1"]["g"], glp["ln1"]["b"], eps)
+            kv = torch.addmm(kvb, h1.view(b * s, d), kvw).view(b, s, 2, nh, hd)
+            q = torch.addmm(a["q"]["b"], h1[:, 0], a["q"]["w"]).view(b, nh, 1, hd)
+            ctx = fn.scaled_dot_product_attention(q, kv[:, :, 0].transpose(1, 2),
+                                                  kv[:, :, 1].transpose(1, 2))
+            x1 = torch.addmm(a["o"]["b"], ctx.reshape(b, nh * hd), a["o"]["w"]) + x[:, 0]
+            m = fn.gelu(torch.addmm(mlp["fc1"]["b"], fn.layer_norm(
+                x1, (d,), glp["ln2"]["g"], glp["ln2"]["b"], eps), mlp["fc1"]["w"]),
+                approximate="tanh")
+            x2 = torch.addmm(mlp["fc2"]["b"], m, mlp["fc2"]["w"]) + x1
+            return torch.addmm(gh["b"], fn.layer_norm(x2, (d,), gf["g"], gf["b"], eps), gh["w"])
+        return run
+
+    def cls_work(gcfg, b: int, s: int, labels: int = 100) -> float:
+        """B2's operations: the K/V product over every token, q, O, fc1, fc2 and the
+        classifier on the CLS rows, QK^T and PV of the CLS query."""
+        d, kw, m = gcfg.hidden_size, gcfg.attn_width, gcfg.mlp_dim
+        return (2.0 * b * s * d * 2 * kw + 2.0 * b * (d * kw + kw * d + 2 * d * m + d * labels)
+                + 4.0 * b * gcfg.num_heads * s * gcfg.head_dim)
+
+    b2_lines = {}
+    for gname, s in (("deit_s", 99), ("deit_s", 197), ("composed", 33), ("composed", 17)):
+        gcfg = geometries[gname][0]
+        glp = tree_to(geometries[gname][1], dev, bf)
+        x = torch.randn(512, s, gcfg.hidden_size, generator=gen).to(dev, bf)
         k_ms, p_ms = abba(
-            lambda: kl.fused_vit_layer_cls_logits(x, lp, f, h, cfg.num_heads),
-            lambda: kl.fused_vit_layer_cls_logits_ref(x, lp, f, h, cfg.num_heads))
+            lambda: kl.fused_vit_layer_cls_logits(x, glp, f, h, gcfg.num_heads),
+            lambda: kl.fused_vit_layer_cls_logits_ref(x, glp, f, h, gcfg.num_heads))
+        lib_fn = cls_library(gcfg, glp, f, h)
+        c_ms = time_ms(lambda: lib_fn(x))
+        c_err = rel_err(lib_fn(x), kl.fused_vit_layer_cls_logits_ref(x, glp, f, h, gcfg.num_heads))
 
         def eager_cls():  # the plain path's tail: whole last layer, LN_f, head on CLS
-            y = layer_norm(vit_layer(x, lp, cfg), f, cfg.layernorm_eps)[:, 0]
+            y = layer_norm(vit_layer(x, glp, gcfg), f, gcfg.layernorm_eps)[:, 0]
             return y @ h["w"] + h["b"]
 
         with kernel_mode("eager"):
             e_ms = time_ms(eager_cls)
-        d, kw, m = cfg.hidden_size, cfg.attn_width, cfg.mlp_dim
-        flops = (2.0 * 512 * s * d * 2 * kw + 2.0 * 512 * (d * kw + kw * d + 2 * d * m + d * 100)
-                 + 4.0 * 512 * cfg.num_heads * s * cfg.head_dim)
-        nbytes = (x.numel() * x.element_size() + 512 * 100 * 2 + weight_bytes(lp)
+        nbytes = (x.numel() * x.element_size() + 512 * 100 * 2 + weight_bytes(glp)
                   + weight_bytes(f) + weight_bytes(h))
-        b_ms, b_by = bound(flops, nbytes)
-        log(f"  B2 deit_s S={s}: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, eager "
-            f"last layer + LN_f + head {e_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
-        if s == 99:
-            kernel_ms["b2"], bounds["b2"] = (k_ms, p_ms, e_ms), (b_ms, b_by)
+        b_ms, b_by = bound(cls_work(gcfg, 512, s), nbytes)
+        log(f"  B2 {gname} S={s}: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, CLS-only "
+            f"library composition {c_ms:.3f} ms (relative {c_err:.2e} from the plain version), "
+            f"eager last layer + LN_f + head {e_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}, "
+            f"{100 * b_ms / k_ms:.1f}%)")
+        b2_lines[f"{gname}_s{s}"] = {"ms": k_ms, "library_ms": c_ms, "eager_whole_layer_ms": e_ms}
+        if (gname, s) == ("deit_s", 99):
+            kernel_ms["b2"], bounds["b2"] = (k_ms, p_ms, c_ms), (b_ms, b_by)
     x = torch.randn(512, 197, cfg.hidden_size, generator=gen).to(dev, bf)
     mask = random_mask(512, 197, torch.full((512,), 99))  # topk50's bucket, every image full
     dest = compact_dest(mask)
@@ -3723,11 +3901,10 @@ def main():
     k_ms, p_ms = abba(lambda: kl.fused_vit_layer_cls_logits(x, hlp, fh, hh, hcfg.num_heads),
                       lambda: kl.fused_vit_layer_cls_logits_ref(x, hlp, fh, hh, hcfg.num_heads),
                       **quick)
-    d, kw, m = hcfg.hidden_size, hcfg.attn_width, hcfg.mlp_dim
-    flops = (2.0 * hbatch * 129 * d * 2 * kw + 2.0 * hbatch * (d * kw + kw * d + 2 * d * m + d * 100)
-             + 4.0 * hbatch * hcfg.num_heads * 129 * hcfg.head_dim)
-    b_ms, b_by = bound(flops, x.numel() * 2 + hbatch * 200 + weight_bytes(hlp) + weight_bytes(fh)
-                       + weight_bytes(hh))
+    b_ms, b_by = bound(cls_work(hcfg, hbatch, 129), x.numel() * 2 + hbatch * 200
+                       + weight_bytes(hlp) + weight_bytes(fh) + weight_bytes(hh))
+    lib_fn = cls_library(hcfg, hlp, fh, hh)
+    c_ms = time_ms(lambda: lib_fn(x), **quick)
 
     def eager_cls_h():  # the plain path's tail: whole last layer, LN_f, head on CLS
         y = layer_norm(vit_layer(x, hlp, hcfg), fh, hcfg.layernorm_eps)[:, 0]
@@ -3735,8 +3912,10 @@ def main():
 
     with kernel_mode("eager"):
         e_ms = time_ms(eager_cls_h, **quick)
-    log(f"  B2 vit_h S=129: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, eager last layer + "
-        f"LN_f + head {e_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
+    log(f"  B2 vit_h S=129: kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, CLS-only library "
+        f"composition {c_ms:.3f} ms, eager last layer + LN_f + head {e_ms:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / k_ms:.1f}%)")
+    b2_lines["vit_h_s129_b64"] = {"ms": k_ms, "library_ms": c_ms, "eager_whole_layer_ms": e_ms}
     x = torch.randn(hbatch, 257, hcfg.hidden_size, generator=gen).to(dev, bf)
     mask = random_mask(hbatch, 257, torch.full((hbatch,), 129))  # topk50's bucket, full
     dest = compact_dest(mask)
@@ -3857,7 +4036,7 @@ def main():
     pkg = "vit_pruning_tpu_torch"
     rows = (  # key, wrapper, csrc file, the TPU kernel's file and line, launches
         ("b1", "fused_vit_layer", "layer", "layer", 359, launches["b1"] + launches["b1_redecide"]),
-        ("b2", "fused_vit_layer_cls_logits", "layer", "layer", 561, launches["b2"]),
+        ("b2", "fused_vit_layer_cls_logits", "cls_logits", "layer", 561, launches["b2"]),
         ("b3", "fused_vit_layer_bucketed", "layer", "layer", 761, launches["b3"]),
         ("b4", "fused_vit_layer_int8", "layer_int8", "layer_int8", 154, launches["b4"]),
         ("b5", "fused_vit_encoder", "encoder", "model", 150, launches["b5"]),
@@ -3870,7 +4049,8 @@ def main():
     # B1, B3, B4, B5: their attention's launches per body on phases 5-5h (B5: one a layer),
     # a wider window than `launches` (5-5d and 5f): it adds ViT-H (5e), S 577 (5g) and the
     # train steps (5h), so the key names it
-    by_body = {**bodies67, **b8_bodies, "b4": {"wgmma_s8": launches["b4"]}}
+    by_body = {**bodies67, **b8_bodies, "b4": {"wgmma_s8": launches["b4"]},
+               "b2": {"by_kind_5_to_5h": b2_kinds}}
     for key in ("b1", "b3", "b4", "b5"):
         by_body[key] = {**by_body.get(key, {}), "attention_5_to_5h": attn_tally.get(key, {})}
     kernels = [
@@ -3880,6 +4060,8 @@ def main():
          "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": kernel_ms[key][2],
          **({"launches_by_body": by_body[key]} if key in by_body else {}),
          **({"products_on_wgmma_s8": launches["b4_s8"]} if key == "b4" else {}),
+         **({"library": "CLS-only composition (layer_norm, addmm, SDPA)",
+             "times_by_shape": b2_lines} if key == "b2" else {}),
          **({"launches_train": trained["launches"][key]} if key in trained["launches"] else {}),
          "launches_cli": {run: c[key] for run, c in cli_run["launches"].items()},
          "launches_gate": gate_run["launches"][key],

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where the hand-written bodies of kernels B1, B4, B6, B7 and B8a spend their time, on one
-GPU; whether phase 3m of chip_smoke.py catches faults planted in B1-B5's attention body;
-and the layer kernels' times for a checkout.
+"""Where the hand-written bodies of kernels B1, B2, B4, B6, B7 and B8a spend their time, on
+one GPU; whether phases 3m and 4 of chip_smoke.py catch faults planted in B1-B5's attention
+body and in B2's launches; and the layer kernels' times for a checkout.
 
-    python3 kernel_variants.py [b7] [b6] [b4] [b8a] [b1]    (no argument: all five)
+    python3 kernel_variants.py [b7] [b6] [b4] [b8a] [b1] [b2]    (no argument: all six)
 
 Each kernel is built again from its sources (vit_pruning_tpu_torch/csrc) with one
 stage taken out or swapped: a diagnostic variant, not a kernel of the port. Each
@@ -19,7 +19,13 @@ and last (CUDA events, mean of 20 after 3 warm-ups):
     the whole bf16 layer at DeiT-S, batch 512, S 197 and 99 (the resident body) and
     ViT-H, batch 64, S 257 (the streamed one), unmasked; each variant of the attention
     body is also compiled with ptxas -v, and the registers and spills of its
-    instances are printed.
+    instances are printed;
+  - B2 (csrc/cls_logits.cu), through its C entry at B2_SHAPES (DeiT-S batch 512 at S 99,
+    33, 17, full and composed width; ViT-H batch 64 at S 129): where V lives (the
+    accumulators, shared memory, recomputed), the K/V launch's ring (three stages), the
+    items by head group, its CLS attention epilogue, LN1 or q left out, the tail's
+    cluster (8, 16); every variant compiled with
+    ptxas -v, the registers and spills of every instance printed.
 Each line gives the variant's time and its largest distance from the real kernel's
 output: 0 where a variant computes the same numbers another way.
 
@@ -28,12 +34,14 @@ output: 0 where a variant computes the same numbers another way.
 builds the attention body again with a fault planted in it (ATTENTION_FAULTS: masked
 keys taken as valid, a uniform softmax, a misplaced chunk of V, a wrong normaliser),
 loads each library in the package's place and runs chip_smoke.py's isolated attention
-cases (phase 3m's attention_isolated) through the wrappers: the real body must pass
+cases (phase 3m's attention_isolated) through the wrappers; then the same for B2's
+launches (B2_FAULTS: a uniform softmax, the last key tile dropped, another head's V, P
+left unnormalised) with phase 4's cls_attention_isolated. The real kernels must pass
 every case and each fault must fail some; it exits non-zero otherwise.
 
     python3 kernel_variants.py times [CHECKOUT]
 
-times the layer kernels B1, B3, B4 and B5 and the dense forward's attention family in
+times the layer kernels B1, B2, B3, B4 and B5 and the dense forward's attention family in
 bf16 for the package of CHECKOUT (default: this one; another commit unpacked with `git
 archive`, say, whose kernels are then built there), alone in its process. To compare
 two commits, run parent, change, change, parent in one call on one card. The shapes
@@ -41,8 +49,11 @@ are the main path's: DeiT-S at batch 512 (S 197 and 99; B3 at S 197 with capacit
 every image full; B1 at S 577, batch 128: DeiT-S at 384), ViT-H at batch 64 (S 257
 and 129), random weights and inputs from fixed seeds; CUDA events, the mean of 10
 launches after 3 (5 after 3 for the longer ones); the dense forward's device time by
-kernel family (attention or not) from torch.profiler over 3 forwards. It prints one
-JSON object of the times (ms) with the card's name and power limit.
+kernel family (attention or not) from torch.profiler over 3 forwards; B2 at B2_SHAPES
+(CUDA events, and each of its launches' device us with the gap before it, from
+torch.profiler); the headline, composed and ultra forwards (serving_forward from uint8,
+DeiT-S batch 512, ending in B2). It prints one JSON object of the times (ms) with the
+card's name and power limit.
 
 Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda), like chip_smoke.py; the
 last line is the card's name and power limit.
@@ -145,6 +156,66 @@ ATTENTION_FAULTS = [
     ("wrong normaliser", "each row's sum over two of its quad's four lanes only",
      [("layer_attention.cu", "  return s + __shfl_xor_sync(0xffffffffu, s, 2);", "  return s;")]),
 ]
+# B2's bf16 launches (csrc/cls_logits.cu): where V lives, the K/V ring's depth, the
+# order of the items, the tail's cluster
+CLS_V_RULE = "  if (kv_passes(S) == 1) return V_REGISTERS;\n"
+CLS_V_SIZE = ("  return (long)kv_tiles(S) * 64 * kv_width(hd) * 2 <= kVResident ? V_SHARED : "
+              "V_RECOMPUTED;\n")
+CLS_TAIL_C = "inline int tail_cluster(int B) { return (B + 63) / 64 <= 2 ? 16 : 8; }"
+B2_VARIANTS = [
+    ("kernel", "B2's launches as they are", []),
+    ("V in shared memory", "V kept in shared memory wherever an item is one image (S > 64), "
+     "not in the accumulators",
+     [("cls_logits.cu", CLS_V_RULE, "  if (kv_images(S) == 2) return V_REGISTERS;\n"),
+      ("cls_logits.cu", CLS_V_SIZE, "  return V_SHARED;\n")]),
+    ("V recomputed", "V recomputed by a second sweep over the tiles at every length",
+     [("cls_logits.cu", CLS_V_RULE, ""), ("cls_logits.cu", CLS_V_SIZE, "  return V_RECOMPUTED;\n")]),
+    ("three stages", "the K/V launch's ring at three stages (not as many as fit, up to six)",
+     [("cls_logits.cu", "constexpr int kKvMaxStages = 6;", "constexpr int kKvMaxStages = 3;")]),
+    ("groups fastest", "consecutive items take one image's head groups (x read by them at once), "
+     "not consecutive images of one group",
+     [("cls_logits.cu", "int item_group(int item, int nim, int groups) { return item / nim; }",
+       "int item_group(int item, int nim, int groups) { return item % groups; }"),
+      ("cls_logits.cu", "int item_image(int item, int nim, int groups) { return item % nim; }",
+       "int item_image(int item, int nim, int groups) { return item / groups; }")]),
+    ("no CLS attention", "the K/V launch's epilogue left out (logits, softmax, P V): its loads, "
+     "LN1 and products alone",
+     [("cls_logits.cu", "        const int rbase = tile * 64 + wl * 16 + (lane >> 2);  // + 8 ((i / 2) % 2)\n"
+       "        if (set == 0) {",
+       "        const int rbase = tile * 64 + wl * 16 + (lane >> 2);  // + 8 ((i / 2) % 2)\n"
+       "        if (set == 0 && S < 0) {"),
+      ("cls_logits.cu", "        if (set == 0 && pass == npass - 1) {", "        if (set == 0 && pass == npass - 1 && S < 0) {"),
+      ("cls_logits.cu", "        if ((mode == V_REGISTERS && set == 0) || (mode == V_RECOMPUTED && set == 1)) {",
+       "        if (S < 0) {")]),
+    ("no LN1", "x reaches wgmma as it arrives, not normalised",
+     [("cls_logits.cu", "        if (active) norm_box(s, 0);\n", ""),
+      ("cls_logits.cu", "            if (active) norm_box(s1, kc + 1);\n", "")]),
+    ("no q", "no q.w boxes and no q product (q = 0)",
+     [("cls_logits.cu", "(2 + (withq ? 3 : 2) * NBH) * BOX", "(2 + 2 * NBH) * BOX"),
+      ("cls_logits.cu", "                if (withq)\n                  tma_load_2d(", "                if (withq && S < 0)\n                  tma_load_2d("),
+      ("cls_logits.cu", "                if (withq) wgmma_m64n80k16(accq,", "                if (withq && S < 0) wgmma_m64n80k16(accq,"),
+      ("cls_logits.cu", "                if (withq)\n                  wgmma_m64n64k16<1>(accq,", "                if (withq && S < 0)\n                  wgmma_m64n64k16<1>(accq,")]),
+    ("tail in clusters of 8", "the tail's cluster of 8 blocks at every batch",
+     [("cls_logits.cu", CLS_TAIL_C, "inline int tail_cluster(int B) { return 8; }")]),
+    ("tail in clusters of 16", "the tail's cluster of 16 blocks at every batch",
+     [("cls_logits.cu", CLS_TAIL_C, "inline int tail_cluster(int B) { return 16; }")]),
+]
+# Faults planted in B2's bf16 launches, each of which chip_smoke.py's phase 4 must
+# catch in its isolated cases (cls_attention_isolated)
+CLS_LOGIT = "if ((lane & 3) == 0 && h < hv && j < S) lg[h * spad + j] = l * scale;"
+B2_FAULTS = [
+    ("kernel", "B2's launches as they are: no case may fail", []),
+    ("uniform softmax", "every logit 0: P V the average of V",
+     [("cls_logits.cu", CLS_LOGIT, CLS_LOGIT.replace("= l * scale;", "= 0.f * l;"))]),
+    ("last key tile dropped", "the logits of the image's last 64-row tile -inf (where it has "
+     "more than one)",
+     [("cls_logits.cu", CLS_LOGIT,
+       CLS_LOGIT.replace("= l * scale;", "= tile == ntiles - 1 && ntiles > 1 ? -INFINITY : l * scale;"))]),
+    ("another head's V", "the V boxes of the next head group",
+     [("cls_logits.cu", "KW + g * W + j * 64,", "KW + ((g + 1) % ((H + NH - 1) / NH)) * W + j * 64,")]),
+    ("P unnormalised", "P = exp(l - max), rounded, without the division by the sum",
+     [("cls_logits.cu", "l[j] = round_to<bf16>(__fdiv_rn(l[j], sum));", "l[j] = round_to<bf16>(l[j]);")]),
+]
 # Every variant of a source is loaded into one process: a static local of an
 # inline or template function is one symbol across the libraries, so the
 # attribute call must run in each.
@@ -200,7 +271,8 @@ def build_variants(build, src: str, variants, out_dir: Path, extra=(), ptxas=Fal
     outs = wait(procs)
     if ptxas:
         for name, _, _ in variants:
-            print_ptxas(f"{src}.cu variant {name!r}", outs[f"{src}.cu variant {name!r}"])
+            print_ptxas(f"{src}.cu variant {name!r}", outs[f"{src}.cu variant {name!r}"],
+                        PTXAS_KERNELS.get(src, ""))
     sos = {name: obj.with_suffix(".so") for name, obj in objs.items()}
     wait({f"link {name!r}": nvcc_proc(["-shared", "-o", str(sos[name]), str(obj),
                                        *map(str, extra_objs), *links])
@@ -215,15 +287,20 @@ def build_variants(build, src: str, variants, out_dir: Path, extra=(), ptxas=Fal
     return libs
 
 
-def print_ptxas(what: str, text: str):
-    """Registers and spills of every kernel in ptxas -v's output."""
+# the kernels whose registers and spills a variant mode prints (B2: its bf16 launches)
+PTXAS_KERNELS = {"layer_attention": "", "cls_logits": "cls_(ln1_stats|kv_attention|tail)"}
+
+
+def print_ptxas(what: str, text: str, only: str = ""):
+    """Registers and spills of every kernel in ptxas -v's output (those whose
+    name matches the regular expression `only`)."""
     kernel = None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             kernel = subprocess.run(["c++filt", m.group(1)], capture_output=True,
                                     text=True).stdout.strip().split("(")[0]
-        elif kernel and ("registers" in line or "spill" in line):
+        elif kernel and ("registers" in line or "spill" in line) and re.search(only, kernel):
             print(f"{what}: {kernel}: {line.split(':', 1)[-1].strip()}", flush=True)
 
 
@@ -311,20 +388,26 @@ def main():
         return
     from vit_pruning_tpu_torch.ops.cuda import build
 
-    chosen = sys.argv[1:] or ["b7", "b6", "b4", "b8a", "b1"]
+    chosen = sys.argv[1:] or ["b7", "b6", "b4", "b8a", "b1", "b2"]
+
+    def others(stem):
+        return tuple(f.stem for f in sorted(build.CSRC_DIR.glob("*.cu")) if f.stem != stem)
+
     plans = {"b7": ("mlp", B7_VARIANTS, ()), "b6": ("attention", B6_VARIANTS, ()),
              "b4": ("layer_int8", B4_VARIANTS, ("layer", "layer_attention", "gemm")),
              "b8a": ("embed", B8A_VARIANTS, ()),
              "b1": ("layer_attention", B1_VARIANTS, ("layer", "gemm")),
-             "faults": ("layer_attention", ATTENTION_FAULTS,
-                        tuple(f.stem for f in sorted(build.CSRC_DIR.glob("*.cu"))
-                              if f.stem != "layer_attention"))}
+             "b2": ("cls_logits", B2_VARIANTS, others("cls_logits")),
+             "faults": ("layer_attention", ATTENTION_FAULTS, others("layer_attention")),
+             "faults_b2": ("cls_logits", B2_FAULTS, others("cls_logits"))}
+    if "faults" in chosen:
+        chosen = chosen + ["faults_b2"]
     if not set(chosen) <= set(plans):
         sys.exit(f"kernel_variants: kernels {chosen}; it knows {sorted(plans)}")
     with tempfile.TemporaryDirectory() as tmp:
         with ThreadPoolExecutor(len(chosen)) as pool:  # every nvcc process at once
             futures = {key: pool.submit(build_variants, build, src, variants, Path(tmp) / key,
-                                        extra, key == "b1")
+                                        extra, key in ("b1", "b2"))
                        for key, (src, variants, extra) in plans.items() if key in chosen}
             libs = {key: f.result() for key, f in futures.items()}
         dev, gen = "cuda", torch.Generator().manual_seed(0)
@@ -342,8 +425,11 @@ def main():
             b8a_report(libs["b8a"], gen, dev, stream)
         if "b1" in libs:
             b1_report(libs["b1"], gen, dev, stream)
+        if "b2" in libs:
+            b2_report(libs["b2"], gen, dev, stream)
         if "faults" in libs:
-            faults_report(build, libs["faults"], dev)
+            faults_report(build, libs["faults"], dev, ATTENTION_FAULTS, "attention_isolated")
+            faults_report(build, libs["faults_b2"], dev, B2_FAULTS, "cls_attention_isolated")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
@@ -428,28 +514,173 @@ def b1_report(libs: dict, gen, dev, stream):
         del x, out, ws, w
 
 
-def faults_report(build, libs: dict, dev):
-    """chip_smoke.py's isolated attention cases through the package's
-    wrappers with each library of ATTENTION_FAULTS in the package's place:
-    the real body must pass every case, each fault must fail at least one."""
+def faults_report(build, libs: dict, dev, faults, cases: str):
+    """chip_smoke.py's isolated cases (`cases`: phase 3m's attention_isolated
+    or phase 4's cls_attention_isolated) through the package's wrappers with
+    each library of `faults` in the package's place: the real kernel must
+    pass every case, each fault must fail at least one."""
     import chip_smoke
 
     real, wrong = build.load_library, []
     try:
-        for name, what, _ in ATTENTION_FAULTS:
+        for name, what, _ in faults:
             build.load_library = lambda lib=libs[name]: lib
-            recs = chip_smoke.attention_isolated(dev, lambda msg: None)
+            recs = getattr(chip_smoke, cases)(dev, lambda msg: None)
             ratio = [r["d"] / r["tol"] if math.isfinite(r["d"]) else math.inf for r in recs]
             bad = sum(not q <= 1.0 for q in ratio)
             worst = max(range(len(recs)), key=lambda i: ratio[i])
-            print(f"attention fault {name!r}: {bad} of {len(recs)} isolated cases fail, worst "
+            print(f"{cases} fault {name!r}: {bad} of {len(recs)} isolated cases fail, worst "
                   f"err / tol {ratio[worst]:.3g} ({recs[worst]['tag']}) ({what})", flush=True)
             if (bad > 0) != (name != "kernel"):
                 wrong.append(name)
     finally:
         build.load_library = real
     if wrong:
-        raise RuntimeError(f"phase 3m's isolated cases misjudge {wrong}")
+        raise RuntimeError(f"{cases} misjudges {wrong}")
+
+
+def b2_report(libs: dict, gen, dev, stream):
+    """B2's C entry at B2_SHAPES in bf16 (100 labels, padded to 104 as the
+    wrapper pads them), random weights: each variant of B2_VARIANTS timed
+    beside the kernel, the kernel first and last."""
+    from vit_pruning_tpu_torch.configs import deit_small, vit_huge
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_slice
+    from vit_pruning_tpu_torch.ops.cuda.layer import _cls_weights
+    from vit_pruning_tpu_torch.ops.cuda.widths import pad_dim
+    from vit_pruning_tpu_torch.ops.structured import prune_heads, prune_mlp_channels
+
+    bf = torch.bfloat16
+    for tag, model, heads, mlp, b, s in B2_SHAPES:
+        cfg = (deit_small if model == "deit_s" else vit_huge)(num_labels=100)
+        p = init_vit_params(cfg.replace(num_layers=1), gen, "cpu")
+        if heads < cfg.num_heads:
+            bb, cfg = prune_heads(p, cfg, [list(range(heads))])
+            p = prune_mlp_channels(bb, [list(range(mlp))])
+        p = tree_to(p, dev, bf)
+        head = {"w": pad_dim(p["head"]["w"], 1, 104), "b": pad_dim(p["head"]["b"], 0, 104)}
+        w = list(_cls_weights(layer_slice(p["layers"], 0), p["ln_f"], head).values())
+        d, h, m, kw = cfg.hidden_size, cfg.num_heads, mlp, cfg.attn_width
+        x = torch.randn(b, s, d, generator=gen).to(dev, bf)
+        out = torch.empty((b, 104), dtype=bf, device=dev)
+        f32 = {"dtype": torch.float32, "device": dev}
+        ws = [torch.empty((b, d), dtype=bf, device=dev), torch.empty((b * s + 72, 2), **f32),
+              None, torch.empty((b, kw), dtype=bf, device=dev), torch.empty((b, d), **f32),
+              torch.empty((b, m), dtype=bf, device=dev), torch.empty((b, d), **f32)]
+        report(f"B2 {tag}", B2_VARIANTS, {
+            name: (lambda lib=lib: lib.vpt_vit_cls_logits_forward(
+                1, x.data_ptr(), *(t.data_ptr() for t in w), out.data_ptr(),
+                *(None if t is None else t.data_ptr() for t in ws), b, s, d, h, kw // h, m, d, 104,
+                cfg.layernorm_eps,
+                stream)) for name, lib in libs.items()}, out)
+        del x, out, ws, w
+
+
+def launch_profile(fn, calls: int = 3) -> dict:
+    """The device kernels of one call of fn, in order, from torch.profiler
+    over `calls` calls (each synchronised): each launch's name, device us and
+    the gap before it (from the previous launch's end), and the call's span
+    (first start to last end) and busy us (the launches' sum); the last of
+    the calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile that saw no device kernel is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+                torch.cuda.synchronize()
+        ks = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+        if ks:
+            break
+    per = len(ks) // calls
+    last = ks[len(ks) - per:]
+    out, prev = [], None
+    for e in last:
+        name = re.sub(r"^void ", "", e.name)[:70]
+        gap = 0.0 if prev is None else e.time_range.start - prev
+        out.append([name, round(e.time_range.end - e.time_range.start, 3), round(gap, 3)])
+        prev = e.time_range.end
+    span = last[-1].time_range.end - last[0].time_range.start if last else 0.0
+    return {"launches": len(last), "span_us": round(span, 3),
+            "busy_us": round(sum(k[1] for k in out), 3), "by_launch": out}
+
+
+# B2's shapes on the main path: (tag, model, heads kept of 6 (DeiT-S) or 16, MLP
+# kept, batch, S): the last layer of headline (S 99), composed (33) and ultra (17)
+# at DeiT-S batch 512, at full width and at composed / ultra's pruned width (3 of 6
+# heads, MLP 768); ViT-H/14's headline at batch 64 (S 129)
+B2_SHAPES = (("deit_s_s99", "deit_s", 6, 1536, 512, 99),
+             ("deit_s_s33", "deit_s", 6, 1536, 512, 33),
+             ("deit_s_s17", "deit_s", 6, 1536, 512, 17),
+             ("composed_s33", "deit_s", 3, 768, 512, 33),
+             ("composed_s17", "deit_s", 3, 768, 512, 17),
+             ("vit_h_s129_b64", "vit_h", 16, 5120, 64, 129))
+
+
+def b2_times(res: dict, gen, dev):
+    """B2 (fused_vit_layer_cls_logits) at B2_SHAPES in bf16, 100 labels:
+    CUDA events (mean of 10 after 3) and launch_profile's launches."""
+    from vit_pruning_tpu_torch.configs import deit_small, vit_huge
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_slice
+    from vit_pruning_tpu_torch.ops.cuda import layer as kl
+    from vit_pruning_tpu_torch.ops.structured import prune_heads, prune_mlp_channels
+
+    bf = torch.bfloat16
+    for tag, model, heads, mlp, b, s in B2_SHAPES:
+        cfg = (deit_small if model == "deit_s" else vit_huge)(num_labels=100)
+        p = init_vit_params(cfg.replace(num_layers=1), gen, "cpu")
+        if heads < cfg.num_heads:
+            bb, cfg = prune_heads(p, cfg, [list(range(heads))])
+            p = prune_mlp_channels(bb, [list(range(mlp))])
+        p = tree_to(p, dev, bf)
+        lp = layer_slice(p["layers"], 0)
+        x = torch.randn(b, s, cfg.hidden_size, generator=gen).to(dev, bf)
+
+        def call():
+            return kl.fused_vit_layer_cls_logits(x, lp, p["ln_f"], p["head"], cfg.num_heads)
+
+        res[f"b2_{tag}"] = time_ms(call, iters=10)
+        res[f"b2_{tag}_profile"] = launch_profile(call)
+        del x
+
+
+def serving_times(res: dict, gen, dev):
+    """The progressive forwards that end in B2 (serving_forward, kernel mode
+    auto, bf16, DeiT-S batch 512 from uint8 images, 100 labels): headline,
+    composed and ultra (3 of 6 heads, MLP 768), random weights with the
+    cls_mlp predictor; CUDA events, the mean of 10 after 3."""
+    from vit_pruning_tpu_torch.configs import (PruneConfig, composed_schedule, deit_small,
+                                               ultra_schedule)
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.models.pruned_vit import init_pruned_vit_params
+    from vit_pruning_tpu_torch.ops.dispatch import kernel_mode
+    from vit_pruning_tpu_torch.ops.structured import prune_heads, prune_mlp_channels
+    from vit_pruning_tpu_torch.serving import serving_forward
+
+    cfg = deit_small(num_labels=100)
+    n, L = cfg.num_patches, cfg.num_layers
+    base = init_pruned_vit_params(cfg, PruneConfig(mode="topk_prog", predictor="cls_mlp"), gen,
+                                  "cpu")
+    bb, c_cfg = prune_heads(base["backbone"], cfg, [list(range(0, cfg.num_heads, 2))] * L)
+    pruned = dict(base, backbone=prune_mlp_channels(bb, [list(range(0, cfg.mlp_dim, 2))] * L))
+
+    def pc(sched):
+        return PruneConfig(mode="topk_prog", predictor="cls_mlp", loss="mse_attention",
+                           top_k=sched[0], keep_schedule=sched)
+
+    u8 = torch.randint(0, 256, (512, 3, 224, 224), generator=gen, dtype=torch.uint8).to(dev)
+    for name, gcfg, pcfg, params in (
+            ("headline", cfg, PruneConfig(mode="topk_prog", predictor="cls_mlp",
+                                          loss="mse_attention", top_k=98), base),
+            ("composed", c_cfg, pc(composed_schedule(n, L)), pruned),
+            ("ultra", c_cfg, pc(ultra_schedule(n, L)), pruned)):
+        p = tree_to(params, dev, torch.bfloat16)
+        with kernel_mode("auto"):
+            res[f"{name}_ms"] = time_ms(lambda: serving_forward(p, u8, gcfg, pcfg), iters=10)
 
 
 def layer_times(checkout: str):
@@ -509,6 +740,8 @@ def layer_times(checkout: str):
         x = torch.randn(64, s, hcfg.hidden_size, generator=gen).to(dev, bf)
         res[f"vit_h_b1_s{s}_b64"] = time_ms(lambda: kl.fused_vit_layer(x, hlp, hcfg.num_heads),
                                             iters=5)
+    b2_times(res, gen, dev)
+    serving_times(res, gen, dev)
     pix = torch.randn(512, 3, 224, 224, generator=gen).to(dev, bf)
 
     def fwd():

@@ -1,5 +1,6 @@
 // Shared by the kernels' translation units (layer.cu, layer_attention.cu,
-// gemm.cu, layer_int8.cu, encoder.cu, attention.cu, mlp.cu, embed.cu): the
+// cls_logits.cu, gemm.cu, layer_int8.cu, encoder.cu, attention.cu, mlp.cu,
+// embed.cu): the
 // numerics helpers, the GEMM epilogue (bias, activation, residual, cast), the
 // f32 GEMM body that B1 and B8 share, the f32 attention kernel that B1-B5 (in
 // float32) and B6 share, and the declarations of the launchers that layer.cu,
@@ -26,9 +27,10 @@ __host__ __device__ constexpr bool layer_head_dim_ok(int hd) {
   return hd == 16 || hd == 32 || hd == 64 || hd == 80;
 }
 // The longest sequence whose keys the f32 attention kernel keeps resident
-// in shared memory for a whole (head, image), and whose logits B2's CLS
+// in shared memory for a whole (head, image), and whose logits B2's f32 CLS
 // attention keeps in registers: 9 chunks of 32 keys (the bf16 attention of
-// B1-B5 has limits of its own, layer_attention.cu). Longer
+// B1-B5 and B2's bf16 launches have limits of their own, layer_attention.cu,
+// cls_logits.cu). Longer
 // sequences (a position table resized past 288 tokens: DeiT-S at 384 gives
 // 577) stream their keys through shared memory in chunks, with the same
 // numerics.

@@ -1,4 +1,4 @@
-// The GEMMs of the layer kernels B1, B2, B3 and B5 (sm_90a): common.cuh's
+// The GEMMs of the layer kernels B1, B3 and B5 and of B2 in f32 (sm_90a): common.cuh's
 // gemm(), out[M, N] = epilogue(A[M, K] (row stride lda) @ W[K, N]), W dense
 // [K, N] row-major as the param tree stores it. Epilogue, in the TPU
 // kernels' order: + bias[n] (T), activation, + residual (T or f32), cast
@@ -8,9 +8,10 @@
 //   - wgmma.cuh's wgmma + TMA body wherever TMA can describe A and W
 //     (16-byte aligned, lda, N and K multiples of 8): every product of the
 //     layers at every geometry the kernels take;
-//   - the WMMA (mma.sync) body below otherwise: on the serving paths only
-//     B2's classifier when the label count is not a multiple of 8 (100 in
-//     the smoke test: 200-byte W rows).
+//   - the WMMA (mma.sync) body below otherwise: no product of the serving
+//     paths since B2's bf16 launches (cls_logits.cu) replaced its products
+//     and pad the classifier to a multiple of 8 labels; a direct gemm_bf16
+//     call with N % 8 != 0.
 // Each launch is counted per body (vpt_gemm_body_counts) and the shapes
 // that took the WMMA body are kept (vpt_gemm_wmma_shapes), so a run can
 // show which products took which body.

@@ -1,39 +1,37 @@
 // Hand-written Hopper kernels for the ViT serving path (sm_90a).
 //
-// Three C entry points, each launching a short fixed sequence of kernels on
+// Two C entry points, each launching a short fixed sequence of kernels on
 // the caller's stream (the caller allocates every buffer):
 //
 //   vpt_vit_layer_forward           replaces vit_pruning_tpu/ops/pallas/layer.py
 //                                   ::fused_vit_layer (B1, staged2 numerics)
-//   vpt_vit_cls_logits_forward      replaces ::fused_vit_layer_cls_logits (B2)
 //   vpt_vit_layer_bucketed_forward  replaces ::fused_vit_layer_bucketed (B3):
 //                                   gather -> B1 at the capacity -> scatter
 //
-// What bounds them on an H100: at DeiT-S width the four layer products
-// (QKV, O, fc1, fc2) are ~90% of a layer's operations and, at batch 512,
-// well above the bf16 ridge (~295 FLOP/byte), so they are bound by tensor-core
-// throughput; attention (S 197, hd 64) is a few percent of the FLOPs, and
-// its softmax runs on the CUDA cores. The TPU kernel kept the whole layer in 100 MB
-// of VMEM; an SM has 227 KB, so the layer is split into LN -> GEMM ->
-// attention -> GEMM -> LN -> GEMM -> GEMM, each GEMM with its epilogue (bias,
-// GELU, residual, cast) fused so that no elementwise pass touches memory on
-// its own. The residual stream after attention (x1) is kept in f32 between
-// kernels, as the TPU kernel kept it in f32 in VMEM.
+// (::fused_vit_layer_cls_logits, B2, is cls_logits.cu's.) What bounds them
+// on an H100: at DeiT-S width the four layer products (QKV, O, fc1, fc2) are
+// ~90% of a layer's operations and, at batch 512, well above the bf16 ridge
+// (~295 FLOP/byte), so they are bound by tensor-core throughput; attention
+// (S 197, hd 64) is a few percent of the FLOPs, and its softmax runs on the
+// CUDA cores. The TPU kernel kept the whole layer in 100 MB of VMEM; an SM
+// has 227 KB, so the layer is split into LN -> GEMM -> attention -> GEMM ->
+// LN -> GEMM -> GEMM, each GEMM with its epilogue (bias, GELU, residual,
+// cast) fused so that no elementwise pass touches memory on its own. The
+// residual stream after attention (x1) is kept in f32 between kernels, as
+// the TPU kernel kept it in f32 in VMEM.
 //
 // Numerics kept from the TPU kernels: LN in f32 with var = mean((x-mean)^2)
 // and eps from the caller; products accumulate in f32 and add the bias before
 // the cast; masked keys get -1e30 (not -inf); B1 keeps the softmax numerators
-// unnormalised in the input dtype and scales the PV sum by 1/rowsum; B2
-// normalises before PV; GELU is the tanh form for bf16 and erf for f32.
+// unnormalised in the input dtype and scales the PV sum by 1/rowsum; GELU is
+// the tanh form for bf16 and erf for f32.
 //
 // The GEMMs are gemm.cu's: in bf16 wgmma.cuh's wgmma + TMA body for every
-// layer product (the WMMA body only for a classifier whose label count is
-// not a multiple of 8), in f32 FMA tiles (no TF32, so f32 matches a f32
-// reference closely). The attention of B1 and B3 (and of B4, B5), at head
-// dims 16, 32, 64 and 80: in bf16 layer_attention.cu's wgmma + TMA body
-// (one 64-query tile of one head a block, the logits in registers, P fed
-// to PV from registers), in f32 FMA on the CUDA cores (below). B2's CLS
-// attention (below) is one warp per (head, image) on the CUDA cores.
+// layer product, in f32 FMA tiles (no TF32, so f32 matches a f32 reference
+// closely). The attention of B1 and B3 (and of B4, B5), at head dims 16, 32,
+// 64 and 80: in bf16 layer_attention.cu's wgmma + TMA body (one 64-query tile
+// of one head a block, the logits in registers, P fed to PV from registers),
+// in f32 FMA on the CUDA cores (below).
 
 #include "common.cuh"
 
@@ -103,124 +101,6 @@ cudaError_t attention(const float* qkv, const unsigned char* mask, const int* co
   return rc;
 }
 
-// ---------------------------------------------------------------------------
-// B2 attention: the CLS query only, one warp per (head, image); each lane
-// reads its keys (j = lane, lane + 32, ...) straight from the K/V buffer
-// (S*hd values per block). Up to kResidentSeq keys a lane keeps its logits
-// in registers; past it (cls_attention_long_kernel) in a dynamic shared row
-// ps [S]; both sum in the same order.
-
-// the context row from P [S] (normalised, rounded to T) in shared memory
-template <typename T, int HD>
-__device__ __forceinline__ void cls_pv(const float* ps, const T* kb, T* ctx, int S, int KW) {
-  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
-  for (int d = lane; d < HD; d += 32) {
-    float o = 0.f;
-    for (int j = 0; j < S; ++j) o = fmaf(ps[j], to_f(kb[(long)j * 2 * KW + KW + d]), o);
-    ctx[(long)b * KW + h * HD + d] = from_f<T>(o);  // f32 ctx, cast for the O product
-  }
-}
-
-template <typename T, int HD>
-__device__ __forceinline__ float cls_logit(const float* qs, const T* kb, int j, int KW, float scale) {
-  const T* kr = kb + (long)j * 2 * KW;
-  float acc = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < HD; ++d) acc = fmaf(qs[d], to_f(kr[d]), acc);
-  return acc * scale;
-}
-
-template <typename T, int HD>
-__global__ void cls_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-                                     T* __restrict__ ctx, int S, int KW, float scale) {
-  __shared__ float qs[HD];
-  __shared__ float ps[kResidentSeq];
-  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
-  for (int d = lane; d < HD; d += 32) qs[d] = to_f(q[(long)b * KW + h * HD + d]);
-  __syncwarp();
-  const T* kb = kv + (long)b * S * 2 * KW + h * HD;
-  float l[kResidentChunks];
-  float mx = -INFINITY;
-#pragma unroll
-  for (int c = 0; c < kResidentChunks; ++c) {
-    const int j = c * 32 + lane;
-    l[c] = 0.f;
-    if (j < S) {
-      l[c] = cls_logit<T, HD>(qs, kb, j, KW, scale);
-      mx = fmaxf(mx, l[c]);
-    }
-  }
-  mx = warp_max(mx);
-  float sum = 0.f;
-#pragma unroll
-  for (int c = 0; c < kResidentChunks; ++c) {
-    l[c] = c * 32 + lane < S ? expf(l[c] - mx) : 0.f;
-    sum += l[c];
-  }
-  sum = warp_sum(sum);
-#pragma unroll
-  for (int c = 0; c < kResidentChunks; ++c) {
-    const int j = c * 32 + lane;
-    if (j < S) ps[j] = round_to<T>(l[c] / sum);  // normalised, then cast (TPU B2)
-  }
-  __syncwarp();
-  cls_pv<T, HD>(ps, kb, ctx, S, KW);
-}
-
-template <typename T, int HD>
-__global__ void cls_attention_long_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-                                          T* __restrict__ ctx, int S, int KW, float scale) {
-  __shared__ float qs[HD];
-  extern __shared__ float pl[];  // [S]
-  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
-  for (int d = lane; d < HD; d += 32) qs[d] = to_f(q[(long)b * KW + h * HD + d]);
-  __syncwarp();
-  const T* kb = kv + (long)b * S * 2 * KW + h * HD;
-  float mx = -INFINITY;
-  for (int j = lane; j < S; j += 32) {
-    pl[j] = cls_logit<T, HD>(qs, kb, j, KW, scale);
-    mx = fmaxf(mx, pl[j]);
-  }
-  mx = warp_max(mx);
-  float sum = 0.f;
-  for (int j = lane; j < S; j += 32) {
-    pl[j] = expf(pl[j] - mx);
-    sum += pl[j];
-  }
-  sum = warp_sum(sum);
-  for (int j = lane; j < S; j += 32) pl[j] = round_to<T>(pl[j] / sum);
-  __syncwarp();
-  cls_pv<T, HD>(pl, kb, ctx, S, KW);
-}
-
-template <typename T, int HD>
-cudaError_t cls_attention_launch(const T* q, const T* kv, T* ctx, int B, int S, int H, int KW,
-                                 cudaStream_t st) {
-  if (S <= kResidentSeq) {
-    cls_attention_kernel<T, HD><<<dim3(H, B), 32, 0, st>>>(q, kv, ctx, S, KW, attn_scale(HD));
-    return cudaGetLastError();
-  }
-  const size_t smem = sizeof(float) * S;  // past 48 KB (S > 12288) only with the opt-in
-  if (smem > 48 * 1024)
-    VPT_TRY(cudaFuncSetAttribute(cls_attention_long_kernel<T, HD>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  cls_attention_long_kernel<T, HD><<<dim3(H, B), 32, smem, st>>>(q, kv, ctx, S, KW,
-                                                                 attn_scale(HD));
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t cls_attention(const T* q, const T* kv, T* ctx, int B, int S, int H, int KW,
-                          cudaStream_t st) {
-  switch (KW / H) {
-    case 16: return cls_attention_launch<T, 16>(q, kv, ctx, B, S, H, KW, st);
-    case 32: return cls_attention_launch<T, 32>(q, kv, ctx, B, S, H, KW, st);
-    case 64: return cls_attention_launch<T, 64>(q, kv, ctx, B, S, H, KW, st);
-    case 80: return cls_attention_launch<T, 80>(q, kv, ctx, B, S, H, KW, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // The B1 layer on x [B, S, D]; keys masked by `mask` [B, S] bytes or, for
 // B3's compacted rows, by the kept counts [B] (either may be null).
 template <typename T>
@@ -238,30 +118,6 @@ cudaError_t layer_forward(const T* x, const unsigned char* mask, const int* coun
   VPT_TRY(layer_norm<float, T>(x1, D, ln2g, ln2b, h, D, rows, D, DN, eps, st));
   VPT_TRY(gemm(h, D, w1, rows, M, D, epi(b1, act, nullptr, 0, false, m1, M, false), st));
   VPT_TRY(gemm(m1, M, w2, rows, D, M, epi(b2, ACT_NONE, x1, D, true, out, D, false), st));
-  return cudaSuccess;
-}
-
-template <typename T>
-cudaError_t cls_logits_forward(const T* x, const T* ln1g, const T* ln1b, const T* wq, const T* bq,
-                               const T* wkv, const T* bkv, const T* wo, const T* bo, const T* ln2g,
-                               const T* ln2b, const T* w1, const T* b1, const T* w2, const T* b2,
-                               const T* lnfg, const T* lnfb, const T* wh, const T* bh, T* logits,
-                               T* h, T* kv, T* q, T* ctx, float* x1, T* m1, float* x2, int B, int S,
-                               int D, int H, int HD, int M, int DN, int labels, float eps,
-                               cudaStream_t st) {
-  const int rows = B * S, KW = H * HD;
-  const long cls_stride = (long)S * D;  // CLS rows of x and h
-  const int act = sizeof(T) == 2 ? ACT_GELU_TANH : ACT_GELU_ERF;
-  VPT_TRY(layer_norm<T, T>(x, D, ln1g, ln1b, h, D, rows, D, DN, eps, st));
-  VPT_TRY(gemm(h, D, wkv, rows, 2 * KW, D, epi(bkv, ACT_NONE, nullptr, 0, false, kv, 2 * KW, false), st));
-  VPT_TRY(gemm(h, cls_stride, wq, B, KW, D, epi(bq, ACT_NONE, nullptr, 0, false, q, KW, false), st));
-  VPT_TRY(cls_attention<T>(q, kv, ctx, B, S, H, KW, st));
-  VPT_TRY(gemm(ctx, KW, wo, B, D, KW, epi(bo, ACT_NONE, x, cls_stride, false, x1, D, true), st));
-  VPT_TRY(layer_norm<float, T>(x1, D, ln2g, ln2b, h, D, B, D, DN, eps, st));
-  VPT_TRY(gemm(h, D, w1, B, M, D, epi(b1, act, nullptr, 0, false, m1, M, false), st));
-  VPT_TRY(gemm(m1, M, w2, B, D, M, epi(b2, ACT_NONE, x1, D, true, x2, D, true), st));
-  VPT_TRY(layer_norm<float, T>(x2, D, lnfg, lnfb, h, D, B, D, DN, eps, st));
-  VPT_TRY(gemm(h, D, wh, B, labels, D, epi(bh, ACT_NONE, nullptr, 0, false, logits, labels, false), st));
   return cudaSuccess;
 }
 
@@ -390,29 +246,6 @@ int vpt_vit_layer_forward(int dtype, const void* x, const void* mask, const void
                    (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, B, S, D, H, HD, M, DN, eps, st)
   return dtype == 0 ? VPT_LAYER(float) : VPT_LAYER(bf16);
 #undef VPT_LAYER
-}
-
-// Workspaces: h [B*S, D], kv [B*S, 2KW], q [B, KW], ctx [B, KW], m1 [B, M]
-// in the dtype; x1, x2 [B, D] float32. logits [B, labels] in the dtype.
-int vpt_vit_cls_logits_forward(int dtype, const void* x, const void* ln1g, const void* ln1b,
-                               const void* wq, const void* bq, const void* wkv, const void* bkv,
-                               const void* wo, const void* bo, const void* ln2g, const void* ln2b,
-                               const void* w1, const void* b1, const void* w2, const void* b2,
-                               const void* lnfg, const void* lnfb, const void* wh, const void* bh,
-                               void* logits, void* h, void* kv, void* q, void* ctx, void* x1,
-                               void* m1, void* x2, int B, int S, int D, int H, int HD, int M,
-                               int DN, int labels, float eps, void* stream) {
-  if (!shapes_ok(dtype, B, S, D, H, HD, M, DN) || labels <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VPT_CLS(T)                                                                                \
-  cls_logits_forward<T>((const T*)x, (const T*)ln1g, (const T*)ln1b, (const T*)wq, (const T*)bq,  \
-                        (const T*)wkv, (const T*)bkv, (const T*)wo, (const T*)bo, (const T*)ln2g, \
-                        (const T*)ln2b, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,   \
-                        (const T*)lnfg, (const T*)lnfb, (const T*)wh, (const T*)bh, (T*)logits,   \
-                        (T*)h, (T*)kv, (T*)q, (T*)ctx, (float*)x1, (T*)m1, (float*)x2, B, S, D,   \
-                        H, HD, M, DN, labels, eps, st)
-  return dtype == 0 ? VPT_CLS(float) : VPT_CLS(bf16);
-#undef VPT_CLS
 }
 
 // dest [B, S] int32 compacted row ids (kept first, stable), kept [B, S]

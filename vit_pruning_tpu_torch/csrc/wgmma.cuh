@@ -1,6 +1,6 @@
 // The bf16 GEMM body on Hopper's warpgroup MMA (wgmma) and Tensor Memory
 // Accelerator (TMA), sm_90a. gemm.cu runs it for every bf16 product of the
-// layer kernels B1, B2, B3 and B5 (with common.cuh's Epilogue), embed.cu for
+// layer kernels B1, B3 and B5 (with common.cuh's Epilogue), embed.cu for
 // B8a and B8b (with + b + pos[t % N]). At the end of the file: the 64-column
 // wgmma shapes (A from shared memory or from registers), the exact three-way
 // bf16 split of an f32 operand and a 3-D TMA map, which the tensor-core
@@ -31,7 +31,7 @@
 //     shuffles so that a lane holds 8 consecutive outputs of one row, then
 //     the caller's epilogue runs on them (16-byte stores where it can).
 // TMA zero-fills what lies past M, N or K, and the epilogue masks its
-// stores, so ragged shapes (ViT-H's 16,448 rows, B2's M = B, B3's B * cap)
+// stores, so ragged shapes (ViT-H's 16,448 rows, B3's B * cap)
 // need nothing else. TMA needs a 16-byte aligned base and row strides that
 // are multiples of 16 bytes: A's lda and W's N multiples of 8 elements.
 //

@@ -45,6 +45,10 @@ SIGNATURES = {
     "vpt_vit_layer_forward": ([I] + [P] * 20 + [I] * 7 + [F, P], I),
     # dtype, x, 18 weights, logits, 7 workspaces, B S D H HD M DN labels, eps, stream
     "vpt_vit_cls_logits_forward": ([I] + [P] * 27 + [I] * 8 + [F, P], I),
+    # dtype, hd, S, D, out [6]: B2's launches by kind (-1: refused)
+    "vpt_cls_logits_plan": ([I, I, I, I, P], I),
+    "vpt_cls_logits_launch_counts": ([P], None),
+    "vpt_cls_logits_launch_reset": ([], None),
     # dtype, x, dest, kept, 12 layer weights, out, src, counts, 7 workspaces,
     # B S cap D H HD M DN, eps, stream
     "vpt_vit_layer_bucketed_forward": ([I] + [P] * 25 + [I] * 8 + [F, P], I),

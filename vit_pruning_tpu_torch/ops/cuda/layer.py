@@ -1,6 +1,7 @@
 """Kernels B1, B2 and B3: a whole ViT layer, the last layer's CLS row through
 the classifier, and the bucketed layer of the re-decide modes. Wrappers
-around csrc/layer.cu, each beside its plain PyTorch version.
+around csrc/layer.cu (B1, B3) and csrc/cls_logits.cu (B2), each beside its
+plain PyTorch version.
 
 B1 `fused_vit_layer` replaces vit_pruning_tpu/ops/pallas/layer.py::
 fused_vit_layer (the staged2 whole-layer kernel). B2
@@ -18,7 +19,13 @@ is csrc/layer_attention.cu's: in bf16 a wgmma + TMA body, one pass with the
 logits in registers up to 256 keys ('wgmma_resident') and two passes over
 streamed K and V past it ('wgmma_streamed'); in f32 FMA on the CUDA cores
 ('fma'). `attention_body` mirrors the C rule that picks the body, and
-`attention_body_counts` reads the launches per body.
+`attention_body_counts` reads the launches per body. B2 in bf16 is three
+launches (csrc/cls_logits.cu: LN1's row statistics; LN1, the K/V product, q
+and the CLS attention fused on wgmma + TMA with K and V kept out of device
+memory, V in registers, shared memory or recomputed; the tail on the B rows
+in one cluster launch), in f32 PR 1's ten FMA launches;
+`cls_logits_launches` mirrors the C plan and `cls_launch_counts` reads the
+launches by kind.
 
 A wrapper launches its kernel for CUDA tensors, through the registered
 operator vpt::<name> (ops/cuda/library.py), whose implementation counts the
@@ -62,7 +69,7 @@ from vit_pruning_tpu_torch.models.convert import flatten_tree, unflatten_tree
 from vit_pruning_tpu_torch.models.vit import layer_norm, mlp_block
 from vit_pruning_tpu_torch.ops.attention import NEG_INF, mha
 from vit_pruning_tpu_torch.ops.cuda.library import check_aligned, kernel_op, ptr, run
-from vit_pruning_tpu_torch.ops.cuda.widths import LAYER_MULTIPLE, kernel_layer, pad_dim
+from vit_pruning_tpu_torch.ops.cuda.widths import LAYER_MULTIPLE, kernel_layer, pad_dim, round_up
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -74,6 +81,22 @@ LAYER_HEAD_DIMS = (16, 32, 64, 80)
 # counters, and the most 64-key chunks the resident body takes (la::kLogitChunks)
 ATTENTION_BODIES = ("wgmma_resident", "wgmma_streamed", "fma")
 ATTENTION_LOGIT_CHUNKS = 4
+# B2's launch kinds, in the order of csrc/cls_logits.cu's counters: bf16 makes
+# one ln1_stats, one kv_attention_* (by where it keeps V) and one tail launch;
+# f32 ten fma launches
+CLS_LAUNCH_KINDS = ("ln1_stats", "kv_attention_v_registers", "kv_attention_v_shared",
+                    "kv_attention_v_recomputed", "tail", "fma")
+# cls_logits.cu's constants the plan depends on: the box bytes, the most bytes
+# of V kept in shared memory, the shared memory a block may have, the most
+# stages of the K/V launch's ring
+CLS_BOX = 64 * 128
+CLS_V_RESIDENT = 64 * 1024
+CLS_MAX_SMEM = 232448
+CLS_MAX_STAGES = 6
+# the rows past B * S that B2's bf16 statistics buffer holds: the K/V launch
+# copies each tile's 64 rows of statistics from the even row at or before its
+# first, 528 bytes (cls_logits.cu's kStatBytes), and must stay inside it
+CLS_STAT_PAD = 72
 
 
 # --- plain versions ---------------------------------------------------------------
@@ -160,6 +183,30 @@ def fused_vit_layer_ref(
     return (x1 + _linear_f32(m1, mlp["fc2"]["w"], mlp["fc2"]["b"])).to(dt)
 
 
+def cls_context_ref(
+    x: torch.Tensor,
+    params: dict,
+    num_heads: int,
+    eps: float = 1e-12,
+    norm_width: Optional[int] = None,
+) -> torch.Tensor:
+    """B2's CLS attention as its plain version forms it: LN1 in f32, K and V
+    of every token and q of the CLS row rounded to x's dtype, the logits in
+    f32, the softmax normalised and rounded to x's dtype, then P V in f32.
+    Returns the CLS context [B, KW] in f32."""
+    dt = x.dtype
+    b = x.shape[0]
+    a = params["attn"]
+    kw = a["q"]["w"].shape[1]
+    h1 = _ln_f32(x.float(), params["ln1"], eps, norm_width)
+    k, v = (_heads(_linear_f32(h1, a[n]["w"], a[n]["b"]).to(dt), num_heads) for n in "kv")
+    q = _heads(_linear_f32(h1[:, :1], a["q"]["w"], a["q"]["b"]).to(dt), num_heads)  # [B,H,1,hd]
+    logits = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(kw // num_heads))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = (p / p.sum(-1, keepdim=True)).to(dt).float()
+    return (p @ v.float()).transpose(1, 2).reshape(b, kw)
+
+
 def fused_vit_layer_cls_logits_ref(
     x: torch.Tensor,
     params: dict,
@@ -172,18 +219,9 @@ def fused_vit_layer_cls_logits_ref(
     """Plain PyTorch version of kernel B2: logits [B, labels] in x's dtype.
     norm_width as fused_vit_layer_ref's (the final LN's too)."""
     dt = x.dtype
-    b, s, d = x.shape
     a = params["attn"]
-    kw = a["q"]["w"].shape[1]
-    hd = kw // num_heads
     xf = x.float()
-    h1 = _ln_f32(xf, params["ln1"], eps, norm_width)
-    k, v = (_heads(_linear_f32(h1, a[n]["w"], a[n]["b"]).to(dt), num_heads) for n in "kv")
-    q = _heads(_linear_f32(h1[:, :1], a["q"]["w"], a["q"]["b"]).to(dt), num_heads)  # [B,H,1,hd]
-    logits = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))
-    p = torch.exp(logits - logits.amax(-1, keepdim=True))
-    p = (p / p.sum(-1, keepdim=True)).to(dt).float()
-    ctx = (p @ v.float()).transpose(1, 2).reshape(b, kw)  # f32
+    ctx = cls_context_ref(x, params, num_heads, eps, norm_width)
     x1 = xf[:, 0] + _linear_f32(ctx, a["o"]["w"], a["o"]["b"])
     h2 = _ln_f32(x1, params["ln2"], eps, norm_width)
     mlp = params["mlp"]
@@ -283,6 +321,80 @@ def reset_attention_body_counts():
 
     load_library().vpt_layer_attention_body_reset()
     attention_launches.clear()
+
+
+# --- B2's launches -------------------------------------------------------------------
+
+def cls_v_mode(head_dim: int, seq_len: int) -> int:
+    """Where B2's bf16 K/V launch keeps V (csrc/cls_logits.cu::cls::v_mode):
+    0 in the accumulators (the image is one pass of 128 rows: S <= 128), 1
+    in shared memory (its 64-row tiles x 64 or 80 columns of bf16 within
+    CLS_V_RESIDENT bytes), 2 recomputed by a second sweep."""
+    tiles = -(-seq_len // 64)
+    if (tiles + 1) // 2 == 1:
+        return 0
+    width = 64 if head_dim <= 64 else 80
+    return 1 if tiles * 64 * width * 2 <= CLS_V_RESIDENT else 2
+
+
+def cls_kv_smem(head_dim: int, seq_len: int, width: int) -> tuple:
+    """(stages, bytes) of B2's bf16 K/V launch at hidden width `width` (the
+    kernel's, padded; cls_logits.cu's KvSmem): a ring of as many stages of two
+    x boxes and the K, V and q.w boxes (8 KB each) and two 640-byte slots of
+    LN1 statistics as fit beside the rest, up to CLS_MAX_STAGES; 256 bytes of
+    barriers, the logits, V or the P V partials, q, the biases, LN1's g and
+    b. Fewer than two stages: the kernel refuses the shape."""
+    cols = 64 if head_dim <= 64 else 80
+    nbh, heads = -(-cols // 64), (64 // head_dim if head_dim <= 64 else 1)
+    spad = -(-seq_len // 64) * 64
+    stage = (2 + 3 * nbh) * CLS_BOX
+    vbytes = spad * cols * 2 if cls_v_mode(head_dim, seq_len) == 1 else 10 * cols * 4
+    fixed = 1024 + 256 + 2 * heads * spad * 4 + vbytes + 5 * cols * 4 + width * 4
+    stages = min(CLS_MAX_STAGES, max(0, CLS_MAX_SMEM - fixed) // (stage + 2 * 640))
+    return stages, fixed + stages * (stage + 2 * 640)
+
+
+def cls_logits_launches(dtype: torch.dtype, head_dim: int, seq_len: int,
+                        width: int) -> Optional[dict]:
+    """The launches one B2 call makes on the card at hidden width `width`
+    (the kernel's, padded), by CLS_LAUNCH_KINDS (the rule of
+    csrc/cls_logits.cu::vpt_cls_logits_plan, which chip_smoke.py holds
+    equal), or None where the kernel refuses the call."""
+    if head_dim not in LAYER_HEAD_DIMS or seq_len < 1 or dtype not in _DTYPES:
+        return None
+    plan = dict.fromkeys(CLS_LAUNCH_KINDS, 0)
+    if dtype == torch.float32:
+        plan["fma"] = 10
+        return plan
+    stages, size = cls_kv_smem(head_dim, seq_len, width)
+    if stages < 2 or size > CLS_MAX_SMEM:
+        return None
+    plan["ln1_stats"] = plan["tail"] = 1
+    plan[CLS_LAUNCH_KINDS[1 + cls_v_mode(head_dim, seq_len)]] = 1
+    return plan
+
+
+# B2's launches since the last reset_cls_launch_counts(), by kind, as the op
+# tallies them from cls_logits_launches where it launches
+cls_launches: dict = dict.fromkeys(CLS_LAUNCH_KINDS, 0)
+
+
+def cls_launch_counts() -> dict:
+    """B2's launches of each kind since the last reset_cls_launch_counts(),
+    as the C library counted them."""
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    counts = (ctypes.c_longlong * len(CLS_LAUNCH_KINDS))()
+    load_library().vpt_cls_logits_launch_counts(counts)
+    return dict(zip(CLS_LAUNCH_KINDS, counts))
+
+
+def reset_cls_launch_counts():
+    """Zero the C counters and cls_launches."""
+    from vit_pruning_tpu_torch.ops.cuda.build import load_library
+
+    load_library().vpt_cls_logits_launch_reset()
+    cls_launches.update(dict.fromkeys(CLS_LAUNCH_KINDS, 0))
 
 
 # --- gradients ----------------------------------------------------------------------
@@ -527,19 +639,26 @@ def _b2_fake(x, weights, num_heads, norm_width, eps):
 @kernel_op("fused_vit_layer_cls_logits", _b2_fake)
 def _b2_op(x: torch.Tensor, weights: list[torch.Tensor], num_heads: int, norm_width: int,
            eps: float) -> torch.Tensor:
-    """B2's launch. weights: _cls_weights' eighteen, in their order."""
+    """B2's launch. weights: _cls_weights' eighteen, in their order; the
+    classifier's labels a multiple of 8."""
     who = "fused_vit_layer_cls_logits"
     b, s, d = x.shape
     kw, m, labels = weights[2].shape[1], weights[10].shape[1], weights[16].shape[1]
     check_aligned(who, x=x, **{f"weight {i}": t for i, t in enumerate(weights)})
     logits = x.new_empty((b, labels))
-    ws = [x.new_empty((b * s, d)), x.new_empty((b * s, 2 * kw)), x.new_empty((b, kw)),
-          x.new_empty((b, kw)), torch.empty((b, d), dtype=torch.float32, device=x.device),
-          x.new_empty((b, m)), torch.empty((b, d), dtype=torch.float32, device=x.device)]
+    f32 = {"dtype": torch.float32, "device": x.device}
+    if x.dtype == torch.bfloat16:  # h [B, D] (LN2's, then LN_f's), LN1's statistics [B*S + pad]
+        first = [x.new_empty((b, d)), torch.empty((b * s + CLS_STAT_PAD, 2), **f32), None]
+    else:  # h [B*S, D], K/V [B*S, 2KW], q [B, KW]
+        first = [x.new_empty((b * s, d)), x.new_empty((b * s, 2 * kw)), x.new_empty((b, kw))]
+    ws = first + [x.new_empty((b, kw)), torch.empty((b, d), **f32), x.new_empty((b, m)),
+                  torch.empty((b, d), **f32)]
     run(who, x.device, "vpt_vit_cls_logits_forward", _DTYPES[x.dtype], ptr(x),
         *map(ptr, weights), ptr(logits), *map(ptr, ws), b, s, d, num_heads, kw // num_heads, m,
         norm_width, labels, eps)
     fused_vit_layer_cls_logits.launches += 1
+    for kind, n in cls_logits_launches(x.dtype, kw // num_heads, s, d).items():
+        cls_launches[kind] += n
     return logits
 
 
@@ -555,7 +674,9 @@ def fused_vit_layer_cls_logits(
 
     x [B, S, D] is the last layer's input; K/V come from every token, Q,
     attention, MLP, LN and head from CLS alone. Returns [B, labels] in x's
-    dtype, equal to vit_layer -> layer_norm -> head on CLS.
+    dtype, equal to vit_layer -> layer_norm -> head on CLS. The classifier
+    is zero-padded to a multiple of 8 labels for the kernel (its W rows are
+    TMA boxes) and the logits sliced back.
     """
     if not launch_kernel_for(x):
         return fused_vit_layer_cls_logits_ref(x, params, lnf, head, num_heads, eps)
@@ -563,16 +684,22 @@ def fused_vit_layer_cls_logits(
     refuse_grad(who, x, params, lnf, head)
     b, s, d, hd, kw, m = _geometry(x, params, num_heads, who)
     xk, kp, dp = _padded_call(x, params, LAYER_MULTIPLE)
+    if x.dtype in _DTYPES and cls_logits_launches(x.dtype, hd, s, dp) is None:
+        raise ValueError(f"{who}: S {s} at head dim {hd} and width {dp} leaves no room for "
+                         f"two stages of the bf16 kernel's ring in {CLS_MAX_SMEM} bytes of "
+                         f"shared memory")
     mp = kp["mlp"]["fc1"]["w"].shape[-1]
-    lnf = {k: pad_dim(v, -1, dp) for k, v in lnf.items()}
-    head = {"w": pad_dim(head["w"], 0, dp), "b": head["b"]}
-    w = _cls_weights(kp, lnf, head)
     labels = head["w"].shape[1]
+    lp = round_up(labels, LAYER_MULTIPLE)
+    lnf = {k: pad_dim(v, -1, dp) for k, v in lnf.items()}
+    head = {"w": pad_dim(pad_dim(head["w"], 0, dp), 1, lp), "b": pad_dim(head["b"], 0, lp)}
+    w = _cls_weights(kp, lnf, head)
     shapes = {"q.w": (dp, kw), "q.b": (kw,), "kv.w": (dp, 2 * kw), "kv.b": (2 * kw,),
               **_layer_shapes(dp, kw, mp), "ln_f.g": (dp,), "ln_f.b": (dp,),
-              "head.w": (dp, labels), "head.b": (labels,)}
+              "head.w": (dp, lp), "head.b": (lp,)}
     _check(xk, w, shapes, who)
-    return torch.ops.vpt.fused_vit_layer_cls_logits(xk, list(w.values()), num_heads, d, eps)
+    logits = torch.ops.vpt.fused_vit_layer_cls_logits(xk, list(w.values()), num_heads, d, eps)
+    return logits if lp == labels else logits[:, :labels]
 
 
 fused_vit_layer_cls_logits.launches = 0
