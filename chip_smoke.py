@@ -244,6 +244,10 @@ SEED = 0
 # units at DeiT-S width) so that the f32 top-k cuts are not near ties
 PREDICTOR_GAIN = 10.0
 F32_ATOL = 1e-4  # kernel vs plain, both f32-accumulated; sums in another order
+# the f32 split body (csrc/gemm.cu) against a float64 product: its relative error
+# may be this many times the f32 plain version's own (cuBLAS f32 on the same
+# operands), so that it is an f32 product in accuracy and not only within F32_ATOL
+F32_SPLIT_ERR = 2.0
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): bf16 and
 # int8 tensor cores and device memory; a kernel's bound is the larger of its
 # operations and its bytes over these
@@ -265,6 +269,16 @@ HALF_EVEN_CODES = [127, 0, 2, 2, 4, 0, -2, -2, 126, -126, 0, 3, -127, 64, -64, 7
 # that the phase stays short (the full default runs are recorded in PERF.md)
 GATE_ARGV = ["--kernels", "auto", "--preset", "both", "--epochs", "4", "--pred_epochs", "3",
              "--recover_epochs", "2"]
+
+
+def bound_split6(flops: float, nbytes: float):
+    """The least time of f32 work at f32 accuracy: its FLOP at the CUDA cores'
+    f32 rate, or six bf16 tensor-core passes (both operands split into three
+    exact bf16 parts, the cross terms down to 2^-16 kept), whichever is less;
+    against the bytes. (least ms, what bounds it)"""
+    t_op = min(flops / PEAK_FP32_FLOPS, 6 * flops / PEAK_BF16_FLOPS) * 1e3
+    t_mem = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
 
 
 def log(msg: str):
@@ -814,6 +828,82 @@ def cls_attention_isolated(dev, say) -> list:
                 out.append({"tag": tag, "d": dd, "tol": tol, "ran": ran, "tally": tally,
                             "plan": kl.cls_logits_launches(bf, gcfg.head_dim, s,
                                                            round_up(d, LAYER_MULTIPLE))})
+    return out
+
+
+def f32_product_shapes() -> tuple:
+    """Every f32 product shape of B1 / B3 / B5 and B2 on the paths, for phase 3n:
+    (tag, M, K, N, act, residual, lda, ldr); lda / ldr None for dense rows. The
+    layers' four products (QKV; O + the f32 residual; fc1 + erf GELU; fc2 + the
+    residual) at ViT-B/16 batch 16 (the CLI's eval), DeiT-S batch 32 (the train
+    steps), the gate model's D 128 at batch 128 (S 65), ViT-H at phase 5e's f32
+    batch 4, the padded widths D 100 (104 in the kernel: 4 heads of 16, MLP 300 ->
+    304) and M 1000 at batch 8 (1,576 rows, ragged), DeiT-S at S 131 (1,048 rows);
+    B2's six at DeiT-S S 99, batch 8 (the CLS rows of x as A and residual, row
+    stride S * D; the classifier padded to 104 labels)."""
+    out = []
+    for tag, m, d, kw, mm in (("vit_b batch 16", 16 * 197, 768, 768, 3072),
+                              ("deit_s batch 32", 32 * 197, 384, 384, 1536),
+                              ("gate batch 128", 128 * 65, 128, 128, 256),
+                              ("vit_h batch 4", 4 * 257, 1280, 1280, 5120),
+                              ("D 100 batch 8", 8 * 197, 104, 64, 304)):
+        out += [(f"{tag} qkv", m, d, 3 * kw, "none", False, None, None),
+                (f"{tag} o", m, kw, d, "none", True, None, None),
+                (f"{tag} fc1", m, d, mm, "gelu_erf", False, None, None),
+                (f"{tag} fc2", m, mm, d, "none", True, None, None)]
+    out += [("M 1000 batch 8 fc1", 8 * 197, 384, 1000, "gelu_erf", False, None, None),
+            ("M 1000 batch 8 fc2", 8 * 197, 1000, 384, "none", True, None, None),
+            ("deit_s S 131 batch 8 qkv", 8 * 131, 384, 1152, "none", False, None, None),
+            ("B2 S 99 kv", 8 * 99, 384, 768, "none", False, None, None),
+            ("B2 S 99 q (CLS rows)", 8, 384, 384, "none", False, 99 * 384, None),
+            ("B2 S 99 o (CLS residual)", 8, 384, 384, "none", True, None, 99 * 384),
+            ("B2 S 99 fc1", 8, 384, 1536, "gelu_erf", False, None, None),
+            ("B2 S 99 fc2", 8, 1536, 384, "none", True, None, None),
+            ("B2 S 99 classifier", 8, 384, 104, "none", False, None, None)]
+    return tuple(out)
+
+
+def f32_split_products(dev, say) -> list:
+    """Phase 3n's cases: every shape of f32_product_shapes through
+    ops/cuda/gemm.py::gemm_f32 (the split body the layer kernels run), random
+    operands from SEED + 3 (A ~ N(0, 1), W ~ N(0, 1/K), bias and residual),
+    held two ways: against the f32 plain version (cuBLAS, TF32 off) at
+    F32_ATOL * max(1, max|ref|), as phase 3i holds f32 outputs; and against
+    the same product in float64 on the card, where the kernel's relative
+    error (the norm of the difference over the norm of the float64 result)
+    may be at most F32_SPLIT_ERR times the f32 plain version's own. One
+    record a case: tag, d / tol (the first), e64 / pe64 / tol64 (the second)
+    and their worse ratio."""
+    from vit_pruning_tpu_torch.ops.cuda import gemm as kg
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    out = []
+    for tag, m, k, n, act, res, lda, ldr in f32_product_shapes():
+        a = torch.randn(m, lda or k, generator=gen).to(dev)[:, :k]
+        w = (torch.randn(k, n, generator=gen) / math.sqrt(k)).to(dev)
+        b = (0.1 * torch.randn(n, generator=gen)).to(dev)
+        r = torch.randn(m, ldr or n, generator=gen).to(dev)[:, :n] if res else None
+        got = kg.gemm_f32(a, w, b, act, r)
+        ref = kg.gemm_f32_ref(a, w, b, act, r)
+        r64 = a.double() @ w.double() + b.double()
+        if act != "none":
+            r64 = torch.nn.functional.gelu(r64)
+        if r is not None:
+            r64 = r64 + r.double()
+        torch.cuda.synchronize()
+        top = ref.abs().max().item()
+        d = (got - ref).abs().max().item() if bool(torch.isfinite(got).all()) else math.inf
+        tol = F32_ATOL * max(1.0, top)
+        norm = torch.linalg.vector_norm(r64).item()
+        e64 = torch.linalg.vector_norm(got.double() - r64).item() / norm
+        pe64 = torch.linalg.vector_norm(ref.double() - r64).item() / norm
+        tol64 = F32_SPLIT_ERR * pe64
+        e64 = e64 if math.isfinite(e64) else math.inf
+        say(f"  f32 split {tag} M={m} N={n} K={k}: max_abs_err {d:.3e} (tol {tol:.1e}); "
+            f"relative to float64 {e64:.3e}, the f32 plain version's {pe64:.3e} (tol {tol64:.2e})")
+        out.append({"tag": tag, "d": d, "tol": tol, "e64": e64, "pe64": pe64, "tol64": tol64,
+                    "ratio": max(d / tol, e64 / tol64)})
+        del a, w, b, r, got, ref, r64
     return out
 
 
@@ -1461,6 +1551,7 @@ def cli_path(dev) -> dict:
     from vit_pruning_tpu_torch.models.convert import (
         flatten_tree, params_to_torch_state_dict, torch_state_dict_to_params)
     from vit_pruning_tpu_torch.models.vit import init_vit_params
+    from vit_pruning_tpu_torch.ops.cuda import gemm as kg
     from vit_pruning_tpu_torch.ops.dispatch import kernel_mode
 
     check = Checks("phase 8 (the CLI at ViT-B/16 width)")
@@ -1533,14 +1624,22 @@ def cli_path(dev) -> dict:
              "train_eval_ms": statistics.median(rec_k.eval_ms)}
 
     # eval from the CLI's best checkpoint (its sidecar rebuilds ViT-B and the mask config)
-    evals = {}
+    evals, f32_products = {}, {}
     for mode in ("auto", "eager"):
         out = io.StringIO()
         reset_launches()
+        kg.reset_body_counts()
         with StepRecorder() as rec, kernel_mode(mode), contextlib.redirect_stdout(out):
             rc = cli.main(["eval", "--checkpoint", ckpt, "--test_batch_size", "16"])
         torch.cuda.synchronize()
         launches[f"eval_{mode}"] = read_launches()
+        bodies, tally = kg.body_counts(), dict(kg.f32_products)
+        f32_products[f"eval_{mode}"] = tally
+        log(f"  eval ({mode}): GEMM launches by body {dict(bodies, wmma_shapes=None)}, the f32 "
+            f"products' tally {tally}")
+        check(bodies["f32_split"] == sum(tally.values()) and not bodies["wgmma"]
+              and not bodies["wmma"] and (mode == "eager") == (bodies["f32_split"] == 0),
+              f"eval ({mode}): f32 products on the split body {bodies} against the tally {tally}")
         line = [ln for ln in out.getvalue().splitlines() if ln.startswith("accuracy=")]
         evals[mode] = (rc, line[-1] if line else None, rec)
         log(f"  eval ({mode}): rc {rc}, {evals[mode][1]}, {len(rec.eval_ms)} batches, ms/batch "
@@ -1597,7 +1696,7 @@ def cli_path(dev) -> dict:
         log(f"  B1 at ViT-B/16, batch 16, S 197, masked, {dname}: kernel {k_ms:.3f} ms, plain "
             f"version {p_ms:.3f} ms (mean of 10 after 3)")
     check.done()
-    return {"launches": launches, "times": times}
+    return {"launches": launches, "times": times, "f32_products": f32_products}
 
 
 def event_ms(fn, iters: int = 10, warmup: int = 3) -> float:
@@ -1629,9 +1728,12 @@ def gate_path(dev, argv) -> dict:
 
     import quality_torch
 
+    from vit_pruning_tpu_torch.ops.cuda import gemm as kg
+
     check = Checks("phase 9 (the quality gates on the card)")
     out, err = io.StringIO(), io.StringIO()
     reset_launches()
+    kg.reset_body_counts()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -1643,6 +1745,11 @@ def gate_path(dev, argv) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
+    bodies, f32_tally = kg.body_counts(), dict(kg.f32_products)
+    log(f"  gates: GEMM launches by body {dict(bodies, wmma_shapes=None)}, the f32 products' "
+        f"tally {f32_tally}")
+    check(bodies["f32_split"] == sum(f32_tally.values()) > 0,
+          f"gates: f32 products on the split body {bodies} against the tally {f32_tally}")
     lines = err.getvalue().splitlines()
     for ln in [ln for ln in lines if not ln.startswith(("epoch", "Test acc", "Overall"))
                and ln.strip() and "  " not in ln[:2]][-12:]:
@@ -1662,7 +1769,8 @@ def gate_path(dev, argv) -> dict:
     for key in ("b1", "b3", "b4"):
         check(launches[key] > 0, f"{key.upper()} not launched by the gates")
     check.done()
-    return {"launches": launches, "record": record, "rc": rc, "seconds": seconds}
+    return {"launches": launches, "record": record, "rc": rc, "seconds": seconds,
+            "f32_products": f32_tally}
 
 
 # phase 10: parallelism on 2 gloo ranks of the one card (parallel/), at DeiT-S width
@@ -2722,6 +2830,47 @@ def main():
             del ops, a, w
     check.done()
 
+    # --- 3n. the f32 split body against its plain version and a float64 product ---------
+    # Every f32 product shape of B1 / B3 / B5 and B2 on the paths (f32_product_shapes), one
+    # product at a time through ops/cuda/gemm.py::gemm_f32 (the C gemm() the layer kernels
+    # call in f32), each held against the f32 plain version and a float64 product
+    # (f32_split_products) and run on the split body (the launch counters); then ViT-B's
+    # four products at phase 8's batch 16 timed beside torch.matmul's f32 product (TF32
+    # off) on the same operands (a yardstick only), each against its bound_split6.
+    check = Checks("phase 3n (f32 split body vs plain and float64)")
+    c0 = kg.body_counts()
+    split_recs = f32_split_products(dev, log)
+    c1 = kg.body_counts()
+    for r in split_recs:
+        check(r["ratio"] <= 1.0, f"f32 split {r['tag']}: err {r['d']:.3e} (tol {r['tol']:.1e}), "
+                                 f"relative to float64 {r['e64']:.3e} (tol {r['tol64']:.2e})")
+    ran = {k: c1[k] - c0[k] for k in ("wgmma", "wmma", "f32_split")}
+    check(ran == {"wgmma": 0, "wmma": 0, "f32_split": len(split_recs)},
+          f"f32 split: launches by body {ran}, want {len(split_recs)} on the split body")
+    log(f"  f32 split: {len(split_recs)} products, launches by body {ran}; worst err / tol "
+        f"{max(r['ratio'] for r in split_recs):.3f}")
+    err["f32_split"] = max(r["d"] for r in split_recs)
+    f32_gemm_rates = []
+    d, kw, mm, r16 = b_cfg.hidden_size, b_cfg.attn_width, b_cfg.mlp_dim, 16 * 197
+    for tag, (k, n, res, act) in {"qkv": (d, 3 * kw, False, "none"), "o": (kw, d, True, "none"),
+                                  "fc1": (d, mm, False, "gelu_erf"),
+                                  "fc2": (mm, d, True, "none")}.items():
+        a = torch.randn(r16, k, generator=gen_g).to(dev)
+        w = (torch.randn(k, n, generator=gen_g) / math.sqrt(k)).to(dev)
+        b = (0.1 * torch.randn(n, generator=gen_g)).to(dev)
+        r = torch.randn(r16, n, generator=gen_g).to(dev) if res else None
+        k_ms = time_ms(lambda: kg.gemm_f32(a, w, b, act, r))
+        l_ms = time_ms(lambda: torch.matmul(a, w))
+        flops = 2.0 * r16 * k * n
+        b_ms, b_by = bound_split6(flops, 4.0 * (r16 * k + k * n + (2 if res else 1) * r16 * n))
+        f32_gemm_rates.append((tag, r16, n, k, k_ms, l_ms, b_ms))
+        log(f"  f32 split vit_b batch 16 S=197 {tag} M={r16} N={n} K={k}: kernel {k_ms:.4f} ms "
+            f"({flops / k_ms / 1e9:.1f} TFLOP/s), torch.matmul f32 {l_ms:.4f} ms "
+            f"({flops / l_ms / 1e9:.1f} TFLOP/s); bound {b_ms:.4f} ms ({b_by}, "
+            f"{100 * b_ms / k_ms:.1f}%); {smi}")
+        del a, w, b, r
+    check.done()
+
     # --- 3j. B4's int8 product body against its plain version ----------------------------
     # Every product shape of B4 at the timed batches (DeiT-S 512 x 197, ViT-H 64 x 257), and
     # vit_tiny's QKV (136 rows, N 192, K 64: a K step and a column tile past the edges) and a
@@ -3523,6 +3672,15 @@ def main():
         + (", ".join(map(str, bodies["wmma_shapes"])) or "none"))
     if bodies["wgmma"] == 0 or any(n % 8 == 0 for _, n, _ in bodies["wmma_shapes"]):
         raise AssertionError(f"phase 6: a product TMA can describe took the WMMA body: {bodies}")
+    # every f32 product of phases 5-5h on the split body, the only f32 body of gemm(): the
+    # C counter equal to the ops' tally (B1 and B3 four a call, B5 four a layer, B2 six)
+    f32_tally = dict(kg.f32_products)
+    log(f"  f32 products on the paths of phases 5-5h: split body {bodies['f32_split']} "
+        f"launches, the ops' tally {f32_tally}")
+    if (bodies["f32_split"] != sum(f32_tally.values())
+            or not all(f32_tally.get(k) for k in ("b1", "b2", "b5"))):
+        raise AssertionError(f"phase 6: f32 products {bodies['f32_split']} on the split body "
+                             f"against the tally {f32_tally}")
     # DeiT-S is timed first, without ViT-H's bf16 copies and on an emptied allocator
     # cache: after phases 5e/5f, composed ran 25% slower here than alone in a process
     h_params.clear()
@@ -3968,6 +4126,101 @@ def main():
         if name == "dense":
             device_breakdown("vit_h dense", lambda: run("auto"), k_ms, reps=2)
 
+    # The f32 routes (what cli.py train / eval, quality_torch.py and the train steps run by
+    # default; TF32 off): each kernel at a shape an f32 entry point gives it, beside its
+    # plain version (abba), the f32 PyTorch call or composition for the same function and
+    # its bound_split6. B1 at ViT-B/16 batch 16, S 197, 30% of keys masked (the CLI's
+    # eval); B2 (S 99), B3 (S 197, cap 99), B5 (12 layers), B6 (6 heads, S 197, masked),
+    # B7 (32 x 197 rows) and B8b (f32 patches and weights) at DeiT-S batch 32 (the train
+    # steps' batch)
+    log(f"  f32 routes, CUDA events, mean of 10 after 3 warm-ups; {smi}")
+    f32_rows = {}
+
+    def f32_row(key, shape, k_fn, p_fn, l_fn, library, flops, nbytes):
+        k_ms, p_ms = abba(k_fn, p_fn)
+        l_ms = time_ms(l_fn)
+        b_ms, b_by = bound_split6(flops, nbytes)
+        f32_rows[key] = {"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": l_ms, "library": library}
+        log(f"  {key.upper()} f32 {shape}: kernel {k_ms:.4f} ms, plain version {p_ms:.4f} ms, "
+            f"{library} {l_ms:.4f} ms; {flops:.3e} FLOP, bound {b_ms:.4f} ms ({b_by}, "
+            f"{100 * b_ms / k_ms:.1f}%)")
+
+    f32 = torch.float32
+    m32 = random_mask(32, 197, torch.full((32,), 138))
+    blp = tree_to(b_layer, dev, f32)
+    xb = torch.randn(16, 197, b_cfg.hidden_size, generator=gen).to(dev)
+    mb = random_mask(16, 197, torch.full((16,), 138))
+    with kernel_mode("eager"):
+        f32_row("b1", "ViT-B/16 batch 16, S 197, masked",
+                lambda: kl.fused_vit_layer(xb, blp, b_cfg.num_heads, b_cfg.layernorm_eps, mb),
+                lambda: kl.fused_vit_layer_ref(xb, blp, b_cfg.num_heads, b_cfg.layernorm_eps, mb),
+                lambda: vit_layer(xb, blp, b_cfg, token_mask=mb), "eager vit_layer (cuBLAS f32)",
+                layer_work(b_cfg, 16 * 197, 16 * b_cfg.num_heads * 197 * 197),
+                2 * xb.numel() * 4 + weight_bytes(blp))
+        glp = tree_to(geometries["deit_s"][1], dev, f32)
+        f, h = tree_to(lnf, dev, f32), tree_to(head, dev, f32)
+        x = torch.randn(32, 99, cfg.hidden_size, generator=gen).to(dev)
+        lib_fn = cls_library(cfg, glp, f, h)
+        f32_row("b2", "DeiT-S batch 32, S 99",
+                lambda: kl.fused_vit_layer_cls_logits(x, glp, f, h, cfg.num_heads),
+                lambda: kl.fused_vit_layer_cls_logits_ref(x, glp, f, h, cfg.num_heads),
+                lambda: lib_fn(x), "CLS-only composition (layer_norm, addmm, SDPA)",
+                cls_work(cfg, 32, 99), x.numel() * 4 + 32 * 100 * 4 + weight_bytes(glp)
+                + weight_bytes(f) + weight_bytes(h))
+        x = torch.randn(32, 197, cfg.hidden_size, generator=gen).to(dev)
+        m99 = random_mask(32, 197, torch.full((32,), 99))  # topk50's bucket, every image full
+        dest = compact_dest(m99)
+        counts = m99.sum(-1).long()
+        f32_row("b3", "DeiT-S batch 32, S 197, cap 99",
+                lambda: kl.fused_vit_layer_bucketed(x, glp, dest, m99, 99, cfg.num_heads),
+                lambda: kl.fused_vit_layer_bucketed_ref(x, glp, dest, m99, 99, cfg.num_heads),
+                lambda: tp.bucketed_masked_layer(x, glp, m99, cfg, cap_hint=99),
+                "eager bucketed layer", layer_work(cfg, int(counts.sum()),
+                                                   cfg.num_heads * int((counts ** 2).sum())),
+                2 * x.numel() * 4 + dest.numel() * 5 + weight_bytes(glp))
+        st32 = tree_to(stack_s, dev, f32)
+
+        def eager_encoder32():
+            y = x
+            for i in range(L):
+                y = vit_layer(y, layer_slice(st32, i), cfg)
+            return y
+
+        f32_row("b5", "DeiT-S batch 32, 12 layers, S 197",
+                lambda: kmod.fused_vit_encoder(x, st32, cfg.num_heads),
+                lambda: kmod.fused_vit_encoder_ref(x, st32, cfg.num_heads), eager_encoder32,
+                "eager layer loop", L * layer_work(cfg, 32 * 197, 32 * cfg.num_heads * 197 * 197),
+                2 * x.numel() * 4 + weight_bytes(st32))
+        del st32
+        q, k, v = (torch.randn(32, cfg.num_heads, 197, cfg.head_dim, generator=gen).to(dev)
+                   for _ in range(3))
+        sdpa_mask = m32[:, None, None, :]
+        f32_row("b6", "DeiT-S batch 32, 6 heads, S 197, masked",
+                lambda: ka.fused_attention(q, k, v, m32), lambda: ka.fused_attention_ref(q, k, v, m32),
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, sdpa_mask),
+                "f32 scaled_dot_product_attention", 4.0 * q.numel() * 197, 4 * q.numel() * 4)
+        del q, k, v
+        mlp32 = glp["mlp"]
+        xm = x.reshape(-1, cfg.hidden_size)
+        w = (mlp32["fc1"]["w"], mlp32["fc1"]["b"], mlp32["fc2"]["w"], mlp32["fc2"]["b"])
+        f32_row("b7", f"DeiT-S batch 32, {xm.shape[0]} rows",
+                lambda: kmlp.fused_mlp(xm, *w), lambda: kmlp.fused_mlp_ref(xm, *w),
+                lambda: mlp_block(xm, mlp32), "eager mlp_block (cuBLAS f32 + F.gelu)",
+                4.0 * xm.shape[0] * cfg.hidden_size * cfg.mlp_dim,
+                2 * xm.numel() * 4 + weight_bytes(mlp32))
+        ep = tree_to(base["backbone"]["embed"], dev, f32)
+        w, b, pos = ep["patch"]["w"], ep["patch"]["b"], ep["pos"][0][1:]
+        n_p, pd, d = cfg.num_patches, cfg.patch_dim, cfg.hidden_size
+        patches = extract_patches(((images(32).float() / 255.0 - 0.5) / 0.5), cfg.patch_size)
+        f32_row("b8b", "DeiT-S batch 32, f32 patches and weights (K 768)",
+                lambda: kemb.fused_patch_embed_f(patches, w, b, pos),
+                lambda: kemb.fused_patch_embed_f_ref(patches, w, b, pos),
+                lambda: torch.addmm(b, patches.view(-1, pd), w).view(32, n_p, d) + pos,
+                "addmm f32 + pos", 2.0 * 32 * n_p * pd * d,
+                4 * (patches.numel() + pd * d + d + n_p * d + 32 * n_p * d))
+        del x, xm, patches
+
     # --- 3l. widths no multiple of the kernels' (C.1), after 6 so that 6's body counts
     # stay those of phases 5-5h ----------------------------------------------------------
     torch.cuda.empty_cache()
@@ -4067,7 +4320,15 @@ def main():
          "launches_gate": gate_run["launches"][key],
          "launches_widths": widths_launches[key],
          "launches_parallel": [c.get(key, 0) for c in par_run["launches"]],
-         "launches_export": {run: c[key] for run, c in exported["launches"].items()}}
+         "launches_export": {run: c[key] for run, c in exported["launches"].items()},
+         # the f32 routes: the kernel at an f32 entry point's shape (phase 6); B1, B2, B3,
+         # B5: their f32 products on the split body (csrc/gemm.cu) on phases 5-5h, the
+         # CLI's f32 eval (8) and the gates (9)
+         **({"f32": f32_rows[key]} if key in f32_rows else {}),
+         **({"f32_split_products": {"5_to_5h": f32_tally.get(key, 0),
+                                    "cli_eval": cli_run["f32_products"]["eval_auto"].get(key, 0),
+                                    "gates": gate_run["f32_products"].get(key, 0)}}
+            if key in ("b1", "b2", "b3", "b5") else {})}
         for key, name, src, tpu, line, n in rows
     ]
     log(smi)

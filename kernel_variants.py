@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the hand-written bodies of kernels B1, B2, B4, B6, B7 and B8a spend their time, on
-one GPU; whether phases 3m and 4 of chip_smoke.py catch faults planted in B1-B5's attention
-body and in B2's launches; and the layer kernels' times for a checkout.
+"""Where the hand-written bodies of kernels B1, B2, B4, B6, B7 and B8a and the f32 split
+GEMM body spend their time, on one GPU; whether phases 3m, 4 and 3n of chip_smoke.py catch
+faults planted in B1-B5's attention body, in B2's launches and in the split body; and the
+layer kernels' times for a checkout.
 
     python3 kernel_variants.py [b7] [b6] [b4] [b8a] [b1] [b2]    (no argument: all six)
 
@@ -39,7 +40,18 @@ launches (B2_FAULTS: a uniform softmax, the last key tile dropped, another head'
 left unnormalised) with phase 4's cls_attention_isolated. The real kernels must pass
 every case and each fault must fail some; it exits non-zero otherwise.
 
-    python3 kernel_variants.py times [CHECKOUT]
+    python3 kernel_variants.py f32
+
+builds csrc/gemm.cu again with one stage of the f32 split body (the body under every f32
+product of B1, B2, B3 and B5) taken out (F32_VARIANTS: no wgmma, no split of A, no loads
+of A, no TMA loads of W's planes, one pass) and times each through vpt_gemm_f32 at ViT-B/16's four products (batch 16, S 197),
+the kernel first and last; ptxas's registers and spills for each. Then it plants the
+faults of F32_FAULTS (hi.hi alone, the mid.hi pass dropped, both lo planes zeroed) and
+runs phase 3n's cases (chip_smoke.py::f32_split_products) through ops/cuda/gemm.py's
+gemm_f32 on each library: the real body must pass every case and each fault must fail
+some; it exits non-zero otherwise.
+
+    python3 kernel_variants.py times [CHECKOUT] [f32]
 
 times the layer kernels B1, B2, B3, B4 and B5 and the dense forward's attention family in
 bf16 for the package of CHECKOUT (default: this one; another commit unpacked with `git
@@ -53,7 +65,9 @@ kernel family (attention or not) from torch.profiler over 3 forwards; B2 at B2_S
 (CUDA events, and each of its launches' device us with the gap before it, from
 torch.profiler); the headline, composed and ultra forwards (serving_forward from uint8,
 DeiT-S batch 512, ending in B2). It prints one JSON object of the times (ms) with the
-card's name and power limit.
+card's name and power limit. It also times the f32 routes (f32_times: B1 launch by launch at
+ViT-B/16 batch 16, DeiT-S batch 32 and the gate model, B2, B3, B5, B6, B7 and B8b at DeiT-S
+batch 32, the CLI's f32 eval forward on both paths); with `f32` last, only those.
 
 Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda), like chip_smoke.py; the
 last line is the card's name and power limit.
@@ -216,6 +230,81 @@ B2_FAULTS = [
     ("P unnormalised", "P = exp(l - max), rounded, without the division by the sum",
      [("cls_logits.cu", "l[j] = round_to<bf16>(__fdiv_rn(l[j], sum));", "l[j] = round_to<bf16>(l[j]);")]),
 ]
+# The f32 split body (csrc/gemm.cu's gemm_split6_kernel): a stage taken out, each
+# variant timed through vpt_gemm_f32 at ViT-B/16's four products (batch 16, S 197)
+F32_SPLIT = ("    split_bf16x3(v[2 * t], h0, m0, l0);\n"
+             "    split_bf16x3(v[2 * t + 1], h1, m1, l1);\n")
+F32_STEP = """  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    mbar_wait(smem_u32(full + s), (kt / STAGES) & 1);
+    const uint32_t base = smem_u32(ring + s * STAGE_BYTES);
+    wgmma_fence();"""
+F32_STEP_PAIR = """  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    if (kt % 2 == 0) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    }
+    mbar_wait(smem_u32(full + s), (kt / STAGES) & 1);
+    const uint32_t base = smem_u32(ring + s * STAGE_BYTES);
+    wgmma_fence();"""
+F32_PAIR_TAIL = """    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(smem_u32(empty + s));
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sum[i] += acc[i];
+  }"""
+F32_PAIR_TAIL_NEW = """    wgmma_commit();
+    if (kt % 2 == 0 && kt + 1 < nk) continue;
+    if (kt % 2 == 1) {
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(smem_u32(empty + (kt - 1) % STAGES));
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(smem_u32(empty + s));
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sum[i] += acc[i];
+  }"""
+F32_VARIANTS = [
+    ("kernel", "the split body as it is", []),
+    ("no products", "the consumers wait and release, no wgmma (W's split and TMA loads stay)",
+     [("gemm.cu", "        wgmma_m64n128k16(acc, gmma_desc64(a0 + kk * 32),",
+       "        if (kt < 0) wgmma_m64n128k16(acc, gmma_desc64(a0 + kk * 32),")]),
+    ("no split", "each A value stored as hi = the value rounded, mid = lo = 0: the producer's "
+     "split arithmetic left out",
+     [("gemm.cu", F32_SPLIT, "    h0 = v[2 * t]; m0 = l0 = 0.f;\n    h1 = v[2 * t + 1]; m1 = l1 = 0.f;\n")]),
+    ("no loads", "the producer reads no A from device memory (constants)",
+     [("gemm.cu", "                                          float (&v)[8]) {\n  if (wide && c + 8 <= cols) {",
+       "                                          float (&v)[8]) {\n#pragma unroll\n"
+       "  for (int t = 0; t < 8; ++t) v[t] = 0.5f + t;\n  if (cols > 0) return;\n"
+       "  if (wide && c + 8 <= cols) {")]),
+    ("no W loads", "no TMA loads of W's planes (the stage's W boxes hold what they held)",
+     [("gemm.cu", "        mbar_arrive_expect(fb, 3 * PLANE_W);", "        mbar_arrive(fb);"),
+      ("gemm.cu", "            tma_load_3d(smem_u32(st + 3 * PLANE_A",
+       "            if (kt < 0) tma_load_3d(smem_u32(st + 3 * PLANE_A")]),
+    ("two steps in flight", "each pair of steps issued back to back into one accumulator "
+     "(a stage released when its passes are done: wait<1>), the running sum every 64 k",
+     [("gemm.cu", F32_STEP, F32_STEP_PAIR), ("gemm.cu", F32_PAIR_TAIL, F32_PAIR_TAIL_NEW)]),
+    ("one pass", "hi.hi alone: a sixth of the tensor-core work",
+     [("gemm.cu", "  constexpr int kPasses[][2] = {{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}};",
+       "  constexpr int kPasses[][2] = {{0, 0}};")]),
+]
+# Faults planted in the split body, each of which chip_smoke.py's phase 3n must catch
+# (f32_split_products)
+F32_FAULTS = [
+    ("kernel", "the split body as it is: no case may fail", []),
+    ("hi.hi only", "one pass, hi.hi, instead of six",
+     [("gemm.cu", "  constexpr int kPasses[][2] = {{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}};",
+       "  constexpr int kPasses[][2] = {{0, 0}};")]),
+    ("mid.hi dropped", "one cross term of the six left out",
+     [("gemm.cu", "{{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}}", "{{2, 0}, {0, 2}, {1, 1}, {0, 1}, {0, 0}}")]),
+    ("lo plane zeroed", "both operands' lo planes stored as zeros",
+     [("gemm.cu", "    lo[t] = pack_bf16x2(l0, l1);", "    lo[t] = 0u;"),
+      ("gemm.cu", "  for (int t = 0; t < 4; ++t) split_bf16x3(v[t], pl[0][t], pl[1][t], pl[2][t]);",
+       "  for (int t = 0; t < 4; ++t) split_bf16x3(v[t], pl[0][t], pl[1][t], pl[2][t]), pl[2][t] = 0.f;")]),
+]
 # Every variant of a source is loaded into one process: a static local of an
 # inline or template function is one symbol across the libraries, so the
 # attribute call must run in each.
@@ -288,7 +377,8 @@ def build_variants(build, src: str, variants, out_dir: Path, extra=(), ptxas=Fal
 
 
 # the kernels whose registers and spills a variant mode prints (B2: its bf16 launches)
-PTXAS_KERNELS = {"layer_attention": "", "cls_logits": "cls_(ln1_stats|kv_attention|tail)"}
+PTXAS_KERNELS = {"layer_attention": "", "cls_logits": "cls_(ln1_stats|kv_attention|tail)",
+                 "gemm": "gemm_split6"}
 
 
 def print_ptxas(what: str, text: str, only: str = ""):
@@ -384,7 +474,10 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: no CUDA device (torch.cuda.is_available() is False)")
     if sys.argv[1:2] == ["times"]:
-        layer_times(sys.argv[2] if len(sys.argv) > 2 else ".")
+        rest = sys.argv[2:]
+        only_f32 = rest[-1:] == ["f32"]
+        rest = rest[:-1] if only_f32 else rest
+        layer_times(rest[0] if rest else ".", only_f32)
         return
     from vit_pruning_tpu_torch.ops.cuda import build
 
@@ -399,15 +492,19 @@ def main():
              "b1": ("layer_attention", B1_VARIANTS, ("layer", "gemm")),
              "b2": ("cls_logits", B2_VARIANTS, others("cls_logits")),
              "faults": ("layer_attention", ATTENTION_FAULTS, others("layer_attention")),
-             "faults_b2": ("cls_logits", B2_FAULTS, others("cls_logits"))}
+             "faults_b2": ("cls_logits", B2_FAULTS, others("cls_logits")),
+             "f32": ("gemm", F32_VARIANTS, ()),
+             "faults_f32": ("gemm", F32_FAULTS, others("gemm"))}
     if "faults" in chosen:
         chosen = chosen + ["faults_b2"]
+    if "f32" in chosen:
+        chosen = chosen + ["faults_f32"]
     if not set(chosen) <= set(plans):
         sys.exit(f"kernel_variants: kernels {chosen}; it knows {sorted(plans)}")
     with tempfile.TemporaryDirectory() as tmp:
         with ThreadPoolExecutor(len(chosen)) as pool:  # every nvcc process at once
             futures = {key: pool.submit(build_variants, build, src, variants, Path(tmp) / key,
-                                        extra, key in ("b1", "b2"))
+                                        extra, key in ("b1", "b2", "f32"))
                        for key, (src, variants, extra) in plans.items() if key in chosen}
             libs = {key: f.result() for key, f in futures.items()}
         dev, gen = "cuda", torch.Generator().manual_seed(0)
@@ -430,6 +527,9 @@ def main():
         if "faults" in libs:
             faults_report(build, libs["faults"], dev, ATTENTION_FAULTS, "attention_isolated")
             faults_report(build, libs["faults_b2"], dev, B2_FAULTS, "cls_attention_isolated")
+        if "f32" in libs:
+            f32_report(libs["f32"], gen, dev, stream)
+            faults_report(build, libs["faults_f32"], dev, F32_FAULTS, "f32_split_products")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
@@ -509,9 +609,31 @@ def b1_report(libs: dict, gen, dev, stream):
         report(f"B1 {tag}", B1_VARIANTS, {
             name: (lambda lib=lib: lib.vpt_vit_layer_forward(
                 1, x.data_ptr(), None, *(t.data_ptr() for t in w), out.data_ptr(),
-                *(t.data_ptr() for t in ws), b, s, d, h, kw // h, m, d, cfg.layernorm_eps,
+                *(t.data_ptr() for t in ws), None, b, s, d, h, kw // h, m, d, cfg.layernorm_eps,
                 stream)) for name, lib in libs.items()}, out)
         del x, out, ws, w
+
+
+def f32_report(libs: dict, gen, dev, stream):
+    """The split body's variants (F32_VARIANTS) through vpt_gemm_f32 at
+    ViT-B/16's four f32 products, batch 16 x S 197 (random operands, bias,
+    the residual where the layer adds one)."""
+    m, d, mm = 16 * 197, 768, 3072
+    for tag, k, n, act, res in (("qkv", d, 3 * d, 0, False), ("o", d, d, 0, True),
+                                ("fc1", d, mm, 1, False), ("fc2", mm, d, 0, True)):
+        a = torch.randn(m, k, generator=gen).to(dev)
+        w = (torch.randn(k, n, generator=gen) / math.sqrt(k)).to(dev)
+        b = (0.1 * torch.randn(n, generator=gen)).to(dev)
+        r = torch.randn(m, n, generator=gen).to(dev) if res else None
+        out = torch.empty((m, n), device=dev)
+        planes = torch.empty(3 * k * n, dtype=torch.bfloat16, device=dev)
+        report(f"f32 split body, ViT-B batch 16 {tag} (M {m}, K {k}, N {n})", F32_VARIANTS, {
+            name: (lambda lib=lib: lib.vpt_gemm_f32(
+                a.data_ptr(), k, w.data_ptr(), m, n, k, b.data_ptr(), act,
+                None if r is None else r.data_ptr(), n, out.data_ptr(), n, planes.data_ptr(),
+                stream))
+            for name, lib in libs.items()}, out)
+        del a, w, b, r, out, planes
 
 
 def faults_report(build, libs: dict, dev, faults, cases: str):
@@ -526,7 +648,8 @@ def faults_report(build, libs: dict, dev, faults, cases: str):
         for name, what, _ in faults:
             build.load_library = lambda lib=libs[name]: lib
             recs = getattr(chip_smoke, cases)(dev, lambda msg: None)
-            ratio = [r["d"] / r["tol"] if math.isfinite(r["d"]) else math.inf for r in recs]
+            ratio = [r.get("ratio", r["d"] / r["tol"]) if math.isfinite(r["d"]) else math.inf
+                     for r in recs]
             bad = sum(not q <= 1.0 for q in ratio)
             worst = max(range(len(recs)), key=lambda i: ratio[i])
             print(f"{cases} fault {name!r}: {bad} of {len(recs)} isolated cases fail, worst "
@@ -570,9 +693,8 @@ def b2_report(libs: dict, gen, dev, stream):
         report(f"B2 {tag}", B2_VARIANTS, {
             name: (lambda lib=lib: lib.vpt_vit_cls_logits_forward(
                 1, x.data_ptr(), *(t.data_ptr() for t in w), out.data_ptr(),
-                *(None if t is None else t.data_ptr() for t in ws), b, s, d, h, kw // h, m, d, 104,
-                cfg.layernorm_eps,
-                stream)) for name, lib in libs.items()}, out)
+                *(None if t is None else t.data_ptr() for t in ws), None, b, s, d, h, kw // h, m,
+                d, 104, cfg.layernorm_eps, stream)) for name, lib in libs.items()}, out)
         del x, out, ws, w
 
 
@@ -683,8 +805,122 @@ def serving_times(res: dict, gen, dev):
             res[f"{name}_ms"] = time_ms(lambda: serving_forward(p, u8, gcfg, pcfg), iters=10)
 
 
-def layer_times(checkout: str):
-    """The `times` mode (module docstring) for the package of `checkout`."""
+def by_family(profile: dict) -> dict:
+    """launch_profile's launches summed by what they do: LN, the products
+    (every GEMM body), the attention and the rest; device us a call."""
+    fams = (("ln", ("layer_norm",)), ("products", ("gemm",)), ("attention", ("attention",)))
+    out = dict.fromkeys([f for f, _ in fams] + ["other"], 0.0)
+    for name, us, _ in profile["by_launch"]:
+        fam = next((f for f, keys in fams if any(k in name for k in keys)), "other")
+        out[fam] = round(out[fam] + us, 3)
+    return out
+
+
+def gate_config():
+    """quality_torch.py's gate model: 32x32, patch 4 (S 65), D 128, 4 heads of
+    32, MLP 256, 6 layers, 128 classes."""
+    from vit_pruning_tpu_torch.configs import ViTConfig
+
+    return ViTConfig(image_size=32, patch_size=4, hidden_size=128, num_layers=6, num_heads=4,
+                     mlp_dim=256, num_labels=128)
+
+
+def f32_times(res: dict, gen, dev):
+    """The float32 routes (what cli.py train / eval, quality_torch.py and the
+    train steps run by default), each timed with CUDA events (the mean of 10
+    after 3) and the layer kernels also launch by launch (launch_profile,
+    summed by by_family): B1 at ViT-B/16 batch 16 (the CLI's eval), DeiT-S
+    batch 32 (the train steps) and the gate model at its batch 128, S 197 /
+    197 / 65, 30% of the keys masked; B5 (12 layers) at DeiT-S batch 32; B2 at
+    DeiT-S batch 32, S 99; B3 at DeiT-S batch 32, S 197, capacity 99; B6 (6
+    heads of 64, S 197), B7 (32 x 197 rows) and B8b (f32 patches and weights,
+    K 768) at DeiT-S batch 32; and the CLI's eval forward (ViT-B/16, mode
+    mask, cls_mlp, batch 16) on the kernel path and the eager one."""
+    from vit_pruning_tpu_torch.configs import PruneConfig, deit_small, vit_base_patch16_224
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.models.pruned_vit import init_pruned_vit_params, pruned_vit_forward
+    from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_slice
+    from vit_pruning_tpu_torch.ops.cuda import attention as ka
+    from vit_pruning_tpu_torch.ops.cuda import embed as kemb
+    from vit_pruning_tpu_torch.ops.cuda import layer as kl
+    from vit_pruning_tpu_torch.ops.cuda import mlp as kmlp
+    from vit_pruning_tpu_torch.ops.cuda import model as kmod
+    from vit_pruning_tpu_torch.ops.dispatch import kernel_mode
+    from vit_pruning_tpu_torch.ops.masking import compact_dest
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = torch.float32
+
+    def masked(b, s):
+        m = torch.rand(b, s, generator=gen) > 0.3
+        m[:, 0] = True
+        return m.to(dev)
+
+    for tag, cfg, b in (("vit_b_b16", vit_base_patch16_224(), 16),
+                        ("deit_s_b32", deit_small(num_labels=100), 32),
+                        ("gate_b128", gate_config(), 128)):
+        s = cfg.seq_len
+        lp = tree_to(layer_slice(init_vit_params(cfg.replace(num_layers=1), gen, "cpu")["layers"],
+                                 0), dev, f32)
+        x = torch.randn(b, s, cfg.hidden_size, generator=gen).to(dev)
+        mask = masked(b, s)
+
+        def b1():
+            return kl.fused_vit_layer(x, lp, cfg.num_heads, cfg.layernorm_eps, mask)
+
+        res[f"f32_b1_{tag}"] = time_ms(b1, iters=10)
+        prof = launch_profile(b1)
+        res[f"f32_b1_{tag}_by_family_us"] = by_family(prof)
+        res[f"f32_b1_{tag}_profile"] = prof
+    cfg = deit_small(num_labels=100)
+    params = tree_to(init_vit_params(cfg, gen, "cpu"), dev, f32)
+    nh, d = cfg.num_heads, cfg.hidden_size
+    x = torch.randn(32, 197, d, generator=gen).to(dev)
+
+    def b5():
+        return kmod.fused_vit_encoder(x, params["layers"], nh, cfg.layernorm_eps)
+
+    res["f32_b5_deit_s_b32"] = time_ms(b5, iters=10)
+    res["f32_b5_deit_s_b32_by_family_us"] = by_family(launch_profile(b5))
+    lp = layer_slice(params["layers"], 0)
+    x99 = torch.randn(32, 99, d, generator=gen).to(dev)
+    res["f32_b2_deit_s_b32_s99"] = time_ms(
+        lambda: kl.fused_vit_layer_cls_logits(x99, lp, params["ln_f"], params["head"], nh), iters=10)
+    mask = masked(32, 197)
+    dest = compact_dest(mask)
+    res["f32_b3_deit_s_b32_cap99"] = time_ms(
+        lambda: kl.fused_vit_layer_bucketed(x, lp, dest, mask, 99, nh), iters=10)
+    q, k, v = (torch.randn(32, nh, 197, cfg.head_dim, generator=gen).to(dev) for _ in range(3))
+    res["f32_b6_deit_s_b32"] = time_ms(lambda: ka.fused_attention(q, k, v, mask), iters=10)
+    mlp = lp["mlp"]
+    xm = x.reshape(-1, d)
+    res["f32_b7_deit_s_b32"] = time_ms(
+        lambda: kmlp.fused_mlp(xm, mlp["fc1"]["w"], mlp["fc1"]["b"], mlp["fc2"]["w"],
+                               mlp["fc2"]["b"]), iters=10)
+    ep = params["embed"]
+    patches = torch.randn(32, cfg.num_patches, cfg.patch_dim, generator=gen).to(dev)
+    res["f32_b8b_deit_s_b32"] = time_ms(
+        lambda: kemb.fused_patch_embed_f(patches, ep["patch"]["w"], ep["patch"]["b"],
+                                         ep["pos"][0][1:]), iters=10)
+    b_cfg = vit_base_patch16_224()
+    pcfg = PruneConfig(mode="mask", predictor="cls_mlp")
+    pp = tree_to(init_pruned_vit_params(b_cfg, pcfg, gen, "cpu"), dev, f32)
+    pix = torch.randn(16, 3, 224, 224, generator=gen).to(dev)
+
+    def evaluate(mode):
+        with torch.no_grad(), kernel_mode(mode):
+            return pruned_vit_forward(pp, pix, b_cfg, pcfg)
+
+    eval_ms = {"auto": [], "eager": []}
+    for mode in ("auto", "eager", "eager", "auto"):
+        eval_ms[mode].append(time_ms(lambda: evaluate(mode), iters=10))
+    res["f32_eval_vit_b_b16_ms"] = {m: sum(v) / len(v) for m, v in eval_ms.items()}
+
+
+def layer_times(checkout: str, only_f32: bool = False):
+    """The `times` mode (module docstring) for the package of `checkout`;
+    only_f32: f32_times alone."""
     sys.path.insert(0, checkout)
     from vit_pruning_tpu_torch.configs import deit_small, vit_huge
     from vit_pruning_tpu_torch.models.convert import tree_to
@@ -716,6 +952,13 @@ def layer_times(checkout: str):
     res = {"checkout": checkout, "library": load_library()._name}
     dev, bf = torch.device("cuda", 0), torch.bfloat16
     gen = torch.Generator().manual_seed(7)
+    if only_f32:
+        f32_times(res, gen, dev)
+        res["device"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+        print(json.dumps(res))
+        return
     cfg = deit_small(num_labels=100)
     params = tree_to(init_vit_params(cfg, gen, "cpu"), dev, bf)
     lp, nh = layer_slice(params["layers"], 0), cfg.num_heads
@@ -759,6 +1002,9 @@ def layer_times(checkout: str):
     q, k, v = (torch.randn(512, 6, 197, 64, generator=gen).to(dev, bf) for _ in range(3))
     res["sdpa_bf16_512x6x197x64"] = time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), iters=10)
+    del q, k, v, params, x, pix
+    torch.cuda.empty_cache()
+    f32_times(res, gen, dev)
     res["device"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]

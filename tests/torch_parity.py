@@ -45,9 +45,9 @@ def init_pruned(config: ViTConfig, pcfg: PruneConfig, seed: int = 0) -> dict:
     return init_pruned_vit_params(jax.random.PRNGKey(seed), config, pcfg)
 
 
-# --- the arithmetic of kernels B6 and B7's tensor-core bodies, in torch ------
-# (csrc/wgmma.cuh::split_bf16x3, csrc/mlp.cu, csrc/attention.cu; the kernels
-# themselves run only on the card)
+# --- the arithmetic of the tensor-core bodies on f32 operands, in torch --------
+# (csrc/wgmma.cuh::split_bf16x3, csrc/mlp.cu, csrc/attention.cu, csrc/gemm.cu's
+# split body; the kernels themselves run only on the card)
 
 
 def split_bf16x3(a: torch.Tensor):
@@ -69,6 +69,27 @@ def split_product(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor) -> torch.
     for plane in reversed(split_bf16x3(a)):
         acc = acc + plane.float() @ b.float()
     return acc
+
+
+# csrc/gemm.cu's f32 split body: the six passes of a k-step as (A plane, W plane),
+# 0 hi, 1 mid, 2 lo, the small terms first
+SPLIT6_PASSES = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def split6_product(a: torch.Tensor, w: torch.Tensor, step: int = 64) -> torch.Tensor:
+    """a @ w for f32 a [..., K] and w [K, N] as the split body forms it: both
+    operands split into three bf16 planes, the six passes of each 64-deep
+    k-step summed in f32 (each bf16 x bf16 product exact), each step's sum
+    added to the running f32 sum."""
+    pa = [t.float() for t in split_bf16x3(a)]
+    pw = [t.float() for t in split_bf16x3(w)]
+    out = torch.zeros((*a.shape[:-1], w.shape[1]), dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], step):
+        acc = torch.zeros_like(out)
+        for i, j in SPLIT6_PASSES:
+            acc = acc + pa[i][..., k0:k0 + step] @ pw[j][k0:k0 + step]
+        out = out + acc
+    return out
 
 
 def fused_mlp_emulated(x, w1, b1, w2, b2, chunk: int = 64) -> torch.Tensor:

@@ -58,8 +58,10 @@
 //      of the rows' LayerNorms, with cluster barriers between the phases.
 //      Every output value is computed by one block in a fixed order: no
 //      atomics, the same bits on every call (the serving export relies on it).
-// float32: PR 1's ten launches (LN1, the K/V and Q products, the CLS
-// attention on the CUDA cores, O, LN2, fc1, fc2, LN_f, classifier), FMA.
+// float32: ten steps (LN1, the K/V and Q products, the CLS attention on the
+// CUDA cores, O, LN2, fc1, fc2, LN_f, classifier), counted as ten launches of
+// the kind FMA; the six products run gemm.cu's split body on wgmma, each
+// after its W's split into bf16 planes (sixteen kernels in all).
 // Each launch is counted by kind (vpt_cls_logits_launch_counts), and
 // vpt_cls_logits_plan gives the kinds a call launches (mirrored by
 // ops/cuda/layer.py::cls_logits_launches).
@@ -1017,20 +1019,25 @@ cudaError_t cls_logits_f32(const float* x, const float* ln1g, const float* ln1b,
                            const float* b1, const float* w2, const float* b2, const float* lnfg,
                            const float* lnfb, const float* wh, const float* bh, float* logits,
                            float* h, float* kv, float* q, float* ctx, float* x1, float* m1,
-                           float* x2, int B, int S, int D, int H, int HD, int M, int DN,
-                           int labels, float eps, cudaStream_t st) {
+                           float* x2, bf16* wplanes, int B, int S, int D, int H, int HD, int M,
+                           int DN, int labels, float eps, cudaStream_t st) {
   const int rows = B * S, KW = H * HD;
   const long cls_stride = (long)S * D;  // CLS rows of x and h
   VPT_TRY(layer_norm<float, float>(x, D, ln1g, ln1b, h, D, rows, D, DN, eps, st));
-  VPT_TRY(gemm(h, D, wkv, rows, 2 * KW, D, epi(bkv, ACT_NONE, nullptr, 0, false, kv, 2 * KW, true), st));
-  VPT_TRY(gemm(h, cls_stride, wq, B, KW, D, epi(bq, ACT_NONE, nullptr, 0, false, q, KW, true), st));
+  VPT_TRY(gemm(h, D, wkv, rows, 2 * KW, D, epi(bkv, ACT_NONE, nullptr, 0, false, kv, 2 * KW, true), st,
+               wplanes));
+  VPT_TRY(gemm(h, cls_stride, wq, B, KW, D, epi(bq, ACT_NONE, nullptr, 0, false, q, KW, true), st,
+               wplanes));
   VPT_TRY(cls_attention_f32(q, kv, ctx, B, S, H, KW, st));
-  VPT_TRY(gemm(ctx, KW, wo, B, D, KW, epi(bo, ACT_NONE, x, cls_stride, true, x1, D, true), st));
+  VPT_TRY(gemm(ctx, KW, wo, B, D, KW, epi(bo, ACT_NONE, x, cls_stride, true, x1, D, true), st,
+               wplanes));
   VPT_TRY(layer_norm<float, float>(x1, D, ln2g, ln2b, h, D, B, D, DN, eps, st));
-  VPT_TRY(gemm(h, D, w1, B, M, D, epi(b1, ACT_GELU_ERF, nullptr, 0, false, m1, M, true), st));
-  VPT_TRY(gemm(m1, M, w2, B, D, M, epi(b2, ACT_NONE, x1, D, true, x2, D, true), st));
+  VPT_TRY(gemm(h, D, w1, B, M, D, epi(b1, ACT_GELU_ERF, nullptr, 0, false, m1, M, true), st,
+               wplanes));
+  VPT_TRY(gemm(m1, M, w2, B, D, M, epi(b2, ACT_NONE, x1, D, true, x2, D, true), st, wplanes));
   VPT_TRY(layer_norm<float, float>(x2, D, lnfg, lnfb, h, D, B, D, DN, eps, st));
-  VPT_TRY(gemm(h, D, wh, B, labels, D, epi(bh, ACT_NONE, nullptr, 0, false, logits, labels, true), st));
+  VPT_TRY(gemm(h, D, wh, B, labels, D, epi(bh, ACT_NONE, nullptr, 0, false, logits, labels, true), st,
+               wplanes));
   g_cls_launches[cls::FMA] += 10;
   return cudaSuccess;
 }
@@ -1076,15 +1083,17 @@ void vpt_cls_logits_launch_reset() {
 // [B*S, 2KW], q [B, KW], ctx [B, KW], m1 [B, M], x1 and x2 [B, D]; bfloat16:
 // h [B, D], kv: LN1's statistics [B*S + 72] f32 pairs, q unused (null), ctx [B,
 // KW] and m1 [B, M] in bf16, x1 and x2 [B, D] f32, and labels a multiple of
-// 8. DN: the layer norms' width, as vpt_vit_layer_forward's.
+// 8. wplanes, float32 only (else null): 3 max(2 D KW, D M, D labels) bf16 for
+// each f32 weight's planes in turn (gemm.cu). DN: the layer norms' width, as
+// vpt_vit_layer_forward's.
 int vpt_vit_cls_logits_forward(int dtype, const void* x, const void* ln1g, const void* ln1b,
                                const void* wq, const void* bq, const void* wkv, const void* bkv,
                                const void* wo, const void* bo, const void* ln2g, const void* ln2b,
                                const void* w1, const void* b1, const void* w2, const void* b2,
                                const void* lnfg, const void* lnfb, const void* wh, const void* bh,
                                void* logits, void* h, void* kv, void* q, void* ctx, void* x1,
-                               void* m1, void* x2, int B, int S, int D, int H, int HD, int M,
-                               int DN, int labels, float eps, void* stream) {
+                               void* m1, void* x2, void* wplanes, int B, int S, int D, int H,
+                               int HD, int M, int DN, int labels, float eps, void* stream) {
   if (!shapes_ok(dtype, B, S, D, H, HD, M, DN) || labels <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -1092,8 +1101,8 @@ int vpt_vit_cls_logits_forward(int dtype, const void* x, const void* ln1g, const
     return cls_logits_f32(F(x), F(ln1g), F(ln1b), F(wq), F(bq), F(wkv), F(bkv), F(wo), F(bo),
                           F(ln2g), F(ln2b), F(w1), F(b1), F(w2), F(b2), F(lnfg), F(lnfb), F(wh),
                           F(bh), (float*)logits, (float*)h, (float*)kv, (float*)q, (float*)ctx,
-                          (float*)x1, (float*)m1, (float*)x2, B, S, D, H, HD, M, DN, labels, eps,
-                          st);
+                          (float*)x1, (float*)m1, (float*)x2, static_cast<bf16*>(wplanes), B, S,
+                          D, H, HD, M, DN, labels, eps, st);
 #undef F
   }
 #define T(p) static_cast<const bf16*>(p)

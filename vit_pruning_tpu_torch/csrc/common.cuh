@@ -2,7 +2,7 @@
 // cls_logits.cu, gemm.cu, layer_int8.cu, encoder.cu, attention.cu, mlp.cu,
 // embed.cu): the
 // numerics helpers, the GEMM epilogue (bias, activation, residual, cast), the
-// f32 GEMM body that B1 and B8 share, the f32 attention kernel that B1-B5 (in
+// FMA f32 GEMM body of B8 with f32 weights, the f32 attention kernel that B1-B5 (in
 // float32) and B6 share, and the declarations of the launchers that layer.cu,
 // layer_attention.cu and gemm.cu define and layer_int8.cu and encoder.cu
 // reuse (B1's attention and LayerNorm, the GEMMs, the shape rules). The
@@ -200,8 +200,8 @@ __device__ __forceinline__ void epilogue_store8(const Epilogue& e, int m, int n,
   } while (0)
 
 // ---------------------------------------------------------------------------
-// One block of the f32 GEMM on the CUDA cores: layer.cu's (B1-B5 in float32)
-// and embed.cu's (B8 with f32 weights). A 64x64 output tile at (m0, n0), 256
+// One block of the f32 GEMM on the CUDA cores: embed.cu's (B8 with f32
+// weights; the layer kernels' f32 products run gemm.cu's split body). A 64x64 output tile at (m0, n0), 256
 // threads, 4x4 outputs a thread, K in steps of 16, plain FMA (full f32, no
 // TF32, so it matches a f32 reference closely). load_a(m, k) gives A's value
 // in f32 (the caller's prologue) and store(m, n, v) takes each product (the
@@ -677,11 +677,14 @@ void count_layer_attention(int body);
 
 // out[M, N] = epilogue(A[M, K] (row stride lda) @ W[K, N]), defined in
 // gemm.cu: in bf16 the wgmma + TMA body where TMA can describe A and W (else
-// WMMA tiles), FMA tiles (full f32) in float32
+// WMMA tiles), in float32 the split body (six bf16 wgmma passes over exact
+// three-way splits of A and W, full f32 accuracy), which first splits W into
+// the workspace wplanes (3 K N bf16, 16-byte aligned; N a multiple of 8).
+// bf16 takes no workspace.
 cudaError_t gemm(const bf16* A, long lda, const bf16* W, int M, int N, int K, Epilogue e,
-                 cudaStream_t st);
+                 cudaStream_t st, bf16* wplanes = nullptr);
 cudaError_t gemm(const float* A, long lda, const float* W, int M, int N, int K, const Epilogue& e,
-                 cudaStream_t st);
+                 cudaStream_t st, bf16* wplanes);
 
 // LayerNorm of `rows` rows of x (Tin) into y (T), d values a row, f32
 // statistics over the first dn of them; instances <float, float>,

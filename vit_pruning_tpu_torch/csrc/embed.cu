@@ -77,7 +77,7 @@ __device__ __forceinline__ void load_pos8(const void* pos, int pos_f32, long i, 
     load8(static_cast<const bf16*>(pos) + i, v);
 }
 
-// f32 weights: common.cuh's gemm_f32_tile (B1's f32 GEMM body) with the
+// f32 weights: common.cuh's gemm_f32_tile (the FMA GEMM body) with the
 // affine as its A load and + b + pos as its store. pos is f32 here (the
 // entry point's rule for f32 weights).
 template <typename Tin>

@@ -44,8 +44,9 @@ template <typename T>
 cudaError_t encoder_forward(const T* x, const unsigned char* mask, const T* ln1g, const T* ln1b,
                             const T* wqkv, const T* bqkv, const T* wo, const T* bo, const T* ln2g,
                             const T* ln2b, const T* w1, const T* b1, const T* w2, const T* b2,
-                            T* out, T* h, T* qkv, T* ctx, float* x1, T* m1, float* xr, int L, int B,
-                            int S, int D, int H, int HD, int M, int DN, float eps, cudaStream_t st) {
+                            T* out, T* h, T* qkv, T* ctx, float* x1, T* m1, float* xr,
+                            bf16* wplanes, int L, int B, int S, int D, int H, int HD, int M, int DN,
+                            float eps, cudaStream_t st) {
   const int rows = B * S, KW = H * HD;
   for (int l = 0; l < L; ++l) {
     const bool first = l == 0, last = l == L - 1;
@@ -55,20 +56,20 @@ cudaError_t encoder_forward(const T* x, const unsigned char* mask, const T* ln1g
     else
       VPT_TRY(layer_norm<float, T>(xr, D, ln1g + ld, ln1b + ld, h, D, rows, D, DN, eps, st));
     VPT_TRY(gemm(h, D, wqkv + lq * D, rows, 3 * KW, D,
-                 epi(bqkv + lq, ACT_NONE, nullptr, 0, false, qkv, 3 * KW, false), st));
+                 epi(bqkv + lq, ACT_NONE, nullptr, 0, false, qkv, 3 * KW, false), st, wplanes));
     VPT_TRY(attention(qkv, mask, nullptr, ctx, B, S, H, KW, st, true));
     // x1 = (ctx @ wo + bo) + x: the residual is x itself (T) at layer 0, the
     // f32 stream after it
     const void* res = first ? static_cast<const void*>(x) : static_cast<const void*>(xr);
     VPT_TRY(gemm(ctx, KW, wo + (long)l * KW * D, rows, D, KW,
-                 epi(bo + ld, ACT_NONE, res, D, !first, x1, D, true), st));
+                 epi(bo + ld, ACT_NONE, res, D, !first, x1, D, true), st, wplanes));
     VPT_TRY(layer_norm<float, T>(x1, D, ln2g + ld, ln2b + ld, h, D, rows, D, DN, eps, st));
     VPT_TRY(gemm(h, D, w1 + lm * D, rows, M, D,
-                 epi(b1 + lm, ACT_GELU_ERF, nullptr, 0, false, m1, M, false), st));
+                 epi(b1 + lm, ACT_GELU_ERF, nullptr, 0, false, m1, M, false), st, wplanes));
     // x = (m1 @ w2 + b2) + x1, into the f32 stream, or cast once into out
     void* dst = last ? static_cast<void*>(out) : static_cast<void*>(xr);
     VPT_TRY(gemm(m1, M, w2 + lm * D, rows, D, M, epi(b2 + ld, ACT_NONE, x1, D, true, dst, D, !last),
-                 st));
+                 st, wplanes));
   }
   return cudaSuccess;
 }
@@ -84,14 +85,16 @@ extern "C" {
 // g, b [L, D]; wqkv [L, D, 3KW], bqkv [L, 3KW]; wo [L, KW, D], bo [L, D];
 // w1 [L, D, M], b1 [L, M]; w2 [L, M, D], b2 [L, D], all in the dtype.
 // Workspaces: h [B*S, D], qkv [B*S, 3KW], ctx [B*S, KW], m1 [B*S, M] in the
-// dtype; x1 and xr [B*S, D] float32. out [B, S, D] in the dtype. DN: the
-// layer norms' width, as vpt_vit_layer_forward's.
+// dtype; x1 and xr [B*S, D] float32; wplanes as vpt_vit_layer_forward's
+// (one layer's largest weight). out [B, S, D] in the dtype. DN: the layer
+// norms' width, as vpt_vit_layer_forward's.
 int vpt_vit_encoder_forward(int dtype, const void* x, const void* mask, const void* ln1g,
                             const void* ln1b, const void* wqkv, const void* bqkv, const void* wo,
                             const void* bo, const void* ln2g, const void* ln2b, const void* w1,
                             const void* b1, const void* w2, const void* b2, void* out, void* h,
-                            void* qkv, void* ctx, void* x1, void* m1, void* xr, int L, int B, int S,
-                            int D, int H, int HD, int M, int DN, float eps, void* stream) {
+                            void* qkv, void* ctx, void* x1, void* m1, void* xr, void* wplanes,
+                            int L, int B, int S, int D, int H, int HD, int M, int DN, float eps,
+                            void* stream) {
   if (!shapes_ok(dtype, B, S, D, H, HD, M, DN) || L < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned char* mk = static_cast<const unsigned char*>(mask);
@@ -99,7 +102,8 @@ int vpt_vit_encoder_forward(int dtype, const void* x, const void* mask, const vo
   encoder_forward<T>((const T*)x, mk, (const T*)ln1g, (const T*)ln1b, (const T*)wqkv,             \
                      (const T*)bqkv, (const T*)wo, (const T*)bo, (const T*)ln2g, (const T*)ln2b,  \
                      (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (T*)out, (T*)h,      \
-                     (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, (float*)xr, L, B, S, D, H, HD, M, DN, eps, st)
+                     (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, (float*)xr, (bf16*)wplanes, L, B, S, \
+                     D, H, HD, M, DN, eps, st)
   return dtype == 0 ? VPT_ENCODER(float) : VPT_ENCODER(bf16);
 #undef VPT_ENCODER
 }

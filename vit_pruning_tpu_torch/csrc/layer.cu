@@ -27,8 +27,8 @@
 // the tanh form for bf16 and erf for f32.
 //
 // The GEMMs are gemm.cu's: in bf16 wgmma.cuh's wgmma + TMA body for every
-// layer product, in f32 FMA tiles (no TF32, so f32 matches a f32 reference
-// closely). The attention of B1 and B3 (and of B4, B5), at head dims 16, 32,
+// layer product, in f32 the split body (wgmma on exact three-way bf16 splits
+// of both operands, six passes: f32 accuracy, no TF32). The attention of B1 and B3 (and of B4, B5), at head dims 16, 32,
 // 64 and 80: in bf16 layer_attention.cu's wgmma + TMA body (one 64-query tile
 // of one head a block, the logits in registers, P fed to PV from registers),
 // in f32 FMA on the CUDA cores (below).
@@ -107,17 +107,19 @@ template <typename T>
 cudaError_t layer_forward(const T* x, const unsigned char* mask, const int* counts, const T* ln1g,
                           const T* ln1b, const T* wqkv, const T* bqkv, const T* wo, const T* bo,
                           const T* ln2g, const T* ln2b, const T* w1, const T* b1, const T* w2,
-                          const T* b2, T* out, T* h, T* qkv, T* ctx, float* x1, T* m1, int B, int S,
-                          int D, int H, int HD, int M, int DN, float eps, cudaStream_t st) {
+                          const T* b2, T* out, T* h, T* qkv, T* ctx, float* x1, T* m1,
+                          bf16* wplanes, int B, int S, int D, int H, int HD, int M, int DN,
+                          float eps, cudaStream_t st) {
   const int rows = B * S, KW = H * HD;
   const int act = sizeof(T) == 2 ? ACT_GELU_TANH : ACT_GELU_ERF;
   VPT_TRY(layer_norm<T, T>(x, D, ln1g, ln1b, h, D, rows, D, DN, eps, st));
-  VPT_TRY(gemm(h, D, wqkv, rows, 3 * KW, D, epi(bqkv, ACT_NONE, nullptr, 0, false, qkv, 3 * KW, false), st));
+  VPT_TRY(gemm(h, D, wqkv, rows, 3 * KW, D, epi(bqkv, ACT_NONE, nullptr, 0, false, qkv, 3 * KW, false), st,
+               wplanes));
   VPT_TRY(attention(qkv, mask, counts, ctx, B, S, H, KW, st));
-  VPT_TRY(gemm(ctx, KW, wo, rows, D, KW, epi(bo, ACT_NONE, x, D, false, x1, D, true), st));
+  VPT_TRY(gemm(ctx, KW, wo, rows, D, KW, epi(bo, ACT_NONE, x, D, false, x1, D, true), st, wplanes));
   VPT_TRY(layer_norm<float, T>(x1, D, ln2g, ln2b, h, D, rows, D, DN, eps, st));
-  VPT_TRY(gemm(h, D, w1, rows, M, D, epi(b1, act, nullptr, 0, false, m1, M, false), st));
-  VPT_TRY(gemm(m1, M, w2, rows, D, M, epi(b2, ACT_NONE, x1, D, true, out, D, false), st));
+  VPT_TRY(gemm(h, D, w1, rows, M, D, epi(b1, act, nullptr, 0, false, m1, M, false), st, wplanes));
+  VPT_TRY(gemm(m1, M, w2, rows, D, M, epi(b2, ACT_NONE, x1, D, true, out, D, false), st, wplanes));
   return cudaSuccess;
 }
 
@@ -195,8 +197,8 @@ cudaError_t bucketed_forward(const T* x, const int* dest, const unsigned char* k
                              const T* ln1b, const T* wqkv, const T* bqkv, const T* wo, const T* bo,
                              const T* ln2g, const T* ln2b, const T* w1, const T* b1, const T* w2,
                              const T* b2, T* out, int* src, int* counts, T* xc, T* yc, T* h, T* qkv,
-                             T* ctx, float* x1, T* m1, int B, int S, int cap, int D, int H, int HD,
-                             int M, int DN, float eps, cudaStream_t st) {
+                             T* ctx, float* x1, T* m1, bf16* wplanes, int B, int S, int cap, int D,
+                             int H, int HD, int M, int DN, float eps, cudaStream_t st) {
   const int chunks = D * static_cast<int>(sizeof(T)) / 16;
   bucket_invert_kernel<<<B, kInvertThreads, 0, st>>>(dest, kept, src, counts, S, cap);
   VPT_TRY(cudaGetLastError());
@@ -204,7 +206,8 @@ cudaError_t bucketed_forward(const T* x, const int* dest, const unsigned char* k
   gather_rows_kernel<T><<<(g + 255) / 256, 256, 0, st>>>(x, src, xc, S, cap, chunks, g);
   VPT_TRY(cudaGetLastError());
   VPT_TRY(layer_forward<T>(xc, nullptr, counts, ln1g, ln1b, wqkv, bqkv, wo, bo, ln2g, ln2b, w1, b1,
-                           w2, b2, yc, h, qkv, ctx, x1, m1, B, cap, D, H, HD, M, DN, eps, st));
+                           w2, b2, yc, h, qkv, ctx, x1, m1, wplanes, B, cap, D, H, HD, M, DN, eps,
+                           st));
   const long e = (long)B * S * chunks;
   expand_rows_kernel<T><<<(e + 255) / 256, 256, 0, st>>>(x, yc, dest, kept, out, S, cap, chunks, e);
   return cudaGetLastError();
@@ -227,15 +230,16 @@ int vpt_layer_head_dim_ok(int hd) { return layer_head_dim_ok(hd); }
 
 // dtype: 0 = float32, 1 = bfloat16. mask: [B, S] bytes (torch.bool) or null.
 // Workspaces: h [B*S, D], qkv [B*S, 3KW], ctx [B*S, KW], m1 [B*S, M] in the
-// dtype; x1 [B*S, D] float32. DN: the width the layer norms run over, D
-// unless the caller zero-padded x and the weights from DN up to D (every
-// entry point below takes it the same way).
+// dtype; x1 [B*S, D] float32; wplanes, float32 only (else null): 3 max(3 D KW,
+// D M) bf16, each f32 weight's three bf16 planes in turn (gemm.cu). DN: the
+// width the layer norms run over, D unless the caller zero-padded x and the
+// weights from DN up to D (every entry point below takes it the same way).
 int vpt_vit_layer_forward(int dtype, const void* x, const void* mask, const void* ln1g,
                           const void* ln1b, const void* wqkv, const void* bqkv, const void* wo,
                           const void* bo, const void* ln2g, const void* ln2b, const void* w1,
                           const void* b1, const void* w2, const void* b2, void* out, void* h,
-                          void* qkv, void* ctx, void* x1, void* m1, int B, int S, int D, int H,
-                          int HD, int M, int DN, float eps, void* stream) {
+                          void* qkv, void* ctx, void* x1, void* m1, void* wplanes, int B, int S,
+                          int D, int H, int HD, int M, int DN, float eps, void* stream) {
   if (!shapes_ok(dtype, B, S, D, H, HD, M, DN)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned char* mk = static_cast<const unsigned char*>(mask);
@@ -243,7 +247,8 @@ int vpt_vit_layer_forward(int dtype, const void* x, const void* mask, const void
   layer_forward<T>((const T*)x, mk, nullptr, (const T*)ln1g, (const T*)ln1b, (const T*)wqkv,      \
                    (const T*)bqkv, (const T*)wo, (const T*)bo, (const T*)ln2g, (const T*)ln2b,    \
                    (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (T*)out, (T*)h,        \
-                   (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, B, S, D, H, HD, M, DN, eps, st)
+                   (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, (bf16*)wplanes, B, S, D, H, HD, M, DN, \
+                   eps, st)
   return dtype == 0 ? VPT_LAYER(float) : VPT_LAYER(bf16);
 #undef VPT_LAYER
 }
@@ -251,15 +256,17 @@ int vpt_vit_layer_forward(int dtype, const void* x, const void* mask, const void
 // dest [B, S] int32 compacted row ids (kept first, stable), kept [B, S]
 // bytes, 1 <= cap <= S. Workspaces: src [B, cap] and counts [B] int32; xc,
 // yc, h [B*cap, D], qkv [B*cap, 3KW], ctx [B*cap, KW], m1 [B*cap, M] in the
-// dtype; x1 [B*cap, D] float32. out [B, S, D] in the dtype.
+// dtype; x1 [B*cap, D] float32; wplanes as vpt_vit_layer_forward's. out [B,
+// S, D] in the dtype.
 int vpt_vit_layer_bucketed_forward(int dtype, const void* x, const void* dest, const void* kept,
                                    const void* ln1g, const void* ln1b, const void* wqkv,
                                    const void* bqkv, const void* wo, const void* bo,
                                    const void* ln2g, const void* ln2b, const void* w1,
                                    const void* b1, const void* w2, const void* b2, void* out,
                                    void* src, void* counts, void* xc, void* yc, void* h, void* qkv,
-                                   void* ctx, void* x1, void* m1, int B, int S, int cap, int D,
-                                   int H, int HD, int M, int DN, float eps, void* stream) {
+                                   void* ctx, void* x1, void* m1, void* wplanes, int B, int S,
+                                   int cap, int D, int H, int HD, int M, int DN, float eps,
+                                   void* stream) {
   if (!shapes_ok(dtype, B, S, D, H, HD, M, DN) || cap < 1 || cap > S) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define VPT_BUCKETED(T)                                                                            \
@@ -267,7 +274,8 @@ int vpt_vit_layer_bucketed_forward(int dtype, const void* x, const void* dest, c
                       (const T*)ln1b, (const T*)wqkv, (const T*)bqkv, (const T*)wo, (const T*)bo,  \
                       (const T*)ln2g, (const T*)ln2b, (const T*)w1, (const T*)b1, (const T*)w2,    \
                       (const T*)b2, (T*)out, (int*)src, (int*)counts, (T*)xc, (T*)yc, (T*)h,       \
-                      (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, B, S, cap, D, H, HD, M, DN, eps, st)
+                      (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, (bf16*)wplanes, B, S, cap, D, H, HD, \
+                      M, DN, eps, st)
   return dtype == 0 ? VPT_BUCKETED(float) : VPT_BUCKETED(bf16);
 #undef VPT_BUCKETED
 }

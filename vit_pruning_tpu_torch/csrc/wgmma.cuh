@@ -318,6 +318,42 @@ struct ProducerWarps<TmaA> {
   static constexpr int value = 1;
 };
 
+// The epilogue of a consumer warpgroup's m64n128 accumulators (rows m0w ..
+// m0w + 63, columns n0 .. n0 + 127). Accumulator i of a thread: row (warp *
+// 16 + lane / 4 + 8 * ((i / 2) % 2)), column (i / 4) * 8 + 2 * (lane % 4) + i
+// % 2. For two 8-column blocks j, j + 1 the quad's four lanes hold four (row,
+// block) combinations, two columns of each a lane; after the transpose lane q
+// holds all 8 columns of combination q: row + 8 * (q & 1), block j + (q >>
+// 1). Then epi(m, n, v, M, N) on them.
+template <typename Epi>
+__device__ __forceinline__ void wgmma_tile_epilogue(const float (&acc)[64], int m0w, int n0,
+                                                    const Epi& epi, int M, int N) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int q = lane & 3;
+  const int mrow = m0w + warp * 16 + (lane >> 2) + 8 * (q & 1);
+#pragma unroll
+  for (int j = 0; j < 16; j += 2) {
+    float v[8];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int c = q ^ x;  // the combination this lane sends, and the pair it receives
+      const float sx = c == 0 ? acc[4 * j] : c == 1 ? acc[4 * j + 2]
+                     : c == 2 ? acc[4 * j + 4] : acc[4 * j + 6];
+      const float sy = c == 0 ? acc[4 * j + 1] : c == 1 ? acc[4 * j + 3]
+                     : c == 2 ? acc[4 * j + 5] : acc[4 * j + 7];
+      const float rx = __shfl_xor_sync(0xffffffffu, sx, x);
+      const float ry = __shfl_xor_sync(0xffffffffu, sy, x);
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        if (p == c) {
+          v[2 * p] = rx;
+          v[2 * p + 1] = ry;
+        }
+    }
+    epi(mrow, n0 + (j + (q >> 1)) * 8, v, M, N);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The kernel. Epi is called as epi(m, n, v, M, N) with v the 8 outputs
 // (m, n..n+7) in f32, n a multiple of 8, for every such group of the tile;
@@ -388,7 +424,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant
   }
 
   // --- consumers: warpgroup wg takes rows wg * 64 .. + 63 of the tile ---
-  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int wg = tid >> 7, lane = tid & 31;
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
@@ -410,34 +446,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant
     if (lane == 0) mbar_arrive(smem_u32(empty + s));
   }
 
-  // Accumulator i of a thread: row (warp * 16 + lane / 4 + 8 * ((i / 2) % 2)),
-  // column (i / 4) * 8 + 2 * (lane % 4) + i % 2. For two 8-column blocks j,
-  // j + 1 the quad's four lanes hold four (row, block) combinations, two
-  // columns of each a lane; after the transpose lane q holds all 8 columns
-  // of combination q: row + 8 * (q & 1), block j + (q >> 1).
-  const int q = lane & 3;
-  const int mrow = m0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * (q & 1);
-#pragma unroll
-  for (int j = 0; j < 16; j += 2) {
-    float v[8];
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int c = q ^ x;  // the combination this lane sends, and the pair it receives
-      const float sx = c == 0 ? acc[4 * j] : c == 1 ? acc[4 * j + 2]
-                     : c == 2 ? acc[4 * j + 4] : acc[4 * j + 6];
-      const float sy = c == 0 ? acc[4 * j + 1] : c == 1 ? acc[4 * j + 3]
-                     : c == 2 ? acc[4 * j + 5] : acc[4 * j + 7];
-      const float rx = __shfl_xor_sync(0xffffffffu, sx, x);
-      const float ry = __shfl_xor_sync(0xffffffffu, sy, x);
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-        if (p == c) {
-          v[2 * p] = rx;
-          v[2 * p + 1] = ry;
-        }
-    }
-    epi(mrow, n0 + (j + (q >> 1)) * 8, v, M, N);
-  }
+  wgmma_tile_epilogue(acc, m0 + wg * 64, n0, epi, M, N);
 }
 
 // ---------------------------------------------------------------------------
@@ -649,12 +658,13 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
 }
 
 // A contiguous bf16 tensor [outer, mid, inner] as a TMA map with boxes of
-// [1, 64, 64] and the 128-byte swizzle (zeros past every edge); not cached
+// [1, box_mid, 64] and the 128-byte swizzle (zeros past every edge); not
+// cached
 inline cudaError_t tma_map_3d_64(CUtensorMap* map, const void* base, uint64_t inner, uint64_t mid,
-                                 uint64_t outer) {
+                                 uint64_t outer, uint32_t box_mid = 64) {
   const cuuint64_t dims[3] = {inner, mid, outer};
   const cuuint64_t strides[2] = {inner * 2, inner * mid * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t box[3] = {64, box_mid, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = cuTensorMapEncodeTiled(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,

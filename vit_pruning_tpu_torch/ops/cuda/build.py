@@ -41,17 +41,18 @@ SIGNATURES = {
     "vpt_layer_attention_body_counts": ([P], None),
     "vpt_layer_attention_body_reset": ([], None),
     # (DN: the layer norms' width, D unless x and the weights were padded)
-    # dtype, x, mask, 12 layer weights, out, 5 workspaces, B S D H HD M DN, eps, stream
-    "vpt_vit_layer_forward": ([I] + [P] * 20 + [I] * 7 + [F, P], I),
-    # dtype, x, 18 weights, logits, 7 workspaces, B S D H HD M DN labels, eps, stream
-    "vpt_vit_cls_logits_forward": ([I] + [P] * 27 + [I] * 8 + [F, P], I),
+    # (wplanes: f32's weight planes for the split GEMM body, null in bf16)
+    # dtype, x, mask, 12 layer weights, out, 5 workspaces, wplanes, B S D H HD M DN, eps, stream
+    "vpt_vit_layer_forward": ([I] + [P] * 21 + [I] * 7 + [F, P], I),
+    # dtype, x, 18 weights, logits, 7 workspaces, wplanes, B S D H HD M DN labels, eps, stream
+    "vpt_vit_cls_logits_forward": ([I] + [P] * 28 + [I] * 8 + [F, P], I),
     # dtype, hd, S, D, out [6]: B2's launches by kind (-1: refused)
     "vpt_cls_logits_plan": ([I, I, I, I, P], I),
     "vpt_cls_logits_launch_counts": ([P], None),
     "vpt_cls_logits_launch_reset": ([], None),
     # dtype, x, dest, kept, 12 layer weights, out, src, counts, 7 workspaces,
-    # B S cap D H HD M DN, eps, stream
-    "vpt_vit_layer_bucketed_forward": ([I] + [P] * 25 + [I] * 8 + [F, P], I),
+    # wplanes, B S cap D H HD M DN, eps, stream
+    "vpt_vit_layer_bucketed_forward": ([I] + [P] * 26 + [I] * 8 + [F, P], I),
     # dtype, x, mask, 16 layer weights (int8 products with f32 scales), out,
     # 8 code / scale buffers, 4 workspaces, B S D H HD M DN, eps, stream
     "vpt_vit_layer_int8_forward": ([I] + [P] * 31 + [I] * 7 + [F, P], I),
@@ -62,9 +63,9 @@ SIGNATURES = {
     "vpt_gemm_s8": ([I, P, L, P, P, P, I, I, I, P, I, P, L, I, P, L, I, P], I),
     "vpt_int8_body_launches": ([], ctypes.c_longlong),
     "vpt_int8_body_reset": ([], None),
-    # dtype, x, mask, 12 stacked layer weights, out, 6 workspaces,
+    # dtype, x, mask, 12 stacked layer weights, out, 6 workspaces, wplanes,
     # L B S D H HD M DN, eps, stream
-    "vpt_vit_encoder_forward": ([I] + [P] * 21 + [I] * 8 + [F, P], I),
+    "vpt_vit_encoder_forward": ([I] + [P] * 22 + [I] * 8 + [F, P], I),
     "vpt_attention_max_head_dim": ([], I),
     # dtype, q, k, v, mask, out, B H S HD, stream
     "vpt_attention_forward": ([I] + [P] * 5 + [I] * 4 + [P], I),
@@ -83,6 +84,8 @@ SIGNATURES = {
     # A, lda, W, M N K, bias, act, residual, ldr, residual in f32, out, ldc,
     # out in f32, stream
     "vpt_gemm_bf16": ([P, L, P, I, I, I, P, I, P, L, I, P, L, I, P], I),
+    # A, lda, W, M N K, bias, act, residual, ldr, out, ldc (all f32), wplanes, stream
+    "vpt_gemm_f32": ([P, L, P, I, I, I, P, I, P, L, P, L, P, P], I),
     "vpt_gemm_body_counts": ([P], None),
     "vpt_gemm_body_reset": ([], None),
     "vpt_gemm_wmma_shapes": ([P, I], I),

@@ -1,23 +1,29 @@
-"""The bf16 GEMM under kernels B1, B2, B3 and B5, called on its own: a
-wrapper around csrc/gemm.cu's gemm() beside its plain PyTorch version.
+"""The GEMM under kernels B1, B2, B3 and B5, called on its own: wrappers
+around csrc/gemm.cu's gemm() beside their plain PyTorch versions.
 
-The layer kernels run this product from C for every bf16 projection (QKV,
-O, fc1, fc2, B2's K/V, Q and classifier). It is not exported from the
-package: it exists so that chip_smoke.py and the tests can hold the GEMM
-bodies against their plain version at every product shape of the main
-paths, one product at a time.
+The layer kernels run this product from C for every projection (QKV, O,
+fc1, fc2; in f32 also B2's K/V, Q, O, fc1, fc2 and classifier). It is not
+exported from the package: it exists so that chip_smoke.py and the tests
+can hold the GEMM bodies against their plain versions at every product
+shape of the main paths, one product at a time.
 
     out[M, N] = cast(residual + act(A[M, K] @ W[K, N] + bias))
 
-A and W bf16; A may be a row-strided view (B2 reads the CLS rows of [B, S,
-D] with row stride S*D); bias bf16 [N]; act 'none', 'gelu_erf' or
+gemm_bf16: A and W bf16; A may be a row-strided view (B2 reads the CLS rows
+of [B, S, D] with row stride S*D); bias bf16 [N]; act 'none', 'gelu_erf' or
 'gelu_tanh' (in f32); residual [M, N] bf16 or float32, rows contiguous
 (B2's residual is the CLS rows of x, row stride S*D); out bf16 or float32.
 On the card gemm() takes the wgmma + TMA body where TMA can describe A and
 W (16-byte aligned, lda, N and K multiples of 8) and the WMMA body
-otherwise, by shape alone; `body_counts()` reads the launches per body.
-For CPU tensors the wrapper runs the plain version; for CUDA tensors it
-launches or raises.
+otherwise, by shape alone.
+
+gemm_f32: A, W, bias, residual and out float32, N a multiple of 8, any M,
+K and row stride of A: on the card the split body (W split into three bf16
+planes in a workspace, A split in the producer; wgmma on the exact
+three-way splits of both operands, six passes, f32 sums).
+
+`body_counts()` reads the launches per body. For CPU tensors the wrappers
+run their plain versions; for CUDA tensors they launch or raise.
 """
 
 from __future__ import annotations
@@ -50,11 +56,20 @@ def gemm_bf16_ref(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]
     return y.to(out_dtype)
 
 
-def _check(a, w, bias, act, residual, out_dtype) -> tuple:
-    """The shapes, dtypes and layouts the kernel takes; (M, N, K, lda)."""
-    who = "gemm_bf16"
-    if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError(f"{who}: a and w must be bfloat16, got {a.dtype} and {w.dtype}")
+def gemm_f32_ref(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                 act: str = "none", residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the f32 split body: the f32 product (full
+    f32 where the caller keeps TF32 off, as chip_smoke.py does), then the
+    epilogue in f32."""
+    return gemm_bf16_ref(a, w, bias, act, residual, torch.float32)
+
+
+def _check(a, w, bias, act, residual, out_dtype, who="gemm_bf16") -> tuple:
+    """The shapes, dtypes and layouts the kernel takes; (M, N, K, lda).
+    gemm_bf16: bf16 operands, TMA's alignment; gemm_f32: f32 throughout."""
+    dt = torch.float32 if who == "gemm_f32" else torch.bfloat16
+    if a.dtype != dt or w.dtype != dt:
+        raise ValueError(f"{who}: a and w must be {dt}, got {a.dtype} and {w.dtype}")
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
         raise ValueError(f"{who}: a [M, K] and w [K, N], got {tuple(a.shape)} and {tuple(w.shape)}")
     m, k = a.shape
@@ -68,18 +83,24 @@ def _check(a, w, bias, act, residual, out_dtype) -> tuple:
     lda = a.stride(0)
     if a.stride(1) != 1 or lda < k:
         raise ValueError(f"{who}: a's rows must be contiguous (strides {a.stride()})")
-    if k % 8 or lda % 8 or a.data_ptr() % 16:
+    if dt == torch.bfloat16 and (k % 8 or lda % 8 or a.data_ptr() % 16):
         raise ValueError(f"{who}: K {k} and a's row stride {lda} must be multiples of 8 and a "
                          f"16-byte aligned")
-    if not w.is_contiguous() or w.data_ptr() % 16:
-        raise ValueError(f"{who}: w must be contiguous and 16-byte aligned")
-    if bias is not None and (bias.dtype != torch.bfloat16 or tuple(bias.shape) != (n,)
+    if dt == torch.float32 and n % 8:
+        raise ValueError(f"{who}: N {n} must be a multiple of 8 (the row stride of W's planes "
+                         f"for TMA)")
+    if not w.is_contiguous() or (dt == torch.bfloat16 and w.data_ptr() % 16):
+        raise ValueError(f"{who}: w must be contiguous" +
+                         (" and 16-byte aligned" if dt == torch.bfloat16 else ""))
+    if bias is not None and (bias.dtype != dt or tuple(bias.shape) != (n,)
                              or not bias.is_contiguous()):
-        raise ValueError(f"{who}: bias must be contiguous bfloat16 [{n}]")
-    if residual is not None and (residual.dtype not in _OUT or tuple(residual.shape) != (m, n)
+        raise ValueError(f"{who}: bias must be contiguous {dt} [{n}]")
+    res_dtypes = _OUT if dt == torch.bfloat16 else (torch.float32,)
+    if residual is not None and (residual.dtype not in res_dtypes
+                                 or tuple(residual.shape) != (m, n)
                                  or residual.stride(1) != 1 or residual.stride(0) < n):
-        raise ValueError(f"{who}: residual must be bfloat16 or float32 [{m}, {n}] with "
-                         f"contiguous rows")
+        raise ValueError(f"{who}: residual must be {' or '.join(map(str, res_dtypes))} "
+                         f"[{m}, {n}] with contiguous rows")
     for name, t in (("w", w), ("bias", bias), ("residual", residual)):
         if t is not None and t.device != a.device:
             raise ValueError(f"{who}: {name} is on {t.device}, a on {a.device}")
@@ -105,6 +126,37 @@ def gemm_bf16(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = N
 gemm_bf16.launches = 0
 
 
+def gemm_f32(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+             act: str = "none", residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One f32 product through the layer kernels' GEMM (the split body):
+    [M, N] float32."""
+    m, n, k, lda = _check(a, w, bias, act, residual, torch.float32, "gemm_f32")
+    if not launch_kernel_for(a):
+        return gemm_f32_ref(a, w, bias, act, residual)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    planes = torch.empty(3 * k * n, dtype=torch.bfloat16, device=a.device)
+    run("gemm_f32", a.device, "vpt_gemm_f32", ptr(a), lda, ptr(w), m, n, k, ptr(bias),
+        ACTS[act], ptr(residual), n if residual is None else residual.stride(0), ptr(out), n,
+        ptr(planes))
+    gemm_f32.launches += 1
+    count_f32_products("gemm_f32", 1)
+    return out
+
+
+gemm_f32.launches = 0
+
+# f32 products launched since the last reset_body_counts(), by the caller
+# that launched them: the mirror of the C counter 'f32_split' (every f32
+# product takes the split body), filled where each op launches: B1 and B3
+# four a call, B5 four a layer, B2 six, gemm_f32 one
+F32_PRODUCTS = {"b1": 4, "b3": 4, "b5": 4, "b2": 6}
+f32_products: dict = {}
+
+
+def count_f32_products(caller: str, n: int):
+    f32_products[caller] = f32_products.get(caller, 0) + n
+
+
 def takes_wgmma(a: torch.Tensor, w: torch.Tensor) -> bool:
     """Whether gemm() runs a product that gemm_bf16 accepts on the wgmma +
     TMA body (the C rule, wgmma.cuh::wgmma_takes): N a multiple of 8, the
@@ -113,21 +165,24 @@ def takes_wgmma(a: torch.Tensor, w: torch.Tensor) -> bool:
 
 
 def body_counts() -> dict:
-    """Launches of each bf16 GEMM body since the last reset_body_counts(),
-    from every caller of gemm() (the layer kernels included), and the
-    distinct (M, N, K) that took the WMMA body."""
+    """Launches of each GEMM body since the last reset_body_counts(), from
+    every caller of gemm() (the layer kernels included): the bf16 'wgmma'
+    and 'wmma' bodies, the f32 'f32_split' body; and the distinct (M, N, K)
+    that took the WMMA body."""
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
-    counts = (ctypes.c_longlong * 2)()
+    counts = (ctypes.c_longlong * 3)()
     lib.vpt_gemm_body_counts(counts)
     shapes = (ctypes.c_int * 192)()
     n = lib.vpt_gemm_wmma_shapes(shapes, 64)
-    return {"wgmma": counts[0], "wmma": counts[1],
+    return {"wgmma": counts[0], "wmma": counts[1], "f32_split": counts[2],
             "wmma_shapes": [tuple(shapes[3 * i:3 * i + 3]) for i in range(min(n, 64))]}
 
 
 def reset_body_counts():
+    """Zero the C counters and f32_products."""
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
 
     load_library().vpt_gemm_body_reset()
+    f32_products.clear()

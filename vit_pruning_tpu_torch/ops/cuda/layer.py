@@ -23,7 +23,8 @@ streamed K and V past it ('wgmma_streamed'); in f32 FMA on the CUDA cores
 launches (csrc/cls_logits.cu: LN1's row statistics; LN1, the K/V product, q
 and the CLS attention fused on wgmma + TMA with K and V kept out of device
 memory, V in registers, shared memory or recomputed; the tail on the B rows
-in one cluster launch), in f32 PR 1's ten FMA launches;
+in one cluster launch), in f32 ten launches of the kind 'fma' (LN, the
+products on csrc/gemm.cu's split body, the CLS attention on the CUDA cores);
 `cls_logits_launches` mirrors the C plan and `cls_launch_counts` reads the
 launches by kind.
 
@@ -68,6 +69,7 @@ import torch.nn.functional as F
 from vit_pruning_tpu_torch.models.convert import flatten_tree, unflatten_tree
 from vit_pruning_tpu_torch.models.vit import layer_norm, mlp_block
 from vit_pruning_tpu_torch.ops.attention import NEG_INF, mha
+from vit_pruning_tpu_torch.ops.cuda.gemm import F32_PRODUCTS, count_f32_products
 from vit_pruning_tpu_torch.ops.cuda.library import check_aligned, kernel_op, ptr, run
 from vit_pruning_tpu_torch.ops.cuda.widths import LAYER_MULTIPLE, kernel_layer, pad_dim, round_up
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
@@ -83,7 +85,7 @@ ATTENTION_BODIES = ("wgmma_resident", "wgmma_streamed", "fma")
 ATTENTION_LOGIT_CHUNKS = 4
 # B2's launch kinds, in the order of csrc/cls_logits.cu's counters: bf16 makes
 # one ln1_stats, one kv_attention_* (by where it keeps V) and one tail launch;
-# f32 ten fma launches
+# f32 ten launches of the kind 'fma' (its products on gemm.cu's split body)
 CLS_LAUNCH_KINDS = ("ln1_stats", "kv_attention_v_registers", "kv_attention_v_shared",
                     "kv_attention_v_recomputed", "tail", "fma")
 # cls_logits.cu's constants the plan depends on: the box bytes, the most bytes
@@ -559,6 +561,15 @@ def _workspaces(x: torch.Tensor, rows: int, d: int, kw: int, m: int, qkv_cols: i
             torch.empty((rows, d), dtype=torch.float32, device=x.device), x.new_empty((rows, m))]
 
 
+def _weight_planes(x: torch.Tensor, *sizes: int) -> Optional[torch.Tensor]:
+    """f32 only (else None): room for the three bf16 planes of the largest
+    of the call's weights (`sizes`, K * N each), into which csrc/gemm.cu's
+    split body splits each f32 weight before its product."""
+    if x.dtype != torch.float32:
+        return None
+    return torch.empty(3 * max(sizes), dtype=torch.bfloat16, device=x.device)
+
+
 def _b1_fake(x, token_mask, weights, num_heads, norm_width, eps):
     return torch.empty_like(x)
 
@@ -573,11 +584,14 @@ def _b1_op(x: torch.Tensor, token_mask: Optional[torch.Tensor], weights: list[to
     check_aligned(who, x=x, **dict(zip(LAYER_WEIGHTS, weights)))
     out = torch.empty_like(x)
     ws = _workspaces(x, b * s, d, kw, m, 3 * kw)
+    planes = _weight_planes(x, 3 * d * kw, d * m)
     run(who, x.device, "vpt_vit_layer_forward", _DTYPES[x.dtype], ptr(x), ptr(token_mask),
-        *map(ptr, weights), ptr(out), *map(ptr, ws), b, s, d, num_heads, kw // num_heads, m,
-        norm_width, eps)
+        *map(ptr, weights), ptr(out), *map(ptr, ws), ptr(planes), b, s, d, num_heads,
+        kw // num_heads, m, norm_width, eps)
     fused_vit_layer.launches += 1
     count_attention("b1", x.dtype, kw // num_heads, s)
+    if x.dtype == torch.float32:
+        count_f32_products("b1", F32_PRODUCTS["b1"])
     return out
 
 
@@ -653,12 +667,15 @@ def _b2_op(x: torch.Tensor, weights: list[torch.Tensor], num_heads: int, norm_wi
         first = [x.new_empty((b * s, d)), x.new_empty((b * s, 2 * kw)), x.new_empty((b, kw))]
     ws = first + [x.new_empty((b, kw)), torch.empty((b, d), **f32), x.new_empty((b, m)),
                   torch.empty((b, d), **f32)]
+    planes = _weight_planes(x, 2 * d * kw, d * m, d * labels)
     run(who, x.device, "vpt_vit_cls_logits_forward", _DTYPES[x.dtype], ptr(x),
-        *map(ptr, weights), ptr(logits), *map(ptr, ws), b, s, d, num_heads, kw // num_heads, m,
-        norm_width, labels, eps)
+        *map(ptr, weights), ptr(logits), *map(ptr, ws), ptr(planes), b, s, d, num_heads,
+        kw // num_heads, m, norm_width, labels, eps)
     fused_vit_layer_cls_logits.launches += 1
     for kind, n in cls_logits_launches(x.dtype, kw // num_heads, s, d).items():
         cls_launches[kind] += n
+    if x.dtype == torch.float32:
+        count_f32_products("b2", F32_PRODUCTS["b2"])
     return logits
 
 
@@ -723,12 +740,15 @@ def _b3_op(x: torch.Tensor, dest: torch.Tensor, kept: torch.Tensor, weights: lis
     counts = torch.empty((b,), dtype=torch.int32, device=x.device)
     xc, yc = x.new_empty((rows, d)), x.new_empty((rows, d))
     h, qkv, ctx, x1, m1 = _workspaces(x, rows, d, kw, m, 3 * kw)
+    planes = _weight_planes(x, 3 * d * kw, d * m)
     run(who, x.device, "vpt_vit_layer_bucketed_forward", _DTYPES[x.dtype], ptr(x), ptr(dest),
         ptr(kept), *map(ptr, weights), ptr(out), ptr(src), ptr(counts), ptr(xc), ptr(yc),
-        ptr(h), ptr(qkv), ptr(ctx), ptr(x1), ptr(m1), b, s, cap, d, num_heads,
+        ptr(h), ptr(qkv), ptr(ctx), ptr(x1), ptr(m1), ptr(planes), b, s, cap, d, num_heads,
         kw // num_heads, m, norm_width, eps)
     fused_vit_layer_bucketed.launches += 1
     count_attention("b3", x.dtype, kw // num_heads, cap)
+    if x.dtype == torch.float32:
+        count_f32_products("b3", F32_PRODUCTS["b3"])
     return out
 
 

@@ -38,6 +38,7 @@ from vit_pruning_tpu_torch.ops.cuda.layer import (
     _ln_f32,
     _padded_call,
     _unpad,
+    _weight_planes,
     _workspaces,
     count_attention,
     eager_layer,
@@ -45,6 +46,7 @@ from vit_pruning_tpu_torch.ops.cuda.layer import (
     recomputed,
     staged2_attention,
 )
+from vit_pruning_tpu_torch.ops.cuda.gemm import F32_PRODUCTS, count_f32_products
 from vit_pruning_tpu_torch.ops.cuda.library import check_aligned, kernel_op, ptr, run
 from vit_pruning_tpu_torch.ops.cuda.widths import LAYER_MULTIPLE
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
@@ -137,11 +139,14 @@ def _b5_op(x: torch.Tensor, token_mask: Optional[torch.Tensor], weights: list[to
     out = torch.empty_like(x)
     h, qkv, ctx, x1, m1 = _workspaces(x, b * s, d, kw, m, 3 * kw)
     xr = torch.empty_like(x1)
+    planes = _weight_planes(x, 3 * d * kw, d * m)
     run(who, x.device, "vpt_vit_encoder_forward", _DTYPES[x.dtype], ptr(x), ptr(token_mask),
         *map(ptr, weights), ptr(out), ptr(h), ptr(qkv), ptr(ctx), ptr(x1), ptr(m1), ptr(xr),
-        n_layers, b, s, d, num_heads, kw // num_heads, m, norm_width, eps)
+        ptr(planes), n_layers, b, s, d, num_heads, kw // num_heads, m, norm_width, eps)
     fused_vit_encoder.launches += 1
     count_attention("b5", x.dtype, kw // num_heads, s, n_layers)
+    if x.dtype == torch.float32:
+        count_f32_products("b5", F32_PRODUCTS["b5"] * n_layers)
     return out
 
 
