@@ -24,8 +24,10 @@ kernels from csrc/ itself. Phases:
      case took (the tensor-core body for every bf16 case it takes)
   3e. kernel B7 (fused_mlp) against its plain version: the rows of S in
      {197, 99, 17} at DeiT-S width (MLP 1536) and composed width (MLP 768),
-     136 rows at ViT-L width (D 1024, MLP 4096) and 514 rows at ViT-H width
-     (D 1280, MLP 5120), with the body each case took, as in 3d
+     136 rows at ViT-L width (D 1024, MLP 4096), 514 rows at ViT-H width
+     (D 1280, MLP 5120) and 137 rows at D 100 (MLP 300), with the body each
+     case took (float32: the split body; bfloat16: the tensor-core body, the
+     FMA body at D 100)
   3f. kernel B5 (fused_vit_encoder) against its plain version: DeiT-S at 12
      layers and a 3-layer segment, composed geometry at a 3-layer segment,
      S in {197, 99, 17}, masked and not, float32 and bfloat16
@@ -46,9 +48,10 @@ kernels from csrc/ itself. Phases:
      versions at DeiT-S's (K 768, D 384) and ViT-H's (K 588, D 1280) patch
      embedding, batch 64, float32 and bfloat16 weights, uint8 / float
      patches, pos in the weights' dtype and in float32, with the body each
-     case ran (the wgmma body for bf16 weights, FMA tiles for f32); B8a and
-     B8b at patch width 75 (rows no 4- or 8-byte multiple); bad inputs
-     raise
+     case ran (the wgmma body for bf16 weights, the split body for f32; bf16
+     patches with f32 weights too); B8a and B8b at patch width 75 (rows no
+     4- or 8-byte multiple) with bf16 and f32 weights (uint8 rows from an
+     odd address too); bad inputs raise
   3h. ViT-H/14's geometry (head dim 80, S 257) in B1-B5 against their plain
      versions at every length phase 5e gives them: B1 and B4 at S 257 / 171
      / 129 / 86 / 43 / 22 with KW 1280 and 640, B2 at S 129 / 43 / 22, B3 at
@@ -112,7 +115,8 @@ kernels from csrc/ itself. Phases:
      non-empty segment, B2 x 1); pruned_vit_forward mode 'none' (B5 x 1);
      dense and headline under int8 (the float B5, equal to float); mha with
      use_kernel in mode 'kernel' (B6 x 1), with B6's and B7's launches per
-     body (the bf16 forwards on the tensor-core bodies); kernels against
+     body (the bf16 forwards on the tensor-core bodies, the f32 ones on B6's
+     FMA body and B7's split body); kernels against
      plain PyTorch,
      and in bfloat16 every B5 route also against itself with B5's plain
      version in the kernel's place
@@ -150,7 +154,8 @@ kernels from csrc/ itself. Phases:
      PyTorch calls, and its launches by kind on 5-5h held to the wrapper's
      tally); each kernel's bound from its shapes and its
      share of it (B6 and B7 must stay within theirs); the head_mask forward
-     (B7 x 12), kernel path and plain path; the device
+     (B7 x 12), kernel path and plain path, in bf16 at batch 512 and in f32
+     at batch 32; the device
      time of the dense, headline, topk50, mask, dense_int8, topk50_int8 and
      dense-with-encoder-fusion forwards by kernel family and of the
      once-per-forward weight quantization (torch.profiler); dense and ultra
@@ -161,7 +166,10 @@ kernels from csrc/ itself. Phases:
      dense / headline / composed / ultra, kernel path and plain path (mean
      of 5 after 2 warm-ups); B1 and B6 at DeiT-S S 577, batch 128, beside
      the cuBLAS layer and f32 SDPA; B1-B5's attention a layer in the dense
-     forward beside bf16 SDPA at its shape (info: another rounding)
+     forward beside bf16 SDPA at its shape (info: another rounding); the
+     f32 routes (B1 at ViT-B/16 batch 16; B2, B3, B5, B6, B7, B8b and B8a
+     with f32 weights at DeiT-S batch 32) beside their plain versions, the
+     f32 PyTorch call and bound_split6
   3l. (after 6, so that 6's GEMM body counts stay those of 5-5h) widths
      that are not multiples of the kernels' (ROADMAP C.1), zero-padded by
      the wrappers: B1, B2, B3, B4 and B5 (two layers) at DeiT-S with 1000
@@ -2210,14 +2218,13 @@ def main():
     # that every later phase sees the inputs it saw before them
     gen67 = torch.Generator().manual_seed(SEED + 67)
 
-    def body_took(mod, tc: bool, tag: str) -> str:
-        """The body of the one launch since mod.reset_body_counts(); a case
-        the tensor-core body takes must have taken it."""
+    def body_took(mod, want: str, tag: str) -> str:
+        """The body of the one call since mod.reset_body_counts(); it must
+        be `want`, the body the C rule picks for the case."""
         n = mod.body_counts()
-        body = "wgmma" if n["wgmma"] else "fma"
-        check(n["wgmma"] + n["fma"] == 1 and (body == "wgmma") == tc,
-              f"{tag}: bodies {n}, tensor-core body expected {tc}")
-        return body
+        ran = [b for b, c in n.items() if c]
+        check(sum(n.values()) == 1 and ran == [want], f"{tag}: bodies {n}, {want} expected")
+        return ran[0] if ran else "none"
 
     # DeiT-S's heads; hd 128 at S 257, where the FMA body reads V from L2; ViT-H's hd 80
     # at S 257 (two 64-wide hd boxes and five key chunks in the tensor-core body) and
@@ -2239,7 +2246,7 @@ def main():
                 ka.reset_body_counts()
                 got = ka.fused_attention(q, k, v, mask)
                 torch.cuda.synchronize()
-                body = body_took(ka, ka.takes_tensor_cores(q, k, v), tag)
+                body = body_took(ka, "wgmma" if ka.takes_tensor_cores(q, k, v) else "fma", tag)
                 ref = ka.fused_attention_ref(q, k, v, mask)
                 torch.cuda.synchronize()
                 d = valid_rows(got.transpose(1, 2), ref.transpose(1, 2),
@@ -2269,7 +2276,7 @@ def main():
         kmlp.reset_body_counts()
         got = kmlp.fused_mlp(x, *w)
         torch.cuda.synchronize()
-        body = body_took(kmlp, kmlp.takes_tensor_cores(x, w[0], w[2]), tag)
+        body = body_took(kmlp, kmlp.body(x, w[0], w[2]), tag)
         ref = kmlp.fused_mlp_ref(x, *w)
         torch.cuda.synchronize()
         d = valid_rows(got, ref, None)
@@ -2295,6 +2302,15 @@ def main():
             w = [(0.03 * torch.randn(shape, generator=g)).to(dev, dt)
                  for shape in ((d_, m_), (m_,), (m_, d_), (d_,))]
             b7_case(f"B7 D={d_} (MLP {m_}) {dname} rows={rows}", x, w, dt)
+    # widths no multiple of 8 (phase 3l's D 100, MLP 300) at a ragged row count: f32 on the
+    # split body (W's planes padded to 104 / 304 columns), bf16 on the FMA body; a
+    # generator of its own, so that every later phase sees the inputs it saw before
+    gen_w = torch.Generator().manual_seed(SEED + 16)
+    for dname, dt in dtypes.items():
+        x = torch.randn(137, 100, generator=gen_w).to(dev, dt)
+        w = [(0.1 * torch.randn(shape, generator=gen_w)).to(dev, dt)
+             for shape in ((100, 300), (300,), (300, 100), (100,))]
+        b7_case(f"B7 D=100 (MLP 300) {dname} rows=137", x, w, dt)
     mlp = tree_to(geometries["deit_s"][1]["mlp"], dev, torch.bfloat16)
     w = (mlp["fc1"]["w"], mlp["fc1"]["b"], mlp["fc2"]["w"], mlp["fc2"]["b"])
     wide = torch.zeros(4, 2048, device=dev, dtype=torch.bfloat16)
@@ -2469,6 +2485,9 @@ def main():
             w, b, pos = (t.to(dev, dt) for t in (w0, b0, pos0))
             cases = [("b8a", kemb.fused_patch_embed_u8, kemb.fused_patch_embed_u8_ref, u8p, pos),
                      ("b8b", kemb.fused_patch_embed_f, kemb.fused_patch_embed_f_ref, fp.to(dt), pos)]
+            if dt == torch.float32:  # bf16 patches through the split body's A source
+                cases += [("b8b", kemb.fused_patch_embed_f, kemb.fused_patch_embed_f_ref,
+                           fp.to(torch.bfloat16), pos)]
             if dt == torch.bfloat16:  # embed_u8's pos may be f32; embed_fused's pixels too
                 cases += [("b8a", kemb.fused_patch_embed_u8, kemb.fused_patch_embed_u8_ref, u8p,
                            pos.float()),
@@ -2485,7 +2504,7 @@ def main():
                     err[key] = max(err[key], dmax)
                 tag = (f"{key.upper()} {gname} (K {pd}, D {d}) {dname} weights, {patches.dtype} "
                        f"patches, {ps.dtype} pos")
-                want = "wgmma" if dt == torch.bfloat16 else "fma"  # bf16 weights: the wgmma body
+                want = "wgmma" if dt == torch.bfloat16 else "split"  # by the weights' dtype
                 log(f"  {tag}: max_abs_err {dmax:.3e} (tol {tol:.1e}); {want} body "
                     f"(launches by body {bodies})")
                 check(got.shape == (64, n_p, d) and got.dtype == dt
@@ -2535,6 +2554,31 @@ def main():
     log(f"  B8A K 75, D 128 bfloat16 weights, uint8 patches: max_abs_err {dmax:.3e} "
         f"(tol {tol:.1e})")
     check(bool(torch.isfinite(got).all()) and dmax <= tol, "B8A K 75")
+    # f32 weights on the split body at K 75: the A source's loads one value at a time, the K
+    # tail masked after the affine; uint8 rows from an odd address too
+    w, b, pos = (t.to(dev) for t in (0.02 * torch.randn(75, 128, generator=gen_o),
+                                     0.1 * torch.randn(128, generator=gen_o),
+                                     0.02 * torch.randn(49, 128, generator=gen_o)))
+    u8_odd = torch.randint(0, 256, (16 * 49 * 75 + 1,), generator=gen_o,
+                           dtype=torch.uint8).to(dev)[1:].view(16, 49, 75)
+    for fn, ref_fn, patches in ((kemb.fused_patch_embed_f, kemb.fused_patch_embed_f_ref, fp),
+                                (kemb.fused_patch_embed_f, kemb.fused_patch_embed_f_ref,
+                                 fp.to(torch.bfloat16)),
+                                (kemb.fused_patch_embed_u8, kemb.fused_patch_embed_u8_ref, u8o),
+                                (kemb.fused_patch_embed_u8, kemb.fused_patch_embed_u8_ref, u8_odd)):
+        kemb.reset_body_counts()
+        got = fn(patches, w, b, pos)
+        torch.cuda.synchronize()
+        bodies = kemb.body_counts()
+        ref = ref_fn(patches, w, b, pos)
+        dmax, tol = (got - ref).abs().max().item(), embed_tol(ref, torch.float32)
+        key = "b8a" if patches.dtype == torch.uint8 else "b8b"
+        err[key] = max(err[key], dmax)
+        tag = (f"B8 K 75, D 128 float32 weights, {patches.dtype} patches"
+               + (" (odd address)" if patches is u8_odd else ""))
+        log(f"  {tag}: max_abs_err {dmax:.3e} (tol {tol:.1e}); launches by body {bodies}")
+        check(bool(torch.isfinite(got).all()) and dmax <= tol
+              and bodies == {"wgmma": 0, "split": 1}, tag)
     check.done()
 
     # --- 3h. ViT-H's geometry (hd 80, S 257) in B1-B5 against their plain versions ----------
@@ -3416,13 +3460,15 @@ def main():
         check(n == {"b6": 1} and bool(torch.isfinite(got).all()) and close,
               f"mha(use_kernel) {dname}: launches {n} or err {d:.3e} / {rel:.2e}")
     launches.update(read_launches(("b5", "b6", "b7")))
-    # B6 and B7 per body: the float32 forwards on the FMA bodies, the bfloat16 ones on the
-    # tensor-core bodies (DeiT-S's shapes are theirs)
+    # B6 and B7 per body: the bfloat16 forwards on the tensor-core bodies (DeiT-S's shapes
+    # are theirs), the float32 ones on B6's FMA body and on B7's split body (no f32 B7
+    # launch on the FMA body)
     bodies67 = {"b6": ka.body_counts(), "b7": kmlp.body_counts()}
     log(f"  phase 5d launches per body: B6 {bodies67['b6']}, B7 {bodies67['b7']}")
-    for k, n in bodies67.items():
-        check(n["wgmma"] > 0 and n["fma"] > 0 and n["wgmma"] + n["fma"] == launches[k],
-              f"{k.upper()} bodies {n} on {launches[k]} launches")
+    for k, f32_body in (("b6", "fma"), ("b7", "split")):
+        n = bodies67[k]
+        check(n["wgmma"] > 0 and n[f32_body] > 0 and n["wgmma"] + n[f32_body] == launches[k]
+              and sum(n.values()) == launches[k], f"{k.upper()} bodies {n} on {launches[k]} launches")
     launches["b1"] += kl.fused_vit_layer.launches
     launches["b2"] += kl.fused_vit_layer_cls_logits.launches
     log("  phase 5d launches: " + ", ".join(f"{k.upper()} {n}" for k, n in snapshot().items()))
@@ -3548,7 +3594,7 @@ def main():
     b8 = (kemb.fused_patch_embed_u8, kemb.fused_patch_embed_f)
     for k in b8:  # the counts of this path's run only
         k.launches = 0
-    b8_bodies = {"b8a": {"wgmma": 0, "fma": 0}, "b8b": {"wgmma": 0, "fma": 0}}
+    b8_bodies = {"b8a": {"wgmma": 0, "split": 0}, "b8b": {"wgmma": 0, "split": 0}}
 
     def bodies_of(key, fn):
         """fn's output, its launches per body added to b8_bodies[key]"""
@@ -3588,11 +3634,11 @@ def main():
                   tag)
     launches["b8a"], launches["b8b"] = (k.launches for k in b8)
     log(f"  embed path launches: B8a {launches['b8a']}, B8b {launches['b8b']} ({calls} calls each); "
-        f"by body B8a {b8_bodies['b8a']}, B8b {b8_bodies['b8b']} (bf16 weights: wgmma)")
+        f"by body B8a {b8_bodies['b8a']}, B8b {b8_bodies['b8b']} (bf16 weights: wgmma, f32: split)")
     check(launches["b8a"] == calls and launches["b8b"] == calls,
           "a kernel of the path did not launch once per call")
     for key in b8_bodies:  # half the calls in each dtype
-        check(b8_bodies[key] == {"wgmma": calls // 2, "fma": calls // 2},
+        check(b8_bodies[key] == {"wgmma": calls // 2, "split": calls // 2},
               f"{key.upper()} bodies {b8_bodies[key]} on {calls} calls")
     check.done()
 
@@ -4131,8 +4177,8 @@ def main():
     # plain version (abba), the f32 PyTorch call or composition for the same function and
     # its bound_split6. B1 at ViT-B/16 batch 16, S 197, 30% of keys masked (the CLI's
     # eval); B2 (S 99), B3 (S 197, cap 99), B5 (12 layers), B6 (6 heads, S 197, masked),
-    # B7 (32 x 197 rows) and B8b (f32 patches and weights) at DeiT-S batch 32 (the train
-    # steps' batch)
+    # B7 (32 x 197 rows), B8b (f32 patches and weights) and B8a (uint8 patches, f32
+    # weights) at DeiT-S batch 32 (the train steps' batch); B7 and B8 on the split body
     log(f"  f32 routes, CUDA events, mean of 10 after 3 warm-ups; {smi}")
     f32_rows = {}
 
@@ -4219,7 +4265,28 @@ def main():
                 lambda: torch.addmm(b, patches.view(-1, pd), w).view(32, n_p, d) + pos,
                 "addmm f32 + pos", 2.0 * 32 * n_p * pd * d,
                 4 * (patches.numel() + pd * d + d + n_p * d + 32 * n_p * d))
-        del x, xm, patches
+        u8p = extract_patches(images(32), cfg.patch_size)
+        f32_row("b8a", "DeiT-S batch 32, uint8 patches, f32 weights (K 768)",
+                lambda: kemb.fused_patch_embed_u8(u8p, w, b, pos),
+                lambda: kemb.fused_patch_embed_u8_ref(u8p, w, b, pos),
+                lambda: torch.addmm(b, u8p.view(-1, pd).float() * scale + shift, w)
+                .view(32, n_p, d) + pos, "the affine, addmm f32 + pos", 2.0 * 32 * n_p * pd * d,
+                u8p.numel() + 4 * (pd * d + d + n_p * d + 32 * n_p * d))
+        del x, xm, patches, u8p
+    # the head_mask forward (the mask-search route: B7 x 12 beside the plain head-masked
+    # attention) in f32 at DeiT-S batch 32, the kernel path against the eager one
+    bb32, hm32 = tree_to(base, dev, f32)["backbone"], hm.to(dev, f32)
+    pix32 = ((images(32).float() / 255.0 - 0.5) / 0.5)
+
+    def run_head_mask32(mode):
+        with kernel_mode(mode):
+            vit_forward(bb32, pix32, cfg, head_mask=hm32)
+
+    k_ms, p_ms = abba(lambda: run_head_mask32("auto"), lambda: run_head_mask32("eager"))
+    f32_rows["b7"]["head_mask_forward_ms"] = {"kernel": k_ms, "eager": p_ms}
+    log(f"  head_mask forward f32, DeiT-S batch 32 (B7 x 12): kernel path {k_ms:.3f} ms/batch, "
+        f"eager path {p_ms:.3f} ms/batch")
+    del bb32
 
     # --- 3l. widths no multiple of the kernels' (C.1), after 6 so that 6's body counts
     # stay those of phases 5-5h ----------------------------------------------------------

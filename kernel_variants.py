@@ -66,8 +66,11 @@ kernel family (attention or not) from torch.profiler over 3 forwards; B2 at B2_S
 torch.profiler); the headline, composed and ultra forwards (serving_forward from uint8,
 DeiT-S batch 512, ending in B2). It prints one JSON object of the times (ms) with the
 card's name and power limit. It also times the f32 routes (f32_times: B1 launch by launch at
-ViT-B/16 batch 16, DeiT-S batch 32 and the gate model, B2, B3, B5, B6, B7 and B8b at DeiT-S
-batch 32, the CLI's f32 eval forward on both paths); with `f32` last, only those.
+ViT-B/16 batch 16, DeiT-S batch 32 and the gate model, B2, B3, B5 and B6 at DeiT-S batch 32;
+B7 at DeiT-S batch 32 and ViT-H width, B8b and B8a with f32 weights at DeiT-S and ViT-H
+batch 32, each launch by launch, with its body and its PyTorch composition; the f32
+head_mask forward and the CLI's f32 eval forward on both paths); with `f32` last, only
+those.
 
 Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda), like chip_smoke.py; the
 last line is the card's name and power limit.
@@ -230,7 +233,7 @@ B2_FAULTS = [
     ("P unnormalised", "P = exp(l - max), rounded, without the division by the sum",
      [("cls_logits.cu", "l[j] = round_to<bf16>(__fdiv_rn(l[j], sum));", "l[j] = round_to<bf16>(l[j]);")]),
 ]
-# The f32 split body (csrc/gemm.cu's gemm_split6_kernel): a stage taken out, each
+# The f32 split body (csrc/split6.cuh's gemm_split6_kernel, built through gemm.cu): a stage taken out, each
 # variant timed through vpt_gemm_f32 at ViT-B/16's four products (batch 16, S 197)
 F32_SPLIT = ("    split_bf16x3(v[2 * t], h0, m0, l0);\n"
              "    split_bf16x3(v[2 * t + 1], h1, m1, l1);\n")
@@ -270,25 +273,25 @@ F32_PAIR_TAIL_NEW = """    wgmma_commit();
 F32_VARIANTS = [
     ("kernel", "the split body as it is", []),
     ("no products", "the consumers wait and release, no wgmma (W's split and TMA loads stay)",
-     [("gemm.cu", "        wgmma_m64n128k16(acc, gmma_desc64(a0 + kk * 32),",
+     [("split6.cuh", "        wgmma_m64n128k16(acc, gmma_desc64(a0 + kk * 32),",
        "        if (kt < 0) wgmma_m64n128k16(acc, gmma_desc64(a0 + kk * 32),")]),
     ("no split", "each A value stored as hi = the value rounded, mid = lo = 0: the producer's "
      "split arithmetic left out",
-     [("gemm.cu", F32_SPLIT, "    h0 = v[2 * t]; m0 = l0 = 0.f;\n    h1 = v[2 * t + 1]; m1 = l1 = 0.f;\n")]),
+     [("split6.cuh", F32_SPLIT, "    h0 = v[2 * t]; m0 = l0 = 0.f;\n    h1 = v[2 * t + 1]; m1 = l1 = 0.f;\n")]),
     ("no loads", "the producer reads no A from device memory (constants)",
-     [("gemm.cu", "                                          float (&v)[8]) {\n  if (wide && c + 8 <= cols) {",
+     [("split6.cuh", "                                          float (&v)[8]) {\n  if (wide && c + 8 <= cols) {",
        "                                          float (&v)[8]) {\n#pragma unroll\n"
        "  for (int t = 0; t < 8; ++t) v[t] = 0.5f + t;\n  if (cols > 0) return;\n"
        "  if (wide && c + 8 <= cols) {")]),
     ("no W loads", "no TMA loads of W's planes (the stage's W boxes hold what they held)",
-     [("gemm.cu", "        mbar_arrive_expect(fb, 3 * PLANE_W);", "        mbar_arrive(fb);"),
-      ("gemm.cu", "            tma_load_3d(smem_u32(st + 3 * PLANE_A",
+     [("split6.cuh", "        mbar_arrive_expect(fb, 3 * PLANE_W);", "        mbar_arrive(fb);"),
+      ("split6.cuh", "            tma_load_3d(smem_u32(st + 3 * PLANE_A",
        "            if (kt < 0) tma_load_3d(smem_u32(st + 3 * PLANE_A")]),
     ("two steps in flight", "each pair of steps issued back to back into one accumulator "
      "(a stage released when its passes are done: wait<1>), the running sum every 64 k",
-     [("gemm.cu", F32_STEP, F32_STEP_PAIR), ("gemm.cu", F32_PAIR_TAIL, F32_PAIR_TAIL_NEW)]),
+     [("split6.cuh", F32_STEP, F32_STEP_PAIR), ("split6.cuh", F32_PAIR_TAIL, F32_PAIR_TAIL_NEW)]),
     ("one pass", "hi.hi alone: a sixth of the tensor-core work",
-     [("gemm.cu", "  constexpr int kPasses[][2] = {{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}};",
+     [("split6.cuh", "  constexpr int kPasses[][2] = {{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}};",
        "  constexpr int kPasses[][2] = {{0, 0}};")]),
 ]
 # Faults planted in the split body, each of which chip_smoke.py's phase 3n must catch
@@ -296,13 +299,13 @@ F32_VARIANTS = [
 F32_FAULTS = [
     ("kernel", "the split body as it is: no case may fail", []),
     ("hi.hi only", "one pass, hi.hi, instead of six",
-     [("gemm.cu", "  constexpr int kPasses[][2] = {{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}};",
+     [("split6.cuh", "  constexpr int kPasses[][2] = {{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}};",
        "  constexpr int kPasses[][2] = {{0, 0}};")]),
     ("mid.hi dropped", "one cross term of the six left out",
-     [("gemm.cu", "{{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}}", "{{2, 0}, {0, 2}, {1, 1}, {0, 1}, {0, 0}}")]),
+     [("split6.cuh", "{{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}}", "{{2, 0}, {0, 2}, {1, 1}, {0, 1}, {0, 0}}")]),
     ("lo plane zeroed", "both operands' lo planes stored as zeros",
-     [("gemm.cu", "    lo[t] = pack_bf16x2(l0, l1);", "    lo[t] = 0u;"),
-      ("gemm.cu", "  for (int t = 0; t < 4; ++t) split_bf16x3(v[t], pl[0][t], pl[1][t], pl[2][t]);",
+     [("split6.cuh", "    lo[t] = pack_bf16x2(l0, l1);", "    lo[t] = 0u;"),
+      ("split6.cuh", "  for (int t = 0; t < 4; ++t) split_bf16x3(v[t], pl[0][t], pl[1][t], pl[2][t]);",
        "  for (int t = 0; t < 4; ++t) split_bf16x3(v[t], pl[0][t], pl[1][t], pl[2][t]), pl[2][t] = 0.f;")]),
 ]
 # Every variant of a source is loaded into one process: a static local of an
@@ -833,13 +836,19 @@ def f32_times(res: dict, gen, dev):
     batch 32 (the train steps) and the gate model at its batch 128, S 197 /
     197 / 65, 30% of the keys masked; B5 (12 layers) at DeiT-S batch 32; B2 at
     DeiT-S batch 32, S 99; B3 at DeiT-S batch 32, S 197, capacity 99; B6 (6
-    heads of 64, S 197), B7 (32 x 197 rows) and B8b (f32 patches and weights,
-    K 768) at DeiT-S batch 32; and the CLI's eval forward (ViT-B/16, mode
-    mask, cls_mlp, batch 16) on the kernel path and the eager one."""
-    from vit_pruning_tpu_torch.configs import PruneConfig, deit_small, vit_base_patch16_224
+    heads of 64, S 197) at DeiT-S batch 32; B7 at DeiT-S batch 32 (6,304 rows)
+    and ViT-H width (514 rows, D 1280, M 5120), B8b (f32 patches) and B8a
+    (uint8 patches) with f32 weights at DeiT-S (K 768) and ViT-H (K 588) batch
+    32, each also launch by launch, with the body it ran and the PyTorch
+    composition of the same function (addmm, F.gelu, addmm; the affine,
+    addmm, + pos); the head_mask forward (B7 x 12, DeiT-S batch 32) and the
+    CLI's eval forward (ViT-B/16, mode mask, cls_mlp, batch 16) on the kernel
+    path and the eager one."""
+    from vit_pruning_tpu_torch.configs import (PruneConfig, deit_small, vit_base_patch16_224,
+                                               vit_huge)
     from vit_pruning_tpu_torch.models.convert import tree_to
     from vit_pruning_tpu_torch.models.pruned_vit import init_pruned_vit_params, pruned_vit_forward
-    from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_slice
+    from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_slice, vit_forward
     from vit_pruning_tpu_torch.ops.cuda import attention as ka
     from vit_pruning_tpu_torch.ops.cuda import embed as kemb
     from vit_pruning_tpu_torch.ops.cuda import layer as kl
@@ -895,14 +904,67 @@ def f32_times(res: dict, gen, dev):
     res["f32_b6_deit_s_b32"] = time_ms(lambda: ka.fused_attention(q, k, v, mask), iters=10)
     mlp = lp["mlp"]
     xm = x.reshape(-1, d)
-    res["f32_b7_deit_s_b32"] = time_ms(
-        lambda: kmlp.fused_mlp(xm, mlp["fc1"]["w"], mlp["fc1"]["b"], mlp["fc2"]["w"],
-                               mlp["fc2"]["b"]), iters=10)
-    ep = params["embed"]
-    patches = torch.randn(32, cfg.num_patches, cfg.patch_dim, generator=gen).to(dev)
-    res["f32_b8b_deit_s_b32"] = time_ms(
-        lambda: kemb.fused_patch_embed_f(patches, ep["patch"]["w"], ep["patch"]["b"],
-                                         ep["pos"][0][1:]), iters=10)
+    hcfg = vit_huge(num_labels=100)
+    hd, hm_ = hcfg.hidden_size, hcfg.mlp_dim
+    wh = [(0.03 * torch.randn(shape, generator=gen)).to(dev)
+          for shape in ((hd, hm_), (hm_,), (hm_, hd), (hd,))]
+    xh = torch.randn(514, hd, generator=gen).to(dev)
+    b7_cases = (("deit_s_b32", xm, (mlp["fc1"]["w"], mlp["fc1"]["b"], mlp["fc2"]["w"],
+                                    mlp["fc2"]["b"])),
+                ("vit_h_r514", xh, wh))
+    for tag, xr, w in b7_cases:
+        def b7(xr=xr, w=w):
+            return kmlp.fused_mlp(xr, *w)
+
+        def library(xr=xr, w=w):  # eager mlp_block: addmm, F.gelu, addmm (cuBLAS f32)
+            return torch.addmm(w[3], torch.nn.functional.gelu(torch.addmm(w[1], xr, w[0])), w[2])
+
+        res[f"f32_b7_{tag}"] = time_ms(b7, iters=10)
+        res[f"f32_b7_{tag}_library"] = time_ms(library, iters=10)
+        res[f"f32_b7_{tag}_profile"] = launch_profile(b7)
+        kmlp.reset_body_counts()
+        b7()
+        torch.cuda.synchronize()
+        res[f"f32_b7_{tag}_bodies"] = kmlp.body_counts()
+    del xh, wh
+    # B8b (f32 patches) and B8a (uint8 patches) with f32 weights, batch 32: DeiT-S (K 768,
+    # D 384) and ViT-H (K 588, D 1280); the library: the affine (B8a), one addmm, + pos
+    scale, shift = kemb._affine(kemb.VIT_MEAN, kemb.VIT_STD)
+    for tag, mcfg in (("deit_s_b32", cfg), ("vit_h_b32", hcfg)):
+        n_p, pd, dm = mcfg.num_patches, mcfg.patch_dim, mcfg.hidden_size
+        we, be, pe = (torch.randn(pd, dm, generator=gen).to(dev) * 0.02,
+                      torch.randn(dm, generator=gen).to(dev) * 0.1,
+                      torch.randn(n_p, dm, generator=gen).to(dev) * 0.02)
+        fp = torch.randn(32, n_p, pd, generator=gen).to(dev)
+        u8p = torch.randint(0, 256, (32, n_p, pd), generator=gen, dtype=torch.uint8).to(dev)
+        for key, fn, patches, lib in (
+                ("b8b", lambda p: kemb.fused_patch_embed_f(p, we, be, pe), fp,
+                 lambda p: torch.addmm(be, p.view(-1, pd), we).view(32, n_p, dm) + pe),
+                ("b8a", lambda p: kemb.fused_patch_embed_u8(p, we, be, pe), u8p,
+                 lambda p: torch.addmm(be, p.view(-1, pd).float() * scale + shift, we)
+                 .view(32, n_p, dm) + pe)):
+            res[f"f32_{key}_{tag}"] = time_ms(lambda: fn(patches), iters=10)
+            res[f"f32_{key}_{tag}_library"] = time_ms(lambda: lib(patches), iters=10)
+            res[f"f32_{key}_{tag}_profile"] = launch_profile(lambda: fn(patches))
+            kemb.reset_body_counts()
+            fn(patches)
+            torch.cuda.synchronize()
+            res[f"f32_{key}_{tag}_bodies"] = kemb.body_counts()
+    # the head_mask forward (the mask-search route: B7 x 12 beside plain attention) in f32 at
+    # DeiT-S batch 32, kernel path against eager
+    hmask = torch.ones(cfg.num_layers, nh)
+    hmask[:, 1] = 0.0
+    hmask = hmask.to(dev)
+    pix32 = torch.randn(32, 3, cfg.image_size, cfg.image_size, generator=gen).to(dev)
+
+    def head_masked(mode):
+        with torch.no_grad(), kernel_mode(mode):
+            return vit_forward(params, pix32, cfg, head_mask=hmask)
+
+    hm_ms = {"auto": [], "eager": []}
+    for mode in ("auto", "eager", "eager", "auto"):
+        hm_ms[mode].append(time_ms(lambda: head_masked(mode), iters=10))
+    res["f32_head_mask_deit_s_b32_ms"] = {m: sum(v) / len(v) for m, v in hm_ms.items()}
     b_cfg = vit_base_patch16_224()
     pcfg = PruneConfig(mode="mask", predictor="cls_mlp")
     pp = tree_to(init_pruned_vit_params(b_cfg, pcfg, gen, "cpu"), dev, f32)

@@ -1,5 +1,5 @@
-"""The arithmetic of the f32 split body (vit_pruning_tpu_torch/csrc/gemm.cu: every
-f32 product of kernels B1, B2, B3 and B5 on the card), on the CPU.
+"""The arithmetic of the f32 split body (vit_pruning_tpu_torch/csrc/split6.cuh: every
+f32 product of kernels B1, B2, B3, B5, B7 and B8 on the card), on the CPU.
 
 The body splits both f32 operands into three bf16 planes (hi + mid + lo, exact)
 and sums six of the nine plane products in f32. tests/torch_parity.py's

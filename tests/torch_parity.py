@@ -46,7 +46,7 @@ def init_pruned(config: ViTConfig, pcfg: PruneConfig, seed: int = 0) -> dict:
 
 
 # --- the arithmetic of the tensor-core bodies on f32 operands, in torch --------
-# (csrc/wgmma.cuh::split_bf16x3, csrc/mlp.cu, csrc/attention.cu, csrc/gemm.cu's
+# (csrc/wgmma.cuh::split_bf16x3, csrc/mlp.cu, csrc/attention.cu, csrc/split6.cuh's
 # split body; the kernels themselves run only on the card)
 
 
@@ -71,7 +71,7 @@ def split_product(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor) -> torch.
     return acc
 
 
-# csrc/gemm.cu's f32 split body: the six passes of a k-step as (A plane, W plane),
+# csrc/split6.cuh's f32 split body: the six passes of a k-step as (A plane, W plane),
 # 0 hi, 1 mid, 2 lo, the small terms first
 SPLIT6_PASSES = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
 

@@ -1,14 +1,14 @@
 // Shared by the kernels' translation units (layer.cu, layer_attention.cu,
 // cls_logits.cu, gemm.cu, layer_int8.cu, encoder.cu, attention.cu, mlp.cu,
-// embed.cu): the
-// numerics helpers, the GEMM epilogue (bias, activation, residual, cast), the
-// FMA f32 GEMM body of B8 with f32 weights, the f32 attention kernel that B1-B5 (in
-// float32) and B6 share, and the declarations of the launchers that layer.cu,
+// embed.cu): the numerics helpers, the GEMM epilogue (bias, activation,
+// residual, cast), the f32 attention kernel that B1-B5 (in float32) and B6
+// share, and the declarations of the launchers that layer.cu,
 // layer_attention.cu and gemm.cu define and layer_int8.cu and encoder.cu
 // reuse (B1's attention and LayerNorm, the GEMMs, the shape rules). The
 // bf16 GEMM body on wgmma + TMA, which gemm.cu and embed.cu share, is
-// wgmma.cuh. Everything defined here is inline or a template, so every unit
-// may include it.
+// wgmma.cuh; the f32 split body, which gemm.cu, mlp.cu and embed.cu share,
+// is split6.cuh. Everything defined here is inline or a template, so every
+// unit may include it.
 
 #pragma once
 
@@ -198,63 +198,6 @@ __device__ __forceinline__ void epilogue_store8(const Epilogue& e, int m, int n,
     cudaError_t err_ = (__VA_ARGS__);         \
     if (err_ != cudaSuccess) return err_;     \
   } while (0)
-
-// ---------------------------------------------------------------------------
-// One block of the f32 GEMM on the CUDA cores: embed.cu's (B8 with f32
-// weights; the layer kernels' f32 products run gemm.cu's split body). A 64x64 output tile at (m0, n0), 256
-// threads, 4x4 outputs a thread, K in steps of 16, plain FMA (full f32, no
-// TF32, so it matches a f32 reference closely). load_a(m, k) gives A's value
-// in f32 (the caller's prologue) and store(m, n, v) takes each product (the
-// caller's epilogue); both are asked only for m < M, k < K and n < N.
-namespace fg {
-constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
-}
-
-template <typename LoadA, typename Store>
-__device__ __forceinline__ void gemm_f32_tile(long m0, int n0, long M, int N, int K,
-                                              const float* __restrict__ W, LoadA load_a,
-                                              Store store) {
-  using namespace fg;
-  __shared__ float As[BK][BM + 4];  // transposed: As[k][m]
-  __shared__ float Bs[BK][BN + 4];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = tid + q * THREADS;
-      const int ar = c >> 4, ak = c & 15;  // A: 64 rows x 16
-      const long m = m0 + ar;
-      const int k = k0 + ak;
-      As[ak][ar] = (m < M && k < K) ? load_a(m, k) : 0.f;
-      const int bk = c >> 6, bn = c & 63;  // W: 16 rows x 64
-      const int kb = k0 + bk, n = n0 + bn;
-      Bs[bk][bn] = (kb < K && n < N) ? W[(long)kb * N + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long m = m0 + ty + 16 * i;
-      const int n = n0 + tx + 16 * j;
-      if (m < M && n < N) store(m, n, acc[i][j]);
-    }
-}
 
 // ---------------------------------------------------------------------------
 // Attention in f32 on the CUDA cores: B1, B3, B4 and B5 in float32 (through

@@ -21,7 +21,8 @@
 // patches (4 T K of float) + T D output values. At DeiT-S width (K 768,
 // D 384) that is ~250 operations per byte in bf16, just under the ridge
 // (~295), so the bound is the tensor cores' and the memory's alike; at
-// ViT-H's (K 588, D 1280) it is operations.
+// ViT-H's (K 588, D 1280) it is operations. With f32 weights the product is
+// six bf16 passes (164.8 TFLOP/s of f32 work): operations at both widths.
 //
 // bf16 weights (B8a and B8b): wgmma.cuh's wgmma + TMA body, one tiled
 // product whose A producer applies the affine (B8a) and the rounding to
@@ -44,7 +45,14 @@
 // B8b has no affine to fold (scale 1, shift 0 are the identity). The K tail
 // is zero filled in each.
 //
-// f32 weights (both): FMA tiles, full f32 (no TF32).
+// f32 weights (both): split6.cuh's split body, one launch (after the split
+// of W into its bf16 planes), full f32 accuracy (no TF32). Its A source
+// (AffineSplitA) reads the patches in their type (uint8: 8, 4 or 1 bytes at
+// a time by the rows' width; bf16: 16, 8 or 2; f32: 32 or 4), applies the
+// affine as above (round_w is the identity), zeros past K, and splits the
+// f32 values into their three bf16 planes, so the A that reaches the
+// products is the TPU kernel's bit for bit; the epilogue adds b and the
+// position row in f32. The caller gives the planes' workspace (3 K D bf16).
 //
 // W, b, pos and out rows are read and written 8 values at a time: D % 8 ==
 // 0 and 16-byte aligned pointers, checked by the wrapper. Each launch is
@@ -56,13 +64,9 @@
 #include <atomic>
 
 #include "common.cuh"
-#include "wgmma.cuh"
+#include "split6.cuh"
 
 namespace vpt {
-
-__device__ __forceinline__ float in_f(float v) { return v; }
-__device__ __forceinline__ float in_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float in_f(uint8_t v) { return static_cast<float>(v); }
 
 // (x * scale) + shift, each step rounded on its own, as the TPU kernel's f32 ops
 __device__ __forceinline__ float affine(float x, float scale, float shift) {
@@ -77,27 +81,95 @@ __device__ __forceinline__ void load_pos8(const void* pos, int pos_f32, long i, 
     load8(static_cast<const bf16*>(pos) + i, v);
 }
 
-// f32 weights: common.cuh's gemm_f32_tile (the FMA GEMM body) with the
-// affine as its A load and + b + pos as its store. pos is f32 here (the
-// entry point's rule for f32 weights).
-template <typename Tin>
-__global__ void __launch_bounds__(fg::THREADS)
-embed_f32_kernel(const Tin* __restrict__ A, const float* __restrict__ W,
-                 const float* __restrict__ bias, const float* __restrict__ pos,
-                 float* __restrict__ out, long T, int N, int K, int D, float scale, float shift) {
-  gemm_f32_tile(
-      (long)blockIdx.x * fg::BM, blockIdx.y * fg::BN, T, D, K, W,
-      [&](long m, int k) { return affine(in_f(A[m * K + k]), scale, shift); },
-      [&](long m, int n, float v) { out[m * D + n] = (v + bias[n]) + pos[(m % N) * D + n]; });
+// 8 values of a patch row from k on as f32, zeros past K: the widest loads
+// the rows allow (wide: the bytes of one aligned load, 0 for single values)
+__device__ __forceinline__ void load8_in(const float* row, int k, int K, int wide, float (&v)[8]) {
+  load8_f32(row, k, K, wide != 0, v);
+}
+__device__ __forceinline__ void load8_in(const bf16* row, int k, int K, int wide, float (&v)[8]) {
+  if (wide == 16 && k + 8 <= K) {  // K % 8 == 0, 16-byte aligned
+    load8(row + k, v);
+    return;
+  }
+  if (wide == 8) {  // K % 4 == 0: four values are all in or all out
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint2 u = make_uint2(0, 0);
+      if (k + 4 * h < K) u = __ldg(reinterpret_cast<const uint2*>(row + k + 4 * h));
+      const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const float2 f = __bfloat1622float2(b[t]);
+        v[4 * h + 2 * t] = f.x;
+        v[4 * h + 2 * t + 1] = f.y;
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < 8; ++t) v[t] = k + t < K ? __bfloat162float(row[k + t]) : 0.f;
+}
+__device__ __forceinline__ void load8_in(const uint8_t* row, int k, int K, int wide,
+                                         float (&v)[8]) {
+  uint32_t w[2] = {0u, 0u};
+  if (wide == 8 && k + 8 <= K) {  // K % 8 == 0, 8-byte aligned
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(row + k));
+    w[0] = u.x;
+    w[1] = u.y;
+  } else if (wide == 4) {  // K % 4 == 0: a word is all in or all out
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (k + 4 * h < K) w[h] = __ldg(reinterpret_cast<const unsigned int*>(row + k + 4 * h));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (k + i < K) w[i >> 2] |= static_cast<uint32_t>(row[k + i]) << (8 * (i & 3));
+  }
+  // each byte as 2^23 + byte in f32, less 2^23: exact, and no integer-to-float
+  // conversion (an instruction at an eighth of the FMA rate)
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    v[i] = __fsub_rn(__uint_as_float(__byte_perm(w[i >> 2], 0x4B000000u, 0x7540u | (i & 3))),
+                     8388608.f);
 }
 
-// B8's epilogue on the wgmma body: + b, + pos[m % N] (f32 or bf16) in f32,
-// one cast. D % 8 == 0: the 8 columns are all in or all out.
+// B8's A on the split body (f32 weights): the patches [M, K] (Tin, row-major)
+// through the affine, zeros past M and K, split as SplitA splits; wide as
+// load8_in takes it
+template <typename Tin>
+struct AffineSplitA {
+  const Tin* A;
+  int M, K, wide;
+  float scale, shift;
+  __device__ __forceinline__ void load(float (&a)[2][8], int pt, int m0, int k0) const {
+    const int k = k0 + (pt & 3) * 8;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + (pt >> 2) + 64 * i;
+      if (m < M && k < K) {
+        load8_in(A + (long)m * K, k, K, wide, a[i]);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) a[i][t] = k + t < K ? affine(a[i][t], scale, shift) : 0.f;
+      } else {
+#pragma unroll
+        for (int t = 0; t < 8; ++t) a[i][t] = 0.f;
+      }
+    }
+  }
+  __device__ __forceinline__ void store(unsigned char* st, const float (&a)[2][8], int pt) const {
+    store_split_share(st, a, pt);
+  }
+};
+
+// B8's epilogue, out in T (bf16 on the wgmma body, f32 on the split body): +
+// b (T), + pos[m % N] (f32 or bf16) in f32, one cast. D % 8 == 0: the 8
+// columns are all in or all out.
+template <typename T>
 struct EmbedEpi {
-  const bf16* bias;
+  const T* bias;
   const void* pos;
   int pos_f32, tokens;  // pos rows: tokens = N patches an image
-  bf16* out;
+  T* out;
   __device__ __forceinline__ void operator()(int m, int n, float* v, int M, int D) const {
     if (m >= M || n >= D) return;
     float t[8];
@@ -111,13 +183,31 @@ struct EmbedEpi {
   }
 };
 
+// f32 weights: the split body, W's planes in `planes` (3 K D bf16). pos is
+// f32 (the entry point's rule for f32 weights).
+template <typename Tin>
+cudaError_t embed_split(const Tin* A, const float* W, const float* b, const float* pos, float* out,
+                        int T, int N, int K, int D, float scale, float shift, bf16* planes,
+                        cudaStream_t st) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(A);
+  int wide = 0;  // the widest load the rows allow: 8 values, or 4, in one access
+  if constexpr (std::is_same<Tin, float>::value)
+    wide = K % 4 == 0 && a % 16 == 0 ? 16 : 0;
+  else if (K % 8 == 0 && a % (8 * sizeof(Tin)) == 0)
+    wide = 8 * sizeof(Tin);
+  else if (K % 4 == 0 && a % (4 * sizeof(Tin)) == 0)
+    wide = 4 * sizeof(Tin);
+  return split6_gemm(AffineSplitA<Tin>{A, T, K, wide, scale, shift}, W, D,
+                     EmbedEpi<float>{b, pos, 1, N, out}, planes, st);
+}
+
 template <typename Tin>
 cudaError_t embed_wgmma(const Tin* A, const bf16* W, const bf16* b, const void* pos, int pos_f32,
                         bf16* out, int T, int N, int K, int D, float scale, float shift,
                         cudaStream_t st) {
   CUtensorMap tw;
   VPT_TRY(tma_map_w(&tw, W, D, K));
-  const EmbedEpi epi{b, pos, pos_f32, N, out};
+  const EmbedEpi<bf16> epi{b, pos, pos_f32, N, out};
   if constexpr (std::is_same<Tin, uint8_t>::value) {  // B8a
     const uintptr_t a = reinterpret_cast<uintptr_t>(A);
     const int wide = K % 16 == 0 && a % 16 == 0 ? 16 : K % 4 == 0 && a % 4 == 0 ? 4 : 1;
@@ -137,25 +227,20 @@ cudaError_t embed_wgmma(const Tin* A, const bf16* W, const bf16* b, const void* 
   }
 }
 
-// launches per body: 0 wgmma (bf16 weights), 1 FMA tiles (f32 weights)
+// launches per body: 0 wgmma (bf16 weights), 1 split (f32 weights)
 std::atomic<long long> g_embed_launches[2];
 
 template <typename Tin>
 cudaError_t patch_embed(int w_dtype, const Tin* A, const void* W, const void* b, const void* pos,
-                        int pos_f32, void* out, long T, int N, int K, int D, float scale,
-                        float shift, cudaStream_t st) {
-  if (w_dtype == 1) {
-    VPT_TRY(embed_wgmma<Tin>(A, (const bf16*)W, (const bf16*)b, pos, pos_f32, (bf16*)out, (int)T,
-                             N, K, D, scale, shift, st));
-    g_embed_launches[0]++;
-    return cudaSuccess;
-  }
-  const dim3 grid((T + fg::BM - 1) / fg::BM, (D + fg::BN - 1) / fg::BN);
-  embed_f32_kernel<Tin><<<grid, fg::THREADS, 0, st>>>(A, (const float*)W, (const float*)b,
-                                                      (const float*)pos, (float*)out, T, N, K, D,
-                                                      scale, shift);
-  VPT_TRY(cudaGetLastError());
-  g_embed_launches[1]++;
+                        int pos_f32, void* out, int T, int N, int K, int D, float scale,
+                        float shift, bf16* wplanes, cudaStream_t st) {
+  if (w_dtype == 1)
+    VPT_TRY(embed_wgmma<Tin>(A, (const bf16*)W, (const bf16*)b, pos, pos_f32, (bf16*)out, T, N, K,
+                             D, scale, shift, st));
+  else
+    VPT_TRY(embed_split<Tin>(A, (const float*)W, (const float*)b, (const float*)pos, (float*)out, T,
+                             N, K, D, scale, shift, wplanes, st));
+  g_embed_launches[w_dtype == 1 ? 0 : 1]++;
   return cudaSuccess;
 }
 
@@ -167,33 +252,37 @@ extern "C" {
 
 // in_dtype: 0 = float32, 1 = bfloat16, 2 = uint8 (patches [T, K], row-major,
 // any alignment). w_dtype: 0 = float32, 1 = bfloat16 (W [K, D], b [D], out
-// [T, D]). pos [N, D] in W's dtype, or float32 with pos_f32 = 1. T a
-// multiple of N (B images of N patches); D % 8 == 0; W, b, pos and out
-// 16-byte aligned.
+// [T, D]). pos [N, D] in W's dtype, or float32 with pos_f32 = 1 (always for
+// float32 weights). T a multiple of N (B images of N patches); D % 8 == 0;
+// W, b, pos and out 16-byte aligned. wplanes: float32 weights only, a bf16
+// workspace of 3 K D values, 16-byte aligned, for W's planes (null for
+// bfloat16 weights).
 int vpt_patch_embed_forward(int in_dtype, int w_dtype, int pos_f32, const void* patches,
                             const void* w, const void* b, const void* pos, void* out, int T, int N,
-                            int K, int D, float scale, float shift, void* stream) {
-  // the grid's second dimension: the wgmma body's row tiles, the FMA tiles' column tiles
-  const long grid_y = w_dtype == 1 ? (T + wgm::BM - 1) / wgm::BM : (D + fg::BN - 1) / fg::BN;
+                            int K, int D, float scale, float shift, void* wplanes, void* stream) {
+  // the grid's second dimension: either body's row tiles
+  const int bm = w_dtype == 1 ? wgm::BM : f3::BM;
+  const long grid_y = (T + bm - 1) / bm;
   if (in_dtype < 0 || in_dtype > 2 || (w_dtype != 0 && w_dtype != 1) || (pos_f32 != 0 && pos_f32 != 1) ||
-      (w_dtype == 0 && !pos_f32) || T < 1 || N < 1 || T % N || K < 1 || D < 8 || D % 8 ||
-      grid_y > 65535)
+      (w_dtype == 0 && (!pos_f32 || !wplanes)) || T < 1 || N < 1 || T % N || K < 1 || D < 8 ||
+      D % 8 || grid_y > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* planes = static_cast<bf16*>(wplanes);
   switch (in_dtype) {
     case 0:
       return patch_embed<float>(w_dtype, (const float*)patches, w, b, pos, pos_f32, out, T, N, K, D,
-                                scale, shift, st);
+                                scale, shift, planes, st);
     case 1:
       return patch_embed<bf16>(w_dtype, (const bf16*)patches, w, b, pos, pos_f32, out, T, N, K, D,
-                               scale, shift, st);
+                               scale, shift, planes, st);
     default:
-      return patch_embed<uint8_t>(w_dtype, (const uint8_t*)patches, w, b, pos, pos_f32, out, T, N, K,
-                                  D, scale, shift, st);
+      return patch_embed<uint8_t>(w_dtype, (const uint8_t*)patches, w, b, pos, pos_f32, out, T, N,
+                                  K, D, scale, shift, planes, st);
   }
 }
 
-// launches of the wgmma body and of the FMA tiles since the last reset
+// launches of the wgmma body and of the split body since the last reset
 void vpt_embed_body_counts(long long* out) {
   out[0] = g_embed_launches[0].load();
   out[1] = g_embed_launches[1].load();

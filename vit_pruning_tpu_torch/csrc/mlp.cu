@@ -6,12 +6,27 @@
 // x [T, D], W1 [D, M] and W2 [M, D] are read in their dtype (f32 or bf16);
 // both products, the bias adds and the GELU run in f32, the second product
 // takes the unrounded f32 GELU output, and the output is cast once to x's
-// dtype. The [T, M] hidden activation never reaches device memory. Two
-// bodies, chosen by dtype and shape (mlp_tc_takes), each launch counted per
-// body (vpt_mlp_body_counts):
+// dtype. Three bodies, chosen by dtype and shape (mlp_tc_takes), each call
+// counted per body (vpt_mlp_body_counts):
+//
+// The split body (f32 operands, any D and M): two products on split6.cuh's
+// body, x W1 with + b1 and the erf GELU in its epilogue into an f32
+// workspace h [T, M], then h W2 with + b2 into out. Each product runs as six
+// bf16 wgmma passes over exact three-way bf16 splits of its operands, so it
+// is an f32 product (no TF32). What bounds it on an H100: 4 T D M FLOP at
+// the six passes' 164.8 TFLOP/s of f32 work (the CUDA cores give 67), far
+// above the bytes (x, out, the weights, and h written and read once: 8 T M
+// bytes, 38.7 MB at DeiT-S batch 32). W1 and W2 are split into bf16 planes
+// in a workspace (3 D M bf16, the caller's, used by one product after the
+// other on the stream), h goes through device memory: the two launches keep
+// every element of h computed once, where one fused launch holding h in
+// shared memory would split it in the consumers' registers (what bounds the
+// bf16 body below). Both workspaces come from the caller, allocated per call
+// by PyTorch's caching allocator.
 //
 // The tensor-core body (bf16 operands; D and M multiples of 8, x, W1, W2
-// 16-byte aligned: every configuration of the repo). What bounds it on an
+// 16-byte aligned: every configuration of the repo). The [T, M] hidden
+// activation never reaches device memory. What bounds it on an
 // H100: at DeiT-S width the MLP does 4 D M FLOP a row against 4 D bytes of
 // it, far above the ridge, so tensor-core issue. The first product's
 // operands are bf16, so bf16 wgmma with f32 accumulation computes it
@@ -40,19 +55,21 @@
 //     m64n{64 NB}k16 wgmma per 16 of the chunk and plane); the epilogue adds
 //     b2 and stores bf16 pairs, masked at T and D.
 //
-// The FMA body (f32 operands, the parity route, and any shape the
-// tensor-core body does not take): the TPU kernel's M-blocked variant. One
+// The FMA body (the bf16 shapes the tensor-core body does not take: D or M
+// no multiple of 8, or operands not 16-byte aligned): the TPU kernel's
+// M-blocked variant. One
 // block owns TM rows; it keeps them in shared memory as f32 with an f32
 // accumulator [TM, D], and walks M in blocks of 64: h = GELU(x_tile W1[:,
 // blk] + b1[blk]) into shared memory, then acc += h W2[blk, :]. Weight
 // tiles of 32 x 64 are staged through shared memory; each thread computes
 // TM/16 rows x 4 columns of a 64-column chunk by FMA, with its rows' values
 // read as one vector (x and h are kept transposed, k-major). It is held to
-// the CUDA cores' FP32 rate (67 TFLOP/s).
+// the CUDA cores' FP32 rate (67 TFLOP/s). Padding B7's widths to multiples
+// of 8, as ops/cuda/widths.py pads B1-B5's, would let it go.
 
 #include <atomic>
 
-#include "wgmma.cuh"
+#include "split6.cuh"
 
 namespace vpt {
 namespace b7 {
@@ -410,7 +427,50 @@ cudaError_t mlp_tc(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2
   }
 }
 
-std::atomic<long long> g_mlp_body_launches[2];  // tensor-core body, FMA body
+// --- the split body (f32) -------------------------------------------------------
+
+// the epilogue of both products: + bias[n], the activation (fc1: the erf
+// GELU), f32 out [M, N] (row stride N); vec: 8-wide accesses are 16-byte
+// aligned. A type of this unit's own, so that its instances of the split
+// body are its own (split6.cuh's head).
+struct MlpSplitEpi {
+  const float* bias;
+  float* out;
+  int act, vec;
+  __device__ __forceinline__ void operator()(int m, int n, float* v, int M, int N) const {
+    if (m >= M || n >= N) return;
+    float* o = out + (long)m * N + n;
+    if (vec && n + 8 <= N) {
+      float b[8];
+      load8(bias + n, b);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) v[t] = gelu(v[t] + b[t], act);
+      store8(o, v);
+    } else {
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        if (n + t < N) o[t] = gelu(v[t] + bias[n + t], act);
+    }
+  }
+};
+
+// h = GELU(x W1 + b1) into the workspace h [T, M], then out = h W2 + b2; W1's
+// planes, then W2's, in `planes` (3 max(D pw(M), M pw(D)) bf16, pw =
+// f3::plane_width, holds either)
+cudaError_t mlp_split(const float* x, const float* w1, const float* b1, const float* w2,
+                      const float* b2, float* out, int T, int D, int M, float* h, bf16* planes,
+                      cudaStream_t st) {
+  if (!h) return cudaErrorInvalidValue;
+  const auto vec = [](const float* o, const float* b, int n) {
+    return aligned16(o) && aligned16(b) && n % 4 == 0 ? 1 : 0;
+  };
+  VPT_TRY(split6_gemm(SplitA{x, D, T, D, D % 4 == 0 && aligned16(x)}, w1, M,
+                      MlpSplitEpi{b1, h, ACT_GELU_ERF, vec(h, b1, M)}, planes, st));
+  return split6_gemm(SplitA{h, M, T, M, M % 4 == 0 && aligned16(h)}, w2, D,
+                     MlpSplitEpi{b2, out, ACT_NONE, vec(out, b2, D)}, planes, st);
+}
+
+std::atomic<long long> g_mlp_body_launches[3];  // tensor-core, FMA, split
 }  // namespace vpt
 
 using namespace vpt;
@@ -418,7 +478,7 @@ using namespace vpt;
 extern "C" {
 
 // the widest hidden size D whose FMA row tile fits in shared memory (1,520;
-// the tensor-core body streams x and takes any D)
+// the tensor-core and split bodies stream x and take any D)
 int vpt_mlp_max_hidden() {
   int d = 8;
   while (mlp_tile_rows(d + 8)) d += 8;
@@ -426,37 +486,44 @@ int vpt_mlp_max_hidden() {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. x [T, D], w1 [D, M], b1 [M], w2 [M, D],
-// b2 [D], out [T, D], all contiguous in the dtype.
+// b2 [D], out [T, D], all contiguous in the dtype. float32 only: h, an f32
+// workspace [T, M], and wplanes, a bf16 workspace of 3 max(D pw(M), M pw(D))
+// values (pw: the width rounded up to a multiple of 8), 16-byte aligned;
+// null in bfloat16.
 int vpt_mlp_forward(int dtype, const void* x, const void* w1, const void* b1, const void* w2,
-                    const void* b2, void* out, int T, int D, int M, void* stream) {
+                    const void* b2, void* out, int T, int D, int M, void* h, void* wplanes,
+                    void* stream) {
   if ((dtype != 0 && dtype != 1) || T < 1 || D < 1 || M < 1 || !mlp_tile_rows(D))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16 *xb = (const bf16*)x, *w1b = (const bf16*)w1, *w2b = (const bf16*)w2;
+  int body;
   cudaError_t rc;
-  if (dtype == 1 && mlp_tc_takes(xb, w1b, w2b, (const bf16*)out, D, M)) {
-    rc = mlp_tc(xb, w1b, (const bf16*)b1, w2b, (const bf16*)b2, (bf16*)out, T, D, M, st);
-    if (rc == cudaSuccess) g_mlp_body_launches[0]++;
-    return rc;
+  if (dtype == 0) {
+    body = 2;
+    rc = mlp_split((const float*)x, (const float*)w1, (const float*)b1, (const float*)w2,
+                   (const float*)b2, (float*)out, T, D, M, (float*)h, (bf16*)wplanes, st);
+  } else {
+    const bf16 *xb = (const bf16*)x, *w1b = (const bf16*)w1, *w2b = (const bf16*)w2;
+    if (mlp_tc_takes(xb, w1b, w2b, (const bf16*)out, D, M)) {
+      body = 0;
+      rc = mlp_tc(xb, w1b, (const bf16*)b1, w2b, (const bf16*)b2, (bf16*)out, T, D, M, st);
+    } else {
+      body = 1;
+      rc = mlp<bf16>(xb, w1b, (const bf16*)b1, w2b, (const bf16*)b2, (bf16*)out, T, D, M, st);
+    }
   }
-  if (dtype == 0)
-    rc = mlp<float>((const float*)x, (const float*)w1, (const float*)b1, (const float*)w2,
-                    (const float*)b2, (float*)out, T, D, M, st);
-  else
-    rc = mlp<bf16>(xb, w1b, (const bf16*)b1, w2b, (const bf16*)b2, (bf16*)out, T, D, M, st);
-  if (rc == cudaSuccess) g_mlp_body_launches[1]++;
+  if (rc == cudaSuccess) g_mlp_body_launches[body]++;
   return rc;
 }
 
-// launches of the tensor-core body and of the FMA body since the last reset
+// calls of the tensor-core body, the FMA body and the split body since the
+// last reset
 void vpt_mlp_body_counts(long long* out) {
-  out[0] = g_mlp_body_launches[0].load();
-  out[1] = g_mlp_body_launches[1].load();
+  for (int b = 0; b < 3; ++b) out[b] = g_mlp_body_launches[b].load();
 }
 
 void vpt_mlp_body_reset() {
-  g_mlp_body_launches[0] = 0;
-  g_mlp_body_launches[1] = 0;
+  for (int b = 0; b < 3; ++b) g_mlp_body_launches[b] = 0;
 }
 
 }  // extern "C"

@@ -72,13 +72,13 @@ SIGNATURES = {
     "vpt_attention_body_counts": ([P], None),
     "vpt_attention_body_reset": ([], None),
     "vpt_mlp_max_hidden": ([], I),
-    # dtype, x, w1, b1, w2, b2, out, T D M, stream
-    "vpt_mlp_forward": ([I] + [P] * 6 + [I] * 3 + [P], I),
+    # dtype, x, w1, b1, w2, b2, out, T D M, h, wplanes (f32 workspaces), stream
+    "vpt_mlp_forward": ([I] + [P] * 6 + [I] * 3 + [P] * 3, I),
     "vpt_mlp_body_counts": ([P], None),
     "vpt_mlp_body_reset": ([], None),
     # input dtype, weight dtype, pos in f32, patches, w, b, pos, out, T N K D,
-    # scale, shift, stream
-    "vpt_patch_embed_forward": ([I] * 3 + [P] * 5 + [I] * 4 + [F, F, P], I),
+    # scale, shift, wplanes (f32 weights' workspace), stream
+    "vpt_patch_embed_forward": ([I] * 3 + [P] * 5 + [I] * 4 + [F, F, P, P], I),
     "vpt_embed_body_counts": ([P], None),
     "vpt_embed_body_reset": ([], None),
     # A, lda, W, M N K, bias, act, residual, ldr, residual in f32, out, ldc,

@@ -10,7 +10,10 @@ the same body on float patches with scale 1 and shift 0. `embed_u8` and
 `embed_fused` mirror the JAX entry points of the same names: extract the
 patches, run the kernel, prepend the CLS row with its position embedding.
 The CUDA source is csrc/embed.cu; its head says what bounds the kernels on
-an H100 and how the design meets it.
+an H100 and how the design meets it. bf16 weights run the wgmma + TMA body
+(csrc/wgmma.cuh), f32 weights the split body (csrc/split6.cuh: six bf16
+wgmma passes over exact three-way splits, full f32 accuracy), whose W planes
+go to a workspace the operator allocates.
 
 Neither kernel is on a model's forward path, in the port as in the JAX
 package: serving.embed_from_u8 and models/vit.py::embed stay plain PyTorch
@@ -81,9 +84,12 @@ def _launch(who: str, patches, w, b, pos, scale: float, shift: float) -> torch.T
     bsz, n, k = patches.shape
     d = w.shape[1]
     out = w.new_empty((bsz, n, d))
+    # f32 weights: the split body's workspace for W's three bf16 planes
+    planes = (torch.empty(3 * k * d, dtype=torch.bfloat16, device=w.device)
+              if w.dtype == torch.float32 else None)
     run(who, w.device, "vpt_patch_embed_forward", _IN_DTYPES[patches.dtype], _IN_DTYPES[w.dtype],
         int(pos.dtype == torch.float32), ptr(patches), ptr(w), ptr(b), ptr(pos), ptr(out),
-        bsz * n, n, k, d, scale, shift)
+        bsz * n, n, k, d, scale, shift, ptr(planes))
     return out
 
 
@@ -163,12 +169,12 @@ fused_patch_embed_f.launches = 0
 
 def body_counts() -> dict:
     """Launches of B8a's and B8b's bodies since the last reset_body_counts():
-    'wgmma' (bf16 weights) and 'fma' (f32 weights)."""
+    'wgmma' (bf16 weights) and 'split' (f32 weights)."""
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
 
     counts = (ctypes.c_longlong * 2)()
     load_library().vpt_embed_body_counts(counts)
-    return {"wgmma": counts[0], "fma": counts[1]}
+    return {"wgmma": counts[0], "split": counts[1]}
 
 
 def reset_body_counts():
