@@ -20,8 +20,11 @@ kernels from csrc/ itself. Phases:
   3d. kernel B6 (fused_attention) against its plain version: DeiT-S heads
      (hd 64), S in {197, 99, 17}, hd 128 and hd 80 (ViT-H) at S 257, hd 16
      at S 17, unmasked, masked, and masked with one image's keys all
-     masked (every row compared), float32 and bfloat16, with the body each
-     case took (the tensor-core body for every bf16 case it takes)
+     masked (every row compared), float32 and bfloat16, and bf16 at hd 20
+     and 12 (no multiple of 8), with the body each case took (the wgmma
+     body for every bf16 case it takes, the split body for the rest); each
+     f32 case also against a float64 attention, at no more than 4x the
+     plain version's own error
   3e. kernel B7 (fused_mlp) against its plain version: the rows of S in
      {197, 99, 17} at DeiT-S width (MLP 1536) and composed width (MLP 768),
      136 rows at ViT-L width (D 1024, MLP 4096), 514 rows at ViT-H width
@@ -81,12 +84,14 @@ kernels from csrc/ itself. Phases:
      at full width): B1 (staged2), B5 on one layer (normalised) and B4,
      unmasked and masked (a whole chunk of keys blanked, one image's keys
      all masked; every row compared), B3 at a capacity of each length with
-     per-image counts; bfloat16 at batch 4, float32 at S 65 and 257; each
-     call's attention on the body ops/cuda/layer.py::attention_body names,
-     by the C counters and the wrappers' tally; then the attention
-     isolated (attention_isolated: O = I, an MLP adding 0, a peaked
-     softmax, x ~ 1e-5) for B1, B3, B4 and B5 at the same edges, held to
-     x + staged2_attention at two bf16 steps of the context
+     per-image counts; bfloat16 and float32 (B4: S 65, 257) at batch 4; each call's
+     attention on the body ops/cuda/layer.py::attention_body names, by the
+     C counters and the wrappers' tally; then the attention isolated
+     (attention_isolated: O = I, an MLP adding 0, a peaked softmax, x ~
+     1e-5) for B1, B3, B4 and B5 at the same edges, in bf16 held to x +
+     staged2_attention at two bf16 steps of the context, in f32 (B1, B3,
+     B5) to x + a float64 context at no more than 4x the plain version's
+     own error against it (B4: its plain version, one int8 step)
   3j. B4's int8 product body (wgmma s8 + TMA) one product at a time at
      every product shape of B4 at DeiT-S (batch 512 x 197) and ViT-H (64 x
      257), and at vit_tiny's (136 rows, N 192, K 64) and a ragged one, the
@@ -116,7 +121,7 @@ kernels from csrc/ itself. Phases:
      dense and headline under int8 (the float B5, equal to float); mha with
      use_kernel in mode 'kernel' (B6 x 1), with B6's and B7's launches per
      body (the bf16 forwards on the tensor-core bodies, the f32 ones on B6's
-     FMA body and B7's split body); kernels against
+     and B7's split bodies); kernels against
      plain PyTorch,
      and in bfloat16 every B5 route also against itself with B5's plain
      version in the kernel's place
@@ -169,7 +174,8 @@ kernels from csrc/ itself. Phases:
      forward beside bf16 SDPA at its shape (info: another rounding); the
      f32 routes (B1 at ViT-B/16 batch 16; B2, B3, B5, B6, B7, B8b and B8a
      with f32 weights at DeiT-S batch 32) beside their plain versions, the
-     f32 PyTorch call and bound_split6
+     f32 PyTorch call and bound_split6, with each row's f32 attention
+     launches by body
   3l. (after 6, so that 6's GEMM body counts stay those of 5-5h) widths
      that are not multiples of the kernels' (ROADMAP C.1), zero-padded by
      the wrappers: B1, B2, B3, B4 and B5 (two layers) at DeiT-S with 1000
@@ -252,6 +258,11 @@ SEED = 0
 # units at DeiT-S width) so that the f32 top-k cuts are not near ties
 PREDICTOR_GAIN = 10.0
 F32_ATOL = 1e-4  # kernel vs plain, both f32-accumulated; sums in another order
+# the f32 attention (csrc/split_attention.cuh) against a float64 one: its error at most
+# F64_FACTOR times the plain f32 version's, or F64_FACTOR f32 steps (F32_ULP relative) of
+# the largest output where the plain version's is below one
+F64_FACTOR = 4.0
+F32_ULP = 2.0 ** -23
 # the f32 split body (csrc/gemm.cu) against a float64 product: its relative error
 # may be this many times the f32 plain version's own (cuBLAS f32 on the same
 # operands), so that it is an f32 product in accuracy and not only within F32_ATOL
@@ -486,7 +497,7 @@ def long_sequences(dev, err: dict):
                 got = ka.fused_attention(q, k, v, mask)
                 torch.cuda.synchronize()
                 n = ka.body_counts()
-                body = "wgmma" if n["wgmma"] else "fma"
+                body = "wgmma" if n["wgmma"] else "split"
                 ref = ka.fused_attention_ref(q, k, v, mask)
                 torch.cuda.synchronize()
                 d = valid_rows(got.transpose(1, 2), ref.transpose(1, 2), mask)
@@ -496,7 +507,7 @@ def long_sequences(dev, err: dict):
                 tag = f"B6 {gname} {dname} B={hb} S={s} {'mask' if mask is not None else 'nomask'}"
                 log(f"  {tag}: {body} body, max_abs_err {d:.3e} (tol {tol:.1e})")
                 check(bool(torch.isfinite(got).all()) and d <= tol
-                      and (body == "wgmma") == ka.takes_tensor_cores(q, k, v), tag)
+                      and body == ka.body(q, k, v), tag)
     check.done()
 
 
@@ -524,14 +535,16 @@ def attention_edges(dev):
     ViT-H 80 at full width): B1 (staged2), B5 on one layer (normalised) and
     B4, unmasked and masked (one whole 64-key chunk blanked, one image's
     keys all masked), and B3 at a capacity of each length with per-image
-    counts (1, the capacity, two random); bfloat16 at batch 4, float32 at
-    S 65 and 257. Every row is compared, masked ones included, with phases
+    counts (1, the capacity, two random); bfloat16 and float32 at batch 4
+    (B4 in float32 at S 65 and 257).
+    Every row is compared, masked ones included, with phases
     3 / 3f / 4b / 3c's tolerances (two bf16 steps; B4 one int8 step more),
     and each call's attention must have run the body attention_body names,
     once a layer, by the C counters and by the wrappers' tally. First the
     mirror itself: attention_body equal to the C rule for f32, bf16 and
     f16, head dims 8-128 and S 0-785. Last the cases of
-    attention_isolated, which see the attention at its own magnitude."""
+    attention_isolated, which see the attention at its own magnitude (in
+    f32 against a float64 context)."""
     from vit_pruning_tpu_torch.models.convert import tree_to
     from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_slice
     from vit_pruning_tpu_torch.ops.cuda import layer as kl
@@ -561,7 +574,7 @@ def attention_edges(dev):
             lp = layer_slice(st, 0)
             qp = quantize_layer_params(lp)
             ftol = (lambda ref: F32_ATOL) if dt == torch.float32 else bf16_tol
-            for s in EDGE_LENGTHS if dt == torch.bfloat16 else (65, 257):
+            for s in EDGE_LENGTHS:
                 want = kl.attention_body(dt, hd, s)
                 x = torch.randn(batch, s, gcfg.hidden_size, generator=gen).to(dev, dt)
                 m = torch.rand(batch, s, generator=gen) > 0.3
@@ -579,6 +592,12 @@ def attention_edges(dev):
                          lambda: kmod.fused_vit_encoder_ref(x, st, nh, eps, mask), 0.0),
                     )
                     for key, fn, ref_fn, extra in cases:
+                        if key == "B4" and dt == torch.float32 and s not in (65, 257):
+                            # B4's whole f32 layer moves by int8 code flips in four stages,
+                            # which its one-int8-step tolerance bounds only by chance at ViT-H
+                            # width; its attention is held at every length by
+                            # attention_isolated, where only ctx's codes can flip
+                            continue
                         kl.reset_attention_body_counts()
                         got = fn()
                         torch.cuda.synchronize()
@@ -621,7 +640,8 @@ def attention_edges(dev):
     log(f"  phase 3m calls by attention body: {bodies}")
     check(set(bodies) == set(kl.ATTENTION_BODIES), f"a body never ran: {bodies}")
     for r in attention_isolated(dev, log):
-        check(r["d"] <= r["tol"], f"{r['tag']}: err {r['d']:.3e} > tol {r['tol']:.2e}")
+        check(r["d"] <= r["tol"] and r["finite"],
+              f"{r['tag']}: err {r['d']:.3e} > tol {r['tol']:.2e} or not finite")
         one = {b: int(b == r["want"]) for b in kl.ATTENTION_BODIES}
         check(r["ran"] == one and r["tally"] == {r["key"].lower(): one},
               f"{r['tag']}: attention bodies {r['ran']}, tally {r['tally']}, want {r['want']}")
@@ -665,13 +685,18 @@ def attention_isolated(dev, say) -> list:
     on its kept rows against the same on the compacted bucket; B4 against
     its plain version (staged2_attention on its int8 q, k, v, the context's
     row quantization, O = I). Every EDGE_LENGTHS length at head dims 16, 32,
-    64 and 80, bfloat16 at batch 4, unmasked and masked (one 64-key chunk
-    blanked, one image's keys all masked). Tolerance: two bf16 steps of
-    the largest |x + ctx| (B4: one int8 step of the context more). Returns
-    one record per call: tag, kernel, the body attention_body names, the
-    bodies the C counters and the wrappers' tally saw, err and tol. Also
-    run by kernel_variants.py's `faults`, on libraries with faults planted
-    in the body."""
+    64 and 80, bfloat16 and float32 at batch 4, unmasked and masked (one
+    64-key chunk blanked, one image's keys all masked). Tolerance in bf16:
+    two bf16 steps of the largest |x + ctx| (B4: one int8 step of the
+    context more). In f32 B1, B3 and B5 are held to x + the context in
+    float64 (LN, the products and the attention in float64 from the same
+    weights and x): their error at most F64_FACTOR times the plain
+    version's against it (TF32 off), both printed; B4 to its plain version
+    at F32_ATOL and one int8 step. Returns one record per call: tag,
+    kernel, the body attention_body names, the bodies the C counters and
+    the wrappers' tally saw, err and tol, whether the output is finite.
+    Also run by kernel_variants.py's `faults`, on libraries with faults
+    planted in the bodies."""
     from vit_pruning_tpu_torch.models.convert import tree_to
     from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_slice
     from vit_pruning_tpu_torch.ops.cuda import layer as kl
@@ -689,59 +714,112 @@ def attention_isolated(dev, say) -> list:
         q, k, v = (kl._linear_f32(h, lp["attn"][n]["w"], lp["attn"][n]["b"]).to(bf) for n in "qkv")
         return kl.staged2_attention(q, k, v, nh, mask, normalized=normalized).float()
 
+    def ctx64(xs, lp, nh, eps, mask):
+        """x + the layer's context in float64 (LN, the products, the softmax),
+        keys masked by mask [B, S] (or none); in float64 staged2 and
+        normalised are one function"""
+        x64 = xs.double()
+        mu = x64.mean(-1, keepdim=True)
+        var = ((x64 - mu) ** 2).mean(-1, keepdim=True)
+        h = (x64 - mu) / torch.sqrt(var + eps) * lp["ln1"]["g"].double() + lp["ln1"]["b"].double()
+        b, s, _ = xs.shape
+        q, k, v = ((h @ lp["attn"][n]["w"].double() + lp["attn"][n]["b"].double())
+                   .reshape(b, s, nh, -1).transpose(1, 2) for n in "qkv")
+        logits = (q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+        if mask is not None:
+            logits = torch.where(mask[:, None, None, :], logits,
+                                 torch.tensor(-1e30, dtype=torch.float64, device=xs.device))
+        ctx = (torch.softmax(logits, -1) @ v).transpose(1, 2).reshape(b, s, -1)
+        return x64 + ctx
+
+    def f64_err(got, plain, exact, rows=None):
+        """(the kernel's error against float64, its tolerance, the plain
+        version's error): at most F64_FACTOR times the plain version's, or
+        F64_FACTOR f32 steps of the largest output where that is below one"""
+        ek, ep = (got.double() - exact).abs(), (plain.double() - exact).abs()
+        if rows is not None:
+            ek, ep = ek[rows], ep[rows]
+        e_p = float(ep.max())
+        return float(ek.max()), F64_FACTOR * max(e_p, F32_ULP * float(exact.abs().max())), e_p
+
     def record(tag, key, want, run, d_and_tol):
         kl.reset_attention_body_counts()
         got = run()
         torch.cuda.synchronize()
         ran, tally = kl.attention_body_counts(), dict(kl.attention_launches)
-        d, tol = d_and_tol(got)
-        say(f"  isolated {tag}: {want}, max_abs_err {d:.3e} (tol {tol:.2e})")
+        d, tol, *plain = d_and_tol(got)
+        also = f", plain version's {plain[0]:.3e}" if plain else ""
+        say(f"  isolated {tag}: {want}, max_abs_err {d:.3e} (tol {tol:.2e}{also})")
         out.append({"tag": f"isolated {tag}", "key": key, "want": want, "ran": ran,
-                    "tally": tally, "d": d, "tol": tol})
+                    "tally": tally, "d": d, "tol": tol, "finite": bool(torch.isfinite(got).all())})
 
     for gname, gcfg in geos:
         nh, hd, eps = gcfg.num_heads, gcfg.head_dim, gcfg.layernorm_eps
         stack = perturbed_layer(init_vit_params(gcfg.replace(num_layers=1), gen, "cpu")["layers"],
                                 gen)
-        st = tree_to(identity_tail(stack, gen), dev, bf)
-        lp = layer_slice(st, 0)
-        qp = quantize_layer_params(lp)
-        for s in EDGE_LENGTHS:
-            want = kl.attention_body(bf, hd, s)
-            x = (1e-5 * torch.randn(batch, s, gcfg.hidden_size, generator=gen)).to(dev, bf)
-            m = torch.rand(batch, s, generator=gen) > 0.3
-            m[:, 0] = True
-            m[:, 64:128] = False
-            m[1] = False
-            for mask in (None, m.to(dev)):
-                tag = f"{gname} B={batch} S={s} {'mask' if mask is not None else 'nomask'}"
-                for key, normalized, run in (
-                        ("B1", False, lambda: kl.fused_vit_layer(x, lp, nh, eps, mask)),
-                        ("B5", True, lambda: kmod.fused_vit_encoder(x, st, nh, eps, mask))):
-                    ref = x.float() + ctx_of(x, lp, nh, eps, mask, normalized)
-                    record(f"{key} {tag}", key, want, run,
-                           lambda got: ((got.float() - ref).abs().max().item(), bf16_tol(ref)))
-                ref8 = k8.fused_vit_layer_int8_ref(x, qp, nh, eps, mask).float()
-                record(f"B4 {tag}", "B4", want, lambda: k8.fused_vit_layer_int8(x, qp, nh, eps, mask),
-                       lambda got: ((got.float() - ref8).abs().max().item(),
-                                    bf16_tol(ref8) + int8_step(ref8, x)))
-            # B3 at a capacity of s with per-image counts, as the cases above
-            counts = torch.randint(1, s + 1, (batch,), generator=gen)
-            counts[0], counts[1] = 1, s
-            rank = torch.rand(batch, s + 6, generator=gen).argsort(-1).argsort(-1)
-            kmask = torch.cat([torch.ones(batch, 1, dtype=torch.bool),
-                               rank < (counts[:, None] - 1)], 1).to(dev)
-            xb = (1e-5 * torch.randn(batch, s + 7, gcfg.hidden_size, generator=gen)).to(dev, bf)
-            dest = compact_dest(kmask)
-            xc, key_ok = kl.bucket_compact(xb, dest, kmask, s)
-            refc = xc.float() + ctx_of(xc, lp, nh, eps, key_ok)
+        tail = identity_tail(stack, gen)
+        for dname, dt in (("bfloat16", bf), ("float32", torch.float32)):
+            st = tree_to(tail, dev, dt)
+            lp = layer_slice(st, 0)
+            qp = quantize_layer_params(lp)
+            for s in EDGE_LENGTHS:
+                want = kl.attention_body(dt, hd, s)
+                x = (1e-5 * torch.randn(batch, s, gcfg.hidden_size, generator=gen)).to(dev, dt)
+                m = torch.rand(batch, s, generator=gen) > 0.3
+                m[:, 0] = True
+                m[:, 64:128] = False
+                m[1] = False
+                for mask in (None, m.to(dev)):
+                    tag = (f"{gname} {dname} B={batch} S={s} "
+                           f"{'mask' if mask is not None else 'nomask'}")
+                    for key, normalized, run, plain in (
+                            ("B1", False, lambda: kl.fused_vit_layer(x, lp, nh, eps, mask),
+                             lambda: kl.fused_vit_layer_ref(x, lp, nh, eps, mask)),
+                            ("B5", True, lambda: kmod.fused_vit_encoder(x, st, nh, eps, mask),
+                             lambda: kmod.fused_vit_encoder_ref(x, st, nh, eps, mask))):
+                        if dt == bf:
+                            ref = x.float() + ctx_of(x, lp, nh, eps, mask, normalized)
+                            d_tol = (lambda got: ((got.float() - ref).abs().max().item(),
+                                                  bf16_tol(ref)))
+                        else:
+                            exact, p_out = ctx64(x, lp, nh, eps, mask), plain()
+                            d_tol = (lambda got: f64_err(got, p_out, exact))
+                        record(f"{key} {tag}", key, want, run, d_tol)
+                    ref8 = k8.fused_vit_layer_int8_ref(x, qp, nh, eps, mask).float()
+                    tol8 = (bf16_tol(ref8) if dt == bf
+                            else F32_ATOL * max(1.0, float(ref8.abs().max()))) + int8_step(ref8, x)
+                    record(f"B4 {tag}", "B4", want,
+                           lambda: k8.fused_vit_layer_int8(x, qp, nh, eps, mask),
+                           lambda got: ((got.float() - ref8).abs().max().item(), tol8))
+                # B3 at a capacity of s with per-image counts, as the cases above
+                counts = torch.randint(1, s + 1, (batch,), generator=gen)
+                counts[0], counts[1] = 1, s
+                rank = torch.rand(batch, s + 6, generator=gen).argsort(-1).argsort(-1)
+                kmask = torch.cat([torch.ones(batch, 1, dtype=torch.bool),
+                                   rank < (counts[:, None] - 1)], 1).to(dev)
+                xb = (1e-5 * torch.randn(batch, s + 7, gcfg.hidden_size, generator=gen)).to(dev, dt)
+                dest = compact_dest(kmask)
+                xc, key_ok = kl.bucket_compact(xb, dest, kmask, s)
+                if dt == bf:
+                    refc = xc.float() + ctx_of(xc, lp, nh, eps, key_ok)
 
-            def b3_err(got):
-                gc, _ = kl.bucket_compact(got, dest, kmask, s)
-                return ((gc.float() - refc).abs()[key_ok].max().item(), bf16_tol(refc[key_ok]))
+                    def b3_err(got):
+                        gc, _ = kl.bucket_compact(got, dest, kmask, s)
+                        return ((gc.float() - refc).abs()[key_ok].max().item(),
+                                bf16_tol(refc[key_ok]))
+                else:
+                    exact = ctx64(xc, lp, nh, eps, key_ok)
+                    p_out, _ = kl.bucket_compact(
+                        kl.fused_vit_layer_bucketed_ref(xb, lp, dest, kmask, s, nh, eps), dest,
+                        kmask, s)
 
-            record(f"B3 {gname} B={batch} S={s + 7} cap={s}", "B3", want,
-                   lambda: kl.fused_vit_layer_bucketed(xb, lp, dest, kmask, s, nh, eps), b3_err)
+                    def b3_err(got):
+                        gc, _ = kl.bucket_compact(got, dest, kmask, s)
+                        return f64_err(gc, p_out, exact, key_ok)
+
+                record(f"B3 {gname} {dname} B={batch} S={s + 7} cap={s}", "B3", want,
+                       lambda: kl.fused_vit_layer_bucketed(xb, lp, dest, kmask, s, nh, eps),
+                       b3_err)
     return out
 
 
@@ -2226,15 +2304,27 @@ def main():
         check(sum(n.values()) == 1 and ran == [want], f"{tag}: bodies {n}, {want} expected")
         return ran[0] if ran else "none"
 
-    # DeiT-S's heads; hd 128 at S 257, where the FMA body reads V from L2; ViT-H's hd 80
+    # DeiT-S's heads; hd 128 at S 257 (two hd boxes: the split body streams); ViT-H's hd 80
     # at S 257 (two 64-wide hd boxes and five key chunks in the tensor-core body) and
-    # vit_tiny's hd 16 (a box wider than the head); each unmasked, masked, and masked
-    # with image 0's keys all masked (uniform attention, every row compared)
+    # vit_tiny's hd 16 (a box wider than the head); bf16 at hd 20 and 12, which only the
+    # split body takes (their own generator, so that the cases before see what they saw);
+    # each unmasked, masked, and masked with image 0's keys all masked (uniform attention,
+    # every row compared)
     shapes = [("deit_s", 8, cfg.num_heads, s, cfg.head_dim, gen) for s in (197, 99, 17)]
     shapes += [("hd128", 2, 3, 257, 128, gen), ("vit_h", 2, 16, 257, 80, gen67),
                ("vit_tiny", 4, 3, 17, 16, gen67)]
+    gen17 = torch.Generator().manual_seed(SEED + 171)
+    leftovers = [("hd20", 2, 3, 129, 20, gen17), ("hd12", 3, 2, 300, 12, gen17)]
+
+    def f64_attention(q, k, v, mask):
+        logits = (q.double() @ k.double().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+        if mask is not None:
+            logits = torch.where(mask[:, None, None, :], logits,
+                                 torch.tensor(-1e30, dtype=torch.float64, device=q.device))
+        return torch.softmax(logits, -1) @ v.double()
+
     for dname, dt in dtypes.items():
-        for gname, b, h, s, hd, g in shapes:
+        for gname, b, h, s, hd, g in shapes + (leftovers if dt == torch.bfloat16 else []):
             q, k, v = (torch.randn(b, h, s, hd, generator=g).to(dev, dt) for _ in range(3))
             m = torch.rand(b, s, generator=g) > 0.3
             m[:, 0] = True
@@ -2246,15 +2336,25 @@ def main():
                 ka.reset_body_counts()
                 got = ka.fused_attention(q, k, v, mask)
                 torch.cuda.synchronize()
-                body = body_took(ka, "wgmma" if ka.takes_tensor_cores(q, k, v) else "fma", tag)
+                body = body_took(ka, ka.body(q, k, v), tag)
                 ref = ka.fused_attention_ref(q, k, v, mask)
                 torch.cuda.synchronize()
                 d = valid_rows(got.transpose(1, 2), ref.transpose(1, 2),
                                mask if mname == "mask" else None)
                 tol = F32_ATOL if dt == torch.float32 else bf16_tol(ref.float())
+                f64 = ""
                 if dt == torch.float32:
                     err["b6"] = max(err["b6"], d)
-                log(f"  {tag}: {body} body, max_abs_err {d:.3e} (tol {tol:.1e})")
+                    # against float64: the valid rows' error at most 4x the plain version's
+                    exact = f64_attention(q, k, v, mask)
+                    rows = (torch.ones(b, s, dtype=torch.bool, device=dev) if mname != "mask"
+                            else mask)[:, None, :, None]
+                    e_k = float(((got.double() - exact).abs() * rows).max())
+                    e_p = float(((ref.double() - exact).abs() * rows).max())
+                    tol64 = F64_FACTOR * max(e_p, F32_ULP * float(exact.abs().max()))
+                    f64 = f"; against float64 {e_k:.3e}, plain {e_p:.3e} (tol {tol64:.2e})"
+                    check(e_k <= tol64, f"{tag}: float64 error {e_k:.3e} > {tol64:.2e}")
+                log(f"  {tag}: {body} body, max_abs_err {d:.3e} (tol {tol:.1e}){f64}")
                 check(bool(torch.isfinite(got).all()) and d <= tol, tag)
     bad = {  # what the kernel does not take must raise, not run
         "head dim 160": torch.zeros(2, 2, 17, 160, device=dev),
@@ -3461,11 +3561,11 @@ def main():
               f"mha(use_kernel) {dname}: launches {n} or err {d:.3e} / {rel:.2e}")
     launches.update(read_launches(("b5", "b6", "b7")))
     # B6 and B7 per body: the bfloat16 forwards on the tensor-core bodies (DeiT-S's shapes
-    # are theirs), the float32 ones on B6's FMA body and on B7's split body (no f32 B7
-    # launch on the FMA body)
+    # are theirs), the float32 ones on B6's and B7's split bodies (no f32 launch on an FMA
+    # body)
     bodies67 = {"b6": ka.body_counts(), "b7": kmlp.body_counts()}
     log(f"  phase 5d launches per body: B6 {bodies67['b6']}, B7 {bodies67['b7']}")
-    for k, f32_body in (("b6", "fma"), ("b7", "split")):
+    for k, f32_body in (("b6", "split"), ("b7", "split")):
         n = bodies67[k]
         check(n["wgmma"] > 0 and n[f32_body] > 0 and n["wgmma"] + n[f32_body] == launches[k]
               and sum(n.values()) == launches[k], f"{k.upper()} bodies {n} on {launches[k]} launches")
@@ -3686,8 +3786,8 @@ def main():
         """B1-B5's attention launches since the counters' last reset: the C
         counters per body equal to the wrappers' tally by kl.attention_body
         (the Python mirror of the C rule, which maps every bfloat16 launch to
-        a wgmma body), so no bf16 launch took the FMA body. Returns the tally
-        by kernel."""
+        a wgmma body and every float32 launch to a split body). Returns the
+        tally by kernel."""
         ran = kl.attention_body_counts()
         tally = {k: dict(v) for k, v in kl.attention_launches.items()}
         mirror = {b: sum(per[b] for per in tally.values()) for b in kl.ATTENTION_BODIES}
@@ -3709,6 +3809,11 @@ def main():
         raise AssertionError(f"phase 6: B2's launches {b2_kinds} against the tally {b2_tally}")
     if not sum(per["wgmma_streamed"] for per in attn_tally.values()):
         raise AssertionError("phase 6: the streamed attention body never ran on phases 5-5h")
+    # the f32 launches (5e's ViT-H at S 257, 5h's train steps) on both split bodies
+    if not all(sum(per[b] for per in attn_tally.values()) for b in ("split_resident",
+                                                                    "split_streamed")):
+        raise AssertionError(f"phase 6: an f32 attention body never ran on phases 5-5h: "
+                             f"{attn_tally}")
     dense_fam = None
     # which bf16 GEMM body ran the products of phases 5-5f: the wgmma body wherever TMA
     # can describe A and W; the WMMA body only for a product whose N is no multiple of 8
@@ -4186,11 +4291,19 @@ def main():
         k_ms, p_ms = abba(k_fn, p_fn)
         l_ms = time_ms(l_fn)
         b_ms, b_by = bound_split6(flops, nbytes)
+        # the f32 attention launches of one call, by body (B1-B5's counters, B6's)
+        kl.reset_attention_body_counts()
+        ka.reset_body_counts()
+        k_fn()
+        torch.cuda.synchronize()
+        attn = {b: n for b, n in kl.attention_body_counts().items() if n}
+        attn.update({f"b6_{b}": n for b, n in ka.body_counts().items() if n})
         f32_rows[key] = {"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                         "bound_by": b_by, "library_ms": l_ms, "library": library}
+                         "bound_by": b_by, "library_ms": l_ms, "library": library,
+                         "attention_launches": attn}
         log(f"  {key.upper()} f32 {shape}: kernel {k_ms:.4f} ms, plain version {p_ms:.4f} ms, "
             f"{library} {l_ms:.4f} ms; {flops:.3e} FLOP, bound {b_ms:.4f} ms ({b_by}, "
-            f"{100 * b_ms / k_ms:.1f}%)")
+            f"{100 * b_ms / k_ms:.1f}%); f32 attention launches a call {attn}")
 
     f32 = torch.float32
     m32 = random_mask(32, 197, torch.full((32,), 138))
@@ -4392,6 +4505,9 @@ def main():
          # B5: their f32 products on the split body (csrc/gemm.cu) on phases 5-5h, the
          # CLI's f32 eval (8) and the gates (9)
          **({"f32": f32_rows[key]} if key in f32_rows else {}),
+         # the f32 attention of B1, B3, B4, B5 and B6's f32 route (the split body)
+         **({"f32_attention_source": f"{pkg}/csrc/split_attention.cuh"}
+            if key in ("b1", "b3", "b4", "b5", "b6") else {}),
          **({"f32_split_products": {"5_to_5h": f32_tally.get(key, 0),
                                     "cli_eval": cli_run["f32_products"]["eval_auto"].get(key, 0),
                                     "gates": gate_run["f32_products"].get(key, 0)}}

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the hand-written bodies of kernels B1, B2, B4, B6, B7 and B8a and the f32 split
-GEMM body spend their time, on one GPU; whether phases 3m, 4 and 3n of chip_smoke.py catch
-faults planted in B1-B5's attention body, in B2's launches and in the split body; and the
-layer kernels' times for a checkout.
+"""Where the hand-written bodies of kernels B1, B2, B4, B6, B7 and B8a, the f32 split
+GEMM body and the f32 attention body spend their time, on one GPU; whether phases 3m, 4
+and 3n of chip_smoke.py catch faults planted in B1-B5's attention bodies, in B2's
+launches and in the split body; and the layer kernels' times for a checkout.
 
-    python3 kernel_variants.py [b7] [b6] [b4] [b8a] [b1] [b2]    (no argument: all six)
+    python3 kernel_variants.py [b7] [b6] [b4] [b8a] [b1] [b2] [split]
+                                                                (no argument: the first six)
 
 Each kernel is built again from its sources (vit_pruning_tpu_torch/csrc) with one
 stage taken out or swapped: a diagnostic variant, not a kernel of the port. Each
@@ -26,7 +27,13 @@ and last (CUDA events, mean of 20 after 3 warm-ups):
     accumulators, shared memory, recomputed), the K/V launch's ring (three stages), the
     items by head group, its CLS attention epilogue, LN1 or q left out, the tail's
     cluster (8, 16); every variant compiled with
-    ptxas -v, the registers and spills of every instance printed.
+    ptxas -v, the registers and spills of every instance printed;
+  - split: the f32 attention body (csrc/split_attention.cuh, under B1-B5's f32
+    attention and B6's f32 route), through B6's C entry in f32 at DeiT-S batch 32 (6
+    heads of 64, S 197, masked: the work of B1's f32 attention at ViT-B/16 batch 16),
+    ViT-H's hd 80 at S 257 (batch 8) and S 577 (DeiT-S at 384, batch 8): the split
+    pass alone, the body alone, two passes where one does; every variant compiled
+    with ptxas -v, the registers and spills of the split kernels printed.
 Each line gives the variant's time and its largest distance from the real kernel's
 output: 0 where a variant computes the same numbers another way.
 
@@ -35,7 +42,9 @@ output: 0 where a variant computes the same numbers another way.
 builds the attention body again with a fault planted in it (ATTENTION_FAULTS: masked
 keys taken as valid, a uniform softmax, a misplaced chunk of V, a wrong normaliser),
 loads each library in the package's place and runs chip_smoke.py's isolated attention
-cases (phase 3m's attention_isolated) through the wrappers; then the same for B2's
+cases (phase 3m's attention_isolated) through the wrappers; then the same for the f32
+attention body (SPLIT_FAULTS: masked keys taken as valid, the mid.hi pass of QK^T
+dropped, the lo planes of q, k and v zeroed, a wrong normaliser); then the same for B2's
 launches (B2_FAULTS: a uniform softmax, the last key tile dropped, another head's V, P
 left unnormalised) with phase 4's cls_attention_isolated. The real kernels must pass
 every case and each fault must fail some; it exits non-zero otherwise.
@@ -160,18 +169,48 @@ B1_VARIANTS = [
 # Faults planted in the attention body, each of which chip_smoke.py's phase 3m
 # must catch in its isolated cases (attention_isolated): `faults` runs those
 # cases through the package's wrappers on each library and counts the failures
-LA_FLAG = "    l[i] = f == 1 ? l[i] * scale : f == 2 ? la::kMasked : -INFINITY;\n"
+# (the key flags and the quad sums are wgmma.cuh's, shared by both attention bodies: a
+# fault planted there reaches only the unit built from the variant's copy)
+ATTN_FLAG = "    l[i] = f == 1 ? l[i] * scale : f == 2 ? kMaskedLogit : -INFINITY;\n"
+QUAD_SUM = "  return s + __shfl_xor_sync(0xffffffffu, s, 2);"
 ATTENTION_FAULTS = [
     ("kernel", "the attention body as it is: no case may fail", []),
     ("mask ignored", "masked keys taken as valid",
-     [("layer_attention.cu", LA_FLAG, LA_FLAG.replace("f == 2 ? la::kMasked", "f == 2 ? l[i] * scale"))]),
+     [("wgmma.cuh", ATTN_FLAG, ATTN_FLAG.replace("f == 2 ? kMaskedLogit", "f == 2 ? l[i] * scale"))]),
     ("uniform softmax", "every valid key's logit 0: the average of the valid keys",
-     [("layer_attention.cu", LA_FLAG, LA_FLAG.replace("f == 1 ? l[i] * scale", "f == 1 ? 0.f"))]),
+     [("wgmma.cuh", ATTN_FLAG, ATTN_FLAG.replace("f == 1 ? l[i] * scale", "f == 1 ? 0.f"))]),
     ("chunk misplaced", "the resident body's PV takes the next chunk's V for each chunk",
      [("layer_attention.cu", "  for (int c = 0; c < NKC; ++c) la_pv<HD>(o, p[c], va + c * BOX, NKC);",
        "  for (int c = 0; c < NKC; ++c) la_pv<HD>(o, p[c], va + (c + 1) % NKC * BOX, NKC);")]),
     ("wrong normaliser", "each row's sum over two of its quad's four lanes only",
-     [("layer_attention.cu", "  return s + __shfl_xor_sync(0xffffffffu, s, 2);", "  return s;")]),
+     [("wgmma.cuh", QUAD_SUM, "  return s;")]),
+]
+# Faults planted in the f32 attention body (csrc/split_attention.cuh, built into layer.cu:
+# B1, B3, B4 and B5), each of which phase 3m's f32 isolated cases must catch
+SPLIT_FAULTS = [
+    ("kernel", "the f32 attention body as it is: no case may fail", []),
+    ("mask ignored", "masked keys taken as valid",
+     [("wgmma.cuh", ATTN_FLAG, ATTN_FLAG.replace("f == 2 ? kMaskedLogit", "f == 2 ? l[i] * scale"))]),
+    ("mid.hi dropped", "QK^T's mid.hi pass left out (five of the six)",
+     [("split_attention.cuh", "    if (NPL == 1 && p != 5) continue;  // bf16: hi.hi alone",
+       "    if ((NPL == 1 && p != 5) || p == 3) continue;")]),
+    ("lo planes zeroed", "the split pass stores q's, k's and v's lo planes as zeros",
+     [("split_attention.cuh", "    wp[8 + u] = pack_bf16x2(l0, l1);", "    wp[8 + u] = 0u;")]),
+    ("wrong normaliser", "each row's sum over two of its quad's four lanes only",
+     [("wgmma.cuh", QUAD_SUM, "  return s;")]),
+]
+# The f32 attention body's stages (built into attention.cu, timed through B6's entry)
+SA_BODY = "  if (NHB == 1 && split_attention_resident(hd, S)) {"
+SPLIT_VARIANTS = [
+    ("kernel", "the split pass and the body as they are", []),
+    ("split pass alone", "q, k, v into their bf16 planes, no attention body",
+     [("split_attention.cuh", SA_BODY, "  if (hd > 0) return cudaSuccess;\n" + SA_BODY)]),
+    ("body alone", "the attention body on the planes left in the workspace, no split pass",
+     [("split_attention.cuh", "  split_attention_qkv_kernel<T, NPL><<<",
+       "  if (hd < 0) split_attention_qkv_kernel<T, NPL><<<")]),
+    ("two passes at S <= 256", "the streamed body where the resident one runs: QK^T twice, "
+     "no logits held",
+     [("split_attention.cuh", SA_BODY, "  if (false) {")]),
 ]
 # B2's bf16 launches (csrc/cls_logits.cu): where V lives, the K/V ring's depth, the
 # order of the items, the tail's cluster
@@ -381,7 +420,7 @@ def build_variants(build, src: str, variants, out_dir: Path, extra=(), ptxas=Fal
 
 # the kernels whose registers and spills a variant mode prints (B2: its bf16 launches)
 PTXAS_KERNELS = {"layer_attention": "", "cls_logits": "cls_(ln1_stats|kv_attention|tail)",
-                 "gemm": "gemm_split6"}
+                 "gemm": "gemm_split6", "attention": "split_attention"}
 
 
 def print_ptxas(what: str, text: str, only: str = ""):
@@ -392,7 +431,8 @@ def print_ptxas(what: str, text: str, only: str = ""):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             kernel = subprocess.run(["c++filt", m.group(1)], capture_output=True,
-                                    text=True).stdout.strip().split("(")[0]
+                                    text=True).stdout.strip()
+            kernel = kernel.replace("(anonymous namespace)::", "").split("(")[0]
         elif kernel and ("registers" in line or "spill" in line) and re.search(only, kernel):
             print(f"{what}: {kernel}: {line.split(':', 1)[-1].strip()}", flush=True)
 
@@ -463,12 +503,13 @@ def b4_calls(libs: dict, gen, dev, stream):
              torch.empty((rows, kw), dtype=x.dtype, device=dev),
              torch.empty((rows, d), dtype=torch.float32, device=dev),
              torch.empty((rows, m), dtype=x.dtype, device=dev)]
+    aplanes = None  # bf16: the f32 attention's workspace is not needed
 
     def call(lib):
         return lib.vpt_vit_layer_int8_forward(
             1, x.data_ptr(), None, *(t.data_ptr() for t in w), out.data_ptr(),
-            *(t.data_ptr() for t in bufs), b, s, d, h, kw // h, m, d, cfg.layernorm_eps,
-            stream)
+            *(t.data_ptr() for t in bufs), aplanes, b, s, d, h, kw // h, m, d,
+            cfg.layernorm_eps, stream)
 
     return {name: (lambda lib=lib: call(lib)) for name, lib in libs.items()}, out
 
@@ -495,11 +536,13 @@ def main():
              "b1": ("layer_attention", B1_VARIANTS, ("layer", "gemm")),
              "b2": ("cls_logits", B2_VARIANTS, others("cls_logits")),
              "faults": ("layer_attention", ATTENTION_FAULTS, others("layer_attention")),
+             "faults_split": ("layer", SPLIT_FAULTS, others("layer")),
+             "split": ("attention", SPLIT_VARIANTS, ()),
              "faults_b2": ("cls_logits", B2_FAULTS, others("cls_logits")),
              "f32": ("gemm", F32_VARIANTS, ()),
              "faults_f32": ("gemm", F32_FAULTS, others("gemm"))}
     if "faults" in chosen:
-        chosen = chosen + ["faults_b2"]
+        chosen = chosen + ["faults_split", "faults_b2"]
     if "f32" in chosen:
         chosen = chosen + ["faults_f32"]
     if not set(chosen) <= set(plans):
@@ -507,7 +550,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         with ThreadPoolExecutor(len(chosen)) as pool:  # every nvcc process at once
             futures = {key: pool.submit(build_variants, build, src, variants, Path(tmp) / key,
-                                        extra, key in ("b1", "b2", "f32"))
+                                        extra, key in ("b1", "b2", "f32", "split"))
                        for key, (src, variants, extra) in plans.items() if key in chosen}
             libs = {key: f.result() for key, f in futures.items()}
         dev, gen = "cuda", torch.Generator().manual_seed(0)
@@ -527,8 +570,11 @@ def main():
             b1_report(libs["b1"], gen, dev, stream)
         if "b2" in libs:
             b2_report(libs["b2"], gen, dev, stream)
+        if "split" in libs:
+            split_report(libs["split"], gen, dev, stream)
         if "faults" in libs:
             faults_report(build, libs["faults"], dev, ATTENTION_FAULTS, "attention_isolated")
+            faults_report(build, libs["faults_split"], dev, SPLIT_FAULTS, "attention_isolated")
             faults_report(build, libs["faults_b2"], dev, B2_FAULTS, "cls_attention_isolated")
         if "f32" in libs:
             f32_report(libs["f32"], gen, dev, stream)
@@ -562,7 +608,29 @@ def b6_report(libs: dict, gen, dev, stream):
     report("B6", B6_VARIANTS, {
         name: (lambda lib=lib: lib.vpt_attention_forward(
             1, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            b, h, s, hd, stream)) for name, lib in libs.items()}, out)
+            b, h, s, hd, None, stream)) for name, lib in libs.items()}, out)
+
+
+def split_report(libs: dict, gen, dev, stream):
+    """The f32 attention body's variants (SPLIT_VARIANTS) through B6's C
+    entry in f32, masked: DeiT-S batch 32 (6 heads of 64, S 197; the
+    resident body), ViT-H's hd 80 at S 257 and DeiT-S at 384's S 577 (batch
+    8; the streamed body). The workspace keeps the planes of the last call,
+    so 'body alone' reads the kernel's."""
+    for tag, b, h, s, hd in (("DeiT-S batch 32, S 197", 32, 6, 197, 64),
+                             ("ViT-H hd 80 batch 8, S 257", 8, 16, 257, 80),
+                             ("DeiT-S at 384 batch 8, S 577", 8, 6, 577, 64)):
+        q, k, v = (torch.randn(b, h, s, hd, generator=gen).to(dev) for _ in range(3))
+        mask = torch.rand(b, s, generator=gen) > 0.3
+        mask[:, 0] = True
+        mask = mask.to(dev)
+        out = torch.empty_like(q)
+        planes = torch.empty(9 * b * h * s * hd, dtype=torch.bfloat16, device=dev)
+        report(f"f32 attention body, {tag}", SPLIT_VARIANTS, {
+            name: (lambda lib=lib: lib.vpt_attention_forward(
+                0, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                b, h, s, hd, planes.data_ptr(), stream)) for name, lib in libs.items()}, out)
+        del q, k, v, out, planes
 
 
 def b8a_report(libs: dict, gen, dev, stream):
@@ -836,7 +904,8 @@ def f32_times(res: dict, gen, dev):
     batch 32 (the train steps) and the gate model at its batch 128, S 197 /
     197 / 65, 30% of the keys masked; B5 (12 layers) at DeiT-S batch 32; B2 at
     DeiT-S batch 32, S 99; B3 at DeiT-S batch 32, S 197, capacity 99; B6 (6
-    heads of 64, S 197) at DeiT-S batch 32; B7 at DeiT-S batch 32 (6,304 rows)
+    heads of 64, S 197) at DeiT-S batch 32, launch by launch too, beside f32
+    scaled_dot_product_attention; B7 at DeiT-S batch 32 (6,304 rows)
     and ViT-H width (514 rows, D 1280, M 5120), B8b (f32 patches) and B8a
     (uint8 patches) with f32 weights at DeiT-S (K 768) and ViT-H (K 588) batch
     32, each also launch by launch, with the body it ran and the PyTorch
@@ -902,6 +971,10 @@ def f32_times(res: dict, gen, dev):
         lambda: kl.fused_vit_layer_bucketed(x, lp, dest, mask, 99, nh), iters=10)
     q, k, v = (torch.randn(32, nh, 197, cfg.head_dim, generator=gen).to(dev) for _ in range(3))
     res["f32_b6_deit_s_b32"] = time_ms(lambda: ka.fused_attention(q, k, v, mask), iters=10)
+    res["f32_b6_deit_s_b32_profile"] = launch_profile(lambda: ka.fused_attention(q, k, v, mask))
+    res["f32_b6_deit_s_b32_sdpa"] = time_ms(  # the library call: f32 SDPA, the same mask
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, mask[:, None, None, :]),
+        iters=10)
     mlp = lp["mlp"]
     xm = x.reshape(-1, d)
     hcfg = vit_huge(num_labels=100)

@@ -15,6 +15,15 @@ bit for bit, and the emulated body (keys in chunks of 64, the row max and
 sum in a first pass, P normalised in a second, PV as three bf16 passes
 over its split) is held to the Pallas kernel at the same tolerances, on
 bf16-valued operands, and to B6's plain version on every row.
+
+f32 operands (and bf16 ones whose hd is no multiple of 8) run the split
+body (csrc/split_attention.cuh): q, k, v and P split into exact bf16
+planes, both products as six bf16 passes. Its emulation
+(torch_parity.split_attention_emulated) is held to the Pallas kernel at
+f32 atol 1e-5 on the valid rows at hd 8-128 and S 1-289, and to a float64
+attention: its error is no larger than the plain f32 version's, a check
+that fails when any one pass of either product, or the lo planes, is
+left out.
 """
 
 import functools
@@ -28,7 +37,8 @@ import torch
 
 import vit_pruning_tpu.ops.pallas.attention as pallas_attention
 from torch_parity import (
-    as_numpy, as_torch, fused_attention_emulated, jax_and_torch_params, randn, split_bf16x3)
+    SPLIT6_PASSES, as_numpy, as_torch, fused_attention_emulated, jax_and_torch_params, randn,
+    split_attention_emulated, split_bf16x3)
 from vit_pruning_tpu.configs import vit_tiny
 from vit_pruning_tpu.models.vit import init_vit_params
 from vit_pruning_tpu.ops.attention import mha as jax_mha
@@ -197,3 +207,94 @@ def test_corrected_reciprocal_quotient_is_the_division():
     r = (e.astype(np.float64) - q.astype(np.float64) * s).astype(np.float32)
     got = (r.astype(np.float64) * rc + q).astype(np.float32)
     assert np.array_equal(got, e / s)
+
+
+@pytest.mark.parametrize("s", [1, 17, 65, 130, 257, 289])
+@pytest.mark.parametrize("hd", [8, 24, 64, 80, 128])
+@pytest.mark.parametrize("masked", ["none", "mask", "empty_image"])
+def test_split_attention_emulated_matches_pallas(masked, hd, s):
+    """B6's f32 route on the split body against the Pallas kernel on the
+    rows of valid tokens: one key, a partial chunk, one past a query tile,
+    three chunks, ViT-H's 257 and one past 288; hd 8 and 24 (a box wider
+    than the head, hd % 16 != 0), 64, 80 and 128 (two boxes: the streamed
+    body at any S)."""
+    q, k, v, mask = _qkv_mask(11 + hd + s, (2, 2, s, hd))
+    if masked == "empty_image":
+        mask[0] = False
+    jm = None if masked == "none" else jnp.asarray(mask)
+    want = np.asarray(pallas_attention.fused_attention(
+        *(jnp.asarray(t) for t in (q, k, v)), jm, interpret=True))
+    got = split_attention_emulated(*(as_torch(t) for t in (q, k, v)),
+                                   None if masked == "none" else torch.from_numpy(mask))
+    rows = np.ones_like(mask) if masked == "none" else mask
+    assert (np.abs(as_numpy(got) - want) * rows[:, None, :, None]).max() <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 65, 20), (2, 2, 130, 12)])
+def test_split_attention_emulated_bf16_matches_pallas(shape):
+    """B6's bf16 operands at a head dim its wgmma body does not take: the
+    split body with q, k, v their own hi planes (QK^T the hi.hi pass, PV
+    P's three planes on V), within one bf16 step of the Pallas kernel."""
+    q, k, v, mask = _qkv_mask(5, shape)
+    jq, jk, jv = (jnp.asarray(t).astype(jnp.bfloat16) for t in (q, k, v))
+    want = np.asarray(pallas_attention.fused_attention(
+        jq, jk, jv, jnp.asarray(mask), interpret=True).astype(jnp.float32))
+    got = split_attention_emulated(*(as_torch(t, torch.bfloat16) for t in (q, k, v)),
+                                   torch.from_numpy(mask))
+    assert got.dtype == torch.bfloat16
+    assert (np.abs(as_numpy(got) - want) * mask[:, None, :, None]).max() <= bf16_step(want)
+
+
+def _float64_case(hd: int, s: int):
+    """q, k, v [2, 2, s, hd] (logits of unit spread), a mask with one image
+    all masked"""
+    q, k, v, mask = _qkv_mask(40 + hd, (2, 2, s, hd))
+    mask[1] = False
+    return (*(torch.from_numpy(t) for t in (q, k, v)), torch.from_numpy(mask))
+
+
+def _float64_errors(q, k, v, mask, normalized, **faults):
+    """(the emulated body's, the plain f32 version's) largest error against
+    the attention in float64: B6's plain version (normalised) or B1's
+    staged2 core"""
+    logits = (q.double() @ k.double().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    logits = torch.where(mask[:, None, None, :], logits, torch.tensor(-1e30, dtype=torch.float64))
+    exact = torch.softmax(logits, -1) @ v.double()
+    if normalized:
+        plain = ta.fused_attention_ref(q, k, v, mask)
+    else:
+        from vit_pruning_tpu_torch.ops.cuda import layer as tl
+
+        b, h, s, hd = q.shape
+        merged = [t.transpose(1, 2).reshape(b, s, h * hd) for t in (q, k, v)]
+        plain = tl.staged2_attention(*merged, h, mask).reshape(b, s, h, hd).transpose(1, 2)
+    got = split_attention_emulated(q, k, v, mask, normalized=normalized, **faults)
+    return (float((got.double() - exact).abs().max()), float((plain.double() - exact).abs().max()))
+
+
+@pytest.mark.parametrize("hd, s", [(16, 65), (64, 130), (64, 197), (80, 257), (128, 289)])
+@pytest.mark.parametrize("normalized", [False, True], ids=["staged2", "normalised"])
+def test_split_attention_within_f32_rounding(hd, s, normalized):
+    """The emulated body is an f32 attention in accuracy: against a float64
+    attention its largest error is no larger than the plain f32 version's
+    (resident and streamed bodies, staged2 and normalised)."""
+    err, plain = _float64_errors(*_float64_case(hd, s), normalized)
+    assert err <= plain
+
+
+@pytest.mark.parametrize("normalized", [False, True], ids=["staged2", "normalised"])
+@pytest.mark.parametrize("dropped", [f"{prod} pass {p}" for prod in ("qk", "pv")
+                                     for p in range(len(SPLIT6_PASSES))] + ["lo planes"])
+def test_float64_check_needs_every_pass(dropped, normalized):
+    """The float64 check above is sharp enough to see any one of the six
+    passes of QK^T or of PV left out, or the lo planes of q, k and v zeroed
+    (kernel_variants.py's `faults` plants such faults in the kernel): each
+    error exceeds the plain f32 version's."""
+    faults = {"lo_planes": False}
+    if dropped != "lo planes":
+        prod, _, p = dropped.split()
+        kept = [x for i, x in enumerate(SPLIT6_PASSES) if i != int(p)]
+        faults = {"passes": kept, "pv_passes": SPLIT6_PASSES} if prod == "qk" else {
+            "pv_passes": kept}
+    err, plain = _float64_errors(*_float64_case(64, 130), normalized, **faults)
+    assert err > plain

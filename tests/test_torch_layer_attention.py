@@ -20,6 +20,14 @@ padded keys too there; the reference (the jnp layer) and the port average
 the S real keys. That image is held to the jnp layer, and to the Pallas
 kernel only where S is a multiple of 8.
 
+The f32 attention runs csrc/split_attention.cuh's body on the card: q, k, v
+and P split into exact bf16 planes, both products as six bf16 passes. Its
+arithmetic, emulated by tests/torch_parity.py::split_attention_emulated, is
+held to the Pallas kernels' attention core (the context B1 or B5 adds to x
+when O is the identity and the MLP zero) at head dims 16, 32 (the gate
+model: D 128, 4 heads), 64 (a narrow DeiT-S: D 128, 2 heads) and 80 and S
+65, 257 and 289, and to B3's with per-image counts, at f32 atol 2e-5.
+
 Tolerances: tests/test_pallas.py's (f32 atol 2e-5 for B1; B5 1e-4, as
 tests/test_torch_head_dims.py holds it; B3 5e-5 + rtol 1e-4); bf16: two
 bf16 steps at the output's largest magnitude (the sums run in another
@@ -35,8 +43,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import as_numpy, as_torch, jax_and_torch_params, randn
-from vit_pruning_tpu.configs import vit_huge, vit_tiny
+from torch_parity import as_numpy, as_torch, jax_and_torch_params, randn, split_attention_emulated
+from vit_pruning_tpu.configs import ViTConfig, deit_small, vit_huge, vit_tiny
 from vit_pruning_tpu.models.vit import init_vit_params, vit_layer
 from vit_pruning_tpu.ops.pallas.layer import fused_vit_layer, fused_vit_layer_bucketed
 from vit_pruning_tpu.ops.pallas.model import fused_vit_encoder
@@ -56,6 +64,9 @@ BUCKETED_ATOL, BUCKETED_RTOL = 5e-5, 1e-4
 EDGES = (63, 64, 65, 128, 129, 197, 256, 257, 288, 289)
 GEOMETRIES = {  # head dim -> config
     16: vit_tiny(num_labels=10),
+    32: ViTConfig(image_size=32, patch_size=4, hidden_size=128, num_layers=3, num_heads=4,
+                  mlp_dim=256, num_labels=10),  # the quality gate model
+    64: deit_small(num_labels=10).replace(hidden_size=128, num_heads=2, mlp_dim=256),
     80: vit_huge(num_labels=10).replace(hidden_size=160, num_heads=2, mlp_dim=320),
 }
 BATCH = 3
@@ -198,6 +209,20 @@ def test_staged2_attention_is_the_pallas_kernels_core(hd, s, normalized, dtype):
     O is the identity and the MLP is zero. x is small (1e-5) so that in bf16
     x + ctx rounds to ctx; q, k, v are the kernels' (LN, then the products
     in f32, rounded to the dtype)."""
+    want, q, k, v, mask, x = _pallas_core(hd, s, normalized, dtype)
+    got = as_numpy(tl.staged2_attention(q, k, v, GEOMETRIES[hd].num_heads, torch.from_numpy(mask),
+                                        normalized=normalized))
+    rows = _pallas_rows(s, mask)
+    tol = F32_ATOL if dtype == "float32" else _bf16_tol(want) + np.abs(x).max()
+    assert np.abs(got - want)[rows].max() <= tol
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_core(hd: int, s: int, normalized: bool, dtype: str):
+    """The context the Pallas kernel (B1's, or B5's on one layer) adds to x
+    ~ 1e-5 when O is the identity and the MLP zero, and the kernels' q, k, v
+    [B, S, KW] (LN, then the products in f32, rounded to the dtype), the
+    mask (_edge_mask) and x."""
     cfg, layers = _layers(hd)
     jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32,
                                                                            torch.float32)
@@ -216,19 +241,74 @@ def test_staged2_attention_is_the_pallas_kernels_core(hd, s, normalized, dtype):
     lp = tmod._layer(tlr, 0)
     h = tl._ln_f32(xt.float(), lp["ln1"], cfg.layernorm_eps)
     q, k, v = (tl._linear_f32(h, lp["attn"][n]["w"], lp["attn"][n]["b"]).to(tdt) for n in "qkv")
-    got = as_numpy(tl.staged2_attention(q, k, v, cfg.num_heads, torch.from_numpy(mask),
-                                        normalized=normalized))
-    rows = _pallas_rows(s, mask)
-    tol = F32_ATOL if dtype == "float32" else _bf16_tol(want) + np.abs(x).max()
-    assert np.abs(got - want)[rows].max() <= tol
+    return want, q, k, v, mask, x
+
+
+def _heads(t: torch.Tensor, nh: int) -> torch.Tensor:
+    b, s, kw = t.shape
+    return t.reshape(b, s, nh, kw // nh).transpose(1, 2)
+
+
+def _unheads(t: torch.Tensor) -> torch.Tensor:
+    b, nh, s, hd = t.shape
+    return t.transpose(1, 2).reshape(b, s, nh * hd)
+
+
+@pytest.mark.parametrize("hd, s, normalized", _cases(
+    *((hd, (65, 257, 289), norm) for hd in (16, 32, 64, 80) for norm in (False, True))))
+def test_split_attention_emulated_is_the_pallas_kernels_core(hd, s, normalized):
+    """The f32 body's arithmetic (csrc/split_attention.cuh, emulated by
+    tests/torch_parity.py::split_attention_emulated: the planes, the six
+    passes of each product, each chunk's PV summed in f32, staged2 or
+    normalised) against the context of the Pallas kernel of B1 (staged2)
+    or B5 (normalised) at every head dim the layer kernels take, one chunk
+    past a query tile (65), ViT-H's 257 (the resident body's last chunk
+    count plus one) and the old 288 limit plus one, masked as the edges
+    want, every row of the images the Pallas kernel computes as the
+    reference does."""
+    want, q, k, v, mask, _ = _pallas_core(hd, s, normalized, "float32")
+    nh = GEOMETRIES[hd].num_heads
+    got = as_numpy(_unheads(split_attention_emulated(
+        *(_heads(t, nh) for t in (q, k, v)), torch.from_numpy(mask), normalized=normalized)))
+    assert np.abs(got - want)[_pallas_rows(s, mask)].max() <= F32_ATOL
+
+
+@pytest.mark.parametrize("hd, cap", _cases((16, (64,)), (32, (129,)), (64, (197,)), (80, (257,))))
+def test_split_attention_emulated_with_counts_is_b3s_core(hd, cap):
+    """B3's f32 attention on the split body: the keys of each compacted
+    bucket past the image's kept count masked by the counts (1, the
+    capacity and one between), against the context the Pallas bucketed
+    kernel adds to x ~ 1e-5 on the kept rows, O the identity and the MLP
+    zero."""
+    cfg, layers = _layers(hd)
+    jl, tlr = jax_and_torch_params(jax.tree.map(lambda a: a[0], _identity_tail(layers)))
+    s = cap + 7
+    x = 1e-5 * randn(cap + 1, (BATCH, s, cfg.hidden_size))
+    rs = np.random.RandomState(cap + 1)
+    kept = np.zeros((BATCH, s), bool)
+    kept[:, 0] = True
+    for i, count in enumerate((cap, 1, cap // 2 + 3)):
+        kept[i, 1 + rs.permutation(s - 1)[:count - 1]] = True
+    dest = compact_dest(torch.from_numpy(kept))
+    out = np.array(fused_vit_layer_bucketed(
+        jnp.asarray(x), jl, jnp.asarray(dest.numpy()), jnp.asarray(kept), cap, cfg.num_heads,
+        eps=cfg.layernorm_eps, interpret=True))
+    xc, key_ok = tl.bucket_compact(as_torch(x), dest, torch.from_numpy(kept), cap)
+    want, _ = tl.bucket_compact(torch.from_numpy(out), dest, torch.from_numpy(kept), cap)
+    h = tl._ln_f32(xc, tlr["ln1"], cfg.layernorm_eps)
+    q, k, v = (_heads(tl._linear_f32(h, tlr["attn"][n]["w"], tlr["attn"][n]["b"]),
+                      cfg.num_heads) for n in "qkv")
+    got = _unheads(split_attention_emulated(q, k, v, counts=key_ok.sum(1), normalized=False))
+    assert float((got + xc - want).abs()[key_ok].max()) <= BUCKETED_ATOL
 
 
 def test_attention_body_picks_a_wgmma_body_for_every_bf16_layer():
     """The mirror of the C rule: bf16 at every head dim the layer kernels take
     and every sequence length the repo's configs give (1 - 785: DeiT-S at
     448) runs a wgmma body, resident up to 256 keys and streamed past them;
-    f32 runs the FMA body; nothing else is taken, and no input names a body
-    that is not ATTENTION_BODIES'."""
+    f32 runs the split body, resident up to 256 keys at hd <= 64 and
+    streamed past them or at hd 80; nothing else is taken, and no input
+    names a body that is not ATTENTION_BODIES'."""
     seqs = {c.seq_len for c in (t_vit_tiny(), t_deit_small(), t_vit_base(), t_vit_huge(),
                                 t_deit_small().replace(image_size=384),
                                 t_deit_small().replace(image_size=448))}
@@ -238,7 +318,9 @@ def test_attention_body_picks_a_wgmma_body_for_every_bf16_layer():
             bf = tl.attention_body(torch.bfloat16, hd, s)
             assert bf == ("wgmma_resident" if s <= 64 * tl.ATTENTION_LOGIT_CHUNKS
                           else "wgmma_streamed")
-            assert tl.attention_body(torch.float32, hd, s) == "fma"
+            assert tl.attention_body(torch.float32, hd, s) == (
+                "split_resident" if s <= 64 * tl.ATTENTION_LOGIT_CHUNKS and hd <= 64
+                else "split_streamed")
             assert tl.attention_body(torch.float16, hd, s) is None
     for hd in (8, 48, 96, 128):
         assert tl.attention_body(torch.bfloat16, hd, 197) is None
@@ -256,7 +338,10 @@ def test_attention_tally_follows_the_mirror():
     tl.count_attention("b1", torch.bfloat16, 64, 197)
     tl.count_attention("b5", torch.bfloat16, 80, 257, calls=32)
     tl.count_attention("b1", torch.float32, 16, 17)
+    tl.count_attention("b5", torch.float32, 80, 197, calls=12)
     assert tl.attention_launches == {
-        "b1": {"wgmma_resident": 1, "wgmma_streamed": 0, "fma": 1},
-        "b5": {"wgmma_resident": 0, "wgmma_streamed": 32, "fma": 0}}
+        "b1": {"wgmma_resident": 1, "wgmma_streamed": 0, "split_resident": 1,
+               "split_streamed": 0},
+        "b5": {"wgmma_resident": 0, "wgmma_streamed": 32, "split_resident": 0,
+               "split_streamed": 12}}
     tl.attention_launches.clear()

@@ -129,3 +129,70 @@ def fused_attention_emulated(q, k, v, token_mask=None, chunk: int = 64) -> torch
         p = torch.exp(logits[..., c:c + chunk] - mx) / total
         out = split_product(p, vf[..., c:c + chunk, :], out)
     return out.to(q.dtype)
+
+
+def split_attention_emulated(q, k, v, mask=None, counts=None, normalized=True,
+                             passes=SPLIT6_PASSES, pv_passes=None, lo_planes=True,
+                             chunk: int = 64) -> torch.Tensor:
+    """csrc/split_attention.cuh's body (B1-B5's f32 attention, B6's split
+    body) on q, k, v [B, H, S, hd]: each operand as the split pass writes
+    its planes (f32: hi, mid, lo; bf16: the values, mid = lo = 0), the
+    logits of each 64-key chunk one f32 sum over the passes (`passes`, the
+    small terms first) of plane products, scaled after it; masked keys
+    (`mask` [B, S] False, or keys j >= counts[b]) -1e30; the max over the
+    whole row; staged2 (normalized False): e = exp(l - max), the context
+    (sum over chunks of each chunk's PV passes over split(e) and V's planes)
+    times 1 / sum(e); normalised: P = e / sum, then the same PV. The sum is
+    taken over the whole row where the kernel keeps the logits resident (hd
+    <= 64, S <= 256), else chunk by chunk, rescaled as the max grows (the
+    streamed body's first pass) when normalised. pv_passes defaults to
+    `passes`; lo_planes False zeroes q's, k's and v's lo planes (a planted
+    fault). Cast to q's dtype."""
+    b, h, s, hd = q.shape
+    pv_passes = passes if pv_passes is None else pv_passes
+
+    def planes(t):
+        if t.dtype == torch.bfloat16:
+            return [t.float(), torch.zeros_like(t, dtype=torch.float32),
+                    torch.zeros_like(t, dtype=torch.float32)]
+        pl = [p.float() for p in split_bf16x3(t)]
+        if not lo_planes:
+            pl[2] = torch.zeros_like(pl[2])
+        return pl
+
+    pq, pk, pv = planes(q), planes(k), planes(v)
+    if counts is not None:
+        mask = torch.arange(s)[None, :] < counts[:, None]
+    scale = 1.0 / math.sqrt(hd)
+    logits = []
+    for c in range(0, s, chunk):
+        acc = torch.zeros(b, h, s, min(chunk, s - c))
+        for i, j in passes:
+            acc = acc + pq[i] @ pk[j][..., c:c + chunk, :].transpose(-1, -2)
+        lc = acc * scale
+        if mask is not None:
+            lc = torch.where(mask[:, None, None, c:c + chunk], lc, -1e30)
+        logits.append(lc)
+    resident = hd <= 64 and s <= 4 * chunk
+    mx = torch.cat(logits, -1).amax(-1, keepdim=True)
+    e = [torch.exp(lc - mx) for lc in logits]
+    if normalized and not resident:
+        run_mx = torch.full_like(mx, -math.inf)
+        total = torch.zeros_like(mx)
+        for lc in logits:
+            m = torch.maximum(run_mx, lc.amax(-1, keepdim=True))
+            total = total * torch.exp(run_mx - m) + torch.exp(lc - m).sum(-1, keepdim=True)
+            run_mx = m
+    else:
+        total = torch.cat(e, -1).sum(-1, keepdim=True)
+    out = torch.zeros(b, h, s, hd)
+    for n, ec in enumerate(e):
+        p = ec / total if normalized else ec
+        pp = [t.float() for t in split_bf16x3(p)]
+        oc = torch.zeros_like(out)
+        for i, j in pv_passes:
+            oc = oc + pp[i] @ pv[j][..., n * chunk:n * chunk + ec.shape[-1], :]
+        out = out + oc
+    if not normalized:
+        out = out * (1.0 / total)
+    return out.to(q.dtype)

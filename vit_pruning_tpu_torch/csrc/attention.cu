@@ -8,8 +8,8 @@
 // read in their dtype (f32 or bf16), the logits, the softmax (max, exp,
 // sum, then P normalised by a division) and PV are f32, and the output is
 // cast once to q's dtype. The TPU kernel took one image per grid step and
-// every head of it in VMEM. Two bodies, chosen by dtype and shape
-// (attention_tc_takes), each launch counted per body
+// every head of it in VMEM. Two bodies, both on wgmma + TMA, chosen by dtype
+// and shape (attention_tc_takes), each launch counted per body
 // (vpt_attention_body_counts):
 //
 // The tensor-core body (bf16 operands, hd a multiple of 8, q, k, v 16-byte
@@ -44,14 +44,19 @@
 //     chunk (the MN-major B operand) into out's accumulators, 32 registers
 //     per 64 of hd.
 //
-// The FMA body (f32 operands, the parity route, and any hd % 8 != 0):
-// common.cuh's attention_f32 (B1's f32 attention, with the head dim read at
-// run time), one (head, image) per block, K^T and V in shared memory, FMA
-// on the CUDA cores at their FP32 rate (67 TFLOP/s).
+// The split body (f32 operands, and bf16 ones with hd % 8 != 0 or
+// unaligned): split_attention.cuh's, which B1's f32 attention runs too,
+// with the head dim read at run time (QK^T in 4 steps of 16 up to hd 64,
+// 8 past it). A split pass writes q, k and v as bf16 planes (f32: hi, mid,
+// lo, exact; bf16: the values themselves) into the workspace the op
+// allocates; the body is this one carried to three planes, both products
+// as six bf16 passes (f32 accuracy), the logits of up to four chunks in
+// registers where hd <= 64, two passes over a ring of K and V chunks past
+// it. It replaced an FMA body on the CUDA cores (67 TFLOP/s).
 
 #include <atomic>
 
-#include "wgmma.cuh"
+#include "split_attention.cuh"
 
 namespace vpt {
 constexpr int kAttnResidentSeq = 257;  // ViT-H at 224 (16 x 16 patches + CLS)
@@ -261,14 +266,14 @@ cudaError_t attention_tc_launch(const bf16* q, const bf16* k, const bf16* v,
   auto kernel = attention_tc_kernel<NHB, STREAM>;
   const size_t smem = b6tc::smem_bytes(NHB, S, STREAM);
   VPT_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  // as the FMA body: 1/sqrt(hd) in double, then f32
+  // 1/sqrt(hd) as the TPU wrappers compute it (in double, then f32)
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
   kernel<<<(unsigned)(bh * b6tc::chunks(S)), 128, smem, st>>>(tq, tk, tv, mask, out, H, S, HD,
                                                               scale);
   return cudaGetLastError();
 }
 
-std::atomic<long long> g_attention_body_launches[2];  // tensor-core body, FMA body
+std::atomic<long long> g_attention_body_launches[2];  // wgmma body, split body
 }  // namespace vpt
 
 using namespace vpt;
@@ -278,9 +283,12 @@ extern "C" {
 int vpt_attention_max_head_dim() { return kAttnMaxHD; }
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, out [B, H, S, HD] contiguous
-// in the dtype; mask [B, S] bytes (torch.bool) or null.
+// in the dtype; mask [B, S] bytes (torch.bool) or null. planes: the split
+// body's workspace (16-byte aligned), 3 P B H S hdp bf16 with P = 3 (f32) or
+// 1 (bf16) and hdp = HD rounded up to 8; null where the wgmma body takes the
+// call (attention_tc_takes, mirrored by ops/cuda/attention.py::body).
 int vpt_attention_forward(int dtype, const void* q, const void* k, const void* v, const void* mask,
-                          void* out, int B, int H, int S, int HD, void* stream) {
+                          void* out, int B, int H, int S, int HD, void* planes, void* stream) {
   if ((dtype != 0 && dtype != 1) || B < 1 || B > 65535 || H < 1 || S < 1 || HD < 1 ||
       HD > kAttnMaxHD)
     return cudaErrorInvalidValue;
@@ -300,17 +308,20 @@ int vpt_attention_forward(int dtype, const void* q, const void* k, const void* v
     return rc;
   }
   const AttnLayout lay{(long)H * S * HD, (long)S * HD, HD};
+  bf16* pl = static_cast<bf16*>(planes);
+#define VPT_SPLIT(KS, T)                                                                        \
+  split_attention<KS, T>((const T*)q, (const T*)k, (const T*)v, lay, mk, nullptr, (T*)out, lay, \
+                         B, H, S, HD, true, pl, st)
   if (dtype == 0)
-    rc = attention_f32<float, 0, true>((const float*)q, (const float*)k, (const float*)v, lay, mk,
-                                       nullptr, (float*)out, lay, B, H, S, HD, st);
+    rc = HD <= 64 ? VPT_SPLIT(4, float) : VPT_SPLIT(8, float);
   else
-    rc = attention_f32<bf16, 0, true>((const bf16*)q, (const bf16*)k, (const bf16*)v, lay, mk,
-                                      nullptr, (bf16*)out, lay, B, H, S, HD, st);
+    rc = HD <= 64 ? VPT_SPLIT(4, bf16) : VPT_SPLIT(8, bf16);
+#undef VPT_SPLIT
   if (rc == cudaSuccess) g_attention_body_launches[1]++;
   return rc;
 }
 
-// launches of the tensor-core body and of the FMA body since the last reset
+// launches of the wgmma body and of the split body since the last reset
 void vpt_attention_body_counts(long long* out) {
   out[0] = g_attention_body_launches[0].load();
   out[1] = g_attention_body_launches[1].load();

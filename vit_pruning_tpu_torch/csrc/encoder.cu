@@ -17,9 +17,9 @@
 // What bounds it on an H100: at batch 512 the layer products are well above
 // the bf16 ridge, so tensor-core throughput; the f32 residual adds 8 bytes a
 // value per layer of traffic (read and write) that B1's bf16 x does not.
-// The attention is B1's body (layer_attention.cu: wgmma + TMA in bf16, the
-// logits of a 64-query tile in registers) with the normalised numerics
-// below: the sum of the f32 numerators is taken over the whole row before P
+// The attention is B1's (layer_attention.cu: wgmma + TMA in bf16, the
+// logits of a 64-query tile in registers; split_attention.cuh's body in f32)
+// with the normalised numerics below: the sum of the f32 numerators is taken over the whole row before P
 // is formed (a reciprocal and one FMA correction give the correctly rounded
 // quotient), so normalising costs B5 one FMA chain a logit over B1.
 //
@@ -57,7 +57,7 @@ cudaError_t encoder_forward(const T* x, const unsigned char* mask, const T* ln1g
       VPT_TRY(layer_norm<float, T>(xr, D, ln1g + ld, ln1b + ld, h, D, rows, D, DN, eps, st));
     VPT_TRY(gemm(h, D, wqkv + lq * D, rows, 3 * KW, D,
                  epi(bqkv + lq, ACT_NONE, nullptr, 0, false, qkv, 3 * KW, false), st, wplanes));
-    VPT_TRY(attention(qkv, mask, nullptr, ctx, B, S, H, KW, st, true));
+    VPT_TRY(attention(qkv, mask, nullptr, ctx, B, S, H, KW, st, true, wplanes));
     // x1 = (ctx @ wo + bo) + x: the residual is x itself (T) at layer 0, the
     // f32 stream after it
     const void* res = first ? static_cast<const void*>(x) : static_cast<const void*>(xr);
@@ -86,7 +86,7 @@ extern "C" {
 // w1 [L, D, M], b1 [L, M]; w2 [L, M, D], b2 [L, D], all in the dtype.
 // Workspaces: h [B*S, D], qkv [B*S, 3KW], ctx [B*S, KW], m1 [B*S, M] in the
 // dtype; x1 and xr [B*S, D] float32; wplanes as vpt_vit_layer_forward's
-// (one layer's largest weight). out [B, S, D] in the dtype. DN: the layer
+// (one layer's largest weight, or the attention's planes). out [B, S, D] in the dtype. DN: the layer
 // norms' width, as vpt_vit_layer_forward's.
 int vpt_vit_encoder_forward(int dtype, const void* x, const void* mask, const void* ln1g,
                             const void* ln1b, const void* wqkv, const void* bqkv, const void* wo,

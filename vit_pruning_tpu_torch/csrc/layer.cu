@@ -28,12 +28,14 @@
 //
 // The GEMMs are gemm.cu's: in bf16 wgmma.cuh's wgmma + TMA body for every
 // layer product, in f32 the split body (wgmma on exact three-way bf16 splits
-// of both operands, six passes: f32 accuracy, no TF32). The attention of B1 and B3 (and of B4, B5), at head dims 16, 32,
-// 64 and 80: in bf16 layer_attention.cu's wgmma + TMA body (one 64-query tile
-// of one head a block, the logits in registers, P fed to PV from registers),
-// in f32 FMA on the CUDA cores (below).
+// of both operands, six passes: f32 accuracy, no TF32). The attention of B1
+// and B3 (and of B4, B5), at head dims 16, 32, 64 and 80: in bf16
+// layer_attention.cu's wgmma + TMA body (one 64-query tile of one head a
+// block, the logits in registers, P fed to PV from registers), in f32
+// split_attention.cuh's body, the same design on three-way bf16 splits of
+// q, k, v and P (below).
 
-#include "common.cuh"
+#include "split_attention.cuh"
 
 namespace vpt {
 
@@ -74,30 +76,29 @@ template cudaError_t layer_norm<bf16, bf16>(const bf16*, long, const bf16*, cons
 template cudaError_t layer_norm<float, bf16>(const float*, long, const bf16*, const bf16*, bf16*,
                                              long, int, int, int, float, cudaStream_t);
 
-// B1's attention in float32 (shared with B3, B4 and B5): common.cuh's
-// attention_f32, FMA on the CUDA cores. The bf16 one is layer_attention.cu's.
-
-// 1/sqrt(hd) as the TPU wrapper computes it (in double, then f32)
-inline float attn_scale(int hd) { return static_cast<float>(1.0 / sqrt(static_cast<double>(hd))); }
-
+// B1's attention in float32 (shared with B3, B4 and B5): split_attention.cuh's
+// body, six bf16 wgmma passes over exact three-way splits of q, k, v and P,
+// one instance per head dim (QK^T in hd / 16 steps). q, k and v are the three
+// KW-wide thirds of each qkv row; the context is [B*S, KW]; their planes go
+// to `planes` (9 B S KW bf16). The bf16 one is layer_attention.cu's.
 cudaError_t attention(const float* qkv, const unsigned char* mask, const int* counts, float* ctx,
-                      int B, int S, int H, int KW, cudaStream_t st, bool normalized) {
-  // q, k, v are the three KW-wide thirds of each qkv row, the context is [B*S, KW]
-  const int hd = KW / H;
-  if (!layer_head_dim_ok(hd) || S < 1 || KW % H) return cudaErrorInvalidValue;
+                      int B, int S, int H, int KW, cudaStream_t st, bool normalized,
+                      bf16* planes) {
+  const int hd = KW / H, body = layer_attention_body(0, hd, S);
+  if (body < 0 || KW % H) return cudaErrorInvalidValue;
   const AttnLayout in{(long)S * 3 * KW, hd, 3L * KW}, ol{(long)S * KW, hd, KW};
   cudaError_t rc;
-#define VPT_F32(HD, NORM)                                                                         \
-  attention_f32<float, HD, NORM>(qkv, qkv + KW, qkv + 2 * KW, in, mask, counts, ctx, ol, B, H, S, \
-                                 hd, st)
-  if (hd == 64)
-    rc = normalized ? VPT_F32(64, true) : VPT_F32(64, false);
-  else if (hd == 80)
-    rc = normalized ? VPT_F32(80, true) : VPT_F32(80, false);
-  else  // the short head dims share one instance that reads hd at run time
-    rc = normalized ? VPT_F32(0, true) : VPT_F32(0, false);
+#define VPT_F32(KS)                                                                              \
+  split_attention<KS, float>(qkv, qkv + KW, qkv + 2 * KW, in, mask, counts, ctx, ol, B, H, S, hd, \
+                             normalized, planes, st)
+  switch (hd) {
+    case 16: rc = VPT_F32(1); break;
+    case 32: rc = VPT_F32(2); break;
+    case 64: rc = VPT_F32(4); break;
+    default: rc = VPT_F32(5); break;
+  }
 #undef VPT_F32
-  if (rc == cudaSuccess) count_layer_attention(2);  // the FMA body
+  if (rc == cudaSuccess) count_layer_attention(body);
   return rc;
 }
 
@@ -115,7 +116,7 @@ cudaError_t layer_forward(const T* x, const unsigned char* mask, const int* coun
   VPT_TRY(layer_norm<T, T>(x, D, ln1g, ln1b, h, D, rows, D, DN, eps, st));
   VPT_TRY(gemm(h, D, wqkv, rows, 3 * KW, D, epi(bqkv, ACT_NONE, nullptr, 0, false, qkv, 3 * KW, false), st,
                wplanes));
-  VPT_TRY(attention(qkv, mask, counts, ctx, B, S, H, KW, st));
+  VPT_TRY(attention(qkv, mask, counts, ctx, B, S, H, KW, st, false, wplanes));
   VPT_TRY(gemm(ctx, KW, wo, rows, D, KW, epi(bo, ACT_NONE, x, D, false, x1, D, true), st, wplanes));
   VPT_TRY(layer_norm<float, T>(x1, D, ln2g, ln2b, h, D, rows, D, DN, eps, st));
   VPT_TRY(gemm(h, D, w1, rows, M, D, epi(b1, act, nullptr, 0, false, m1, M, false), st, wplanes));
@@ -231,7 +232,9 @@ int vpt_layer_head_dim_ok(int hd) { return layer_head_dim_ok(hd); }
 // dtype: 0 = float32, 1 = bfloat16. mask: [B, S] bytes (torch.bool) or null.
 // Workspaces: h [B*S, D], qkv [B*S, 3KW], ctx [B*S, KW], m1 [B*S, M] in the
 // dtype; x1 [B*S, D] float32; wplanes, float32 only (else null): 3 max(3 D KW,
-// D M) bf16, each f32 weight's three bf16 planes in turn (gemm.cu). DN: the
+// D M, 3 B S KW) bf16, each f32 weight's three bf16 planes in turn (gemm.cu)
+// and, between the QKV and O products, the attention's planes of q, k and v
+// (split_attention.cuh). DN: the
 // width the layer norms run over, D unless the caller zero-padded x and the
 // weights from DN up to D (every entry point below takes it the same way).
 int vpt_vit_layer_forward(int dtype, const void* x, const void* mask, const void* ln1g,

@@ -2,8 +2,9 @@
 // attention(), which every one of them calls between its QKV and O products.
 //
 //   attention(const bf16*, ...)  the bf16 body below (wgmma + TMA)
-//   attention(const float*, ...) in layer.cu: common.cuh's attention_f32
-//                                (FMA on the CUDA cores; the parity route)
+//   attention(const float*, ...) in layer.cu: split_attention.cuh's body
+//                                (six bf16 wgmma passes over exact three-way
+//                                splits of q, k, v and P: f32 accuracy)
 //
 // It replaces the attention core of vit_pruning_tpu/ops/pallas/layer.py::
 // fused_vit_layer (B1, B3; B4's ops/pallas/layer_int8.py keeps it) and of
@@ -69,10 +70,9 @@ namespace vpt {
 
 namespace la {
 constexpr int BOX = 64 * 128;  // one TMA box: 64 tokens x 64 columns of bf16
-constexpr float kMasked = -1e30f;
 // the most 64-key chunks whose logits the resident body keeps in registers
 constexpr int kLogitChunks = 4;
-enum Body { RESIDENT = 0, STREAMED = 1, FMA = 2 };
+enum Body { RESIDENT = 0, STREAMED = 1, SPLIT_RESIDENT = 2, SPLIT_STREAMED = 3, BODIES = 4 };
 __host__ __device__ constexpr int chunks(int S) { return (S + 63) / 64; }
 template <int HD>
 struct Geo {
@@ -88,16 +88,17 @@ struct Geo {
 }  // namespace la
 
 // which body takes a layer attention: bf16 at a layer head dim, resident up
-// to kLogitChunks chunks of keys, streamed past it; f32: FMA; -1: none
+// to kLogitChunks chunks of keys, streamed past it; f32: split_attention.cuh's
+// body, resident or streamed by split_attention_resident; -1: none
 // (mirrored by ops/cuda/layer.py::attention_body)
-inline int layer_attention_body(int dtype, int hd, int S) {
+int layer_attention_body(int dtype, int hd, int S) {
   if (!layer_head_dim_ok(hd) || S < 1) return -1;
-  if (dtype == 0) return la::FMA;
+  if (dtype == 0) return split_attention_resident(hd, S) ? la::SPLIT_RESIDENT : la::SPLIT_STREAMED;
   if (dtype != 1) return -1;
   return la::chunks(S) <= la::kLogitChunks ? la::RESIDENT : la::STREAMED;
 }
 
-std::atomic<long long> g_layer_attention_launches[3];
+std::atomic<long long> g_layer_attention_launches[la::BODIES];
 
 // a 4-D tile at (c0 inner, .., c3 outer) of the tensor map into shared memory
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -123,40 +124,6 @@ __device__ __forceinline__ void la_qk(float (&l)[32], uint32_t qa, uint32_t kb, 
   }
 }
 
-// scaled logits of chunk c with the key flags applied (1 valid, 2 masked ->
-// -1e30, 0 past S -> -inf). Accumulator i of a thread is row warp * 16 +
-// lane / 4 + 8 ((i / 2) % 2), key c * 64 + (i / 4) * 8 + 2 (lane % 4) + i % 2.
-__device__ __forceinline__ void la_flags(float (&l)[32], const unsigned char* flag, int c,
-                                         float scale) {
-  const int key0 = c * 64 + 2 * (threadIdx.x & 3);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int f = flag[key0 + (i >> 2) * 8 + (i & 1)];
-    l[i] = f == 1 ? l[i] * scale : f == 2 ? la::kMasked : -INFINITY;
-  }
-}
-
-// the max of row r (0: lane / 4, 1: lane / 4 + 8) of l over the quad
-__device__ __forceinline__ float la_rowmax(const float (&l)[32], int r) {
-  float m = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < 32; ++i)
-    if (((i >> 1) & 1) == r) m = fmaxf(m, l[i]);
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  return fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float s) {
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  return s + __shfl_xor_sync(0xffffffffu, s, 2);
-}
-
-// Markstein's correctly rounded e / sum from rc = RN(1 / sum)
-__device__ __forceinline__ float la_div(float e, float sum, float rc) {
-  const float q = e * rc;
-  return __fmaf_rn(__fmaf_rn(-q, sum, e), rc, q);
-}
-
 // P of one chunk as bf16 pairs, the A fragments of PV (register p holds
 // accumulators 2p, 2p + 1; k-slice s is registers 4s .. 4s + 3): the
 // numerators e (staged2, their rounded values summed into sum[r]) or e /
@@ -168,8 +135,8 @@ __device__ __forceinline__ void la_pack(const float (&e)[32], bool normalized, f
     const int r = k & 1;  // accumulators 2k, 2k + 1 lie on row (k % 2)
     float a = e[2 * k], b = e[2 * k + 1];
     if (normalized) {
-      a = la_div(a, sum[r], rc[r]);
-      b = la_div(b, sum[r], rc[r]);
+      a = attn_div(a, sum[r], rc[r]);
+      b = attn_div(b, sum[r], rc[r]);
     }
     const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
     if (!normalized) sum[r] += __low2float(h) + __high2float(h);
@@ -300,9 +267,9 @@ layer_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int c = 0; c < NKC; ++c) {
-    la_flags(l[c], flag, c, scale);
-    mx[0] = fmaxf(mx[0], la_rowmax(l[c], 0));
-    mx[1] = fmaxf(mx[1], la_rowmax(l[c], 1));
+    attn_flags(l[c], flag, c, scale);
+    mx[0] = fmaxf(mx[0], attn_rowmax(l[c], 0));
+    mx[1] = fmaxf(mx[1], attn_rowmax(l[c], 1));
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
@@ -408,7 +375,7 @@ layer_attention_stream_kernel(const __grid_constant__ CUtensorMap tq,
     la_qk<HD>(l, qa, ka + slot * BOX, 2);
     wgmma_commit();
     wgmma_wait<0>();
-    la_flags(l, flag, c, scale);
+    attn_flags(l, flag, c, scale);
   };
 
   // pass 1: the row max and, normalised, the sum of exp(l - max), rescaled
@@ -419,7 +386,7 @@ layer_attention_stream_kernel(const __grid_constant__ CUtensorMap tq,
     logits(l, acquire(c), c);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float m = fmaxf(mx[r], la_rowmax(l, r));
+      const float m = fmaxf(mx[r], attn_rowmax(l, r));
       if (normalized) {
         float s = 0.f;
 #pragma unroll
@@ -519,7 +486,7 @@ cudaError_t layer_attention(const bf16* qkv, const unsigned char* mask, const in
 static_assert(la::kLogitChunks == 4, "one instance of the resident body per chunk count");
 
 cudaError_t attention(const bf16* qkv, const unsigned char* mask, const int* counts, bf16* ctx,
-                      int B, int S, int H, int KW, cudaStream_t st, bool normalized) {
+                      int B, int S, int H, int KW, cudaStream_t st, bool normalized, bf16*) {
   const int hd = KW / H, body = layer_attention_body(1, hd, S);
   // TMA reads q, k, v from 16-byte aligned rows; the context leaves as 16-byte stores
   if (body < 0 || KW % H || !aligned16(qkv) || !aligned16(ctx)) return cudaErrorInvalidValue;
@@ -543,16 +510,17 @@ using namespace vpt;
 extern "C" {
 
 // the body layer.cu's attention() takes for (dtype 0 f32 / 1 bf16, hd, S):
-// 0 wgmma resident, 1 wgmma streamed, 2 FMA, -1 refused
+// 0 wgmma resident, 1 wgmma streamed, 2 split resident, 3 split streamed,
+// -1 refused
 int vpt_layer_attention_body(int dtype, int hd, int S) { return layer_attention_body(dtype, hd, S); }
 
-// launches of each body (resident, streamed, FMA) since the last reset
+// launches of each body (in the order above) since the last reset
 void vpt_layer_attention_body_counts(long long* out) {
-  for (int i = 0; i < 3; ++i) out[i] = g_layer_attention_launches[i].load();
+  for (int i = 0; i < la::BODIES; ++i) out[i] = g_layer_attention_launches[i].load();
 }
 
 void vpt_layer_attention_body_reset() {
-  for (int i = 0; i < 3; ++i) g_layer_attention_launches[i] = 0;
+  for (int i = 0; i < la::BODIES; ++i) g_layer_attention_launches[i] = 0;
 }
 
 }  // extern "C"

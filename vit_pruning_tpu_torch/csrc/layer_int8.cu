@@ -223,14 +223,14 @@ cudaError_t layer_int8_forward(
     const T* ln2g, const T* ln2b, const signed char* w1, const float* s1, const T* b1,
     const signed char* w2, const float* s2, const T* b2, T* out, signed char* q_ln1, float* s_ln1,
     signed char* q_ctx, float* s_ctx, signed char* q_ln2, float* s_ln2, signed char* q_gelu,
-    float* s_gelu, T* qkv, T* ctx, float* x1, T* m1, int B, int S, int D, int H, int HD, int M,
-    int DN, float eps, cudaStream_t st) {
+    float* s_gelu, T* qkv, T* ctx, float* x1, T* m1, bf16* aplanes, int B, int S, int D, int H,
+    int HD, int M, int DN, float eps, cudaStream_t st) {
   const int rows = B * S, KW = H * HD;
   const int act = sizeof(T) == 2 ? ACT_GELU_TANH : ACT_GELU_ERF;
   VPT_TRY(ln_rowquant<T, T>(x, D, ln1g, ln1b, q_ln1, s_ln1, rows, D, DN, eps, st));
   VPT_TRY(gemm_s8<T>(q_ln1, D, s_ln1, wqkv, sqkv, rows, 3 * KW, D,
                      epi(bqkv, ACT_NONE, nullptr, 0, false, qkv, 3 * KW, false), st));
-  VPT_TRY(attention(qkv, mask, nullptr, ctx, B, S, H, KW, st));
+  VPT_TRY(attention(qkv, mask, nullptr, ctx, B, S, H, KW, st, false, aplanes));
   VPT_TRY(rowquant<T>(ctx, KW, q_ctx, s_ctx, rows, KW, st));
   VPT_TRY(gemm_s8<T>(q_ctx, KW, s_ctx, wo, so, rows, D, KW,
                      epi(bo, ACT_NONE, x, D, false, x1, D, true), st));
@@ -254,16 +254,18 @@ extern "C" {
 // kmajor_int8_weights), their scales f32 [N]. mask: [B, S] bytes
 // (torch.bool) or null. Workspaces: codes int8 and scales f32 [B*S] of each
 // stage (LN1 [B*S, D], ctx [B*S, KW], LN2 [B*S, D], GELU [B*S, M]); qkv
-// [B*S, 3KW], ctx [B*S, KW], m1 [B*S, M] in the dtype; x1 [B*S, D] f32. DN:
-// the layer norms' width, as layer.cu's vpt_vit_layer_forward's.
+// [B*S, 3KW], ctx [B*S, KW], m1 [B*S, M] in the dtype; x1 [B*S, D] f32;
+// aplanes, float32 only (else null): the f32 attention's planes of q, k and
+// v, 9 B S KW bf16 (layer.cu's attention). DN: the layer norms' width, as
+// layer.cu's vpt_vit_layer_forward's.
 int vpt_vit_layer_int8_forward(
     int dtype, const void* x, const void* mask, const void* ln1g, const void* ln1b,
     const void* wqkv, const void* sqkv, const void* bqkv, const void* wo, const void* so,
     const void* bo, const void* ln2g, const void* ln2b, const void* w1, const void* s1,
     const void* b1, const void* w2, const void* s2, const void* b2, void* out, void* q_ln1,
     void* s_ln1, void* q_ctx, void* s_ctx, void* q_ln2, void* s_ln2, void* q_gelu, void* s_gelu,
-    void* qkv, void* ctx, void* x1, void* m1, int B, int S, int D, int H, int HD, int M, int DN,
-    float eps, void* stream) {
+    void* qkv, void* ctx, void* x1, void* m1, void* aplanes, int B, int S, int D, int H, int HD,
+    int M, int DN, float eps, void* stream) {
   if (!shapes_ok(dtype, B, S, D, H, HD, M, DN) || D % 16 || M % 16 ||
       (long)B * S > 65535L * w8::BM)
     return cudaErrorInvalidValue;
@@ -277,7 +279,7 @@ int vpt_vit_layer_int8_forward(
                         (fp)s2, (const T*)b2, (T*)out, (signed char*)q_ln1, (float*)s_ln1,         \
                         (signed char*)q_ctx, (float*)s_ctx, (signed char*)q_ln2, (float*)s_ln2,    \
                         (signed char*)q_gelu, (float*)s_gelu, (T*)qkv, (T*)ctx, (float*)x1,        \
-                        (T*)m1, B, S, D, H, HD, M, DN, eps, st)
+                        (T*)m1, (bf16*)aplanes, B, S, D, H, HD, M, DN, eps, st)
   return dtype == 0 ? VPT_INT8(float) : VPT_INT8(bf16);
 #undef VPT_INT8
 }

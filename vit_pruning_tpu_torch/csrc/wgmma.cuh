@@ -4,7 +4,10 @@
 // B8a and B8b (with + b + pos[t % N]). At the end of the file: the 64-column
 // wgmma shapes (A from shared memory or from registers), the exact three-way
 // bf16 split of an f32 operand and a 3-D TMA map, which the tensor-core
-// bodies of B6 (attention.cu) and B7 (mlp.cu) are built from. B4's int8
+// bodies of B6 (attention.cu) and B7 (mlp.cu) are built from, and the row
+// helpers of the attention bodies (key flags, row max, quad sum, the
+// corrected quotient) that layer_attention.cu and split_attention.cuh
+// share. B4's int8
 // products run the s8 body of wgmma_s8.cuh, built from this file's
 // barriers, TMA loads and descriptors.
 //
@@ -671,6 +674,48 @@ inline cudaError_t tma_map_3d_64(CUtensorMap* map, const void* base, uint64_t in
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// What the attention bodies on m64n64 accumulators share (layer_attention.cu's
+// bf16 body, split_attention.cuh's f32 one): accumulator i of a thread is row
+// warp * 16 + lane / 4 + 8 ((i / 2) % 2) of the 64-query tile, key c * 64 +
+// (i / 4) * 8 + 2 (lane % 4) + i % 2 of chunk c; a row's 64 keys lie in the
+// four lanes of a quad.
+constexpr float kMaskedLogit = -1e30f;  // masked-key logit, as the TPU kernels
+
+// scaled logits of chunk c with the key flags applied (1 valid, 2 masked ->
+// -1e30, 0 past S -> -inf)
+__device__ __forceinline__ void attn_flags(float (&l)[32], const unsigned char* flag, int c,
+                                           float scale) {
+  const int key0 = c * 64 + 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int f = flag[key0 + (i >> 2) * 8 + (i & 1)];
+    l[i] = f == 1 ? l[i] * scale : f == 2 ? kMaskedLogit : -INFINITY;
+  }
+}
+
+// the max of row r (0: lane / 4, 1: lane / 4 + 8) of l over the quad
+__device__ __forceinline__ float attn_rowmax(const float (&l)[32], int r) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    if (((i >> 1) & 1) == r) m = fmaxf(m, l[i]);
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  return fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float s) {
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  return s + __shfl_xor_sync(0xffffffffu, s, 2);
+}
+
+// Markstein's correctly rounded e / sum from rc = RN(1 / sum): with q =
+// RN(e rc), q + RN(e - q sum) rc rounds to RN(e / sum) wherever the
+// quotient is a normal number (an IEEE division took 37% of B6's time)
+__device__ __forceinline__ float attn_div(float e, float sum, float rc) {
+  const float q = e * rc;
+  return __fmaf_rn(__fmaf_rn(-q, sum, e), rc, q);
 }
 
 }  // namespace vpt

@@ -36,7 +36,7 @@ SIGNATURES = {
     "vpt_error_string": ([I], ctypes.c_char_p),
     "vpt_layer_head_dim_ok": ([I], I),
     # dtype, hd, S -> the body of B1-B5's attention (0 wgmma resident, 1 wgmma
-    # streamed, 2 FMA, -1 refused)
+    # streamed, 2 split resident, 3 split streamed, -1 refused)
     "vpt_layer_attention_body": ([I, I, I], I),
     "vpt_layer_attention_body_counts": ([P], None),
     "vpt_layer_attention_body_reset": ([], None),
@@ -54,8 +54,9 @@ SIGNATURES = {
     # wplanes, B S cap D H HD M DN, eps, stream
     "vpt_vit_layer_bucketed_forward": ([I] + [P] * 26 + [I] * 8 + [F, P], I),
     # dtype, x, mask, 16 layer weights (int8 products with f32 scales), out,
-    # 8 code / scale buffers, 4 workspaces, B S D H HD M DN, eps, stream
-    "vpt_vit_layer_int8_forward": ([I] + [P] * 31 + [I] * 7 + [F, P], I),
+    # 8 code / scale buffers, 4 workspaces, aplanes (f32's attention planes,
+    # null in bf16), B S D H HD M DN, eps, stream
+    "vpt_vit_layer_int8_forward": ([I] + [P] * 32 + [I] * 7 + [F, P], I),
     # dtype, x, codes, scales, rows, k, stream
     "vpt_rowquant": ([I, P, P, P, I, I, P], I),
     # dtype, codes, lda, row scales, Wt, ws, M N K, bias, act, residual, ldr,
@@ -67,8 +68,8 @@ SIGNATURES = {
     # L B S D H HD M DN, eps, stream
     "vpt_vit_encoder_forward": ([I] + [P] * 22 + [I] * 8 + [F, P], I),
     "vpt_attention_max_head_dim": ([], I),
-    # dtype, q, k, v, mask, out, B H S HD, stream
-    "vpt_attention_forward": ([I] + [P] * 5 + [I] * 4 + [P], I),
+    # dtype, q, k, v, mask, out, B H S HD, planes (the split body's workspace), stream
+    "vpt_attention_forward": ([I] + [P] * 5 + [I] * 4 + [P, P], I),
     "vpt_attention_body_counts": ([P], None),
     "vpt_attention_body_reset": ([], None),
     "vpt_mlp_max_hidden": ([], I),

@@ -17,9 +17,12 @@ epilogue, and the residual stream stays f32 between the attention and MLP
 halves as it stayed in VMEM on the TPU. The attention of B1, B3, B4 and B5
 is csrc/layer_attention.cu's: in bf16 a wgmma + TMA body, one pass with the
 logits in registers up to 256 keys ('wgmma_resident') and two passes over
-streamed K and V past it ('wgmma_streamed'); in f32 FMA on the CUDA cores
-('fma'). `attention_body` mirrors the C rule that picks the body, and
-`attention_body_counts` reads the launches per body. B2 in bf16 is three
+streamed K and V past it ('wgmma_streamed'); in f32 csrc/split_attention.cuh's
+body, the same design on exact three-way bf16 splits of q, k, v and P (six
+bf16 passes a product: f32 accuracy), one pass up to 256 keys at hd <= 64
+('split_resident'), two past it ('split_streamed'). `attention_body`
+mirrors the C rule that picks the body, and `attention_body_counts` reads
+the launches per body. B2 in bf16 is three
 launches (csrc/cls_logits.cu: LN1's row statistics; LN1, the K/V product, q
 and the CLS attention fused on wgmma + TMA with K and V kept out of device
 memory, V in registers, shared memory or recomputed; the tail on the B rows
@@ -80,8 +83,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # card needs no library (chip_smoke.py holds the two equal)
 LAYER_HEAD_DIMS = (16, 32, 64, 80)
 # the bodies of their attention, in the order of csrc/layer_attention.cu's
-# counters, and the most 64-key chunks the resident body takes (la::kLogitChunks)
-ATTENTION_BODIES = ("wgmma_resident", "wgmma_streamed", "fma")
+# counters, and the most 64-key chunks the resident bodies take (la::kLogitChunks;
+# csrc/common.cuh::split_attention_resident, where hd <= 64 too)
+ATTENTION_BODIES = ("wgmma_resident", "wgmma_streamed", "split_resident", "split_streamed")
 ATTENTION_LOGIT_CHUNKS = 4
 # B2's launch kinds, in the order of csrc/cls_logits.cu's counters: bf16 makes
 # one ln1_stats, one kv_attention_* (by where it keeps V) and one tail launch;
@@ -288,9 +292,10 @@ def attention_body(dtype: torch.dtype, head_dim: int, seq_len: int) -> Optional[
     the kernels refuse the call."""
     if head_dim not in LAYER_HEAD_DIMS or seq_len < 1 or dtype not in _DTYPES:
         return None
+    resident = -(-seq_len // 64) <= ATTENTION_LOGIT_CHUNKS
     if dtype == torch.float32:
-        return "fma"
-    return "wgmma_resident" if -(-seq_len // 64) <= ATTENTION_LOGIT_CHUNKS else "wgmma_streamed"
+        return "split_resident" if resident and head_dim <= 64 else "split_streamed"
+    return "wgmma_resident" if resident else "wgmma_streamed"
 
 
 # B1-B5's attention launches since the last reset_attention_body_counts(),
@@ -563,8 +568,10 @@ def _workspaces(x: torch.Tensor, rows: int, d: int, kw: int, m: int, qkv_cols: i
 
 def _weight_planes(x: torch.Tensor, *sizes: int) -> Optional[torch.Tensor]:
     """f32 only (else None): room for the three bf16 planes of the largest
-    of the call's weights (`sizes`, K * N each), into which csrc/gemm.cu's
-    split body splits each f32 weight before its product."""
+    of `sizes`: the call's weights (K * N each), into which csrc/gemm.cu's
+    split body splits each f32 weight before its product, and q, k and v
+    (3 rows KW), which the f32 attention (csrc/split_attention.cuh) splits
+    between the QKV and O products."""
     if x.dtype != torch.float32:
         return None
     return torch.empty(3 * max(sizes), dtype=torch.bfloat16, device=x.device)
@@ -584,7 +591,7 @@ def _b1_op(x: torch.Tensor, token_mask: Optional[torch.Tensor], weights: list[to
     check_aligned(who, x=x, **dict(zip(LAYER_WEIGHTS, weights)))
     out = torch.empty_like(x)
     ws = _workspaces(x, b * s, d, kw, m, 3 * kw)
-    planes = _weight_planes(x, 3 * d * kw, d * m)
+    planes = _weight_planes(x, 3 * d * kw, d * m, 3 * b * s * kw)
     run(who, x.device, "vpt_vit_layer_forward", _DTYPES[x.dtype], ptr(x), ptr(token_mask),
         *map(ptr, weights), ptr(out), *map(ptr, ws), ptr(planes), b, s, d, num_heads,
         kw // num_heads, m, norm_width, eps)
@@ -740,7 +747,7 @@ def _b3_op(x: torch.Tensor, dest: torch.Tensor, kept: torch.Tensor, weights: lis
     counts = torch.empty((b,), dtype=torch.int32, device=x.device)
     xc, yc = x.new_empty((rows, d)), x.new_empty((rows, d))
     h, qkv, ctx, x1, m1 = _workspaces(x, rows, d, kw, m, 3 * kw)
-    planes = _weight_planes(x, 3 * d * kw, d * m)
+    planes = _weight_planes(x, 3 * d * kw, d * m, 3 * rows * kw)
     run(who, x.device, "vpt_vit_layer_bucketed_forward", _DTYPES[x.dtype], ptr(x), ptr(dest),
         ptr(kept), *map(ptr, weights), ptr(out), ptr(src), ptr(counts), ptr(xc), ptr(yc),
         ptr(h), ptr(qkv), ptr(ctx), ptr(x1), ptr(m1), ptr(planes), b, s, cap, d, num_heads,

@@ -46,6 +46,7 @@ from vit_pruning_tpu_torch.ops.cuda.layer import (
     _ln_f32,
     _padded_call,
     _unpad,
+    _weight_planes,
     count_attention,
     refuse_grad,
     staged2_attention,
@@ -164,9 +165,10 @@ def _b4_op(x: torch.Tensor, token_mask: Optional[torch.Tensor], weights: list[to
     codes = _stage_buffers(x, rows, (d, kw, d, m))
     ws = [x.new_empty((rows, 3 * kw)), x.new_empty((rows, kw)),
           torch.empty((rows, d), dtype=torch.float32, device=x.device), x.new_empty((rows, m))]
+    aplanes = _weight_planes(x, 3 * rows * kw)  # f32's attention planes of q, k, v
     run(who, x.device, "vpt_vit_layer_int8_forward", _DTYPES[x.dtype], ptr(x), ptr(token_mask),
-        *map(ptr, weights), ptr(out), *map(ptr, codes), *map(ptr, ws), b, s, d, num_heads,
-        kw // num_heads, m, norm_width, eps)
+        *map(ptr, weights), ptr(out), *map(ptr, codes), *map(ptr, ws), ptr(aplanes), b, s, d,
+        num_heads, kw // num_heads, m, norm_width, eps)
     fused_vit_layer_int8.launches += 1
     count_attention("b4", x.dtype, kw // num_heads, s)
     return (out, *codes)

@@ -139,7 +139,7 @@ def _b5_op(x: torch.Tensor, token_mask: Optional[torch.Tensor], weights: list[to
     out = torch.empty_like(x)
     h, qkv, ctx, x1, m1 = _workspaces(x, b * s, d, kw, m, 3 * kw)
     xr = torch.empty_like(x1)
-    planes = _weight_planes(x, 3 * d * kw, d * m)
+    planes = _weight_planes(x, 3 * d * kw, d * m, 3 * b * s * kw)
     run(who, x.device, "vpt_vit_encoder_forward", _DTYPES[x.dtype], ptr(x), ptr(token_mask),
         *map(ptr, weights), ptr(out), ptr(h), ptr(qkv), ptr(ctx), ptr(x1), ptr(m1), ptr(xr),
         ptr(planes), n_layers, b, s, d, num_heads, kw // num_heads, m, norm_width, eps)
