@@ -217,6 +217,14 @@ kernels from csrc/ itself. Phases:
      merge_dropped) within 2e-5 of the single-process forwards. B1 and B2
      launched on every rank; the backend, the hops staged through the
      host, times and peak memory are printed
+ 11. the nn.Module adapter (models/torch_module.py::PrunedViT) at DeiT-S
+     width (module_path): under torch.inference_mode(), bf16, batch 512,
+     the headline (B1), the headline under encoder fusion (B5), mode topk
+     (B3) and both under int8 (B4), each bit-equal to the functional
+     forward on param_tree() with equal launches, ms/batch of both; one
+     f32 train step (mode mask, batch 32) through the module's Parameters
+     and masked_adam against harness.make_train_step (loss within 1e-4, B1
+     under RecomputedBackward); a grad-enabled topk call raises
   7. records: before 8, importing every module of the port and
      quality_torch.py loads neither pandas nor transformers (8 and 9 print
      the metrics tables, which import pandas where it is installed); after
@@ -231,8 +239,8 @@ kernels from csrc/ itself. Phases:
      row launches_cli, by command of phase 8, and launches_gate, phase
      9's; train_steps_* count only the launches inside phase 8's train
      steps; launches_widths, phase 3l's; launches_export, each of 5i's
-     loaded programs' calls; launches_parallel, phase 10's by rank), the
-     device line
+     loaded programs' calls; launches_parallel, phase 10's by rank;
+     launches_module, phase 11's module calls by run), the device line
 
 Any failed check raises, so the exit code is non-zero. The line before the
 last is the kernels' JSON record; the last line is the device record.
@@ -1314,6 +1322,12 @@ def export_path(dev, base: dict, cfg, smi: str) -> dict:
     return {"launches": launches, "times": times}
 
 
+def fresh_copy(tree: dict, dev) -> dict:
+    """A copy of a tree on `dev` (a train step updates it in place)."""
+    return {k: fresh_copy(v, dev) if isinstance(v, dict) else None if v is None
+            else v.detach().to(dev, copy=True) for k, v in tree.items()}
+
+
 def train_path(dev, base: dict, cfg) -> dict:
     """Phase 5h: training at DeiT-S's full width (12 layers, batch 32,
     cls_mlp predictor, float32), the kernel path (mode 'auto': B1 and B5
@@ -1342,9 +1356,7 @@ def train_path(dev, base: dict, cfg) -> dict:
     check = Checks("phase 5h (training at DeiT-S width)")
 
     def fresh(tree):
-        """A copy of a CPU tree on the card (a train step updates it in place)."""
-        return {k: fresh(v) if isinstance(v, dict) else None if v is None
-                else v.detach().to(dev, copy=True) for k, v in tree.items()}
+        return fresh_copy(tree, dev)
 
     gen = torch.Generator().manual_seed(SEED + 5)
     rs = np.random.RandomState(SEED + 5)
@@ -1495,6 +1507,164 @@ def train_path(dev, base: dict, cfg) -> dict:
         f"{bms['cosine']:.2f}, classification {bms['classification']:.2f}")
     check(all(math.isfinite(v) for v in bl) and bn["b1"] > 0, "bf16 training losses not finite")
     times["topk_bf16"] = bms
+    check.done()
+    return {"launches": launches, "times": times}
+
+
+def graph_nodes(root, name: str) -> int:
+    """The nodes called `name` in the autograd graph behind `root`."""
+    seen, stack, n = set(), [root], 0
+    while stack:
+        f = stack.pop()
+        if f is None or f in seen:
+            continue
+        seen.add(f)
+        n += f.name() == name
+        stack.extend(g for g, _ in f.next_functions)
+    return n
+
+
+def module_path(dev, base: dict, cfg, smi: str, batch: int = 512,
+                train_batch: int = 32) -> dict:
+    """Phase 11: models/torch_module.py::PrunedViT at DeiT-S's full width (the
+    cls_mlp predictor, PREDICTOR_GAIN), kernel mode 'auto':
+      - serving under torch.inference_mode() at batch `batch` in bf16: the
+        headline (topk_prog, k 98: B1), the headline under encoder fusion
+        (B5), mode topk (k 98: B3 at cap 99), and the headline and topk under
+        quant_mode('int8') (B4); each against the functional forward on
+        param_tree(): logits and keep masks bit-equal, every kernel's
+        launches equal; ms/batch of both (CUDA events, mean of 10 after 3
+        warm-up, run functional, module, module, functional);
+      - one f32 train=True step at `train_batch` in mode mask (cross-entropy
+        plus the predictor losses, policy vit_mlp_train), masked_adam over
+        param_tree() (the optimizer holds module.parameters()), against
+        harness.make_train_step on a copy of the tree: the loss within 1e-4
+        relative, every Parameter given a gradient, B1 launched and the
+        graph holding one RecomputedBackward a layer;
+      - a grad-enabled inference call in mode topk raises B3's refusal.
+    Every launch count is set to 0 just before each module call and read
+    just after; returns {'launches': {run: {key: n}}, 'times': ...}."""
+    from vit_pruning_tpu_torch.configs import PruneConfig
+    from vit_pruning_tpu_torch.models.convert import flatten_tree, tree_to
+    from vit_pruning_tpu_torch.models.pruned_vit import (
+        progressive_topk_forward, pruned_vit_forward)
+    from vit_pruning_tpu_torch.models.torch_module import PrunedViT
+    from vit_pruning_tpu_torch.ops.dispatch import encoder_fusion, kernel_mode, quant_mode
+    from vit_pruning_tpu_torch.train.freeze import masked_adam
+    from vit_pruning_tpu_torch.train.harness import COSINE_LOSS_RATIO, make_train_step
+    from vit_pruning_tpu_torch.train.losses import cross_entropy
+
+    check = Checks("phase 11 (the nn.Module adapter, DeiT-S)")
+    rs = np.random.RandomState(SEED + 11)
+    u8 = torch.from_numpy(rs.randint(0, 256, (batch, 3, 224, 224), dtype=np.uint8)).to(dev)
+    pix = ((u8.float() / 255.0 - 0.5) / 0.5).to(torch.bfloat16)
+    bf = tree_to(base, dev, torch.bfloat16)  # one tree on the card; the modules hold it
+    headline = PruneConfig(mode="topk_prog", predictor="cls_mlp", loss="mse_attention", top_k=98)
+    topk = PruneConfig(mode="topk", predictor="cls_mlp", top_k=98)
+    runs = (  # name, prune config, quant, encoder fusion, the kernel each layer runs
+        ("topk_prog_bf16", headline, "none", False, "b1"),
+        ("topk_prog_fused_bf16", headline, "none", True, "b5"),
+        ("topk_bf16", topk, "none", False, "b3"),
+        ("topk_prog_int8", headline, "int8", False, "b4"),
+        ("topk_int8", topk, "int8", False, "b4"),
+    )
+    launches, times = {}, {}
+    log(f"phase 11: DeiT-S, bf16, batch {batch}, under torch.inference_mode(); {smi}")
+    for name, pcfg, quant, fused, need in runs:
+        module = PrunedViT(cfg, pcfg, params=bf, device=dev, dtype=torch.bfloat16)
+        with torch.inference_mode(), kernel_mode("auto"), quant_mode(quant), \
+                encoder_fusion(fused):
+            reset_launches()
+            got = module(pix)
+            torch.cuda.synchronize()
+            launches[name] = read_launches()
+
+            def functional(pcfg=pcfg, module=module):
+                tree = module.param_tree()
+                if pcfg.mode == "topk_prog":
+                    return progressive_topk_forward(tree, pix, cfg, pcfg)
+                return pruned_vit_forward(tree, pix, cfg, pcfg)
+
+            reset_launches()
+            want = functional()
+            torch.cuda.synchronize()
+            n_fun = read_launches()
+            ms = {"functional": [], "module": []}
+            for who in ("functional", "module", "module", "functional"):
+                ms[who].append(event_ms(functional if who == "functional"
+                                        else lambda module=module: module(pix)))
+        times[name] = ms
+        lg = got["logits"]
+        same = (bool(torch.equal(lg, want["logits"]))
+                and bool(torch.equal(got["keep_masks"], want["keep_masks"])))
+        log(f"  {name}: module launches {launches[name]}, functional {n_fun}; logits and keep "
+            f"masks bit-equal {same}; patches kept "
+            f"{got['keep_masks'][:, :, 1:].float().mean().item():.4f}; ms/batch module "
+            f"{[round(v, 4) for v in ms['module']]}, functional "
+            f"{[round(v, 4) for v in ms['functional']]}")
+        check(tuple(lg.shape) == (batch, 100) and bool(torch.isfinite(lg.float()).all()),
+              f"{name}: logits not finite [{batch}, 100]")
+        check(same, f"{name}: logits or keep masks differ from the functional forward's")
+        check(launches[name] == n_fun, f"{name}: launches {launches[name]} against {n_fun}")
+        check(launches[name][need] > 0, f"{name}: {need.upper()} never launched")
+
+    # one f32 train step through the module's Parameters against the functional step
+    gen_rs = np.random.RandomState(SEED + 12)
+    tpix = ((torch.from_numpy(gen_rs.randint(0, 256, (train_batch, 3, 224, 224))).float()
+             / 255.0 - 0.5) / 0.5).to(dev)
+    labels = torch.from_numpy(gen_rs.randint(0, 100, train_batch)).to(dev)
+    mcfg = PruneConfig(mode="mask", predictor="cls_mlp")
+    module = PrunedViT(cfg, mcfg, params=fresh_copy(base, dev), device=dev)
+    with kernel_mode("auto"):
+        opt = masked_adam(module.param_tree(), "vit_mlp_train", 1e-4)
+        held = {id(p) for g in opt.param_groups for p in g["params"]}
+        own = {id(p) for p in module.parameters()}
+        opt.zero_grad(set_to_none=True)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = module(tpix, train=True)
+        loss = (cross_entropy(out["logits"], labels)
+                + COSINE_LOSS_RATIO * out["aux"]["pred_loss"].sum())
+        recomputed = graph_nodes(loss.grad_fn, "RecomputedBackwardBackward")
+        loss.backward()
+        graded = sum(p.grad is not None for p in module.parameters())
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches["train_f32"] = read_launches()
+        ftree = fresh_copy(base, dev)
+        step = make_train_step(cfg, mcfg, "both", masked_adam(ftree, "vit_mlp_train", 1e-4))
+        metrics = step(ftree, {"pixel_values": tpix, "labels": labels})
+        torch.cuda.synchronize()
+    ml, fl = float(loss.detach()), float(metrics["loss"])
+    rel = abs(ml - fl) / max(abs(fl), 1e-30)
+    pdiff = max((a.detach() - b.detach()).abs().max().item() for (_, a), (_, b) in
+                zip(flatten_tree(module.param_tree()), flatten_tree(ftree)))
+    L = cfg.num_layers
+    log(f"  train_f32 (mode mask, batch {train_batch}, 'both', masked_adam over param_tree()): "
+        f"loss module {ml:.7f}, functional step {fl:.7f}, relative difference {rel:.2e}; "
+        f"params after the step largest difference {pdiff:.3e}; Parameters with a gradient "
+        f"{graded} of {len(own)}; RecomputedBackward nodes {recomputed} (layers {L}); "
+        f"launches {launches['train_f32']}; step {step_ms:.1f} ms (host clock, the first)")
+    check(held == own, "the optimizer does not hold module.parameters()")
+    check(math.isfinite(ml) and rel <= 1e-4, f"train: loss {ml} against {fl}")
+    check(graded == len(own), f"train: {len(own) - graded} Parameters got no gradient")
+    check(launches["train_f32"]["b1"] > 0 and recomputed == L,
+          f"train: B1 launches {launches['train_f32']['b1']}, RecomputedBackward nodes "
+          f"{recomputed}")
+    times["train_f32_step_ms"] = step_ms
+
+    # a grad-enabled inference call through B3 raises its refusal
+    module = PrunedViT(cfg, topk, params=bf, device=dev, dtype=torch.bfloat16)
+    try:
+        with kernel_mode("auto"):
+            module(pix[:64])
+        refusal = "no error"
+    except RuntimeError as e:
+        refusal = str(e)
+    log(f"  topk with grad enabled: {refusal}")
+    check("this kernel has no backward" in refusal, "topk with grad enabled did not raise")
     check.done()
     return {"launches": launches, "times": times}
 
@@ -4439,6 +4609,10 @@ def main():
     torch.cuda.empty_cache()
     par_run = parallel_path(smi)
 
+    # --- 11. the nn.Module adapter (models/torch_module.py) at DeiT-S width ----------------
+    torch.cuda.empty_cache()
+    module_run = module_path(dev, base, cfg, smi)
+
     # --- 7. records: after every phase, nothing of jax or of the JAX package was loaded ---
     port_dir = Path(port.__file__).resolve().parent
     jax_dir = port_dir.parent / "vit_pruning_tpu"
@@ -4466,6 +4640,11 @@ def main():
         f"{cli_run['times']['eval_ms']:.3f}; phase 9 (gates, kernels auto): rc {gate_run['rc']} "
         f"in {gate_run['seconds']:.1f} s; phase 10 (parallel, {par_run['backend']}, host-staged "
         f"hops by rank {par_run['host_staged']}): {par_run['seconds']:.1f} s")
+    log(f"  phase 11 (PrunedViT module, bf16, batch 512): ms/batch module / functional "
+        + ", ".join(f"{run} {statistics.mean(t['module']):.4f} / "
+                    f"{statistics.mean(t['functional']):.4f}"
+                    for run, t in module_run["times"].items() if isinstance(t, dict))
+        + f"; {smi}")
     pkg = "vit_pruning_tpu_torch"
     rows = (  # key, wrapper, csrc file, the TPU kernel's file and line, launches
         ("b1", "fused_vit_layer", "layer", "layer", 359, launches["b1"] + launches["b1_redecide"]),
@@ -4501,6 +4680,7 @@ def main():
          "launches_widths": widths_launches[key],
          "launches_parallel": [c.get(key, 0) for c in par_run["launches"]],
          "launches_export": {run: c[key] for run, c in exported["launches"].items()},
+         "launches_module": {run: c[key] for run, c in module_run["launches"].items()},
          # the f32 routes: the kernel at an f32 entry point's shape (phase 6); B1, B2, B3,
          # B5: their f32 products on the split body (csrc/gemm.cu) on phases 5-5h, the
          # CLI's f32 eval (8) and the gates (9)

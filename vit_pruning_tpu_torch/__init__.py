@@ -23,7 +23,7 @@ Layout:
     data       — the image normalisation constants
     models     — ViT forward, every skip predictor, the re-decide and
                  progressive forwards, weight bridge to and from the JAX
-                 param tree
+                 param tree, the torch.nn.Module adapter (torch_module)
     ops        — patch embed, attention, masking and compaction, structured
                  pruning, int8 quantization, kernel dispatch and the serving
                  quant switch, and the CUDA kernels' wrappers (ops/cuda)
