@@ -38,11 +38,13 @@ kernels from csrc/ itself. Phases:
      DeiT-S and composed geometry, S in {197, 99, 33, 17}, batch 8, float32
      and bfloat16, each call's launches by kind (the C counters, the
      wrapper's tally and the plan of ops/cuda/layer.py::cls_logits_launches
-     equal; at most 4 in bf16), the plan's mirror against the C rule; then
-     the CLS attention isolated (cls_attention_isolated: O = I, fc2 = 0,
-     LN_f = (1, 0), the classifier the identity, a peaked softmax, x ~
-     1e-5) at hd 16-80 and widths D 100 / M 1000, S 2-577, batch 4 and 9,
-     held to LN_f of the plain version's CLS context
+     equal; at most 4), the plan's mirror against the C rule; then the CLS
+     attention isolated (cls_attention_isolated: O = I, fc2 = 0, LN_f = (1,
+     0), the classifier the identity, a peaked softmax, x ~ 1e-5) at hd
+     16-80 and widths D 100 / M 1000, S 2-577, batch 4 and 9, bf16 (three
+     launches) held to LN_f of the plain version's CLS context, f32 (four)
+     to LN_f of the CLS context in float64 at F32_SPLIT_ERR times the f32
+     plain version's error
   4b. kernel B3 (fused_vit_layer_bucketed) against its plain version: S 197
      with cap 99 / 131 / 197 and S 99 with cap 50, random kept counts up to
      the cap and an image with only CLS kept; skipped rows must be x
@@ -175,7 +177,7 @@ kernels from csrc/ itself. Phases:
      f32 routes (B1 at ViT-B/16 batch 16; B2, B3, B5, B6, B7, B8b and B8a
      with f32 weights at DeiT-S batch 32) beside their plain versions, the
      f32 PyTorch call and bound_split6, with each row's f32 attention
-     launches by body
+     launches by body (B2: each of its four launches' device us)
   3l. (after 6, so that 6's GEMM body counts stay those of 5-5h) widths
      that are not multiples of the kernels' (ROADMAP C.1), zero-padded by
      the wrappers: B1, B2, B3, B4 and B5 (two layers) at DeiT-S with 1000
@@ -310,6 +312,58 @@ def bound_split6(flops: float, nbytes: float):
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def cls_library(gcfg, glp, gf, gh):
+    """B2's function as a CLS-only composition of PyTorch calls (bf16: cuBLAS, the
+    fused layer norm, SDPA; another rounding): LN1 over every row, one addmm for K
+    and V, scaled_dot_product_attention with one query an image, then addmm /
+    layer_norm / gelu for the tail on the B rows. The fused K/V weights are made
+    once, outside the timed call. Phase 6's yardstick for B2 (library_ms), and
+    kernel_variants.py's."""
+    fn = torch.nn.functional
+    a, mlp, eps = glp["attn"], glp["mlp"], gcfg.layernorm_eps
+    nh, hd, d = gcfg.num_heads, gcfg.head_dim, gcfg.hidden_size
+    kvw = torch.cat([a["k"]["w"], a["v"]["w"]], 1)
+    kvb = torch.cat([a["k"]["b"], a["v"]["b"]])
+
+    def run(x):
+        b, s, _ = x.shape
+        h1 = fn.layer_norm(x, (d,), glp["ln1"]["g"], glp["ln1"]["b"], eps)
+        kv = torch.addmm(kvb, h1.view(b * s, d), kvw).view(b, s, 2, nh, hd)
+        q = torch.addmm(a["q"]["b"], h1[:, 0], a["q"]["w"]).view(b, nh, 1, hd)
+        ctx = fn.scaled_dot_product_attention(q, kv[:, :, 0].transpose(1, 2),
+                                              kv[:, :, 1].transpose(1, 2))
+        x1 = torch.addmm(a["o"]["b"], ctx.reshape(b, nh * hd), a["o"]["w"]) + x[:, 0]
+        m = fn.gelu(torch.addmm(mlp["fc1"]["b"], fn.layer_norm(
+            x1, (d,), glp["ln2"]["g"], glp["ln2"]["b"], eps), mlp["fc1"]["w"]),
+            approximate="tanh")
+        x2 = torch.addmm(mlp["fc2"]["b"], m, mlp["fc2"]["w"]) + x1
+        return torch.addmm(gh["b"], fn.layer_norm(x2, (d,), gf["g"], gf["b"], eps), gh["w"])
+    return run
+
+
+
+def launch_profile(fn, calls: int = 3):
+    """The device kernels of one call of fn, in order, from torch.profiler
+    over `calls` synchronised calls (the last call's): [name, device us] a
+    launch and their sum; None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+    ks = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    if not ks:
+        return None
+    last = ks[len(ks) - len(ks) // calls:]
+    by = [[e.name.replace("void ", "")[:60], round(e.time_range.end - e.time_range.start, 3)]
+          for e in last]
+    return {"by_launch": by, "busy_us": round(sum(us for _, us in by), 3)}
 
 
 def bf16_tol(ref) -> float:
@@ -873,56 +927,102 @@ def cls_identity_tail(lp: dict, lnf: dict, gen: torch.Generator):
     return out, f, head
 
 
-def cls_attention_isolated(dev, say) -> list:
+def cls_context64(x, lp: dict, nh: int, eps: float):
+    """B2's CLS context [B, KW] in float64 from the same x and weights: LN1, K
+    and V of every token, q of the CLS row, the softmax, P V."""
+    x64 = x.double()
+    mu = x64.mean(-1, keepdim=True)
+    var = ((x64 - mu) ** 2).mean(-1, keepdim=True)
+    h = (x64 - mu) / torch.sqrt(var + eps) * lp["ln1"]["g"].double() + lp["ln1"]["b"].double()
+    a = lp["attn"]
+    b, s, _ = x.shape
+    k, v = ((h @ a[n]["w"].double() + a[n]["b"].double()).reshape(b, s, nh, -1).transpose(1, 2)
+            for n in "kv")
+    q = (h[:, :1] @ a["q"]["w"].double() + a["q"]["b"].double()).reshape(b, 1, nh, -1).transpose(1, 2)
+    p = torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1]), -1)
+    return (p @ v).transpose(1, 2).reshape(b, -1)
+
+
+def cls_attention_isolated(dev, say, dtype=torch.bfloat16) -> list:
     """Phase 4's cases that isolate B2's CLS attention through the real
     wrapper: cls_identity_tail's weights on x ~ 1e-5, so that the logits are
     LN_f(x_cls + ctx) and a softmax dropped, made uniform, cut short or left
-    unnormalised moves them by far more than a rounding. Held to LN_f(x_cls +
-    the plain version's context rounded to bf16) (ops/cuda/layer.py::
-    cls_context_ref) at two bf16 steps of its largest magnitude. Every
-    CLS_EDGE_LENGTHS length at head dims 16, 32, 64 and 80 and at the padded
-    widths (cls_isolated_geometries), bfloat16, batch 4 and a ragged batch of
-    9 (a cluster of the K/V launch part empty, the q blocks part full).
-    Returns one record per call: tag, err and tol, and B2's launches by kind
-    as the C counters and the wrapper's tally saw them and as the mirror
-    (cls_logits_launches) plans them. Also run by kernel_variants.py's
-    `faults`, on libraries with faults planted in B2."""
+    unnormalised moves them by far more than a rounding. bfloat16: held to
+    LN_f(x_cls + the plain version's context rounded to bf16) (ops/cuda/
+    layer.py::cls_context_ref) at two bf16 steps of its largest magnitude.
+    float32: held to LN_f(x_cls + the context in float64) (cls_context64, LN_f
+    in float64): the kernel's error against it (the norm of the difference
+    over the reference's) at most F32_SPLIT_ERR times the f32 plain
+    version's (TF32 off). Every CLS_EDGE_LENGTHS length at head dims 16, 32,
+    64 and 80 and at the padded widths (cls_isolated_geometries), batch 4 and
+    a ragged batch of 9 (a cluster of the K/V launch part empty, the q blocks
+    part full). Returns one record per call: tag, err and tol (and, f32, the
+    max abs errors of both), and B2's launches by kind as the C counters and
+    the wrapper's tally saw them and as the mirror (cls_logits_launches) plans
+    them. Also run by kernel_variants.py's `faults`, on libraries with faults
+    planted in B2 (cls_attention_isolated_f32 for the f32 route)."""
     from vit_pruning_tpu_torch.models.convert import tree_to
     from vit_pruning_tpu_torch.models.vit import init_vit_params, layer_norm, layer_slice
     from vit_pruning_tpu_torch.ops.cuda import layer as kl
     from vit_pruning_tpu_torch.ops.cuda.widths import LAYER_MULTIPLE, round_up
 
     gen = torch.Generator().manual_seed(SEED + 19)
-    bf, out = torch.bfloat16, []
+    f32, out = dtype == torch.float32, []
+    dname = "float32" if f32 else "bfloat16"
     for gname, gcfg in cls_isolated_geometries():
         nh, eps, d = gcfg.num_heads, gcfg.layernorm_eps, gcfg.hidden_size
         p = init_vit_params(gcfg.replace(num_layers=1, attn_head_dim=None), gen, "cpu")
         st = perturbed_layer(p["layers"], gen)
         if gcfg.attn_head_dim:  # the attention narrower than D
             st = narrow_attention(st, nh * gcfg.attn_head_dim)
-        lp, f, h = cls_identity_tail(tree_to(layer_slice(st, 0), dev, bf),
-                                     tree_to(p["ln_f"], dev, bf), gen)
+        lp, f, h = cls_identity_tail(tree_to(layer_slice(st, 0), dev, dtype),
+                                     tree_to(p["ln_f"], dev, dtype), gen)
         ones = {"g": torch.ones(d, device=dev), "b": torch.zeros(d, device=dev)}
         for s in CLS_EDGE_LENGTHS:
             for batch in (4, 9):
-                x = (1e-5 * torch.randn(batch, s, d, generator=gen)).to(dev, bf)
+                x = (1e-5 * torch.randn(batch, s, d, generator=gen)).to(dev, dtype)
                 kl.reset_cls_launch_counts()
                 got = kl.fused_vit_layer_cls_logits(x, lp, f, h, nh, eps)
                 torch.cuda.synchronize()
                 ran, tally = kl.cls_launch_counts(), dict(kl.cls_launches)
-                ctx = kl.cls_context_ref(x, lp, nh, eps).to(bf).float()
-                pad = torch.nn.functional.pad(ctx, (0, d - ctx.shape[1]))
-                ref = layer_norm(x[:, 0].float() + pad, ones, eps)
-                dd = (got.float() - ref).abs().max().item()
-                if not math.isfinite(dd):
-                    dd = math.inf
-                tol = bf16_tol(ref)
-                tag = f"isolated B2 {gname} B={batch} S={s}"
-                say(f"  {tag}: max_abs_err {dd:.3e} (tol {tol:.2e}), launches {ran}")
-                out.append({"tag": tag, "d": dd, "tol": tol, "ran": ran, "tally": tally,
-                            "plan": kl.cls_logits_launches(bf, gcfg.head_dim, s,
-                                                           round_up(d, LAYER_MULTIPLE))})
+                tag = f"isolated B2 {gname} {dname} B={batch} S={s}"
+                rec = {"tag": tag, "ran": ran, "tally": tally,
+                       "plan": kl.cls_logits_launches(dtype, gcfg.head_dim, s,
+                                                      round_up(d, LAYER_MULTIPLE))}
+                if f32:
+                    x1 = x[:, 0].double()
+                    ctx = cls_context64(x, lp, nh, eps)
+                    x1[:, :ctx.shape[1]] += ctx
+                    mu = x1.mean(-1, keepdim=True)
+                    exact = (x1 - mu) / torch.sqrt(((x1 - mu) ** 2).mean(-1, keepdim=True) + eps)
+                    plain = kl.fused_vit_layer_cls_logits_ref(x, lp, f, h, nh, eps)
+                    norm = torch.linalg.vector_norm(exact).item()
+                    e64 = torch.linalg.vector_norm(got.double() - exact).item() / norm
+                    pe64 = torch.linalg.vector_norm(plain.double() - exact).item() / norm
+                    dd = e64 if math.isfinite(e64) else math.inf
+                    tol = F32_SPLIT_ERR * max(pe64, F32_ULP)
+                    rec.update(d_max=(got.double() - exact).abs().max().item(),
+                               plain_max=(plain.double() - exact).abs().max().item())
+                    say(f"  {tag}: relative to float64 {dd:.3e} (tol {tol:.2e}; the f32 plain "
+                        f"version's {pe64:.3e}), max abs {rec['d_max']:.3e} (plain "
+                        f"{rec['plain_max']:.3e}), launches {ran}")
+                else:
+                    ctx = kl.cls_context_ref(x, lp, nh, eps).to(dtype).float()
+                    pad = torch.nn.functional.pad(ctx, (0, d - ctx.shape[1]))
+                    ref = layer_norm(x[:, 0].float() + pad, ones, eps)
+                    dd = (got.float() - ref).abs().max().item()
+                    if not math.isfinite(dd):
+                        dd = math.inf
+                    tol = bf16_tol(ref)
+                    say(f"  {tag}: max_abs_err {dd:.3e} (tol {tol:.2e}), launches {ran}")
+                rec.update(d=dd, tol=tol)
+                out.append(rec)
     return out
+
+
+def cls_attention_isolated_f32(dev, say) -> list:
+    """cls_attention_isolated on B2's float32 route."""
+    return cls_attention_isolated(dev, say, torch.float32)
 
 
 def f32_product_shapes() -> tuple:
@@ -934,7 +1034,9 @@ def f32_product_shapes() -> tuple:
     batch 4, the padded widths D 100 (104 in the kernel: 4 heads of 16, MLP 300 ->
     304) and M 1000 at batch 8 (1,576 rows, ragged), DeiT-S at S 131 (1,048 rows);
     B2's six at DeiT-S S 99, batch 8 (the CLS rows of x as A and residual, row
-    stride S * D; the classifier padded to 104 labels)."""
+    stride S * D; the classifier padded to 104 labels): B2's f32 route runs its
+    products in its own launches (csrc/cls_logits.cu), so these six now test
+    gemm() alone, at the strided shapes no layer product gives it."""
     out = []
     for tag, m, d, kw, mm in (("vit_b batch 16", 16 * 197, 768, 768, 3072),
                               ("deit_s batch 32", 32 * 197, 384, 384, 1536),
@@ -2678,12 +2780,14 @@ def main():
                     f"{ {k: v for k, v in ran.items() if v} }")
                 check(got.shape == (8, 100) and bool(torch.isfinite(got).all()) and d <= tol, tag)
                 check(ran == tally == plan, f"{tag}: launches {ran}, tally {tally}, plan {plan}")
-                if dt == torch.bfloat16:
-                    check(sum(ran.values()) <= 4, f"{tag}: {sum(ran.values())} launches")
-    for r in cls_attention_isolated(dev, log):
-        check(r["d"] <= r["tol"], f"{r['tag']}: err {r['d']:.3e} > tol {r['tol']:.2e}")
-        check(r["ran"] == r["tally"] == r["plan"] and sum(r["ran"].values()) == 3,
-              f"{r['tag']}: launches {r['ran']}, tally {r['tally']}, plan {r['plan']}")
+                check(sum(ran.values()) <= 4, f"{tag}: {sum(ran.values())} launches")
+    # the CLS attention isolated: bf16 three launches a call, f32 four (its weights'
+    # planes, LN1's statistics, K / q / the attention / V, the tail)
+    for dt, n in ((torch.bfloat16, 3), (torch.float32, 4)):
+        for r in cls_attention_isolated(dev, log, dt):
+            check(r["d"] <= r["tol"], f"{r['tag']}: err {r['d']:.3e} > tol {r['tol']:.2e}")
+            check(r["ran"] == r["tally"] == r["plan"] and sum(r["ran"].values()) == n,
+                  f"{r['tag']}: launches {r['ran']}, tally {r['tally']}, plan {r['plan']}")
     check.done()
 
     # --- 4b. B3 against its plain version -----------------------------------------------
@@ -3972,10 +4076,12 @@ def main():
     # included (5e's S 257, 5g's S 577), as the mirror says
     attn_tally = attention_bodies_agree("5-5h")
     # B2's launches by kind on phases 5-5h: the C counters equal to the wrapper's tally by
-    # the mirror of the C plan (every bf16 call three launches, every f32 call ten)
+    # the mirror of the C plan (every bf16 call three launches, every f32 call four), the
+    # bf16 tail and every f32 kind among them
     b2_kinds, b2_tally = kl.cls_launch_counts(), dict(kl.cls_launches)
     log(f"  B2's launches on phases 5-5h by kind: C {b2_kinds}, the wrapper's tally {b2_tally}")
-    if b2_kinds != b2_tally or not b2_kinds["tail"] or not b2_kinds["fma"]:
+    if b2_kinds != b2_tally or not all(b2_kinds[k] for k in (
+            "tail", "f32_split_planes", "f32_kv_attention_k_then_v", "f32_tail")):
         raise AssertionError(f"phase 6: B2's launches {b2_kinds} against the tally {b2_tally}")
     if not sum(per["wgmma_streamed"] for per in attn_tally.values()):
         raise AssertionError("phase 6: the streamed attention body never ran on phases 5-5h")
@@ -3994,12 +4100,13 @@ def main():
     if bodies["wgmma"] == 0 or any(n % 8 == 0 for _, n, _ in bodies["wmma_shapes"]):
         raise AssertionError(f"phase 6: a product TMA can describe took the WMMA body: {bodies}")
     # every f32 product of phases 5-5h on the split body, the only f32 body of gemm(): the
-    # C counter equal to the ops' tally (B1 and B3 four a call, B5 four a layer, B2 six)
+    # C counter equal to the ops' tally (B1 and B3 four a call, B5 four a layer; B2's run
+    # in its own launches, counted by kind above)
     f32_tally = dict(kg.f32_products)
     log(f"  f32 products on the paths of phases 5-5h: split body {bodies['f32_split']} "
         f"launches, the ops' tally {f32_tally}")
     if (bodies["f32_split"] != sum(f32_tally.values())
-            or not all(f32_tally.get(k) for k in ("b1", "b2", "b5"))):
+            or not all(f32_tally.get(k) for k in ("b1", "b5"))):
         raise AssertionError(f"phase 6: f32 products {bodies['f32_split']} on the split body "
                              f"against the tally {f32_tally}")
     # DeiT-S is timed first, without ViT-H's bf16 copies and on an emptied allocator
@@ -4091,33 +4198,6 @@ def main():
             f"eager layer (bf16 cuBLAS) {e_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
         if (gname, s) == ("deit_s", 197):
             kernel_ms["b1"], bounds["b1"] = (k_ms, p_ms, e_ms), (b_ms, b_by)
-    def cls_library(gcfg, glp, gf, gh):
-        """B2's function as a CLS-only composition of PyTorch calls (bf16: cuBLAS, the
-        fused layer norm, SDPA; another rounding): LN1 over every row, one addmm for K
-        and V, scaled_dot_product_attention with one query an image, then addmm /
-        layer_norm / gelu for the tail on the B rows. The fused K/V weights are made
-        once, outside the timed call."""
-        fn = torch.nn.functional
-        a, mlp, eps = glp["attn"], glp["mlp"], gcfg.layernorm_eps
-        nh, hd, d = gcfg.num_heads, gcfg.head_dim, gcfg.hidden_size
-        kvw = torch.cat([a["k"]["w"], a["v"]["w"]], 1)
-        kvb = torch.cat([a["k"]["b"], a["v"]["b"]])
-
-        def run(x):
-            b, s, _ = x.shape
-            h1 = fn.layer_norm(x, (d,), glp["ln1"]["g"], glp["ln1"]["b"], eps)
-            kv = torch.addmm(kvb, h1.view(b * s, d), kvw).view(b, s, 2, nh, hd)
-            q = torch.addmm(a["q"]["b"], h1[:, 0], a["q"]["w"]).view(b, nh, 1, hd)
-            ctx = fn.scaled_dot_product_attention(q, kv[:, :, 0].transpose(1, 2),
-                                                  kv[:, :, 1].transpose(1, 2))
-            x1 = torch.addmm(a["o"]["b"], ctx.reshape(b, nh * hd), a["o"]["w"]) + x[:, 0]
-            m = fn.gelu(torch.addmm(mlp["fc1"]["b"], fn.layer_norm(
-                x1, (d,), glp["ln2"]["g"], glp["ln2"]["b"], eps), mlp["fc1"]["w"]),
-                approximate="tanh")
-            x2 = torch.addmm(mlp["fc2"]["b"], m, mlp["fc2"]["w"]) + x1
-            return torch.addmm(gh["b"], fn.layer_norm(x2, (d,), gf["g"], gf["b"], eps), gh["w"])
-        return run
-
     def cls_work(gcfg, b: int, s: int, labels: int = 100) -> float:
         """B2's operations: the K/V product over every token, q, O, fc1, fc2 and the
         classifier on the CLS rows, QK^T and PV of the CLS query."""
@@ -4457,10 +4537,12 @@ def main():
     log(f"  f32 routes, CUDA events, mean of 10 after 3 warm-ups; {smi}")
     f32_rows = {}
 
-    def f32_row(key, shape, k_fn, p_fn, l_fn, library, flops, nbytes):
+    def f32_row(key, shape, k_fn, p_fn, l_fn, library, flops, nbytes, profile=False):
         k_ms, p_ms = abba(k_fn, p_fn)
         l_ms = time_ms(l_fn)
         b_ms, b_by = bound_split6(flops, nbytes)
+        # B2: each launch's device us (torch.profiler)
+        prof = launch_profile(k_fn) if profile else None
         # the f32 attention launches of one call, by body (B1-B5's counters, B6's)
         kl.reset_attention_body_counts()
         ka.reset_body_counts()
@@ -4470,10 +4552,12 @@ def main():
         attn.update({f"b6_{b}": n for b, n in ka.body_counts().items() if n})
         f32_rows[key] = {"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                          "bound_by": b_by, "library_ms": l_ms, "library": library,
-                         "attention_launches": attn}
+                         "attention_launches": attn,
+                         **({"device_us_by_launch": prof} if profile else {})}
         log(f"  {key.upper()} f32 {shape}: kernel {k_ms:.4f} ms, plain version {p_ms:.4f} ms, "
             f"{library} {l_ms:.4f} ms; {flops:.3e} FLOP, bound {b_ms:.4f} ms ({b_by}, "
-            f"{100 * b_ms / k_ms:.1f}%); f32 attention launches a call {attn}")
+            f"{100 * b_ms / k_ms:.1f}%); f32 attention launches a call {attn}"
+            + (f"; device us by launch {prof}" if profile else ""))
 
     f32 = torch.float32
     m32 = random_mask(32, 197, torch.full((32,), 138))
@@ -4496,7 +4580,7 @@ def main():
                 lambda: kl.fused_vit_layer_cls_logits_ref(x, glp, f, h, cfg.num_heads),
                 lambda: lib_fn(x), "CLS-only composition (layer_norm, addmm, SDPA)",
                 cls_work(cfg, 32, 99), x.numel() * 4 + 32 * 100 * 4 + weight_bytes(glp)
-                + weight_bytes(f) + weight_bytes(h))
+                + weight_bytes(f) + weight_bytes(h), profile=True)
         x = torch.randn(32, 197, cfg.hidden_size, generator=gen).to(dev)
         m99 = random_mask(32, 197, torch.full((32,), 99))  # topk50's bucket, every image full
         dest = compact_dest(m99)
@@ -4681,9 +4765,9 @@ def main():
          "launches_parallel": [c.get(key, 0) for c in par_run["launches"]],
          "launches_export": {run: c[key] for run, c in exported["launches"].items()},
          "launches_module": {run: c[key] for run, c in module_run["launches"].items()},
-         # the f32 routes: the kernel at an f32 entry point's shape (phase 6); B1, B2, B3,
-         # B5: their f32 products on the split body (csrc/gemm.cu) on phases 5-5h, the
-         # CLI's f32 eval (8) and the gates (9)
+         # the f32 routes: the kernel at an f32 entry point's shape (phase 6); B1, B3, B5:
+         # their f32 products on the split body (csrc/gemm.cu) on phases 5-5h, the CLI's
+         # f32 eval (8) and the gates (9)
          **({"f32": f32_rows[key]} if key in f32_rows else {}),
          # the f32 attention of B1, B3, B4, B5 and B6's f32 route (the split body)
          **({"f32_attention_source": f"{pkg}/csrc/split_attention.cuh"}
@@ -4691,7 +4775,14 @@ def main():
          **({"f32_split_products": {"5_to_5h": f32_tally.get(key, 0),
                                     "cli_eval": cli_run["f32_products"]["eval_auto"].get(key, 0),
                                     "gates": gate_run["f32_products"].get(key, 0)}}
-            if key in ("b1", "b2", "b3", "b5") else {})}
+            if key in ("b1", "b3", "b5") else {}),
+         # B2's f32 route: its four launches (cls_logits.cu) on split-bf16 wgmma
+         **({"f32_route": {"source": f"{pkg}/csrc/cls_logits.cu",
+                           "kinds": [k for k in kl.CLS_LAUNCH_KINDS if k.startswith("f32_")]
+                           + ["ln1_stats"],
+                           "launches_by_kind_5_to_5h": {k: v for k, v in b2_kinds.items()
+                                                        if k.startswith("f32_")}}}
+            if key == "b2" else {})}
         for key, name, src, tpu, line, n in rows
     ]
     log(smi)

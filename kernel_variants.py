@@ -46,8 +46,11 @@ cases (phase 3m's attention_isolated) through the wrappers; then the same for th
 attention body (SPLIT_FAULTS: masked keys taken as valid, the mid.hi pass of QK^T
 dropped, the lo planes of q, k and v zeroed, a wrong normaliser); then the same for B2's
 launches (B2_FAULTS: a uniform softmax, the last key tile dropped, another head's V, P
-left unnormalised) with phase 4's cls_attention_isolated. The real kernels must pass
-every case and each fault must fail some; it exits non-zero otherwise.
+left unnormalised) with phase 4's cls_attention_isolated, and for B2's float32 launches
+(B2_F32_FAULTS: a uniform softmax, the last key tile dropped, another head's V, the
+weights' lo planes zeroed, one accumulator over K) with its f32 cases
+(cls_attention_isolated_f32). The real kernels must pass every case and each fault must
+fail some; it exits non-zero otherwise.
 
     python3 kernel_variants.py f32
 
@@ -75,7 +78,8 @@ kernel family (attention or not) from torch.profiler over 3 forwards; B2 at B2_S
 torch.profiler); the headline, composed and ultra forwards (serving_forward from uint8,
 DeiT-S batch 512, ending in B2). It prints one JSON object of the times (ms) with the
 card's name and power limit. It also times the f32 routes (f32_times: B1 launch by launch at
-ViT-B/16 batch 16, DeiT-S batch 32 and the gate model, B2, B3, B5 and B6 at DeiT-S batch 32;
+ViT-B/16 batch 16, DeiT-S batch 32 and the gate model, B2 (launch by launch too, beside
+chip_smoke.py's CLS-only composition), B3, B5 and B6 at DeiT-S batch 32;
 B7 at DeiT-S batch 32 and ViT-H width, B8b and B8a with f32 weights at DeiT-S and ViT-H
 batch 32, each launch by launch, with its body and its PyTorch composition; the f32
 head_mask forward and the CLI's f32 eval forward on both paths); with `f32` last, only
@@ -96,6 +100,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+import chip_smoke  # this checkout's, before `times` puts another package first on the path
 
 # (name, what it shows, [(source file, its text, the replacement)])
 B7_VARIANTS = [
@@ -133,7 +139,7 @@ B4_VARIANTS = [
      [("layer_int8.cu", "  VPT_TRY(rowquant<T>(ctx, KW, q_ctx, s_ctx, rows, KW, st));\n", ""),
       ("layer_int8.cu", "  VPT_TRY(rowquant<T>(m1, M, q_gelu, s_gelu, rows, M, st));\n", "")]),
     ("no attention", "ctx left as it was",
-     [("layer_int8.cu", "  VPT_TRY(attention(qkv, mask, nullptr, ctx, B, S, H, KW, st));\n", "")]),
+     [("layer_int8.cu", "  VPT_TRY(attention(qkv, mask, nullptr, ctx, B, S, H, KW, st, false, aplanes));\n", "")]),
     ("no product epilogues", "the four products' dequant, bias, GELU, residual and stores left "
      "out",
      [("layer_int8.cu", "    if (m >= M || n >= N) return;\n    const float r = __ldg(rs + m);",
@@ -271,6 +277,49 @@ B2_FAULTS = [
      [("cls_logits.cu", "KW + g * W + j * 64,", "KW + ((g + 1) % ((H + NH - 1) / NH)) * W + j * 64,")]),
     ("P unnormalised", "P = exp(l - max), rounded, without the division by the sum",
      [("cls_logits.cu", "l[j] = round_to<bf16>(__fdiv_rn(l[j], sum));", "l[j] = round_to<bf16>(l[j]);")]),
+]
+# Faults planted in B2's float32 launches (cls_logits.cu's f32 route), each of which
+# chip_smoke.py's phase 4 must catch in its isolated f32 cases (cls_attention_isolated_f32,
+# against a float64 reference at twice the f32 plain version's error)
+CLS_LOGIT_F32 = "if ((lane & 3) == 0 && h < hv && j < S) lg[h * spad + j] = l * a.scale;"
+CLS_K_STEP = """            kv_f32_step<HD>(acc, ap, wp);
+#pragma unroll
+            for (int i = 0; i < NACC; ++i) sum[i] += acc[i];
+"""
+# the same passes straight into the running sum (kv_f32_step without its zeroing)
+CLS_K_ONE_ACC = """            wgmma_fence();
+#pragma unroll
+            for (int p = 0; p < 6; ++p)
+#pragma unroll
+              for (int kk = 0; kk < 2; ++kk) {
+                const uint64_t da = gmma_desc64(ap + pass_a(p) * f3::PLANE_A + kk * 32);
+                const uint64_t dw = gmma_desc(wp + pass_w(p) * NBH * F32_WBOX + kk * 2048,
+                                              F32_WBOX, 1024);
+                if constexpr (G::WIDE)
+                  wgmma_m64n80k16(sum, da, dw);
+                else
+                  wgmma_m64n64k16<1>(sum, da, dw);
+              }
+            wgmma_commit();
+            wgmma_wait<0>();
+"""
+B2_F32_FAULTS = [
+    ("kernel", "B2's f32 launches as they are: no case may fail", []),
+    ("uniform softmax", "every logit 0: P V the average of V",
+     [("cls_logits.cu", CLS_LOGIT_F32, CLS_LOGIT_F32.replace("= l * a.scale;", "= 0.f * l;"))]),
+    ("last key tile dropped", "the logits of the image's last 64-row tile -inf (where it has "
+     "more than one)",
+     [("cls_logits.cu", CLS_LOGIT_F32, CLS_LOGIT_F32.replace(
+         "= l * a.scale;", "= tile == ntiles - 1 && ntiles > 1 ? -INFINITY : l * a.scale;"))]),
+    ("another head's V", "the V planes of the next head group",
+     [("cls_logits.cu", "const int col0 = (c.set ? KW : 0) + g * W;",
+       "const int col0 = c.set ? KW + (g + 1) % groups * W : g * W;")]),
+    ("lo plane zeroed", "every weight's lo plane stored as zeros",
+     [("cls_logits.cu", "    for (int t = 0; t < 4; ++t) split_bf16x3(v[t], pl[0][t], pl[1][t], pl[2][t]);",
+       "    for (int t = 0; t < 4; ++t) split_bf16x3(v[t], pl[0][t], pl[1][t], pl[2][t]), pl[2][t] = 0.f;")]),
+    ("one accumulator over K", "K's and V's products into one accumulator over all of D, not a "
+     "sum of per-step sums",
+     [("cls_logits.cu", CLS_K_STEP, CLS_K_ONE_ACC)]),
 ]
 # The f32 split body (csrc/split6.cuh's gemm_split6_kernel, built through gemm.cu): a stage taken out, each
 # variant timed through vpt_gemm_f32 at ViT-B/16's four products (batch 16, S 197)
@@ -539,10 +588,11 @@ def main():
              "faults_split": ("layer", SPLIT_FAULTS, others("layer")),
              "split": ("attention", SPLIT_VARIANTS, ()),
              "faults_b2": ("cls_logits", B2_FAULTS, others("cls_logits")),
+             "faults_b2_f32": ("cls_logits", B2_F32_FAULTS, others("cls_logits")),
              "f32": ("gemm", F32_VARIANTS, ()),
              "faults_f32": ("gemm", F32_FAULTS, others("gemm"))}
     if "faults" in chosen:
-        chosen = chosen + ["faults_split", "faults_b2"]
+        chosen = chosen + ["faults_split", "faults_b2", "faults_b2_f32"]
     if "f32" in chosen:
         chosen = chosen + ["faults_f32"]
     if not set(chosen) <= set(plans):
@@ -576,6 +626,8 @@ def main():
             faults_report(build, libs["faults"], dev, ATTENTION_FAULTS, "attention_isolated")
             faults_report(build, libs["faults_split"], dev, SPLIT_FAULTS, "attention_isolated")
             faults_report(build, libs["faults_b2"], dev, B2_FAULTS, "cls_attention_isolated")
+            faults_report(build, libs["faults_b2_f32"], dev, B2_F32_FAULTS,
+                          "cls_attention_isolated_f32")
         if "f32" in libs:
             f32_report(libs["f32"], gen, dev, stream)
             faults_report(build, libs["faults_f32"], dev, F32_FAULTS, "f32_split_products")
@@ -712,8 +764,6 @@ def faults_report(build, libs: dict, dev, faults, cases: str):
     or phase 4's cls_attention_isolated) through the package's wrappers with
     each library of `faults` in the package's place: the real kernel must
     pass every case, each fault must fail at least one."""
-    import chip_smoke
-
     real, wrong = build.load_library, []
     try:
         for name, what, _ in faults:
@@ -903,7 +953,8 @@ def f32_times(res: dict, gen, dev):
     summed by by_family): B1 at ViT-B/16 batch 16 (the CLI's eval), DeiT-S
     batch 32 (the train steps) and the gate model at its batch 128, S 197 /
     197 / 65, 30% of the keys masked; B5 (12 layers) at DeiT-S batch 32; B2 at
-    DeiT-S batch 32, S 99; B3 at DeiT-S batch 32, S 197, capacity 99; B6 (6
+    DeiT-S batch 32, S 99, launch by launch too, beside chip_smoke.py's CLS-only
+    composition (cls_library); B3 at DeiT-S batch 32, S 197, capacity 99; B6 (6
     heads of 64, S 197) at DeiT-S batch 32, launch by launch too, beside f32
     scaled_dot_product_attention; B7 at DeiT-S batch 32 (6,304 rows)
     and ViT-H width (514 rows, D 1280, M 5120), B8b (f32 patches) and B8a
@@ -963,8 +1014,14 @@ def f32_times(res: dict, gen, dev):
     res["f32_b5_deit_s_b32_by_family_us"] = by_family(launch_profile(b5))
     lp = layer_slice(params["layers"], 0)
     x99 = torch.randn(32, 99, d, generator=gen).to(dev)
-    res["f32_b2_deit_s_b32_s99"] = time_ms(
-        lambda: kl.fused_vit_layer_cls_logits(x99, lp, params["ln_f"], params["head"], nh), iters=10)
+
+    def b2():
+        return kl.fused_vit_layer_cls_logits(x99, lp, params["ln_f"], params["head"], nh)
+
+    res["f32_b2_deit_s_b32_s99"] = time_ms(b2, iters=10)
+    res["f32_b2_deit_s_b32_s99_profile"] = launch_profile(b2)
+    composition = chip_smoke.cls_library(cfg, lp, params["ln_f"], params["head"])
+    res["f32_b2_deit_s_b32_s99_library"] = time_ms(lambda: composition(x99), iters=10)
     mask = masked(32, 197)
     dest = compact_dest(mask)
     res["f32_b3_deit_s_b32_cap99"] = time_ms(

@@ -1,8 +1,10 @@
 """Kernel B2 (the last layer's CLS row, the final LayerNorm and the
 classifier) on the CPU: its plain version, which the card holds the CUDA
-kernel (vit_pruning_tpu_torch/csrc/cls_logits.cu) to, against the JAX
-package's Pallas kernel in interpret mode where a broken softmax would show,
-and the Python mirror of the kernel's launch plan.
+kernel (vit_pruning_tpu_torch/csrc/cls_logits.cu) to, and a torch emulation
+of the kernel's float32 arithmetic (tests/torch_parity.py::
+cls_logits_f32_emulated: split-bf16 products with per-step sums), against
+the JAX package's Pallas kernel in interpret mode where a broken softmax
+would show, and the Python mirror of the kernel's launch plan.
 
 The weights make the CLS softmax peaked: W_q and W_k are redrawn at std
 1.6 / sqrt(D), so that q and k have about that std and the logits about
@@ -28,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import as_numpy, as_torch, jax_and_torch_params, randn
+from torch_parity import as_numpy, as_torch, cls_logits_f32_emulated, jax_and_torch_params, randn
 from vit_pruning_tpu.configs import ViTConfig, deit_small, vit_huge, vit_tiny
 from vit_pruning_tpu.models.vit import init_vit_params
 from vit_pruning_tpu.ops.pallas.layer import fused_vit_layer_cls_logits
@@ -90,6 +92,21 @@ def _cls_probs(x: torch.Tensor, lp: dict, num_heads: int, eps: float) -> torch.T
     return torch.softmax((q @ k.transpose(-1, -2))[:, :, 0] / k.shape[-1] ** 0.5, -1)
 
 
+@functools.lru_cache(maxsize=None)
+def _pallas(hd: int, s: int, dtype: str):
+    """(x [B, S, D] from a numpy seed, the Pallas kernel's logits in interpret
+    mode as f32 numpy), once a case: both tests below read them."""
+    cfg, layer, lnf, head = _model(hd)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jlp, _ = jax_and_torch_params(layer, jdt)
+    jf, _ = jax_and_torch_params({"ln_f": lnf, "head": head}, jdt)
+    x = randn(s, (BATCH, s, cfg.hidden_size))
+    want = np.asarray(fused_vit_layer_cls_logits(
+        jnp.asarray(x, jdt), jlp, jf["ln_f"], jf["head"], cfg.num_heads, eps=cfg.layernorm_eps,
+        interpret=True).astype(jnp.float32))
+    return x, want
+
+
 @pytest.mark.parametrize("hd, s, dtype", _cases(
     (80, (2, 17, 63, 64, 65, 128, 129, 257, 289), "float32"),
     (16, (17, 65, 129), "float32"), (32, (33, 65), "float32"), (64, (99, 128, 129, 577), "float32"),
@@ -99,14 +116,11 @@ def test_b2_plain_matches_pallas_with_a_peaked_softmax(hd, s, dtype):
     cfg, layer, lnf, head = _model(hd)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    jlp, tlp = jax_and_torch_params(layer, jdt)
-    jf, tf = jax_and_torch_params({"ln_f": lnf, "head": head}, jdt)
-    x = randn(s, (BATCH, s, cfg.hidden_size))
+    _, tlp = jax_and_torch_params(layer, jdt)
+    _, tf = jax_and_torch_params({"ln_f": lnf, "head": head}, jdt)
+    x, want = _pallas(hd, s, dtype)
     got = as_numpy(tl.fused_vit_layer_cls_logits_ref(
         as_torch(x, tdt), tlp, tf["ln_f"], tf["head"], cfg.num_heads, cfg.layernorm_eps))
-    want = np.asarray(fused_vit_layer_cls_logits(
-        jnp.asarray(x, jdt), jlp, jf["ln_f"], jf["head"], cfg.num_heads, eps=cfg.layernorm_eps,
-        interpret=True).astype(jnp.float32))
     if dtype == "float32":
         np.testing.assert_allclose(got, want, atol=F32_ATOL, rtol=F32_RTOL)
     else:
@@ -115,6 +129,56 @@ def test_b2_plain_matches_pallas_with_a_peaked_softmax(hd, s, dtype):
         p = _cls_probs(as_torch(x), jax_and_torch_params(layer)[1], cfg.num_heads,
                        cfg.layernorm_eps)
         assert float(p.amax(-1).median()) >= 5.0 / s
+
+
+def _logits64(x, lp, lnf, head, num_heads, eps):
+    """B2's function in float64: LN1, K and V of every token, q of the CLS row,
+    the softmax, P V, then O + residual, LN2, erf GELU MLP + residual, LN_f,
+    the classifier."""
+    def ln(t, p):
+        mean = t.mean(-1, keepdim=True)
+        return (t - mean) / torch.sqrt(((t - mean) ** 2).mean(-1, keepdim=True) + eps) * p["g"] + p["b"]
+
+    a, mlp = lp["attn"], lp["mlp"]
+    b, s, _ = x.shape
+    h = ln(x, lp["ln1"])
+    k, v = ((h @ a[n]["w"] + a[n]["b"]).reshape(b, s, num_heads, -1).transpose(1, 2) for n in "kv")
+    q = (h[:, :1] @ a["q"]["w"] + a["q"]["b"]).reshape(b, 1, num_heads, -1).transpose(1, 2)
+    p = torch.softmax((q @ k.transpose(-1, -2)) / k.shape[-1] ** 0.5, -1)
+    x1 = x[:, 0] + (p @ v).transpose(1, 2).reshape(b, -1) @ a["o"]["w"] + a["o"]["b"]
+    m1 = torch.nn.functional.gelu(ln(x1, lp["ln2"]) @ mlp["fc1"]["w"] + mlp["fc1"]["b"])
+    x2 = x1 + m1 @ mlp["fc2"]["w"] + mlp["fc2"]["b"]
+    return ln(x2, lnf) @ head["w"] + head["b"]
+
+
+@pytest.mark.parametrize("hd, s", [
+    (16, 1), (16, 17), (16, 65), (16, 129), (32, 65), (64, 99), (64, 129), (80, 17), (80, 65),
+    (80, 129), (80, 257)])
+def test_b2_f32_route_emulated_matches_pallas(hd, s):
+    """The CUDA kernel's float32 arithmetic (split-bf16 K / V / q and tail
+    products with 32-deep per-step sums, f32 logits, softmax and P V),
+    emulated in torch, against the Pallas kernel in f32 interpret mode at the
+    plain version's tolerance. Against the same function in float64 its
+    error (the norm of the difference over the reference's) is at most twice
+    the plain f32 version's, as phase 4 of chip_smoke.py holds the kernel;
+    with every weight's lo plane zeroed (a fault kernel_variants.py plants)
+    it is not."""
+    cfg, layer, lnf, head = _model(hd)
+    _, tlp = jax_and_torch_params(layer)
+    _, tf = jax_and_torch_params({"ln_f": lnf, "head": head})
+    x, want = _pallas(hd, s, "float32")
+    args = (as_torch(x), tlp, tf["ln_f"], tf["head"], cfg.num_heads, cfg.layernorm_eps)
+    got = cls_logits_f32_emulated(*args)
+    np.testing.assert_allclose(as_numpy(got), want, atol=F32_ATOL, rtol=F32_RTOL)
+    exact = _logits64(*jax.tree.map(lambda a: a.double(), args[:4]), cfg.num_heads,
+                      cfg.layernorm_eps)
+
+    def err(t):
+        return float(torch.linalg.vector_norm(t.double() - exact) / torch.linalg.vector_norm(exact))
+
+    plain = err(tl.fused_vit_layer_cls_logits_ref(*args))
+    assert err(got) <= 2.0 * plain
+    assert err(cls_logits_f32_emulated(*args, lo_planes=False)) > 2.0 * plain
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -157,19 +221,68 @@ def test_b2_bf16_plan_is_three_launches(hd, s, kv):
     assert tl.cls_v_mode(hd, s) == kv
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 80])
-def test_b2_f32_plan_is_pr1s_ten_launches(hd):
-    plan = tl.cls_logits_launches(torch.float32, hd, 99, 384)
-    assert plan == {**dict.fromkeys(tl.CLS_LAUNCH_KINDS, 0), "fma": 10}
+F32_KINDS = {"f32_split_planes": 1, "ln1_stats": 1, "f32_kv_attention_k_then_v": 1, "f32_tail": 1}
+
+
+@pytest.mark.parametrize("hd, s", [
+    (64, 1), (64, 17), (64, 33), (64, 64), (64, 65), (64, 99), (64, 128), (64, 129), (64, 197),
+    (64, 512), (64, 513), (64, 577), (16, 128), (16, 129), (32, 289), (80, 17), (80, 128),
+    (80, 129), (80, 257), (80, 384), (80, 385), (80, 577), (80, 785)])
+def test_b2_f32_plan_is_four_launches(hd, s):
+    """In f32 every call is the weights' split into planes, cls_ln1_stats, one
+    cls_kv_attention_f32 (V recomputed by a sweep of its own at every
+    length, wherever bf16 keeps it) and cls_tail_f32: four launches where
+    the first design made sixteen kernels; taken at every shape the bf16
+    plan takes, at any width, at least two stages of its ring at these
+    lengths."""
+    for width in (104, 384, 1280):
+        plan = tl.cls_logits_launches(torch.float32, hd, s, width)
+        assert plan == {**dict.fromkeys(tl.CLS_LAUNCH_KINDS, 0), **F32_KINDS}
+        assert tl.cls_logits_launches(torch.bfloat16, hd, s, width) is not None
+    assert sum(plan.values()) == 4
+    stages, size = tl.cls_kv_smem_f32(hd, s)
+    assert 2 <= stages <= tl.CLS_F32_MAX_STAGES and size <= tl.CLS_MAX_SMEM
 
 
 @pytest.mark.parametrize("dtype, hd, s", [
     (torch.bfloat16, 48, 99), (torch.bfloat16, 128, 99), (torch.bfloat16, 64, 0),
-    (torch.float16, 64, 99), (torch.bfloat16, 16, 9000), (torch.bfloat16, 80, 30000)])
+    (torch.float16, 64, 99), (torch.bfloat16, 16, 9000), (torch.bfloat16, 80, 30000),
+    (torch.float32, 48, 99), (torch.float32, 128, 99), (torch.float32, 64, 0),
+    (torch.float32, 16, 20000), (torch.float32, 80, 60000)])
 def test_b2_plan_refuses(dtype, hd, s):
     """A head dim the layer kernels do not take, no token, another dtype, or
     logits past the block's shared memory: no plan (the wrapper raises)."""
     assert tl.cls_logits_launches(dtype, hd, s, 1280) is None
+
+
+def test_b2_f32_plan_covers_the_bf16_plan():
+    """No shape that the bf16 plan takes is refused in f32: every head dim, S
+    from 1 to 799 and past the limits, the widths of D 100, DeiT-S and
+    ViT-H."""
+    for hd in (16, 32, 64, 80):
+        for s in list(range(1, 800)) + [4000, 4600, 8000, 9000, 11500, 11700, 16000, 30000]:
+            for width in (104, 384, 1280):
+                if tl.cls_logits_launches(torch.bfloat16, hd, s, width) is not None:
+                    assert tl.cls_logits_launches(torch.float32, hd, s, width) is not None
+
+
+def test_b2_f32_kv_launch_shared_memory():
+    """The f32 K/V launch's ring: four 48 KB stages (A's three planes [128][32]
+    and three planes of K or V and of q.w, one 4 KB box each) at hd <= 64,
+    three of 72 KB at hd 80 (two boxes each), beside 256 bytes of barriers,
+    the logits [images][heads][tiles * 64] f32, the P V partials [8][W] and
+    sums [2][W], q [2][W] and the biases [3][W]; no term of the width; one
+    stage where no more fits."""
+    # DeiT-S, S 99: one image an item, one head of 64, two 64-row tiles
+    assert tl.cls_kv_smem_f32(64, 99) == (4, 1024 + 4 * (3 * 8192 + 6 * 4096) + 256
+                                          + 128 * 4 + 15 * 64 * 4)
+    # ViT-H, S 257: W 80 in two 64-column boxes, five tiles
+    assert tl.cls_kv_smem_f32(80, 257) == (3, 1024 + 3 * (3 * 8192 + 12 * 4096) + 256
+                                           + 320 * 4 + 15 * 80 * 4)
+    # vit_tiny, S 17: two images an item, four heads of 16
+    assert tl.cls_kv_smem_f32(16, 17) == (4, 1024 + 4 * 49152 + 256 + 2 * 4 * 64 * 4
+                                          + 15 * 64 * 4)
+    assert tl.cls_kv_smem_f32(80, 30000)[0] == 1
 
 
 @pytest.mark.parametrize("width", [8, 384, 1280, 4096])
@@ -201,4 +314,6 @@ def test_b2_kv_launch_ring_depth():
 
 def test_b2_tally_has_every_kind():
     assert set(tl.cls_launches) == set(tl.CLS_LAUNCH_KINDS)
-    assert len(tl.CLS_LAUNCH_KINDS) == 6
+    assert len(tl.CLS_LAUNCH_KINDS) == 8
+    assert [k for k in tl.CLS_LAUNCH_KINDS if k.startswith("f32_")] == [
+        "f32_split_planes", "f32_kv_attention_k_then_v", "f32_tail"]

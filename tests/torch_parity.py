@@ -196,3 +196,51 @@ def split_attention_emulated(q, k, v, mask=None, counts=None, normalized=True,
     if not normalized:
         out = out * (1.0 / total)
     return out.to(q.dtype)
+
+
+def cls_logits_f32_emulated(x, layer: dict, lnf: dict, head: dict, num_heads: int,
+                            eps: float = 1e-12, passes=SPLIT6_PASSES, step: int = 32,
+                            lo_planes: bool = True) -> torch.Tensor:
+    """Kernel B2's float32 route (csrc/cls_logits.cu) in torch, on x [B, S, D]
+    f32: LN1 in f32; K and V of every token and q of the CLS row as the split
+    body forms them (split6_product: both operands split into three bf16
+    planes, the `passes` of each `step`-deep k-step summed, each step's sum
+    added to a running f32 sum) + bias; the CLS logits q . k in f32 times
+    1 / sqrt(hd); P = exp(l - max) / sum; ctx = P V; then the tail with every
+    product split the same way: x1 = x_cls + (ctx Wo + bo), LN2, erf GELU(h W1
+    + b1), x2 = x1 + (m1 W2 + b2), LN_f, the classifier. lo_planes False
+    zeroes every weight's lo plane (a planted fault). Returns [B, labels]."""
+    def prod(a, w):
+        if not lo_planes:
+            hi, mid, _ = split_bf16x3(w)
+            w = hi.float() + mid.float()
+        out = torch.zeros((*a.shape[:-1], w.shape[1]), dtype=torch.float32)
+        pa = [t.float() for t in split_bf16x3(a)]
+        pw = [t.float() for t in split_bf16x3(w)]
+        for k0 in range(0, a.shape[-1], step):
+            acc = torch.zeros_like(out)
+            for i, j in passes:
+                acc = acc + pa[i][..., k0:k0 + step] @ pw[j][k0:k0 + step]
+            out = out + acc
+        return out
+
+    def ln(t, p):
+        mean = t.mean(-1, keepdim=True)
+        var = ((t - mean) ** 2).mean(-1, keepdim=True)
+        return (t - mean) * torch.rsqrt(var + eps) * p["g"].float() + p["b"].float()
+
+    a, mlp = layer["attn"], layer["mlp"]
+    b, s, _ = x.shape
+    h1 = ln(x.float(), layer["ln1"])
+    k, v = ((prod(h1, a[n]["w"].float()) + a[n]["b"].float()).reshape(b, s, num_heads, -1)
+            .transpose(1, 2) for n in "kv")  # [B, H, S, hd]
+    q = (prod(h1[:, :1], a["q"]["w"].float()) + a["q"]["b"].float()).reshape(
+        b, 1, num_heads, -1).transpose(1, 2)
+    logits = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(k.shape[-1]))
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    ctx = ((e / e.sum(-1, keepdim=True)) @ v).transpose(1, 2).reshape(b, -1)
+    x1 = x[:, 0].float() + (prod(ctx, a["o"]["w"].float()) + a["o"]["b"].float())
+    m1 = torch.nn.functional.gelu(prod(ln(x1, layer["ln2"]), mlp["fc1"]["w"].float())
+                                  + mlp["fc1"]["b"].float())
+    x2 = x1 + (prod(m1, mlp["fc2"]["w"].float()) + mlp["fc2"]["b"].float())
+    return prod(ln(x2, lnf), head["w"].float()) + head["b"].float()

@@ -17,10 +17,10 @@
 // What bounds it on an H100: the K/V product over every token is almost all
 // of the operations (DeiT-S, S 99, batch 512: 2 B S D 2KW = 30 GFLOP) and x
 // and the weights are its bytes, so the least time is that product at the
-// bf16 peak (~0.03 ms). Everything else works on the B CLS rows. PR 1's
-// design wrote K and V of every token to device memory and read them back
-// with one 32-thread block per (head, image) on the CUDA cores, in ten
-// launches.
+// bf16 peak (~0.03 ms; in float32 six bf16 passes, split6.cuh). Everything
+// else works on the B CLS rows. Both dtypes keep K and V out of device
+// memory (a first design wrote them there and read them back with one
+// 32-thread block per (head, image) on the CUDA cores, in ten launches).
 //
 // bfloat16: three launches.
 //   1. cls_ln1_stats: LN1's row statistics (mean, 1/sqrt(var + eps), as
@@ -58,10 +58,37 @@
 //      of the rows' LayerNorms, with cluster barriers between the phases.
 //      Every output value is computed by one block in a fixed order: no
 //      atomics, the same bits on every call (the serving export relies on it).
-// float32: ten steps (LN1, the K/V and Q products, the CLS attention on the
-// CUDA cores, O, LN2, fc1, fc2, LN_f, classifier), counted as ten launches of
-// the kind FMA; the six products run gemm.cu's split body on wgmma, each
-// after its W's split into bf16 planes (sixteen kernels in all).
+// float32: four launches, the bf16 design on split6.cuh's arithmetic (every
+// f32 operand of a product split exactly into hi + mid + lo bf16 planes, six
+// wgmma passes a 32-deep k-step, small terms first, each step's sum added to
+// a running f32 sum in registers: f32 accuracy on the tensor cores).
+//   1. cls_split_planes: the six f32 weights (q, kv, o, fc1, fc2, the
+//      classifier) into their planes in the caller's workspace, one launch.
+//   2. cls_ln1_stats, as bf16's, on f32 x.
+//   3. cls_kv_attention_f32: persistent, the bf16 launch's items. Eight
+//      producer warps read each step's x rows [128 x 32] in f32 straight from
+//      device memory (the next step's loads in flight), apply LN1 from launch
+//      1's statistics and split them into the stage's A planes (split6.cuh's
+//      layout); one of their threads brings W's planes by TMA. Two sweeps an
+//      item: K (and, in the pass that holds the CLS row, q) whose epilogue dots
+//      K + bias with q into the logits in shared memory, then the softmax (P =
+//      e / sum, correctly rounded), then V, whose epilogue adds P V into
+//      per-warp partials summed in a fixed order. V is recomputed by its own
+//      sweep at every length: the two sweeps together do the work of one K|V
+//      product (each an n64 or n80 product where bf16's is n128 or two n80),
+//      while keeping V (its f32 rows in registers or shared memory) would need
+//      the registers or the ring that the split takes. K and V never reach
+//      device memory; ctx [B, KW] is written as its three planes, the tail's A
+//      operand.
+//   4. cls_tail_f32: bf16's tail with split products: A's planes (ctx, LN2's
+//      and LN_f's outputs, the GELU output: each written as planes by the
+//      phase before) and W's by TMA, 64-deep stages of two 32-deep steps, two
+//      consumer warpgroups (one a 64-column half of each tile); erf GELU; the
+//      logits in f32. A product with fewer 128-column tiles than the cluster
+//      has blocks splits its k-boxes over them (O, fc2, the classifier at
+//      DeiT-S); the ranges' partial sums go through device memory and are
+//      added in a fixed order after a cluster barrier: the same bits on every
+//      call.
 // Each launch is counted by kind (vpt_cls_logits_launch_counts), and
 // vpt_cls_logits_plan gives the kinds a call launches (mirrored by
 // ops/cuda/layer.py::cls_logits_launches).
@@ -71,6 +98,7 @@
 #include <initializer_list>
 
 #include "common.cuh"
+#include "split6.cuh"
 #include "wgmma.cuh"
 
 namespace vpt {
@@ -85,8 +113,10 @@ enum Kind {
   KV_V_SHARED = 2,
   KV_V_RECOMPUTED = 3,
   TAIL = 4,
-  FMA = 5,
-  KINDS = 6
+  F32_SPLIT_PLANES = 5,
+  F32_KV_K_THEN_V = 6,
+  F32_TAIL = 7,
+  KINDS = 8
 };
 // where launch 2 keeps V: the accumulators (one pass), shared memory, or a
 // second sweep that recomputes it
@@ -158,6 +188,68 @@ struct Kv {
   static constexpr int STAGE = (2 + 3 * NBH) * BOX;
 };
 
+// float32's launch 3 (cls_kv_attention_f32): a stage is one 32-deep k-step, A's three
+// planes [128 rows][32 k] (split6.cuh's layout, 8 KB each), then the three planes of
+// one operand, K or V (NBH boxes [32 k][64 n] of 4 KB each), and q.w's three; up to
+// four stages, at least one
+constexpr int F32_BK = 32;
+constexpr int F32_WBOX = F32_BK * 64 * 2;
+constexpr int kF32MaxStages = 4;
+__host__ __device__ constexpr int f32_w_off() { return 3 * f3::PLANE_A; }
+__host__ __device__ constexpr int f32_stage(int hd) {
+  return f32_w_off() + 2 * 3 * kv_nbh(hd) * F32_WBOX;
+}
+// its shared memory from a 1024-byte boundary: the ring, the barriers (256
+// bytes), the logits [images][heads][tiles * 64] f32, the P V partials [8][W]
+// and sums [2][W], q [2][W] and the group's K, V and q biases [3][W], f32
+struct KvF32Smem {
+  int st;
+  size_t bars, logits, part, q, bias, total;
+  __host__ __device__ KvF32Smem(int hd, int S) {
+    const int w = kv_width(hd), spad = kv_tiles(S) * 64;
+    const size_t lbytes = (size_t)kv_images(S) * kv_heads(hd) * spad * 4;
+    const size_t fixed = 1024 + 256 + lbytes + (size_t)15 * w * 4;
+    const long room = (long)kMaxSmem - (long)fixed;
+    const long fit = room > 0 ? room / f32_stage(hd) : 0;
+    st = static_cast<int>(fit < kF32MaxStages ? fit : kF32MaxStages);
+    bars = (size_t)st * f32_stage(hd);
+    logits = bars + 256;
+    part = logits + lbytes;
+    q = part + (size_t)10 * w * 4;
+    bias = q + (size_t)2 * w * 4;
+    total = 1024 + bias + (size_t)3 * w * 4;
+  }
+  __host__ __device__ bool fits() const { return st >= 1 && total <= kMaxSmem; }
+};
+// the six passes of a k-step (A plane, W plane), 0 hi, 1 mid, 2 lo: lo.hi, hi.lo,
+// mid.mid, mid.hi, hi.mid, hi.hi (split6.cuh's order, the small terms first)
+__host__ __device__ constexpr int pass_a(int p) { return p == 0 ? 2 : p == 2 || p == 3 ? 1 : 0; }
+__host__ __device__ constexpr int pass_w(int p) { return p == 1 ? 2 : p == 2 || p == 4 ? 1 : 0; }
+
+template <int HD>
+struct KvF32 {
+  static_assert(layer_head_dim_ok(HD), "a head dim the layer kernels take");
+  static constexpr int NH = kv_heads(HD), W = kv_width(HD), NBH = kv_nbh(HD);
+  static constexpr bool WIDE = HD > 64;  // hd 80: n80 products
+  static constexpr int NACC = W / 2;     // accumulators of an m64nW product a thread
+  static constexpr int NCP = W / 4;      // V columns a thread holds in P V
+  static constexpr int STAGE = f32_stage(HD);
+  // two consumer warpgroups, eight producer warps (a 17th warp would cut every
+  // warp's registers to 96: five warps on one of the SM's four register files)
+  static constexpr int CONSUMERS = 256, PRODUCERS = 256, THREADS = CONSUMERS + PRODUCERS;
+  // registers after setmaxnreg (the pair sums to 2 x 128, the launch's share): the
+  // consumers hold a step's product, its running sum and q's running sum, the
+  // producers two steps of x, statistics, g and b
+  static constexpr int CONSUMER_REGS = WIDE ? 160 : 152, PRODUCER_REGS = 256 - CONSUMER_REGS;
+};
+
+// float32's launch 4 (cls_tail_f32): a stage is one 64-deep box of A's three planes
+// [64 rows][64 k] and W's three [64 k][128 n] (nine boxes, 72 KB), three stages
+constexpr int TAIL32_STAGES = 3;
+constexpr int TAIL32_STAGE = 9 * BOX;
+constexpr int TAIL32_THREADS = 288;  // two consumer warpgroups and a producer warp
+constexpr size_t TAIL32_SMEM = 1024 + (size_t)TAIL32_STAGES * TAIL32_STAGE + 2 * TAIL32_STAGES * 8;
+
 // launch 3
 constexpr int TAIL_STAGES = 6;  // 144 KB: one block an SM
 constexpr int TAIL_STAGE = 3 * BOX;  // the A box [64 rows x 64 k] and two W boxes [64 k x 64 n]
@@ -183,12 +275,12 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 
 // ---------------------------------------------------------------------------
 // Launch 1: LN1's statistics of every token. A warp takes ROWS rows at once
-// (their loads all in flight together), a lane the 16-byte chunks lane, lane +
+// (their loads all in flight together), a lane the 8-value chunks lane, lane +
 // 32, .. of each (NCH of them: D <= 256 NCH), kept in registers; two passes
 // (the mean, then mean((x - mean)^2) over the first dn values) as ln_stats.
-template <int NCH, int ROWS>
+template <typename Tin, int NCH, int ROWS>
 __global__ void __launch_bounds__(256)
-cls_ln1_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats, long rows, int D,
+cls_ln1_stats_kernel(const Tin* __restrict__ x, float2* __restrict__ stats, long rows, int D,
                      int DN, float eps) {
   const long row0 = ((long)blockIdx.x * 8 + (threadIdx.x >> 5)) * ROWS;
   const int lane = threadIdx.x & 31;
@@ -227,8 +319,9 @@ cls_ln1_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats, lon
 }
 
 // rows too wide for the registers: layer.cu's ln_stats, a warp a row
+template <typename Tin>
 __global__ void __launch_bounds__(256)
-cls_ln1_stats_wide_kernel(const bf16* __restrict__ x, float2* __restrict__ stats, long rows, int D,
+cls_ln1_stats_wide_kernel(const Tin* __restrict__ x, float2* __restrict__ stats, long rows, int D,
                           int DN, float eps) {
   const long row = (long)blockIdx.x * 8 + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -237,7 +330,8 @@ cls_ln1_stats_wide_kernel(const bf16* __restrict__ x, float2* __restrict__ stats
   if ((threadIdx.x & 31) == 0) stats[row] = make_float2(mean, rs);
 }
 
-cudaError_t ln1_stats(const bf16* x, float2* stats, long rows, int D, int DN, float eps,
+template <typename Tin>
+cudaError_t ln1_stats(const Tin* x, float2* stats, long rows, int D, int DN, float eps,
                       cudaStream_t st) {
   const int nch = (D + 255) / 256;
   auto go = [&](auto kernel, int rows_a_warp) {
@@ -246,13 +340,13 @@ cudaError_t ln1_stats(const bf16* x, float2* stats, long rows, int D, int DN, fl
     return cudaGetLastError();
   };
   switch (nch) {  // about 32 values a lane in flight
-    case 1: return go(cls_ln1_stats_kernel<1, 4>, 4);
-    case 2: return go(cls_ln1_stats_kernel<2, 2>, 2);
-    case 3: return go(cls_ln1_stats_kernel<3, 2>, 2);
-    case 4: return go(cls_ln1_stats_kernel<4, 1>, 1);
-    case 5: return go(cls_ln1_stats_kernel<5, 1>, 1);
-    case 6: return go(cls_ln1_stats_kernel<6, 1>, 1);
-    default: return go(cls_ln1_stats_wide_kernel, 1);
+    case 1: return go(cls_ln1_stats_kernel<Tin, 1, 4>, 4);
+    case 2: return go(cls_ln1_stats_kernel<Tin, 2, 2>, 2);
+    case 3: return go(cls_ln1_stats_kernel<Tin, 3, 2>, 2);
+    case 4: return go(cls_ln1_stats_kernel<Tin, 4, 1>, 1);
+    case 5: return go(cls_ln1_stats_kernel<Tin, 5, 1>, 1);
+    case 6: return go(cls_ln1_stats_kernel<Tin, 6, 1>, 1);
+    default: return go(cls_ln1_stats_wide_kernel<Tin>, 1);
   }
 }
 
@@ -897,148 +991,773 @@ cudaError_t cls_logits_bf16(const bf16* x, const bf16* ln1g, const bf16* ln1b, c
 }
 
 // ---------------------------------------------------------------------------
-// float32: PR 1's design. The CLS attention, one warp per (head, image): each
-// lane reads its keys (j = lane, lane + 32, ...) from the K/V buffer; up to
-// kResidentSeq keys a lane keeps its logits in registers, past it
-// (cls_attention_long_kernel) in a dynamic shared row [S]; both sum in the
-// same order.
+// float32, launch 1: the six weights' planes. Weight y of `jobs` (blockIdx.y)
+// [K, N] into its hi, mid and lo planes [3][K][ldp] (ldp: N rounded up to 8,
+// zeros past N), four values a thread over a grid-strided loop, as split6.cuh's
+// split_planes_kernel does for one weight.
+struct PlaneJob {
+  const float* w;
+  bf16* planes;
+  long ldp;
+  int K, N, wide;
+};
+struct PlaneJobs {
+  PlaneJob j[6];
+};
 
-// the context row from P [S] (normalised) in shared memory
-template <int HD>
-__device__ __forceinline__ void cls_pv(const float* ps, const float* kb, float* ctx, int S, int KW) {
-  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
-  for (int d = lane; d < HD; d += 32) {
-    float o = 0.f;
-    for (int j = 0; j < S; ++j) o = fmaf(ps[j], kb[(long)j * 2 * KW + KW + d], o);
-    ctx[(long)b * KW + h * HD + d] = o;
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ float cls_logit(const float* qs, const float* kb, int j, int KW,
-                                           float scale) {
-  const float* kr = kb + (long)j * 2 * KW;
-  float acc = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < HD; ++d) acc = fmaf(qs[d], kr[d], acc);
-  return acc * scale;
-}
-
-template <int HD>
-__global__ void cls_attention_kernel(const float* __restrict__ q, const float* __restrict__ kv,
-                                     float* __restrict__ ctx, int S, int KW, float scale) {
-  __shared__ float qs[HD];
-  __shared__ float ps[kResidentSeq];
-  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
-  for (int d = lane; d < HD; d += 32) qs[d] = q[(long)b * KW + h * HD + d];
-  __syncwarp();
-  const float* kb = kv + (long)b * S * 2 * KW + h * HD;
-  float l[kResidentChunks];
-  float mx = -INFINITY;
+__global__ void __launch_bounds__(256)
+cls_split_planes_kernel(const __grid_constant__ PlaneJobs jobs) {
+  const PlaneJob& J = jobs.j[blockIdx.y];
+  const long n = (long)J.K * J.ldp;
+  for (long i = 4 * ((long)blockIdx.x * blockDim.x + threadIdx.x); i < n;
+       i += 4L * gridDim.x * blockDim.x) {
+    const long k = i / J.ldp;
+    const int c = static_cast<int>(i - k * J.ldp);  // a multiple of 4, as ldp is
+    const float* row = J.w + k * J.N;
+    float v[4];
+    if (J.wide && c + 4 <= J.N) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(row + c));
+      v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+    } else {
 #pragma unroll
-  for (int c = 0; c < kResidentChunks; ++c) {
-    const int j = c * 32 + lane;
-    l[c] = 0.f;
-    if (j < S) {
-      l[c] = cls_logit<HD>(qs, kb, j, KW, scale);
-      mx = fmaxf(mx, l[c]);
+      for (int t = 0; t < 4; ++t) v[t] = c + t < J.N ? __ldg(row + c + t) : 0.f;
+    }
+    float pl[3][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) split_bf16x3(v[t], pl[0][t], pl[1][t], pl[2][t]);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      uint2 u;
+      u.x = pack_bf16x2(pl[p][0], pl[p][1]);
+      u.y = pack_bf16x2(pl[p][2], pl[p][3]);
+      *reinterpret_cast<uint2*>(J.planes + p * n + i) = u;
     }
   }
-  mx = warp_max(mx);
-  float sum = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// float32, launch 3: LN1, the K and V products, q and the CLS attention. The
+// bf16 launch's items (one image of one head group, two where S <= 64, one a
+// warpgroup), two sweeps each: set 0 runs K (and, in the pass that holds the
+// CLS row, q), set 1 runs V; each sweep its passes of 128 rows (two 64-row
+// tiles), each pass its 32-deep k-steps. Threads: two consumer warpgroups,
+// then eight producer warps.
+
+struct KvF32Args {
+  const float* x;
+  const float2* stats;
+  const float *ln1g, *ln1b, *bkv, *bq;
+  bf16* ctxp;  // ctx's planes [3][B][KW]
+  int B, S, D, H;
+  float scale;
+};
+
+// d = the six passes of one 32-deep step over A's planes at a (this
+// warpgroup's 64 rows) and W's at w (NBH boxes a plane), from zero; waited for
+template <int HD>
+__device__ __forceinline__ void kv_f32_step(float (&d)[cls::KvF32<HD>::NACC], uint32_t a,
+                                            uint32_t w) {
+  using G = cls::KvF32<HD>;
 #pragma unroll
-  for (int c = 0; c < kResidentChunks; ++c) {
-    l[c] = c * 32 + lane < S ? expf(l[c] - mx) : 0.f;
-    sum += l[c];
-  }
-  sum = warp_sum(sum);
+  for (int i = 0; i < G::NACC; ++i) d[i] = 0.f;
+  wgmma_fence();
 #pragma unroll
-  for (int c = 0; c < kResidentChunks; ++c) {
-    const int j = c * 32 + lane;
-    if (j < S) ps[j] = l[c] / sum;  // normalised (TPU B2)
+  for (int p = 0; p < 6; ++p) {
+    const uint32_t ap = a + cls::pass_a(p) * f3::PLANE_A;
+    const uint32_t wp = w + cls::pass_w(p) * G::NBH * cls::F32_WBOX;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint64_t da = gmma_desc64(ap + kk * 32);
+      const uint64_t dw = gmma_desc(wp + kk * 2048, cls::F32_WBOX, 1024);
+      if constexpr (G::WIDE)
+        wgmma_m64n80k16(d, da, dw);
+      else
+        wgmma_m64n64k16<1>(d, da, dw);
+    }
   }
-  __syncwarp();
-  cls_pv<HD>(ps, kb, ctx, S, KW);
+  wgmma_commit();
+  wgmma_wait<0>();
 }
 
 template <int HD>
-__global__ void cls_attention_long_kernel(const float* __restrict__ q, const float* __restrict__ kv,
-                                          float* __restrict__ ctx, int S, int KW, float scale) {
-  __shared__ float qs[HD];
-  extern __shared__ float pl[];  // [S]
-  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
-  for (int d = lane; d < HD; d += 32) qs[d] = q[(long)b * KW + h * HD + d];
-  __syncwarp();
-  const float* kb = kv + (long)b * S * 2 * KW + h * HD;
-  float mx = -INFINITY;
-  for (int j = lane; j < S; j += 32) {
-    pl[j] = cls_logit<HD>(qs, kb, j, KW, scale);
-    mx = fmaxf(mx, pl[j]);
+__global__ void __launch_bounds__(cls::KvF32<HD>::THREADS, 1)
+cls_kv_attention_f32_kernel(const __grid_constant__ CUtensorMap tw,
+                            const __grid_constant__ CUtensorMap twq, const KvF32Args a) {
+  using namespace cls;
+  using G = KvF32<HD>;
+  constexpr int NH = G::NH, W = G::W, NBH = G::NBH, NACC = G::NACC, NCP = G::NCP;
+  constexpr int STAGE = G::STAGE, CONSUMERS = G::CONSUMERS, PRODUCERS = G::PRODUCERS;
+  extern __shared__ unsigned char csm[];
+  const uint32_t raw = smem_u32(csm);
+  unsigned char* base = csm + (((raw + 1023) & ~1023u) - raw);
+  const int B = a.B, S = a.S, D = a.D, H = a.H, KW = H * HD;
+  const int ntiles = kv_tiles(S), spad = ntiles * 64;
+  const KvF32Smem lay(HD, S);
+  const int ST = lay.st;
+  unsigned char* ring = base;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + lay.bars);
+  uint64_t* empty = full + ST;
+  float* logit = reinterpret_cast<float*>(base + lay.logits);  // [images][NH][spad]: logits, then P
+  float* part = reinterpret_cast<float*>(base + lay.part);     // [8][W], then sums [2][W]
+  float* qs = reinterpret_cast<float*>(base + lay.q);          // [2][W]
+  float* bias = reinterpret_cast<float*>(base + lay.bias);     // the group's K, V, q biases [3][W]
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warpgroup, as a value the compiler knows to be the same across the warp: a
+  // wgmma under a condition it cannot prove uniform is serialized (ptxas C7520)
+  const int wgi = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int groups = (H + NH - 1) / NH, images = kv_images(S), packed = images == 2;
+  const int npass = kv_passes(S), nk = (D + F32_BK - 1) / F32_BK;
+  const int nim = (B + images - 1) / images, nitems = groups * nim;
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(smem_u32(full + s), 1 + PRODUCERS);  // + the TMA's expected bytes
+      mbar_init(smem_u32(empty + s), CONSUMERS / 32);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  mx = warp_max(mx);
-  float sum = 0.f;
-  for (int j = lane; j < S; j += 32) {
-    pl[j] = expf(pl[j] - mx);
-    sum += pl[j];
+  __syncthreads();
+
+  if (wgi >= CONSUMERS / 128) {  // --- producers ---
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(G::PRODUCER_REGS));
+    // thread pt takes rows pt / 4 and pt / 4 + 64 of a pass's 128 (one in each
+    // warpgroup's tile) and the 8 values from k = 8 (pt % 4) of each step
+    const int pt = tid - CONSUMERS, rw = pt >> 2, ch = pt & 3;
+    struct Step {
+      int item, set, pass, kc;
+    };
+    auto advance = [&](Step& c) {
+      if (++c.kc < nk) return;
+      c.kc = 0;
+      if (++c.pass < npass) return;
+      c.pass = 0;
+      if (++c.set < 2) return;
+      c.set = 0;
+      c.item += gridDim.x;
+    };
+    // a step's x values, its rows' statistics (rs < 0: a row past S or B, whose
+    // values are zeros) and its 8 columns of LN1's g and b (zeros past D)
+    struct Loaded {
+      float v[2][8], g[8], b[8];
+      float2 m[2];
+    };
+    auto load = [&](const Step& c, Loaded& l) {
+      const int b0 = (c.item % nim) * images, k = c.kc * F32_BK + ch * 8;
+      load8_f32(a.ln1g, k, D, true, l.g);
+      load8_f32(a.ln1b, k, D, true, l.b);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int bw = b0 + (packed ? i : 0), tile = packed ? 0 : 2 * c.pass + i;
+        const int tok = tile * 64 + rw;
+        if (bw < B && tile < ntiles && tok < S) {
+          const long row = (long)bw * S + tok;
+          load8_f32(a.x + row * D, k, D, true, l.v[i]);
+          l.m[i] = a.stats[row];
+        } else {
+#pragma unroll
+          for (int t = 0; t < 8; ++t) l.v[i][t] = 0.f;
+          l.m[i] = make_float2(0.f, -1.f);
+        }
+      }
+    };
+    int step = 0;
+    // LN1 applied, split into the stage's A planes; W's planes by TMA (thread 0)
+    auto produce = [&](const Step& c, const Loaded& l) {
+      const int s = step % ST;
+      if (step >= ST) mbar_wait(smem_u32(empty + s), ((step / ST) - 1) & 1);
+      unsigned char* st = ring + s * STAGE;
+      const uint32_t fb = smem_u32(full + s);
+      if (pt == 0) {  // W's planes: K or V, and q.w in the K sweep's first pass
+        const int g = c.item / nim;
+        const bool withq = c.set == 0 && c.pass == 0;
+        mbar_arrive_expect(fb, (withq ? 2 : 1) * 3 * NBH * F32_WBOX);
+        const int col0 = (c.set ? KW : 0) + g * W;
+        for (int p = 0; p < 3; ++p)
+          for (int j = 0; j < NBH; ++j) {
+            tma_load_3d(smem_u32(st + f32_w_off() + (p * NBH + j) * F32_WBOX), &tw, fb,
+                        col0 + j * 64, c.kc * F32_BK, p);
+            if (withq)
+              tma_load_3d(smem_u32(st + f32_w_off() + ((3 + p) * NBH + j) * F32_WBOX), &twq,
+                          fb, g * W + j * 64, c.kc * F32_BK, p);
+          }
+      }
+      float h[2][8];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int t = 0; t < 8; ++t)  // LN1
+          h[i][t] = l.m[i].y < 0.f ? 0.f : (l.v[i][t] - l.m[i].x) * l.m[i].y * l.g[t] + l.b[t];
+      store_split_share(st, h, pt);
+      // the generic-proxy stores become visible to wgmma (the async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(fb);
+      ++step;
+    };
+    // two steps of loads in flight: the next one's while this one is split
+    Step c{static_cast<int>(blockIdx.x), 0, 0, 0};
+    Loaded l0, l1;
+    load(c, l0);
+    for (;;) {
+      Step n = c;
+      advance(n);
+      const bool more = n.item < nitems;
+      if (more) load(n, l1);
+      produce(c, l0);
+      if (!more) break;
+      c = n;
+      advance(c);
+      const bool more2 = c.item < nitems;
+      if (more2) load(c, l0);
+      produce(n, l1);
+      if (!more2) break;
+    }
+    return;
   }
-  sum = warp_sum(sum);
-  for (int j = lane; j < S; j += 32) pl[j] = pl[j] / sum;
-  __syncwarp();
-  cls_pv<HD>(pl, kb, ctx, S, KW);
+
+  // --- consumers: warpgroup wg takes tile 2 pass + wg of the item's image, or
+  // (packed) the one tile of the item's image wg ---
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(G::CONSUMER_REGS));
+  const int warp = tid >> 5, wg = wgi, wl = warp & 3, ct = tid & 127;
+  // the named barrier and the threads that take one image's epilogue together
+  const int sid = packed ? 1 + wg : 3, sthreads = packed ? 128 : CONSUMERS;
+  const int stid = packed ? ct : tid;
+  float* lg = logit + (packed ? wg : 0) * NH * spad;
+  float* qw = qs + (packed ? wg : 0) * W;
+  float* cacc = part + 8 * W + (packed ? wg : 0) * W;
+  float acc[NACC], sum[NACC], sumq[NACC];
+  int step = 0, gprev = -1;
+  for (int item = blockIdx.x; item < nitems; item += gridDim.x) {
+    const int g = item / nim, b = (item % nim) * images + (packed ? wg : 0);
+    const bool real = b < B;
+    const int hv = min(NH, H - g * NH), wv = hv * HD;  // heads and columns of this group
+    for (int c = stid; c < W; c += sthreads) cacc[c] = 0.f;
+    if (g != gprev) {  // the group's biases (the previous item's readers are past the
+                       // syncs of its epilogue; CONSUMERS-wide below)
+      named_sync(3, CONSUMERS);
+      for (int c = tid; c < W; c += CONSUMERS) {
+        const bool in = c < wv;
+        bias[c] = in ? a.bkv[g * W + c] : 0.f;
+        bias[W + c] = in ? a.bkv[KW + g * W + c] : 0.f;
+        bias[2 * W + c] = in ? a.bq[g * W + c] : 0.f;
+      }
+      named_sync(3, CONSUMERS);
+      gprev = g;
+    }
+    named_sync(sid, sthreads);
+    for (int set = 0; set < 2; ++set) {
+      for (int pass = 0; pass < npass; ++pass) {
+        const int tile = packed ? 0 : 2 * pass + wg;
+        const bool active = real && tile < ntiles;
+        const bool withq = set == 0 && tile == 0;  // this warpgroup holds the CLS row
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) sum[i] = sumq[i] = 0.f;
+        for (int kc = 0; kc < nk; ++kc, ++step) {
+          const int s = step % ST;
+          mbar_wait(smem_u32(full + s), (step / ST) & 1);
+          if (active) {
+            const uint32_t st = smem_u32(ring + s * STAGE);
+            const uint32_t ap = st + wg * (64 * 64), wp = st + 3 * f3::PLANE_A;
+            // each step's passes start from zero, added into the running sum in f32
+            kv_f32_step<HD>(acc, ap, wp);
+#pragma unroll
+            for (int i = 0; i < NACC; ++i) sum[i] += acc[i];
+            if (withq) {
+              kv_f32_step<HD>(acc, ap, wp + 3 * NBH * F32_WBOX);
+#pragma unroll
+              for (int i = 0; i < NACC; ++i) sumq[i] += acc[i];
+            }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(smem_u32(empty + s));
+        }
+
+        // the thread's rows: rbase + 8 ((i / 2) % 2)
+        const int rbase = tile * 64 + wl * 16 + (lane >> 2);
+        if (set == 0) {
+          if (withq && active && wl == 0 && lane < 4)  // q of the CLS row (row 0)
+#pragma unroll
+            for (int i = 0; i < NACC; ++i)
+              if (((i >> 1) & 1) == 0 && acc_col(i) < wv)
+                qw[acc_col(i)] = sumq[i] + bias[2 * W + acc_col(i)];
+          named_sync(sid, sthreads);
+          if (active) {
+            float lp[2][NH];
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int h = 0; h < NH; ++h) lp[r][h] = 0.f;
+#pragma unroll
+            for (int i = 0; i < NACC; ++i) {
+              // an 8-column block lies in one head: h is known at compile time
+              const int col = acc_col(i), h = 8 * (i >> 2) / HD, r = (i >> 1) & 1;
+              if (col < wv) lp[r][h] = fmaf(qw[col], sum[i] + bias[col], lp[r][h]);
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int h = 0; h < NH; ++h) {
+                const float l = cls_quad_sum(lp[r][h]);
+                const int j = rbase + 8 * r;
+                if ((lane & 3) == 0 && h < hv && j < S) lg[h * spad + j] = l * a.scale;
+              }
+          }
+          if (pass == npass - 1) {  // every logit is in: the softmax, one warp a head
+            named_sync(sid, sthreads);
+            const int sw = packed ? wl : warp;  // the warp's index in its image's warps
+            if (real && sw < hv) {
+              float* l = lg + sw * spad;
+              float mx = -INFINITY;
+              for (int j = lane; j < S; j += 32) mx = fmaxf(mx, l[j]);
+              mx = warp_max(mx);
+              float se = 0.f;
+              for (int j = lane; j < S; j += 32) {
+                const float e = expf(l[j] - mx);
+                l[j] = e;
+                se += e;
+              }
+              se = warp_sum(se);
+              for (int j = lane; j < S; j += 32) l[j] = __fdiv_rn(l[j], se);
+            }
+            named_sync(sid, sthreads);
+          }
+        } else {
+          // P V from this pass's V rows: each column's sum over this thread's two
+          // rows, then over the warp's rows (lanes of equal lane % 4), per warp
+          float cp[NCP];
+#pragma unroll
+          for (int c = 0; c < NCP; ++c) cp[c] = 0.f;
+          if (active) {
+#pragma unroll
+            for (int i = 0; i < NACC; ++i) {
+              const int vc = acc_col(i), j = rbase + 8 * ((i >> 1) & 1), h = 8 * (i >> 2) / HD;
+              if (vc < wv && j < S)
+                cp[(i >> 2) * 2 + (i & 1)] =
+                    fmaf(lg[h * spad + j], sum[i] + bias[W + vc], cp[(i >> 2) * 2 + (i & 1)]);
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < NCP; ++c) {
+            cp[c] += __shfl_xor_sync(0xffffffffu, cp[c], 4);
+            cp[c] += __shfl_xor_sync(0xffffffffu, cp[c], 8);
+            cp[c] += __shfl_xor_sync(0xffffffffu, cp[c], 16);
+          }
+          if (lane < 4)
+#pragma unroll
+            for (int c = 0; c < NCP; ++c)
+              part[warp * W + 8 * (c >> 1) + 2 * lane + (c & 1)] = cp[c];
+          named_sync(sid, sthreads);
+          const int w0 = packed ? 4 * wg : 0, nw = packed ? 4 : 8;
+          for (int c = stid; c < W; c += sthreads) {  // the warps' partials in a fixed order
+            float sacc = cacc[c];
+            for (int w = 0; w < nw; ++w) sacc += part[(w0 + w) * W + c];
+            cacc[c] = sacc;
+          }
+          named_sync(sid, sthreads);
+        }
+      }
+    }
+    if (real) {  // ctx as its three planes, the tail's A operand
+      const long plane = (long)B * KW;
+      bf16* out = a.ctxp + (long)b * KW + g * W;
+      for (int c = stid; c < wv; c += sthreads) {
+        float hi, mid, lo;
+        split_bf16x3(cacc[c], hi, mid, lo);
+        out[c] = __float2bfloat16(hi);
+        out[plane + c] = __float2bfloat16(mid);
+        out[2 * plane + c] = __float2bfloat16(lo);
+      }
+    }
+  }
+}
+
+// bf16 planes [3][mid][inner] (a weight's or an activation's) as a TMA map with
+// boxes [1][box_mid][64] and the 128-byte swizzle (zeros past every edge), kept
+// per host thread as tma_map_2d keeps its maps
+inline cudaError_t tma_map_planes(CUtensorMap* map, const bf16* base, uint64_t inner, uint64_t mid,
+                                  uint32_t box_mid) {
+  struct Entry {
+    const bf16* base;
+    uint64_t inner, mid;
+    uint32_t box_mid;
+    CUtensorMap map;
+  };
+  constexpr int kEntries = 32;
+  thread_local Entry cache[kEntries] = {};
+  thread_local int next = 0;
+  for (const Entry& c : cache)
+    if (c.base == base && c.inner == inner && c.mid == mid && c.box_mid == box_mid) {
+      *map = c.map;
+      return cudaSuccess;
+    }
+  VPT_TRY(tma_map_3d_64(map, base, inner, mid, 3, box_mid));
+  cache[next] = Entry{base, inner, mid, box_mid, *map};
+  next = (next + 1) % kEntries;
+  return cudaSuccess;
 }
 
 template <int HD>
-cudaError_t cls_attention_launch(const float* q, const float* kv, float* ctx, int B, int S, int H,
-                                 int KW, cudaStream_t st) {
-  if (S <= kResidentSeq) {
-    cls_attention_kernel<HD><<<dim3(H, B), 32, 0, st>>>(q, kv, ctx, S, KW, cls_scale(HD));
-    return cudaGetLastError();
-  }
-  const size_t smem = sizeof(float) * S;  // past 48 KB (S > 12288) only with the opt-in
-  if (smem > 48 * 1024)
-    VPT_TRY(cudaFuncSetAttribute(cls_attention_long_kernel<HD>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  cls_attention_long_kernel<HD><<<dim3(H, B), 32, smem, st>>>(q, kv, ctx, S, KW, cls_scale(HD));
+cudaError_t kv_attention_f32_hd(const KvF32Args& a, const bf16* wqp, const bf16* wkvp,
+                                cudaStream_t st) {
+  using namespace cls;
+  const KvF32Smem lay(HD, a.S);
+  if (!lay.fits()) return cudaErrorInvalidValue;
+  const int KW = a.H * HD;
+  CUtensorMap tw, twq;
+  VPT_TRY(tma_map_planes(&tw, wkvp, f3::plane_width(2 * KW), a.D, F32_BK));
+  VPT_TRY(tma_map_planes(&twq, wqp, f3::plane_width(KW), a.D, F32_BK));
+  auto kernel = cls_kv_attention_f32_kernel<HD>;
+  VPT_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)lay.total));
+  const int groups = (a.H + KvF32<HD>::NH - 1) / KvF32<HD>::NH;
+  const int nitems = groups * ((a.B + kv_images(a.S) - 1) / kv_images(a.S));
+  kernel<<<std::min(nitems, sm_count()), KvF32<HD>::THREADS, lay.total, st>>>(tw, twq, a);
   return cudaGetLastError();
 }
 
-cudaError_t cls_attention_f32(const float* q, const float* kv, float* ctx, int B, int S, int H,
-                              int KW, cudaStream_t st) {
-  switch (KW / H) {
-    case 16: return cls_attention_launch<16>(q, kv, ctx, B, S, H, KW, st);
-    case 32: return cls_attention_launch<32>(q, kv, ctx, B, S, H, KW, st);
-    case 64: return cls_attention_launch<64>(q, kv, ctx, B, S, H, KW, st);
-    case 80: return cls_attention_launch<80>(q, kv, ctx, B, S, H, KW, st);
-    default: return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// float32, launch 4: the tail on the B rows, as launch 3 of bf16 (one 64-row
+// tile a cluster, block `rank` of C taking product tiles rank, rank + C, ...
+// and rows rank, rank + C, ... of each LayerNorm), every product split.
+
+struct TailF32Args {
+  const float* x;  // the CLS rows: x + m * x_row
+  long x_row;
+  const float *bo, *ln2g, *ln2b, *b1, *b2, *lnfg, *lnfb, *bh;
+  float *x1, *x2, *logits;
+  bf16 *hp, *m1p;  // LN2's (then LN_f's) output [3][B][D] and the GELU output [3][B][M], planes
+  float* partial;  // the products' partial sums, [row tiles][kTailUnits][64][128]
+  int B, D, M, L, DN;
+  float eps;
+};
+
+// How a product's k-boxes are split over the cluster: each 128-column tile's
+// nk 64-deep boxes in ks ranges (unit u: tile u / ks, boxes [p nk / ks, (p + 1)
+// nk / ks) with p = u % ks), units rank, rank + C, ... to block `rank`; ks
+// (at most kTailUnits / ntiles ranges) the least stages on the busiest block.
+// ks > 1: the units' sums are partials, added in a fixed order after a cluster
+// barrier.
+constexpr int kTailUnits = 64;
+__device__ __forceinline__ int tail_ksplit(int ntiles, int nk, int C) {
+  int best = 1, cost = (ntiles + C - 1) / C * nk;
+  for (int ks = 2; ks <= nk && ntiles * ks <= kTailUnits; ++ks) {
+    const int c = (ntiles * ks + C - 1) / C * ((nk + ks - 1) / ks);
+    if (c < cost) {
+      cost = c;
+      best = ks;
+    }
+  }
+  return best;
+}
+
+// out[64 rows from m0, N] = A[., K] @ W[K, N] from A's planes (ta) and W's (tw),
+// this block's units (tail_ksplit); two consumer warpgroups, one a 64-column half
+// of each 128-column tile, issuing their products side by side;
+// each 64-deep stage two 32-deep steps of six passes, each step's sum added to
+// the running one in f32; the epilogue epi(row, col, v0, v1) on each pair of
+// columns (col, col + 1) of a unit's sum where ks is 1, else the sums stored as
+// the ranges' partials [units][64][128] (this row tile's, at `partial`). The
+// producer warp returns at the end of its loads, as in tail_gemm
+template <typename Epi>
+__device__ __forceinline__ void tail32_gemm(const CUtensorMap* ta, const CUtensorMap* tw, int N,
+                                            int K, int ks, int B, int m0, unsigned char* ring,
+                                            uint64_t* full, uint64_t* empty, int& step,
+                                            float* partial, Epi epi) {
+  using namespace cls;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0), wl = warp & 3;
+  const int rank = blockIdx.x, C = gridDim.x;
+  const int nk = (K + 63) / 64, units = (N + 127) / 128 * ks;
+  if (wg == 2) {  // producer
+    if (lane == 0)
+      for (int u = rank; u < units; u += C) {
+        const int tile = u / ks, p = u % ks;
+        for (int kc = p * nk / ks; kc < (p + 1) * nk / ks; ++kc, ++step) {
+          const int s = step % TAIL32_STAGES;
+          if (step >= TAIL32_STAGES)
+            mbar_wait(smem_u32(empty + s), ((step / TAIL32_STAGES) - 1) & 1);
+          unsigned char* st = ring + s * TAIL32_STAGE;
+          const uint32_t fb = smem_u32(full + s);
+          mbar_arrive_expect(fb, TAIL32_STAGE);
+          for (int pl = 0; pl < 3; ++pl) {
+            tma_load_3d(smem_u32(st + pl * BOX), ta, fb, kc * 64, m0, pl);
+            tma_load_3d(smem_u32(st + (3 + 2 * pl) * BOX), tw, fb, tile * 128, kc * 64, pl);
+            tma_load_3d(smem_u32(st + (4 + 2 * pl) * BOX), tw, fb, tile * 128 + 64, kc * 64, pl);
+          }
+        }
+      }
+    __syncwarp();
+    return;
+  }
+  for (int u = rank; u < units; u += C) {
+    const int tile = u / ks, p = u % ks;
+    float acc[32], sum[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sum[i] = 0.f;
+    for (int kc = p * nk / ks; kc < (p + 1) * nk / ks; ++kc, ++step) {
+      const int s = step % TAIL32_STAGES;
+      mbar_wait(smem_u32(full + s), (step / TAIL32_STAGES) & 1);
+      const uint32_t st = smem_u32(ring + s * TAIL32_STAGE);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int q = 0; q < 6; ++q) {
+          const uint32_t ap = st + pass_a(q) * BOX, wp = st + (3 + 2 * pass_w(q) + wg) * BOX;
+#pragma unroll
+          for (int kk = 2 * half; kk < 2 * half + 2; ++kk)
+            wgmma_m64n64k16<1>(acc, gmma_desc(ap + kk * 32, 16, 1024),
+                               gmma_desc(wp + kk * 2048, BOX, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sum[i] += acc[i];
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(empty + s));
+    }
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = wl * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
+      const int c = 64 * wg + 8 * (i >> 2) + 2 * (lane & 3);
+      if (m0 + r >= B) continue;
+      if (ks == 1) {
+        if (tile * 128 + c < N) epi(m0 + r, tile * 128 + c, sum[i], sum[i + 1]);
+      } else {
+        *reinterpret_cast<float2*>(partial + (long)u * 8192 + r * 128 + c) =
+            make_float2(sum[i], sum[i + 1]);
+      }
+    }
   }
 }
 
+// a product of the tail: tail32_gemm, then (ks > 1) the partials of each tile's
+// ranges added in their order, after a cluster barrier, and the epilogue
+template <typename Epi>
+__device__ __forceinline__ void tail32_product(const CUtensorMap* ta, const CUtensorMap* tw, int N,
+                                               int K, int B, int m0, unsigned char* ring,
+                                               uint64_t* full, uint64_t* empty, int& step,
+                                               float* partial, Epi epi) {
+  const int rank = blockIdx.x, C = gridDim.x;
+  const int ks = tail_ksplit((N + 127) / 128, (K + 63) / 64, C);
+  tail32_gemm(ta, tw, N, K, ks, B, m0, ring, full, empty, step, partial, epi);
+  if (ks == 1) return;
+  tail_cluster_sync();
+  const int rows = min(64, B - m0), pairs = N / 2;
+  for (int e = rank * cls::TAIL32_THREADS + threadIdx.x; e < rows * pairs;
+       e += C * cls::TAIL32_THREADS) {
+    const int r = e / pairs, c = 2 * (e - r * pairs), tile = c >> 7;
+    const float* src = partial + (long)tile * ks * 8192 + r * 128 + (c & 127);
+    float2 v = make_float2(0.f, 0.f);
+#pragma unroll 8
+    for (int p = 0; p < ks; ++p) {
+      const float2 w = *reinterpret_cast<const float2*>(src + (long)p * 8192);
+      v.x += w.x;
+      v.y += w.y;
+    }
+    epi(m0 + r, c, v.x, v.y);
+  }
+}
+
+// the three planes of v0, v1 at columns (c, c + 1) of row r of planes p [3][B][n]
+__device__ __forceinline__ void store_split2(bf16* p, long plane, long o, float v0, float v1) {
+  float h0, m0, l0, h1, m1, l1;
+  split_bf16x3(v0, h0, m0, l0);
+  split_bf16x3(v1, h1, m1, l1);
+  *reinterpret_cast<uint32_t*>(p + o) = pack_bf16x2(h0, h1);
+  *reinterpret_cast<uint32_t*>(p + plane + o) = pack_bf16x2(m0, m1);
+  *reinterpret_cast<uint32_t*>(p + 2 * plane + o) = pack_bf16x2(l0, l1);
+}
+
+// y = LN(x[row]) in f32 as its planes [3][B][D], this block's rows of the tile,
+// a warp a row; ln_stats' two passes with eight loads of a lane in flight (the rows
+// come from L2, written by the other blocks of the cluster)
+__device__ __forceinline__ void tail32_ln(const float* x, const float* g, const float* bb, bf16* yp,
+                                          int B, int D, int DN, float eps, int m0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rank = blockIdx.x, C = gridDim.x;
+  const long plane = (long)B * D;
+  for (int r = rank + C * warp; r < 64 && m0 + r < B; r += C * 8) {
+    const float* xr = x + (long)(m0 + r) * D;
+    float s = 0.f;
+#pragma unroll 8
+    for (int i = lane; i < DN; i += 32) s += xr[i];
+    const float mean = warp_sum(s) / DN;
+    float v = 0.f;
+#pragma unroll 8
+    for (int i = lane; i < DN; i += 32) {
+      const float e = xr[i] - mean;
+      v += e * e;
+    }
+    const float rs = rsqrtf(warp_sum(v) / DN + eps);
+    bf16* yr = yp + (long)(m0 + r) * D;
+#pragma unroll 8
+    for (int i = lane; i < D; i += 32) {
+      float hi, mid, lo;
+      split_bf16x3((xr[i] - mean) * rs * g[i] + bb[i], hi, mid, lo);
+      yr[i] = __float2bfloat16(hi);
+      yr[plane + i] = __float2bfloat16(mid);
+      yr[2 * plane + i] = __float2bfloat16(lo);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(cls::TAIL32_THREADS, 1)
+cls_tail_f32_kernel(const __grid_constant__ CUtensorMap tctx,
+                    const __grid_constant__ CUtensorMap two,
+                    const __grid_constant__ CUtensorMap th,
+                    const __grid_constant__ CUtensorMap tw1,
+                    const __grid_constant__ CUtensorMap tm1,
+                    const __grid_constant__ CUtensorMap tw2,
+                    const __grid_constant__ CUtensorMap twh, const __grid_constant__ TailF32Args a,
+                    int KW) {
+  using namespace cls;
+  extern __shared__ unsigned char tsm[];
+  const uint32_t raw = smem_u32(tsm);
+  unsigned char* ring = tsm + (((raw + 1023) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + TAIL32_STAGES * TAIL32_STAGE);
+  uint64_t* empty = full + TAIL32_STAGES;
+  const int m0 = blockIdx.y * 64, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TAIL32_STAGES; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int step = 0;
+  const long mplane = (long)a.B * a.M;
+  float* partial = a.partial + (long)blockIdx.y * kTailUnits * 8192;
+  // 1. x1 = x_cls + (ctx Wo + bo)
+  tail32_product(&tctx, &two, a.D, KW, a.B, m0, ring, full, empty, step, partial,
+                 [&](int r, int c, float v0, float v1) {
+                   const float* xr = a.x + r * a.x_row + c;
+                   *reinterpret_cast<float2*>(a.x1 + (long)r * a.D + c) =
+                       make_float2(xr[0] + (v0 + a.bo[c]), xr[1] + (v1 + a.bo[c + 1]));
+                 });
+  tail_cluster_sync();
+  // 2. h = LN2(x1)
+  if (warp < 8) tail32_ln(a.x1, a.ln2g, a.ln2b, a.hp, a.B, a.D, a.DN, a.eps, m0);
+  tail_cluster_sync();
+  // 3. m1 = GELU(h W1 + b1), erf form
+  tail32_product(&th, &tw1, a.M, a.D, a.B, m0, ring, full, empty, step, partial,
+                 [&](int r, int c, float v0, float v1) {
+                   store_split2(a.m1p, mplane, (long)r * a.M + c, gelu(v0 + a.b1[c], ACT_GELU_ERF),
+                                gelu(v1 + a.b1[c + 1], ACT_GELU_ERF));
+                 });
+  tail_cluster_sync();
+  // 4. x2 = x1 + (m1 W2 + b2)
+  tail32_product(&tm1, &tw2, a.D, a.M, a.B, m0, ring, full, empty, step, partial,
+                 [&](int r, int c, float v0, float v1) {
+                   const float2 x1 = *reinterpret_cast<const float2*>(a.x1 + (long)r * a.D + c);
+                   *reinterpret_cast<float2*>(a.x2 + (long)r * a.D + c) =
+                       make_float2(x1.x + (v0 + a.b2[c]), x1.y + (v1 + a.b2[c + 1]));
+                 });
+  tail_cluster_sync();
+  // 5. h = LN_f(x2)
+  if (warp < 8) tail32_ln(a.x2, a.lnfg, a.lnfb, a.hp, a.B, a.D, a.DN, a.eps, m0);
+  tail_cluster_sync();
+  // 6. logits = h Wh + bh, f32
+  tail32_product(&th, &twh, a.L, a.D, a.B, m0, ring, full, empty, step, partial,
+                 [&](int r, int c, float v0, float v1) {
+                   *reinterpret_cast<float2*>(a.logits + (long)r * a.L + c) =
+                       make_float2(v0 + a.bh[c], v1 + a.bh[c + 1]);
+                 });
+}
+
+cudaError_t cls_tail_f32(const TailF32Args& a, const bf16* ctxp, const bf16* wop, const bf16* w1p,
+                         const bf16* w2p, const bf16* whp, int KW, cudaStream_t st) {
+  using namespace cls;
+  CUtensorMap tctx, two, th, tw1, tm1, tw2, twh;
+  VPT_TRY(tma_map_planes(&tctx, ctxp, KW, a.B, 64));
+  VPT_TRY(tma_map_planes(&two, wop, f3::plane_width(a.D), KW, 64));
+  VPT_TRY(tma_map_planes(&th, a.hp, a.D, a.B, 64));
+  VPT_TRY(tma_map_planes(&tw1, w1p, f3::plane_width(a.M), a.D, 64));
+  VPT_TRY(tma_map_planes(&tm1, a.m1p, a.M, a.B, 64));
+  VPT_TRY(tma_map_planes(&tw2, w2p, f3::plane_width(a.D), a.M, 64));
+  VPT_TRY(tma_map_planes(&twh, whp, f3::plane_width(a.L), a.D, 64));
+  const int C = tail_cluster(a.B);
+  VPT_TRY(cudaFuncSetAttribute(cls_tail_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)TAIL32_SMEM));
+  if (C > 8)
+    VPT_TRY(cudaFuncSetAttribute(cls_tail_f32_kernel,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, (a.B + 63) / 64, 1);
+  cfg.blockDim = dim3(TAIL32_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = TAIL32_SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  VPT_TRY(cudaLaunchKernelEx(&cfg, cls_tail_f32_kernel, tctx, two, th, tw1, tm1, tw2, twh, a, KW));
+  return cudaGetLastError();
+}
+
+// the elements of the six weights' planes in the workspace, in their order (q,
+// kv, o, fc1, fc2, the classifier): 3 K plane_width(N) each
+inline long f32_plane_elems(int K, int N) { return 3L * K * f3::plane_width(N); }
+
+// the float32 route: launches 1-4
 cudaError_t cls_logits_f32(const float* x, const float* ln1g, const float* ln1b, const float* wq,
                            const float* bq, const float* wkv, const float* bkv, const float* wo,
                            const float* bo, const float* ln2g, const float* ln2b, const float* w1,
                            const float* b1, const float* w2, const float* b2, const float* lnfg,
                            const float* lnfb, const float* wh, const float* bh, float* logits,
-                           float* h, float* kv, float* q, float* ctx, float* x1, float* m1,
-                           float* x2, bf16* wplanes, int B, int S, int D, int H, int HD, int M,
-                           int DN, int labels, float eps, cudaStream_t st) {
-  const int rows = B * S, KW = H * HD;
-  const long cls_stride = (long)S * D;  // CLS rows of x and h
-  VPT_TRY(layer_norm<float, float>(x, D, ln1g, ln1b, h, D, rows, D, DN, eps, st));
-  VPT_TRY(gemm(h, D, wkv, rows, 2 * KW, D, epi(bkv, ACT_NONE, nullptr, 0, false, kv, 2 * KW, true), st,
-               wplanes));
-  VPT_TRY(gemm(h, cls_stride, wq, B, KW, D, epi(bq, ACT_NONE, nullptr, 0, false, q, KW, true), st,
-               wplanes));
-  VPT_TRY(cls_attention_f32(q, kv, ctx, B, S, H, KW, st));
-  VPT_TRY(gemm(ctx, KW, wo, B, D, KW, epi(bo, ACT_NONE, x, cls_stride, true, x1, D, true), st,
-               wplanes));
-  VPT_TRY(layer_norm<float, float>(x1, D, ln2g, ln2b, h, D, B, D, DN, eps, st));
-  VPT_TRY(gemm(h, D, w1, B, M, D, epi(b1, ACT_GELU_ERF, nullptr, 0, false, m1, M, true), st,
-               wplanes));
-  VPT_TRY(gemm(m1, M, w2, B, D, M, epi(b2, ACT_NONE, x1, D, true, x2, D, true), st, wplanes));
-  VPT_TRY(layer_norm<float, float>(x2, D, lnfg, lnfb, h, D, B, D, DN, eps, st));
-  VPT_TRY(gemm(h, D, wh, B, labels, D, epi(bh, ACT_NONE, nullptr, 0, false, logits, labels, true), st,
-               wplanes));
-  g_cls_launches[cls::FMA] += 10;
+                           bf16* hp, float2* stats, float* partial, bf16* ctxp, float* x1,
+                           bf16* m1p, float* x2, bf16* wplanes, int B, int S, int D, int H, int HD,
+                           int M, int DN, int labels, float eps, cudaStream_t st) {
+  using namespace cls;
+  const int KW = H * HD;
+  if (labels % 8 || !KvF32Smem(HD, S).fits()) return cudaErrorInvalidValue;
+  for (const void* p :
+       {(const void*)x, (const void*)ln1g, (const void*)ln1b, (const void*)stats,
+        (const void*)partial, (const void*)hp, (const void*)ctxp, (const void*)m1p, (const void*)x1,
+        (const void*)x2, (const void*)wplanes, (const void*)logits})
+    if (!p || !aligned16(p)) return cudaErrorInvalidValue;
+  // 1. the planes of q, kv, o, fc1, fc2 and the classifier, in that order
+  const float* ws[6] = {wq, wkv, wo, w1, w2, wh};
+  const int ks[6] = {D, D, KW, D, M, D}, ns[6] = {KW, 2 * KW, D, M, D, labels};
+  PlaneJobs jobs;
+  bf16* wp[6];
+  long off = 0, most = 0;
+  for (int i = 0; i < 6; ++i) {
+    wp[i] = wplanes + off;
+    jobs.j[i] = PlaneJob{ws[i], wp[i], f3::plane_width(ns[i]), ks[i], ns[i],
+                         aligned16(ws[i]) && ns[i] % 4 == 0};
+    off += f32_plane_elems(ks[i], ns[i]);
+    most = std::max(most, (long)ks[i] * f3::plane_width(ns[i]));
+  }
+  const long blocks = std::min((most / 4 + 255) / 256, 4L * sm_count());
+  cls_split_planes_kernel<<<dim3(static_cast<unsigned>(blocks), 6), 256, 0, st>>>(jobs);
+  VPT_TRY(cudaGetLastError());
+  g_cls_launches[F32_SPLIT_PLANES]++;
+  // 2. LN1's statistics
+  VPT_TRY(ln1_stats(x, stats, (long)B * S, D, DN, eps, st));
+  g_cls_launches[LN1_STATS]++;
+  // 3. K, V, q and the CLS attention
+  const KvF32Args ka{x, stats, ln1g, ln1b, bkv, bq, ctxp, B, S, D, H, cls_scale(HD)};
+  cudaError_t rc;
+  switch (HD) {
+    case 16: rc = kv_attention_f32_hd<16>(ka, wp[0], wp[1], st); break;
+    case 32: rc = kv_attention_f32_hd<32>(ka, wp[0], wp[1], st); break;
+    case 64: rc = kv_attention_f32_hd<64>(ka, wp[0], wp[1], st); break;
+    default: rc = kv_attention_f32_hd<80>(ka, wp[0], wp[1], st); break;
+  }
+  VPT_TRY(rc);
+  g_cls_launches[F32_KV_K_THEN_V]++;
+  // 4. the tail
+  const TailF32Args ta{x, (long)S * D, bo, ln2g, ln2b, b1, b2, lnfg, lnfb, bh, x1, x2, logits, hp,
+                       m1p, partial, B, D, M, labels, DN, eps};
+  VPT_TRY(cls_tail_f32(ta, ctxp, wp[2], wp[3], wp[4], wp[5], KW, st));
+  g_cls_launches[F32_TAIL]++;
   return cudaSuccess;
 }
 
@@ -1057,7 +1776,8 @@ int vpt_cls_logits_plan(int dtype, int hd, int S, int D, long long* out) {
   for (int k = 0; k < KINDS; ++k) out[k] = 0;
   if (!layer_head_dim_ok(hd) || S < 1 || (dtype != 0 && dtype != 1)) return -1;
   if (dtype == 0) {
-    out[FMA] = 10;
+    if (!KvF32Smem(hd, S).fits()) return -1;
+    out[F32_SPLIT_PLANES] = out[LN1_STATS] = out[F32_KV_K_THEN_V] = out[F32_TAIL] = 1;
     return 0;
   }
   const int mode = v_mode(hd, S);
@@ -1079,12 +1799,15 @@ void vpt_cls_logits_launch_reset() {
 
 // dtype: 0 = float32, 1 = bfloat16. x [B, S, D]; 18 weights (LN1, Q, the
 // fused KV [D, 2KW], O, LN2, fc1, fc2, LN_f, the classifier [D, labels]);
-// logits [B, labels] in the dtype. Workspaces, float32: h [B*S, D], kv
-// [B*S, 2KW], q [B, KW], ctx [B, KW], m1 [B, M], x1 and x2 [B, D]; bfloat16:
-// h [B, D], kv: LN1's statistics [B*S + 72] f32 pairs, q unused (null), ctx [B,
-// KW] and m1 [B, M] in bf16, x1 and x2 [B, D] f32, and labels a multiple of
-// 8. wplanes, float32 only (else null): 3 max(2 D KW, D M, D labels) bf16 for
-// each f32 weight's planes in turn (gemm.cu). DN: the layer norms' width, as
+// logits [B, labels] in the dtype, labels a multiple of 8. Workspaces,
+// bfloat16: h [B, D], kv: LN1's statistics [B*S + 72] f32 pairs, q unused
+// (null), ctx [B, KW] and m1 [B, M] in bf16, x1 and x2 [B, D] f32, wplanes
+// null; float32: h, ctx and m1 as their three bf16 planes ([3][B][D],
+// [3][B][KW], [3][B][M]), kv: LN1's statistics as bf16's, q: the tail's
+// partial sums [ceil(B / 64)][64][64][128] f32, x1
+// and x2 [B, D] f32, and wplanes the six weights' planes in turn (q, kv, o,
+// fc1, fc2, the classifier: 3 K plane_width(N) bf16 each, split6.cuh). Every
+// buffer 16-byte aligned. DN: the layer norms' width, as
 // vpt_vit_layer_forward's.
 int vpt_vit_cls_logits_forward(int dtype, const void* x, const void* ln1g, const void* ln1b,
                                const void* wq, const void* bq, const void* wkv, const void* bkv,
@@ -1100,8 +1823,8 @@ int vpt_vit_cls_logits_forward(int dtype, const void* x, const void* ln1g, const
 #define F(p) static_cast<const float*>(p)
     return cls_logits_f32(F(x), F(ln1g), F(ln1b), F(wq), F(bq), F(wkv), F(bkv), F(wo), F(bo),
                           F(ln2g), F(ln2b), F(w1), F(b1), F(w2), F(b2), F(lnfg), F(lnfb), F(wh),
-                          F(bh), (float*)logits, (float*)h, (float*)kv, (float*)q, (float*)ctx,
-                          (float*)x1, (float*)m1, (float*)x2, static_cast<bf16*>(wplanes), B, S,
+                          F(bh), (float*)logits, (bf16*)h, (float2*)kv, (float*)q, (bf16*)ctx,
+                          (float*)x1, (bf16*)m1, (float*)x2, static_cast<bf16*>(wplanes), B, S,
                           D, H, HD, M, DN, labels, eps, st);
 #undef F
   }

@@ -27,12 +27,11 @@ using bf16 = __nv_bfloat16;
 __host__ __device__ constexpr bool layer_head_dim_ok(int hd) {
   return hd == 16 || hd == 32 || hd == 64 || hd == 80;
 }
-// The longest sequence whose logits B2's f32 CLS attention keeps in
-// registers (cls_logits.cu), 9 chunks of 32 keys, and the tokens B3's
-// inversion takes a round (layer.cu). Longer sequences (a position table
-// resized past 288 tokens: DeiT-S at 384 gives 577) go in more rounds, with
-// the same numerics. (The attention bodies of B1-B6 have limits of their
-// own: layer_attention.cu, attention.cu, split_attention.cuh.)
+// The tokens B3's inversion takes a round (layer.cu), 9 chunks of 32. Longer
+// sequences (a position table resized past 288 tokens: DeiT-S at 384 gives
+// 577) go in more rounds, with the same numerics. (The attention bodies of
+// B1-B6 and B2's launches have limits of their own: layer_attention.cu,
+// attention.cu, split_attention.cuh, cls_logits.cu.)
 constexpr int kResidentChunks = 9;
 constexpr int kResidentSeq = kResidentChunks * 32;
 

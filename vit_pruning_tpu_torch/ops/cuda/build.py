@@ -46,7 +46,7 @@ SIGNATURES = {
     "vpt_vit_layer_forward": ([I] + [P] * 21 + [I] * 7 + [F, P], I),
     # dtype, x, 18 weights, logits, 7 workspaces, wplanes, B S D H HD M DN labels, eps, stream
     "vpt_vit_cls_logits_forward": ([I] + [P] * 28 + [I] * 8 + [F, P], I),
-    # dtype, hd, S, D, out [6]: B2's launches by kind (-1: refused)
+    # dtype, hd, S, D, out [8]: B2's launches by kind (-1: refused)
     "vpt_cls_logits_plan": ([I, I, I, I, P], I),
     "vpt_cls_logits_launch_counts": ([P], None),
     "vpt_cls_logits_launch_reset": ([], None),

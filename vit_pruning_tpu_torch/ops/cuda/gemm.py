@@ -1,18 +1,19 @@
-"""The GEMM under kernels B1, B2, B3 and B5, called on its own: wrappers
+"""The GEMM under kernels B1, B3 and B5, called on its own: wrappers
 around csrc/gemm.cu's gemm() beside their plain PyTorch versions.
 
 The layer kernels run this product from C for every projection (QKV, O,
-fc1, fc2; in f32 also B2's K/V, Q, O, fc1, fc2 and classifier). It is not
+fc1, fc2; B2's products run inside its own launches, csrc/cls_logits.cu,
+on the same split arithmetic in f32). It is not
 exported from the package: it exists so that chip_smoke.py and the tests
 can hold the GEMM bodies against their plain versions at every product
 shape of the main paths, one product at a time.
 
     out[M, N] = cast(residual + act(A[M, K] @ W[K, N] + bias))
 
-gemm_bf16: A and W bf16; A may be a row-strided view (B2 reads the CLS rows
-of [B, S, D] with row stride S*D); bias bf16 [N]; act 'none', 'gelu_erf' or
+gemm_bf16: A and W bf16; A may be a row-strided view (rows of [B, S, D]
+with row stride S*D); bias bf16 [N]; act 'none', 'gelu_erf' or
 'gelu_tanh' (in f32); residual [M, N] bf16 or float32, rows contiguous
-(B2's residual is the CLS rows of x, row stride S*D); out bf16 or float32.
+(or row-strided the same way); out bf16 or float32.
 On the card gemm() takes the wgmma + TMA body where TMA can describe A and
 W (16-byte aligned, lda, N and K multiples of 8) and the WMMA body
 otherwise, by shape alone.
@@ -147,9 +148,10 @@ gemm_f32.launches = 0
 
 # f32 products launched since the last reset_body_counts(), by the caller
 # that launched them: the mirror of the C counter 'f32_split' (every f32
-# product takes the split body), filled where each op launches: B1 and B3
-# four a call, B5 four a layer, B2 six, gemm_f32 one
-F32_PRODUCTS = {"b1": 4, "b3": 4, "b5": 4, "b2": 6}
+# product of gemm() takes the split body), filled where each op launches: B1
+# and B3 four a call, B5 four a layer, gemm_f32 one (B2's f32 products run in
+# its own launches, counted by kind in ops/cuda/layer.py::cls_launches)
+F32_PRODUCTS = {"b1": 4, "b3": 4, "b5": 4}
 f32_products: dict = {}
 
 

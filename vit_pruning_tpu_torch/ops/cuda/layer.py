@@ -26,8 +26,10 @@ the launches per body. B2 in bf16 is three
 launches (csrc/cls_logits.cu: LN1's row statistics; LN1, the K/V product, q
 and the CLS attention fused on wgmma + TMA with K and V kept out of device
 memory, V in registers, shared memory or recomputed; the tail on the B rows
-in one cluster launch), in f32 ten launches of the kind 'fma' (LN, the
-products on csrc/gemm.cu's split body, the CLS attention on the CUDA cores);
+in one cluster launch), in f32 four (the six weights split into bf16 planes
+in one launch; the same statistics; LN1, K, q and the CLS attention, then
+V, in one persistent launch on split-bf16 wgmma, K and V kept out of device
+memory; the tail with split products in one cluster launch);
 `cls_logits_launches` mirrors the C plan and `cls_launch_counts` reads the
 launches by kind.
 
@@ -89,9 +91,11 @@ ATTENTION_BODIES = ("wgmma_resident", "wgmma_streamed", "split_resident", "split
 ATTENTION_LOGIT_CHUNKS = 4
 # B2's launch kinds, in the order of csrc/cls_logits.cu's counters: bf16 makes
 # one ln1_stats, one kv_attention_* (by where it keeps V) and one tail launch;
-# f32 ten launches of the kind 'fma' (its products on gemm.cu's split body)
+# f32 one f32_split_planes (its six weights' bf16 planes), one ln1_stats, one
+# f32_kv_attention_k_then_v (V recomputed by a sweep of its own) and one f32_tail
 CLS_LAUNCH_KINDS = ("ln1_stats", "kv_attention_v_registers", "kv_attention_v_shared",
-                    "kv_attention_v_recomputed", "tail", "fma")
+                    "kv_attention_v_recomputed", "tail", "f32_split_planes",
+                    "f32_kv_attention_k_then_v", "f32_tail")
 # cls_logits.cu's constants the plan depends on: the box bytes, the most bytes
 # of V kept in shared memory, the shared memory a block may have, the most
 # stages of the K/V launch's ring
@@ -99,6 +103,11 @@ CLS_BOX = 64 * 128
 CLS_V_RESIDENT = 64 * 1024
 CLS_MAX_SMEM = 232448
 CLS_MAX_STAGES = 6
+# and of its f32 K/V launch: a 32-deep stage of A's three planes [128 rows][32 k]
+# and the three planes of K or V and of q.w (boxes [32 k][64 n]), up to four stages
+CLS_F32_PLANE_A = 128 * 32 * 2
+CLS_F32_WBOX = 32 * 64 * 2
+CLS_F32_MAX_STAGES = 4
 # the rows past B * S that B2's bf16 statistics buffer holds: the K/V launch
 # copies each tile's 64 rows of statistics from the even row at or before its
 # first, 528 bytes (cls_logits.cu's kStatBytes), and must stay inside it
@@ -361,6 +370,26 @@ def cls_kv_smem(head_dim: int, seq_len: int, width: int) -> tuple:
     return stages, fixed + stages * (stage + 2 * 640)
 
 
+def cls_kv_smem_f32(head_dim: int, seq_len: int) -> tuple:
+    """(stages, bytes) of B2's f32 K/V launch (cls_logits.cu's KvF32Smem): a
+    ring of as many 32-deep stages as fit beside the rest, up to
+    CLS_F32_MAX_STAGES, each A's three planes and three planes of one operand
+    (K or V) and of q.w, one or two 64-column boxes each (hd 80: two); 256
+    bytes of barriers, the logits [images][heads][tiles * 64] f32 (two images
+    an item where S <= 64), the P V partials [8][W] and sums [2][W], q [2][W]
+    and the biases [3][W] in f32. No stage: the kernel refuses the shape. No
+    term depends on the width: the producers read x, LN1's g and b from
+    device memory."""
+    cols = 64 if head_dim <= 64 else 80
+    nbh, heads = -(-cols // 64), (64 // head_dim if head_dim <= 64 else 1)
+    tiles = -(-seq_len // 64)
+    images = 2 if tiles == 1 else 1
+    stage = 3 * CLS_F32_PLANE_A + 2 * 3 * nbh * CLS_F32_WBOX
+    fixed = 1024 + 256 + images * heads * tiles * 64 * 4 + 15 * cols * 4
+    stages = min(CLS_F32_MAX_STAGES, max(0, CLS_MAX_SMEM - fixed) // stage)
+    return stages, fixed + stages * stage
+
+
 def cls_logits_launches(dtype: torch.dtype, head_dim: int, seq_len: int,
                         width: int) -> Optional[dict]:
     """The launches one B2 call makes on the card at hidden width `width`
@@ -371,7 +400,10 @@ def cls_logits_launches(dtype: torch.dtype, head_dim: int, seq_len: int,
         return None
     plan = dict.fromkeys(CLS_LAUNCH_KINDS, 0)
     if dtype == torch.float32:
-        plan["fma"] = 10
+        stages, size = cls_kv_smem_f32(head_dim, seq_len)
+        if stages < 1 or size > CLS_MAX_SMEM:
+            return None
+        plan.update(f32_split_planes=1, ln1_stats=1, f32_kv_attention_k_then_v=1, f32_tail=1)
         return plan
     stages, size = cls_kv_smem(head_dim, seq_len, width)
     if stages < 2 or size > CLS_MAX_SMEM:
@@ -668,21 +700,25 @@ def _b2_op(x: torch.Tensor, weights: list[torch.Tensor], num_heads: int, norm_wi
     check_aligned(who, x=x, **{f"weight {i}": t for i, t in enumerate(weights)})
     logits = x.new_empty((b, labels))
     f32 = {"dtype": torch.float32, "device": x.device}
-    if x.dtype == torch.bfloat16:  # h [B, D] (LN2's, then LN_f's), LN1's statistics [B*S + pad]
-        first = [x.new_empty((b, d)), torch.empty((b * s + CLS_STAT_PAD, 2), **f32), None]
-    else:  # h [B*S, D], K/V [B*S, 2KW], q [B, KW]
-        first = [x.new_empty((b * s, d)), x.new_empty((b * s, 2 * kw)), x.new_empty((b, kw))]
-    ws = first + [x.new_empty((b, kw)), torch.empty((b, d), **f32), x.new_empty((b, m)),
-                  torch.empty((b, d), **f32)]
-    planes = _weight_planes(x, 2 * d * kw, d * m, d * labels)
+    stats = torch.empty((b * s + CLS_STAT_PAD, 2), **f32)  # LN1's statistics
+    if x.dtype == torch.bfloat16:  # h [B, D] (LN2's, then LN_f's), ctx [B, KW], m1 [B, M]
+        h, ctx, m1, partial = x.new_empty((b, d)), x.new_empty((b, kw)), x.new_empty((b, m)), None
+        planes = None
+    else:  # h, ctx and m1 as their three bf16 planes; the tail's partial sums (64 units of
+        # [64, 128] a 64-row tile); the six weights' planes (q, kv, o, fc1, fc2, the
+        # classifier), each 3 K round_up(N, 8)
+        bf = {"dtype": torch.bfloat16, "device": x.device}
+        h, ctx, m1 = (torch.empty(3 * b * n, **bf) for n in (d, kw, m))
+        partial = torch.empty(-(-b // 64) * 64 * 64 * 128, **f32)
+        planes = torch.empty(3 * sum(k * round_up(n, 8) for k, n in (
+            (d, kw), (d, 2 * kw), (kw, d), (d, m), (m, d), (d, labels))), **bf)
+    ws = [h, stats, partial, ctx, torch.empty((b, d), **f32), m1, torch.empty((b, d), **f32)]
     run(who, x.device, "vpt_vit_cls_logits_forward", _DTYPES[x.dtype], ptr(x),
         *map(ptr, weights), ptr(logits), *map(ptr, ws), ptr(planes), b, s, d, num_heads,
         kw // num_heads, m, norm_width, labels, eps)
     fused_vit_layer_cls_logits.launches += 1
     for kind, n in cls_logits_launches(x.dtype, kw // num_heads, s, d).items():
         cls_launches[kind] += n
-    if x.dtype == torch.float32:
-        count_f32_products("b2", F32_PRODUCTS["b2"])
     return logits
 
 
@@ -709,8 +745,10 @@ def fused_vit_layer_cls_logits(
     b, s, d, hd, kw, m = _geometry(x, params, num_heads, who)
     xk, kp, dp = _padded_call(x, params, LAYER_MULTIPLE)
     if x.dtype in _DTYPES and cls_logits_launches(x.dtype, hd, s, dp) is None:
+        dname = "f32" if x.dtype == torch.float32 else "bf16"
+        need = "one stage" if x.dtype == torch.float32 else "two stages"
         raise ValueError(f"{who}: S {s} at head dim {hd} and width {dp} leaves no room for "
-                         f"two stages of the bf16 kernel's ring in {CLS_MAX_SMEM} bytes of "
+                         f"{need} of the {dname} kernel's ring in {CLS_MAX_SMEM} bytes of "
                          f"shared memory")
     mp = kp["mlp"]["fc1"]["w"].shape[-1]
     labels = head["w"].shape[1]
