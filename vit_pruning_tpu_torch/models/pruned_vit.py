@@ -91,6 +91,7 @@ from vit_pruning_tpu_torch.train.losses import (
     mse_cosine_loss,
     weighted_bce_oracle,
 )
+from vit_pruning_tpu_torch.utils.profiling import span
 
 
 def init_pruned_vit_params(
@@ -700,15 +701,18 @@ def progressive_topk_forward(
     layers = layers_for(backbone["layers"], "none" if fuse else quant)
 
     def run_segment(x, l0, l1):
-        """Layers [l0, l1) at a fixed sequence length."""
-        if fuse and l1 > l0:
-            from vit_pruning_tpu_torch.ops.cuda.model import fused_vit_encoder
+        """Layers [l0, l1) at a fixed sequence length: a `layers` span."""
+        if l1 == l0:
+            return x
+        with span("layers", rows=b * cur * (l1 - l0)):
+            if fuse:
+                from vit_pruning_tpu_torch.ops.cuda.model import fused_vit_encoder
 
-            return fused_vit_encoder(x, layer_range(layers, l0, l1), config.num_heads,
-                                     config.layernorm_eps)
-        for j in range(l0, l1):
-            x = vit_layer(x, layer_slice(layers, j), config, quant=quant)
-        return x
+                return fused_vit_encoder(x, layer_range(layers, l0, l1), config.num_heads,
+                                         config.layernorm_eps)
+            for j in range(l0, l1):
+                x = vit_layer(x, layer_slice(layers, j), config, quant=quant)
+            return x
 
     x = x0 if x0 is not None else embed(pixel_values, backbone["embed"], config)
     b, s, _ = x.shape
@@ -728,36 +732,46 @@ def progressive_topk_forward(
             x = run_segment(x, seg_start, i)
             seg_start = i
             x_full = x
-            x, scores, cidx = progressive_drop(x, pred, i, k_i, config, pcfg,
-                                               layer_params=layer_slice(layers, i))
-            if pcfg.merge_dropped:
-                x, sizes = merge_dropped_tokens(x_full, x, scores, k_i, sizes)
-            full = torch.full((b, s - 1), float("-inf"), dtype=scores.dtype, device=x.device)
-            scores_l.append(full.scatter(1, orig[:, 1:] - 1, scores))
-            orig = torch.gather(orig, 1, cidx)
+            with span("select"):
+                x, scores, cidx = progressive_drop(x, pred, i, k_i, config, pcfg,
+                                                   layer_params=layer_slice(layers, i))
+                if pcfg.merge_dropped:
+                    x, sizes = merge_dropped_tokens(x_full, x, scores, k_i, sizes)
+            with span("outputs"):
+                full = torch.full((b, s - 1), float("-inf"), dtype=scores.dtype, device=x.device)
+                scores_l.append(full.scatter(1, orig[:, 1:] - 1, scores))
+                orig = torch.gather(orig, 1, cidx)
+                masks.append(torch.zeros((b, s), dtype=torch.bool, device=x.device)
+                             .scatter(1, orig, True))
             cur = k_i + 1
         else:
-            scores_l.append(torch.full((b, s - 1), float("-inf"), dtype=x.dtype, device=x.device))
-        masks.append(torch.zeros((b, s), dtype=torch.bool, device=x.device).scatter(1, orig, True))
+            with span("outputs"):
+                scores_l.append(torch.full((b, s - 1), float("-inf"), dtype=x.dtype,
+                                           device=x.device))
+                masks.append(torch.zeros((b, s), dtype=torch.bool, device=x.device)
+                             .scatter(1, orig, True))
 
     if use_cls_kernel:
         from vit_pruning_tpu_torch.ops.cuda.layer import fused_vit_layer_cls_logits
 
         x = run_segment(x, seg_start, L - 1)
-        logits = fused_vit_layer_cls_logits(
-            x, layer_slice(layers, L - 1), backbone["ln_f"], backbone["head"],
-            config.num_heads, config.layernorm_eps,
-        )
-        return {"logits": logits, "keep_masks": torch.stack(masks), "scores": torch.stack(scores_l)}
+        with span("head"):
+            logits = fused_vit_layer_cls_logits(
+                x, layer_slice(layers, L - 1), backbone["ln_f"], backbone["head"],
+                config.num_heads, config.layernorm_eps,
+            )
+        with span("outputs"):
+            return {"logits": logits, "keep_masks": torch.stack(masks),
+                    "scores": torch.stack(scores_l)}
 
     x = run_segment(x, seg_start, L)
-    x = layer_norm(x, backbone["ln_f"], config.layernorm_eps)
-    cls = x[:, 0]
-    out = {
-        "logits": cls @ backbone["head"]["w"] + backbone["head"]["b"],
-        "keep_masks": torch.stack(masks),
-        "scores": torch.stack(scores_l),
-    }
+    with span("head"):
+        x = layer_norm(x, backbone["ln_f"], config.layernorm_eps)
+        cls = x[:, 0]
+        logits = cls @ backbone["head"]["w"] + backbone["head"]["b"]
+    with span("outputs"):
+        out = {"logits": logits, "keep_masks": torch.stack(masks),
+               "scores": torch.stack(scores_l)}
     if not logits_only:
         out["cls"] = cls
         out["last_hidden"] = x  # compacted: live tokens only

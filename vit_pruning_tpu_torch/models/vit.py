@@ -54,6 +54,7 @@ from vit_pruning_tpu_torch.ops.quant import (
     is_quantized,
     with_kmajor_int8_weights,
 )
+from vit_pruning_tpu_torch.utils.profiling import span
 
 
 def layer_norm(x: torch.Tensor, params: dict, eps: float) -> torch.Tensor:
@@ -171,17 +172,19 @@ def layers_for(layers: dict, quant: str) -> dict:
     layer kernels read, built once per call rather than once per layer
     launch: for widths the kernels do not take, the zero-padded tree
     (ops/cuda/widths.py, under PADDED), and under int8 kernel B4's K-major
-    layout (ops/quant.py::kmajor_int8_weights) of the tree it reads."""
-    if quant == "int8" and not is_quantized(layers):
-        layers = attach_int8_weights(layers)
-    if not kernels_enabled():
-        return layers
-    if quant != "int8":
-        return with_kernel_weights(layers, LAYER_MULTIPLE)
-    layers = with_kernel_weights(layers, INT8_MULTIPLE)
-    if PADDED in layers:
-        return {**layers, PADDED: with_kmajor_int8_weights(layers[PADDED])}
-    return with_kmajor_int8_weights(layers)
+    layout (ops/quant.py::kmajor_int8_weights) of the tree it reads. A
+    `prep` span (utils/profiling.py)."""
+    with span("prep"):
+        if quant == "int8" and not is_quantized(layers):
+            layers = attach_int8_weights(layers)
+        if not kernels_enabled():
+            return layers
+        if quant != "int8":
+            return with_kernel_weights(layers, LAYER_MULTIPLE)
+        layers = with_kernel_weights(layers, INT8_MULTIPLE)
+        if PADDED in layers:
+            return {**layers, PADDED: with_kmajor_int8_weights(layers[PADDED])}
+        return with_kmajor_int8_weights(layers)
 
 
 def layer_range(layers: dict, start: int, stop: int) -> dict:

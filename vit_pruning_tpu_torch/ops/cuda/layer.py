@@ -78,6 +78,7 @@ from vit_pruning_tpu_torch.ops.cuda.gemm import F32_PRODUCTS, count_f32_products
 from vit_pruning_tpu_torch.ops.cuda.library import check_aligned, kernel_op, ptr, run
 from vit_pruning_tpu_torch.ops.cuda.widths import LAYER_MULTIPLE, kernel_layer, pad_dim, round_up
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
+from vit_pruning_tpu_torch.utils.profiling import span
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims B1-B5 take: csrc/common.cuh::layer_head_dim_ok, which gates
@@ -662,9 +663,10 @@ def _fused_vit_layer(x, params, num_heads, eps, token_mask):
         return fused_vit_layer_ref(x, params, num_heads, eps, token_mask)
     who = "fused_vit_layer"
     b, s, d, hd, kw, m = _geometry(x, params, num_heads, who)
-    xk, kp, dp = _padded_call(x, params, LAYER_MULTIPLE)
-    mp = kp["mlp"]["fc1"]["w"].shape[-1]
-    w = _layer_weights(kp)
+    with span("prep"):
+        xk, kp, dp = _padded_call(x, params, LAYER_MULTIPLE)
+        mp = kp["mlp"]["fc1"]["w"].shape[-1]
+        w = _layer_weights(kp)
     _check(xk, w, {"qkv.w": (dp, 3 * kw), "qkv.b": (3 * kw,), **_layer_shapes(dp, kw, mp)}, who)
     _check_token_mask(token_mask, x, b, s, who)
     return _unpad(torch.ops.vpt.fused_vit_layer(xk, token_mask, list(w.values()), num_heads, d,
@@ -743,19 +745,20 @@ def fused_vit_layer_cls_logits(
     who = "fused_vit_layer_cls_logits"
     refuse_grad(who, x, params, lnf, head)
     b, s, d, hd, kw, m = _geometry(x, params, num_heads, who)
-    xk, kp, dp = _padded_call(x, params, LAYER_MULTIPLE)
-    if x.dtype in _DTYPES and cls_logits_launches(x.dtype, hd, s, dp) is None:
-        dname = "f32" if x.dtype == torch.float32 else "bf16"
-        need = "one stage" if x.dtype == torch.float32 else "two stages"
-        raise ValueError(f"{who}: S {s} at head dim {hd} and width {dp} leaves no room for "
-                         f"{need} of the {dname} kernel's ring in {CLS_MAX_SMEM} bytes of "
-                         f"shared memory")
-    mp = kp["mlp"]["fc1"]["w"].shape[-1]
-    labels = head["w"].shape[1]
-    lp = round_up(labels, LAYER_MULTIPLE)
-    lnf = {k: pad_dim(v, -1, dp) for k, v in lnf.items()}
-    head = {"w": pad_dim(pad_dim(head["w"], 0, dp), 1, lp), "b": pad_dim(head["b"], 0, lp)}
-    w = _cls_weights(kp, lnf, head)
+    with span("prep"):
+        xk, kp, dp = _padded_call(x, params, LAYER_MULTIPLE)
+        if x.dtype in _DTYPES and cls_logits_launches(x.dtype, hd, s, dp) is None:
+            dname = "f32" if x.dtype == torch.float32 else "bf16"
+            need = "one stage" if x.dtype == torch.float32 else "two stages"
+            raise ValueError(f"{who}: S {s} at head dim {hd} and width {dp} leaves no room for "
+                             f"{need} of the {dname} kernel's ring in {CLS_MAX_SMEM} bytes of "
+                             f"shared memory")
+        mp = kp["mlp"]["fc1"]["w"].shape[-1]
+        labels = head["w"].shape[1]
+        lp = round_up(labels, LAYER_MULTIPLE)
+        lnf = {k: pad_dim(v, -1, dp) for k, v in lnf.items()}
+        head = {"w": pad_dim(pad_dim(head["w"], 0, dp), 1, lp), "b": pad_dim(head["b"], 0, lp)}
+        w = _cls_weights(kp, lnf, head)
     shapes = {"q.w": (dp, kw), "q.b": (kw,), "kv.w": (dp, 2 * kw), "kv.b": (2 * kw,),
               **_layer_shapes(dp, kw, mp), "ln_f.g": (dp,), "ln_f.b": (dp,),
               "head.w": (dp, lp), "head.b": (lp,)}
@@ -821,9 +824,10 @@ def fused_vit_layer_bucketed(
     b, s, d, hd, kw, m = _geometry(x, params, num_heads, who)
     if not 1 <= cap <= s:
         raise ValueError(f"{who}: cap {cap} not in [1, S={s}]")
-    xk, kp, dp = _padded_call(x, params, LAYER_MULTIPLE)
-    mp = kp["mlp"]["fc1"]["w"].shape[-1]
-    w = _layer_weights(kp)
+    with span("prep"):
+        xk, kp, dp = _padded_call(x, params, LAYER_MULTIPLE)
+        mp = kp["mlp"]["fc1"]["w"].shape[-1]
+        w = _layer_weights(kp)
     _check(xk, w, {"qkv.w": (dp, 3 * kw), "qkv.b": (3 * kw,), **_layer_shapes(dp, kw, mp)}, who)
     dest = dest.to(torch.int32)
     for name, t, want in (("dest", dest, torch.int32), ("kept", kept, torch.bool)):

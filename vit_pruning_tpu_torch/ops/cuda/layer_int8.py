@@ -55,6 +55,7 @@ from vit_pruning_tpu_torch.ops.cuda.library import check_aligned, kernel_op, ptr
 from vit_pruning_tpu_torch.ops.cuda.widths import INT8_MULTIPLE
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 from vit_pruning_tpu_torch.ops.quant import KMAJOR, int_matmul, kmajor_int8_weights
+from vit_pruning_tpu_torch.utils.profiling import span
 
 # the activations quantized inside the layer, in order: LN1's output (QKV
 # input), the attention context (O input), LN2's output (fc1 input) and the
@@ -196,19 +197,20 @@ def fused_vit_layer_int8(
     who = "fused_vit_layer_int8"
     refuse_grad(who, x, qparams)
     b, s, d, hd, kw, m = _geometry(x, qparams, num_heads, who)
-    xk, kp, dp = _padded_call(x, qparams, INT8_MULTIPLE)
-    mp = kp["mlp"]["fc1"]["wq"].shape[-1]
-    a, mlp = kp["attn"], kp["mlp"]
-    # the int8 products read both operands K-major: weights as [N, K]
-    nk = kp.get(KMAJOR) or kmajor_int8_weights(kp)
-    w = {
-        "ln1.g": kp["ln1"]["g"], "ln1.b": kp["ln1"]["b"],
-        "qkv.wq": nk["qkv"]["wq"], "qkv.ws": nk["qkv"]["wscale"], "qkv.b": nk["qkv"]["b"],
-        "o.wq": nk["o"]["wq"], "o.ws": a["o"]["wscale"], "o.b": a["o"]["b"],
-        "ln2.g": kp["ln2"]["g"], "ln2.b": kp["ln2"]["b"],
-        "fc1.wq": nk["fc1"]["wq"], "fc1.ws": mlp["fc1"]["wscale"], "fc1.b": mlp["fc1"]["b"],
-        "fc2.wq": nk["fc2"]["wq"], "fc2.ws": mlp["fc2"]["wscale"], "fc2.b": mlp["fc2"]["b"],
-    }
+    with span("prep"):
+        xk, kp, dp = _padded_call(x, qparams, INT8_MULTIPLE)
+        mp = kp["mlp"]["fc1"]["wq"].shape[-1]
+        a, mlp = kp["attn"], kp["mlp"]
+        # the int8 products read both operands K-major: weights as [N, K]
+        nk = kp.get(KMAJOR) or kmajor_int8_weights(kp)
+        w = {
+            "ln1.g": kp["ln1"]["g"], "ln1.b": kp["ln1"]["b"],
+            "qkv.wq": nk["qkv"]["wq"], "qkv.ws": nk["qkv"]["wscale"], "qkv.b": nk["qkv"]["b"],
+            "o.wq": nk["o"]["wq"], "o.ws": a["o"]["wscale"], "o.b": a["o"]["b"],
+            "ln2.g": kp["ln2"]["g"], "ln2.b": kp["ln2"]["b"],
+            "fc1.wq": nk["fc1"]["wq"], "fc1.ws": mlp["fc1"]["wscale"], "fc1.b": mlp["fc1"]["b"],
+            "fc2.wq": nk["fc2"]["wq"], "fc2.ws": mlp["fc2"]["wscale"], "fc2.b": mlp["fc2"]["b"],
+        }
     shapes = {"ln1.g": (dp,), "ln1.b": (dp,), "qkv.wq": (3 * kw, dp), "qkv.ws": (3 * kw,),
               "qkv.b": (3 * kw,), "o.wq": (dp, kw), "o.ws": (dp,), "o.b": (dp,), "ln2.g": (dp,),
               "ln2.b": (dp,), "fc1.wq": (mp, dp), "fc1.ws": (mp,), "fc1.b": (mp,),

@@ -22,6 +22,7 @@ from vit_pruning_tpu_torch.configs import PruneConfig, ViTConfig
 from vit_pruning_tpu_torch.data.preprocess import VIT_MEAN, VIT_STD
 from vit_pruning_tpu_torch.models.pruned_vit import progressive_topk_forward
 from vit_pruning_tpu_torch.ops.patch_embed import patch_embed
+from vit_pruning_tpu_torch.utils.profiling import span
 
 
 def _require_u8(pixels: torch.Tensor, who: str):
@@ -37,13 +38,14 @@ def embed_from_u8(
     embed, in plain PyTorch as the JAX package's is in XLA; the fused
     kernel form of the same function is ops/cuda/embed.py::embed_u8."""
     _require_u8(pixels_u8, "embed_from_u8")
-    w_dtype = embed_params["patch"]["w"].dtype
-    x = (pixels_u8.float() / 255.0 - VIT_MEAN) / VIT_STD
-    y = patch_embed(x.to(w_dtype), embed_params["patch"], config.patch_size, impl=impl)
-    pos = embed_params["pos"]
-    y = y + pos[:, 1:]
-    cls = (embed_params["cls"] + pos[:, :1]).to(y.dtype).expand(y.shape[0], 1, y.shape[-1])
-    return torch.cat([cls, y], dim=1)
+    with span("embed"):
+        w_dtype = embed_params["patch"]["w"].dtype
+        x = (pixels_u8.float() / 255.0 - VIT_MEAN) / VIT_STD
+        y = patch_embed(x.to(w_dtype), embed_params["patch"], config.patch_size, impl=impl)
+        pos = embed_params["pos"]
+        y = y + pos[:, 1:]
+        cls = (embed_params["cls"] + pos[:, :1]).to(y.dtype).expand(y.shape[0], 1, y.shape[-1])
+        return torch.cat([cls, y], dim=1)
 
 
 def serving_forward(
@@ -56,11 +58,13 @@ def serving_forward(
 ) -> dict:
     """pixels_u8 [B, C, H, W] uint8 -> the progressive forward's output dict
     (logits, keep_masks, scores; + cls/last_hidden when logits_only=False).
-    quant: 'none', 'int8' or None (read the dispatch switch)."""
+    quant: 'none', 'int8' or None (read the dispatch switch). The call is
+    one `serve` span (utils/profiling.py), its stages spans inside it."""
     _require_u8(pixels_u8, "serving_forward")
-    x0 = embed_from_u8(pixels_u8, params["backbone"]["embed"], config)
-    return progressive_topk_forward(params, None, config, pcfg, x0=x0, logits_only=logits_only,
-                                    quant=quant)
+    with span("serve"):
+        x0 = embed_from_u8(pixels_u8, params["backbone"]["embed"], config)
+        return progressive_topk_forward(params, None, config, pcfg, x0=x0,
+                                        logits_only=logits_only, quant=quant)
 
 
 class _Serving(torch.nn.Module):
