@@ -73,8 +73,10 @@ kernels from csrc/ itself. Phases:
      and its composed width at S 257 / 171 / 129 / 86 / 43 / 22, B2's
      strided CLS rows and N 100 classifier, every epilogue; B1's four
      products at ViT-B/16, batch 16 x S 197), with the body each took
-     (wgmma where TMA can describe the operands, else WMMA); the
-     main shapes at batch 512 x 197 and 64 x 257 timed beside torch.matmul
+     (wgmma where TMA can describe the operands, else WMMA) and the tiles
+     and blocks of the wgmma body's walk; the four products at the bf16
+     cells' rows (DeiT-S 512 x 99 and 512 x 197, ViT-H 64 x 129) and at 64 x
+     257, at least 2 tiles a block, timed beside torch.matmul and their bound
   3k. sequences past the attention bodies' resident limit (K and V
      streamed): B1, B2, B3 (cap S // 2 + 1, the last token kept), B4, B5
      (two layers) and B6 against their plain versions at S 577 with hd 64
@@ -3162,10 +3164,15 @@ def main():
     # products at the tails (DeiT-S 99/33/17, ViT-H 129/43/22) with A's and the residual's
     # strided CLS rows and the classifier's N 100. The body each product took is read from
     # the launch counters: the wgmma body wherever TMA can describe A and W, the WMMA body
-    # only where it cannot. Then the main shapes at the timed batches (DeiT-S 512 x 197,
-    # ViT-H 64 x 257), each against its plain version and timed beside torch.matmul's bf16
-    # product on the same operands (a yardstick only).
+    # only where it cannot; on the wgmma body the output tiles it walked and the blocks it
+    # launched, against the walk's rule (ops/cuda/gemm.py::wgmma_walk). Then the four
+    # products at the benchmark cells' row counts (DeiT-S headline 512 x 99 and dense 512 x
+    # 197, ViT-H headline 64 x 129) and at ViT-H 64 x 257, each against its plain version,
+    # at least 2 tiles a block, timed beside torch.matmul's bf16 product on the same
+    # operands (a yardstick only) and against its bound, max(FLOP / 989 TFLOP/s, bytes /
+    # 3.35 TB/s).
     check = Checks("phase 3i (bf16 GEMM bodies vs plain)")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen_g = torch.Generator().manual_seed(SEED + 2)
     bfl, f32 = torch.bfloat16, torch.float32
 
@@ -3185,16 +3192,22 @@ def main():
         ref = kg.gemm_bf16_ref(a, w, b, act, r, out)
         body = "wgmma" if c1["wgmma"] > c0["wgmma"] else "wmma"
         want = "wgmma" if kg.takes_wgmma(a, w) else "wmma"
+        walk = {k: c1[f"wgmma_{k}"] - c0[f"wgmma_{k}"] for k in ("tiles", "blocks")}
+        want_walk = (kg.wgmma_walk(a.shape[0], w.shape[1], sms) if want == "wgmma"
+                     else {"tiles": 0, "blocks": 0})
         d = (got.float() - ref.float()).abs().max().item()
         top = ref.float().abs().max().item()
         tol = bf16_tol(ref.float()) if out == bfl else F32_ATOL * max(1.0, top)
         log(f"  GEMM {tag} M={a.shape[0]} N={w.shape[1]} K={a.shape[1]} (lda {a.stride(0)}"
             f"{'' if r is None else f', residual {r.dtype} ldr {r.stride(0)}'}, {act}, out "
-            f"{out}): body {body}; max_abs_err {d:.3e} (tol {tol:.1e})")
+            f"{out}): body {body}, {walk['tiles']} tiles on {walk['blocks']} blocks; "
+            f"max_abs_err {d:.3e} (tol {tol:.1e})")
         check(got.shape == ref.shape and bool(torch.isfinite(got).all()) and d <= tol
-              and body == want and c1["wgmma"] + c1["wmma"] == c0["wgmma"] + c0["wmma"] + 1,
-              f"GEMM {tag}: err {d:.3e}, body {body} (want {want})")
-        return a, w, got
+              and body == want and c1["wgmma"] + c1["wmma"] == c0["wgmma"] + c0["wmma"] + 1
+              and walk == want_walk,
+              f"GEMM {tag}: err {d:.3e}, body {body} (want {want}), walk {walk} (want "
+              f"{want_walk})")
+        return a, w, got, walk
 
     gemm_geoms = (("deit_s", cfg, (197, 131, 99, 66, 33, 17), (99, 33, 17)),
                   ("composed", c_cfg, (197, 131, 99, 66, 33, 17), (33, 17)),
@@ -3229,7 +3242,8 @@ def main():
                                        "fc2": (mm, d, f32, "none", bfl)}.items():
         gemm_check(f"vit_b batch 16 S=197 {tag}", gemm_operands(r16, k, n, res), act, out)
     gemm_rates = []
-    for gname, gcfg, batch, s in (("deit_s", cfg, 512, 197), ("vit_h", hcfg, 64, 257)):
+    for gname, gcfg, batch, s in (("deit_s headline", cfg, 512, 99), ("deit_s dense", cfg, 512, 197),
+                                  ("vit_h headline", hcfg, 64, 129), ("vit_h", hcfg, 64, 257)):
         d, kw, mm = gcfg.hidden_size, gcfg.attn_width, gcfg.mlp_dim
         rows = batch * s
         for tag, (k, n, res, act, out) in {"qkv": (d, 3 * kw, None, "none", bfl),
@@ -3237,14 +3251,21 @@ def main():
                                            "fc1": (d, mm, None, "gelu_tanh", bfl),
                                            "fc2": (mm, d, f32, "none", bfl)}.items():
             ops = gemm_operands(rows, k, n, res)
-            a, w, _ = gemm_check(f"{gname} batch {batch} S={s} {tag}", ops, act, out)
+            a, w, _, walk = gemm_check(f"{gname} batch {batch} S={s} {tag}", ops, act, out)
+            check(walk["tiles"] >= 2 * walk["blocks"],
+                  f"GEMM {gname} {tag}: {walk['tiles']} tiles on {walk['blocks']} blocks, fewer "
+                  f"than 2 a block")
             k_ms = time_ms(lambda: kg.gemm_bf16(a, w, ops[2], act, ops[3], out))
             l_ms = time_ms(lambda: torch.matmul(a, w))
             flops = 2.0 * rows * k * n
+            nbytes = (2 * rows * k + 2 * k * n + rows * n * out.itemsize
+                      + (0 if res is None else rows * n * res.itemsize))
+            bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
             gemm_rates.append((f"{gname} {tag}", rows, n, k, k_ms, l_ms))
             log(f"  GEMM {gname} batch {batch} S={s} {tag} M={rows} N={n} K={k}: kernel {k_ms:.4f} "
-                f"ms ({flops / k_ms / 1e9:.1f} TFLOP/s), torch.matmul bf16 {l_ms:.4f} ms "
-                f"({flops / l_ms / 1e9:.1f} TFLOP/s); {smi}")
+                f"ms ({flops / k_ms / 1e9:.1f} TFLOP/s, {100 * bound / k_ms:.1f}% of its bound "
+                f"{bound:.4f} ms), {walk['tiles']} tiles on {walk['blocks']} blocks; torch.matmul "
+                f"bf16 {l_ms:.4f} ms ({flops / l_ms / 1e9:.1f} TFLOP/s); {smi}")
             del ops, a, w
     check.done()
 

@@ -164,31 +164,63 @@ __device__ __forceinline__ void store8(float* p, const float* v) {
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// the epilogue of 8 consecutive outputs (m, n..n+7), all in range
+// 8 consecutive values of T as they lie in memory (16 bytes of bf16, 32 of f32)
 template <typename T>
-__device__ __forceinline__ void epilogue_store8(const Epilogue& e, int m, int n, float* v) {
-  float t[8];
+struct Raw8 {
+  uint4 u[sizeof(T) / 2];
+};
+template <typename T>
+__device__ __forceinline__ Raw8<T> load_raw8(const T* p) {
+  return *reinterpret_cast<const Raw8<T>*>(p);
+}
+
+// the epilogue of 8 consecutive outputs (m, n..n+7), all in range, from
+// what it reads besides the product, loaded apart so that a caller can
+// issue the loads early: the bias (b; read when e.bias) and the residual
+// (r; read when e.res). Bias, activation (ACT, or
+// e.act where ACT < 0), + residual (apply), then cast and store (finish).
+template <typename T>
+__device__ __forceinline__ void epilogue_fetch8(const Epilogue& e, int m, int n, float* r) {
+  if (!e.res) return;
+  const long i = m * e.ldr + n;
+  if (e.res_f32)
+    load8(static_cast<const float*>(e.res) + i, r);
+  else
+    load8(static_cast<const T*>(e.res) + i, r);
+}
+template <typename T, int ACT = -1>
+__device__ __forceinline__ void epilogue_apply8(const Epilogue& e, float* v, const Raw8<T>& b,
+                                                const float* r) {
   if (e.bias) {
-    load8(static_cast<const T*>(e.bias) + n, t);
+    float t[8];
+    load8(reinterpret_cast<const T*>(&b), t);
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] += t[i];
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = gelu(v[i], e.act);
+  for (int i = 0; i < 8; ++i) v[i] = gelu(v[i], ACT < 0 ? e.act : ACT);
   if (e.res) {
-    const long r = m * e.ldr + n;
-    if (e.res_f32)
-      load8(static_cast<const float*>(e.res) + r, t);
-    else
-      load8(static_cast<const T*>(e.res) + r, t);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] += t[i];
+    for (int i = 0; i < 8; ++i) v[i] += r[i];
   }
+}
+template <typename T, int ACT = -1>
+__device__ __forceinline__ void epilogue_finish8(const Epilogue& e, int m, int n, float* v,
+                                                 const Raw8<T>& b, const float* r) {
+  epilogue_apply8<T, ACT>(e, v, b, r);
   const long o = m * e.ldc + n;
   if (e.out_f32)
     store8(static_cast<float*>(e.out) + o, v);
   else
     store8(static_cast<T*>(e.out) + o, v);
+}
+template <typename T>
+__device__ __forceinline__ void epilogue_store8(const Epilogue& e, int m, int n, float* v) {
+  Raw8<T> b{};
+  float r[8];
+  if (e.bias) b = load_raw8(static_cast<const T*>(e.bias) + n);
+  epilogue_fetch8<T>(e, m, n, r);
+  epilogue_finish8<T>(e, m, n, v, b, r);
 }
 
 #define VPT_TRY(...)                          \

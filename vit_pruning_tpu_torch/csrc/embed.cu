@@ -37,11 +37,14 @@
 //     bf16, into the swizzled ring. The A operand that reaches the tensor
 //     cores is the one the TPU kernel builds, bit for bit.
 //   - bf16 whose rows TMA can describe (K % 8 == 0, 16-byte aligned:
-//     DeiT-S's K 768): by TMA straight into the swizzled ring;
+//     DeiT-S's K 768): by TMA straight into the swizzled ring, on the
+//     persistent body that the layer products run;
 //   - bf16 rows that are 8-byte but not 16-byte multiples (ViT-H's K 588:
 //     1,176 bytes): by 8-byte cp.async into the same layout;
 //   - f32 patches (and bf16 rows of any other width): through the producer
 //     warps' registers, rounded to bf16 there.
+// The last three keep the per-tile body: their 4 or 8 producer warps need
+// the registers that the persistent body gives its consumers.
 // B8b has no affine to fold (scale 1, shift 0 are the identity). The K tail
 // is zero filled in each.
 //
@@ -170,17 +173,38 @@ struct EmbedEpi {
   const void* pos;
   int pos_f32, tokens;  // pos rows: tokens = N patches an image
   T* out;
+  using Cols = Raw8<T>;
   __device__ __forceinline__ void operator()(int m, int n, float* v, int M, int D) const {
-    if (m >= M || n >= D) return;
+    Raw8<T> b{};
     float t[8];
-    load8(bias + n, t);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) v[u] += t[u];
-    load_pos8(pos, pos_f32, (long)(m % tokens) * D + n, t);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) v[u] += t[u];
+    cols(n, b, D);
+    fetch(m, n, t, M, D);
+    finish(m, n, v, b, t, M, D);
+  }
+  // the persistent wgmma body's steps (LayerEpi's): b, the position row,
+  // then the sums and the store
+  __device__ __forceinline__ void cols(int n, Raw8<T>& b, int D) const {
+    if (n < D) b = load_raw8(bias + n);
+  }
+  __device__ __forceinline__ void fetch(int m, int n, float* t, int M, int D) const {
+    if (m < M && n < D) load_pos8(pos, pos_f32, (long)(m % tokens) * D + n, t);
+  }
+  __device__ __forceinline__ void finish(int m, int n, float* v, const Raw8<T>& b, const float* t,
+                                         int M, int D) const {
+    if (m >= M || n >= D) return;
+    apply(n, v, b, t);
     store8(out + (long)m * D + n, v);
   }
+  __device__ __forceinline__ void apply(int, float* v, const Raw8<T>& b, const float* t) const {
+    float c[8];
+    load8(reinterpret_cast<const T*>(&b), c);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] += c[u];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] += t[u];
+  }
+  __device__ __forceinline__ bool out_f32() const { return false; }
+  __device__ __forceinline__ void prefetch(int, int, int, int) const {}  // pos stays in L2
 };
 
 // f32 weights: the split body, W's planes in `planes` (3 K D bf16). pos is
@@ -211,19 +235,20 @@ cudaError_t embed_wgmma(const Tin* A, const bf16* W, const bf16* b, const void* 
   if constexpr (std::is_same<Tin, uint8_t>::value) {  // B8a
     const uintptr_t a = reinterpret_cast<uintptr_t>(A);
     const int wide = K % 16 == 0 && a % 16 == 0 ? 16 : K % 4 == 0 && a % 4 == 0 ? 4 : 1;
-    return wgmma_gemm(tw, tw, RegA<uint8_t>{A, K, wide, scale, shift}, epi, T, D, K, st);
+    return wgmma_gemm_per_tile(tw, RegA<uint8_t>{A, K, wide, scale, shift}, epi, T, D, K, st);
   } else if constexpr (std::is_same<Tin, bf16>::value) {  // B8b: scale 1, shift 0
     if (aligned16(A) && K % 8 == 0) {
-      CUtensorMap ta;
+      CUtensorMap ta, to;
       VPT_TRY(tma_map_a(&ta, A, K, T, K));
-      return wgmma_gemm(ta, tw, TmaA{}, epi, T, D, K, st);
+      VPT_TRY(tma_map_out(&to, out, D, T, D, 2));
+      return wgmma_gemm(ta, tw, &to, epi, T, D, K, st);
     }
     if ((reinterpret_cast<uintptr_t>(A) & 7) == 0 && K % 4 == 0)
-      return wgmma_gemm(tw, tw, CpAsyncA{A, K}, epi, T, D, K, st);
-    return wgmma_gemm(tw, tw, RegA<bf16>{A, K, 0}, epi, T, D, K, st);
+      return wgmma_gemm_per_tile(tw, CpAsyncA{A, K}, epi, T, D, K, st);
+    return wgmma_gemm_per_tile(tw, RegA<bf16>{A, K, 0}, epi, T, D, K, st);
   } else {
     const int wide = K % 4 == 0 && aligned16(A);  // two 16-byte loads a chunk
-    return wgmma_gemm(tw, tw, RegA<float>{A, K, wide}, epi, T, D, K, st);
+    return wgmma_gemm_per_tile(tw, RegA<float>{A, K, wide}, epi, T, D, K, st);
   }
 }
 

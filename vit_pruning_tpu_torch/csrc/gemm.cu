@@ -5,9 +5,10 @@
 // (common.cuh).
 //
 // bf16 takes one of two bodies, chosen by shape alone (wgmma_takes):
-//   - wgmma.cuh's wgmma + TMA body wherever TMA can describe A and W
-//     (16-byte aligned, lda, N and K multiples of 8): every product of the
-//     layers at every geometry the kernels take;
+//   - wgmma.cuh's persistent wgmma + TMA body wherever TMA can describe A
+//     and W (16-byte aligned, lda, N and K multiples of 8): every product
+//     of the layers at every geometry the kernels take, one launch a
+//     product, each block walking several 128 x 128 output tiles;
 //   - the WMMA (mma.sync) body below otherwise: no product of the serving
 //     paths since B2's bf16 launches (cls_logits.cu) replaced its products
 //     and pad the classifier to a multiple of 8 labels; a direct gemm_bf16
@@ -17,9 +18,11 @@
 // the layers): the product on wgmma as six bf16 passes over exact three-way
 // splits of both operands, accumulated in f32 (full f32 accuracy, no TF32).
 //
-// Each launch is counted per body (vpt_gemm_body_counts) and the shapes
-// that took the WMMA body are kept (vpt_gemm_wmma_shapes), so a run can
-// show which products took which body.
+// Each launch is counted per body (vpt_gemm_body_counts), with the output
+// tiles the wgmma body walked and the blocks it launched to walk them, and
+// the shapes that took the WMMA body are kept (vpt_gemm_wmma_shapes), so a
+// run can show which products took which body and how many tiles a block
+// walked.
 
 #include <mma.h>
 
@@ -152,27 +155,65 @@ gemm_bf16_kernel(const bf16* __restrict__ A, long lda, const bf16* __restrict__ 
     }
 }
 
-// the wgmma bodies' epilogue: common.cuh's, 8 outputs at a time, bias and
-// residual in T (or f32)
-template <typename T>
+// the GEMM bodies' epilogue, common.cuh's, 8 outputs at a time, bias and
+// residual in T (or f32). The persistent wgmma body loads a tile's bias
+// (cols) before its products, brings its residual rows into L2 (prefetch),
+// and loads four groups' residual (fetch) before it finishes the first
+// (finish); it fixes the activation at compile time (ACT >= 0), so that a
+// group's eight activations interleave. ACT -1 reads it from e.
+template <typename T, int ACT = -1>
 struct LayerEpi {
   Epilogue e;
+  using Cols = Raw8<T>;
   __device__ __forceinline__ void operator()(int m, int n, float* v, int M, int N) const {
+    Raw8<T> b{};
+    float r[8];
+    cols(n, b, N);
+    fetch(m, n, r, M, N);
+    finish(m, n, v, b, r, M, N);
+  }
+  __device__ __forceinline__ bool whole(int n, int N) const { return e.vec && n + 8 <= N; }
+  __device__ __forceinline__ void cols(int n, Raw8<T>& b, int N) const {
+    if (e.bias && whole(n, N)) b = load_raw8(static_cast<const T*>(e.bias) + n);
+  }
+  __device__ __forceinline__ void fetch(int m, int n, float* r, int M, int N) const {
+    if (m < M && whole(n, N)) epilogue_fetch8<T>(e, m, n, r);
+  }
+  __device__ __forceinline__ void finish(int m, int n, float* v, const Raw8<T>& b, const float* r,
+                                         int M, int N) const {
     if (m >= M || n >= N) return;
-    if (e.vec && n + 8 <= N) {
-      epilogue_store8<T>(e, m, n, v);
-    } else {
+    if (whole(n, N)) {
+      epilogue_finish8<T, ACT>(e, m, n, v, b, r);
+    } else {  // rows not 16-byte aligned, or the last columns: value by value
 #pragma unroll
-      for (int t = 0; t < 8; ++t)
-        if (n + t < N) epilogue_store<T>(e, m, n + t, v[t]);
+      for (int i = 0; i < 8; ++i)
+        if (n + i < N) epilogue_store<T>(e, m, n + i, v[i]);
+    }
+  }
+  // where the persistent body stores by TMA (e.vec: whole groups alone)
+  __device__ __forceinline__ void apply(int, float* v, const Raw8<T>& b, const float* r) const {
+    epilogue_apply8<T, ACT>(e, v, b, r);
+  }
+  __device__ __forceinline__ bool out_f32() const { return e.out_f32; }
+  // the residual rows of tile (m0, n0) into L2: a warpgroup's 128 threads,
+  // 128 rows of 128 columns in 128-byte lines
+  __device__ __forceinline__ void prefetch(int m0, int n0, int M, int N) const {
+    if (!e.res) return;
+    const int el = e.res_f32 ? 4 : sizeof(T), lines = el;  // 128 el bytes a row
+    for (int i = threadIdx.x & 127; i < 128 * lines; i += 128) {
+      const int m = m0 + i / lines, n = n0 + i % lines * (128 / el);
+      if (m < M && n < N)
+        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(static_cast<const char*>(e.res) +
+                                                          (m * e.ldr + n) * el));
     }
   }
 };
 
-// launches per body (0 bf16 wgmma, 1 bf16 WMMA, 2 f32 split) and the
-// distinct shapes that took the WMMA body
-constexpr int kBodies = 3;
-std::atomic<long long> g_body_launches[kBodies];
+// launches per body (0 bf16 wgmma, 1 bf16 WMMA, 2 f32 split), then the
+// wgmma body's output tiles (3) and blocks (4), and the distinct shapes that
+// took the WMMA body
+constexpr int kBodies = 3, kCounts = 5;
+std::atomic<long long> g_body_launches[kCounts];
 std::mutex g_wmma_shapes_mu;
 std::vector<int> g_wmma_shapes;  // M, N, K triples
 constexpr size_t kMaxShapes = 64;
@@ -191,8 +232,21 @@ cudaError_t gemm(const bf16* A, long lda, const bf16* W, int M, int N, int K, Ep
     CUtensorMap ta, tw;
     VPT_TRY(tma_map_a(&ta, A, lda, M, K));
     VPT_TRY(tma_map_w(&tw, W, N, K));
-    VPT_TRY(wgmma_gemm(ta, tw, TmaA{}, LayerEpi<bf16>{e}, M, N, K, st));
+    // the output by TMA where its rows are 16-byte aligned (as every other
+    // access of the epilogue then is)
+    CUtensorMap to;
+    if (e.vec) VPT_TRY(tma_map_out(&to, e.out, e.ldc, M, N, e.out_f32 ? 4 : 2));
+    const CUtensorMap* tmo = e.vec ? &to : nullptr;
+    Walk walk;
+    if (e.act == ACT_GELU_TANH)
+      VPT_TRY(wgmma_gemm(ta, tw, tmo, LayerEpi<bf16, ACT_GELU_TANH>{e}, M, N, K, st, &walk));
+    else if (e.act == ACT_GELU_ERF)
+      VPT_TRY(wgmma_gemm(ta, tw, tmo, LayerEpi<bf16, ACT_GELU_ERF>{e}, M, N, K, st, &walk));
+    else
+      VPT_TRY(wgmma_gemm(ta, tw, tmo, LayerEpi<bf16, ACT_NONE>{e}, M, N, K, st, &walk));
     g_body_launches[0]++;
+    g_body_launches[kBodies] += walk.tiles;
+    g_body_launches[kBodies + 1] += walk.blocks;
     return cudaSuccess;
   }
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -254,14 +308,15 @@ int vpt_gemm_f32(const void* A, long lda, const void* W, int M, int N, int K, co
               static_cast<bf16*>(wplanes));
 }
 
-// launches of the bf16 wgmma body, the bf16 WMMA body and the f32 split body
-// since the last reset
+// since the last reset: launches of the bf16 wgmma body, the bf16 WMMA body
+// and the f32 split body, then the output tiles the wgmma body walked and
+// the blocks it launched (five counts)
 void vpt_gemm_body_counts(long long* out) {
-  for (int b = 0; b < kBodies; ++b) out[b] = g_body_launches[b].load();
+  for (int b = 0; b < kCounts; ++b) out[b] = g_body_launches[b].load();
 }
 
 void vpt_gemm_body_reset() {
-  for (int b = 0; b < kBodies; ++b) g_body_launches[b] = 0;
+  for (int b = 0; b < kCounts; ++b) g_body_launches[b] = 0;
   std::lock_guard<std::mutex> lock(g_wmma_shapes_mu);
   g_wmma_shapes.clear();
 }

@@ -1,57 +1,90 @@
-// The bf16 GEMM body on Hopper's warpgroup MMA (wgmma) and Tensor Memory
-// Accelerator (TMA), sm_90a. gemm.cu runs it for every bf16 product of the
-// layer kernels B1, B3 and B5 (with common.cuh's Epilogue), embed.cu for
-// B8a and B8b (with + b + pos[t % N]). At the end of the file: the 64-column
-// wgmma shapes (A from shared memory or from registers), the exact three-way
-// bf16 split of an f32 operand and a 3-D TMA map, which the tensor-core
-// bodies of B6 (attention.cu) and B7 (mlp.cu) are built from, and the row
-// helpers of the attention bodies (key flags, row max, quad sum, the
-// corrected quotient) that layer_attention.cu and split_attention.cuh
-// share. B4's int8
-// products run the s8 body of wgmma_s8.cuh, built from this file's
-// barriers, TMA loads and descriptors.
+// The bf16 GEMM bodies on Hopper's warpgroup MMA (wgmma) and Tensor Memory
+// Accelerator (TMA), sm_90a. gemm.cu runs the persistent body for every bf16
+// product of the layer kernels B1, B3 and B5 (with common.cuh's Epilogue),
+// embed.cu runs it for B8b's bf16 patches that TMA can describe and the
+// per-tile body for B8a and B8b's other patches (with + b + pos[t % N]). At
+// the end of the file: the 64-column wgmma shapes (A from shared memory or
+// from registers), the exact three-way bf16 split of an f32 operand and a
+// 3-D TMA map, which the tensor-core bodies of B6 (attention.cu) and B7
+// (mlp.cu) are built from, and the row helpers of the attention bodies (key
+// flags, row max, quad sum, the corrected quotient) that layer_attention.cu
+// and split_attention.cuh share. B4's int8 products run the s8 body of
+// wgmma_s8.cuh, built from this file's barriers, TMA loads and descriptors.
 //
 //   out[M, N] = epilogue(A[M, K] @ W[K, N])
 //
 // A is bf16 [M, K] with row stride lda, or B8's patches that TMA cannot
 // describe (CpAsyncA, RegA below); W is bf16 [K, N] row-major, as the
 // param tree stores it, so it is wgmma's MN-major ("transposed") B operand.
-// No copy of W is made.
+// No copy of W is made. Both bodies read A in [128 rows x 64] boxes and W in
+// two [64 k x 64 n] boxes a step of 64 k, with the 128-byte swizzle, into a
+// ring of shared-memory stages that complete on mbarriers ("full": the bytes
+// the TMA loads bring; "empty": the consumers' warps are done with it).
 //
-// One block computes a 128 x 128 output tile, K in steps of 64:
-//   - producer: one warp issues TMA loads of the A tile [128 rows x 64] and
-//     two W boxes [64 k x 64 n] per step into a ring of shared-memory
-//     stages, with the 128-byte swizzle, completing on an mbarrier ("full")
-//     with the bytes it expects; or four warps bring A by cp.async
-//     (CpAsyncA) or through registers, rounding f32 to bf16 or applying
-//     B8a's affine to uint8 (RegA), into the same swizzled layout, while one
-//     thread still brings W by TMA;
-//   - consumers: two warpgroups, 64 rows each, run wgmma.mma_async
-//     m64n128k16 on the stage that has arrived (four per step), f32
-//     accumulators in registers (64 a thread), wait for them and hand the
-//     stage back to the producer ("empty"), whose loads run stages ahead;
-//   - epilogue: each quad of lanes transposes its accumulator pairs by
-//     shuffles so that a lane holds 8 consecutive outputs of one row, then
-//     the caller's epilogue runs on them (16-byte stores where it can).
-// TMA zero-fills what lies past M, N or K, and the epilogue masks its
-// stores, so ragged shapes (ViT-H's 16,448 rows, B3's B * cap)
-// need nothing else. TMA needs a 16-byte aligned base and row strides that
-// are multiples of 16 bytes: A's lda and W's N multiples of 8 elements.
+// The persistent body (A described by TMA), wgmma_gemm_persistent:
+//   - one block an SM (the ring of 4 stages and the staging rows take 165
+//     KB), as many blocks as the card has SMs (or output tiles, if fewer);
+//     block b walks the 128 x 128 output tiles b, b + grid, b + 2 grid, ...,
+//     in groups of 8 row tiles (rows fastest, so that a W column panel and
+//     8 A row panels serve consecutive tiles from L2);
+//   - producer warpgroup (setmaxnreg 40): one thread issues the TMA loads of
+//     every step of every tile of the block in order, as soon as a stage is
+//     free, so the next tile's stages fill while the consumers are still on
+//     the last one's products and epilogue;
+//   - two consumer warpgroups (setmaxnreg 232) take alternate tiles of the
+//     block, each a whole 128 x 128 tile (two m64n128k16 a 16 k, 128
+//     accumulators a thread), "ping-pong": a warpgroup starts its tile's
+//     products when the other has issued its last ones (an mbarrier a
+//     warpgroup, "turn"), then runs its epilogue while the other runs its
+//     products. One step's wgmma group stays in flight (a stage goes back
+//     when the next step's products are issued), and each tile's first
+//     product drops the old accumulators (scale-d 0) instead of zeroing
+//     them;
+//   - the epilogue: the tile's bias is loaded before its products; its
+//     residual rows are brought into L2 then; a warp's 16 rows go through
+//     its own staging rows in shared memory, 64 columns at a time (written
+//     where wgmma leaves them, read back 8 consecutive columns a lane), the
+//     residual of four groups of 8 loaded before the first is finished,
+//     and leave by one TMA store a 16 x 64 box where the output's rows are
+//     16-byte aligned (else 16-byte stores); the activation is fixed at
+//     compile time (one instance each), so that a group's eight
+//     activations interleave.
+// At DeiT-S's K 384 a tile has 6 steps of products; its epilogue (16,384
+// outputs with bias, GELU or residual reads) runs under the other
+// warpgroup's products. On an H100 the products of a tile take ~4,000
+// cycles, the epilogue 7,000-20,000 (GELU and residual traffic): the
+// epilogue still sets the pace at K 384, the products at ViT-H's K 5,120.
+//
+// The per-tile body (B8's register and cp.async producers),
+// wgmma_gemm_kernel: one block a 128 x 128 output tile; four (or eight)
+// producer warps bring A by cp.async (CpAsyncA) or through registers,
+// rounding f32 to bf16 or applying B8a's affine to uint8 (RegA), into the
+// same swizzled layout, while one thread brings W by TMA; two consumer
+// warpgroups, 64 rows each, wait for each step's products before handing
+// the stage back; each quad of lanes transposes its accumulator pairs by
+// shuffles so that a lane holds 8 consecutive outputs of one row, then the
+// caller's epilogue runs on them. Their producer warps take the registers
+// that the persistent body gives its consumers, so they keep this body.
+//
+// TMA zero-fills what lies past M, N or K, and the epilogues mask their
+// stores (a TMA store drops what lies past M and N), so ragged shapes
+// (ViT-H's 8,256 rows, B3's B * cap) need nothing else. TMA needs a 16-byte
+// aligned base and row strides that are multiples of 16 bytes: A's lda and
+// W's N multiples of 8 elements.
 //
 // What bounds it on an H100: the layer products at batch 512 (DeiT-S) or 64
-// (ViT-H) are far above the bf16 ridge (~295 FLOP a byte), so tensor-core
-// issue. wgmma is the only instruction that reaches the card's bf16 rate;
-// TMA keeps the loads off the consumers' registers and instructions. The
-// tile is 128 x 128, not 128 x 256, so that DeiT-S's N 384 wastes no half
-// tile; the ring has 3 stages so that two blocks fit an SM (2 x 99 KB of
-// shared memory, at most 112 registers a thread) and one block's epilogue
-// overlaps the other's products. The block is not persistent: a block's
-// prologue (the first loads) and epilogue are exposed where the other block
-// of its SM does not cover them.
+// (ViT-H) are above the bf16 ridge (~295 FLOP a byte) or near it (O and fc2
+// at DeiT-S's widths write or read f32 rows), so tensor-core issue and the
+// epilogue's traffic. wgmma is the only instruction that reaches the card's
+// bf16 rate; TMA keeps the loads off the consumers' registers and
+// instructions. The tile is 128 x 128, not 128 x 256, so that DeiT-S's N
+// 384 wastes no half tile.
 
 #pragma once
 
 #include <cuda.h>
+
+#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
@@ -125,8 +158,10 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// d[64 x 128] += A[64 x 16] (K-major) @ B[16 x 128] (MN-major: trans-b 1)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+// d[64 x 128] += A[64 x 16] (K-major) @ B[16 x 128] (MN-major: trans-b 1);
+// with scale_d 0, d = A @ B (what d held is dropped)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -144,14 +179,12 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
         "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // ---------------------------------------------------------------------------
-// How A reaches the ring.
-
-// by TMA: bf16, lda % 8 == 0, 16-byte aligned (the host encodes the map)
-struct TmaA {};
+// How A reaches the per-tile body's ring (the persistent body's comes by
+// TMA: bf16, lda % 8 == 0, 16-byte aligned; the host encodes the map).
 
 // through registers (B8b's f32 patches, bf16 rows that are not 8-byte
 // multiples, and B8a's uint8 patches): 4 producer warps, rounded to bf16 and
@@ -312,15 +345,6 @@ struct CpAsyncA {
   }
 };
 
-template <typename ALoad>
-struct ProducerWarps {
-  static constexpr int value = ALoad::PRODUCER_WARPS;
-};
-template <>
-struct ProducerWarps<TmaA> {
-  static constexpr int value = 1;
-};
-
 // The epilogue of a consumer warpgroup's m64n128 accumulators (rows m0w ..
 // m0w + 63, columns n0 .. n0 + 127). Accumulator i of a thread: row (warp *
 // 16 + lane / 4 + 8 * ((i / 2) % 2)), column (i / 4) * 8 + 2 * (lane % 4) + i
@@ -358,17 +382,264 @@ __device__ __forceinline__ void wgmma_tile_epilogue(const float (&acc)[64], int 
 }
 
 // ---------------------------------------------------------------------------
-// The kernel. Epi is called as epi(m, n, v, M, N) with v the 8 outputs
-// (m, n..n+7) in f32, n a multiple of 8, for every such group of the tile;
-// it masks m >= M and n + t >= N itself.
+// The kernels. The per-tile body calls epi(m, n, v, M, N) with v the 8
+// outputs (m, n..n+7) in f32, n a multiple of 8, for every such group of a
+// tile; it masks m >= M and n + t >= N itself. The persistent body, as a
+// warpgroup takes tile (m0, n0), calls epi.prefetch(m0, n0, M, N) (what its
+// epilogue will read by rows, into L2) and epi.cols(n, c, N) for each of
+// the thread's two groups of 8 columns (what the epilogue reads by
+// columns, into registers of type Epi::Cols: the bias); then, for each
+// group of 8 outputs, epi.fetch(m, n, t, M, N) (what it reads by rows: the
+// residual) and, once the fetches of four groups are in flight,
+// epi.finish(m, n, v, c, t, M, N) (the rest of the epilogue and the store)
+// or, where the body stores by TMA, epi.apply(n, v, c, t) (the rest of the
+// epilogue, in place; whole groups of 8 only) and epi.out_f32() (the
+// output's type: f32 or bf16).
 
-template <int MINB, int STAGES, typename ALoad, typename Epi>
-__global__ void __launch_bounds__(wgm::CONSUMERS + 32 * ProducerWarps<ALoad>::value, MINB)
-wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
-                  const ALoad aload, const Epi epi, int M, int N, int K) {
+// The persistent body's geometry. One block an SM: the ring and the staging
+// rows take more than half of an SM's shared memory (4 stages measured
+// faster than 3 or 5 on an H100). The registers: 40 a producer thread, 232
+// a consumer thread (128 accumulators and the epilogue), 64,512 in all.
+namespace wgp {
+constexpr int STAGES = 4, GROUP_M = 8;
+constexpr int THREADS = 384;  // the producer warpgroup, then two consumer warpgroups
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+// a consumer warp's staging: its 16 rows of a 64-column quarter in f32, 72
+// floats a row so that a quad's 8-byte writes of 4 rows fall in 4 bank
+// groups; then, for TMA, the same rows finished in the output's type
+constexpr int STAGE_LD = 72, WARP_STAGING = 16 * STAGE_LD * 4;
+constexpr size_t SMEM = 1024 + size_t(STAGES) * wgm::STAGE_BYTES + 8 * WARP_STAGING +
+                        (2 * STAGES + 2) * sizeof(uint64_t);
+constexpr int BLOCKS_PER_SM = 1;
+static_assert(SMEM <= 232448 && 2 * SMEM > 232448, "one block an SM");
+static_assert(128 * (PRODUCER_REGS + 2 * CONSUMER_REGS) <= 65536, "one SM's registers");
+}  // namespace wgp
+
+// The walk: output tile t of tiles_m x tiles_n, in groups of GROUP_M row
+// tiles (the last group may have fewer), rows fastest within a group
+__host__ __device__ __forceinline__ void wgp_tile(int t, int tiles_m, int tiles_n, int& m0,
+                                                  int& n0) {
+  const int per_group = wgp::GROUP_M * tiles_n, group = t / per_group;
+  const int first = group * wgp::GROUP_M, r = t - group * per_group;
+  const int rows = tiles_m - first < wgp::GROUP_M ? tiles_m - first : wgp::GROUP_M;
+  m0 = (first + r % rows) * wgm::BM;
+  n0 = r / rows * wgm::BN;
+}
+
+// the bulk (TMA) stores from shared memory: a 2-D box at (c0 inner, c1
+// outer) of the tensor map, the commit of a thread's stores so far, and the
+// wait until at most N groups are still reading shared memory (or, with
+// bulk_wait, still writing)
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The persistent body's epilogue of a warpgroup's m64n128 accumulators at
+// (m0w, n0), a 64-column quarter at a time through the warp's staging rows:
+// a thread's pair p (acc[2 p], acc[2 p + 1], where wgmma leaves them: row
+// warp * 16 + lane / 4 + 8 (p % 2), columns 8 (p / 2) + 2 (lane % 4) and the
+// next) written as 8 bytes, then read back as 8 consecutive columns a lane,
+// 8 lanes a row. A warp reads back the 16 rows it wrote: no barrier but the
+// warp's own. With tmO, the finished values go back into the staging rows
+// in the output's type and leave as one TMA store of the warp's 16 x 64 box
+// (TMA drops what lies past M and N); else each lane stores its 8.
+template <typename Epi, typename C>
+__device__ __forceinline__ void wgmma_staged_epilogue(const float (&acc)[64], float* stage,
+                                                      int m0w, int n0, const C (&c)[2],
+                                                      const CUtensorMap* tmO, const Epi& epi,
+                                                      int M, int N) {
+  const int lane = threadIdx.x & 31;
+  const int wr = lane >> 2, wc = 2 * (lane & 3);  // a thread's pairs: rows wr, wr + 8
+  const int rr = lane >> 3, rc = 8 * (lane & 7);  // read back: rows rr + 4 i, 8 columns
+  const int row0 = m0w + ((threadIdx.x >> 5) & 3) * 16, m = row0 + rr;
+  // lanes 4-7 of each 8 read their second 16 bytes first: 8 lanes, 32 banks
+  const int sw = (lane >> 2) & 1;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int n = n0 + 64 * q + rc;
+    float t[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) epi.fetch(m + 4 * i, n, t[i], M, N);
+    if (tmO && lane == 0) bulk_wait_read<0>();  // the last store has read the staging rows
+    __syncwarp();  // ... and the last quarter's reads are done
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = 2 * (8 * q + jb) + r;
+        *reinterpret_cast<float2*>(stage + (wr + 8 * r) * wgp::STAGE_LD + 8 * jb + wc) =
+            make_float2(acc[2 * p], acc[2 * p + 1]);
+      }
+    __syncwarp();
+    float v[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float* row = stage + (rr + 4 * i) * wgp::STAGE_LD + rc;
+      const float4 a = *reinterpret_cast<const float4*>(row + 4 * sw);
+      const float4 b = *reinterpret_cast<const float4*>(row + 4 - 4 * sw);
+      const float4 lo = sw ? b : a, hi = sw ? a : b;
+      v[i][0] = lo.x, v[i][1] = lo.y, v[i][2] = lo.z, v[i][3] = lo.w;
+      v[i][4] = hi.x, v[i][5] = hi.y, v[i][6] = hi.z, v[i][7] = hi.w;
+    }
+    if (!tmO) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) epi.finish(m + 4 * i, n, v[i], c[q], t[i], M, N);
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) epi.apply(n, v[i], c[q], t[i]);
+    __syncwarp();  // every read of the staging rows is done
+    unsigned char* out = reinterpret_cast<unsigned char*>(stage);  // [16][64] in the output type
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (epi.out_f32())
+        store8(reinterpret_cast<float*>(out) + (rr + 4 * i) * 64 + rc, v[i]);
+      else
+        store8(reinterpret_cast<bf16*>(out) + (rr + 4 * i) * 64 + rc, v[i]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
+    __syncwarp();
+    if (lane == 0 && row0 < M && n0 + 64 * q < N) {  // a box wholly past M or N: nothing
+      tma_store_2d(tmO, smem_u32(out), n0 + 64 * q, row0);
+      bulk_commit();
+    }
+  }
+}
+
+// Block b walks tiles b, b + grid, ...; its j-th tile goes to consumer
+// warpgroup j % 2. Step g of the block (over all its tiles, in order) takes
+// stage g % STAGES, so the barriers' phases run on across tiles. A consumer
+// waits for its turn before a tile's first step: then the other has waited
+// for every step of the tile before, so no stage it waits on can be two
+// phases behind.
+template <typename Epi>
+__global__ void __launch_bounds__(wgp::THREADS, 1)
+wgmma_gemm_persistent(const __grid_constant__ CUtensorMap tmA,
+                      const __grid_constant__ CUtensorMap tmW,
+                      const __grid_constant__ CUtensorMap tmO, int out_tma, const Epi epi, int M,
+                      int N, int K) {
   using namespace wgm;
-  constexpr bool kTmaA = std::is_same<ALoad, TmaA>::value;
-  constexpr int kProducers = 32 * ProducerWarps<ALoad>::value;
+  constexpr int STAGES = wgp::STAGES;
+  extern __shared__ unsigned char wsm[];
+  const uint32_t raw = smem_u32(wsm);
+  unsigned char* ring = wsm + (((raw + 1023) & ~1023u) - raw);  // 128-byte swizzle: 1024-aligned
+  float* staging = reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES + 8 * wgp::WARP_STAGING);
+  uint64_t* empty = full + STAGES;
+  uint64_t* turn = empty + STAGES;  // turn[c]: consumer c may issue its next tile's products
+  const int tid = threadIdx.x, wg = tid >> 7, b = blockIdx.x, grid = gridDim.x;
+  const int nk = (K + BK - 1) / BK;
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  const int tiles = tiles_m * tiles_n;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(full + s), 1);   // + the TMA's expected bytes
+      mbar_init(smem_u32(empty + s), 4);  // the consuming warpgroup's warps
+    }
+    mbar_init(smem_u32(turn), 4);  // the other warpgroup's warps
+    mbar_init(smem_u32(turn + 1), 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // --- producer ---
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(wgp::PRODUCER_REGS));
+    if (tid == 0) {
+      int g = 0;
+      for (int t = b; t < tiles; t += grid) {
+        int m0, n0;
+        wgp_tile(t, tiles_m, tiles_n, m0, n0);
+        for (int kt = 0; kt < nk; ++kt, ++g) {
+          const int s = g % STAGES;
+          if (g >= STAGES) mbar_wait(smem_u32(empty + s), ((g / STAGES) - 1) & 1);
+          const uint32_t st = smem_u32(ring + s * STAGE_BYTES), fb = smem_u32(full + s);
+          mbar_arrive_expect(fb, STAGE_BYTES);
+          tma_load_2d(st, &tmA, fb, kt * BK, m0);
+          tma_load_2d(st + A_BYTES, &tmW, fb, n0, kt * BK);
+          tma_load_2d(st + A_BYTES + B_BOX, &tmW, fb, n0 + 64, kt * BK);
+        }
+      }
+    }
+    return;
+  }
+
+  // --- consumers: warpgroup c takes the block's tiles c, c + 2, ... whole ---
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(wgp::CONSUMER_REGS));
+  const int c = wg - 1, lane = tid & 31;
+  float* stage = staging + (tid / 32 - 4) * (wgp::WARP_STAGING / 4);  // this warp's
+  float acc[2][64];  // rows 0-63 and 64-127 of the tile
+  int turns = 0;
+  for (int j = c; b + j * grid < tiles; j += 2) {
+    int m0, n0;
+    wgp_tile(b + j * grid, tiles_m, tiles_n, m0, n0);
+    epi.prefetch(m0, n0, M, N);
+    // the bias of the columns this thread's epilogue reads back: n0 + 64 q + 8 (lane % 8)
+    typename Epi::Cols cols[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) epi.cols(n0 + 64 * q + 8 * (lane & 7), cols[q], N);
+    if (j > 0) mbar_wait(smem_u32(turn + c), turns++ & 1);  // the other's products are issued
+    int g = j * nk;
+    for (int kt = 0; kt < nk; ++kt, ++g) {
+      const int s = g % STAGES;
+      mbar_wait(smem_u32(full + s), (g / STAGES) & 1);
+      const uint32_t a0 = smem_u32(ring + s * STAGE_BYTES), b0 = a0 + A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {  // 16 k: 32 bytes along A's rows, 2 KB of W
+        const uint64_t db = gmma_desc(b0 + kk * 2048, B_BOX, 1024);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          wgmma_m64n128k16(acc[h], gmma_desc(a0 + h * (64 * 128) + kk * 32, 16, 1024), db,
+                           kt > 0 || kk > 0);
+      }
+      wgmma_commit();
+      if (kt > 0) {  // the step before is done: hand its stage back
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(smem_u32(empty + (g - 1) % STAGES));
+      }
+    }
+    if (lane == 0) mbar_arrive(smem_u32(turn + (c ^ 1)));  // the other may issue its products
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(smem_u32(empty + (g - 1) % STAGES));
+    const CUtensorMap* to = out_tma ? &tmO : nullptr;
+    wgmma_staged_epilogue(acc[0], stage, m0, n0, cols, to, epi, M, N);
+    wgmma_staged_epilogue(acc[1], stage, m0 + 64, n0, cols, to, epi, M, N);
+  }
+  if (out_tma && lane == 0) bulk_wait<0>();  // the last stores have left shared memory
+}
+
+// The per-tile body (B8's register and cp.async producers): one block a
+// 128 x 128 output tile, 4 stages, one block an SM (the 4 or 8 producer
+// warps take the registers a second block would need).
+namespace wgm {
+constexpr int TILE_STAGES = 4;
+}
+template <typename ALoad, typename Epi>
+__global__ void __launch_bounds__(wgm::CONSUMERS + 32 * ALoad::PRODUCER_WARPS, 1)
+wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmW, const ALoad aload, const Epi epi, int M,
+                  int N, int K) {
+  using namespace wgm;
+  constexpr int STAGES = TILE_STAGES;
+  constexpr bool kCpAsync = std::is_same<ALoad, CpAsyncA>::value;
+  constexpr int kProducers = 32 * ALoad::PRODUCER_WARPS;
   extern __shared__ unsigned char wsm[];
   const uint32_t raw = smem_u32(wsm);
   unsigned char* ring = wsm + (((raw + 1023) & ~1023u) - raw);  // 128-byte swizzle: 1024-aligned
@@ -381,7 +652,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant
   if (tid == 0) {
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(smem_u32(full + s), kTmaA ? 1 : 1 + kProducers);
+      mbar_init(smem_u32(full + s), 1 + kProducers);
       mbar_init(smem_u32(empty + s), CONSUMERS / 32);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -390,34 +661,31 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant
 
   if (tid >= CONSUMERS) {  // --- producer ---
     const int pt = tid - CONSUMERS;
-    if (kTmaA && pt != 0) return;
     for (int kt = 0; kt < nk; ++kt) {
       const int s = kt % STAGES;
       if (kt >= STAGES) mbar_wait(smem_u32(empty + s), ((kt / STAGES) - 1) & 1);
       unsigned char* st = ring + s * STAGE_BYTES;
       const uint32_t fb = smem_u32(full + s);
       if (pt == 0) {
-        mbar_arrive_expect(fb, kTmaA ? STAGE_BYTES : B_BYTES);
-        if constexpr (kTmaA) tma_load_2d(smem_u32(st), &tmA, fb, kt * BK, m0);
+        mbar_arrive_expect(fb, B_BYTES);
         tma_load_2d(smem_u32(st + A_BYTES), &tmW, fb, n0, kt * BK);
         tma_load_2d(smem_u32(st + A_BYTES + B_BOX), &tmW, fb, n0 + 64, kt * BK);
       }
-      if constexpr (std::is_same<ALoad, CpAsyncA>::value) {
-        aload.stage(st, pt, m0, kt * BK, M, K);
+      aload.stage(st, pt, m0, kt * BK, M, K);
+      if constexpr (kCpAsync) {
         cp_async_commit();
         if (kt >= CpAsyncA::LAG) {
           cp_async_wait<CpAsyncA::LAG>();  // step kt - LAG's copies have landed
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
           mbar_arrive(smem_u32(full + (kt - CpAsyncA::LAG) % STAGES));
         }
-      } else if constexpr (!kTmaA) {
-        aload.stage(st, pt, m0, kt * BK, M, K);
+      } else {
         // the generic-proxy stores become visible to wgmma (the async proxy)
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         mbar_arrive(fb);
       }
     }
-    if constexpr (std::is_same<ALoad, CpAsyncA>::value) {  // the last LAG steps
+    if constexpr (kCpAsync) {  // the last LAG steps
       cp_async_wait<0>();
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       for (int kt = nk > CpAsyncA::LAG ? nk - CpAsyncA::LAG : 0; kt < nk; ++kt)
@@ -442,9 +710,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant
       wgmma_m64n128k16(acc, gmma_desc(a0 + kk * 32, 16, 1024),
                        gmma_desc(b0 + kk * 2048, B_BOX, 1024));
     wgmma_commit();
-    // this step's products are done: hand its stage back. With one step's
-    // group kept in flight instead, ptxas serialises the wgmmas (its warning
-    // C7514) and the products ran up to 8% slower on an H100.
+    // this step's products are done: hand its stage back
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(smem_u32(empty + s));
   }
@@ -462,12 +728,14 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant
 // holds no data, only this).
 inline cudaError_t tma_map_2d(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
                               uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer,
-                              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   struct Entry {
     const void* base;
     uint64_t inner, outer, row_bytes;
     uint32_t box_inner, box_outer;
     CUtensorMapDataType type;
+    CUtensorMapSwizzle swizzle;
     CUtensorMap map;
   };
   constexpr int kEntries = 64;
@@ -476,7 +744,8 @@ inline cudaError_t tma_map_2d(CUtensorMap* map, const void* base, uint64_t inner
   for (int i = 0; i < kEntries; ++i) {
     const Entry& c = cache[i];
     if (c.base == base && c.inner == inner && c.outer == outer && c.row_bytes == row_bytes &&
-        c.box_inner == box_inner && c.box_outer == box_outer && c.type == type) {
+        c.box_inner == box_inner && c.box_outer == box_outer && c.type == type &&
+        c.swizzle == swizzle) {
       *map = c.map;
       return cudaSuccess;
     }
@@ -487,12 +756,12 @@ inline cudaError_t tma_map_2d(CUtensorMap* map, const void* base, uint64_t inner
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = cuTensorMapEncodeTiled(
       map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // out of bounds: zeros
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   Entry& e = cache[next];
   next = (next + 1) % kEntries;
-  e = Entry{base, inner, outer, row_bytes, box_inner, box_outer, type, *map};
+  e = Entry{base, inner, outer, row_bytes, box_inner, box_outer, type, swizzle, *map};
   return cudaSuccess;
 }
 
@@ -505,27 +774,74 @@ inline cudaError_t tma_map_a(CUtensorMap* map, const bf16* A, long lda, int M, i
   return tma_map_2d(map, A, K, M, static_cast<uint64_t>(lda) * 2, wgm::BK, wgm::BM);
 }
 
+// out [M, N] (row stride ldc, el bytes a value: bf16 or f32), as the
+// persistent body's epilogue stores it: [16 rows x 64] boxes, no swizzle
+inline cudaError_t tma_map_out(CUtensorMap* map, const void* out, long ldc, int M, int N, int el) {
+  return tma_map_2d(map, out, N, M, static_cast<uint64_t>(ldc) * el, 64, 16,
+                    el == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
 // TMA can describe A and W: 16-byte aligned bases, rows of whole 16 bytes
 inline bool wgmma_takes(const bf16* A, long lda, const bf16* W, int N, int K) {
   return aligned16(A) && aligned16(W) && lda % 8 == 0 && N % 8 == 0 && K % 8 == 0;
 }
 
-// Layer products (TmaA): 3 stages, two blocks an SM. B8's cp.async and
-// register producers: 4 stages, one block an SM (their 4 or 8 producer
-// warps take the registers a second block would need).
+// The SMs of the current device, queried once a device
+inline int device_sms() {
+  constexpr int kDevices = 64;
+  static std::atomic<int> sms[kDevices];
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kDevices) return 0;
+  if ((n = sms[dev].load()) > 0) return n;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  sms[dev] = n;
+  return n;
+}
+
+// The persistent body's walk of an [M, N] output: its 128 x 128 tiles and
+// the blocks that walk them, as many as the card holds resident or as there
+// are tiles, whichever is fewer
+struct Walk {
+  int tiles, blocks;
+};
+inline Walk wgmma_walk(int M, int N) {
+  const int tiles = ((M + wgm::BM - 1) / wgm::BM) * ((N + wgm::BN - 1) / wgm::BN);
+  const int resident = device_sms() * wgp::BLOCKS_PER_SM;
+  return Walk{tiles, tiles < resident ? tiles : resident};
+}
+
+// The layer products and B8b's bf16 patches (A described by TMA): the
+// persistent body, one launch; the epilogue stores by TMA through tmO, or
+// value by value where tmO is null; its walk into *walk if asked.
+template <typename Epi>
+cudaError_t wgmma_gemm(const CUtensorMap& tmA, const CUtensorMap& tmW, const CUtensorMap* tmO,
+                       const Epi& epi, int M, int N, int K, cudaStream_t st,
+                       Walk* walk = nullptr) {
+  auto kernel = wgmma_gemm_persistent<Epi>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wgp::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const Walk w = wgmma_walk(M, N);
+  if (w.blocks < 1) return cudaErrorInvalidDevice;
+  kernel<<<w.blocks, wgp::THREADS, wgp::SMEM, st>>>(tmA, tmW, tmO ? *tmO : tmW, tmO != nullptr,
+                                                     epi, M, N, K);
+  if (walk) *walk = w;
+  return cudaGetLastError();
+}
+
+// B8's cp.async and register producers: the per-tile body
 template <typename ALoad, typename Epi>
-cudaError_t wgmma_gemm(const CUtensorMap& tmA, const CUtensorMap& tmW, const ALoad& aload,
-                       const Epi& epi, int M, int N, int K, cudaStream_t st) {
-  constexpr bool kTmaA = std::is_same<ALoad, TmaA>::value;
-  constexpr int MINB = kTmaA ? 2 : 1, STAGES = kTmaA ? 3 : 4;
-  constexpr size_t smem = wgm::smem_bytes<STAGES>();
-  auto kernel = wgmma_gemm_kernel<MINB, STAGES, ALoad, Epi>;
+cudaError_t wgmma_gemm_per_tile(const CUtensorMap& tmW, const ALoad& aload, const Epi& epi, int M,
+                                int N, int K, cudaStream_t st) {
+  constexpr size_t smem = wgm::smem_bytes<wgm::TILE_STAGES>();
+  auto kernel = wgmma_gemm_kernel<ALoad, Epi>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((N + wgm::BN - 1) / wgm::BN, (M + wgm::BM - 1) / wgm::BM);
-  kernel<<<grid, wgm::CONSUMERS + 32 * ProducerWarps<ALoad>::value, smem, st>>>(tmA, tmW, aload,
-                                                                                 epi, M, N, K);
+  kernel<<<grid, wgm::CONSUMERS + 32 * ALoad::PRODUCER_WARPS, smem, st>>>(tmW, aload, epi, M, N,
+                                                                           K);
   return cudaGetLastError();
 }
 

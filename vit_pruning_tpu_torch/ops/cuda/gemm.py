@@ -14,17 +14,20 @@ gemm_bf16: A and W bf16; A may be a row-strided view (rows of [B, S, D]
 with row stride S*D); bias bf16 [N]; act 'none', 'gelu_erf' or
 'gelu_tanh' (in f32); residual [M, N] bf16 or float32, rows contiguous
 (or row-strided the same way); out bf16 or float32.
-On the card gemm() takes the wgmma + TMA body where TMA can describe A and
-W (16-byte aligned, lda, N and K multiples of 8) and the WMMA body
-otherwise, by shape alone.
+On the card gemm() takes the persistent wgmma + TMA body where TMA can
+describe A and W (16-byte aligned, lda, N and K multiples of 8) and the
+WMMA body otherwise, by shape alone. The persistent body launches one block
+an SM, at most one a tile, and each block walks its share of the 128 x 128
+output tiles (`wgmma_walk` mirrors the rule).
 
 gemm_f32: A, W, bias, residual and out float32, N a multiple of 8, any M,
 K and row stride of A: on the card the split body (W split into three bf16
 planes in a workspace, A split in the producer; wgmma on the exact
 three-way splits of both operands, six passes, f32 sums).
 
-`body_counts()` reads the launches per body. For CPU tensors the wrappers
-run their plain versions; for CUDA tensors they launch or raise.
+`body_counts()` reads the launches per body and the wgmma body's tiles and
+blocks. For CPU tensors the wrappers run their plain versions; for CUDA
+tensors they launch or raise.
 """
 
 from __future__ import annotations
@@ -166,19 +169,33 @@ def takes_wgmma(a: torch.Tensor, w: torch.Tensor) -> bool:
     return w.shape[1] % 8 == 0
 
 
+WGMMA_TILE = 128  # the persistent body's output tile, rows and columns
+
+
+def wgmma_walk(m: int, n: int, sms: int) -> dict:
+    """The persistent body's launch for an [m, n] output on a card of `sms`
+    SMs (wgmma.cuh::wgmma_walk): its 128 x 128 output tiles and the blocks
+    that walk them, one an SM and at most one a tile."""
+    tiles = -(-m // WGMMA_TILE) * -(-n // WGMMA_TILE)
+    return {"tiles": tiles, "blocks": min(tiles, sms)}
+
+
 def body_counts() -> dict:
     """Launches of each GEMM body since the last reset_body_counts(), from
     every caller of gemm() (the layer kernels included): the bf16 'wgmma'
-    and 'wmma' bodies, the f32 'f32_split' body; and the distinct (M, N, K)
-    that took the WMMA body."""
+    and 'wmma' bodies, the f32 'f32_split' body; the output tiles the wgmma
+    body walked ('wgmma_tiles') and the blocks it launched to walk them
+    ('wgmma_blocks'), so tiles over blocks is how many tiles a block walked
+    on average; and the distinct (M, N, K) that took the WMMA body."""
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
-    counts = (ctypes.c_longlong * 3)()
+    counts = (ctypes.c_longlong * 5)()
     lib.vpt_gemm_body_counts(counts)
     shapes = (ctypes.c_int * 192)()
     n = lib.vpt_gemm_wmma_shapes(shapes, 64)
     return {"wgmma": counts[0], "wmma": counts[1], "f32_split": counts[2],
+            "wgmma_tiles": counts[3], "wgmma_blocks": counts[4],
             "wmma_shapes": [tuple(shapes[3 * i:3 * i + 3]) for i in range(min(n, 64))]}
 
 
