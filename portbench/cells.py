@@ -6,6 +6,9 @@ its own under the benchmark's directory:
     portbench/traffic/<traffic>.json     the traffic mix
     portbench/limits/<cell>.json         the limits of the output check
     portbench/metrics/<metric>.py        a per-layer metric's reader
+    portbench/families/<family>.py       a model family: sizes, weights, plain
+                                         reference, operation count, entry
+                                         (the configuration's `family`, else vit)
 
 A cell, mix, configuration or metric is added by adding files and entries;
 no code here names one.
@@ -13,6 +16,7 @@ no code here names one.
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from pathlib import Path
@@ -21,27 +25,33 @@ BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
 
 
+def family(bench_dir: Path, name: str):
+    """The model family `name`: portbench/families/<name>.py, loaded by path
+    (its interface: families/vit.py's docstring)."""
+    return _family(str(Path(bench_dir) / "families" / f"{name}.py"))
+
+
+@functools.lru_cache(maxsize=None)
+def _family(path: str):
+    if not Path(path).is_file():
+        raise FileNotFoundError(f"no model family file {path}")
+    module = f"portbench_family_{Path(path).stem.replace('.', '_')}"
+    spec = importlib.util.spec_from_file_location(module, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def family_of(cell: dict):
+    """The cell's family; a cell dict built without one is a `vit`."""
+    return cell.get("family") or family(BENCH_DIR, "vit")
+
+
 def model_dims(cfg: dict) -> dict:
     """The sizes the harness, the reference and the yardstick read, from a
-    configuration file's keys (the source's own names)."""
-    d, heads = cfg["hidden_size"], cfg["num_attention_heads"]
-    if d % heads:
-        raise ValueError(f"hidden_size {d} is not a multiple of num_attention_heads {heads}")
-    if cfg["image_size"] % cfg["patch_size"]:
-        raise ValueError("image_size is not a multiple of patch_size")
-    if cfg.get("hidden_act", "gelu") != "gelu" or not cfg.get("qkv_bias", True):
-        raise ValueError("the served model is a pre-LN ViT with exact GELU and q/k/v biases")
-    grid = cfg["image_size"] // cfg["patch_size"]
-    pred = cfg.get("predictor") or {"kind": "none", "hidden": 0}
-    return {
-        "hidden": d, "heads": heads, "head_dim": d // heads, "attn_width": d,
-        "mlp": cfg["intermediate_size"], "layers": cfg["num_hidden_layers"],
-        "labels": cfg["num_labels"], "eps": cfg["layer_norm_eps"],
-        "image": cfg["image_size"], "patch": cfg["patch_size"], "channels": cfg["num_channels"],
-        "patches": grid * grid, "patch_dim": cfg["num_channels"] * cfg["patch_size"] ** 2,
-        "predictor": pred["kind"], "predictor_hidden": pred["hidden"],
-        "image_mean": cfg["image_mean"], "image_std": cfg["image_std"],
-    }
+    configuration file's keys, by the configuration's family (`vit` where
+    it names none)."""
+    return family(BENCH_DIR, cfg.get("family", "vit")).dims(cfg)
 
 
 def _json(path: Path) -> dict:
@@ -51,8 +61,8 @@ def _json(path: Path) -> dict:
 
 def load_cell(name: str, root: Path = ROOT) -> dict:
     """Everything a run of cell `name` reads: the workload entry, the
-    configuration (file and model dims), the traffic mix, the limits, the
-    end-to-end and per-layer metrics it reports."""
+    configuration (file, model family and model dims), the traffic mix, the
+    limits, the end-to-end and per-layer metrics it reports."""
     bench = _json(root / "BENCHMARK.json")
     work = {w["name"]: w for w in bench["workloads"]}
     if name not in work:
@@ -70,7 +80,8 @@ def load_cell(name: str, root: Path = ROOT) -> dict:
     e2e = [m for m in bench["end_to_end"] if reports(m)]
     e2e_names = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"] if m["moves"] in e2e_names and reports(m)]
-    return {"name": name, "workload": w, "config": cfg, "model": model_dims(cfg),
+    fam = family(bench_dir, cfg.get("family", "vit"))
+    return {"name": name, "workload": w, "config": cfg, "family": fam, "model": fam.dims(cfg),
             "traffic": traffic, "limits": limits, "end_to_end": e2e, "per_layer": per_layer,
             "bench_dir": bench_dir}
 

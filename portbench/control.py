@@ -40,11 +40,12 @@ def control_precision(cell: dict) -> dict:
 
 
 def reference_call(cell: dict, params: dict, products: dict):
-    """The reference in the program's place, with the given weight products."""
-    from portbench import harness, reference
+    """The reference of the cell's model family in the program's place, with
+    the given weight products."""
+    from portbench import cells, harness
 
-    sched = harness.prune_schedule(cell)
-    return lambda pixels: reference.forward(params, pixels, cell["model"], sched, **products)
+    sched, forward = harness.prune_schedule(cell), cells.family_of(cell).forward
+    return lambda pixels: forward(params, pixels, cell["model"], sched, **products)
 
 
 def control(cell: dict):

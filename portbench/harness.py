@@ -1,7 +1,9 @@
 """One run of one cell: set-up, the timed window, the traced stretches, the
 output check and the result line's contents.
 
-The program is imported only here and only inside `program_call`; the
+The cell's model family (portbench/families/) gives its weights, its entry,
+its plain reference and its operations per image. The program is imported
+only inside a family's `program` and here to load the kernels; the
 reference, the traffic, the weights and the yardstick import nothing of it.
 """
 
@@ -36,32 +38,10 @@ def prune_schedule(cell: dict) -> list:
 
 
 def program_call(cell: dict, params: dict, quant: str = None):
-    """The timed entry: vit_pruning_tpu_torch.serving.serving_forward on the
-    cell's model and traffic, in the program's default kernel mode. Under
-    int8 the layers' int8 weights are attached once here, at set-up, as a
-    deployment quantizes once at load. Returns f(pixels_u8) -> outputs."""
-    from vit_pruning_tpu_torch.configs import PruneConfig, ViTConfig
-    from vit_pruning_tpu_torch.ops.quant import attach_int8_weights
-    from vit_pruning_tpu_torch.serving import serving_forward
-
-    m, traffic = cell["model"], cell["traffic"]
-    quant = traffic["quant"] if quant is None else quant
-    vcfg = ViTConfig(image_size=m["image"], patch_size=m["patch"], num_channels=m["channels"],
-                     hidden_size=m["hidden"], num_layers=m["layers"], num_heads=m["heads"],
-                     mlp_dim=m["mlp"], num_labels=m["labels"], layernorm_eps=m["eps"])
-    sched = prune_schedule(cell)
-    if traffic["keep_fraction"] is None:  # nothing drops: no predictor runs
-        pcfg = PruneConfig(mode="topk_prog", keep_schedule=tuple(sched))
-    else:  # one drop before layer 0, the PruneConfig default schedule
-        pcfg = PruneConfig(mode="topk_prog", predictor=m["predictor"],
-                           predictor_hidden=m["predictor_hidden"], top_k=sched[0])
-    if quant == "int8":
-        bb = params["backbone"]
-        params = dict(params, backbone=dict(bb, layers=attach_int8_weights(bb["layers"])))
-
-    def call(pixels):
-        return serving_forward(params, pixels, vcfg, pcfg, logits_only=True, quant=quant)
-    return call
+    """The timed entry of the cell's family (families/<name>.py's
+    `program`; a cell dict without a family is a `vit`): f(pixels_u8) ->
+    outputs. `quant` None takes the traffic's."""
+    return cells.family_of(cell).program(cell, params, quant)
 
 
 def precision(cell: dict) -> dict:
@@ -109,7 +89,7 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, device: torch.
     params) -> call` replaces the program (a control or a planted fault).
     Returns the result line's contents, with the numbers compared and their
     limits under 'checks' (last), and what the run prints beside it."""
-    m, traffic = cell["model"], cell["traffic"]
+    m, traffic, fam = cell["model"], cell["traffic"], cells.family_of(cell)
     seed = seed % (1 << 63)
     phases = {"start": time.perf_counter() - t_start}
 
@@ -125,7 +105,7 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, device: torch.
         phase("cuda")
         load_library()
         phase("kernels")
-    params = weights.make_params(m, seed, device, DTYPES[traffic["dtype"]])
+    params = fam.make_params(m, seed, device, DTYPES[traffic["dtype"]])
     pool = weights.make_pool(m, traffic, seed, device)
     phase("inputs")
     call = (serve or program_call)(cell, params)
@@ -147,12 +127,13 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, device: torch.
         torch.cuda.empty_cache()
     sched = prune_schedule(cell)
     t_check = time.perf_counter()
-    judged = check.judge(params, pool, answers, m, sched, cell["limits"], precision(cell))
+    judged = check.judge(params, pool, answers, m, sched, cell["limits"], precision(cell),
+                         fam.forward)
     correct = check.verdict(judged["numbers"], cell["limits"])
     phases["check_s"] = time.perf_counter() - t_check
 
     records = {"model": m, "traffic": traffic, "schedule": sched, "setup_s": setup_s,
-               "window": window, "flops_per_image": work.model_flops(m, sched), "trace": rec,
+               "window": window, "flops_per_image": fam.model_flops(m, sched), "trace": rec,
                "timeline": timeline}
     wanted = cell["per_layer"] if traced else cell["end_to_end"]
     metrics = {}

@@ -44,9 +44,9 @@ def serving(cell: dict, seed: int, device):
 
     m, traffic = cell["model"], cell["traffic"]
     load_library()
-    params = weights.make_params(m, seed, device, harness.DTYPES[traffic["dtype"]])
+    params = cell["family"].make_params(m, seed, device, harness.DTYPES[traffic["dtype"]])
     pool = weights.make_pool(m, traffic, seed, device)
-    server = Server(harness.program_call(cell, params), pool, traffic["in_flight"])
+    server = Server(cell["family"].program(cell, params, None), pool, traffic["in_flight"])
     server.run(batches=traffic["pool"] + traffic["in_flight"])
     return server
 
@@ -60,7 +60,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from portbench import cells, harness, program, work
+    from portbench import cells, harness, program
     from portbench.run import card_line
 
     if not torch.cuda.is_available():
@@ -73,7 +73,7 @@ def main(argv=None) -> int:
     prog = program.stretch(server, cell)
     sched = harness.prune_schedule(cell)
     records = {"model": cell["model"], "traffic": cell["traffic"], "schedule": sched,
-               "window": None, "flops_per_image": work.model_flops(cell["model"], sched),
+               "window": None, "flops_per_image": cell["family"].model_flops(cell["model"], sched),
                "trace": rec, "timeline": timeline, "program": prog}
     metrics = {name: cells.reader(cell["bench_dir"], name)(records)
                for name in ("other_device_ms", "device_idle_share") + PROGRAM_METRICS}

@@ -30,15 +30,17 @@ def read(records):
 '''
 
 
-def tiny_root(tmp: Path, mix: dict = MIX, limits: dict = F32_LIMITS) -> Path:
+def tiny_root(tmp: Path, mix: dict = MIX, limits: dict = F32_LIMITS, cfg: dict = TINY) -> Path:
     """A checkout holding only a tiny cell, a metric of its own and a copy of
-    the benchmark's metric readers: everything added as files."""
+    the benchmark's metric readers and model families: everything added as
+    files."""
     pb = tmp / "bench"
     for sub in ("configs", "traffic", "limits"):
         (pb / sub).mkdir(parents=True)
     shutil.copytree(BENCH / "metrics", pb / "metrics")
+    shutil.copytree(BENCH / "families", pb / "families")
     (pb / "metrics" / "batches_served.py").write_text(NEW_METRIC)
-    (pb / "configs" / "tiny.json").write_text(json.dumps(TINY))
+    (pb / "configs" / "tiny.json").write_text(json.dumps(cfg))
     (pb / "traffic" / "mix.json").write_text(json.dumps(mix))
     (pb / "limits" / "tiny.mix.json").write_text(json.dumps(limits))
     bench = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
@@ -287,3 +289,232 @@ def test_the_control_fails_where_the_program_passes(tmp_path, quant):
     for seed in (101, 102, 103):
         ctl, _ = run_tiny(cell, 2 ** 31 + seed, serve=control.control(cell), seconds=0.05)
         assert not ctl["correct"], ctl["checks"]
+
+
+# the model family seam: the sizes the parent's cells.model_dims gave the two
+# configurations, before the family's `prefix` was added
+PARENT_DIMS = {
+    "deit_s": {"hidden": 384, "heads": 6, "head_dim": 64, "attn_width": 384, "mlp": 1536,
+               "layers": 12, "labels": 1000, "eps": 1e-12, "image": 224, "patch": 16,
+               "channels": 3, "patches": 196, "patch_dim": 768, "predictor": "cls_mlp",
+               "predictor_hidden": 64, "image_mean": 0.5, "image_std": 0.5},
+    "vit_h14": {"hidden": 1280, "heads": 16, "head_dim": 80, "attn_width": 1280, "mlp": 5120,
+                "layers": 32, "labels": 1000, "eps": 1e-12, "image": 224, "patch": 14,
+                "channels": 3, "patches": 256, "patch_dim": 588, "predictor": "cls_mlp",
+                "predictor_hidden": 64, "image_mean": 0.5, "image_std": 0.5},
+}
+CELL_FLOPS = {"deit_s.headline.bf16.b512": 4.2167e9, "vit_h14.headline.bf16.b64": 161.24e9,
+              "deit_s.dense.bf16.b512": 8.5603e9, "deit_s.headline.int8.b1024": 4.2167e9}
+
+
+@pytest.mark.parametrize("name", sorted(CELL_FLOPS))
+def test_the_vit_family_reads_the_cells_as_before(name):
+    """Each cell's configuration is a `vit` (it names no family): the same
+    sizes as before plus `prefix` 1, the same operations per image."""
+    cell = cells.load_cell(name)
+    assert cell["family"] is cells.family(BENCH, "vit")
+    assert cell["model"] == dict(PARENT_DIMS[cell["workload"]["config"]], prefix=1)
+    assert cells.model_dims(cell["config"]) == cell["model"]
+    sched = harness.prune_schedule(cell)
+    assert cell["family"].model_flops(cell["model"], sched) == pytest.approx(CELL_FLOPS[name],
+                                                                             rel=1e-3)
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _leaves(sub, path + (key,))
+    else:
+        yield path, tree
+
+
+def test_the_vit_family_route_is_bitwise_the_frozen_copies(tmp_path):
+    """The weights and the reference through a cell's family (loaded by path)
+    against portbench/weights.py and reference.py called directly."""
+    from portbench import weights
+
+    cell = cells.load_cell("tiny.mix", tiny_root(tmp_path))
+    m, fam = cell["model"], cell["family"]
+    got = dict(_leaves(fam.make_params(m, 2 ** 31 + 7, "cpu", torch.float32)))
+    want = dict(_leaves(weights.make_params(m, 2 ** 31 + 7, "cpu", torch.float32)))
+    assert got.keys() == want.keys()
+    for path, leaf in want.items():
+        assert (leaf is None and got[path] is None) or torch.equal(got[path], leaf), path
+    params = weights.make_params(m, 3, "cpu", torch.float32)
+    pixels = weights.make_pool(m, MIX, 3, "cpu")[0]
+    sched = harness.prune_schedule(cell)
+    for products in ("f32", "fp8"):
+        a = fam.forward(params, pixels, m, sched, products, products)
+        b = reference.forward(params, pixels, m, sched, products, products)
+        for key in ("logits", "keep_masks", "scores"):
+            assert torch.equal(a[key], b[key]), (products, key)
+
+
+# A model family added as a file alone: a pre-LN ViT with register tokens
+# after CLS (no position embedding on them), whose head reads CLS ⊕ the mean
+# of the live patch tokens after the final LN. Its program is its own float32
+# forward, with the faults the tests plant in it.
+TOY_FAMILY = '''
+import math
+
+import torch
+
+from portbench import reference, work
+
+FAULT = None  # a fault planted in `program` (the tests' FAULTS)
+
+
+def dims(cfg):
+    d, heads, r = cfg["hidden_size"], cfg["num_attention_heads"], cfg["num_register_tokens"]
+    grid = cfg["image_size"] // cfg["patch_size"]
+    return {"hidden": d, "heads": heads, "head_dim": d // heads, "attn_width": d,
+            "mlp": cfg["intermediate_size"], "layers": cfg["num_hidden_layers"],
+            "labels": cfg["num_labels"], "eps": cfg["layer_norm_eps"],
+            "image": cfg["image_size"], "patch": cfg["patch_size"],
+            "channels": cfg["num_channels"], "patches": grid * grid,
+            "patch_dim": cfg["num_channels"] * cfg["patch_size"] ** 2,
+            "predictor": "cls_mlp", "predictor_hidden": cfg["predictor"]["hidden"],
+            "image_mean": cfg["image_mean"], "image_std": cfg["image_std"],
+            "registers": r, "prefix": 1 + r}
+
+
+def make_params(m, seed, device, dtype):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, mlp, L, h = m["hidden"], m["mlp"], m["layers"], m["predictor_hidden"]
+
+    def mat(*shape):
+        return torch.randn(shape, generator=gen, device=device) / math.sqrt(shape[-2])
+
+    def vec(*shape, base=0.0):
+        return base + 0.1 * torch.randn(shape, generator=gen, device=device)
+
+    lin = lambda k, n: {"w": mat(L, k, n), "b": vec(L, n)}
+    tree = {"backbone": {
+        "embed": {"patch": {"w": mat(m["patch_dim"], d), "b": vec(d)}, "cls": vec(1, 1, d),
+                  "reg": vec(1, m["registers"], d), "pos": vec(1, m["patches"] + 1, d)},
+        "layers": {"ln1": {"g": vec(L, d, base=1.0), "b": vec(L, d)},
+                   "ln2": {"g": vec(L, d, base=1.0), "b": vec(L, d)},
+                   "attn": {n: lin(d, d) for n in "qkvo"},
+                   "mlp": {"fc1": lin(d, mlp), "fc2": lin(mlp, d)}},
+        "ln_f": {"g": vec(d, base=1.0), "b": vec(d)},
+        "head": {"w": mat(2 * d, m["labels"]), "b": vec(m["labels"])}},
+        "predictor": {"mlp": {"l0": lin(2 * d, h), "l1": lin(h, 1)}}}
+
+    def cast(t):
+        return {k: cast(v) for k, v in t.items()} if isinstance(t, dict) else t.to(dtype)
+    return cast(tree)
+
+
+def _scores(x, pred, i, p, products):
+    get = reference._layer(pred["mlp"], i)
+    t = x[:, p:]
+    z = torch.cat([x[:, :1].expand(-1, t.shape[1], -1), t], dim=-1)
+    hid = torch.relu(reference.linear(z, get("l0", "w"), get("l0", "b"), products))
+    return torch.sigmoid(reference.linear(hid, get("l1", "w"), get("l1", "b"), products))[..., 0]
+
+
+def _model(params, pixels_u8, m, sched, layers, other, follow, fault):
+    bb, L, p = params["backbone"], m["layers"], m["prefix"]
+    with reference.exact_f32():
+        x = reference.embed(pixels_u8, bb["embed"], m, other)
+        b = x.shape[0]
+        x = torch.cat([x[:, :1], bb["embed"]["reg"].float().expand(b, -1, -1), x[:, 1:]], dim=1)
+        s = cur = x.shape[1]
+        orig = torch.arange(s, device=x.device).expand(b, s)
+        masks, all_scores = [], []
+        for i in range(L):
+            k = sched[i]
+            sc = torch.full((b, s - p), float("-inf"), device=x.device)
+            if k and k < cur - p:
+                s_live = _scores(x, params["predictor"], i, p, other)
+                sc.scatter_(1, orig[:, p:] - p, s_live)
+                keep = (torch.gather(follow[i], 1, orig) if follow is not None else
+                        torch.cat([torch.ones_like(s_live[:, :p], dtype=torch.bool),
+                                   reference.top_k(s_live, k)], dim=1))
+                n = k + p
+                if fault == "register_dropped":
+                    keep[:, 1:p], n = False, k + 1
+                elif fault == "register_for_a_patch":  # the count kept
+                    keep[:, 1:p] = False
+                    keep[:, p:] = reference.top_k(s_live, k + p - 1)
+                rank = (~keep).to(torch.int64) * cur + torch.arange(cur, device=x.device)
+                idx = torch.sort(rank, dim=1).indices[:, :n]
+                x = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+                orig, cur = torch.gather(orig, 1, idx), n
+            all_scores.append(sc)
+            masks.append(torch.zeros((b, s), dtype=torch.bool, device=x.device)
+                         .scatter(1, orig, True))
+            x = reference.block(x, reference._layer(bb["layers"], i), m, layers)
+        x = reference.layer_norm(x, bb["ln_f"]["g"], bb["ln_f"]["b"], m["eps"])
+        pooled = x.mean(1) if fault == "mean_over_prefix" else x[:, p:].mean(1)
+        logits = reference.linear(torch.cat([x[:, 0], pooled], dim=-1), bb["head"]["w"],
+                                  bb["head"]["b"], other)
+    return {"logits": logits, "keep_masks": torch.stack(masks), "scores": torch.stack(all_scores)}
+
+
+def forward(params, pixels_u8, m, sched, layers="f32", other="f32", follow=None):
+    return _model(params, pixels_u8, m, sched, layers, other, follow, None)
+
+
+def model_flops(m, sched):
+    live, drops = work.live_tokens(m, sched)
+    d, h = m["hidden"], m["predictor_hidden"]
+    total = 2.0 * m["patches"] * m["patch_dim"] * d + 2.0 * 2 * d * m["labels"]
+    total += sum(work.layer_flops(m, 1, t) for t in live)
+    return total + sum(2.0 * (cur - m["prefix"]) * (2 * d * h + h) for _, cur in drops)
+
+
+def program(cell, params, quant=None):
+    m, fault = cell["model"], FAULT
+    sched = work.schedule(m, cell["traffic"]["keep_fraction"])
+
+    def call(pixels):
+        out = _model(params, pixels, m, sched, "f32", "f32", None, fault)
+        if fault == "answer_altered":
+            out["logits"][1] = out["logits"][0]
+        return out
+    return call
+'''
+TOY_CFG = dict(TINY, family="toy_reg", num_register_tokens=1)
+
+
+def toy_root(tmp: Path) -> Path:
+    root = tiny_root(tmp, cfg=TOY_CFG)
+    (root / "bench" / "families" / "toy_reg.py").write_text(TOY_FAMILY)
+    return root
+
+
+def test_a_family_added_as_a_file_is_found_and_runs_correct(tmp_path):
+    cell = cells.load_cell("tiny.mix", toy_root(tmp_path))
+    m, fam = cell["model"], cell["family"]
+    assert fam.__file__ == str(tmp_path / "bench" / "families" / "toy_reg.py")
+    assert m["prefix"] == 2 and m["patches"] == 16
+    sched = harness.prune_schedule(cell)
+    assert work.live_tokens(m, sched) == ([10, 10, 10], [(0, 18)])
+    assert fam.model_flops(m, sched) > 0
+    result, info = run_tiny(cell)
+    assert result["correct"], result["checks"]
+    assert result["failed"] == 0 and info["checked_images"] == MIX["pool"] * MIX["batch"]
+    assert result["checks"]["mask_faults"]["value"] == 0
+
+
+@pytest.mark.parametrize("fault", ["register_dropped", "register_for_a_patch", "mean_over_prefix",
+                                   "answer_altered"])
+def test_faults_planted_in_a_familys_program_make_the_run_incorrect(tmp_path, monkeypatch, fault):
+    """A register dropped at the selection (with the count short, or with a
+    patch in its place), the head's mean over the prefix tokens too, and
+    another image's logits."""
+    cell = cells.load_cell("tiny.mix", toy_root(tmp_path))
+    monkeypatch.setattr(cell["family"], "FAULT", fault)
+    broken, _ = run_tiny(cell)
+    assert not broken["correct"], broken["checks"]
+    assert broken["failed"] > 0
+    if fault.startswith("register"):  # the keep masks show it, whatever the logits
+        assert broken["checks"]["mask_faults"]["value"] > 0
+
+
+def test_a_configuration_naming_a_family_with_no_file_is_refused(tmp_path):
+    root = tiny_root(tmp_path, cfg=dict(TINY, family="no_such_family"))
+    path = root / "bench" / "families" / "no_such_family.py"
+    with pytest.raises(FileNotFoundError, match=str(path)):
+        cells.load_cell("tiny.mix", root)

@@ -95,12 +95,14 @@ def schedule(m: dict, keep_fraction) -> list:
 
 
 def live_tokens(m: dict, sched: list) -> tuple:
-    """(tokens through each layer, CLS included; the layers where tokens drop)."""
-    cur, live, drops = m["patches"] + 1, [], []
+    """(tokens through each layer, the `prefix` tokens (CLS, registers)
+    included; the layers where tokens drop, with the tokens before the drop)."""
+    p = m["prefix"]
+    cur, live, drops = m["patches"] + p, [], []
     for i, k in enumerate(sched):
-        if k and k < cur - 1:
+        if k and k < cur - p:
             drops.append((i, cur))
-            cur = k + 1
+            cur = k + p
         live.append(cur)
     return live, drops
 
@@ -114,5 +116,5 @@ def model_flops(m: dict, sched: list) -> float:
         total += layer_flops(m, 1, t)
     total += cls_flops(m, 1, live[-1]) - 2.0 * d * m["labels"]
     for _, cur in drops:  # the predictor, MLP([CLS ⊕ token]) -> 1, over the live patches
-        total += 2.0 * (cur - 1) * (2 * d * h + h)
+        total += 2.0 * (cur - m["prefix"]) * (2 * d * h + h)
     return total
