@@ -72,7 +72,9 @@ kernels from csrc/ itself. Phases:
      (DeiT-S and composed widths at S 197 / 131 / 99 / 66 / 33 / 17, ViT-H
      and its composed width at S 257 / 171 / 129 / 86 / 43 / 22, B2's
      strided CLS rows and N 100 classifier, every epilogue; B1's four
-     products at ViT-B/16, batch 16 x S 197), with the body each took
+     products at ViT-B/16, batch 16 x S 197; DINOv2's gated fc1 and
+     LayerScale epilogues at batch 32 x S 689, with their gated and scaled
+     tile counts), with the body each took
      (wgmma where TMA can describe the operands, else WMMA) and the tiles
      and blocks of the wgmma body's walk; the four products at the bf16
      cells' rows (DeiT-S 512 x 99 and 512 x 197, ViT-H 64 x 129) and at 64 x
@@ -229,6 +231,14 @@ kernels from csrc/ itself. Phases:
      f32 train step (mode mask, batch 32) through the module's Parameters
      and masked_adam against harness.make_train_step (loss within 1e-4, B1
      under RecomputedBackward); a grad-enabled topk call raises
+ 5j. (after 11) DINOv2 ViT-g/14 with registers (dinov2_path) at full width
+     and depth, served from uint8 through serving_forward as the
+     benchmark's DINOv2 cell: bf16, batch 32, S 689, fc1 interleaved at
+     set-up; one call's counts from 0: B1 x 40, no B2-B7, gated tiles 40 x
+     the fc1 product's, scaled tiles 80 x O's and fc2's; its logits within
+     5% of the float32 plain forward, the first keep masks equal to bf16
+     plain's; one B1 layer at [32, 689, 1536] against fused_vit_layer_ref
+     at bf16_tol; fc1 in checkpoint order and the float32 route refused
   7. records: before 8, importing every module of the port and
      quality_torch.py loads neither pandas nor transformers (8 and 9 print
      the metrics tables, which import pandas where it is installed); after
@@ -244,7 +254,8 @@ kernels from csrc/ itself. Phases:
      9's; train_steps_* count only the launches inside phase 8's train
      steps; launches_widths, phase 3l's; launches_export, each of 5i's
      loaded programs' calls; launches_parallel, phase 10's by rank;
-     launches_module, phase 11's module calls by run), the device line
+     launches_module, phase 11's module calls by run; launches_dinov2,
+     5j's served call), the device line
 
 Any failed check raises, so the exit code is non-zero. The line before the
 last is the kernels' JSON record; the last line is the device record.
@@ -458,6 +469,144 @@ def vit_h_params(cfg, pcfg, dev, seed: int = SEED) -> dict:
 
     backbone = dict(tree_to(one["backbone"], dev), layers=grow(one["backbone"]["layers"]))
     return {"backbone": backbone, "predictor": grow(one["predictor"])}
+
+
+def dinov2_path(dev) -> dict:
+    """Phase 5j: DINOv2 ViT-g/14 with registers (configs.py::dinov2_giant_reg:
+    D 1536, 40 layers of 24 heads of 64, a SwiGLU MLP of M 4096, LayerScale,
+    4 registers, S 1374 at 518 px, the head on CLS ⊕ the patch mean) at full
+    width and depth, served from uint8 pixels through serving_forward as the
+    benchmark's DINOv2 cell serves it: bf16, batch 32, 684 of 1369 patches
+    kept before layer 0 (S 689 in every layer), fc1 interleaved once at
+    set-up (ops/swiglu.py::with_gated_fc1). Random weights from the seed as
+    vit_h_params draws them, biases and LN parameters perturbed, LayerScale's
+    gains per channel (0.5 + 0.25 N(0, 1)), the predictor's gain as ViT-H's.
+      - one served call with every launch count and the GEMM body's counts
+        set to 0 just before it: B1 x 40 and no B2-B7; gated tiles 40 x the
+        fc1 product's tiles (N 8192), scaled tiles 80 x the O / fc2
+        product's (N 1536), by ops/cuda/gemm.py::wgmma_walk over 22,048 rows;
+      - its logits against the plain path (mode 'eager') in bf16 and in
+        float32: finite, the first keep masks equal to bf16 plain's (the one
+        drop is decided from the embedding), and within 5% (relative L2) of
+        the float32 plain forward, as phase 5c holds int8;
+      - one B1 layer at [32, 689, 1536] against fused_vit_layer_ref on fc1 in
+        checkpoint order, at bf16_tol, with its tile counts;
+      - the refusals: layers_for with fc1 in checkpoint order on the card,
+        and the float32 kernel route (B1's f32 body has no gated epilogue).
+    Returns the served call's launches by kernel and its body counts."""
+    from vit_pruning_tpu_torch.configs import PruneConfig, dinov2_giant_reg
+    from vit_pruning_tpu_torch.models.convert import tree_to
+    from vit_pruning_tpu_torch.models.vit import layer_slice, layers_for
+    from vit_pruning_tpu_torch.ops.cuda import gemm as kg
+    from vit_pruning_tpu_torch.ops.cuda import layer as kl
+    from vit_pruning_tpu_torch.ops.dispatch import kernel_mode
+    from vit_pruning_tpu_torch.ops.swiglu import with_gated_fc1
+    from vit_pruning_tpu_torch.serving import serving_forward
+
+    check = Checks("phase 5j (DINOv2 ViT-g/14 with registers, served end to end)")
+    t0 = time.perf_counter()
+    dcfg = dinov2_giant_reg(num_labels=1000)
+    n, L, batch, top_k = dcfg.num_patches, dcfg.num_layers, 32, 684
+    pcfg = PruneConfig(mode="topk_prog", predictor="cls_mlp", predictor_hidden=64, top_k=top_k)
+    f32_params = vit_h_params(dcfg, pcfg, dev, seed=SEED + 518)
+    gen = torch.Generator().manual_seed(SEED + 519)
+    bb = f32_params["backbone"]
+    lay = perturbed_layer(bb["layers"], gen)
+    for key in ("ls1", "ls2"):
+        lay[key] = (0.5 + 0.25 * torch.randn(lay[key].shape, generator=gen)).to(dev)
+    gain = PREDICTOR_GAIN * math.sqrt(384 / dcfg.hidden_size)
+    f32_params = {"backbone": dict(bb, layers=lay, ln_f=perturbed_layer(bb["ln_f"], gen),
+                                   head=perturbed_layer(bb["head"], gen)),
+                  "predictor": dict(f32_params["predictor"], mlp={
+                      k: {"w": p["w"] * gain, "b": p["b"]}
+                      for k, p in f32_params["predictor"]["mlp"].items()})}
+    plain = tree_to(f32_params, dev, torch.bfloat16)  # fc1 in checkpoint order
+    served = dict(plain, backbone=dict(plain["backbone"],
+                                       layers=with_gated_fc1(plain["backbone"]["layers"])))
+    served_f32 = dict(f32_params, backbone=dict(
+        f32_params["backbone"], layers=with_gated_fc1(f32_params["backbone"]["layers"])))
+    u8 = torch.from_numpy(np.random.RandomState(SEED + 518).randint(
+        0, 256, (batch, 3, dcfg.image_size, dcfg.image_size), dtype=np.uint8)).to(dev)
+    torch.cuda.synchronize()
+    log(f"  DINOv2-g params (random, seed {SEED + 518}) built in {time.perf_counter() - t0:.1f} s")
+
+    def serve(params):
+        return serving_forward(params, u8, dcfg, pcfg, logits_only=True, quant="none")
+
+    with kernel_mode("auto"):
+        serve(served)  # builds nothing: the kernels were built in phase 2; a warm call
+        torch.cuda.synchronize()
+        reset_launches()
+        kg.reset_body_counts()
+        got = serve(served)
+        torch.cuda.synchronize()
+        launches, bodies = read_launches(), kg.body_counts()
+        ms = median_ms(lambda: serve(served), iters=5, warmup=1)
+    with kernel_mode("eager"):
+        ref = serve(plain)
+        fl = serve(f32_params)
+    torch.cuda.synchronize()
+    rows = batch * (dcfg.seq_len - n + top_k)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = {w: kg.wgmma_walk(rows, w, sms)["tiles"] for w in (2 * dcfg.mlp_dim, dcfg.hidden_size)}
+    fc1_tiles, d_tiles = tiles[2 * dcfg.mlp_dim], tiles[dcfg.hidden_size]
+    want = {"gated_tiles": L * fc1_tiles, "scaled_tiles": 2 * L * d_tiles}
+    counted = {k: bodies[k] for k in want}
+    tag = f"dinov2_g14_reg headline bfloat16 batch {batch} (S {rows // batch})"
+    others = {k: v for k, v in launches.items() if k in ("b2", "b3", "b4", "b5", "b6", "b7")}
+    check(launches["b1"] == L and not any(others.values()),
+          f"{tag}: launches B1 {launches['b1']} (want {L}), B2-B7 {others} (want 0)")
+    check(counted == want, f"{tag}: body counts {counted}, want {want}")
+    lg, lr, lf = got["logits"].float(), ref["logits"].float(), fl["logits"].float()
+    check(lg.shape == (batch, 1000) and bool(torch.isfinite(lg).all()),
+          f"{tag}: logits not finite [{batch}, 1000]")
+    kernel_err, plain_err = rel_err(lg, lf), rel_err(lr, lf)
+    check(kernel_err < 0.05, f"{tag}: logits {kernel_err:.4f} relative from float32 plain")
+    check(bool(torch.equal(got["keep_masks"][0], ref["keep_masks"][0])),
+          f"{tag}: first keep masks differ")
+    log(f"  {tag}: launches {dict((k, v) for k, v in launches.items() if v)}; body counts "
+        f"{dict(bodies)}; logits from float32 plain {kernel_err:.4f} relative (bf16 plain "
+        f"{plain_err:.4f}), kernel vs bf16 plain {rel_err(lg, lr):.4f}, argmax agree with "
+        f"float32 {(lg.argmax(-1) == lf.argmax(-1)).float().mean().item():.3f}; served call "
+        f"{ms:.2f} ms ({batch / ms * 1e3:.1f} img/s, event median of 5)")
+
+    # one B1 layer at the cell's shape against its plain version on checkpoint order
+    x = torch.randn(batch, rows // batch, dcfg.hidden_size,
+                    generator=torch.Generator().manual_seed(SEED + 520)).to(dev, torch.bfloat16)
+    kg.reset_body_counts()
+    one = kl.fused_vit_layer(x, layer_slice(served["backbone"]["layers"], 0), dcfg.num_heads,
+                             dcfg.layernorm_eps)
+    torch.cuda.synchronize()
+    one_counts = kg.body_counts()
+    one_ref = kl.fused_vit_layer_ref(x, layer_slice(plain["backbone"]["layers"], 0),
+                                     dcfg.num_heads, dcfg.layernorm_eps).float()
+    d = (one.float() - one_ref).abs().max().item()
+    tol = bf16_tol(one_ref)
+    log(f"  B1 dinov2 layer [{batch}, {rows // batch}, {dcfg.hidden_size}]: max_abs_err {d:.3e} "
+        f"(tol {tol:.1e}), gated tiles {one_counts['gated_tiles']}, scaled tiles "
+        f"{one_counts['scaled_tiles']}")
+    check(bool(torch.isfinite(one).all()) and d <= tol, f"B1 dinov2 layer: err {d:.3e} > {tol:.1e}")
+    check((one_counts["gated_tiles"], one_counts["scaled_tiles"])
+          == (fc1_tiles, 2 * d_tiles), f"B1 dinov2 layer: counts {one_counts}")
+
+    # the routes that refuse: fc1 not interleaved at load, and float32 on the kernels
+    for what, fn, match in (
+            ("layers_for on fc1 in checkpoint order",
+             lambda: layers_for(plain["backbone"]["layers"], "none"), "checkpoint order"),
+            ("the float32 kernel route", lambda: serve(served_f32), "bfloat16 alone")):
+        try:
+            with kernel_mode("auto"):
+                fn()
+            raised = ""
+        except ValueError as e:
+            raised = str(e)
+        check(match in raised, f"{what}: did not raise ({raised[:80]!r})")
+        if raised:
+            log(f"  {what}: refused ({raised[:90]}...)")
+    del f32_params, plain, served, served_f32
+    torch.cuda.empty_cache()
+    check.done()
+    return {"launches": launches, "bodies": dict(bodies), "ms": ms}
 
 
 def long_sequences(dev, err: dict):
@@ -3267,6 +3416,32 @@ def main():
                 f"{bound:.4f} ms), {walk['tiles']} tiles on {walk['blocks']} blocks; torch.matmul "
                 f"bf16 {l_ms:.4f} ms ({flops / l_ms / 1e9:.1f} TFLOP/s); {smi}")
             del ops, a, w
+    # DINOv2's epilogue variants at the DINOv2 cell's widths (batch 32 x S 689, D 1536,
+    # SwiGLU M 4096): the gated fc1 (N 8192 of (u1, u2) pairs -> silu(u1) * u2, 4096 wide)
+    # and LayerScale's gain on O and fc2, each against its plain version, every output tile
+    # counted as a gated or a scaled tile (body_counts' gated_tiles, scaled_tiles)
+    rows = 32 * 689
+    for tag, (k, n, res, out, gate) in {"fc1 gated": (1536, 8192, None, bfl, True),
+                                        "o scaled": (1536, 1536, bfl, f32, False),
+                                        "fc2 scaled": (4096, 1536, f32, bfl, False)}.items():
+        a, w, b, r = gemm_operands(rows, k, n, res)
+        gamma = None if gate else (0.5 + 0.25 * torch.randn(n, generator=gen_g)).to(dev, bfl)
+        c0 = kg.body_counts()
+        got = kg.gemm_bf16(a, w, b, "none", r, out, gamma=gamma, gate=gate)
+        torch.cuda.synchronize()
+        c1 = kg.body_counts()
+        ref = kg.gemm_bf16_ref(a, w, b, "none", r, out, gamma=gamma, gate=gate)
+        d = (got.float() - ref.float()).abs().max().item()
+        tol = (bf16_tol(ref.float()) if out == bfl
+               else F32_ATOL * max(1.0, ref.float().abs().max().item()))
+        tiles = kg.wgmma_walk(rows, n, sms)["tiles"]
+        counted = {k_: c1[k_] - c0[k_] for k_ in ("gated_tiles", "scaled_tiles")}
+        want = {"gated_tiles": tiles if gate else 0, "scaled_tiles": 0 if gate else tiles}
+        log(f"  GEMM dinov2 {tag} M={rows} N={n} K={k}: max_abs_err {d:.3e} (tol {tol:.1e}), "
+            f"{counted}")
+        check(bool(torch.isfinite(got).all()) and d <= tol and counted == want,
+              f"GEMM dinov2 {tag}: err {d:.3e}, counted {counted} (want {want})")
+        del a, w, got, ref
     check.done()
 
     # --- 3n. the f32 split body against its plain version and a float64 product ---------
@@ -4718,6 +4893,10 @@ def main():
     torch.cuda.empty_cache()
     module_run = module_path(dev, base, cfg, smi)
 
+    # --- 5j. DINOv2 ViT-g/14 with registers served end to end at full size -----------------
+    torch.cuda.empty_cache()
+    dino_run = dinov2_path(dev)
+
     # --- 7. records: after every phase, nothing of jax or of the JAX package was loaded ---
     port_dir = Path(port.__file__).resolve().parent
     jax_dir = port_dir.parent / "vit_pruning_tpu"
@@ -4786,6 +4965,7 @@ def main():
          "launches_parallel": [c.get(key, 0) for c in par_run["launches"]],
          "launches_export": {run: c[key] for run, c in exported["launches"].items()},
          "launches_module": {run: c[key] for run, c in module_run["launches"].items()},
+         "launches_dinov2": dino_run["launches"][key],
          # the f32 routes: the kernel at an f32 entry point's shape (phase 6); B1, B3, B5:
          # their f32 products on the split body (csrc/gemm.cu) on phases 5-5h, the CLI's
          # f32 eval (8) and the gates (9)

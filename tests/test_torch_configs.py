@@ -16,7 +16,13 @@ def _fields(cls):
 
 @pytest.mark.parametrize("name", ["ViTConfig", "PruneConfig"])
 def test_dataclass_fields_equal(name):
-    assert _fields(getattr(tc, name)) == _fields(getattr(jc, name))
+    """The JAX package's fields, in its order; the port's ViTConfig adds its
+    own after them (tc.PORT_FIELDS: the MLP kind, LayerScale, registers,
+    the head), whose defaults are the JAX package's plain ViT."""
+    own = _fields(getattr(tc, name))
+    extra = tc.PORT_FIELDS if name == "ViTConfig" else {}
+    assert own[:len(own) - len(extra)] == _fields(getattr(jc, name))
+    assert {n: d for n, d, _ in own[len(own) - len(extra):]} == extra
 
 
 def test_kinds_and_dense_equal():
@@ -30,7 +36,10 @@ def test_kinds_and_dense_equal():
 def test_presets_equal(preset):
     for labels in (10, 100, 1000):
         t, j = getattr(tc, preset)(labels), getattr(jc, preset)(labels)
-        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        own = dataclasses.asdict(t)
+        assert {k: own.pop(k) for k in tc.PORT_FIELDS} == tc.PORT_FIELDS
+        assert own == dataclasses.asdict(j)
+        assert t.to_json() == j.to_json()
         assert (t.grid_size, t.num_patches, t.seq_len, t.head_dim, t.attn_width, t.patch_dim) == \
             (j.grid_size, j.num_patches, j.seq_len, j.head_dim, j.attn_width, j.patch_dim)
 

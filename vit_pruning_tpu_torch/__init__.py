@@ -28,6 +28,8 @@ Layout:
                  pruning, int8 quantization, kernel dispatch and the serving
                  quant switch, and the CUDA kernels' wrappers (ops/cuda)
     serving    — uint8 pixels -> logits
+    reference  — plain float32 forwards of the models served beside the
+                 ViT (DINOv2 with registers), importing no kernel or model
     parallel   — data x model train / eval / serving steps with ZeRO-1 and
                  the GPipe pipelines on torch.distributed ranks
 """

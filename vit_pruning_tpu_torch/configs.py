@@ -46,6 +46,31 @@ class ViTConfig:
     # reject a params/config geometry mismatch instead of silently
     # splitting heads at the wrong width.
     attn_head_dim: Optional[int] = None
+    # The port's own fields (the JAX package has none of them; their
+    # defaults are the plain ViT above, and `to_json` leaves them out where
+    # they hold their defaults, so that a plain ViT's JSON is the JAX
+    # package's): the MLP ("gelu": Linear -> GELU -> Linear; "swiglu":
+    # W_in to 2 mlp_dim, silu(u1) * u2, W_out), LayerScale (a learned
+    # per-channel gain on each residual branch), register tokens (learned,
+    # after CLS, with no position embedding; never scored, never dropped)
+    # and the head ("cls": a linear classifier on CLS; "cls_mean": on CLS
+    # concatenated with the mean of the patch tokens, registers left out).
+    # The forwards read the block from the layer tree alone (ops/swiglu.py);
+    # mlp_kind and layerscale say what init_vit_params draws, what
+    # utils/flops.py counts and which tree a config describes, and
+    # models/vit.py::check_block raises where tree and config disagree.
+    mlp_kind: str = "gelu"
+    layerscale: bool = False
+    num_registers: int = 0
+    head_pool: str = "cls"
+
+    def __post_init__(self):
+        if self.mlp_kind not in MLP_KINDS:
+            raise ValueError(f"unknown mlp_kind {self.mlp_kind!r} (one of {MLP_KINDS})")
+        if self.head_pool not in HEAD_POOLS:
+            raise ValueError(f"unknown head_pool {self.head_pool!r} (one of {HEAD_POOLS})")
+        if self.num_registers < 0:
+            raise ValueError(f"num_registers must be >= 0, got {self.num_registers}")
 
     @property
     def grid_size(self) -> int:
@@ -57,7 +82,7 @@ class ViTConfig:
 
     @property
     def seq_len(self) -> int:
-        return self.num_patches + 1  # + CLS
+        return self.num_patches + 1 + self.num_registers  # + CLS (+ registers)
 
     @property
     def head_dim(self) -> int:
@@ -79,11 +104,31 @@ class ViTConfig:
         return dataclasses.replace(self, **kw)
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        d = {k: v for k, v in dataclasses.asdict(self).items()
+             if k not in PORT_FIELDS or v != PORT_FIELDS[k]}
+        return json.dumps(d, indent=2, sort_keys=True)
 
     @staticmethod
     def from_json(s: str) -> "ViTConfig":
         return ViTConfig(**json.loads(s))
+
+
+MLP_KINDS = ("gelu", "swiglu")
+HEAD_POOLS = ("cls", "cls_mean")
+# the fields of ViTConfig that the JAX package's lacks, with their defaults
+PORT_FIELDS = {"mlp_kind": "gelu", "layerscale": False, "num_registers": 0, "head_pool": "cls"}
+
+
+def port_field(config, name: str):
+    """One of PORT_FIELDS of a model config, or its default where the config
+    lacks it: the port's functions take the JAX package's ViTConfig too."""
+    return getattr(config, name, PORT_FIELDS[name])
+
+
+def prefix_len(config) -> int:
+    """The leading tokens of a model config's sequence that are never scored
+    and never dropped: CLS and the registers."""
+    return 1 + port_field(config, "num_registers")
 
 
 # --- Model presets -------------------------------------------------------
@@ -124,6 +169,25 @@ def vit_huge(num_labels: int = 1000) -> ViTConfig:
     return ViTConfig(
         patch_size=14, hidden_size=1280, num_layers=32, num_heads=16,
         mlp_dim=5120, num_labels=num_labels,
+    )
+
+
+def swiglu_hidden(hidden_size: int) -> int:
+    """DINOv2's SwiGLU width: 2/3 of 4 D, rounded up to a multiple of 8."""
+    return (int(4 * hidden_size * 2 / 3) + 7) // 8 * 8
+
+
+def dinov2_giant_reg(num_labels: int = 1000) -> ViTConfig:
+    """DINOv2 ViT-g/14 with four registers at 518 px
+    (facebook/dinov2-with-registers-giant; arXiv:2304.07193, 2309.16588):
+    D 1536, 40 layers of 24 heads of 64, a SwiGLU MLP (1536 -> 2 x 4096,
+    silu(u1) * u2, 4096 -> 1536), LayerScale, LN eps 1e-6, 4 registers
+    after CLS, 37 x 37 patches (S 1374), and the linear-evaluation head on
+    CLS ⊕ the patch mean. 1,136,485,376 backbone parameters."""
+    return ViTConfig(
+        image_size=518, patch_size=14, hidden_size=1536, num_layers=40, num_heads=24,
+        mlp_dim=swiglu_hidden(1536), num_labels=num_labels, layernorm_eps=1e-6,
+        mlp_kind="swiglu", layerscale=True, num_registers=4, head_pool="cls_mean",
     )
 
 

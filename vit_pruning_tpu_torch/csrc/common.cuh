@@ -83,7 +83,11 @@ __device__ __forceinline__ void ln_stats(const Tin* xr, int d, float eps, float&
 
 // ---------------------------------------------------------------------------
 // GEMM epilogue, in the TPU kernels' order: + bias[n] (T), activation,
-// + residual (T or f32), cast.
+// + residual (T or f32), cast. Two variants for the bf16 persistent body
+// alone (gemm.cu's LayerEpi; other bodies refuse them): LayerScale's
+// (gamma: + residual after the gain, out = res + gamma[n] * (acc + bias))
+// and SwiGLU's gated fc1 (gate: the product's columns are (u1, u2) pairs,
+// 2i and 2i + 1, and out [M, N / 2] = silu(u1 + b) * (u2 + b) in T).
 
 struct Epilogue {
   const void* bias;  // [N] in T, or null
@@ -95,11 +99,23 @@ struct Epilogue {
   long ldc;
   int out_f32;
   int vec;  // 8-wide accesses are 16-byte aligned (set_vec)
+  const void* gamma;  // [N] in T: LayerScale's gain before the residual, or null
+  int gate;           // SwiGLU's pairs: out = silu(u1) * u2, N / 2 columns
 };
 
 inline Epilogue epi(const void* bias, int act, const void* res, long ldr, bool res_f32, void* out,
                     long ldc, bool out_f32) {
-  return Epilogue{bias, act, res, ldr, res_f32 ? 1 : 0, out, ldc, out_f32 ? 1 : 0, 0};
+  return Epilogue{bias, act, res, ldr, res_f32 ? 1 : 0, out, ldc, out_f32 ? 1 : 0, 0, nullptr, 0};
+}
+// the same epilogue with LayerScale's gain
+inline Epilogue scaled(Epilogue e, const void* gamma) {
+  e.gamma = gamma;
+  return e;
+}
+// the same epilogue as SwiGLU's gate (no activation, residual or f32 out)
+inline Epilogue gated(Epilogue e) {
+  e.gate = 1;
+  return e;
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -110,7 +126,8 @@ template <typename T>
 inline void set_vec(Epilogue& e) {
   const long el = sizeof(T), out_el = e.out_f32 ? 4 : el, res_el = e.res_f32 ? 4 : el;
   e.vec = aligned16(e.out) && (e.ldc * out_el) % 16 == 0 && (!e.bias || aligned16(e.bias)) &&
-          (!e.res || (aligned16(e.res) && (e.ldr * res_el) % 16 == 0));
+          (!e.res || (aligned16(e.res) && (e.ldr * res_el) % 16 == 0)) &&
+          (!e.gamma || aligned16(e.gamma));
 }
 
 template <typename T>
@@ -162,6 +179,18 @@ __device__ __forceinline__ void store8(bf16* p, const float* v) {
 __device__ __forceinline__ void store8(float* p, const float* v) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+// 4 consecutive bf16 values <- 8 bytes (the gated epilogue's outputs)
+__device__ __forceinline__ void store4(bf16* p, const float* v) {
+  uint2 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+  h[0] = __floats2bfloat162_rn(v[0], v[1]);
+  h[1] = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+// SwiGLU's gate, in f32: silu(u1) * u2
+__device__ __forceinline__ float swiglu(float u1, float u2) {
+  return u1 / (1.0f + __expf(-u1)) * u2;
 }
 
 // 8 consecutive values of T as they lie in memory (16 bytes of bf16, 32 of f32)

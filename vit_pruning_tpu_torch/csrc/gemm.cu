@@ -209,10 +209,105 @@ struct LayerEpi {
   }
 };
 
+// DINOv2's two variants of the persistent body's epilogue, each its own
+// instance of the body (so that LayerEpi's instances are what they were
+// without them), bf16 alone, no activation. Both load the bias before the
+// tile's products, as LayerEpi; ScaledEpi reads LayerScale's gain where it
+// applies it (an L1-resident [N] vector), so that no more registers stay
+// live across the products than LayerEpi's.
+//
+// ScaledEpi: out = res + gamma[n] * (acc + b), res in bf16 or f32, out in
+// bf16 or f32 (O and fc2 of a LayerScale layer).
+struct ScaledEpi : LayerEpi<bf16, ACT_NONE> {
+  __device__ __forceinline__ void finish(int m, int n, float* v, const Cols& c, const float* r,
+                                         int M, int N) const {
+    if (m >= M || n >= N) return;
+    if (whole(n, N)) {
+      apply(n, v, c, r);
+      if (e.out_f32)
+        store8(static_cast<float*>(e.out) + m * e.ldc + n, v);
+      else
+        store8(static_cast<bf16*>(e.out) + m * e.ldc + n, v);
+      return;
+    }
+    const bf16* bias = static_cast<const bf16*>(e.bias);
+    const bf16* gamma = static_cast<const bf16*>(e.gamma);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {  // rows not 16-byte aligned, or the last columns
+      const int j = n + i;
+      if (j >= N) continue;
+      float x = (v[i] + (bias ? to_f(bias[j]) : 0.f)) * to_f(gamma[j]);
+      if (e.res) {
+        const long ri = m * e.ldr + j;
+        x += e.res_f32 ? static_cast<const float*>(e.res)[ri]
+                       : to_f(static_cast<const bf16*>(e.res)[ri]);
+      }
+      if (e.out_f32)
+        static_cast<float*>(e.out)[m * e.ldc + j] = x;
+      else
+        static_cast<bf16*>(e.out)[m * e.ldc + j] = from_f<bf16>(x);
+    }
+  }
+  __device__ __forceinline__ void apply(int n, float* v, const Cols& c, const float* r) const {
+    float t[8];
+    load8(static_cast<const bf16*>(e.gamma) + n, t);
+    if (e.bias) {
+      float b[8];
+      load8(reinterpret_cast<const bf16*>(&c), b);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] += b[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] *= t[i];
+    if (e.res) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] += r[i];
+    }
+  }
+};
+
+// GatedEpi: SwiGLU's fc1, whose product columns are (u1, u2) pairs (2i,
+// 2i + 1): a group of 8 columns gives 4 outputs, silu(u1 + b) * (u2 + b),
+// at column n / 2 of an [M, N / 2] bf16 output, no residual. kGate tells the
+// body to stage and store a 64-column quarter as a [16 x 32] box.
+struct GatedEpi : LayerEpi<bf16, ACT_NONE> {
+  static constexpr bool kGate = true;
+  __device__ __forceinline__ void finish(int m, int n, float* v, const Cols& c, const float* r,
+                                         int M, int N) const {
+    if (m >= M || n >= N) return;
+    if (whole(n, N)) {
+      apply(n, v, c, r);
+      store4(static_cast<bf16*>(e.out) + m * e.ldc + n / 2, v);
+      return;
+    }
+    const bf16* bias = static_cast<const bf16*>(e.bias);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // rows not 16-byte aligned, or the last columns
+      const int j = n + 2 * i;
+      if (j + 1 >= N) continue;
+      const float u1 = v[2 * i] + (bias ? to_f(bias[j]) : 0.f);
+      const float u2 = v[2 * i + 1] + (bias ? to_f(bias[j + 1]) : 0.f);
+      static_cast<bf16*>(e.out)[m * e.ldc + j / 2] = from_f<bf16>(swiglu(u1, u2));
+    }
+  }
+  // the 4 outputs in v[0..3]
+  __device__ __forceinline__ void apply(int, float* v, const Cols& c, const float*) const {
+    if (e.bias) {
+      float b[8];
+      load8(reinterpret_cast<const bf16*>(&c), b);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] += b[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = swiglu(v[2 * i], v[2 * i + 1]);
+  }
+};
+
 // launches per body (0 bf16 wgmma, 1 bf16 WMMA, 2 f32 split), then the
-// wgmma body's output tiles (3) and blocks (4), and the distinct shapes that
+// wgmma body's output tiles (3) and blocks (4), its tiles through the gated
+// epilogue (5) and through LayerScale's (6), and the distinct shapes that
 // took the WMMA body
-constexpr int kBodies = 3, kCounts = 5;
+constexpr int kBodies = 3, kCounts = 7;
 std::atomic<long long> g_body_launches[kCounts];
 std::mutex g_wmma_shapes_mu;
 std::vector<int> g_wmma_shapes;  // M, N, K triples
@@ -228,6 +323,29 @@ void note_wmma_shape(int M, int N, int K) {
 cudaError_t gemm(const bf16* A, long lda, const bf16* W, int M, int N, int K, Epilogue e,
                  cudaStream_t st, bf16*) {
   set_vec<bf16>(e);
+  if (e.gate || e.gamma) {  // the variants: the persistent body alone, no activation
+    if (!wgmma_takes(A, lda, W, N, K) || e.act != ACT_NONE ||
+        (e.gate && (e.gamma || e.res || e.out_f32 || N % 16)))
+      return cudaErrorInvalidValue;
+    CUtensorMap ta, tw, to;
+    VPT_TRY(tma_map_a(&ta, A, lda, M, K));
+    VPT_TRY(tma_map_w(&tw, W, N, K));
+    // the gated output is [M, N / 2]: boxes of 16 rows x 32
+    if (e.vec)
+      VPT_TRY(e.gate ? tma_map_out(&to, e.out, e.ldc, M, N / 2, 2, 32)
+                     : tma_map_out(&to, e.out, e.ldc, M, N, e.out_f32 ? 4 : 2));
+    const CUtensorMap* tmo = e.vec ? &to : nullptr;
+    Walk walk;
+    if (e.gate)
+      VPT_TRY(wgmma_gemm(ta, tw, tmo, GatedEpi{{e}}, M, N, K, st, &walk));
+    else
+      VPT_TRY(wgmma_gemm(ta, tw, tmo, ScaledEpi{{e}}, M, N, K, st, &walk));
+    g_body_launches[0]++;
+    g_body_launches[kBodies] += walk.tiles;
+    g_body_launches[kBodies + 1] += walk.blocks;
+    g_body_launches[e.gate ? kBodies + 2 : kBodies + 3] += walk.tiles;
+    return cudaSuccess;
+  }
   if (wgmma_takes(A, lda, W, N, K)) {
     CUtensorMap ta, tw;
     VPT_TRY(tma_map_a(&ta, A, lda, M, K));
@@ -262,7 +380,7 @@ cudaError_t gemm(const bf16* A, long lda, const bf16* W, int M, int N, int K, Ep
 // f32: split6.cuh's split body, A read as f32 (SplitA), common.cuh's epilogue
 cudaError_t gemm(const float* A, long lda, const float* W, int M, int N, int K,
                  const Epilogue& e0, cudaStream_t st, bf16* wplanes) {
-  if (N % 8) return cudaErrorInvalidValue;
+  if (N % 8 || e0.gate || e0.gamma) return cudaErrorInvalidValue;
   Epilogue e = e0;
   set_vec<float>(e);
   VPT_TRY(split6_gemm(SplitA{A, lda, M, K, lda % 4 == 0 && aligned16(A)}, W, N,
@@ -281,16 +399,18 @@ extern "C" {
 // (row stride lda, a multiple of 8, 16-byte aligned), W [K, N] bf16; bias
 // [N] bf16 or null; act 0 none, 1 erf GELU, 2 tanh GELU; residual [M, N]
 // (row stride ldr) bf16 or f32 (res_f32), or null; out [M, N] (row stride
-// ldc) bf16 or f32 (out_f32).
+// ldc) bf16 or f32 (out_f32). gamma [N] bf16 or null: LayerScale's gain
+// before the residual; gate: SwiGLU's (u1, u2) column pairs into out [M,
+// N / 2] bf16 (no activation, residual or gamma).
 int vpt_gemm_bf16(const void* A, long lda, const void* W, int M, int N, int K, const void* bias,
                   int act, const void* res, long ldr, int res_f32, void* out, long ldc, int out_f32,
-                  void* stream) {
+                  const void* gamma, int gate, void* stream) {
   if (M < 1 || N < 1 || K < 1 || K % 8 || lda % 8 || lda < K || !aligned16(A) || act < 0 ||
-      act > 2 || ldc < N || (res && ldr < N))
+      act > 2 || ldc < (gate ? N / 2 : N) || (res && ldr < N))
     return cudaErrorInvalidValue;
+  Epilogue e = scaled(epi(bias, act, res, ldr, res_f32 != 0, out, ldc, out_f32 != 0), gamma);
   return gemm(static_cast<const bf16*>(A), lda, static_cast<const bf16*>(W), M, N, K,
-              epi(bias, act, res, ldr, res_f32 != 0, out, ldc, out_f32 != 0),
-              static_cast<cudaStream_t>(stream));
+              gate ? gated(e) : e, static_cast<cudaStream_t>(stream));
 }
 
 // One f32 product through gemm(), for tests of the split body: A [M, K] f32
@@ -310,7 +430,8 @@ int vpt_gemm_f32(const void* A, long lda, const void* W, int M, int N, int K, co
 
 // since the last reset: launches of the bf16 wgmma body, the bf16 WMMA body
 // and the f32 split body, then the output tiles the wgmma body walked and
-// the blocks it launched (five counts)
+// the blocks it launched, and of those tiles the ones through the gated
+// (SwiGLU) epilogue and through LayerScale's (seven counts)
 void vpt_gemm_body_counts(long long* out) {
   for (int b = 0; b < kCounts; ++b) out[b] = g_body_launches[b].load();
 }

@@ -104,23 +104,37 @@ cudaError_t attention(const float* qkv, const unsigned char* mask, const int* co
 
 // The B1 layer on x [B, S, D]; keys masked by `mask` [B, S] bytes or, for
 // B3's compacted rows, by the kept counts [B] (either may be null).
+//
+// DINOv2's block (bf16 alone: the variants are the persistent body's,
+// gemm.cu): ls1 and ls2 [D], LayerScale's gains, or null, scale the O and
+// fc2 products before their residuals (x1 = x + ls1 (ctx Wo + bo), out =
+// x1 + ls2 (m1 W2 + b2)); `gated`: SwiGLU's fc1, w1 [D, 2M] and b1 [2M]
+// with each u1 column beside its u2 partner (interleaved once at load,
+// ops/swiglu.py), whose epilogue writes m1 = silu(u1) * u2 [rows, M]: the
+// [rows, 2M] product never reaches device memory.
 template <typename T>
 cudaError_t layer_forward(const T* x, const unsigned char* mask, const int* counts, const T* ln1g,
                           const T* ln1b, const T* wqkv, const T* bqkv, const T* wo, const T* bo,
                           const T* ln2g, const T* ln2b, const T* w1, const T* b1, const T* w2,
-                          const T* b2, T* out, T* h, T* qkv, T* ctx, float* x1, T* m1,
-                          bf16* wplanes, int B, int S, int D, int H, int HD, int M, int DN,
-                          float eps, cudaStream_t st) {
+                          const T* b2, const T* ls1, const T* ls2, bool gate, T* out, T* h, T* qkv,
+                          T* ctx, float* x1, T* m1, bf16* wplanes, int B, int S, int D, int H,
+                          int HD, int M, int DN, float eps, cudaStream_t st) {
   const int rows = B * S, KW = H * HD;
   const int act = sizeof(T) == 2 ? ACT_GELU_TANH : ACT_GELU_ERF;
   VPT_TRY(layer_norm<T, T>(x, D, ln1g, ln1b, h, D, rows, D, DN, eps, st));
   VPT_TRY(gemm(h, D, wqkv, rows, 3 * KW, D, epi(bqkv, ACT_NONE, nullptr, 0, false, qkv, 3 * KW, false), st,
                wplanes));
   VPT_TRY(attention(qkv, mask, counts, ctx, B, S, H, KW, st, false, wplanes));
-  VPT_TRY(gemm(ctx, KW, wo, rows, D, KW, epi(bo, ACT_NONE, x, D, false, x1, D, true), st, wplanes));
+  VPT_TRY(gemm(ctx, KW, wo, rows, D, KW, scaled(epi(bo, ACT_NONE, x, D, false, x1, D, true), ls1),
+               st, wplanes));
   VPT_TRY(layer_norm<float, T>(x1, D, ln2g, ln2b, h, D, rows, D, DN, eps, st));
-  VPT_TRY(gemm(h, D, w1, rows, M, D, epi(b1, act, nullptr, 0, false, m1, M, false), st, wplanes));
-  VPT_TRY(gemm(m1, M, w2, rows, D, M, epi(b2, ACT_NONE, x1, D, true, out, D, false), st, wplanes));
+  if (gate)
+    VPT_TRY(gemm(h, D, w1, rows, 2 * M, D, gated(epi(b1, ACT_NONE, nullptr, 0, false, m1, M, false)),
+                 st, wplanes));
+  else
+    VPT_TRY(gemm(h, D, w1, rows, M, D, epi(b1, act, nullptr, 0, false, m1, M, false), st, wplanes));
+  VPT_TRY(gemm(m1, M, w2, rows, D, M, scaled(epi(b2, ACT_NONE, x1, D, true, out, D, false), ls2),
+               st, wplanes));
   return cudaSuccess;
 }
 
@@ -207,8 +221,8 @@ cudaError_t bucketed_forward(const T* x, const int* dest, const unsigned char* k
   gather_rows_kernel<T><<<(g + 255) / 256, 256, 0, st>>>(x, src, xc, S, cap, chunks, g);
   VPT_TRY(cudaGetLastError());
   VPT_TRY(layer_forward<T>(xc, nullptr, counts, ln1g, ln1b, wqkv, bqkv, wo, bo, ln2g, ln2b, w1, b1,
-                           w2, b2, yc, h, qkv, ctx, x1, m1, wplanes, B, cap, D, H, HD, M, DN, eps,
-                           st));
+                           w2, b2, nullptr, nullptr, false, yc, h, qkv, ctx, x1, m1, wplanes, B,
+                           cap, D, H, HD, M, DN, eps, st));
   const long e = (long)B * S * chunks;
   expand_rows_kernel<T><<<(e + 255) / 256, 256, 0, st>>>(x, yc, dest, kept, out, S, cap, chunks, e);
   return cudaGetLastError();
@@ -237,21 +251,26 @@ int vpt_layer_head_dim_ok(int hd) { return layer_head_dim_ok(hd); }
 // (split_attention.cuh). DN: the
 // width the layer norms run over, D unless the caller zero-padded x and the
 // weights from DN up to D (every entry point below takes it the same way).
+// ls1, ls2 [D] (or null) and gated (w1 [D, 2M], b1 [2M] interleaved):
+// DINOv2's LayerScale and SwiGLU (layer_forward), bf16 alone.
 int vpt_vit_layer_forward(int dtype, const void* x, const void* mask, const void* ln1g,
                           const void* ln1b, const void* wqkv, const void* bqkv, const void* wo,
                           const void* bo, const void* ln2g, const void* ln2b, const void* w1,
-                          const void* b1, const void* w2, const void* b2, void* out, void* h,
-                          void* qkv, void* ctx, void* x1, void* m1, void* wplanes, int B, int S,
-                          int D, int H, int HD, int M, int DN, float eps, void* stream) {
-  if (!shapes_ok(dtype, B, S, D, H, HD, M, DN)) return cudaErrorInvalidValue;
+                          const void* b1, const void* w2, const void* b2, const void* ls1,
+                          const void* ls2, void* out, void* h, void* qkv, void* ctx, void* x1,
+                          void* m1, void* wplanes, int B, int S, int D, int H, int HD, int M,
+                          int DN, int gated, float eps, void* stream) {
+  if (!shapes_ok(dtype, B, S, D, H, HD, M, DN) || (!ls1 != !ls2) ||
+      (dtype == 0 && (ls1 || gated)))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned char* mk = static_cast<const unsigned char*>(mask);
 #define VPT_LAYER(T)                                                                              \
   layer_forward<T>((const T*)x, mk, nullptr, (const T*)ln1g, (const T*)ln1b, (const T*)wqkv,      \
                    (const T*)bqkv, (const T*)wo, (const T*)bo, (const T*)ln2g, (const T*)ln2b,    \
-                   (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (T*)out, (T*)h,        \
-                   (T*)qkv, (T*)ctx, (float*)x1, (T*)m1, (bf16*)wplanes, B, S, D, H, HD, M, DN, \
-                   eps, st)
+                   (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (const T*)ls1,         \
+                   (const T*)ls2, gated != 0, (T*)out, (T*)h, (T*)qkv, (T*)ctx, (float*)x1,       \
+                   (T*)m1, (bf16*)wplanes, B, S, D, H, HD, M, DN, eps, st)
   return dtype == 0 ? VPT_LAYER(float) : VPT_LAYER(bf16);
 #undef VPT_LAYER
 }

@@ -449,6 +449,14 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Whether an epilogue is a gated one (Epi::kGate): each group of 8 product
+// columns gives 4 outputs, at column n / 2 of the output, so that a staged
+// 64-column quarter leaves as a [16 x 32] box
+template <typename Epi, typename = void>
+struct EpiGate : std::false_type {};
+template <typename Epi>
+struct EpiGate<Epi, std::void_t<decltype(Epi::kGate)>> : std::bool_constant<Epi::kGate> {};
+
 // The persistent body's epilogue of a warpgroup's m64n128 accumulators at
 // (m0w, n0), a 64-column quarter at a time through the warp's staging rows:
 // a thread's pair p (acc[2 p], acc[2 p + 1], where wgmma leaves them: row
@@ -505,17 +513,23 @@ __device__ __forceinline__ void wgmma_staged_epilogue(const float (&acc)[64], fl
     for (int i = 0; i < 4; ++i) epi.apply(n, v[i], c[q], t[i]);
     __syncwarp();  // every read of the staging rows is done
     unsigned char* out = reinterpret_cast<unsigned char*>(stage);  // [16][64] in the output type
+    if constexpr (EpiGate<Epi>::value) {  // [16][32] bf16: 4 outputs a group
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (epi.out_f32())
-        store8(reinterpret_cast<float*>(out) + (rr + 4 * i) * 64 + rc, v[i]);
-      else
-        store8(reinterpret_cast<bf16*>(out) + (rr + 4 * i) * 64 + rc, v[i]);
+      for (int i = 0; i < 4; ++i)
+        store4(reinterpret_cast<bf16*>(out) + (rr + 4 * i) * 32 + rc / 2, v[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (epi.out_f32())
+          store8(reinterpret_cast<float*>(out) + (rr + 4 * i) * 64 + rc, v[i]);
+        else
+          store8(reinterpret_cast<bf16*>(out) + (rr + 4 * i) * 64 + rc, v[i]);
+      }
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
     __syncwarp();
     if (lane == 0 && row0 < M && n0 + 64 * q < N) {  // a box wholly past M or N: nothing
-      tma_store_2d(tmO, smem_u32(out), n0 + 64 * q, row0);
+      tma_store_2d(tmO, smem_u32(out), (n0 + 64 * q) / (EpiGate<Epi>::value ? 2 : 1), row0);
       bulk_commit();
     }
   }
@@ -775,9 +789,11 @@ inline cudaError_t tma_map_a(CUtensorMap* map, const bf16* A, long lda, int M, i
 }
 
 // out [M, N] (row stride ldc, el bytes a value: bf16 or f32), as the
-// persistent body's epilogue stores it: [16 rows x 64] boxes, no swizzle
-inline cudaError_t tma_map_out(CUtensorMap* map, const void* out, long ldc, int M, int N, int el) {
-  return tma_map_2d(map, out, N, M, static_cast<uint64_t>(ldc) * el, 64, 16,
+// persistent body's epilogue stores it: [16 rows x box] boxes (64 columns;
+// the gated epilogue's 32), no swizzle
+inline cudaError_t tma_map_out(CUtensorMap* map, const void* out, long ldc, int M, int N, int el,
+                               uint32_t box = 64) {
+  return tma_map_2d(map, out, N, M, static_cast<uint64_t>(ldc) * el, box, 16,
                     el == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                     CU_TENSOR_MAP_SWIZZLE_NONE);
 }

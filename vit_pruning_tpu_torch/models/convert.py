@@ -14,7 +14,9 @@ where the checkpoint has none, as a strict=False load),
 `interpolate_pos_embed` (the position table resized to another image size
 by the JAX package's bicubic resize, which makes sequences past 197 tokens
 reachable: DeiT-S at 384 gives 577) and `load_hf_vit` (a live HF model or a
-local directory; transformers is imported only there).
+local directory; transformers is imported only there). `load_dinov2_state_dict`
+maps HF's Dinov2WithRegisters names to the port's tree (DINOv2 with
+registers: SwiGLU, LayerScale, registers, the pooled head).
 """
 
 from __future__ import annotations
@@ -177,6 +179,62 @@ def torch_state_dict_to_params(
     else:
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         head = linear_init(gen, d, config.num_labels)
+    params = {"embed": embed, "layers": stack_trees(layers), "ln_f": _ln(sd, "layernorm"),
+              "head": head}
+    return tree_to(params, check_device(device), dtype)
+
+
+# the backbone's prefix in HF's Dinov2WithRegistersForImageClassification
+DINOV2_PREFIX = "dinov2_with_registers."
+
+
+def load_dinov2_state_dict(
+    state_dict: Dict[str, Any],
+    config,
+    generator: Optional[torch.Generator] = None,
+    device="cuda",
+    dtype: torch.dtype = torch.float32,
+) -> dict:
+    """An HF Dinov2WithRegisters(ForImageClassification) state_dict -> the
+    backbone param tree (models/vit.py's layout with DINOv2's parts) on
+    `device` in `dtype`, in checkpoint order: mlp.weights_in becomes fc1
+    [D, 2M] with its columns [u1 | u2] as published, layer_scale{1,2}
+    become 'ls1' / 'ls2', register_tokens 'embed.registers'. The mask
+    token, which inference never uses, is left out. A checkpoint without a
+    classifier (a bare backbone) gets a random [2D, labels] head from
+    `generator` (seed 0 by default), as torch_state_dict_to_params does.
+    Serving interleaves fc1 once after this, at set-up
+    (ops/swiglu.py::with_gated_fc1)."""
+    from vit_pruning_tpu_torch.models.vit import linear_init, stack_trees
+
+    sd = strip_prefix(dict(state_dict), DINOV2_PREFIX)
+    d = config.hidden_size
+    proj_w = _f32(sd["embeddings.patch_embeddings.projection.weight"])  # [D, C, P, P]
+    embed = {
+        "patch": {"w": proj_w.reshape(d, -1).t().contiguous(),  # (c, kh, kw) flattening
+                  "b": _f32(sd["embeddings.patch_embeddings.projection.bias"])},
+        "cls": _f32(sd["embeddings.cls_token"]),
+        "registers": _f32(sd["embeddings.register_tokens"]),
+        "pos": _f32(sd["embeddings.position_embeddings"]),
+    }
+    layers = []
+    for i in range(config.num_layers):
+        p = f"encoder.layer.{i}"
+        layers.append({
+            "ln1": _ln(sd, f"{p}.norm1"),
+            "attn": {n: _lin(sd, f"{p}.attention.attention.{hf}")
+                     for n, hf in (("q", "query"), ("k", "key"), ("v", "value"))}
+                    | {"o": _lin(sd, f"{p}.attention.output.dense")},
+            "ls1": _f32(sd[f"{p}.layer_scale1.lambda1"]),
+            "ln2": _ln(sd, f"{p}.norm2"),
+            "mlp": {"fc1": _lin(sd, f"{p}.mlp.weights_in"), "fc2": _lin(sd, f"{p}.mlp.weights_out")},
+            "ls2": _f32(sd[f"{p}.layer_scale2.lambda1"]),
+        })
+    if "classifier.weight" in sd:
+        head = _lin(sd, "classifier")
+    else:
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        head = linear_init(gen, 2 * d, config.num_labels)
     params = {"embed": embed, "layers": stack_trees(layers), "ln_f": _ln(sd, "layernorm"),
               "head": head}
     return tree_to(params, check_device(device), dtype)

@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from vit_pruning_tpu_torch.configs import PruneConfig, ViTConfig
+from vit_pruning_tpu_torch.configs import PruneConfig, ViTConfig, prefix_len
 from vit_pruning_tpu_torch.models.convert import check_device, tree_to
 from vit_pruning_tpu_torch.models.vit import (
     layer_norm,
@@ -161,14 +161,16 @@ def apply_predictor(
     pcfg: PruneConfig,
     layer_params: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, dict]:
-    """Score the patch tokens of hidden_states [B, S, D] (CLS at 0).
+    """Score the patch tokens of hidden_states [B, S, D] (CLS at 0, then the
+    config's registers, which are never scored).
 
     Returns (scores [B, N] in (0, 1), extras): extras holds the bottleneck's
     'approx_residual', key_mlp's 'keys' and key_cosine's 'dense_out' (the
     layer's dense output, which the caller reuses).
     """
     kind = pcfg.predictor
-    patches = hidden_states[:, 1:]
+    prefix = prefix_len(config)
+    patches = hidden_states[:, prefix:]
     extras: dict = {}
     if kind == "cls_mlp":
         # concat([cls, t]) @ W0 == cls @ W0[:D] + t @ W0[D:]: the CLS term is one
@@ -209,7 +211,8 @@ def apply_predictor(
         if layer_params is None:
             raise ValueError("predictor 'key_mlp' needs layer_params")
         keys = _head_averaged_keys(hidden_states, layer_params, config)
-        scores = _apply_mlp(layer_slice(pred_params["key_mlp"], layer_idx), keys[:, 1:])[..., 0]
+        scores = _apply_mlp(layer_slice(pred_params["key_mlp"], layer_idx),
+                            keys[:, prefix:])[..., 0]
         extras["keys"] = keys
     elif kind == "key_cosine":
         if layer_params is None:
@@ -221,7 +224,7 @@ def apply_predictor(
         dense_out = vit_layer(hidden_states, layer_params, config, quant="none")
         k_cur = _head_averaged_keys(hidden_states, layer_params, config)
         k_next = _head_averaged_keys(dense_out, layer_params, config)
-        scores = _cos01(k_next, k_cur)[:, 1:]
+        scores = _cos01(k_next, k_cur)[:, prefix:]
         extras["dense_out"] = dense_out
     else:
         raise ValueError(f"predictor kind {kind!r} has no apply rule")

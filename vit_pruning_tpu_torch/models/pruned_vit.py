@@ -46,7 +46,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from vit_pruning_tpu_torch.configs import PruneConfig, ViTConfig
+from vit_pruning_tpu_torch.configs import PruneConfig, ViTConfig, port_field, prefix_len
 from vit_pruning_tpu_torch.models.predictors import (
     apply_predictor,
     apply_updatenet,
@@ -62,6 +62,7 @@ from vit_pruning_tpu_torch.models.vit import (
     layer_range,
     layer_slice,
     layers_for,
+    pooled,
     vit_forward,
     vit_layer,
 )
@@ -85,6 +86,7 @@ from vit_pruning_tpu_torch.ops.masking import (
     threshold_keep_mask,
     topk_keep_mask,
 )
+from vit_pruning_tpu_torch.ops.swiglu import has_layerscale, is_swiglu
 from vit_pruning_tpu_torch.train.losses import (
     focal_loss,
     mse_attention_loss,
@@ -470,20 +472,28 @@ def pruned_vit_forward(
     # package (round and clip have no useful gradient)
     quant = "none" if (train or need_oracle) else resolve_quant(quant)
     L = config.num_layers
-    if pcfg.mode == "none" and not return_layer_inputs:
+    dense = pcfg.mode == "none" and not return_layer_inputs
+    progressive = pcfg.mode == "topk_prog" and not (train or need_oracle)
+    if port_field(config, "num_registers") and not (dense or progressive):
+        raise ValueError(
+            f"mode {pcfg.mode!r} with register tokens: the re-decide modes, training and the "
+            f"oracle take CLS as the one leading token; a model with registers serves through "
+            f"mode 'topk_prog' (progressive_topk_forward) or 'none'")
+    if dense:
         # dense: vit_forward, with the masks and scores of an all-inactive run
-        dense = vit_forward(params["backbone"], pixel_values, config, quant=quant, remat=remat)
-        x = dense["last_hidden"]
+        out = vit_forward(params["backbone"], pixel_values, config, quant=quant, remat=remat)
+        x = out["last_hidden"]
         b, s = x.shape[:2]
+        n = s - prefix_len(config)
         out = {
-            "logits": dense["logits"],
-            "cls": dense["cls"],
+            "logits": out["logits"],
+            "cls": out["cls"],
             "last_hidden": x,
             "keep_masks": torch.ones((L, b, s), dtype=torch.bool, device=x.device),
-            "scores": torch.ones((L, b, s - 1), dtype=x.dtype, device=x.device),
+            "scores": torch.ones((L, b, n), dtype=x.dtype, device=x.device),
         }
         if need_oracle:
-            aux = _inactive_aux(pcfg, b, s - 1, x.dtype, x.device)
+            aux = _inactive_aux(pcfg, b, n, x.dtype, x.device)
             out["aux"] = {k: v.expand(L, *v.shape).clone() for k, v in aux.items()}
         return out
     if pcfg.mode == "topk_prog":
@@ -578,7 +588,7 @@ def pruned_vit_forward(
     x = layer_norm(x, backbone["ln_f"], config.layernorm_eps)
     cls = x[:, 0]
     out = {
-        "logits": cls @ backbone["head"]["w"] + backbone["head"]["b"],
+        "logits": pooled(x, config) @ backbone["head"]["w"] + backbone["head"]["b"],
         "cls": cls,
         "last_hidden": x,
         "keep_masks": torch.stack(masks),
@@ -598,23 +608,25 @@ def skip_ratio(keep_masks: torch.Tensor) -> torch.Tensor:
 
 # --- progressive compaction ------------------------------------------------------------
 
-def _keep_projection(scores: torch.Tensor, k: int):
-    """CLS + the top-k patches by score (rank_keep_mask tie-break).
+def _keep_projection(scores: torch.Tensor, k: int, prefix: int = 1):
+    """The `prefix` leading tokens (CLS, registers) + the top-k patches by
+    score (rank_keep_mask tie-break); scores [B, N] cover the patches alone.
 
-    Returns (mask [B, S] bool, cidx [B, k+1] long): cidx[b, r] is the source
-    position of compacted row r, in token order — the rows of the JAX
-    package's one-hot P, as indices. The drop and the merge both take their
-    kept set from here.
+    Returns (mask [B, S] bool, cidx [B, prefix + k] long): cidx[b, r] is the
+    source position of compacted row r, in token order — the rows of the
+    JAX package's one-hot P, as indices. The drop and the merge both take
+    their kept set from here.
     """
-    mask = add_cls_keep(rank_keep_mask(scores, k))
+    mask = add_cls_keep(rank_keep_mask(scores, k), prefix)
     b, s = mask.shape
+    n = prefix + k
     rank = torch.cumsum(mask.to(torch.int64), dim=-1) - 1
-    # dropped tokens write to a spare column k+1, cut off below (no host sync)
-    dest = torch.where(mask, rank, k + 1)
+    # dropped tokens write to a spare column n, cut off below (no host sync)
+    dest = torch.where(mask, rank, n)
     src = torch.arange(s, device=mask.device).expand(b, s)
-    cidx = torch.zeros((b, k + 2), dtype=torch.int64, device=mask.device)
+    cidx = torch.zeros((b, n + 1), dtype=torch.int64, device=mask.device)
     cidx.scatter_(1, dest, src)
-    return mask, cidx[:, : k + 1]
+    return mask, cidx[:, :n]
 
 
 def progressive_drop(
@@ -626,12 +638,13 @@ def progressive_drop(
     pcfg: PruneConfig,
     layer_params: Optional[dict] = None,
 ):
-    """Score the live sequence, keep CLS + the top-k patches in token order.
-    Returns (x_compacted [B, k+1, D], scores [B, cur-1], cidx [B, k+1])."""
+    """Score the live patches, keep the prefix (CLS, registers) + the top-k
+    patches in token order. Returns (x_compacted [B, p+k, D], scores [B,
+    cur-p], cidx [B, p+k]), p = CLS and the registers."""
     scores, _ = apply_predictor(
         pred_params, layer_idx, x, config, pcfg, layer_params=layer_params
     )
-    _, cidx = _keep_projection(scores, k)
+    _, cidx = _keep_projection(scores, k, prefix_len(config))
     xc = torch.gather(x, 1, cidx[..., None].expand(-1, -1, x.shape[-1]))
     return xc, scores, cidx
 
@@ -692,11 +705,23 @@ def progressive_topk_forward(
 
     The layers between two drops run at one sequence length: as one call of
     kernel B5 each where models/vit.py::encoder_route says so (in float,
-    under int8 too, as the JAX package's segments), else layer by layer."""
+    under int8 too, as the JAX package's segments), else layer by layer.
+
+    A model with registers (config.num_registers) keeps CLS and them, its
+    `prefix`, through every drop; only the patches are scored (scores [L,
+    B, N] over the patch positions after the prefix). A DINOv2 block
+    (SwiGLU, LayerScale) or a pooled head (CLS ⊕ the patch mean) takes no
+    B2: the last layer runs on every live row (B1), then the final LN and
+    the head, in a `head` span counting the rows it pools."""
     backbone = params["backbone"]
     pred = params.get("predictor")
     check_attn_geometry(backbone["layers"]["attn"]["q"]["w"].shape[-1], config)
     quant = resolve_quant(quant)
+    p = prefix_len(config)
+    pooled_head = port_field(config, "head_pool") == "cls_mean"
+    if pcfg.merge_dropped and p > 1:
+        raise ValueError(f"merge_dropped with {p - 1} register tokens: the merge "
+                         f"takes CLS as the one leading token")
     fuse = encoder_route(backbone["layers"], config)
     layers = layers_for(backbone["layers"], "none" if fuse else quant)
 
@@ -718,17 +743,18 @@ def progressive_topk_forward(
     b, s, _ = x.shape
     L = config.num_layers
     schedule = pcfg.keep_schedule or tuple([pcfg.top_k] + [0] * (L - 1))
-    schedule = tuple(min(k, s - 1) if k else 0 for k in schedule)
+    schedule = tuple(min(k, s - p) if k else 0 for k in schedule)
 
     orig = torch.arange(s, device=x.device).expand(b, s)  # source position of each live token
     masks, scores_l = [], []
     cur = s
     sizes = torch.ones((b, s), dtype=x.dtype, device=x.device) if pcfg.merge_dropped else None
-    use_cls_kernel = logits_only and kernels_enabled()
+    plain_block = not (is_swiglu(backbone["layers"]) or has_layerscale(backbone["layers"]))
+    use_cls_kernel = logits_only and kernels_enabled() and not pooled_head and plain_block
     seg_start = 0
     for i in range(L):
         k_i = schedule[i]
-        if k_i and k_i < cur - 1 and _is_active(pcfg, i):
+        if k_i and k_i < cur - p and _is_active(pcfg, i):
             x = run_segment(x, seg_start, i)
             seg_start = i
             x_full = x
@@ -738,15 +764,15 @@ def progressive_topk_forward(
                 if pcfg.merge_dropped:
                     x, sizes = merge_dropped_tokens(x_full, x, scores, k_i, sizes)
             with span("outputs"):
-                full = torch.full((b, s - 1), float("-inf"), dtype=scores.dtype, device=x.device)
-                scores_l.append(full.scatter(1, orig[:, 1:] - 1, scores))
+                full = torch.full((b, s - p), float("-inf"), dtype=scores.dtype, device=x.device)
+                scores_l.append(full.scatter(1, orig[:, p:] - p, scores))
                 orig = torch.gather(orig, 1, cidx)
                 masks.append(torch.zeros((b, s), dtype=torch.bool, device=x.device)
                              .scatter(1, orig, True))
-            cur = k_i + 1
+            cur = k_i + p
         else:
             with span("outputs"):
-                scores_l.append(torch.full((b, s - 1), float("-inf"), dtype=x.dtype,
+                scores_l.append(torch.full((b, s - p), float("-inf"), dtype=x.dtype,
                                            device=x.device))
                 masks.append(torch.zeros((b, s), dtype=torch.bool, device=x.device)
                              .scatter(1, orig, True))
@@ -765,10 +791,10 @@ def progressive_topk_forward(
                     "scores": torch.stack(scores_l)}
 
     x = run_segment(x, seg_start, L)
-    with span("head"):
+    with span("head", rows=b * (cur - p) if pooled_head else None):
         x = layer_norm(x, backbone["ln_f"], config.layernorm_eps)
         cls = x[:, 0]
-        logits = cls @ backbone["head"]["w"] + backbone["head"]["b"]
+        logits = pooled(x, config) @ backbone["head"]["w"] + backbone["head"]["b"]
     with span("outputs"):
         out = {"logits": logits, "keep_masks": torch.stack(masks),
                "scores": torch.stack(scores_l)}

@@ -8,6 +8,13 @@ Mirrors vit_pruning_tpu/models/vit.py, in the same param layout:
              # every layer leaf stacked on a leading [L] axis
    'ln_f': {'g','b'}, 'head': {'w' [D, labels], 'b'}}
 
+DINOv2's block and tokens (the port's own ViTConfig fields, configs.py):
+a SwiGLU MLP has fc1 [D, 2M] (checkpoint order, or interleaved for kernel
+B1 once at load: ops/swiglu.py), LayerScale puts 'ls1' and 'ls2' [D] in
+each layer, registers are 'embed': {'registers' [1, R, D]} (after CLS, no
+position embedding: 'pos' has 1 + N rows), and the CLS ⊕ patch-mean head
+has 'head': {'w' [2D, labels]}.
+
 `vit_layer` routes through kernel B1 (ops/cuda/layer.py::fused_vit_layer;
 under autograd through its Function, whose backward recomputes the plain
 layer) unless the dispatch mode is 'eager', in which case it runs the plain layer
@@ -32,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from vit_pruning_tpu_torch.configs import ViTConfig
+from vit_pruning_tpu_torch.configs import ViTConfig, port_field, prefix_len
 from vit_pruning_tpu_torch.models.convert import check_device, tree_to
 from vit_pruning_tpu_torch.ops.attention import mha
 from vit_pruning_tpu_torch.ops.cuda.widths import (
@@ -54,6 +61,14 @@ from vit_pruning_tpu_torch.ops.quant import (
     is_quantized,
     with_kmajor_int8_weights,
 )
+from vit_pruning_tpu_torch.ops.swiglu import (
+    has_layerscale,
+    is_swiglu,
+    refuse_dinov2,
+    require_interleaved,
+    swiglu_mlp,
+    weight,
+)
 from vit_pruning_tpu_torch.utils.profiling import span
 
 
@@ -66,7 +81,10 @@ def layer_norm(x: torch.Tensor, params: dict, eps: float) -> torch.Tensor:
 
 def mlp_block(x: torch.Tensor, params: dict, use_kernel: bool = False) -> torch.Tensor:
     """Linear -> GELU (erf) -> Linear; use_kernel: kernel B7 on the [B*S, D]
-    rows (f32 arithmetic, output in x's dtype)."""
+    rows (f32 arithmetic, output in x's dtype). A SwiGLU MLP (ops/swiglu.py)
+    runs its plain version: B7 computes the GELU MLP alone."""
+    if is_swiglu({"mlp": params}):
+        return swiglu_mlp(x, params)
     if use_kernel:
         from vit_pruning_tpu_torch.ops.cuda.mlp import fused_mlp
 
@@ -76,6 +94,20 @@ def mlp_block(x: torch.Tensor, params: dict, use_kernel: bool = False) -> torch.
         return y.reshape(b, s, d)
     h = F.gelu(x @ params["fc1"]["w"] + params["fc1"]["b"])
     return h @ params["fc2"]["w"] + params["fc2"]["b"]
+
+
+def check_block(params: dict, config: ViTConfig):
+    """The layer tree's block (ops/swiglu.py: SwiGLU by fc1's width,
+    LayerScale by its gains) must be the config's. The routes compute the
+    tree's block; the config's mlp_kind and layerscale are what init and
+    the FLOP count read, so a tree served under another model's config
+    raises here rather than being counted as the wrong model."""
+    if is_swiglu(params) != (port_field(config, "mlp_kind") == "swiglu"):
+        raise ValueError(f"the layer's MLP is {'SwiGLU' if is_swiglu(params) else 'GELU'}, the "
+                         f"config's mlp_kind {port_field(config, 'mlp_kind')!r}")
+    if has_layerscale(params) != port_field(config, "layerscale"):
+        raise ValueError(f"the layer {'has' if has_layerscale(params) else 'lacks'} LayerScale's "
+                         f"gains, the config's layerscale is {port_field(config, 'layerscale')}")
 
 
 def check_attn_geometry(q_width: int, config: ViTConfig):
@@ -118,9 +150,11 @@ def vit_layer(
     callers rely on (ops/structured.py::head_importance)."""
     q = params["attn"]["q"]
     check_attn_geometry((q["w"] if "w" in q else q["wq"]).shape[-1], config)
+    check_block(params, config)
     use_kernels = kernels_enabled() if use_kernels is None else use_kernels
     per_op = head_mask is not None or return_probs
     if not per_op and resolve_quant(quant) == "int8":
+        refuse_dinov2("int8 serving", params)
         qp = params if is_quantized(params) else attach_int8_weights(params)
         if use_kernels:
             from vit_pruning_tpu_torch.ops.cuda.layer_int8 import fused_vit_layer_int8
@@ -139,14 +173,17 @@ def vit_layer(
                return_probs=return_probs, use_kernel=use_kernels and attention_kernel_enabled())
     if return_probs:
         attn, probs = attn
-    x = x + attn
+    scale = has_layerscale(params)
+    x = x + (params["ls1"] * attn if scale else attn)
     h = layer_norm(x, params["ln2"], config.layernorm_eps)
-    x = x + mlp_block(h, params["mlp"], use_kernel=use_kernels)
+    y = mlp_block(h, params["mlp"], use_kernel=use_kernels)
+    x = x + (params["ls2"] * y if scale else y)
     return (x, probs) if return_probs else x
 
 
 def embed(pixel_values: torch.Tensor, params: dict, config: ViTConfig) -> torch.Tensor:
-    """Patch projection + CLS token + position embeddings -> [B, S, D]."""
+    """Patch projection + CLS token + position embeddings (+ the registers
+    after CLS, without one) -> [B, S, D]."""
     b, c, h, w = pixel_values.shape
     if (c, h, w) != (config.num_channels, config.image_size, config.image_size):
         raise ValueError(
@@ -155,7 +192,29 @@ def embed(pixel_values: torch.Tensor, params: dict, config: ViTConfig) -> torch.
         )
     x = patch_embed(pixel_values, params["patch"], config.patch_size)
     cls = params["cls"].expand(b, 1, config.hidden_size).to(x.dtype)
-    return torch.cat([cls, x], dim=1) + params["pos"].to(x.dtype)
+    return with_registers(torch.cat([cls, x], dim=1) + params["pos"].to(x.dtype), params, config)
+
+
+def with_registers(x: torch.Tensor, params: dict, config: ViTConfig) -> torch.Tensor:
+    """x [B, 1 + N, D] (CLS and the patches, positions added) with the
+    config's registers put in after CLS: [B, 1 + R + N, D]."""
+    reg = params.get("registers")
+    have = 0 if reg is None else reg.shape[1]
+    want = port_field(config, "num_registers")
+    if have != want:
+        raise ValueError(f"the embed has {have} register tokens, the config {want}")
+    if not have:
+        return x
+    return torch.cat([x[:, :1], reg.to(x.dtype).expand(x.shape[0], -1, -1), x[:, 1:]], dim=1)
+
+
+def pooled(x: torch.Tensor, config: ViTConfig) -> torch.Tensor:
+    """The head's input from the final LN's output x [B, S, D]: the CLS row,
+    or (head_pool 'cls_mean') CLS ⊕ the mean of the patch rows, the
+    registers left out."""
+    if port_field(config, "head_pool") == "cls":
+        return x[:, 0]
+    return torch.cat([x[:, 0], x[:, prefix_len(config):].mean(dim=1)], dim=-1)
 
 
 def layer_slice(layers: dict, i: int) -> dict:
@@ -173,12 +232,17 @@ def layers_for(layers: dict, quant: str) -> dict:
     launch: for widths the kernels do not take, the zero-padded tree
     (ops/cuda/widths.py, under PADDED), and under int8 kernel B4's K-major
     layout (ops/quant.py::kmajor_int8_weights) of the tree it reads. A
+    SwiGLU tree on the card comes with fc1 interleaved at load
+    (ops/swiglu.py::with_gated_fc1); in checkpoint order it raises. A
     `prep` span (utils/profiling.py)."""
     with span("prep"):
         if quant == "int8" and not is_quantized(layers):
+            refuse_dinov2("int8 serving", layers)
             layers = attach_int8_weights(layers)
         if not kernels_enabled():
             return layers
+        if not weight(layers["mlp"]["fc1"]).is_cpu:  # the route launches B1
+            require_interleaved("layers_for", layers)
         if quant != "int8":
             return with_kernel_weights(layers, LAYER_MULTIPLE)
         layers = with_kernel_weights(layers, INT8_MULTIPLE)
@@ -203,6 +267,8 @@ def encoder_route(layers: dict, config: ViTConfig) -> bool:
     JAX package's does."""
     from vit_pruning_tpu_torch.ops.cuda.model import encoder_weights_fit
 
+    if is_swiglu(layers) or has_layerscale(layers):  # B5 takes neither
+        return False
     return (kernels_enabled() and encoder_fusion_enabled() and encoder_weights_fit(
         config.num_layers, config.hidden_size, config.mlp_dim,
         layers["attn"]["q"]["b"].element_size()))
@@ -252,7 +318,7 @@ def vit_forward(
                 hidden_states.append(x)
     x = layer_norm(x, params["ln_f"], config.layernorm_eps)
     cls = x[:, 0]
-    logits = cls @ params["head"]["w"] + params["head"]["b"]
+    logits = pooled(x, config) @ params["head"]["w"] + params["head"]["b"]
     out = {"logits": logits, "cls": cls, "last_hidden": x}
     if output_hidden_states:
         out["hidden_states"] = hidden_states
@@ -288,32 +354,49 @@ def init_vit_params(
     """Random init as the JAX package's: trunc-normal(0.02) weights, zero
     biases, unit LN gains. Same distribution, not the same numbers. Drawn
     on the CPU from `generator`, then moved to `device` (the card unless
-    the caller asks for 'cpu')."""
+    the caller asks for 'cpu'). DINOv2's parts (the config's port-only
+    fields): fc1 2M wide in checkpoint order under SwiGLU, LayerScale's
+    gains at LAYERSCALE_INIT, registers trunc-normal(0.02), the pooled
+    head 2D wide."""
     device = check_device(device)
     d = config.hidden_size
+    fc1_width = config.mlp_dim * (2 if port_field(config, "mlp_kind") == "swiglu" else 1)
+    registers = port_field(config, "num_registers")
 
     def layer_init():
-        return {
+        layer = {
             "ln1": {"g": torch.ones(d), "b": torch.zeros(d)},
             "attn": {n: linear_init(generator, d, d) for n in ("q", "k", "v", "o")},
             "ln2": {"g": torch.ones(d), "b": torch.zeros(d)},
             "mlp": {
-                "fc1": linear_init(generator, d, config.mlp_dim),
+                "fc1": linear_init(generator, d, fc1_width),
                 "fc2": linear_init(generator, config.mlp_dim, d),
             },
         }
+        if port_field(config, "layerscale"):
+            layer.update(ls1=torch.full((d,), LAYERSCALE_INIT),
+                         ls2=torch.full((d,), LAYERSCALE_INIT))
+        return layer
 
     params = {
         "layers": stack_trees([layer_init() for _ in range(config.num_layers)]),
         "embed": {
             "patch": linear_init(generator, config.patch_dim, d),
             "cls": trunc_normal((1, 1, d), generator),
-            "pos": trunc_normal((1, config.seq_len, d), generator),
+            "pos": trunc_normal((1, config.num_patches + 1, d), generator),
         },
         "ln_f": {"g": torch.ones(d), "b": torch.zeros(d)},
-        "head": linear_init(generator, d, config.num_labels),
+        "head": linear_init(generator, d * (2 if port_field(config, "head_pool") == "cls_mean"
+                                            else 1), config.num_labels),
     }
+    if registers:
+        params["embed"]["registers"] = trunc_normal((1, registers, d), generator)
     return tree_to(params, device, dtype)
+
+
+# LayerScale's gains at init: HF Dinov2WithRegistersConfig's layerscale_value, 1.0 in
+# the published checkpoints' configs (facebook/dinov2-with-registers-*)
+LAYERSCALE_INIT = 1.0
 
 
 def param_count(params: dict) -> int:

@@ -42,8 +42,9 @@ SIGNATURES = {
     "vpt_layer_attention_body_reset": ([], None),
     # (DN: the layer norms' width, D unless x and the weights were padded)
     # (wplanes: f32's weight planes for the split GEMM body, null in bf16)
-    # dtype, x, mask, 12 layer weights, out, 5 workspaces, wplanes, B S D H HD M DN, eps, stream
-    "vpt_vit_layer_forward": ([I] + [P] * 21 + [I] * 7 + [F, P], I),
+    # dtype, x, mask, 12 layer weights, LayerScale's two gains (or null), out,
+    # 5 workspaces, wplanes, B S D H HD M DN, gated (SwiGLU's fc1), eps, stream
+    "vpt_vit_layer_forward": ([I] + [P] * 23 + [I] * 8 + [F, P], I),
     # dtype, x, 18 weights, logits, 7 workspaces, wplanes, B S D H HD M DN labels, eps, stream
     "vpt_vit_cls_logits_forward": ([I] + [P] * 28 + [I] * 8 + [F, P], I),
     # dtype, hd, S, D, out [8]: B2's launches by kind (-1: refused)
@@ -83,8 +84,8 @@ SIGNATURES = {
     "vpt_embed_body_counts": ([P], None),
     "vpt_embed_body_reset": ([], None),
     # A, lda, W, M N K, bias, act, residual, ldr, residual in f32, out, ldc,
-    # out in f32, stream
-    "vpt_gemm_bf16": ([P, L, P, I, I, I, P, I, P, L, I, P, L, I, P], I),
+    # out in f32, gamma (LayerScale's gain), gate (SwiGLU's pairs), stream
+    "vpt_gemm_bf16": ([P, L, P, I, I, I, P, I, P, L, I, P, L, I, P, I, P], I),
     # A, lda, W, M N K, bias, act, residual, ldr, out, ldc (all f32), wplanes, stream
     "vpt_gemm_f32": ([P, L, P, I, I, I, P, I, P, L, P, L, P, P], I),
     "vpt_gemm_body_counts": ([P], None),

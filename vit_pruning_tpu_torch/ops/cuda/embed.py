@@ -192,20 +192,26 @@ def _with_cls(x: torch.Tensor, embed_params: dict, pos: torch.Tensor) -> torch.T
 def embed_u8(pixel_values_u8: torch.Tensor, embed_params: dict, config) -> torch.Tensor:
     """Raw uint8 images [B, C, H, W] -> embeddings [B, S, D]: extract the
     patches (a uint8 shuffle), kernel B8a (normalise + project + position),
-    prepend CLS with its position embedding."""
+    prepend CLS with its position embedding (and the config's registers
+    after it)."""
+    from vit_pruning_tpu_torch.models.vit import with_registers
+
     patches = extract_patches(pixel_values_u8, config.patch_size)
     pos = embed_params["pos"][0]  # [S, D]
     x = fused_patch_embed_u8(patches, embed_params["patch"]["w"], embed_params["patch"]["b"],
                              pos[1:])
-    return _with_cls(x, embed_params, pos)
+    return with_registers(_with_cls(x, embed_params, pos), embed_params, config)
 
 
 def embed_fused(pixel_values: torch.Tensor, embed_params: dict, config) -> torch.Tensor:
     """Float pixels [B, C, H, W] (already normalised, as models/vit.py::embed
     takes them) -> embeddings [B, S, D]: extract, kernel B8b (project +
-    position, pos cast to w's dtype first), prepend CLS."""
+    position, pos cast to w's dtype first), prepend CLS (and the config's
+    registers after it)."""
+    from vit_pruning_tpu_torch.models.vit import with_registers
+
     patches = extract_patches(pixel_values, config.patch_size)
     pos = embed_params["pos"][0]
     w = embed_params["patch"]["w"]
     x = fused_patch_embed_f(patches, w, embed_params["patch"]["b"], pos[1:].to(w.dtype))
-    return _with_cls(x, embed_params, pos)
+    return with_registers(_with_cls(x, embed_params, pos), embed_params, config)

@@ -13,7 +13,11 @@ shape of the main paths, one product at a time.
 gemm_bf16: A and W bf16; A may be a row-strided view (rows of [B, S, D]
 with row stride S*D); bias bf16 [N]; act 'none', 'gelu_erf' or
 'gelu_tanh' (in f32); residual [M, N] bf16 or float32, rows contiguous
-(or row-strided the same way); out bf16 or float32.
+(or row-strided the same way); out bf16 or float32. DINOv2's two epilogue
+variants (persistent body alone): gamma bf16 [N], LayerScale's gain before
+the residual, out = residual + gamma * (A W + bias); gate, SwiGLU's fc1 on
+W's interleaved (u1, u2) column pairs (ops/swiglu.py), out [M, N / 2] bf16
+= silu(u1 + b) * (u2 + b).
 On the card gemm() takes the persistent wgmma + TMA body where TMA can
 describe A and W (16-byte aligned, lda, N and K multiples of 8) and the
 WMMA body otherwise, by shape alone. The persistent body launches one block
@@ -47,14 +51,20 @@ _OUT = (torch.bfloat16, torch.float32)
 
 def gemm_bf16_ref(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
                   act: str = "none", residual: Optional[torch.Tensor] = None,
-                  out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                  out_dtype: torch.dtype = torch.bfloat16, gamma: Optional[torch.Tensor] = None,
+                  gate: bool = False) -> torch.Tensor:
     """Plain PyTorch version: the product in f32, then the epilogue in the
-    TPU kernels' order (+ bias, activation, + residual) in f32, one cast."""
+    TPU kernels' order (+ bias, activation, x gamma, + residual) in f32, or
+    the gate on the interleaved pairs, one cast."""
     y = a.float() @ w.float()
     if bias is not None:
         y = y + bias.float()
+    if gate:
+        return (F.silu(y[:, 0::2]) * y[:, 1::2]).to(out_dtype)
     if act != "none":
         y = F.gelu(y, approximate="tanh" if act == "gelu_tanh" else "none")
+    if gamma is not None:
+        y = y * gamma.float()
     if residual is not None:
         y = y + residual.float()
     return y.to(out_dtype)
@@ -113,16 +123,27 @@ def _check(a, w, bias, act, residual, out_dtype, who="gemm_bf16") -> tuple:
 
 def gemm_bf16(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
               act: str = "none", residual: Optional[torch.Tensor] = None,
-              out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """One bf16 product through the layer kernels' GEMM: [M, N] in out_dtype."""
+              out_dtype: torch.dtype = torch.bfloat16, gamma: Optional[torch.Tensor] = None,
+              gate: bool = False) -> torch.Tensor:
+    """One bf16 product through the layer kernels' GEMM: [M, N] in out_dtype
+    ([M, N / 2] bf16 with gate)."""
     m, n, k, lda = _check(a, w, bias, act, residual, out_dtype)
+    if gamma is not None and (gamma.dtype != torch.bfloat16 or tuple(gamma.shape) != (n,)
+                              or gamma.device != a.device or not gamma.is_contiguous()):
+        raise ValueError(f"gemm_bf16: gamma must be contiguous bf16 [{n}] on {a.device}")
+    if (gamma is not None or gate) and act != "none":
+        raise ValueError("gemm_bf16: gamma and gate take no activation")
+    if gate and (gamma is not None or residual is not None or out_dtype != torch.bfloat16
+                 or n % 16):
+        raise ValueError("gemm_bf16: gate takes N a multiple of 16, no gamma or residual, and a "
+                         "bf16 output")
     if not launch_kernel_for(a):
-        return gemm_bf16_ref(a, w, bias, act, residual, out_dtype)
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+        return gemm_bf16_ref(a, w, bias, act, residual, out_dtype, gamma, gate)
+    out = torch.empty((m, n // 2 if gate else n), dtype=out_dtype, device=a.device)
     run("gemm_bf16", a.device, "vpt_gemm_bf16", ptr(a), lda, ptr(w), m, n, k, ptr(bias),
         ACTS[act], ptr(residual), n if residual is None else residual.stride(0),
-        int(residual is not None and residual.dtype == torch.float32), ptr(out), n,
-        int(out_dtype == torch.float32))
+        int(residual is not None and residual.dtype == torch.float32), ptr(out), out.shape[1],
+        int(out_dtype == torch.float32), ptr(gamma), int(gate))
     gemm_bf16.launches += 1
     return out
 
@@ -186,16 +207,19 @@ def body_counts() -> dict:
     and 'wmma' bodies, the f32 'f32_split' body; the output tiles the wgmma
     body walked ('wgmma_tiles') and the blocks it launched to walk them
     ('wgmma_blocks'), so tiles over blocks is how many tiles a block walked
-    on average; and the distinct (M, N, K) that took the WMMA body."""
+    on average; of those tiles, the ones through SwiGLU's gated epilogue
+    ('gated_tiles') and through LayerScale's ('scaled_tiles'); and the
+    distinct (M, N, K) that took the WMMA body."""
     from vit_pruning_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
-    counts = (ctypes.c_longlong * 5)()
+    counts = (ctypes.c_longlong * 7)()
     lib.vpt_gemm_body_counts(counts)
     shapes = (ctypes.c_int * 192)()
     n = lib.vpt_gemm_wmma_shapes(shapes, 64)
     return {"wgmma": counts[0], "wmma": counts[1], "f32_split": counts[2],
-            "wgmma_tiles": counts[3], "wgmma_blocks": counts[4],
+            "wgmma_tiles": counts[3], "wgmma_blocks": counts[4], "gated_tiles": counts[5],
+            "scaled_tiles": counts[6],
             "wmma_shapes": [tuple(shapes[3 * i:3 * i + 3]) for i in range(min(n, 64))]}
 
 

@@ -54,6 +54,13 @@ B4 here, B6, B7, B8a, B8b) have no VJP in the JAX package, and their
 wrappers raise for a CUDA input that requires grad (`refuse_grad`) instead
 of returning a result without a graph.
 
+DINOv2's block (ops/swiglu.py) runs on B1 in bf16: LayerScale's gains
+scale the O and fc2 products in their epilogues, and a SwiGLU fc1,
+interleaved once at load (or here, per call, where the caller did not),
+runs the gated epilogue, which writes silu(u1) * u2 and never the [rows,
+2M] product (csrc/layer.cu, csrc/gemm.cu). B2, B3, B5 and the f32 products
+refuse it.
+
 The plain versions keep the TPU kernels' numerics, which differ from the
 jnp reference layer (models/vit.py) in three places: products take operands
 in the weight dtype and accumulate in f32 before the bias and the cast; the
@@ -78,6 +85,16 @@ from vit_pruning_tpu_torch.ops.cuda.gemm import F32_PRODUCTS, count_f32_products
 from vit_pruning_tpu_torch.ops.cuda.library import check_aligned, kernel_op, ptr, run
 from vit_pruning_tpu_torch.ops.cuda.widths import LAYER_MULTIPLE, kernel_layer, pad_dim, round_up
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
+from vit_pruning_tpu_torch.ops.swiglu import (
+    fc1_linear,
+    gate,
+    has_layerscale,
+    is_swiglu,
+    mlp_width,
+    refuse_dinov2,
+    require_interleaved,
+    weight,
+)
 from vit_pruning_tpu_torch.utils.profiling import span
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -185,18 +202,28 @@ def fused_vit_layer_ref(
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel B1 (staged2 numerics). norm_width:
     the layer norms' width, for x and weights zero-padded past it (the
-    kernel's DN); None = D."""
+    kernel's DN); None = D. DINOv2's block as B1 computes it: the O and fc2
+    products times LayerScale's gains before their residuals, and a SwiGLU
+    MLP's silu(u1) * u2 in f32, rounded to x's dtype (in either order of
+    fc1's columns)."""
     dt = x.dtype
     a = params["attn"]
     xf = x.float()
     h1 = _ln_f32(xf, params["ln1"], eps, norm_width)
     q, k, v = (_linear_f32(h1, a[n]["w"], a[n]["b"]).to(dt) for n in "qkv")
     ctx = staged2_attention(q, k, v, num_heads, token_mask)
-    x1 = xf + _linear_f32(ctx, a["o"]["w"], a["o"]["b"])
+    scale = has_layerscale(params)
+    o = _linear_f32(ctx, a["o"]["w"], a["o"]["b"])
+    x1 = xf + (params["ls1"].float() * o if scale else o)
     h2 = _ln_f32(x1, params["ln2"], eps, norm_width)
     mlp = params["mlp"]
-    m1 = _gelu_for(dt)(_linear_f32(h2, mlp["fc1"]["w"], mlp["fc1"]["b"]))
-    return (x1 + _linear_f32(m1, mlp["fc2"]["w"], mlp["fc2"]["b"])).to(dt)
+    if is_swiglu(params):
+        w1, b1, interleaved = fc1_linear(params)
+        m1 = gate(_linear_f32(h2, w1, b1), interleaved).to(dt)
+    else:
+        m1 = _gelu_for(dt)(_linear_f32(h2, mlp["fc1"]["w"], mlp["fc1"]["b"]))
+    y = _linear_f32(m1, mlp["fc2"]["w"], mlp["fc2"]["b"])
+    return (x1 + (params["ls2"].float() * y if scale else y)).to(dt)
 
 
 def cls_context_ref(
@@ -459,10 +486,13 @@ def eager_layer(x: torch.Tensor, params: dict, num_heads: int, eps: float,
                 token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain layer whose gradient B1's backward takes, as the JAX
     package's differentiable_fused_layer does: LN -> mha -> LN -> mlp_block
-    (erf GELU) in x's dtype."""
-    x1 = x + mha(layer_norm(x, params["ln1"], eps), params["attn"], num_heads,
-                 token_mask=token_mask)
-    return x1 + mlp_block(layer_norm(x1, params["ln2"], eps), params["mlp"])
+    (erf GELU, or SwiGLU) in x's dtype, LayerScale's gains where the layer
+    has them."""
+    scale = has_layerscale(params)
+    a = mha(layer_norm(x, params["ln1"], eps), params["attn"], num_heads, token_mask=token_mask)
+    x1 = x + (params["ls1"] * a if scale else a)
+    y = mlp_block(layer_norm(x1, params["ln2"], eps), params["mlp"])
+    return x1 + (params["ls2"] * y if scale else y)
 
 
 class RecomputedBackward(torch.autograd.Function):
@@ -530,19 +560,13 @@ def _check_token_mask(token_mask: Optional[torch.Tensor], x: torch.Tensor, b: in
         raise ValueError(f"{who}: token_mask must be contiguous on {x.device}")
 
 
-def _weight(linear: dict) -> torch.Tensor:
-    """A linear's weight matrix: the float 'w', or the int8 'wq' of a
-    quantized tree."""
-    return linear["w"] if "w" in linear else linear["wq"]
-
-
 def _geometry(x: torch.Tensor, params: dict, num_heads: int, who: str):
     """(B, S, D, hd, KW, M) of a layer call, at the model's widths."""
     if x.dim() != 3:
         raise ValueError(f"{who}: x must be [B, S, D], got {tuple(x.shape)}")
     b, s, d = x.shape
-    kw = _weight(params["attn"]["q"]).shape[-1]
-    m = _weight(params["mlp"]["fc1"]).shape[-1]
+    kw = weight(params["attn"]["q"]).shape[-1]
+    m = mlp_width(params)
     hd = kw // num_heads
     if kw % num_heads or hd not in LAYER_HEAD_DIMS:
         raise ValueError(f"{who}: head dim {kw}/{num_heads} not supported (the kernel takes "
@@ -559,24 +583,33 @@ LAYER_WEIGHTS = ("ln1.g", "ln1.b", "qkv.w", "qkv.b", "o.w", "o.b", "ln2.g", "ln2
                  "fc1.b", "fc2.w", "fc2.b")
 
 
-def _layer_shapes(d: int, kw: int, m: int) -> dict:
+def _layer_shapes(d: int, kw: int, m: int, gated: bool = False, scaled: bool = False) -> dict:
+    """The layer weights' shapes: a gated fc1 is 2M wide, LayerScale adds
+    its two gains."""
+    f = 2 * m if gated else m
     return {"ln1.g": (d,), "ln1.b": (d,), "o.w": (kw, d), "o.b": (d,), "ln2.g": (d,),
-            "ln2.b": (d,), "fc1.w": (d, m), "fc1.b": (m,), "fc2.w": (m, d), "fc2.b": (d,)}
+            "ln2.b": (d,), "fc1.w": (d, f), "fc1.b": (f,), "fc2.w": (m, d), "fc2.b": (d,),
+            **({"ls1": (d,), "ls2": (d,)} if scaled else {})}
 
 
 def _layer_weights(params: dict, qkv: bool = True) -> dict:
     """A float layer tree's (or stacked tree's) weights in the C entries'
     order, by name: LN1, the fused QKV (`qkv`; B2 takes Q and the fused KV
-    in its place, see _cls_weights), O, LN2, fc1, fc2. The concatenations
-    are copies, made where the kernel is called (in an export, graph ops)."""
+    in its place, see _cls_weights), O, LN2, fc1 (a SwiGLU tree's
+    interleaved fc1), fc2, then LayerScale's two gains where the tree has
+    them (B1 alone takes them). The concatenations are copies, made where
+    the kernel is called (in an export, graph ops)."""
     a, mlp = params["attn"], params["mlp"]
     w = {"ln1.g": params["ln1"]["g"], "ln1.b": params["ln1"]["b"]}
     if qkv:
         w["qkv.w"] = torch.cat([a[n]["w"] for n in "qkv"], dim=-1)
         w["qkv.b"] = torch.cat([a[n]["b"] for n in "qkv"], dim=-1)
+    w1, b1, _ = fc1_linear(params)
     w.update({"o.w": a["o"]["w"], "o.b": a["o"]["b"], "ln2.g": params["ln2"]["g"],
-              "ln2.b": params["ln2"]["b"], "fc1.w": mlp["fc1"]["w"], "fc1.b": mlp["fc1"]["b"],
+              "ln2.b": params["ln2"]["b"], "fc1.w": w1, "fc1.b": b1,
               "fc2.w": mlp["fc2"]["w"], "fc2.b": mlp["fc2"]["b"]})
+    if has_layerscale(params):
+        w.update({"ls1": params["ls1"], "ls2": params["ls2"]})
     return w
 
 
@@ -610,24 +643,27 @@ def _weight_planes(x: torch.Tensor, *sizes: int) -> Optional[torch.Tensor]:
     return torch.empty(3 * max(sizes), dtype=torch.bfloat16, device=x.device)
 
 
-def _b1_fake(x, token_mask, weights, num_heads, norm_width, eps):
+def _b1_fake(x, token_mask, weights, num_heads, norm_width, eps, gated=False):
     return torch.empty_like(x)
 
 
 @kernel_op("fused_vit_layer", _b1_fake)
 def _b1_op(x: torch.Tensor, token_mask: Optional[torch.Tensor], weights: list[torch.Tensor],
-           num_heads: int, norm_width: int, eps: float) -> torch.Tensor:
-    """B1's launch. weights: _layer_weights' twelve, in their order."""
+           num_heads: int, norm_width: int, eps: float, gated: bool = False) -> torch.Tensor:
+    """B1's launch. weights: _layer_weights' twelve, in their order, and
+    LayerScale's two gains where the layer has them; gated: fc1 is SwiGLU's,
+    interleaved, 2M wide."""
     who = "fused_vit_layer"
     b, s, d = x.shape
-    kw, m = weights[4].shape[0], weights[8].shape[1]
-    check_aligned(who, x=x, **dict(zip(LAYER_WEIGHTS, weights)))
+    kw, m = weights[4].shape[0], weights[10].shape[0]
+    check_aligned(who, x=x, **dict(zip(LAYER_WEIGHTS + ("ls1", "ls2"), weights)))
     out = torch.empty_like(x)
     ws = _workspaces(x, b * s, d, kw, m, 3 * kw)
     planes = _weight_planes(x, 3 * d * kw, d * m, 3 * b * s * kw)
+    ls1, ls2 = weights[12:14] if len(weights) == 14 else (None, None)
     run(who, x.device, "vpt_vit_layer_forward", _DTYPES[x.dtype], ptr(x), ptr(token_mask),
-        *map(ptr, weights), ptr(out), *map(ptr, ws), ptr(planes), b, s, d, num_heads,
-        kw // num_heads, m, norm_width, eps)
+        *map(ptr, weights[:12]), ptr(ls1), ptr(ls2), ptr(out), *map(ptr, ws), ptr(planes), b, s,
+        d, num_heads, kw // num_heads, m, norm_width, int(gated), eps)
     fused_vit_layer.launches += 1
     count_attention("b1", x.dtype, kw // num_heads, s)
     if x.dtype == torch.float32:
@@ -647,7 +683,9 @@ def fused_vit_layer(
     params: one layer's dict {'ln1','attn','ln2','mlp'}; token_mask [B, S]
     bool or None (False = key masked with -1e30). hd = q width / num_heads.
     Differentiable: under autograd the call runs through
-    RecomputedBackward, whose backward is eager_layer's.
+    RecomputedBackward, whose backward is eager_layer's. DINOv2's block
+    (LayerScale's gains, a SwiGLU fc1 in either order; ops/swiglu.py) in
+    bf16 on the card, or in its plain version.
     """
     if grad_needed(x, params):
         return recomputed(
@@ -663,14 +701,20 @@ def _fused_vit_layer(x, params, num_heads, eps, token_mask):
         return fused_vit_layer_ref(x, params, num_heads, eps, token_mask)
     who = "fused_vit_layer"
     b, s, d, hd, kw, m = _geometry(x, params, num_heads, who)
+    swiglu, scaled = is_swiglu(params), has_layerscale(params)
+    if (swiglu or scaled) and x.dtype != torch.bfloat16:
+        raise ValueError(f"{who}: a SwiGLU or LayerScale layer runs in bfloat16 alone (the f32 "
+                         f"split body has no gated or LayerScale epilogue), got {x.dtype}")
+    require_interleaved(who, params)
     with span("prep"):
         xk, kp, dp = _padded_call(x, params, LAYER_MULTIPLE)
-        mp = kp["mlp"]["fc1"]["w"].shape[-1]
+        mp = mlp_width(kp)
         w = _layer_weights(kp)
-    _check(xk, w, {"qkv.w": (dp, 3 * kw), "qkv.b": (3 * kw,), **_layer_shapes(dp, kw, mp)}, who)
+    _check(xk, w, {"qkv.w": (dp, 3 * kw), "qkv.b": (3 * kw,),
+                   **_layer_shapes(dp, kw, mp, swiglu, scaled)}, who)
     _check_token_mask(token_mask, x, b, s, who)
     return _unpad(torch.ops.vpt.fused_vit_layer(xk, token_mask, list(w.values()), num_heads, d,
-                                                eps), d)
+                                                eps, swiglu), d)
 
 
 fused_vit_layer.launches = 0
@@ -740,9 +784,14 @@ def fused_vit_layer_cls_logits(
     is zero-padded to a multiple of 8 labels for the kernel (its W rows are
     TMA boxes) and the logits sliced back.
     """
+    who = "fused_vit_layer_cls_logits"
+    refuse_dinov2(who, params)
+    if head["w"].shape[0] != x.shape[-1]:
+        raise ValueError(f"{who}: the classifier reads {head['w'].shape[0]} features, the CLS row "
+                         f"has {x.shape[-1]}: a pooled head (CLS ⊕ the patch mean) needs every "
+                         f"row of the last layer, which B2 does not compute")
     if not launch_kernel_for(x):
         return fused_vit_layer_cls_logits_ref(x, params, lnf, head, num_heads, eps)
-    who = "fused_vit_layer_cls_logits"
     refuse_grad(who, x, params, lnf, head)
     b, s, d, hd, kw, m = _geometry(x, params, num_heads, who)
     with span("prep"):
@@ -817,9 +866,10 @@ def fused_vit_layer_bucketed(
     over the kept keys only, skipped tokens are x unchanged. The counts and
     the key mask are made on the card: nothing here reads the device.
     """
+    who = "fused_vit_layer_bucketed"
+    refuse_dinov2(who, params)
     if not launch_kernel_for(x):
         return fused_vit_layer_bucketed_ref(x, params, dest, kept, cap, num_heads, eps)
-    who = "fused_vit_layer_bucketed"
     refuse_grad(who, x, params)
     b, s, d, hd, kw, m = _geometry(x, params, num_heads, who)
     if not 1 <= cap <= s:

@@ -55,6 +55,7 @@ from vit_pruning_tpu_torch.ops.cuda.library import check_aligned, kernel_op, ptr
 from vit_pruning_tpu_torch.ops.cuda.widths import INT8_MULTIPLE
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
 from vit_pruning_tpu_torch.ops.quant import KMAJOR, int_matmul, kmajor_int8_weights
+from vit_pruning_tpu_torch.ops.swiglu import refuse_dinov2
 from vit_pruning_tpu_torch.utils.profiling import span
 
 # the activations quantized inside the layer, in order: LN1's output (QKV
@@ -192,9 +193,10 @@ def fused_vit_layer_int8(
     with -1e30). With return_codes, also returns the int8 codes and row
     scales of every stage of STAGES, as the plain version does.
     """
+    who = "fused_vit_layer_int8"
+    refuse_dinov2(who, qparams)
     if not launch_kernel_for(x):
         return fused_vit_layer_int8_ref(x, qparams, num_heads, eps, token_mask, return_codes)
-    who = "fused_vit_layer_int8"
     refuse_grad(who, x, qparams)
     b, s, d, hd, kw, m = _geometry(x, qparams, num_heads, who)
     with span("prep"):

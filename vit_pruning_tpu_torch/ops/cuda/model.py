@@ -50,6 +50,7 @@ from vit_pruning_tpu_torch.ops.cuda.gemm import F32_PRODUCTS, count_f32_products
 from vit_pruning_tpu_torch.ops.cuda.library import check_aligned, kernel_op, ptr, run
 from vit_pruning_tpu_torch.ops.cuda.widths import LAYER_MULTIPLE
 from vit_pruning_tpu_torch.ops.dispatch import launch_kernel_for
+from vit_pruning_tpu_torch.ops.swiglu import refuse_dinov2
 
 
 def _layer(layers: dict, i: int) -> dict:
@@ -114,7 +115,10 @@ def fused_vit_encoder(
     every layer. Returns [B, S, D] in x's dtype. B1's limits: head dim 16,
     32, 64 or 80; any S, D and M. Differentiable: under
     autograd the call runs through ops/cuda/layer.py::RecomputedBackward,
-    whose backward is eager_encoder's."""
+    whose backward is eager_encoder's. The plain ViT block alone: a SwiGLU
+    or LayerScale stack raises (models/vit.py::encoder_route sends it to
+    B1)."""
+    refuse_dinov2("fused_vit_encoder", layers)
     if grad_needed(x, layers):
         return recomputed(
             lambda x_, p_, m_: _fused_vit_encoder(x_, p_, num_heads, eps, m_),

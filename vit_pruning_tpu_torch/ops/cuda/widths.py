@@ -18,6 +18,7 @@ instead, and the padding changes no result:
     slices the output back to D.
   * int8 (B4): the padded weight codes are 0 and their column scales 1;
     a padded row's amax is the true row's, since the padding is zeros.
+DINOv2's block (ops/swiglu.py) is not padded: its widths are multiples of 8.
 
 `with_kernel_weights` (called by models/vit.py::layers_for) builds a
 forward's padded tree once, under the key PADDED beside the tree's own
@@ -31,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from vit_pruning_tpu_torch.models.convert import flatten_tree
+from vit_pruning_tpu_torch.ops.swiglu import mlp_width, refuse_dinov2
 
 LAYER_MULTIPLE = 8
 INT8_MULTIPLE = 16
@@ -55,8 +57,7 @@ def pad_dim(t: torch.Tensor, dim: int, size: int, value: float = 0.0) -> torch.T
 
 def layer_widths(params: dict) -> tuple:
     """(D, M) of one layer's or the stacked layers' tree, float or int8."""
-    fc1 = params["mlp"]["fc1"]
-    return params["ln1"]["g"].shape[-1], (fc1["w"] if "w" in fc1 else fc1["wq"]).shape[-1]
+    return params["ln1"]["g"].shape[-1], mlp_width(params)
 
 
 def _linear(lin: dict, k: int, n: int) -> dict:
@@ -79,6 +80,7 @@ def pad_layer(params: dict, d_to: int, m_to: int) -> dict:
     def ln(p):
         return {k: pad_dim(v, -1, d_to) for k, v in p.items()}
 
+    refuse_dinov2("pad_layer", params)
     return {
         "ln1": ln(params["ln1"]),
         "attn": {**{n: _linear(a[n], d_to, kw) for n in "qkv"}, "o": _linear(a["o"], kw, d_to)},

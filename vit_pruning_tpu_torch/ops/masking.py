@@ -103,10 +103,11 @@ def random_keep_mask(
     return rank_keep_mask(noise.to(device or generator.device), keep)
 
 
-def add_cls_keep(patch_mask: torch.Tensor) -> torch.Tensor:
-    """Prepend an always-True CLS column: [B, N] -> [B, N+1]."""
+def add_cls_keep(patch_mask: torch.Tensor, prefix: int = 1) -> torch.Tensor:
+    """Prepend always-True columns for the `prefix` leading tokens (CLS, and
+    the registers where the model has them): [B, N] -> [B, prefix + N]."""
     cls_col = torch.ones(
-        (patch_mask.shape[0], 1), dtype=torch.bool, device=patch_mask.device
+        (patch_mask.shape[0], prefix), dtype=torch.bool, device=patch_mask.device
     )
     return torch.cat([cls_col, patch_mask], dim=1)
 

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from vit_pruning_tpu_torch.configs import ViTConfig
+from vit_pruning_tpu_torch.ops.swiglu import refuse_dinov2
 
 LINEARS = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"), ("mlp", "fc1"),
            ("mlp", "fc2"))
@@ -91,7 +92,9 @@ def attach_int8_weights(params: dict, keep_float: bool = True) -> dict:
     """A copy of one layer's (or the stacked layers') tree whose six linears
     also carry 'wq' (int8) and 'wscale' (f32). With keep_float the float 'w'
     stays beside them, so the same tree serves the float consumers (the
-    predictors, the float B2 tail) and the int8 layers."""
+    predictors, the float B2 tail) and the int8 layers. The plain ViT block
+    alone: a SwiGLU or LayerScale tree raises (int8 serving has neither)."""
+    refuse_dinov2("attach_int8_weights", params)
     out = {k: (dict(v) if isinstance(v, dict) else v) for k, v in params.items()}
     for group, name in LINEARS:
         lin = dict(out[group][name])
@@ -160,6 +163,8 @@ def int8_vit_layer_ref(
     products share one row quantization and run as one product, which is
     the same arithmetic column by column."""
     from vit_pruning_tpu_torch.models.vit import layer_norm
+
+    refuse_dinov2("int8_vit_layer_ref", qparams)
     from vit_pruning_tpu_torch.ops.attention import _merge_heads, _split_heads, attention_probs
 
     dt = x.dtype

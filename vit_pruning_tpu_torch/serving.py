@@ -21,6 +21,7 @@ import torch
 from vit_pruning_tpu_torch.configs import PruneConfig, ViTConfig
 from vit_pruning_tpu_torch.data.preprocess import VIT_MEAN, VIT_STD
 from vit_pruning_tpu_torch.models.pruned_vit import progressive_topk_forward
+from vit_pruning_tpu_torch.models.vit import with_registers
 from vit_pruning_tpu_torch.ops.patch_embed import patch_embed
 from vit_pruning_tpu_torch.utils.profiling import span
 
@@ -34,9 +35,10 @@ def embed_from_u8(
     pixels_u8: torch.Tensor, embed_params: dict, config: ViTConfig, impl: str = "auto"
 ) -> torch.Tensor:
     """uint8 [B, C, H, W] -> embeddings [B, S, D]: normalise, patch
-    projection (ops/patch_embed.py `impl`), position add, CLS. The serving
-    embed, in plain PyTorch as the JAX package's is in XLA; the fused
-    kernel form of the same function is ops/cuda/embed.py::embed_u8."""
+    projection (ops/patch_embed.py `impl`), position add, CLS, and the
+    config's registers after CLS (no position add). The serving embed, in
+    plain PyTorch as the JAX package's is in XLA; the fused kernel form of
+    the same function (without registers) is ops/cuda/embed.py::embed_u8."""
     _require_u8(pixels_u8, "embed_from_u8")
     with span("embed"):
         w_dtype = embed_params["patch"]["w"].dtype
@@ -45,7 +47,7 @@ def embed_from_u8(
         pos = embed_params["pos"]
         y = y + pos[:, 1:]
         cls = (embed_params["cls"] + pos[:, :1]).to(y.dtype).expand(y.shape[0], 1, y.shape[-1])
-        return torch.cat([cls, y], dim=1)
+        return with_registers(torch.cat([cls, y], dim=1), embed_params, config)
 
 
 def serving_forward(

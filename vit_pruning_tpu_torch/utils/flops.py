@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from vit_pruning_tpu_torch.configs import PruneConfig, ViTConfig
+from vit_pruning_tpu_torch.configs import PruneConfig, ViTConfig, port_field, prefix_len
 
 
 def _layer_flops(config: ViTConfig, tokens: float, kv_tokens: Optional[float] = None) -> float:
@@ -26,7 +26,8 @@ def _layer_flops(config: ViTConfig, tokens: float, kv_tokens: Optional[float] = 
     ops/structured.py::prune_heads) and config.mlp_dim, so structurally
     pruned geometries are accounted correctly — callers holding
     channel-pruned params must pass a config with the halved mlp_dim
-    (prune_mlp_channels changes weights, not the config)."""
+    (prune_mlp_channels changes weights, not the config). A SwiGLU MLP
+    (DINOv2's) has three products of D x M: fc1 is 2M wide."""
     d = config.hidden_size
     aw = config.attn_width
     m = config.mlp_dim
@@ -34,7 +35,8 @@ def _layer_flops(config: ViTConfig, tokens: float, kv_tokens: Optional[float] = 
     qkv = 3 * 2 * tokens * d * aw         # fused QKV projection
     attn = 2 * tokens * kv * aw * 2       # QK^T and PV
     out = 2 * tokens * aw * d             # output projection
-    mlp = 2 * tokens * d * m * 2          # fc1 + fc2
+    products = 3 if port_field(config, "mlp_kind") == "swiglu" else 2
+    mlp = 2 * tokens * d * m * products   # fc1 (2M wide under SwiGLU) + fc2
     return qkv + attn + out + mlp
 
 
@@ -60,13 +62,18 @@ def _predictor_flops(config: ViTConfig, pcfg: PruneConfig) -> float:
     return 0.0
 
 
+def _head_flops(config: ViTConfig) -> float:
+    """The classifier on CLS, or on CLS ⊕ the patch mean (2 D wide)."""
+    width = config.hidden_size * (2 if port_field(config, "head_pool") == "cls_mean" else 1)
+    return 2 * width * config.num_labels
+
+
 def vit_flops(config: ViTConfig) -> float:
     """Dense per-image forward FLOPs (matmuls only)."""
     s = config.seq_len
     patch = 2 * config.num_patches * config.patch_dim * config.hidden_size
     layers = config.num_layers * _layer_flops(config, s)
-    head = 2 * config.hidden_size * config.num_labels
-    return patch + layers + head
+    return patch + layers + _head_flops(config)
 
 
 def pruned_vit_flops(
@@ -74,10 +81,11 @@ def pruned_vit_flops(
     pcfg: PruneConfig,
     tokens_per_layer: Optional[Sequence[float]] = None,
 ) -> float:
-    """Per-image FLOPs given per-layer live-token counts (incl. CLS).
+    """Per-image FLOPs given per-layer live-token counts (incl. CLS and
+    any registers).
 
     tokens_per_layer: measured mean kept tokens per layer (from keep_masks);
-    defaults to top_k+1 for topk mode, dense otherwise.
+    defaults to top_k + CLS (+ registers) for topk mode, dense otherwise.
     """
     s = config.seq_len
     if tokens_per_layer is None:
@@ -86,14 +94,15 @@ def pruned_vit_flops(
 
             sched = pcfg.keep_schedule or tuple(
                 [pcfg.top_k] + [0] * (config.num_layers - 1))
-            tokens_per_layer = schedule_live(sched, config.num_patches)
+            extra = prefix_len(config) - 1  # the registers beside CLS
+            tokens_per_layer = [t + extra for t in schedule_live(sched, config.num_patches)]
         elif pcfg.mode in ("topk", "random"):
-            tokens_per_layer = [pcfg.top_k + 1] * config.num_layers
+            tokens_per_layer = [pcfg.top_k + prefix_len(config)] * config.num_layers
         else:
             tokens_per_layer = [s] * config.num_layers
 
     patch = 2 * config.num_patches * config.patch_dim * config.hidden_size
-    total = patch + 2 * config.hidden_size * config.num_labels
+    total = patch + _head_flops(config)
     pf = _predictor_flops(config, pcfg)
     for t in tokens_per_layer:
         total += _layer_flops(config, t) + pf
