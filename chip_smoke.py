@@ -105,9 +105,12 @@ kernels from csrc/ itself. Phases:
      beside torch._int_mm on the same operands (TOP/s)
   5. end to end, DeiT-S @224 with 100 labels at batch 64: dense vit_forward
      and headline / composed / ultra through serving_forward, kernels
-     (mode 'auto') against plain PyTorch (mode 'eager'), with the launch
-     counts of every forward; vit_tiny (hd 16) dense and headline the same
-     way
+     (mode 'auto') against plain PyTorch (mode 'eager'; a served forward's
+     plain path from the served embed on, plain_after_the_served_embed, so
+     that both decide the drop on one embedding; the whole eager route
+     logged beside), with the launch counts of every forward (a served
+     call: the embed once, B8a on the image); vit_tiny (hd 16) dense and
+     headline the same way
   5b. the re-decide path end to end, same model and batch: pruned_vit_forward
      in modes topk (top_k 98), mask with mask_budget 98, mask without a
      budget (per-layer median thresholds from a measure_only probe) and
@@ -138,9 +141,13 @@ kernels from csrc/ itself. Phases:
      launch counts (B1 x 32; B1 x 31 + B2; B3 x 32), and dense / headline
      under int8 (B4 x 32; B4 x 31 + the float B2, four wgmma s8 products
      each) held as in 5c
-  5f. the fused embed entry points embed_u8 / embed_fused (B8a / B8b) at
-     DeiT-S and ViT-H, batch 64, against embed_from_u8 and the model's
-     embed, with their launch counts and bodies (bf16 weights: wgmma)
+  5f. the served embed (embed_from_u8 in mode 'auto': B8a reading the
+     image, one launch a call) against the eager route (mode 'eager') and
+     bit for bit against embed_u8 (B8a on extract_patches, CLS and
+     registers concatenated); embed_fused (B8b) against the model's embed;
+     DeiT-S and ViT-H at batch 64, DINOv2-g at 518 px with 4 registers at
+     batch 16, f32 and bf16, with their launch counts and bodies (bf16
+     weights: wgmma)
   5g. DeiT-S at 384 (interpolate_pos_embed: S 577) end to end, dense and the
      headline (288 of 576 patches) through serving_forward, kernels against
      plain PyTorch with the launch counts, float32 and bfloat16, batch 32
@@ -172,7 +179,10 @@ kernels from csrc/ itself. Phases:
      once-per-forward weight quantization (torch.profiler); dense and ultra
      with encoder fusion on and off; B8a / B8b at DeiT-S batch 512 and ViT-H
      batch 64 beside the library (cuBLAS addmm) on the same patches, their
-     entry points and the eager equivalents on the images; ViT-H at
+     entry points and the eager equivalents on the images; B8a on the image
+     (the served embed) at DeiT-S batch 512 and 1024, ViT-H 64 and DINOv2-g
+     32 beside B8a on the patch matrix, the served embed_from_u8, the eager
+     one and the bound; ViT-H at
      batch 64: B1-B5 at its geometry beside their eager equivalents, and
      dense / headline / composed / ultra, kernel path and plain path (mean
      of 5 after 2 warm-ups); B1 and B6 at DeiT-S S 577, batch 128, beside
@@ -186,11 +196,13 @@ kernels from csrc/ itself. Phases:
      that are not multiples of the kernels' (ROADMAP C.1), zero-padded by
      the wrappers: B1, B2, B3, B4 and B5 (two layers) at DeiT-S with 1000
      of 1536 MLP channels kept and at hidden width 100 (4 heads of 16, MLP
-     300), B8a / B8b at D 100, float32 and bfloat16, against their plain
-     versions on the unpadded weights; every kernel launched
+     300), B8a / B8b and B8a on the image at D 100, float32 and bfloat16,
+     against their plain versions on the unpadded weights; every kernel
+     launched
   5i. the serving export (serving.py::export_serving / load_exported) of
      the DeiT-S headline, bf16 at batch 512, float32 and int8 at batch 64:
-     the program's vpt:: operators (B1 x 11 + B2, or B4 x 11 + B2), its
+     the program's vpt:: operators (the embed + B1 x 11 + B2, or the embed
+     + B4 x 11 + B2), its
      logits bit-equal to the direct kernel-path forward's, the same
      launches, a wrong batch refused, the float32 program loaded and run in
      a fresh process that imports the port alone; ms/batch of the loaded
@@ -234,7 +246,8 @@ kernels from csrc/ itself. Phases:
  5j. (after 11) DINOv2 ViT-g/14 with registers (dinov2_path) at full width
      and depth, served from uint8 through serving_forward as the
      benchmark's DINOv2 cell: bf16, batch 32, S 689, fc1 interleaved at
-     set-up; one call's counts from 0: B1 x 40, no B2-B7, gated tiles 40 x
+     set-up; one call's counts from 0: the embed once, B1 x 40, no B2-B8b,
+     gated tiles 40 x
      the fc1 product's, scaled tiles 80 x O's and fc2's; its logits within
      5% of the float32 plain forward, the first keep masks equal to bf16
      plain's; one B1 layer at [32, 689, 1536] against fused_vit_layer_ref
@@ -262,6 +275,7 @@ last is the kernels' JSON record; the last line is the device record.
 Weights are random, from a torch.Generator seed; images from a numpy seed.
 """
 
+import contextlib
 import ctypes
 import functools
 import json
@@ -482,12 +496,14 @@ def dinov2_path(dev) -> dict:
     vit_h_params draws them, biases and LN parameters perturbed, LayerScale's
     gains per channel (0.5 + 0.25 N(0, 1)), the predictor's gain as ViT-H's.
       - one served call with every launch count and the GEMM body's counts
-        set to 0 just before it: B1 x 40 and no B2-B7; gated tiles 40 x the
+        set to 0 just before it: the embed once (B8a on the image), B1 x 40
+        and no B2-B8b; gated tiles 40 x the
         fc1 product's tiles (N 8192), scaled tiles 80 x the O / fc2
         product's (N 1536), by ops/cuda/gemm.py::wgmma_walk over 22,048 rows;
       - its logits against the plain path (mode 'eager') in bf16 and in
         float32: finite, the first keep masks equal to bf16 plain's (the one
-        drop is decided from the embedding), and within 5% (relative L2) of
+        drop is decided from the embedding: the plain path from the served
+        embed, plain_after_the_served_embed), and within 5% (relative L2) of
         the float32 plain forward, as phase 5c holds int8;
       - one B1 layer at [32, 689, 1536] against fused_vit_layer_ref on fc1 in
         checkpoint order, at bf16_tol, with its tile counts;
@@ -542,7 +558,7 @@ def dinov2_path(dev) -> dict:
         torch.cuda.synchronize()
         launches, bodies = read_launches(), kg.body_counts()
         ms = median_ms(lambda: serve(served), iters=5, warmup=1)
-    with kernel_mode("eager"):
+    with plain_after_the_served_embed():
         ref = serve(plain)
         fl = serve(f32_params)
     torch.cuda.synchronize()
@@ -553,9 +569,11 @@ def dinov2_path(dev) -> dict:
     want = {"gated_tiles": L * fc1_tiles, "scaled_tiles": 2 * L * d_tiles}
     counted = {k: bodies[k] for k in want}
     tag = f"dinov2_g14_reg headline bfloat16 batch {batch} (S {rows // batch})"
-    others = {k: v for k, v in launches.items() if k in ("b2", "b3", "b4", "b5", "b6", "b7")}
-    check(launches["b1"] == L and not any(others.values()),
-          f"{tag}: launches B1 {launches['b1']} (want {L}), B2-B7 {others} (want 0)")
+    others = {k: v for k, v in launches.items()
+              if k in ("b2", "b3", "b4", "b5", "b6", "b7", "b8a", "b8b")}
+    check(launches["b1"] == L and launches["b8a_image"] == 1 and not any(others.values()),
+          f"{tag}: launches B1 {launches['b1']} (want {L}), the embed {launches['b8a_image']} "
+          f"(want 1), B2-B8b {others} (want 0)")
     check(counted == want, f"{tag}: body counts {counted}, want {want}")
     lg, lr, lf = got["logits"].float(), ref["logits"].float(), fl["logits"].float()
     check(lg.shape == (batch, 1000) and bool(torch.isfinite(lg).all()),
@@ -1288,7 +1306,7 @@ def serve_at_384(dev, base: dict, cfg):
             torch.cuda.synchronize()
             l1 = kl.fused_vit_layer.launches - n1
             l2 = kl.fused_vit_layer_cls_logits.launches - n2
-            with kernel_mode("eager"):
+            with plain_after_the_served_embed():
                 ref = fwd()
             torch.cuda.synchronize()
             tag = f"deit_s@384 {name} {dname}"
@@ -1300,7 +1318,7 @@ def serve_at_384(dev, base: dict, cfg):
             line = (f"  {tag}: launches B1={l1} B2={l2}; logits max_abs_err {d:.3e} (max|ref| "
                     f"{lr.abs().max().item():.3f}), argmax agree "
                     f"{(lg.argmax(-1) == lr.argmax(-1)).float().mean().item():.3f}")
-            if pcfg is not None:  # the only drop comes before any kernel runs
+            if pcfg is not None:  # the only drop comes before any layer kernel runs
                 same = bool(torch.equal(got["keep_masks"], ref["keep_masks"]))
                 line += f"; keep masks equal {same}"
                 check(same, f"{tag}: keep masks differ")
@@ -1451,9 +1469,27 @@ def widths_path(dev, base: dict, cfg) -> dict:
             log(f"  {tag}: shape {tuple(got.shape)}; max_abs_err {d:.3e} (tol {tol:.1e})")
             check(got.shape == (64, cfg.num_patches, 100) and got.dtype == dt
                   and bool(torch.isfinite(got).all()) and d <= tol, tag)
+    # B8a on the image at D 100: DeiT-S's images, batch 64, one register row
+    u8i = torch.randint(0, 256, (64, 3, cfg.image_size, cfg.image_size), generator=g,
+                        dtype=torch.uint8).to(dev)
+    cls0, full0 = torch.randn(100, generator=g), 0.02 * torch.randn(1 + cfg.num_patches, 100,
+                                                                     generator=g)
+    reg0 = torch.randn(1, 100, generator=g)
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        args = tuple(t.to(dev, dt) for t in (w0, b0, cls0, full0, reg0)) + (cfg.patch_size,)
+        got = kemb.fused_image_embed_u8(u8i, *args)
+        ref = kemb.fused_image_embed_u8_ref(u8i, *args)
+        torch.cuda.synchronize()
+        d = (got.float() - ref.float()).abs().max().item()
+        top = float(ref.float().abs().max())
+        tol = 1e-5 * top + 1e-5 if dt == torch.float32 else bf16_tol(ref.float())
+        tag = f"B8a on the image D 100 {dname}"
+        log(f"  {tag}: shape {tuple(got.shape)}; max_abs_err {d:.3e} (tol {tol:.1e})")
+        check(got.shape == (64, cfg.seq_len + 1, 100) and got.dtype == dt
+              and bool(torch.isfinite(got).all()) and d <= tol, tag)
     launches = read_launches()
     log("  launches: " + ", ".join(f"{k.upper()} {v}" for k, v in launches.items() if v))
-    for key in ("b1", "b2", "b3", "b4", "b5", "b8a", "b8b"):
+    for key in ("b1", "b2", "b3", "b4", "b5", "b8a", "b8b", "b8a_image"):
         check(launches[key] > 0, f"{key.upper()} never launched in phase 3l")
     check.done()
     return launches
@@ -1500,9 +1536,10 @@ def export_path(dev, base: dict, cfg, smi: str) -> dict:
     check = Checks("phase 5i (the serving export: DeiT-S headline)")
     pcfg = PruneConfig(mode="topk_prog", predictor="cls_mlp", loss="mse_attention", top_k=98)
     L = cfg.num_layers
-    want = {"none": {"vpt.fused_vit_layer.default": L - 1,
+    want = {"none": {"vpt.fused_image_embed_u8.default": 1, "vpt.fused_vit_layer.default": L - 1,
                      "vpt.fused_vit_layer_cls_logits.default": 1},
-            "int8": {"vpt.fused_vit_layer_int8.default": L - 1,
+            "int8": {"vpt.fused_image_embed_u8.default": 1,
+                     "vpt.fused_vit_layer_int8.default": L - 1,
                      "vpt.fused_vit_layer_cls_logits.default": 1}}
     rs = np.random.RandomState(SEED + 5)
     tmp = tempfile.mkdtemp(prefix="vpt_export_")
@@ -1922,6 +1959,33 @@ def module_path(dev, base: dict, cfg, smi: str, batch: int = 512,
     return {"launches": launches, "times": times}
 
 
+@contextlib.contextmanager
+def plain_after_the_served_embed():
+    """Mode 'eager' from the served embed on: serving.embed_from_u8 keeps its
+    card route (B8a reading the image, as in mode 'auto') and every later
+    stage runs its plain version. The phases that hold a served forward to
+    the plain path take it as their plain path, so that the drop, the
+    layers and the head are compared on one embedding: the kernel rounds
+    the embed once where the eager route rounds it three times, which moves
+    a top-k cut that is tied in bf16. Phase 5f holds the embed itself to the
+    eager route."""
+    from vit_pruning_tpu_torch import serving
+    from vit_pruning_tpu_torch.ops.dispatch import kernel_mode
+
+    eager_route = serving.embed_from_u8
+
+    def card_route(*args, **kw):
+        with kernel_mode("auto"):
+            return eager_route(*args, **kw)
+
+    serving.embed_from_u8 = card_route
+    try:
+        with kernel_mode("eager"):
+            yield
+    finally:
+        serving.embed_from_u8 = eager_route
+
+
 def kernel_wrappers() -> dict:
     """Every kernel's wrapper by its JSON key; each counts its launches."""
     from vit_pruning_tpu_torch.ops.cuda import attention as ka
@@ -1934,7 +1998,8 @@ def kernel_wrappers() -> dict:
     return {"b1": kl.fused_vit_layer, "b2": kl.fused_vit_layer_cls_logits,
             "b3": kl.fused_vit_layer_bucketed, "b4": k8.fused_vit_layer_int8,
             "b5": kmod.fused_vit_encoder, "b6": ka.fused_attention, "b7": kmlp.fused_mlp,
-            "b8a": kemb.fused_patch_embed_u8, "b8b": kemb.fused_patch_embed_f}
+            "b8a": kemb.fused_patch_embed_u8, "b8b": kemb.fused_patch_embed_f,
+            "b8a_image": kemb.fused_image_embed_u8}
 
 
 def reset_launches(keys=None):
@@ -3572,23 +3637,27 @@ def main():
             params = tree_to(cpu_params, dev, dt)
             fwd = forward_fn(name, params, dt, u8)
             n1, n2 = kl.fused_vit_layer.launches, kl.fused_vit_layer_cls_logits.launches
+            n8 = kemb.fused_image_embed_u8.launches
             with kernel_mode("auto"):
                 got = fwd()
             torch.cuda.synchronize()
             l1 = kl.fused_vit_layer.launches - n1
             l2 = kl.fused_vit_layer_cls_logits.launches - n2
-            with kernel_mode("eager"):
+            l8 = kemb.fused_image_embed_u8.launches - n8
+            with plain_after_the_served_embed():
                 ref = fwd()
             torch.cuda.synchronize()
             tag = f"{name} {dname}"
-            want = (L, 0) if pcfg is None else (L - 1, 1)
-            check((l1, l2) == want, f"{tag}: launches B1={l1} B2={l2}, want {want}")
+            # a served call: the embed once (B8a on the image), B1 x (L - 1), B2 once
+            want = (L, 0, 0) if pcfg is None else (L - 1, 1, 1)
+            check((l1, l2, l8) == want,
+                  f"{tag}: launches B1={l1} B2={l2} embed={l8}, want {want}")
             lg, lr = got["logits"].float(), ref["logits"].float()
             check(lg.shape == (64, 100) and bool(torch.isfinite(lg).all()),
                   f"{tag}: logits not finite [64, 100]")
             d = (lg - lr).abs().max().item()
             agree = (lg.argmax(-1) == lr.argmax(-1)).float().mean().item()
-            line = (f"  {tag}: launches B1={l1} B2={l2}; logits max_abs_err {d:.3e} "
+            line = (f"  {tag}: launches B1={l1} B2={l2} embed={l8}; logits max_abs_err {d:.3e} "
                     f"(max|ref| {lr.abs().max().item():.3f}), argmax agree {agree:.3f}")
             same_masks = True
             if pcfg is not None:
@@ -3597,12 +3666,18 @@ def main():
                 frac = (km == em).all(-1).float().mean().item()
                 line += (f"; keep masks equal {same_masks} (images x layers agreeing "
                          f"{frac:.4f}); min cut gap (plain) {cut_gap(ref, pcfg):.2e}")
+                with kernel_mode("eager"):  # the whole eager route, the eager embed's (info)
+                    whole = fwd()
+                line += (f"; against the whole eager route: logits max_abs_err "
+                         f"{(lg - whole['logits'].float()).abs().max().item():.3e}, images x "
+                         f"layers agreeing "
+                         f"{(km == whole['keep_masks']).all(-1).float().mean().item():.4f}")
             log(line)
             if dt == torch.float32:
                 check(same_masks, f"{tag}: keep masks differ")
                 check(d <= F32_ATOL + 1e-4 * lr.abs().max().item(), f"{tag}: logits differ")
             elif name == "headline":
-                # the only drop comes before any kernel runs: masks must agree
+                # the only drop comes before any layer kernel, on one embedding: masks must agree
                 check(same_masks, f"{tag}: keep masks differ")
     # vit_tiny (hd 16, S 17) through the same entry points: dense vit_forward (B1 x 3) and
     # the headline, 8 of 16 patches kept before layer 0, through serving_forward (B1 x 2 +
@@ -3622,20 +3697,23 @@ def main():
         for name, pcfg, fwd, want in (
                 ("dense", None,
                  lambda: {"logits": vit_forward(tparams["backbone"], pix_t, tcfg)["logits"]},
-                 (tcfg.num_layers, 0)),
+                 (tcfg.num_layers, 0, 0)),
                 ("headline", t_head, lambda: serving_forward(tparams, u8t, tcfg, t_head),
-                 (tcfg.num_layers - 1, 1))):
+                 (tcfg.num_layers - 1, 1, 1))):
             n1, n2 = kl.fused_vit_layer.launches, kl.fused_vit_layer_cls_logits.launches
+            n8 = kemb.fused_image_embed_u8.launches
             with kernel_mode("auto"):
                 got = fwd()
             torch.cuda.synchronize()
             l1 = kl.fused_vit_layer.launches - n1
             l2 = kl.fused_vit_layer_cls_logits.launches - n2
-            with kernel_mode("eager"):
+            l8 = kemb.fused_image_embed_u8.launches - n8
+            with plain_after_the_served_embed():
                 ref = fwd()
             torch.cuda.synchronize()
             tag = f"vit_tiny {name} {dname}"
-            check((l1, l2) == want, f"{tag}: launches B1={l1} B2={l2}, want {want}")
+            check((l1, l2, l8) == want,
+                  f"{tag}: launches B1={l1} B2={l2} embed={l8}, want {want}")
             lg, lr = got["logits"].float(), ref["logits"].float()
             check(lg.shape == (64, 100) and bool(torch.isfinite(lg).all()),
                   f"{tag}: logits not finite [64, 100]")
@@ -3648,7 +3726,7 @@ def main():
                 same_masks = bool(torch.equal(got["keep_masks"], ref["keep_masks"]))
                 line += (f"; keep masks equal {same_masks}; min cut gap (plain) "
                          f"{cut_gap(ref, pcfg):.2e}")
-                # the only drop comes before any kernel runs: masks must agree
+                # the only drop comes before any layer kernel, on one embedding: masks must agree
                 check(same_masks, f"{tag}: keep masks differ")
             log(line)
             if dt == torch.float32:
@@ -3821,7 +3899,7 @@ def main():
             else:
                 def fwd(logits_only=False, params=params, pc=pc, pcfg=pcfg):
                     return serving_forward(params, u8, pc, pcfg, logits_only=logits_only)
-            with kernel_mode("eager"):
+            with plain_after_the_served_embed():
                 fl = fwd()["logits"]  # float (quant 'none'), the plain path
             with quant_mode("int8"):
                 c0 = counts()
@@ -3829,7 +3907,7 @@ def main():
                     got = fwd()
                 torch.cuda.synchronize()
                 c1 = counts()
-                with kernel_mode("eager"):
+                with plain_after_the_served_embed():
                     ref = fwd()
                 if pcfg is not None:
                     with kernel_mode("auto"):
@@ -3947,7 +4025,7 @@ def main():
                     got = fwd()
                 torch.cuda.synchronize()
                 n = ran(c0)
-                with kernel_mode("eager"):
+                with plain_after_the_served_embed():
                     ref = fwd()
                 torch.cuda.synchronize()
             outs[name] = got
@@ -4089,7 +4167,7 @@ def main():
                 got = fwd()
             torch.cuda.synchronize()
             n = tuple(b - a for a, b in zip(c0, counts()))
-            with kernel_mode("eager"):
+            with plain_after_the_served_embed():
                 ref = fwd()
             torch.cuda.synchronize()
             tag = f"vit_h {name} {dname} batch {batch}"
@@ -4120,7 +4198,7 @@ def main():
         for name in ("dense", "headline"):  # int8 serving, held as phase 5c holds it
             pc, pcfg, f32_params = h_presets[name]
             fwd = h_forward(name, h_tree(f32_params, dt), u8h, logits_only=False)
-            with kernel_mode("eager"):
+            with plain_after_the_served_embed():
                 fl = fwd()["logits"]  # float, the plain path
             with quant_mode("int8"):
                 c0 = counts()
@@ -4128,7 +4206,7 @@ def main():
                     got = fwd()
                 torch.cuda.synchronize()
                 c1 = counts()
-                with kernel_mode("eager"):
+                with plain_after_the_served_embed():
                     ref = fwd()
                 if pcfg is not None:
                     with kernel_mode("auto"):
@@ -4155,16 +4233,20 @@ def main():
     s8_products_since(0, "phase 5e")
     check.done()
 
-    # --- 5f. the fused embed entry points end to end ------------------------------------------
-    # embed_u8 and embed_fused (kernels B8a and B8b) at DeiT-S and ViT-H, batch 64, against
-    # the plain serving embed (embed_from_u8) and the model's embed: in f32 within
-    # test_pallas.py's bounds (the u8 normalisation rounds differently: 2e-4), in bf16 two
-    # roundings of one function (within 1% relative over the batch).
-    check = Checks("phase 5f (embed_u8 / embed_fused end to end)")
-    b8 = (kemb.fused_patch_embed_u8, kemb.fused_patch_embed_f)
+    # --- 5f. the served embed and the fused embed entry points end to end --------------------
+    # The served embed (embed_from_u8 in mode 'auto': B8a reading the image, one launch a call)
+    # against the eager route (mode 'eager'): in f32 within test_pallas.py's bound (the u8
+    # normalisation rounds differently: 2e-4), in bf16 two roundings of one function (within
+    # 1% relative over the batch); and bit for bit against embed_u8 (B8a on extract_patches,
+    # CLS and registers concatenated). embed_fused (B8b) against the model's embed as before.
+    # DeiT-S and ViT-H at batch 64, DINOv2-g at 518 px with its 4 registers at batch 16.
+    from vit_pruning_tpu_torch.configs import dinov2_giant_reg
+
+    check = Checks("phase 5f (the served embed; embed_u8 / embed_fused end to end)")
+    b8 = (kemb.fused_patch_embed_u8, kemb.fused_patch_embed_f, kemb.fused_image_embed_u8)
     for k in b8:  # the counts of this path's run only
         k.launches = 0
-    b8_bodies = {"b8a": {"wgmma": 0, "split": 0}, "b8b": {"wgmma": 0, "split": 0}}
+    b8_bodies = {key: {"wgmma": 0, "split": 0} for key in ("b8a", "b8b", "b8a_image")}
 
     def bodies_of(key, fn):
         """fn's output, its launches per body added to b8_bodies[key]"""
@@ -4174,39 +4256,59 @@ def main():
             b8_bodies[key][body] += n_
         return out
 
+    dcfg = dinov2_giant_reg(num_labels=100)
+    d_embed = init_vit_params(dcfg.replace(num_layers=1), torch.Generator().manual_seed(SEED + 5),
+                              "cpu")["embed"]
+    d_embed["patch"]["b"] = 0.1 * torch.randn(dcfg.hidden_size,
+                                              generator=torch.Generator().manual_seed(SEED + 6))
+    u8_518 = torch.from_numpy(rs.randint(0, 256, (16, 3, 518, 518), dtype=np.uint8)).to(dev)
     calls = 0
     u8 = images(64)
-    for mname, (mcfg, mparams) in {"deit_s": (cfg, base), "vit_h": (hcfg, base_h)}.items():
+    for mname, (mcfg, m_embed, mu8) in {
+            "deit_s": (cfg, base["backbone"]["embed"], u8),
+            "vit_h": (hcfg, base_h["backbone"]["embed"], u8),
+            "dinov2_g (518, 4 registers)": (dcfg, d_embed, u8_518)}.items():
         for dname, dt in dtypes.items():
-            ep = tree_to(mparams["backbone"]["embed"], dev, dt)
-            pix = ((u8.float() / 255.0 - 0.5) / 0.5).to(dt)
-            got_u = bodies_of("b8a", lambda: kemb.embed_u8(u8, ep, mcfg))
+            ep = tree_to(m_embed, dev, dt)
+            pix = ((mu8.float() / 255.0 - 0.5) / 0.5).to(dt)
+            with kernel_mode("auto"):
+                served = bodies_of("b8a_image", lambda: embed_from_u8(mu8, ep, mcfg))
+            with kernel_mode("eager"):
+                eager_u = embed_from_u8(mu8, ep, mcfg)
+            got_u = bodies_of("b8a", lambda: kemb.embed_u8(mu8, ep, mcfg))
             got_f = bodies_of("b8b", lambda: kemb.embed_fused(pix, ep, mcfg))
-            want_u, want_f = embed_from_u8(u8, ep, mcfg), embed(pix, ep, mcfg)
+            want_f = embed(pix, ep, mcfg)
             torch.cuda.synchronize()
             calls += 1
-            shape = (64, mcfg.seq_len, mcfg.hidden_size)
-            du = (got_u.float() - want_u.float()).abs().max().item()
+            shape = (mu8.shape[0], mcfg.seq_len, mcfg.hidden_size)
+            du = (served.float() - eager_u.float()).abs().max().item()
             df = (got_f.float() - want_f.float()).abs().max().item()
+            same = bool(torch.equal(served, got_u))
             if dt == torch.float32:
                 tol_u, tol_f = 2e-4, 1e-5 * float(want_f.abs().max()) + 1e-5
                 ok = du <= tol_u and df <= tol_f
                 bounds_ = f"(tol {tol_u:.1e}, {tol_f:.1e})"
             else:
-                ok = rel_err(got_u, want_u) < 0.01 and rel_err(got_f, want_f) < 0.01
+                ok = rel_err(served, eager_u) < 0.01 and rel_err(got_f, want_f) < 0.01
                 bounds_ = "(bf16: within 1% relative)"
             tag = f"{mname} {dname}"
-            log(f"  {tag}: embed_u8 vs embed_from_u8 max_abs_err {du:.3e}, relative "
-                f"{rel_err(got_u, want_u):.2e}; embed_fused vs embed max_abs_err {df:.3e}, "
-                f"relative {rel_err(got_f, want_f):.2e} {bounds_}")
-            check(got_u.shape == got_f.shape == shape and got_u.dtype == got_f.dtype == dt
-                  and bool(torch.isfinite(got_u).all() and torch.isfinite(got_f).all()) and ok,
+            log(f"  {tag}: served (auto) vs eager embed_from_u8 max_abs_err {du:.3e}, relative "
+                f"{rel_err(served, eager_u):.2e}; served bit-equal to embed_u8 {same}; "
+                f"embed_fused vs embed max_abs_err {df:.3e}, relative {rel_err(got_f, want_f):.2e} "
+                f"{bounds_}")
+            check(served.shape == got_u.shape == got_f.shape == eager_u.shape == shape
+                  and served.dtype == got_f.dtype == dt
+                  and bool(torch.isfinite(served).all() and torch.isfinite(got_f).all()) and ok,
                   tag)
-    launches["b8a"], launches["b8b"] = (k.launches for k in b8)
-    log(f"  embed path launches: B8a {launches['b8a']}, B8b {launches['b8b']} ({calls} calls each); "
-        f"by body B8a {b8_bodies['b8a']}, B8b {b8_bodies['b8b']} (bf16 weights: wgmma, f32: split)")
-    check(launches["b8a"] == calls and launches["b8b"] == calls,
-          "a kernel of the path did not launch once per call")
+            check(same, f"{tag}: the served embed is not embed_u8's bit for bit")
+        del pix
+    del u8_518
+    launches["b8a"], launches["b8b"], launches["b8a_image"] = (k.launches for k in b8)
+    log(f"  embed path launches: B8a {launches['b8a']}, B8b {launches['b8b']}, B8a on the image "
+        f"(served) {launches['b8a_image']} ({calls} calls each); by body B8a {b8_bodies['b8a']}, "
+        f"B8b {b8_bodies['b8b']}, served {b8_bodies['b8a_image']} (bf16 weights: wgmma, f32: "
+        f"split)")
+    check(all(k.launches == calls for k in b8), "a kernel of the path did not launch once per call")
     for key in b8_bodies:  # half the calls in each dtype
         check(b8_bodies[key] == {"wgmma": calls // 2, "split": calls // 2},
               f"{key.upper()} bodies {b8_bodies[key]} on {calls} calls")
@@ -4625,7 +4727,8 @@ def main():
             l_ms = time_ms(lambda: library[key](patches))
             l_err = rel_err(library[key](patches), ref_fn(patches, w, b, pos))
             en_ms = time_ms(lambda: entry(src, ep, mcfg))
-            e_ms = time_ms(lambda: eager(src, ep, mcfg))
+            with kernel_mode("eager"):  # embed_from_u8's plain route
+                e_ms = time_ms(lambda: eager(src, ep, mcfg))
             b_ms, b_by = bound(2.0 * rows * pd * d, rows * pd * in_bytes + const_bytes + rows * d * 2)
             log(f"  {key.upper()} {mname} batch {batch} (K {pd}, D {d}): kernel {k_ms:.4f} ms, plain "
                 f"version {p_ms:.3f} ms, library on the patches {l_ms:.4f} ms (relative "
@@ -4635,6 +4738,42 @@ def main():
             if mname == "deit_s":
                 kernel_ms[key], bounds[key] = (k_ms, p_ms, l_ms), (b_ms, b_by)
         del pix
+
+    # B8a on the image, the served embed: DeiT-S at batch 512 and 1024, ViT-H at 64, DINOv2-g
+    # at 32 (518 px, 4 registers): the kernel beside B8a on the patch matrix (extracted
+    # beforehand), the served embed (embed_from_u8 in mode 'auto': the same launch behind its
+    # wrapper), the eager route (mode 'eager') and the bound (the image read once, the
+    # sequence written once, W, b, pos, CLS and registers once)
+    served_embed = {}
+    for mname, mcfg, m_embed, batch in (("deit_s", cfg, base["backbone"]["embed"], 512),
+                                        ("deit_s", cfg, base["backbone"]["embed"], 1024),
+                                        ("vit_h", hcfg, base_h["backbone"]["embed"], 64),
+                                        ("dinov2_g", dcfg, d_embed, 32)):
+        ep = tree_to(m_embed, dev, bf)
+        side, p_sz = mcfg.image_size, mcfg.patch_size
+        imgs = torch.from_numpy(rs.randint(0, 256, (batch, 3, side, side), dtype=np.uint8)).to(dev)
+        w, b, full = ep["patch"]["w"], ep["patch"]["b"], ep["pos"][0]
+        cls, reg = ep["cls"].reshape(-1), ep.get("registers")
+        reg = None if reg is None else reg[0]
+        patches = extract_patches(imgs, p_sz)
+        k_ms, m_ms = abba(lambda: kemb.fused_image_embed_u8(imgs, w, b, cls, full, reg, p_sz),
+                          lambda: kemb.fused_patch_embed_u8(patches, w, b, full[1:]))
+        s_ms = time_ms(lambda: embed_from_u8(imgs, ep, mcfg))
+        with kernel_mode("eager"):
+            e_ms = time_ms(lambda: embed_from_u8(imgs, ep, mcfg))
+        n_p, pd, d = mcfg.num_patches, mcfg.patch_dim, mcfg.hidden_size
+        r = mcfg.seq_len - 1 - n_p
+        flops = 2.0 * batch * n_p * pd * d
+        b_ms, b_by = bound(flops, imgs.numel() + (pd * d + d + (2 + n_p + r) * d) * 2
+                           + batch * mcfg.seq_len * d * 2)
+        tag = f"{mname} batch {batch}"
+        log(f"  B8a on the image (served embed) {tag} (P {p_sz}, K {pd}, D {d}, R {r}): kernel "
+            f"{k_ms:.4f} ms, B8a on the patch matrix {m_ms:.4f} ms, served embed_from_u8 "
+            f"{s_ms:.4f} ms, eager embed_from_u8 {e_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+            f"{100 * b_ms / k_ms:.1f}%)")
+        served_embed[tag] = {"ms": k_ms, "patch_matrix_ms": m_ms, "served_ms": s_ms,
+                             "eager_ms": e_ms, "bound_ms": b_ms, "bound_by": b_by}
+        del imgs, patches
 
     # ViT-H/14 at batch 64: the kernels at its geometry and the end-to-end rows (mean of 5
     # after 2 warm-ups: a dense forward is ~21 TFLOP)
@@ -4956,6 +5095,8 @@ def main():
          "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": kernel_ms[key][2],
          **({"launches_by_body": by_body[key]} if key in by_body else {}),
          **({"products_on_wgmma_s8": launches["b4_s8"]} if key == "b4" else {}),
+         **({"served_image": {"launches_5f": launches["b8a_image"], "times": served_embed}}
+            if key == "b8a" else {}),
          **({"library": "CLS-only composition (layer_norm, addmm, SDPA)",
              "times_by_shape": b2_lines} if key == "b2" else {}),
          **({"launches_train": trained["launches"][key]} if key in trained["launches"] else {}),

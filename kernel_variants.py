@@ -148,8 +148,8 @@ B4_VARIANTS = [
 B8A_VARIANTS = [
     ("kernel", "the kernel as it is", []),
     ("no affine", "the uint8 value rounded to bf16 as it is, no x * scale + shift",
-     [("wgmma.cuh", "        return __fadd_rn(__fmul_rn(x, scale), shift);",
-       "        return x;")]),
+     [("wgmma.cuh", "      return __fadd_rn(__fmul_rn(x, scale), shift);",
+       "      return x;")]),
 ]
 LA_EXP = "      l[c][i] = expf(l[c][i] - mx[(i >> 1) & 1]);\n"
 LA_EXP2 = "    for (int i = 0; i < 32; ++i) l[i] = expf(l[i] - mx[(i >> 1) & 1]);\n"
@@ -701,7 +701,8 @@ def b8a_report(libs: dict, gen, dev, stream):
         report(f"B8a {tag} (K {kk}, D {dd})", B8A_VARIANTS, {
             name: (lambda lib=lib: lib.vpt_patch_embed_forward(
                 2, 1, 0, patches.data_ptr(), w.data_ptr(), bias.data_ptr(), pos.data_ptr(),
-                out.data_ptr(), bsz * n_p, n_p, kk, dd, scale, shift, stream))
+                out.data_ptr(), bsz * n_p, n_p, kk, dd, scale, shift, None, 0, 0, None, None, 0,
+                stream))
             for name, lib in libs.items()}, out)
 
 

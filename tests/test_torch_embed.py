@@ -1,5 +1,6 @@
 """The port's fused patch embedding (vit_pruning_tpu_torch/ops/cuda/embed.py,
-kernels B8a and B8b) and the serving embed against the JAX package.
+kernels B8a and B8b, and B8a reading the image) and the serving embed
+against the JAX package.
 
 The plain versions of B8a / B8b are held to the Pallas kernels in interpret
 mode on the same numpy inputs, at vit_tiny's patch width (3*8*8 = 192) and
@@ -189,3 +190,117 @@ def test_wrappers_on_the_cpu_check_types_and_launch_nothing():
         te.fused_patch_embed_u8(u8[..., :-1], tw, tb, tpos)
     with kernel_mode("kernel"), pytest.raises(RuntimeError, match="CUDA tensors"):
         te.fused_patch_embed_u8(u8, tw, tb, tpos)
+
+
+# B8a on the image: (patch, side, D, registers)
+IMAGE_GEOMETRIES = {"p16": (16, 64, 48, 0), "p14": (14, 56, 40, 0), "p14_reg4": (14, 56, 40, 4)}
+
+
+def _image_operands(geometry: str, dtype: str, b: int = 2, seed: int = 8):
+    p, side, d, r = IMAGE_GEOMETRIES[geometry]
+    n = (side // p) ** 2
+    rs = np.random.RandomState(seed)
+    u8 = torch.from_numpy(rs.randint(0, 256, (b, 3, side, side), dtype=np.uint8))
+    tdt = DTYPES[dtype][1]
+    t = {"w": 0.02 * rs.randn(3 * p * p, d), "b": 0.1 * rs.randn(d), "cls": rs.randn(d),
+         "pos": 0.02 * rs.randn(1 + n, d), "registers": rs.randn(r, d) if r else None}
+    t = {k: None if v is None else torch.from_numpy(v.astype(np.float32)).to(tdt)
+         for k, v in t.items()}
+    return u8, t, p
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("geometry", list(IMAGE_GEOMETRIES))
+def test_image_embed_plain_is_b8a_on_the_patches_after_cls_and_registers(geometry, dtype):
+    """B8a on the image, plain version: the CLS row (cls + pos[0] in f32,
+    one cast), the registers, then B8a's plain version on extract_patches,
+    bit for bit."""
+    u8, t, p = _image_operands(geometry, dtype)
+    r = 0 if t["registers"] is None else t["registers"].shape[0]
+    got = te.fused_image_embed_u8(u8, t["w"], t["b"], t["cls"], t["pos"], t["registers"], p)
+    patches = te.fused_patch_embed_u8_ref(extract_patches(u8, p), t["w"], t["b"], t["pos"][1:])
+    n = patches.shape[1]
+    assert got.shape == (2, 1 + r + n, t["w"].shape[1]) and got.dtype == t["w"].dtype
+    torch.testing.assert_close(got[:, 1 + r:], patches, rtol=0, atol=0)
+    cls = (t["cls"].float() + t["pos"][0].float()).to(got.dtype)
+    torch.testing.assert_close(got[:, 0], cls.expand(2, -1), rtol=0, atol=0)
+    if r:
+        torch.testing.assert_close(got[:, 1:1 + r], t["registers"].expand(2, -1, -1), rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_image_embed_matches_jax_embed_u8(name, dtype):
+    """Without registers the image embed is the JAX package's embed_u8
+    (the Pallas B8a on its patches, CLS prepended), interpret mode."""
+    cfg, jt, tt = _embed_params(name, dtype)
+    u8 = _u8_images(cfg)
+    got = te.embed_image_u8(torch.from_numpy(u8), tt, cfg)
+    want = jax_embed.embed_u8(jnp.asarray(u8), jt, cfg, interpret=True)
+    assert got.shape == (2, cfg.seq_len, cfg.hidden_size) == want.shape
+    _assert_close(as_numpy(got), np.asarray(want.astype(jnp.float32)), dtype)
+
+
+def _meta(t):
+    return None if t is None else t.to("meta")
+
+
+@pytest.mark.parametrize("d", [40, 100])
+@pytest.mark.parametrize("geometry", list(IMAGE_GEOMETRIES))
+def test_image_embed_fake_gives_the_sequence(geometry, d):
+    """The operator's fake (mode 'kernel', meta tensors): [B, 1 + R + N, D]
+    in w's dtype, D 100 padded to 104 and sliced back."""
+    u8, t, p = _image_operands(geometry, "bfloat16")
+    t = dict(t, w=t["w"][:, :1].expand(-1, d).contiguous(), b=t["b"][:1].expand(d).contiguous(),
+             cls=t["cls"][:1].expand(d).contiguous(),
+             pos=t["pos"][:, :1].expand(-1, d).contiguous(),
+             registers=None if t["registers"] is None else t["registers"][:, :1].expand(-1, d))
+    r = 0 if t["registers"] is None else t["registers"].shape[0]
+    launches = te.fused_image_embed_u8.launches
+    with kernel_mode("kernel"):
+        got = te.fused_image_embed_u8(_meta(u8), *(_meta(t[k]) for k in ("w", "b", "cls", "pos")),
+                                      _meta(t["registers"]), p)
+    n = (u8.shape[-1] // p) ** 2
+    assert got.device.type == "meta" and got.shape == (2, 1 + r + n, d)
+    assert got.dtype == torch.bfloat16 and te.fused_image_embed_u8.launches == launches
+
+
+@pytest.mark.parametrize("case", ["auto_meta_kernel", "eager", "matmul", "conv", "cpu_auto"])
+def test_embed_from_u8_routes(case, monkeypatch):
+    """embed_from_u8 takes B8a on the image only for impl 'auto' with
+    kernels on (a meta tensor in mode 'kernel' here, a CUDA one on the
+    card); mode 'eager', an explicit impl and CPU tensors in mode 'auto'
+    keep the plain route, which the JAX parity tests above hold."""
+    import vit_pruning_tpu_torch.serving as serving
+
+    calls = []
+    monkeypatch.setattr(serving, "embed_image_u8",
+                        lambda *a: calls.append(a) or te.embed_image_u8(*a))
+    cfg, _, tt = _embed_params("tiny", "float32")
+    u8 = torch.from_numpy(_u8_images(cfg))
+    impl = case if case in ("matmul", "conv") else "auto"
+    mode = {"auto_meta_kernel": "kernel", "eager": "eager"}.get(case, "auto")
+    meta = case != "cpu_auto"
+    params = jax.tree.map(_meta, tt) if meta else tt
+    with kernel_mode(mode):
+        got = embed_from_u8(u8.to("meta") if meta else u8, params, cfg, impl=impl)
+    assert got.shape == (2, cfg.seq_len, cfg.hidden_size)
+    assert len(calls) == (case == "auto_meta_kernel")
+
+
+def test_image_wrapper_on_the_cpu_checks_and_launches_nothing():
+    u8, t, p = _image_operands("p14_reg4", "float32")
+    args = (t["w"], t["b"], t["cls"], t["pos"], t["registers"], p)
+    launches = te.fused_image_embed_u8.launches
+    torch.testing.assert_close(te.fused_image_embed_u8(u8, *args),
+                               te.fused_image_embed_u8_ref(u8, *args), rtol=0, atol=0)
+    assert te.fused_image_embed_u8.launches == launches
+    with pytest.raises(TypeError, match="uint8"):
+        te.fused_image_embed_u8(u8.float(), *args)
+    with pytest.raises(ValueError, match="do not fit"):
+        te.fused_image_embed_u8(u8, t["w"], t["b"], t["cls"], t["pos"][1:], t["registers"], p)
+    with pytest.raises(ValueError, match="do not fit"):
+        te.fused_image_embed_u8(u8[..., :-1], *args)
+    with kernel_mode("kernel"), pytest.raises(RuntimeError, match="CUDA tensors"):
+        te.fused_image_embed_u8(u8, *args)

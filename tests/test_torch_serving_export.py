@@ -40,7 +40,7 @@ PREDICTOR_GAIN = 30.0
 U8 = np.random.RandomState(1).randint(0, 256, (4, 3, CFG.image_size, CFG.image_size), np.uint8)
 KERNEL_OPS = {"fused_vit_layer", "fused_vit_layer_cls_logits", "fused_vit_layer_bucketed",
               "fused_vit_layer_int8", "fused_vit_encoder", "fused_attention", "fused_mlp",
-              "fused_patch_embed_u8", "fused_patch_embed_f"}
+              "fused_patch_embed_u8", "fused_patch_embed_f", "fused_image_embed_u8"}
 
 
 def _setup(cfg=CFG, top_k=8):
@@ -108,15 +108,16 @@ def _ops(program) -> dict:
 @pytest.mark.parametrize("model", ["vit_tiny", "deit_s_3_layers"])
 def test_kernel_route_traces_to_the_operators(model, quant):
     """export_serving in kernel mode 'kernel' on meta params: the program
-    holds B1 x (L - 1) and B2 x 1 in float, B4 x (L - 1) and the float B2
-    under int8, and no plain version of them."""
+    holds the embed as B8a on the image x 1, B1 x (L - 1) and B2 x 1 in
+    float, B4 x (L - 1) and the float B2 under int8, and no plain version
+    of them."""
     cfg = CFG if model == "vit_tiny" else deit_small(num_labels=100).replace(num_layers=3)
     pcfg = PruneConfig(mode="topk_prog", predictor="cls_mlp", top_k=cfg.num_patches // 2)
     _, _, tparams = _setup(cfg, pcfg.top_k)
     with kernel_mode("kernel"):
         program = export_serving(_meta(tparams), cfg, pcfg, batch_size=2, quant=quant)
     layer = "vpt.fused_vit_layer_int8.default" if quant == "int8" else "vpt.fused_vit_layer.default"
-    assert _ops(program) == {layer: cfg.num_layers - 1,
+    assert _ops(program) == {"vpt.fused_image_embed_u8.default": 1, layer: cfg.num_layers - 1,
                              "vpt.fused_vit_layer_cls_logits.default": 1}
     out = [n for n in program.graph.nodes if n.op == "output"][0].args[0][0]
     assert tuple(out.meta["val"].shape) == (2, cfg.num_labels)
@@ -193,13 +194,21 @@ def _fake_and_plain(kernel: str, dt):
         u8 = torch.zeros(2, 16, 192, dtype=torch.uint8)
         return (torch.ops.vpt.fused_patch_embed_u8(m(u8), m(pw), m(pb), m(pos), 0.1, 0.2),
                 temb.fused_patch_embed_u8_ref(u8, pw, pb, pos))
+    if kernel == "B8a image":
+        img = torch.zeros(2, 3, CFG.image_size, CFG.image_size, dtype=torch.uint8)
+        cls, full = bb["embed"]["cls"].reshape(-1), bb["embed"]["pos"][0]
+        reg = torch.zeros(4, 64, dtype=dt)
+        return (torch.ops.vpt.fused_image_embed_u8(m(img), m(pw), m(pb), m(cls), m(full), m(reg),
+                                                   CFG.patch_size, 0.1, 0.2),
+                temb.fused_image_embed_u8_ref(img, pw, pb, cls, full, reg, CFG.patch_size))
     patches = torch.zeros(2, 16, 192, dtype=dt)
     return (torch.ops.vpt.fused_patch_embed_f(m(patches), m(pw), m(pb), m(pos), 1.0, 0.0),
             temb.fused_patch_embed_f_ref(patches, pw, pb, pos))
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8a", "B8b"])
+@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8a", "B8a image",
+                                    "B8b"])
 def test_fake_implementation_matches_the_plain_version(kernel, dt):
     """Each operator on meta tensors (its fake implementation, no card)
     returns the plain version's shapes and dtypes."""

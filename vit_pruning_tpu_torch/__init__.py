@@ -12,7 +12,8 @@ surface is ported too: models/vit.py::vit_forward with head_mask and
 output_hidden_states, vit_layer with return_probs, ops/attention.py::mha,
 the soft-mask and importance helpers of ops/structured.py, and the
 whole-encoder route (`encoder_fusion(True)` or VIT_PRUNING_TPU_ENCODER=1),
-for DeiT-S and ViT-H/14 alike. The fused patch embeddings `embed_u8` (uint8
+for DeiT-S and ViT-H/14 alike. On the card the serving embed is kernel B8a
+reading the uint8 image; the fused patch embeddings `embed_u8` (uint8
 pixels) and `embed_fused` (float pixels) are entry points of their own. All
 of it runs through nine CUDA C++ kernels written for Hopper (B1-B7, B8a,
 B8b in ops/cuda/, sources in csrc/); everything else is plain PyTorch.

@@ -3,7 +3,10 @@
 //   vpt_patch_embed_forward  replaces vit_pruning_tpu/ops/pallas/embed.py
 //                            ::fused_patch_embed_u8 (B8a: uint8 patches,
 //                            the image normalisation folded in) and
-//                            ::fused_patch_embed_f (B8b: float patches)
+//                            ::fused_patch_embed_f (B8b: float patches);
+//                            with patch > 0, B8a on the image itself: the
+//                            port's served embed (serving.py::embed_from_u8
+//                            on the card), which the TPU package left to XLA
 //
 // out[t, :] = round_w((A[t, :] as f32) * scale + shift) @ W + b + pos[t % N],
 // cast once to W's dtype. A is the patch matrix [T = B*N, K = C*P*P] (uint8,
@@ -61,8 +64,21 @@
 // 0 and 16-byte aligned pointers, checked by the wrapper. Each launch is
 // counted per body (vpt_embed_body_counts).
 //
-// Later work: an embed that reads the [B, C, H, W] image directly (no patch
-// matrix).
+// The image input (the served embed): B8a's producers read the uint8 image
+// [B, C, H, W] where the patch matrix's values lie in it (ImagePix: a patch
+// row's kw runs are P consecutive bytes of an image row; 16-byte loads at P
+// 16, 2-byte at P 14, else single bytes), so neither the patch matrix nor a
+// normalised copy of the image reaches device memory; the affine and the
+// rounding are the patch matrix's, so the A that reaches the tensor cores
+// is too, bit for bit. The epilogue writes each patch row in place in its
+// image's sequence [CLS, R registers, N patches], and the thread that writes
+// an image's first patch writes its CLS row (cls + pos[0] in f32, one cast)
+// and register rows at the same columns: one launch, no concatenation. The
+// TPU package took its kernel off its serving path because the patch
+// shuffle in front of it went through HBM (5.44 against 1.07 ms for XLA's
+// fused conv on v5e); here the shuffle is in the kernel's addressing. f32
+// weights: the split body with the same addressing (ImageSplitA, byte by
+// byte).
 
 #include <atomic>
 
@@ -164,15 +180,154 @@ struct AffineSplitA {
   }
 };
 
+// B8a's A read from the image (the served embed): pixels [B, C, H, W] uint8,
+// row m = (b, gh, gw) of the N = (H / P) (W / P) patches an image, column k =
+// (c, kh, kw) of K = C P P, at pixels[b, c, gh P + kh, gw P + kw]: the patch
+// matrix extract_patches builds, read where it lies in the image. Each kw
+// run is P consecutive bytes of an image row; a load takes G of them, G
+// dividing P, the width and the base's alignment, so that no load straddles
+// two runs: 16 at P 16 (DeiT-S), 2 at P 14 (ViT-H, DINOv2: 14-byte runs on
+// 2-byte boundaries), else 1.
+template <int PK>  // P at compile time (16, 14), or 0: P at run time
+struct ImagePix {
+  static constexpr int G = PK == 16 ? 16 : PK == 14 ? 2 : 1;
+  const uint8_t* img;
+  int p, grid_w, n, width, plane, image;  // P, W / P, N, W, H W, C H W
+
+  __device__ __forceinline__ int P() const { return PK ? PK : p; }
+  // the offset of row m's column 0
+  __device__ __forceinline__ long row(int m) const {
+    const int b = m / n, t = m - b * n, gh = t / grid_w, gw = t - gh * grid_w;
+    return (long)b * image + ((long)gh * width + gw) * P();
+  }
+  // the offsets from a row's column 0 of the groups of G columns from k on
+  // (k % G == 0): the walk along kw, kh, c
+  template <int NG>
+  __device__ __forceinline__ void columns(int k, int (&off)[NG]) const {
+    const int pp = P() * P(), c = k / pp, r = k - c * pp;
+    int kh = r / P(), kw = r - kh * P(), o = c * plane + kh * width + kw;
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      off[j] = o;
+      kw += G;
+      o += G;
+      if (kw == P()) {
+        kw = 0;
+        o += width - P();
+        if (++kh == P()) {
+          kh = 0;
+          o += plane - P() * width;
+        }
+      }
+    }
+  }
+  // NV values of the row at offset r from column k on, at the offsets
+  // columns() gave, into words (value t at bits 8 (t % 4) of word t / 4);
+  // zeros past K (K % G == 0: a group is all in or all out)
+  template <int NV>
+  __device__ __forceinline__ void load(long r, int k, int K, const int (&off)[NV / G],
+                                       uint32_t (&w)[NV / 4]) const {
+    static_assert(NV % G == 0 && NV % 4 == 0, "whole groups, whole words");
+#pragma unroll
+    for (int i = 0; i < NV / 4; ++i) w[i] = 0u;
+    const uint8_t* src = img + r;
+#pragma unroll
+    for (int j = 0; j < NV / G; ++j) {
+      if (k + G * j >= K) continue;
+      const uint8_t* q = src + off[j];
+      if constexpr (G == 16) {
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(q));
+        w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+      } else if constexpr (G == 2) {
+        w[j >> 1] |= static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(q)))
+                     << (16 * (j & 1));
+      } else {
+        w[j >> 2] |= static_cast<uint32_t>(__ldg(q)) << (8 * (j & 3));
+      }
+    }
+  }
+};
+
+// B8a's A on the wgmma per-tile body from the image: RegA<uint8_t>'s thread
+// layout (8 producer warps, each thread 2 rows of 16 columns a step) and its
+// affine (stage_u8_affine), so the A that reaches the tensor cores is the
+// patch matrix's bit for bit. begin() finds the thread's two rows in the
+// image once; a step computes its columns' offsets once for both rows.
+template <int PK>
+struct ImageA {
+  static constexpr int PRODUCER_WARPS = 8;
+  static constexpr int NG = 16 / ImagePix<PK>::G;
+  ImagePix<PK> px;
+  float scale, shift;
+  long rows[2];  // the thread's rows' offsets, -1 past M
+
+  __device__ __forceinline__ void begin(int pt, int m0, int M) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + (pt >> 2) + 64 * i;
+      rows[i] = m < M ? px.row(m) : -1;
+    }
+  }
+  __device__ __forceinline__ void stage(unsigned char* st, int pt, int m0, int k0, int M,
+                                        int K) const {
+    const int k = k0 + (pt & 3) * 16;
+    uint4 raw[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+    if (k < K) {
+      int off[NG];
+      px.columns(k, off);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)  // every load in flight before the first use
+        if (rows[i] >= 0) px.template load<16>(rows[i], k, K, off, reinterpret_cast<uint32_t(&)[4]>(raw[i]));
+    }
+    stage_u8_affine(st, raw, pt, m0, k, M, K, scale, shift);
+  }
+};
+
+// B8a's A on the split body (f32 weights) from the image: AffineSplitA's
+// values, read byte by byte through ImagePix
+struct ImageSplitA {
+  ImagePix<0> px;
+  int M, K;
+  float scale, shift;
+  __device__ __forceinline__ void load(float (&a)[2][8], int pt, int m0, int k0) const {
+    const int k = k0 + (pt & 3) * 8;
+    int off[8];
+    if (k < K) px.columns(k, off);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + (pt >> 2) + 64 * i;
+      uint32_t w[2] = {0u, 0u};
+      if (m < M && k < K) px.load<8>(px.row(m), k, K, off, w);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const float x = __fsub_rn(
+            __uint_as_float(__byte_perm(w[t >> 2], 0x4B000000u, 0x7540u | (t & 3))), 8388608.f);
+        a[i][t] = m < M && k + t < K ? affine(x, scale, shift) : 0.f;
+      }
+    }
+  }
+  __device__ __forceinline__ void store(unsigned char* st, const float (&a)[2][8], int pt) const {
+    store_split_share(st, a, pt);
+  }
+};
+
 // B8's epilogue, out in T (bf16 on the wgmma body, f32 on the split body): +
 // b (T), + pos[m % N] (f32 or bf16) in f32, one cast. D % 8 == 0: the 8
-// columns are all in or all out.
+// columns are all in or all out. With seq > 0 (the image input) out holds
+// each image's whole sequence of seq = 1 + R + N rows, and patch row m goes
+// to row 1 + R + m % N of image m / N; the thread that writes an image's
+// patch 0 also writes, at the same 8 columns, its CLS row (cls + pos0 in
+// f32, one cast) and its R register rows (reg cast, no position).
 template <typename T>
 struct EmbedEpi {
   const T* bias;
   const void* pos;
   int pos_f32, tokens;  // pos rows: tokens = N patches an image
   T* out;
+  int seq = 0;                 // 0: out [T, D], the patch rows alone
+  const void* cls = nullptr;   // [D], pos's type
+  const void* pos0 = nullptr;  // the CLS row's position [D], pos's type
+  const T* reg = nullptr;      // [R, D], R = seq - 1 - tokens
   using Cols = Raw8<T>;
   __device__ __forceinline__ void operator()(int m, int n, float* v, int M, int D) const {
     Raw8<T> b{};
@@ -193,7 +348,26 @@ struct EmbedEpi {
                                          int M, int D) const {
     if (m >= M || n >= D) return;
     apply(n, v, b, t);
-    store8(out + (long)m * D + n, v);
+    long row = m;
+    if (seq) {
+      const int image = m / tokens, p = m - image * tokens;
+      row = (long)image * seq + (seq - tokens) + p;
+      if (p == 0) prefix((long)image * seq, n, D);
+    }
+    store8(out + row * D + n, v);
+  }
+  // an image's CLS and register rows from row `first` on, columns n .. n + 7
+  __device__ __forceinline__ void prefix(long first, int n, int D) const {
+    float c[8], q[8];
+    load_pos8(cls, pos_f32, n, c);
+    load_pos8(pos0, pos_f32, n, q);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) c[u] += q[u];
+    store8(out + first * D + n, c);
+    for (int r = 1; r < seq - tokens; ++r) {
+      load8(reg + (long)(r - 1) * D + n, c);
+      store8(out + (first + r) * D + n, c);
+    }
   }
   __device__ __forceinline__ void apply(int, float* v, const Raw8<T>& b, const float* t) const {
     float c[8];
@@ -269,6 +443,46 @@ cudaError_t patch_embed(int w_dtype, const Tin* A, const void* W, const void* b,
   return cudaSuccess;
 }
 
+// The image input (B8a reading [B, C, H, W] uint8; patch P > 0): the whole
+// sequence [B, 1 + R + N, D] in one launch. pos [1 + N, D]: row 0 the CLS
+// row's, rows 1.. the patches'.
+template <int PK>
+cudaError_t image_wgmma(const CUtensorMap& tw, const ImagePix<0>& g, float scale, float shift,
+                        const EmbedEpi<bf16>& epi, int T, int D, int K, cudaStream_t st) {
+  const ImagePix<PK> px{g.img, g.p, g.grid_w, g.n, g.width, g.plane, g.image};
+  return wgmma_gemm_per_tile(tw, ImageA<PK>{px, scale, shift, {-1, -1}}, epi, T, D, K, st);
+}
+
+cudaError_t image_embed(int w_dtype, const uint8_t* img, const void* W, const void* b,
+                        const void* pos, int pos_f32, void* out, int T, int N, int K, int D,
+                        float scale, float shift, bf16* wplanes, int P, int width, const void* cls,
+                        const void* reg, int R, cudaStream_t st) {
+  const int grid_w = width / P, plane = N / grid_w * P * width;
+  const ImagePix<0> px{img, P, grid_w, N, width, plane, K / (P * P) * plane};
+  const int seq = 1 + R + N;
+  if (w_dtype == 1) {
+    CUtensorMap tw;
+    VPT_TRY(tma_map_w(&tw, static_cast<const bf16*>(W), D, K));
+    const void* patch_pos = pos_f32 ? static_cast<const void*>(static_cast<const float*>(pos) + D)
+                                    : static_cast<const void*>(static_cast<const bf16*>(pos) + D);
+    const EmbedEpi<bf16> epi{static_cast<const bf16*>(b), patch_pos, pos_f32, N,
+                             static_cast<bf16*>(out), seq, cls, pos, static_cast<const bf16*>(reg)};
+    const uintptr_t a = reinterpret_cast<uintptr_t>(img);
+    if (P == 16 && a % 16 == 0) VPT_TRY(image_wgmma<16>(tw, px, scale, shift, epi, T, D, K, st));
+    else if (P == 14 && a % 2 == 0) VPT_TRY(image_wgmma<14>(tw, px, scale, shift, epi, T, D, K, st));
+    else VPT_TRY(image_wgmma<0>(tw, px, scale, shift, epi, T, D, K, st));
+  } else {
+    const float* pf = static_cast<const float*>(pos);
+    VPT_TRY(split6_gemm(ImageSplitA{px, T, K, scale, shift}, static_cast<const float*>(W), D,
+                        EmbedEpi<float>{static_cast<const float*>(b), pf + D, 1, N,
+                                        static_cast<float*>(out), seq, cls, pf,
+                                        static_cast<const float*>(reg)},
+                        wplanes, st));
+  }
+  g_embed_launches[w_dtype == 1 ? 0 : 1]++;
+  return cudaSuccess;
+}
+
 }  // namespace vpt
 
 using namespace vpt;
@@ -282,18 +496,34 @@ extern "C" {
 // W, b, pos and out 16-byte aligned. wplanes: float32 weights only, a bf16
 // workspace of 3 K D values, 16-byte aligned, for W's planes (null for
 // bfloat16 weights).
+// patch > 0: the image input (uint8 alone). `patches` is then the image
+// [B, C, H, W] (any alignment), width its W, P = patch, with N = (H / P)
+// (W / P) and K = C P P; out [B, 1 + R + N, D]; pos [1 + N, D] (row 0 the
+// CLS row's); cls [D] in pos's type; registers [R, D] in W's type (R =
+// num_registers, null where R is 0), 16-byte aligned. patch 0: the patch
+// matrix, as above (cls and registers unused).
 int vpt_patch_embed_forward(int in_dtype, int w_dtype, int pos_f32, const void* patches,
                             const void* w, const void* b, const void* pos, void* out, int T, int N,
-                            int K, int D, float scale, float shift, void* wplanes, void* stream) {
+                            int K, int D, float scale, float shift, void* wplanes, int patch,
+                            int width, const void* cls, const void* registers, int num_registers,
+                            void* stream) {
   // the grid's second dimension: either body's row tiles
   const int bm = w_dtype == 1 ? wgm::BM : f3::BM;
   const long grid_y = (T + bm - 1) / bm;
   if (in_dtype < 0 || in_dtype > 2 || (w_dtype != 0 && w_dtype != 1) || (pos_f32 != 0 && pos_f32 != 1) ||
       (w_dtype == 0 && (!pos_f32 || !wplanes)) || T < 1 || N < 1 || T % N || K < 1 || D < 8 ||
-      D % 8 || grid_y > 65535)
+      D % 8 || grid_y > 65535 || patch < 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   bf16* planes = static_cast<bf16*>(wplanes);
+  if (patch > 0) {
+    if (in_dtype != 2 || width < patch || width % patch || K % (patch * patch) ||
+        N % (width / patch) || num_registers < 0 || !cls || (num_registers > 0 && !registers))
+      return cudaErrorInvalidValue;
+    return image_embed(w_dtype, static_cast<const uint8_t*>(patches), w, b, pos, pos_f32, out, T,
+                       N, K, D, scale, shift, planes, patch, width, cls, registers, num_registers,
+                       st);
+  }
   switch (in_dtype) {
     case 0:
       return patch_embed<float>(w_dtype, (const float*)patches, w, b, pos, pos_f32, out, T, N, K, D,

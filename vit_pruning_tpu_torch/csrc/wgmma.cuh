@@ -55,11 +55,12 @@
 // cycles, the epilogue 7,000-20,000 (GELU and residual traffic): the
 // epilogue still sets the pace at K 384, the products at ViT-H's K 5,120.
 //
-// The per-tile body (B8's register and cp.async producers),
+// The per-tile body (B8's register, image and cp.async producers),
 // wgmma_gemm_kernel: one block a 128 x 128 output tile; four (or eight)
 // producer warps bring A by cp.async (CpAsyncA) or through registers,
-// rounding f32 to bf16 or applying B8a's affine to uint8 (RegA), into the
-// same swizzled layout, while one thread brings W by TMA; two consumer
+// rounding f32 to bf16 or applying B8a's affine to uint8 (RegA; embed.cu's
+// ImageA reads B8a's uint8 straight from the image), into the same
+// swizzled layout, while one thread brings W by TMA; two consumer
 // warpgroups, 64 rows each, wait for each step's products before handing
 // the stage back; each quad of lanes transposes its accumulator pairs by
 // shuffles so that a lane holds 8 consecutive outputs of one row, then the
@@ -186,6 +187,46 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 // How A reaches the per-tile body's ring (the persistent body's comes by
 // TMA: bf16, lda % 8 == 0, 16-byte aligned; the host encodes the map).
 
+// A uint8 A step (B8a) from a producer thread's raw bytes: rows pt / 4 + 64 i
+// of the tile (i = 0, 1), the 16 values of columns k .. k + 15 in raw[i]
+// (byte t of the 16 at bits 8 (t % 4) of word t / 4); the affine x * scale +
+// shift in f32, each step rounded on its own (no FMA contraction), as the
+// TPU kernel's f32 ops, then rounded to bf16 and stored where the 128-byte
+// swizzle puts them; zeros past M and K
+__device__ __forceinline__ void stage_u8_affine(unsigned char* st, const uint4 (&raw)[2], int pt,
+                                                int m0, int k, int M, int K, float scale,
+                                                float shift) {
+  const int kp = pt & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = (pt >> 2) + 64 * i;
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw[i]);
+    // value i8 of the 16: the byte as 2^23 + byte in f32, less 2^23 (exact,
+    // and no integer-to-float conversion, an instruction at an eighth of
+    // the FMA rate), then the affine
+    auto affine_u8 = [&](int i8) {
+      const float x = __fsub_rn(
+          __uint_as_float(__byte_perm(w[i8 >> 2], 0x4B000000u, 0x7540u | (i8 & 3))), 8388608.f);
+      return __fadd_rn(__fmul_rn(x, scale), shift);
+    };
+    uint4 u[2];  // two 8-value chunks: 2 kp, 2 kp + 1
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(u);
+    if (m0 + row < M && k + 16 <= K) {
+#pragma unroll
+      for (int t = 0; t < 8; ++t) o[t] = __floats2bfloat162_rn(affine_u8(2 * t), affine_u8(2 * t + 1));
+    } else {  // zeros past M and K
+      const int n = m0 + row < M ? K - k : 0;
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        o[t] = __floats2bfloat162_rn(2 * t < n ? affine_u8(2 * t) : 0.f,
+                                     2 * t + 1 < n ? affine_u8(2 * t + 1) : 0.f);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint4*>(st + row * 128 + (((2 * kp + h) ^ (row & 7)) << 4)) = u[h];
+  }
+}
+
 // through registers (B8b's f32 patches, bf16 rows that are not 8-byte
 // multiples, and B8a's uint8 patches): 4 producer warps, rounded to bf16 and
 // stored where the 128-byte swizzle puts them; zeros past M and K.
@@ -195,9 +236,11 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 //   uint8 (B8a): 8 producer warps, each thread 2 rows of 16 k-values a
 //     step, read with the widest load the rows allow (wide: 16 bytes where lda % 16 == 0 and
 //     the base is 16-byte aligned, DeiT-S's K 768; 4 bytes where they are
-//     4-byte multiples, ViT-H's K 588; else single bytes), then the affine
-//     x * scale + shift in f32, each step rounded on its own (no FMA
-//     contraction), as the TPU kernel's f32 ops, then rounded to bf16.
+//     4-byte multiples, ViT-H's K 588; else single bytes), then
+//     stage_u8_affine.
+// A producer keeps a copy of its loader and calls begin(pt, m0, M) on it
+// once before its steps (a no-op but for embed.cu's ImageA, which keeps its
+// rows' offsets in the image there), then stage(...) a step.
 template <typename Tin>
 struct RegA {
   // uint8: 8 warps, so that twice as many warps hide the affine's latency
@@ -243,7 +286,7 @@ struct RegA {
   // 8 producer warps: each thread 2 rows (pt / 4 + 64 i) of 16 k-values
   __device__ __forceinline__ void stage_u8(unsigned char* st, int pt, int m0, int k0, int M,
                                            int K) const {
-    const int kp = pt & 3, k = k0 + kp * 16;
+    const int k = k0 + (pt & 3) * 16;
     uint4 raw[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {  // every load in flight before the first use
@@ -251,35 +294,10 @@ struct RegA {
       raw[i] = m < M ? bytes16(reinterpret_cast<const uint8_t*>(A) + m * lda, k, K)
                      : make_uint4(0, 0, 0, 0);
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = (pt >> 2) + 64 * i;
-      const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw[i]);
-      // value i8 of the 16: the byte as 2^23 + byte in f32, less 2^23 (exact,
-      // and no integer-to-float conversion, an instruction at an eighth of
-      // the FMA rate), then the affine
-      auto affine_u8 = [&](int i8) {
-        const float x = __fsub_rn(
-            __uint_as_float(__byte_perm(w[i8 >> 2], 0x4B000000u, 0x7540u | (i8 & 3))), 8388608.f);
-        return __fadd_rn(__fmul_rn(x, scale), shift);
-      };
-      uint4 u[2];  // two 8-value chunks: 2 kp, 2 kp + 1
-      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(u);
-      if (m0 + row < M && k + 16 <= K) {
-#pragma unroll
-        for (int t = 0; t < 8; ++t) o[t] = __floats2bfloat162_rn(affine_u8(2 * t), affine_u8(2 * t + 1));
-      } else {  // zeros past M and K
-        const int n = m0 + row < M ? K - k : 0;
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-          o[t] = __floats2bfloat162_rn(2 * t < n ? affine_u8(2 * t) : 0.f,
-                                       2 * t + 1 < n ? affine_u8(2 * t + 1) : 0.f);
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<uint4*>(st + row * 128 + (((2 * kp + h) ^ (row & 7)) << 4)) = u[h];
-    }
+    stage_u8_affine(st, raw, pt, m0, k, M, K, scale, shift);
   }
+
+  __device__ __forceinline__ void begin(int, int, int) {}
 
   // the A tile of step k0 into the stage; pt = the producer thread, 0..127
   __device__ __forceinline__ void stage(unsigned char* st, int pt, int m0, int k0, int M,
@@ -325,6 +343,8 @@ struct CpAsyncA {
   static constexpr int LAG = 2;
   const bf16* A;
   long lda;
+
+  __device__ __forceinline__ void begin(int, int, int) {}
 
   __device__ __forceinline__ void stage(unsigned char* st, int pt, int m0, int k0, int M,
                                         int K) const {
@@ -640,7 +660,7 @@ wgmma_gemm_persistent(const __grid_constant__ CUtensorMap tmA,
   if (out_tma && lane == 0) bulk_wait<0>();  // the last stores have left shared memory
 }
 
-// The per-tile body (B8's register and cp.async producers): one block a
+// The per-tile body (B8's register, image and cp.async producers): one block a
 // 128 x 128 output tile, 4 stages, one block an SM (the 4 or 8 producer
 // warps take the registers a second block would need).
 namespace wgm {
@@ -675,6 +695,8 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmW, const ALoad aload, co
 
   if (tid >= CONSUMERS) {  // --- producer ---
     const int pt = tid - CONSUMERS;
+    ALoad al = aload;
+    al.begin(pt, m0, M);  // what the thread keeps over its steps (B8a's image rows)
     for (int kt = 0; kt < nk; ++kt) {
       const int s = kt % STAGES;
       if (kt >= STAGES) mbar_wait(smem_u32(empty + s), ((kt / STAGES) - 1) & 1);
@@ -685,7 +707,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmW, const ALoad aload, co
         tma_load_2d(smem_u32(st + A_BYTES), &tmW, fb, n0, kt * BK);
         tma_load_2d(smem_u32(st + A_BYTES + B_BOX), &tmW, fb, n0 + 64, kt * BK);
       }
-      aload.stage(st, pt, m0, kt * BK, M, K);
+      al.stage(st, pt, m0, kt * BK, M, K);
       if constexpr (kCpAsync) {
         cp_async_commit();
         if (kt >= CpAsyncA::LAG) {

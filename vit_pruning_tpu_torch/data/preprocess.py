@@ -15,8 +15,10 @@ Mirrors vit_pruning_tpu/data/preprocess.py: resize to size x size
                        resampler (vit_pruning_tpu_torch/native, PIL-bit-exact),
                        anything else through the per-image PIL loop.
 
-serving.embed_from_u8 and the fused uint8 patch embedding (kernel B8a) read
-VIT_MEAN / VIT_STD.
+serving.embed_from_u8 reads VIT_MEAN / VIT_STD: its plain route normalises
+with them, and on the card it passes them to the fused uint8 patch
+embedding (kernel B8a reading the image), which folds them into its
+product's input.
 """
 
 from __future__ import annotations

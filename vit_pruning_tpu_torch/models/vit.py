@@ -195,15 +195,22 @@ def embed(pixel_values: torch.Tensor, params: dict, config: ViTConfig) -> torch.
     return with_registers(torch.cat([cls, x], dim=1) + params["pos"].to(x.dtype), params, config)
 
 
-def with_registers(x: torch.Tensor, params: dict, config: ViTConfig) -> torch.Tensor:
-    """x [B, 1 + N, D] (CLS and the patches, positions added) with the
-    config's registers put in after CLS: [B, 1 + R + N, D]."""
+def registers_of(params: dict, config: ViTConfig) -> Optional[torch.Tensor]:
+    """The embed's register tokens [1, R, D], None where it has none;
+    raises where R is not the config's."""
     reg = params.get("registers")
     have = 0 if reg is None else reg.shape[1]
     want = port_field(config, "num_registers")
     if have != want:
         raise ValueError(f"the embed has {have} register tokens, the config {want}")
-    if not have:
+    return reg if have else None
+
+
+def with_registers(x: torch.Tensor, params: dict, config: ViTConfig) -> torch.Tensor:
+    """x [B, 1 + N, D] (CLS and the patches, positions added) with the
+    config's registers put in after CLS: [B, 1 + R + N, D]."""
+    reg = registers_of(params, config)
+    if reg is None:
         return x
     return torch.cat([x[:, :1], reg.to(x.dtype).expand(x.shape[0], -1, -1), x[:, 1:]], dim=1)
 

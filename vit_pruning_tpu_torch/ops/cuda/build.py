@@ -78,9 +78,10 @@ SIGNATURES = {
     "vpt_mlp_forward": ([I] + [P] * 6 + [I] * 3 + [P] * 3, I),
     "vpt_mlp_body_counts": ([P], None),
     "vpt_mlp_body_reset": ([], None),
-    # input dtype, weight dtype, pos in f32, patches, w, b, pos, out, T N K D,
-    # scale, shift, wplanes (f32 weights' workspace), stream
-    "vpt_patch_embed_forward": ([I] * 3 + [P] * 5 + [I] * 4 + [F, F, P, P], I),
+    # input dtype, weight dtype, pos in f32, patches (or the image), w, b, pos,
+    # out, T N K D, scale, shift, wplanes (f32 weights' workspace), the image
+    # input's patch (0: patches), width, cls, registers, R, stream
+    "vpt_patch_embed_forward": ([I] * 3 + [P] * 5 + [I] * 4 + [F, F, P, I, I, P, P, I, P], I),
     "vpt_embed_body_counts": ([P], None),
     "vpt_embed_body_reset": ([], None),
     # A, lda, W, M N K, bias, act, residual, ldr, residual in f32, out, ldc,

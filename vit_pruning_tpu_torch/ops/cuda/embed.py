@@ -1,5 +1,5 @@
 """Kernels B8a and B8b: the fused patch embedding, from uint8 or float
-patches, and the two entry points that run them.
+patches or from the uint8 image itself, and the entry points that run them.
 
 `fused_patch_embed_u8` (B8a) replaces vit_pruning_tpu/ops/pallas/embed.py::
 fused_patch_embed_u8: uint8 patches [B, N, C*P*P] -> ((x as f32) * scale +
@@ -15,28 +15,36 @@ an H100 and how the design meets it. bf16 weights run the wgmma + TMA body
 wgmma passes over exact three-way splits, full f32 accuracy), whose W planes
 go to a workspace the operator allocates.
 
-Neither kernel is on a model's forward path, in the port as in the JAX
-package: serving.embed_from_u8 and models/vit.py::embed stay plain PyTorch
-(the JAX package's are XLA), so the fused embed is reached only through
-these entry points.
+`fused_image_embed_u8` is B8a reading the uint8 image [B, C, H, W] where
+extract_patches would have gathered each patch row from, in one launch
+that writes the whole sequence [B, 1 + R + N, D]: the CLS row, the R
+register rows, and the patch rows B8a computes on extract_patches(image),
+the same values. `embed_image_u8` runs it on a model's embed params: it is
+the port's served embed on the card (serving.embed_from_u8 in kernel modes
+'auto' and 'kernel'), where the JAX package serves XLA's fused
+normalise-and-convolve, which its TPU ran faster than its kernel behind a
+patch shuffle. models/vit.py::embed stays plain PyTorch.
 
 The plain versions (`*_ref`) follow the TPU kernel step by step: the affine
 as a multiply, then an add, each rounded in f32; the result rounded to w's
 dtype; an f32 product; + b in f32, + pos in f32, one cast. They are not
-embed_from_u8, which computes (x / 255 - mean) / std and rounds elsewhere.
+serving.embed_from_u8's plain route, which computes (x / 255 - mean) / std
+and rounds elsewhere.
 
 A wrapper launches its kernel for CUDA tensors through its registered
-operator (vpt::fused_patch_embed_u8 / vpt::fused_patch_embed_f,
-ops/cuda/library.py), which counts the launch in the wrapper's `launches`
-attribute; for CPU tensors it runs the plain version (mode 'auto') or
-raises (mode 'kernel'). It never falls back from a CUDA tensor. An
-embedding width D that is not a multiple of 8 is zero-padded in w, b and
-pos, and the output sliced back (ops/cuda/widths.py).
+operator (vpt::fused_patch_embed_u8 / vpt::fused_patch_embed_f /
+vpt::fused_image_embed_u8, ops/cuda/library.py), which counts the launch in
+the wrapper's `launches` attribute; for CPU tensors it runs the plain
+version (mode 'auto') or raises (mode 'kernel'). It never falls back from a
+CUDA tensor. An embedding width D that is not a multiple of 8 is
+zero-padded in w, b, pos (and the CLS and register rows), and the output
+sliced back (ops/cuda/widths.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -78,18 +86,29 @@ def _embed_fake(patches, w, b, pos, scale, shift):
     return w.new_empty((*patches.shape[:2], w.shape[1]))
 
 
-def _launch(who: str, patches, w, b, pos, scale: float, shift: float) -> torch.Tensor:
-    """B8a's or B8b's launch (one C entry; the input dtype tells them apart)."""
-    check_aligned(who, w=w, b=b, pos=pos)
-    bsz, n, k = patches.shape
+def _launch(who: str, patches, w, b, pos, scale: float, shift: float, patch: int = 0,
+            cls=None, registers=None) -> torch.Tensor:
+    """B8a's or B8b's launch (one C entry; the input dtype tells them apart).
+    patch > 0: B8a on the image `patches` [B, C, H, W], out the sequence
+    [B, 1 + R + N, D] (pos [1 + N, D], cls [D], registers [R, D] or None)."""
+    check_aligned(who, w=w, b=b, pos=pos, cls=cls, registers=registers)
     d = w.shape[1]
-    out = w.new_empty((bsz, n, d))
+    k = w.shape[0]
+    if patch:
+        bsz, _, h, wd = patches.shape
+        n = (h // patch) * (wd // patch)
+        r = 0 if registers is None else registers.shape[0]
+        out = w.new_empty((bsz, 1 + r + n, d))
+    else:
+        bsz, n, _ = patches.shape
+        wd, r = 0, 0
+        out = w.new_empty((bsz, n, d))
     # f32 weights: the split body's workspace for W's three bf16 planes
     planes = (torch.empty(3 * k * d, dtype=torch.bfloat16, device=w.device)
               if w.dtype == torch.float32 else None)
     run(who, w.device, "vpt_patch_embed_forward", _IN_DTYPES[patches.dtype], _IN_DTYPES[w.dtype],
         int(pos.dtype == torch.float32), ptr(patches), ptr(w), ptr(b), ptr(pos), ptr(out),
-        bsz * n, n, k, d, scale, shift, ptr(planes))
+        bsz * n, n, k, d, scale, shift, ptr(planes), patch, wd, ptr(cls), ptr(registers), r)
     return out
 
 
@@ -106,6 +125,20 @@ def _b8b_op(patches: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pos: torch.
             scale: float, shift: float) -> torch.Tensor:
     out = _launch("fused_patch_embed_f", patches, w, b, pos, scale, shift)
     fused_patch_embed_f.launches += 1
+    return out
+
+
+def _image_fake(pixels, w, b, cls, pos, registers, patch, scale, shift):
+    r = 0 if registers is None else registers.shape[0]
+    return w.new_empty((pixels.shape[0], pos.shape[0] + r, w.shape[1]))
+
+
+@kernel_op("fused_image_embed_u8", _image_fake)
+def _b8a_image_op(pixels: torch.Tensor, w: torch.Tensor, b: torch.Tensor, cls: torch.Tensor,
+                  pos: torch.Tensor, registers: Optional[torch.Tensor], patch: int, scale: float,
+                  shift: float) -> torch.Tensor:
+    out = _launch("fused_image_embed_u8", pixels, w, b, pos, scale, shift, patch, cls, registers)
+    fused_image_embed_u8.launches += 1
     return out
 
 
@@ -167,6 +200,76 @@ def fused_patch_embed_f(patches: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 fused_patch_embed_f.launches = 0
 
 
+def fused_image_embed_u8_ref(pixels_u8, w, b, cls, pos, registers=None,
+                             patch_size: int = 16) -> torch.Tensor:
+    """Plain PyTorch version of B8a on the image: the CLS row (cls + pos[0]
+    in f32, one cast to w's dtype), the register rows (cast), then B8a's
+    plain version on extract_patches(pixels_u8)."""
+    x = fused_patch_embed_u8_ref(extract_patches(pixels_u8, patch_size), w, b, pos[1:])
+    rows = [(cls.float() + pos[0].float()).to(x.dtype)[None]]
+    if registers is not None:
+        rows.append(registers.to(x.dtype))
+    return torch.cat([torch.cat(rows)[None].expand(x.shape[0], -1, -1), x], dim=1)
+
+
+def fused_image_embed_u8(pixels_u8: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                         cls: torch.Tensor, pos: torch.Tensor,
+                         registers: Optional[torch.Tensor] = None,
+                         patch_size: int = 16) -> torch.Tensor:
+    """Kernel B8a on the image (the serving normalisation, VIT_MEAN /
+    VIT_STD, folded in): uint8 pixels [B, C, H, W] -> the sequence
+    [B, 1 + R + N, D] in w's dtype, in one launch: the CLS row cls + pos[0]
+    (f32, one cast), the R register rows, then row n of
+    fused_patch_embed_u8(extract_patches(pixels_u8), w, b, pos[1:]) at row 1
+    + R + n.
+
+    w [C*P*P, D] and b [D] in float32 or bfloat16; pos [1 + N, D] (N = H W /
+    P^2) in w's dtype or float32; cls [D] in w's dtype or float32;
+    registers [R, D] or None."""
+    who = "fused_image_embed_u8"
+    if pixels_u8.dim() != 4 or pixels_u8.dtype != torch.uint8:
+        raise TypeError(f"{who}: pixels must be uint8 [B, C, H, W], got {pixels_u8.dtype} "
+                        f"{tuple(pixels_u8.shape)}")
+    if w.dtype not in _FLOAT:
+        raise TypeError(f"{who}: w is {w.dtype}; it takes {_FLOAT}")
+    bsz, c, h, wd = pixels_u8.shape
+    p, d = patch_size, w.shape[-1]
+    n = (h // p) * (wd // p)
+    r = 0 if registers is None else registers.shape[0]
+    if (h % p or wd % p or tuple(w.shape) != (c * p * p, d) or tuple(b.shape) != (d,)
+            or tuple(pos.shape) != (1 + n, d) or tuple(cls.shape) != (d,)
+            or (registers is not None and tuple(registers.shape) != (r, d))):
+        raise ValueError(f"{who}: w {tuple(w.shape)}, b {tuple(b.shape)}, cls {tuple(cls.shape)}, "
+                         f"pos {tuple(pos.shape)}, registers "
+                         f"{None if registers is None else tuple(registers.shape)} do not fit "
+                         f"pixels {tuple(pixels_u8.shape)} at patch {p}")
+    if not launch_kernel_for(pixels_u8):
+        return fused_image_embed_u8_ref(pixels_u8, w, b, cls, pos, registers, p)
+    refuse_grad(who, pixels_u8, w, b, cls, pos, registers)
+    if pos.dtype not in (w.dtype, torch.float32) or cls.dtype not in (w.dtype, torch.float32):
+        raise ValueError(f"{who}: pos is {pos.dtype}, cls {cls.dtype}; each must be {w.dtype} "
+                         "or float32")
+    if cls.dtype != pos.dtype:  # the kernel reads cls in pos's dtype: the wider of the two
+        cls, pos = cls.float(), pos.float()
+    if registers is not None:
+        registers = registers.to(w.dtype)
+    dp = round_up(d, LAYER_MULTIPLE)
+    w, b, pos, cls = (pad_dim(t, -1, dp) for t in (w, b, pos, cls))
+    registers = None if registers is None else pad_dim(registers, -1, dp)
+    rest = {"b": b, "pos": pos, "cls": cls}
+    if registers is not None:
+        rest["registers"] = registers
+    _check(w, rest, {}, who, {"pos": pos.dtype, "cls": pos.dtype})
+    if pixels_u8.device != w.device or not pixels_u8.is_contiguous():
+        raise ValueError(f"{who}: pixels must be contiguous on {w.device}")
+    out = torch.ops.vpt.fused_image_embed_u8(pixels_u8, w, b, cls, pos, registers, p,
+                                             *_affine(VIT_MEAN, VIT_STD))
+    return out if dp == d else out[..., :d]
+
+
+fused_image_embed_u8.launches = 0
+
+
 def body_counts() -> dict:
     """Launches of B8a's and B8b's bodies since the last reset_body_counts():
     'wgmma' (bf16 weights) and 'split' (f32 weights)."""
@@ -201,6 +304,19 @@ def embed_u8(pixel_values_u8: torch.Tensor, embed_params: dict, config) -> torch
     x = fused_patch_embed_u8(patches, embed_params["patch"]["w"], embed_params["patch"]["b"],
                              pos[1:])
     return with_registers(_with_cls(x, embed_params, pos), embed_params, config)
+
+
+def embed_image_u8(pixel_values_u8: torch.Tensor, embed_params: dict, config) -> torch.Tensor:
+    """Raw uint8 images [B, C, H, W] -> embeddings [B, S, D] (CLS, the
+    config's registers, the patches) in one launch of B8a on the image: the
+    served embed on the card (serving.embed_from_u8)."""
+    from vit_pruning_tpu_torch.models.vit import registers_of
+
+    reg = registers_of(embed_params, config)
+    return fused_image_embed_u8(pixel_values_u8, embed_params["patch"]["w"],
+                                embed_params["patch"]["b"], embed_params["cls"].reshape(-1),
+                                embed_params["pos"][0], None if reg is None else reg[0],
+                                config.patch_size)
 
 
 def embed_fused(pixel_values: torch.Tensor, embed_params: dict, config) -> torch.Tensor:

@@ -2,8 +2,10 @@
 
 Mirrors vit_pruning_tpu/serving.py: uint8 pixels go to the device (4x fewer
 bytes than float32), are normalised there in float32, cast to the weight
-dtype, patch-projected, and then run through the progressive top-k forward,
-in float or, with quant='int8', through int8 weight products (kernel B4).
+dtype, patch-projected (on the card all of it, with the CLS and register
+rows, in one launch of kernel B8a reading the image), and then run through
+the progressive top-k forward, in float or, with quant='int8', through int8
+weight products (kernel B4).
 
 `export_serving` stages the whole uint8 -> logits program out with
 torch.export, the kernels included as their registered operators (vpt::*,
@@ -22,6 +24,8 @@ from vit_pruning_tpu_torch.configs import PruneConfig, ViTConfig
 from vit_pruning_tpu_torch.data.preprocess import VIT_MEAN, VIT_STD
 from vit_pruning_tpu_torch.models.pruned_vit import progressive_topk_forward
 from vit_pruning_tpu_torch.models.vit import with_registers
+from vit_pruning_tpu_torch.ops.cuda.embed import embed_image_u8
+from vit_pruning_tpu_torch.ops.dispatch import kernels_enabled, launch_kernel_for
 from vit_pruning_tpu_torch.ops.patch_embed import patch_embed
 from vit_pruning_tpu_torch.utils.profiling import span
 
@@ -35,12 +39,24 @@ def embed_from_u8(
     pixels_u8: torch.Tensor, embed_params: dict, config: ViTConfig, impl: str = "auto"
 ) -> torch.Tensor:
     """uint8 [B, C, H, W] -> embeddings [B, S, D]: normalise, patch
-    projection (ops/patch_embed.py `impl`), position add, CLS, and the
-    config's registers after CLS (no position add). The serving embed, in
-    plain PyTorch as the JAX package's is in XLA; the fused kernel form of
-    the same function (without registers) is ops/cuda/embed.py::embed_u8."""
+    projection, position add, CLS, and the config's registers after CLS (no
+    position add). The serving embed.
+
+    impl 'auto' with kernels on (ops/dispatch.py: a CUDA tensor in mode
+    'auto', a CUDA or meta tensor in mode 'kernel') runs the whole of it as
+    one launch of kernel B8a reading the image
+    (ops/cuda/embed.py::embed_image_u8, the operator
+    vpt::fused_image_embed_u8): the normalisation folded into the product's
+    input, b and the position added in f32, one cast, the sequence written
+    in place. Otherwise (mode 'eager', CPU tensors in mode 'auto', impl
+    'matmul' or 'conv') the plain route, as the JAX package's XLA embed:
+    (x / 255 - mean) / std in f32, cast to the weights' dtype, the patch
+    projection (ops/patch_embed.py `impl`), + pos, the CLS row and the
+    registers concatenated."""
     _require_u8(pixels_u8, "embed_from_u8")
     with span("embed"):
+        if impl == "auto" and kernels_enabled() and launch_kernel_for(pixels_u8):
+            return embed_image_u8(pixels_u8, embed_params, config)
         w_dtype = embed_params["patch"]["w"].dtype
         x = (pixels_u8.float() / 255.0 - VIT_MEAN) / VIT_STD
         y = patch_embed(x.to(w_dtype), embed_params["patch"], config.patch_size, impl=impl)
@@ -100,9 +116,10 @@ def export_serving(
     (ops/dispatch.py) read during the trace picks the route, as use_pallas
     does in the JAX package: with CUDA params in modes 'auto' / 'kernel'
     (or meta params in mode 'kernel': a trace without a card) the program
-    calls the kernels as vpt:: operators (B1 for L - 1 layers and B2 once
-    in float; B4 for L - 1 and the float B2 under int8); with CPU params in
-    mode 'auto' it holds their plain versions.
+    calls the kernels as vpt:: operators (the embed once, as B8a on the
+    image; B1 for L - 1 layers and B2 once in float; B4 for L - 1 and the
+    float B2 under int8); with CPU params in mode 'auto' it holds their
+    plain versions.
 
     Returns the ExportedProgram; with `path`, also writes it there
     (torch.export.save)."""
